@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Where the time goes when the port serves bnn-lm-100m on one card.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_profile.py [--out DIR]
+
+Serves the same seeded traffic as ``chip_smoke.py``'s serving phase
+(full-width bnn-lm-100m, precision "bnn", 16 requests) three times:
+a warm-up run (kernel build, weight packing), a timed run, and a run
+under ``torch.profiler``.  It prints, as JSON lines:
+
+  * ``steps``   host wall time per engine step, split by kind (prefill
+                step / decode step), from the timed run;
+  * ``device``  from the profiled run: the summed device time of every
+                kernel, by name (top 20), the share of wall time the
+                device spent in kernels (busy share; kernels run on one
+                stream, so their times do not overlap) over the profiled
+                run and over the timed run, and the share of kernel time
+                in the port's own kernels.
+
+The profiled run is slower than the timed one (tracing costs host
+time); its shares are what to read, not its wall time.  ``--out``
+writes the profiler's table there too.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import chip_smoke  # noqa: E402  (the smoke's traffic and engine settings)
+
+
+def _steps(dev, cfg, ecfg) -> dict:
+    """Timed run: host wall per engine step, by what the step ran."""
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import Engine
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                    device=dev)
+    prompts = chip_smoke.traffic(cfg.vocab)
+    eng = Engine(params, cfg, ecfg, device=dev)
+    times: dict[str, list[float]] = {"prefill+decode": [], "decode": [],
+                                     "prefill": []}
+    for p in prompts[:8]:
+        eng.submit(p, 64)
+    late = prompts[8:]
+    step = 0
+    while late or not eng.scheduler.idle:
+        if step == 10:
+            for p in late:
+                eng.submit(p, 64)
+            late = []
+        n_ev = len(eng.scheduler.trace)
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        kinds = {e["event"] for e in eng.scheduler.trace[n_ev:]}
+        kind = "+".join(k for k in ("prefill", "decode") if k in kinds)
+        if kind:
+            times[kind].append(dt)
+        step += 1
+    return {k: {"count": len(v), "mean_ms": 1e3 * float(np.mean(v)),
+                "total_s": float(np.sum(v))}
+            for k, v in times.items() if v}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="directory for the table")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EngineConfig
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    cfg = get_config("bnn-lm-100m").replace(precision="bnn")
+    ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
+                        prefill_chunk=128, max_model_len=1024)
+    chip_smoke.phase_serving(dev, cfg, ecfg)                      # warm-up
+    steps = _steps(dev, cfg, ecfg)
+    timed_wall = sum(v["total_s"] for v in steps.values())
+    print(json.dumps({"steps": steps, "timed_wall_s": timed_wall}), flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chip_smoke.phase_serving(dev, cfg, ecfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dur = ev.time_range.elapsed_us() / 1e3
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + dur
+    busy_ms = sum(kernels.values())
+    ours = sum(v for k, v in kernels.items()
+               if any(s in k for s in ("fused_bnn_kernel",
+                                       "paged_attention_kernel",
+                                       "binarize_pack_kernel")))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+    print(json.dumps({"device": {
+        "profiled_wall_s": wall, "kernel_ms": busy_ms,
+        "busy_share": busy_ms / (1e3 * wall) if wall else float("nan"),
+        # device time does not grow under tracing, host time does: the
+        # same kernels over the untraced run's wall
+        "busy_share_of_timed_run": busy_ms / (1e3 * timed_wall),
+        "port_kernels_share_of_kernel_time": ours / busy_ms if busy_ms else 0.0,
+        "top_kernels_ms": {k[:80]: v for k, v in top}}}), flush=True)
+    if args.out:
+        out = Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "profile_table.txt").write_text(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40))
+    if not busy_ms:
+        print("chip_profile: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

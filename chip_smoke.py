@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it.
+
+Run from the repository root with no arguments:  python3 chip_smoke.py
+
+Phases (each check raises, and the script then exits non-zero):
+  1. device   the card's name and power limit (nvidia-smi), torch
+              version, and the build of the kernel library from
+              src/repro_torch/csrc/ (nvcc, sm_90a).
+  2. kernels  each hand-written kernel against its plain PyTorch version
+              on the card, at the main path's shapes: fused BNN GEMM
+              (bit-exact, four modes), weight packing (bit-exact), paged
+              GQA attention (float32, MAX_ATTN_ERR).  Each is timed
+              (device time, from CUDA-graph replays; and issued from
+              Python, eager) beside its plain version, one library call
+              as a yardstick, and its bound on this card.
+  3. serving  bnn-lm-100m at full width (precision="bnn", seeded random
+              weights) served by the port's Engine: 16 requests, 8 of
+              them submitted after 10 steps.  Every kernel's launch
+              count over this run must be > 0.
+  4. e2e      two finished requests re-run teacher-forced through
+              prefill_chunk, once through the kernels and once through
+              the plain versions: hidden states layer by layer within
+              MAX_HIDDEN_ERR, the sign bits of every BNN projection's
+              input equal (a flip is accepted only within 1e-5 x its
+              row's RMS of zero, and printed), and the kernel path's
+              greedy tokens equal what the engine generated.
+
+The line before the last is a JSON object with every kernel's launches
+on the serving run, error, times and bound; the last line is the run's
+verdict with the device.  Imports nothing of JAX or the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12         # densest integer rate: int8 tensor cores
+FP32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
+MAX_ATTN_ERR = 1e-4              # |kernel - plain| for attention outputs
+MAX_HIDDEN_ERR = 1e-4            # |kernels - plain| per layer hidden state
+FLIP_RMS_FRACTION = 1e-5         # a sign flip closer to 0 than this x RMS
+                                 # is rounding, not a fault
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call: ``iters`` calls captured in a CUDA
+    graph, replayed between two CUDA events.  A replay issues the
+    kernels with no per-call host work, so this is the device's time
+    (host launch cost is what ``eager_ms`` adds)."""
+    fn()                                    # build, allocate, warm up
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, iters: int = 20) -> float:
+    """Mean time of one call issued from Python, back to back: the host's
+    launch cost where it exceeds the device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def warm_clocks(dev, seconds: float = 1.0):
+    """Keep the card busy for a moment so that timings start at its
+    working clocks, not its idle ones."""
+    a = torch.randn(4096, 4096, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        a = torch.tanh(a @ a)
+    torch.cuda.synchronize()
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------- phase 1
+
+
+def phase_device() -> str:
+    from repro_torch.kernels import _lib
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    _lib.LIBRARY.load()
+    log(f"[device] kernel library {_lib.LIBRARY.path.name} built in "
+        f"{_lib.LIBRARY.build_s:.1f} s")
+    return smi
+
+
+# --------------------------------------------------------------- phase 2
+#
+# Each check builds the main path's inputs, holds the kernel against its
+# plain version, and returns a row for the kernel table.
+
+
+def check_fused_bnn(dev, m: int, n: int, s: int, gen: torch.Generator,
+                    timed: bool) -> dict:
+    from repro_torch.kernels import binarize_pack as bp, fused_bnn as fb
+    x = torch.randn(m, s, device=dev, generator=gen)
+    w = torch.randn(s, n, device=dev, generator=gen)
+    wp = bp.binarize_pack_torch(w.t().contiguous())
+    alpha = torch.rand(n, device=dev, generator=gen) + 0.5
+    for mode in ("bitcount", "dot", "dot_scaled", "binary_act"):
+        got = fb.fused_bnn_matmul(x, wp, s, mode=mode, alpha=alpha)
+        want = fb.fused_bnn_matmul_torch(x, wp, s, mode=mode, alpha=alpha)
+        torch.cuda.synchronize() if dev.type == "cuda" else None
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            bad = (got.float() != want.float()).sum().item()
+            raise AssertionError(f"fused_bnn M={m} N={n} S={s} {mode}: "
+                                 f"{bad} elements differ from the plain version")
+    row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0}
+    if timed:
+        kw = -(-s // 32)
+        n_bytes = m * s * 4 + n * kw * 4 + n * 4 + m * n * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 2 * m * n * s,
+                                                    INT8_OPS_PER_S)
+        run = lambda: fb.fused_bnn_matmul(x, wp, s, mode="dot_scaled",
+                                          alpha=alpha)
+        row["ms"] = time_ms(run)
+        row["eager_ms"] = eager_ms(run)
+        row["plain_ms"] = time_ms(lambda: fb.fused_bnn_matmul_torch(
+            x, wp, s, mode="dot_scaled", alpha=alpha), iters=3)
+        xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
+        ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
+        row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws))
+    return row
+
+
+def check_binarize_pack(dev, m: int, s: int, gen: torch.Generator,
+                        timed: bool) -> dict:
+    from repro_torch.kernels import binarize_pack as bp
+    x = torch.randn(m, s, device=dev, generator=gen)
+    got = bp.binarize_pack(x)
+    want = bp.binarize_pack_torch(x)
+    if not torch.equal(got, want):
+        raise AssertionError(f"binarize_pack {m}x{s}: "
+                             f"{(got != want).sum().item()} words differ")
+    row = {"shape": f"M={m} S={s}", "max_abs_err": 0.0}
+    if timed:
+        kw = -(-s // 32)
+        row["bound_ms"], row["bound_by"] = bound_ms(m * s * 4 + m * kw * 4,
+                                                    m * s, INT8_OPS_PER_S)
+        row["ms"] = time_ms(lambda: bp.binarize_pack(x))
+        row["eager_ms"] = eager_ms(lambda: bp.binarize_pack(x))
+        row["plain_ms"] = time_ms(lambda: bp.binarize_pack_torch(x), iters=5)
+        row["library_ms"] = None
+    return row
+
+
+def check_paged_attention(dev, b: int, c: int, h: int, hkv: int, dh: int,
+                          bs: int, max_len: int, gen: torch.Generator,
+                          timed: bool, window: int | None = None) -> dict:
+    """Ragged kv_len up to ``max_len`` over shuffled physical blocks; the
+    last row has kv_len 0 (fully masked).  C > 1 runs causal, with each
+    row's queries ending at its last key (a prefill chunk)."""
+    from repro_torch.kernels import paged_attention as pa
+    mb = -(-max_len // bs)
+    nb = b * mb + 1
+    rng = np.random.default_rng(7)
+    lens = rng.integers(c, max_len + 1, size=b)
+    lens[0] = max_len
+    lens[-1] = 0
+    table = (1 + rng.permutation(b * mb)).reshape(b, mb).astype(np.int32)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q_off = (kv_len - c).clamp_min(0) if c > 1 else kv_len - 1
+    q_off = q_off.to(torch.int32).contiguous()
+    tab = torch.tensor(table, device=dev)
+    q = torch.randn(b, c, h, dh, device=dev, generator=gen)
+    kp = torch.randn(nb, bs, hkv, dh, device=dev, generator=gen)
+    vp = torch.randn(nb, bs, hkv, dh, device=dev, generator=gen)
+    causal = c > 1
+    kw = dict(kv_len=kv_len, q_offset=q_off, causal=causal, window=window)
+    got = pa.paged_attention(q, kp, vp, tab, **kw)
+    want = pa.paged_attention_torch(q, kp, vp, tab, **kw)
+    err = (got - want).abs().max().item()
+    if not err <= MAX_ATTN_ERR:
+        raise AssertionError(f"paged_attention B={b} C={c}: max abs err "
+                             f"{err:.3g} > {MAX_ATTN_ERR}")
+    if lens[-1] == 0 and got[-1].abs().max().item() != 0.0:
+        raise AssertionError("paged_attention: fully-masked row is not zero")
+    row = {"shape": f"B={b} C={c} H={h} Hkv={hkv} Dh={dh} BS={bs} "
+                    f"kv_len<={max_len}", "max_abs_err": err}
+    if timed:
+        # what this run's data needs: each row's visible keys once
+        qpos = q_off.long()[:, None] + torch.arange(c, device=dev)
+        vis = torch.minimum(qpos + 1, kv_len.long()[:, None]) if causal \
+            else kv_len.long()[:, None].expand(b, c)
+        vis = vis.clamp_min(0)
+        n_keys = int(kv_len.clamp_min(0).sum())
+        n_bytes = (2 * n_keys * hkv * dh + 2 * q.numel()) * 4 + tab.numel() * 4
+        n_ops = 4 * int(vis.sum()) * h * dh
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops,
+                                                    FP32_FLOPS_PER_S)
+        run = lambda: pa.paged_attention(q, kp, vp, tab, **kw)
+        row["ms"] = time_ms(run)
+        row["eager_ms"] = eager_ms(run)
+        row["plain_ms"] = time_ms(
+            lambda: pa.paged_attention_torch(q, kp, vp, tab, **kw), iters=5)
+        # yardstick: SDPA over the already-gathered K/V with a bool mask
+        keys = kp[tab.long()].reshape(b, mb * bs, hkv, dh).transpose(1, 2)
+        vals = vp[tab.long()].reshape(b, mb * bs, hkv, dh).transpose(1, 2)
+        kpos = torch.arange(mb * bs, device=dev)
+        mask = kpos[None, None] < kv_len.long()[:, None, None]
+        if causal:
+            mask = mask & (qpos[:, :, None] >= kpos)
+        mask = mask[:, None].expand(b, h, c, mb * bs)
+        qt = q.transpose(1, 2)
+        fsdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = time_ms(lambda: fsdpa(qt, keys, vals,
+                                                  attn_mask=mask))
+    return row
+
+
+def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
+    warm_clocks(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.n_heads * cfg.head_dim
+    rows: dict[str, list[dict]] = {"fused_bnn": [], "binarize_pack": [],
+                                   "paged_attention": []}
+    for m in (1, 8, 128):
+        for n, s in ((hd, d), (f, d), (d, f), (d, 100)):
+            rows["fused_bnn"].append(check_fused_bnn(dev, m, n, s, gen, True))
+    weights = {"q": (d, hd), "k": (d, cfg.n_kv_heads * cfg.head_dim),
+               "v": (d, cfg.n_kv_heads * cfg.head_dim), "o": (hd, d),
+               "gate": (d, f), "up": (d, f), "down": (f, d)}
+    for name, (k_in, n_out) in weights.items():
+        # a weight (K, N) packs as its transpose (N, K)
+        rows["binarize_pack"].append(
+            {"weight": name, **check_binarize_pack(dev, n_out, k_in, gen, True)})
+    for c in (1, 128):
+        rows["paged_attention"].append(check_paged_attention(
+            dev, 8, c, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16, 1024,
+            gen, True))
+    # off the main path, checked untimed: ragged row tiles of the GEMM,
+    # grouped heads and a window mask in the attention
+    for m in (3, 130):
+        check_fused_bnn(dev, m, 40, 100, gen, False)
+    check_paged_attention(dev, 3, 4, 12, 4, 64, 16, 100, gen, False)
+    check_paged_attention(dev, 3, 4, 4, 2, 16, 4, 40, gen, False, window=5)
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"[kernels] {name} {json.dumps(r)}")
+    return rows
+
+
+# --------------------------------------------------------------- phase 3
+
+
+def traffic(vocab: int, n_requests: int = 16, prompt_lens=(64, 512),
+            seed: int = 0) -> list[np.ndarray]:
+    """Seeded prompts with lengths drawn uniformly from ``prompt_lens``."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=n_requests)
+    return [rng.integers(0, vocab, size=n) for n in lens]
+
+
+def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
+                  prompt_lens=(64, 512), late_after: int = 10, seed: int = 0):
+    """Serve seeded traffic through the port's Engine; returns the engine,
+    its params and the finished outputs.  Kernel launch counts are reset
+    just before the engine is built (its weights pack on first use)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import Engine
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init(gen, cfg, device=dev)
+    prompts = traffic(cfg.vocab, n_requests, prompt_lens, seed)
+    ops.reset_launches()
+    eng = Engine(params, cfg, ecfg, device=dev)
+    half = n_requests // 2
+    t0 = time.perf_counter()
+    for p in prompts[:half]:
+        eng.submit(p, max_new)
+    for _ in range(late_after):
+        eng.step()
+    for p in prompts[half:]:
+        eng.submit(p, max_new)
+    out = eng.run()
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    st = eng.stats()
+    if len(out) != n_requests:
+        raise AssertionError(f"{len(out)} of {n_requests} requests finished")
+    for rid, seq in out.items():
+        r = eng.requests[rid]
+        if seq.shape != (r.prompt_len + max_new,) or \
+                not ((seq >= 0) & (seq < cfg.vocab)).all():
+            raise AssertionError(f"request {rid}: bad output {seq.shape}")
+    if st["max_concurrent_decode"] < 2:
+        raise AssertionError("fewer than 2 decode rows ever ran together")
+    log(f"[serving] {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers} "
+        f"vocab={cfg.vocab} requests={n_requests} "
+        f"prompt_tokens={sum(len(p) for p in prompts)} "
+        f"generated={st['decoded_tokens']} steps={st['steps']} wall_s={wall:.3f}")
+    log(f"[serving] total_tokens_per_s={st['total_tokens_per_s']:.1f} "
+        f"decode_tokens_per_s={st['decode_tokens_per_s']:.1f} "
+        f"max_concurrent_decode={st['max_concurrent_decode']} "
+        f"preemptions={st['preemptions']} prefill_calls={st['prefill_calls']} "
+        f"decode_calls={st['decode_calls']}")
+    log(f"[serving] launches {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main path")
+    return eng, params, out, launches, st
+
+
+# --------------------------------------------------------------- phase 4
+
+
+def _teacher_forced(params, cfg, seq: np.ndarray, chunk: int, bs: int,
+                    impl: str, dev):
+    """Prefill the whole sequence in chunks on fresh pools; returns
+    (logits (T, V), per-layer taps, each concatenated over the valid
+    positions of every chunk)."""
+    from repro_torch.models import transformer as M
+    t = len(seq)
+    mb = -(-t // bs)
+    pools = M.init_paged_state(cfg, mb + 1, bs, device=dev)
+    table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)[None]
+    logits, taps = [], []
+    with torch.no_grad():
+        for pos in range(0, t, chunk):
+            n = min(chunk, t - pos)
+            toks = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
+            toks[0, :n] = torch.from_numpy(seq[pos:pos + n].astype(np.int64))
+            tap: list = []
+            lg, _ = M.prefill_chunk(
+                params, cfg, toks, pools, table,
+                torch.tensor([pos], dtype=torch.int32, device=dev),
+                torch.tensor([n], dtype=torch.int32, device=dev),
+                impl=impl, taps=tap)
+            logits.append(lg[0, :n])
+            taps.append([x[0, :n] for x in tap])
+    per_tap = [torch.cat([c[i] for c in taps]) for i in range(len(taps[0]))]
+    return torch.cat(logits), per_tap
+
+
+def phase_e2e(dev, cfg, params, eng, out, n_check: int = 2):
+    """Teacher-forced kernels-vs-plain check on finished requests."""
+    names = ("q", "k", "v", "o", "gate", "up", "down", "hidden")
+    flips_total = 0
+    worst_hidden = 0.0
+    for rid in sorted(out)[:n_check]:
+        req = eng.requests[rid]
+        seq = out[rid]
+        lg_k, taps_k = _teacher_forced(params, cfg, seq, eng.ecfg.prefill_chunk,
+                                       eng.ecfg.block_size, "auto", dev)
+        lg_p, taps_p = _teacher_forced(params, cfg, seq, eng.ecfg.prefill_chunk,
+                                       eng.ecfg.block_size, "torch", dev)
+        for i, (a, b) in enumerate(zip(taps_k, taps_p, strict=True)):
+            layer, name = divmod(i, len(names))
+            err = (a - b).abs().max().item()
+            if names[name] == "hidden":
+                worst_hidden = max(worst_hidden, err)
+                if not err <= MAX_HIDDEN_ERR:
+                    raise AssertionError(f"rid {rid} layer {layer}: hidden "
+                                         f"state differs by {err:.3g}")
+                continue
+            diff = (a >= 0) != (b >= 0)
+            if diff.any():
+                rms = b.float().pow(2).mean(dim=-1, keepdim=True).sqrt()
+                near = b.abs() <= FLIP_RMS_FRACTION * rms
+                if (diff & ~near).any():
+                    raise AssertionError(
+                        f"rid {rid} layer {layer} {names[name]}: "
+                        f"{int((diff & ~near).sum())} sign bits differ away from 0")
+                for pos, col in diff.nonzero().tolist():
+                    log(f"[e2e] rid {rid} layer {layer} {names[name]} pos {pos} "
+                        f"col {col}: sign flip at {b[pos, col].item():.3g} "
+                        f"(row rms {rms[pos, 0].item():.3g})")
+                flips_total += int(diff.sum())
+        p = req.prompt_len
+        greedy = lg_k[p - 1:-1].argmax(dim=-1).cpu().numpy()
+        if not np.array_equal(greedy, seq[p:]):
+            bad = int((greedy != seq[p:]).sum())
+            raise AssertionError(f"rid {rid}: teacher-forced greedy tokens "
+                                 f"differ from the engine's at {bad} positions")
+        lerr = (lg_k - lg_p).abs().max().item()
+        if not torch.isfinite(lg_k).all() or not lerr <= MAX_HIDDEN_ERR * 10:
+            raise AssertionError(f"rid {rid}: logits differ by {lerr:.3g}")
+        log(f"[e2e] rid {rid} tokens={len(seq)} layers={cfg.n_layers} "
+            f"max_hidden_err={worst_hidden:.3g} max_logit_err={lerr:.3g} "
+            f"greedy tokens match engine: {len(seq) - p}")
+    log(f"[e2e] sign flips accepted: {flips_total}")
+
+
+# -------------------------------------------------------------------- main
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    phase_device()
+    cfg = get_config("bnn-lm-100m").replace(precision="bnn")
+    rows = phase_kernels(dev, cfg)
+    ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
+                        prefill_chunk=128, max_model_len=1024)
+    eng, params, out, launches, _st = phase_serving(dev, cfg, ecfg)
+    phase_e2e(dev, cfg, params, eng, out)
+    # one representative main-path shape per kernel for the summary line
+    # (decode projection / decode attention / one weight); every shape is
+    # in the [kernels] lines above
+    pick = {"fused_bnn": rows["fused_bnn"][4],
+            "paged_attention": rows["paged_attention"][0],
+            "binarize_pack": rows["binarize_pack"][0]}
+    kernels = []
+    for k in ops.KERNELS:
+        r = pick[k.name]
+        kernels.append({
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": max(x["max_abs_err"] for x in rows[k.name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

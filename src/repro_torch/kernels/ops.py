@@ -1,0 +1,126 @@
+"""The kernels' entry points for the model layers, with impl dispatch.
+
+``bnn_dense`` is what the layers call for every projection:
+  * precision="bf16": ordinary float matmul (the non-binarized baseline;
+    float32 here, as in the JAX package's float32 models)
+  * precision="bnn": the packed XNOR-popcount inference path — the
+    fused binarize->pack->XNOR-popcount GEMM against the weight's
+    cached packed form.
+
+``paged_attention`` is what the attention block calls over the paged
+KV pools.
+
+Dispatch (``resolve_impl``) follows the tensor's device:
+  impl="auto"   a CUDA tensor launches the Hopper kernel (or raises);
+                a CPU tensor takes the plain PyTorch version
+  impl="cuda"   the Hopper kernel; raises on a CPU tensor
+  impl="torch"  the plain version anywhere — an explicit request, made
+                only by the tests and chip_smoke.py to check a kernel
+Nothing falls back: a kernel that fails to build or launch raises.
+
+Weights are packed once: ``binarize_pack(w.T)`` and
+``alpha = mean(|w|, axis=0)`` are cached per (weight identity, impl,
+scale) and recomputed only when the weight's ``_version`` moves (it was
+written in place).  An entry is evicted with its weight (weakref).
+"""
+from __future__ import annotations
+
+import weakref
+
+import torch
+
+from repro_torch.kernels import binarize_pack as _bp
+from repro_torch.kernels import fused_bnn as _fb
+from repro_torch.kernels import paged_attention as _pa
+
+IMPLS = ("auto", "cuda", "torch")
+
+KERNELS = (_fb.KERNEL, _pa.KERNEL, _bp.KERNEL)
+
+
+def resolve_impl(impl: str, t: torch.Tensor) -> str:
+    """'cuda' or 'torch' for an operation on tensor ``t`` (see module
+    docstring)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (want one of {IMPLS})")
+    if impl == "torch":
+        return "torch"
+    if t.device.type == "cuda":
+        return "cuda"
+    if impl == "cuda":
+        raise ValueError(f"impl='cuda' asked for a tensor on {t.device}")
+    if t.device.type != "cpu":
+        raise ValueError(f"no kernel or plain version for device {t.device}")
+    return "torch"
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+# --------------------------------------------------------------------------
+# packed-weight cache: one pack per weight identity and version
+
+_weight_pack_cache: dict[tuple[int, str, bool],
+                         tuple[int, torch.Tensor, torch.Tensor | None]] = {}
+
+
+def packed_weight_cache_info() -> dict:
+    return {"entries": len(_weight_pack_cache)}
+
+
+def _pack_weight(w: torch.Tensor, impl: str, scale: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(N, Kw) packed transpose of w (K, N) plus its LQ-Nets alpha
+    column scales, cached per weight identity and version."""
+    key = (id(w), impl, scale)
+    hit = _weight_pack_cache.get(key)
+    if hit is not None and hit[0] == w._version:
+        return hit[1], hit[2]
+    wt = w.detach().float().t().contiguous()
+    wp = (_bp.binarize_pack(wt) if impl == "cuda"
+          else _bp.binarize_pack_torch(wt))
+    alpha = torch.mean(torch.abs(w.detach().float()), dim=0) if scale else None
+    if hit is None:
+        # id() values recycle after gc — evict the entry with its owner
+        weakref.finalize(w, _weight_pack_cache.pop, key, None)
+    _weight_pack_cache[key] = (w._version, wp, alpha)
+    return wp, alpha
+
+
+def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",
+              impl: str = "auto", scale: bool = True) -> torch.Tensor:
+    """Dense projection with selectable precision path.
+
+    x: (..., K) activations; w: (K, N) latent weights (float).
+    """
+    if precision == "bf16":
+        return torch.matmul(x, w.to(x.dtype))
+    if precision == "bnn":
+        impl = resolve_impl(impl, x)
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
+        s = x2.shape[-1]
+        mode = "dot_scaled" if scale else "dot"
+        wp, alpha = _pack_weight(w, impl, scale)
+        fn = _fb.fused_bnn_matmul if impl == "cuda" else \
+            _fb.fused_bnn_matmul_torch
+        y = fn(x2, wp, s, mode=mode, alpha=alpha)
+        return y.reshape(*lead, w.shape[-1]).to(x.dtype)
+    if precision == "bnn_train":
+        raise NotImplementedError(
+            "precision='bnn_train' (STE training) is not ported "
+            "(ROADMAP.md queue 1, item 10)")
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def paged_attention(q, k_pool, v_pool, block_table, *, kv_len, q_offset,
+                    causal: bool = False, window: int | None = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """Paged GQA attention (kernels/paged_attention.py) with impl
+    dispatch."""
+    fn = _pa.paged_attention if resolve_impl(impl, q) == "cuda" else \
+        _pa.paged_attention_torch
+    return fn(q, k_pool, v_pool, block_table, kv_len=kv_len,
+              q_offset=q_offset, causal=causal, window=window)

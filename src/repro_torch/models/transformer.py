@@ -1,0 +1,217 @@
+"""Decoder LM, dense family: GQA attention + GLU FFN per layer.
+
+Parameters are a plain dict: ``embed``, ``final_norm``, ``head`` (tied
+to ``embed.w.T`` when ``cfg.tie_embeddings``) and ``layers``, a list of
+per-layer dicts in plan order (``norm1``, ``attn``, ``norm2``, ``ffn``).
+The JAX package stacks the repeated layer period along a leading axis
+for ``lax.scan``; the port keeps one dict per layer, which is what its
+eager layer loop walks (``interop.params_from_numpy`` unstacks).
+
+Every projection dispatches through the OXBNN precision modes
+(kernels/ops.bnn_dense): bf16 baseline and bnn (packed XNOR-popcount
+inference).  Other mixer and FFN families (SSM, MLA, MoE) are not
+ported yet (ROADMAP.md queue 1, item 7).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.layers import attn_block, common as C, ffn
+
+# ---------------------------------------------------------------------------
+# layer plan
+
+
+def layer_plan(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """Per-layer (mixer, ffn) kinds."""
+    plan = []
+    for i in range(cfg.n_layers):
+        if cfg.attn_kind == "none":
+            mix = "ssm"
+        elif cfg.attn_period:
+            mix = "gqa" if i % cfg.attn_period == cfg.attn_offset else "ssm"
+        else:
+            mix = cfg.attn_kind
+        if cfg.n_experts and i >= cfg.first_dense and \
+                i % max(cfg.moe_every, 1) == max(cfg.moe_every, 1) - 1:
+            f = "moe"
+        elif cfg.d_ff or (i < cfg.first_dense and cfg.dense_d_ff):
+            f = "dense"
+        else:
+            f = "none"
+        plan.append((mix, f))
+    return plan
+
+
+def segments(cfg: ArchConfig):
+    """[('unroll', plan_prefix, 1)] + [('scan', period_plan, n_groups)]:
+    the JAX package's parameter layout, which ``interop`` unstacks."""
+    plan = layer_plan(cfg)
+    segs = []
+    i = cfg.first_dense
+    if i:
+        segs.append(("unroll", plan[:i], 1))
+    rest = plan[i:]
+    p = cfg.scan_period
+    if len(rest) % p:
+        raise ValueError(f"{cfg.name}: scan_period {p} does not tile "
+                         f"{len(rest)} layers")
+    period = rest[:p]
+    for j in range(0, len(rest), p):
+        if rest[j:j + p] != period:
+            raise ValueError("scan_period does not tile the plan")
+    segs.append(("scan", period, len(rest) // p))
+    return segs
+
+
+def check_supported(cfg: ArchConfig):
+    """Raise for what the dense-family port does not run yet."""
+    for mix, f in layer_plan(cfg):
+        if mix != "gqa" or f not in ("dense", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: layer kind ({mix}, {f}) is not ported "
+                "(ROADMAP.md queue 1, item 7)")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window ring caches are not ported "
+            "(ROADMAP.md queue 1, item 7)")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.frontend} front-end is not ported "
+            "(ROADMAP.md queue 1, item 7)")
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def _init_layer(gen, cfg: ArchConfig, mix: str, f: str, device) -> dict:
+    p = {"norm1": C.norm_init(cfg.d_model, cfg.norm, device=device),
+         "attn": attn_block.init(gen, cfg, device=device)}
+    if f != "none":
+        p["norm2"] = C.norm_init(cfg.d_model, cfg.norm, device=device)
+        p["ffn"] = ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                            device=device)
+    return p
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
+    """Random parameters drawn from ``gen`` (its device must match
+    ``device``).  Same distributions as the JAX package's init, not the
+    same numbers: for parity, convert JAX weights with ``interop``."""
+    check_supported(cfg)
+    params = {"embed": C.embed_init(gen, cfg.vocab, cfg.d_model,
+                                    device=device),
+              "final_norm": C.norm_init(cfg.d_model, cfg.norm, device=device)}
+    params["head"] = ({"w": params["embed"]["w"].t()} if cfg.tie_embeddings
+                      else C.dense_init(gen, cfg.d_model, cfg.vocab,
+                                        device=device))
+    params["layers"] = [_init_layer(gen, cfg, mix, f, device)
+                        for mix, f in layer_plan(cfg)]
+    return params
+
+
+def _iter_layers(cfg: ArchConfig, params):
+    """Yield (mix, ffn_kind, layer_params) in plan order."""
+    for (mix, f), p in zip(layer_plan(cfg), params["layers"], strict=True):
+        yield mix, f, p
+
+
+def _ffn(params, cfg: ArchConfig, f: str, x, impl, taps=None):
+    if f == "none":
+        return x
+    h = C.norm(x, params["norm2"], cfg.norm, cfg.norm_eps)
+    return x + ffn.forward(params["ffn"], h, cfg.act, cfg.precision, impl,
+                           taps)
+
+
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"]["w"][tokens]
+    if cfg.embed_scale:
+        x = x * (cfg.d_model ** 0.5)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full forward
+
+
+def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """Run the decoder stack over (B, T) tokens; returns hidden (B,T,d)."""
+    x = _embed(params, cfg, tokens)
+    b, t = tokens.shape
+    positions = torch.arange(t, device=x.device)[None].expand(b, t)
+    for mix, f, p in _iter_layers(cfg, params):
+        h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+        x = x + attn_block.forward(p["attn"], cfg, h, positions,
+                                   precision=cfg.precision, impl=impl)
+        x = _ffn(p, cfg, f, x, impl)
+    return C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+
+
+def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+              impl: str = "auto") -> torch.Tensor:
+    h = hidden_states(params, cfg, tokens, impl=impl)
+    return torch.matmul(h, params["head"]["w"])
+
+
+# ---------------------------------------------------------------------------
+# paged decode / chunked prefill (continuous-batching serving path; see
+# repro_torch/serving/engine.py).  The pools are updated in place.
+
+
+def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
+                     dtype=torch.float32, device=None) -> list[dict]:
+    """Flat per-layer list of KV pools (layer order == plan order)."""
+    check_supported(cfg)
+    return [attn_block.init_paged_state(cfg, num_blocks, block_size, dtype,
+                                        device)
+            for _ in layer_plan(cfg)]
+
+
+def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
+                      block_table: torch.Tensor, lengths: torch.Tensor,
+                      active: torch.Tensor | None = None, *,
+                      impl: str = "auto"):
+    """One decode token per row against the paged KV pools.
+
+    tokens (B, 1) int; block_table (B, max_blocks) int32; lengths (B,)
+    int32 per-row cache fill; active (B,) masks padded batch slots.
+    Returns (logits (B, 1, V), caches).
+    """
+    x = _embed(params, cfg, tokens)
+    for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
+        h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+        y, _ = attn_block.paged_decode_step(
+            p["attn"], cfg, h, caches[li], block_table, lengths,
+            precision=cfg.precision, active=active, impl=impl)
+        x = _ffn(p, cfg, f, x + y, impl)
+    x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return torch.matmul(x, params["head"]["w"]), caches
+
+
+def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
+                  block_table: torch.Tensor, lengths: torch.Tensor,
+                  n_valid: torch.Tensor, *, impl: str = "auto",
+                  taps: list | None = None):
+    """Chunked prefill: append a chunk of C tokens per row.
+
+    tokens (B, C) int (padded past n_valid); lengths (B,) tokens already
+    cached; n_valid (B,) real tokens in this chunk.  ``taps``, when a
+    list, receives per layer the input of each projection (q, k, v, o,
+    then the FFN's) and the layer's output.
+    Returns (logits (B, C, V), caches) — logits at every chunk position.
+    """
+    x = _embed(params, cfg, tokens)
+    for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
+        h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+        y, _ = attn_block.prefill_chunk(
+            p["attn"], cfg, h, caches[li], block_table, lengths, n_valid,
+            precision=cfg.precision, impl=impl, taps=taps)
+        x = _ffn(p, cfg, f, x + y, impl, taps)
+        if taps is not None:
+            taps.append(x)
+    x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return torch.matmul(x, params["head"]["w"]), caches
