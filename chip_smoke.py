@@ -25,14 +25,31 @@ Phases (each check raises, and the script then exits non-zero):
               input equal (a flip is accepted only within 1e-5 x its
               row's RMS of zero, and printed), and the kernel path's
               greedy tokens equal what the engine generated.
+  5. conv     the paper's binarized-conv path (core/conv.bnn_conv2d) at
+              every groups == 1 layer of VGG-small, ResNet18,
+              MobileNet_V2 and ShuffleNet_V2 (photonic/workloads.py),
+              batch 1, published shapes, seeded inputs and weights:
+              the XNOR-popcount GEMM kernel bit-exact against its plain
+              version (four modes at two shapes, then every distinct
+              layer shape in "dot" mode, each timed), weight/patch
+              packing bit-exact at the patch shapes, every layer through
+              the kernels equal to its plain path and to the sign-conv
+              oracle exactly (launch counts over that run must be > 0),
+              and a chained binary VGG-small stack conv2..conv6 equal
+              on all three routes.
+  6. photonic the engine's modelled OXBNN section from the serving run
+              and the simulator's Fig. 7 comparison — modelled numbers
+              of the photonic accelerators, not measurements.
 
 The line before the last is a JSON object with every kernel's launches
-on the serving run, error, times and bound; the last line is the run's
-verdict with the device.  Imports nothing of JAX or the JAX package.
+on its paths (serving, conv), error, times and bound; the last line is
+the run's verdict with the device.  Imports nothing of JAX or the JAX
+package.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +67,7 @@ MAX_ATTN_ERR = 1e-4              # |kernel - plain| for attention outputs
 MAX_HIDDEN_ERR = 1e-4            # |kernels - plain| per layer hidden state
 FLIP_RMS_FRACTION = 1e-5         # a sign flip closer to 0 than this x RMS
                                  # is rounding, not a fault
+MODES = ("bitcount", "dot", "dot_scaled", "binary_act")   # BNN GEMM epilogues
 
 
 def log(*a):
@@ -143,7 +161,7 @@ def check_fused_bnn(dev, m: int, n: int, s: int, gen: torch.Generator,
     w = torch.randn(s, n, device=dev, generator=gen)
     wp = bp.binarize_pack_torch(w.t().contiguous())
     alpha = torch.rand(n, device=dev, generator=gen) + 0.5
-    for mode in ("bitcount", "dot", "dot_scaled", "binary_act"):
+    for mode in MODES:
         got = fb.fused_bnn_matmul(x, wp, s, mode=mode, alpha=alpha)
         want = fb.fused_bnn_matmul_torch(x, wp, s, mode=mode, alpha=alpha)
         torch.cuda.synchronize() if dev.type == "cuda" else None
@@ -343,9 +361,9 @@ def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
         f"preemptions={st['preemptions']} prefill_calls={st['prefill_calls']} "
         f"decode_calls={st['decode_calls']}")
     log(f"[serving] launches {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
+    for name in ("fused_bnn", "paged_attention", "binarize_pack"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the serving path")
     return eng, params, out, launches, st
 
 
@@ -429,6 +447,199 @@ def phase_e2e(dev, cfg, params, eng, out, n_check: int = 2):
     log(f"[e2e] sign flips accepted: {flips_total}")
 
 
+# --------------------------------------------------------------- phase 5
+
+def check_xnor_popcount(dev, m: int, n: int, s: int, gen: torch.Generator,
+                        timed: bool, modes=MODES) -> dict:
+    """The packed x packed GEMM kernel against its plain version on
+    operands packed from seeded floats (pad bits 0, as the conv path
+    packs them)."""
+    from repro_torch.kernels import binarize_pack as bp, xnor_popcount as xp
+    x = torch.randn(m, s, device=dev, generator=gen)
+    w = torch.randn(n, s, device=dev, generator=gen)
+    ip, wp = bp.binarize_pack_torch(x), bp.binarize_pack_torch(w)
+    alpha = torch.rand(n, device=dev, generator=gen) + 0.5
+    for mode in modes:
+        got = xp.xnor_popcount_matmul(ip, wp, s, mode=mode, alpha=alpha)
+        want = xp.xnor_popcount_matmul_torch(ip, wp, s, mode=mode, alpha=alpha)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            bad = (got.float() != want.float()).sum().item()
+            raise AssertionError(f"xnor_popcount M={m} N={n} S={s} {mode}: "
+                                 f"{bad} elements differ from the plain version")
+    row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0}
+    if timed:
+        kw = -(-s // 32)
+        n_bytes = (m + n) * kw * 4 + m * n * 4          # dot: int32 out
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 2 * m * n * s,
+                                                    INT8_OPS_PER_S)
+        run = lambda: xp.xnor_popcount_matmul(ip, wp, s, mode="dot")
+        row["ms"] = time_ms(run)
+        row["eager_ms"] = eager_ms(run)
+        row["plain_ms"] = time_ms(
+            lambda: xp.xnor_popcount_matmul_torch(ip, wp, s, mode="dot"),
+            iters=3)
+        xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
+        ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
+        row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws.t()))
+    return row
+
+
+def conv_layers() -> list[tuple[str, object]]:
+    """(network, LayerSpec) of every groups == 1 layer of the four BNNs:
+    convs, 1x1 convs and the fully connected layers (1x1 over 1x1)."""
+    from repro_torch.photonic import workloads as wl
+    return [(net, layer) for net, make in wl.WORKLOADS.items()
+            for layer in make() if layer.groups == 1]
+
+
+def conv_args(layer) -> dict:
+    """A LayerSpec's stride and padding: 'pad=0' layers are VALID, the
+    rest SAME (JAX's SAME gives the published output sizes)."""
+    return {"stride": layer.stride,
+            "padding": "VALID" if layer.pad == 0 else "SAME"}
+
+
+def _pool2(a: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool of NHWC {0,1} activations (an OR; the same in the
+    {-1,+1} encoding), as VGG-small pools between its conv stages."""
+    b, h, w, c = a.shape
+    return a.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def phase_conv(dev) -> tuple[dict, dict[str, int]]:
+    """Checks and times the conv path; returns the rows for the kernel
+    table and the launch counts of the run over every layer."""
+    from repro_torch.core import conv
+    from repro_torch.core.binarize import b01_to_pm1
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(1)
+    layers = conv_layers()
+    cases = []
+    for net, layer in layers:
+        x = torch.randn(1, layer.h_in, layer.w_in, layer.c_in, device=dev,
+                        generator=gen)
+        w = torch.randn(layer.k, layer.k, layer.c_in, layer.c_out,
+                        device=dev, generator=gen)
+        cases.append((net, layer, x, w))
+    shapes = sorted({(l.h_out * l.w_out, l.c_out, l.s) for _, l in layers})
+    log(f"[conv] {len(layers)} ungrouped layers, {len(shapes)} distinct "
+        f"GEMM shapes (M, N, S)")
+
+    # 1. the GEMM kernel against its plain version
+    for m, n, s in ((1, 1024, 8192), (3136, 64, 576), (3, 70, 33)):
+        check_xnor_popcount(dev, m, n, s, gen, False)
+    gemm = {}
+    for m, n, s in shapes:
+        gemm[(m, n, s)] = check_xnor_popcount(dev, m, n, s, gen, True,
+                                              modes=("dot",))
+        log(f"[conv] xnor_popcount {json.dumps(gemm[(m, n, s)])}")
+
+    # 2. packing at the patch shapes (M, S) and the weight shapes (N, S)
+    packs = {}
+    for m, n, s in shapes:
+        for rows in (m, n):
+            if (rows, s) not in packs:
+                packs[(rows, s)] = check_binarize_pack(dev, rows, s, gen, True)
+                log(f"[conv] binarize_pack {json.dumps(packs[(rows, s)])}")
+
+    # 3. the main path: every layer through bnn_conv2d on the card
+    ops.reset_launches()
+    outs = [conv.bnn_conv2d(x, w, **conv_args(layer))
+            for _, layer, x, w in cases]
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    log(f"[conv] launches {json.dumps(launches)}")
+    for name in ("binarize_pack", "xnor_popcount"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the conv path")
+    for (net, layer, x, w), got in zip(cases, outs, strict=True):
+        args = conv_args(layer)
+        want_shape = (1, layer.h_out, layer.w_out, layer.c_out)
+        if tuple(got.shape) != want_shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{net}.{layer.name}: output {tuple(got.shape)}"
+                                 f", want finite {want_shape}")
+        plain = conv.bnn_conv2d(x, w, impl="torch", **args)
+        oracle = conv.reference_sign_conv2d(x, w, **args)
+        for what, ref in (("plain path", plain), ("sign-conv oracle", oracle)):
+            if not torch.equal(got, ref):
+                bad = int((got != ref).sum())
+                raise AssertionError(f"{net}.{layer.name}: {bad} outputs "
+                                     f"differ from the {what}")
+        m, n, s = layer.h_out * layer.w_out, layer.c_out, layer.s
+        g = gemm[(m, n, s)]
+        # the library yardstick: cuDNN's bf16 conv of the sign tensors,
+        # NCHW/OIHW, padded as JAX pads
+        xs = conv._pad(torch.where(x >= 0, 1.0, -1.0), layer.k, layer.k,
+                       **args)
+        xs = xs.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
+        ws = torch.where(w >= 0, 1.0, -1.0).permute(3, 2, 0, 1)
+        ws = ws.to(torch.bfloat16).contiguous()
+        row = {"layer": f"{net}.{layer.name}", "M": m, "N": n, "S": s,
+               "gemm_ms": g["ms"], "bound_ms": g["bound_ms"],
+               "bound_by": g["bound_by"], "gemm_plain_ms": g["plain_ms"],
+               "layer_ms": time_ms(lambda: conv.bnn_conv2d(x, w, **args)),
+               "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                   xs, ws, stride=layer.stride))}
+        log(f"[conv] layer {json.dumps(row)}")
+
+    # 4. a chained binary stack: VGG-small conv2..conv6, each layer's
+    # comparator output fed on as {-1,+1} (pooled where the stage halves)
+    chain = [(layer, w) for net, layer, _x, w in cases
+             if net == "vgg_small" and layer.name in
+             ("conv2", "conv3", "conv4", "conv5", "conv6")]
+    x0 = torch.randn(1, 32, 32, 128, device=dev, generator=gen)
+    acts = {"kernels": x0, "plain": x0, "oracle": x0}
+    for layer, w in chain:
+        args = conv_args(layer)
+        for route, a in acts.items():
+            if a.shape[1] > layer.h_in:
+                a = _pool2(a)
+            a = a if a.is_floating_point() else b01_to_pm1(a)
+            if route == "oracle":
+                acts[route] = (conv.reference_sign_conv2d(a, w, **args) > 0
+                               ).to(torch.uint8)
+            else:
+                acts[route] = conv.bnn_conv2d(
+                    a, w, impl="auto" if route == "kernels" else "torch",
+                    binary_out=True, **args)
+        if not (torch.equal(acts["kernels"], acts["plain"])
+                and torch.equal(acts["kernels"], acts["oracle"])):
+            raise AssertionError(f"binary chain differs at vgg_small."
+                                 f"{layer.name}")
+    final = acts["kernels"]
+    log(f"[conv] binary chain vgg_small conv2..conv6: output "
+        f"{tuple(final.shape)}, {int(final.sum())} of {final.numel()} "
+        f"activations set, equal on kernels, plain and oracle routes")
+    return {"xnor_popcount": list(gemm.values()),
+            "xnor_popcount_most_work": gemm[max(gemm, key=math.prod)],
+            "binarize_pack_conv": list(packs.values())}, launches
+
+
+# --------------------------------------------------------------- phase 6
+
+
+def phase_photonic(st: dict):
+    """Modelled numbers of the photonic accelerators (the paper's
+    simulator), printed beside the card's measurements, never as
+    them."""
+    from repro_torch.photonic import accelerators as acc, simulator as sim
+    log(f"[photonic] modelled (not measured on this card) OXBNN cost of the "
+        f"served stream: {json.dumps(st['photonic'])}")
+    table = sim.compare(acc.ALL)
+    nets = list(next(iter(table.values())))
+    for net in nets:
+        log(f"[photonic] modelled Fig. 7 {net}: " + "; ".join(
+            f"{a} fps={table[a][net].fps:.1f} fps/W={table[a][net].fps_per_w:.1f}"
+            for a in table))
+    g = {a: (sim.gmean([table[a][n].fps for n in nets]),
+             sim.gmean([table[a][n].fps_per_w for n in nets])) for a in table}
+    ox = g["OXBNN_50"]
+    log("[photonic] modelled gmean OXBNN_50 over: " + "; ".join(
+        f"{a} fps x{ox[0] / g[a][0]:.2f} fps/W x{ox[1] / g[a][1]:.2f}"
+        for a in g if a != "OXBNN_50"))
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -449,20 +660,29 @@ def main() -> int:
     rows = phase_kernels(dev, cfg)
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
                         prefill_chunk=128, max_model_len=1024)
-    eng, params, out, launches, _st = phase_serving(dev, cfg, ecfg)
+    eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
+    conv_rows, conv_launches = phase_conv(dev)
+    phase_photonic(st)
+    rows["xnor_popcount"] = conv_rows["xnor_popcount"]
+    rows["binarize_pack"] += conv_rows["binarize_pack_conv"]
     # one representative main-path shape per kernel for the summary line
-    # (decode projection / decode attention / one weight); every shape is
-    # in the [kernels] lines above
+    # (decode projection / decode attention / one weight / the conv
+    # layer with the most XNOR work); every shape is in the [kernels]
+    # and [conv] lines above
     pick = {"fused_bnn": rows["fused_bnn"][4],
             "paged_attention": rows["paged_attention"][0],
-            "binarize_pack": rows["binarize_pack"][0]}
+            "binarize_pack": rows["binarize_pack"][0],
+            "xnor_popcount": conv_rows["xnor_popcount_most_work"]}
+    paths = {"serving": launches, "conv": conv_launches}
     kernels = []
     for k in ops.KERNELS:
         r = pick[k.name]
+        by_path = {p: n[k.name] for p, n in paths.items() if n[k.name]}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.name],
+            "replaces": k.replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in rows[k.name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

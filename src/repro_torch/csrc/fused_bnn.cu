@@ -2,14 +2,10 @@
 // (M, S) float x  x  (N, ceil(S/32)) packed weights  ->  (M, N).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_bnn.py
-// (fused_bnn_matmul -> _fused_bnn_kernel), all four epilogue modes:
-//   0 bitcount    z                       int32
-//   1 dot         2z - S                  int32
-//   2 dot_scaled  (2z - S) * alpha[n]     float32
-//   3 binary_act  z > S/2                 uint8
-// with z = sum_k popcount(~(xw_k ^ ww_k)) - (Kw*32 - S): activation
-// positions at or past S pack to 0 bits, as do the weight's pad bits, so
-// each pad position XNORs to 1 and the correction removes it.
+// (fused_bnn_matmul -> _fused_bnn_kernel), all four epilogue modes
+// (bnn_epilogue.cuh), with z = sum_k popcount(~(xw_k ^ ww_k)) - (Kw*32 - S):
+// activation positions at or past S pack to 0 bits, as do the weight's pad
+// bits, so each pad position XNORs to 1 and the correction removes it.
 //
 // Bound on this card: at decode M is the bucketed batch (1..8), so the
 // kernel reads the packed weight once, N*Kw*4 bytes (73.7 KB for a
@@ -28,6 +24,8 @@
 // KT words so any S fits the 8 KB of shared memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bnn_epilogue.cuh"
 
 namespace {
 
@@ -80,16 +78,8 @@ __global__ void fused_bnn_kernel(const float* __restrict__ x,
   if (lane != 0) return;
 
   const int pad = Kw * 32 - S;
-  for (int r = 0; r < rows; ++r) {
-    const int z = acc[r] - pad;
-    const size_t o = (size_t)(m0 + r) * N + n;
-    switch (mode) {
-      case 0: ((int32_t*)out)[o] = z; break;
-      case 1: ((int32_t*)out)[o] = 2 * z - S; break;
-      case 2: ((float*)out)[o] = (float)(2 * z - S) * alpha[n]; break;
-      default: ((uint8_t*)out)[o] = (uint8_t)(2 * z > S); break;
-    }
-  }
+  for (int r = 0; r < rows; ++r)
+    bnn_store(out, (size_t)(m0 + r) * N + n, acc[r] - pad, S, alpha, n, mode);
 }
 
 }  // namespace

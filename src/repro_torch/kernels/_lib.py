@@ -38,6 +38,7 @@ _SIGNATURES = {
     "fb_fused_bnn": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pa_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _F, _P],
+    "xp_xnor_popcount": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -8,7 +8,11 @@
     cached packed form.
 
 ``paged_attention`` is what the attention block calls over the paged
-KV pools.
+KV pools.  ``pack_activations`` and ``xnor_matmul`` are the two steps
+of the unfused packed GEMM that ``core/conv.bnn_conv2d`` runs:
+binarize-pack, then the packed x packed XNOR-popcount GEMM;
+``xnor_matmul_torch`` is the latter's plain version (the JAX package's
+``xnor_matmul_xla``).
 
 Dispatch (``resolve_impl``) follows the tensor's device:
   impl="auto"   a CUDA tensor launches the Hopper kernel (or raises);
@@ -32,10 +36,11 @@ import torch
 from repro_torch.kernels import binarize_pack as _bp
 from repro_torch.kernels import fused_bnn as _fb
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import xnor_popcount as _xp
 
 IMPLS = ("auto", "cuda", "torch")
 
-KERNELS = (_fb.KERNEL, _pa.KERNEL, _bp.KERNEL)
+KERNELS = (_fb.KERNEL, _pa.KERNEL, _bp.KERNEL, _xp.KERNEL)
 
 
 def resolve_impl(impl: str, t: torch.Tensor) -> str:
@@ -57,6 +62,31 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the unfused packed path: binarize-pack, then XNOR-popcount GEMM
+
+xnor_matmul_torch = _xp.xnor_popcount_matmul_torch
+
+
+def xnor_matmul(ip: torch.Tensor, wp: torch.Tensor, s: int, *,
+                mode: str = "dot", alpha: torch.Tensor | None = None,
+                impl: str = "auto") -> torch.Tensor:
+    """Packed XNOR-popcount GEMM (kernels/xnor_popcount.py) with impl
+    dispatch."""
+    fn = _xp.xnor_popcount_matmul if resolve_impl(impl, ip) == "cuda" else \
+        xnor_matmul_torch
+    return fn(ip, wp, s, mode=mode, alpha=alpha)
+
+
+def pack_activations(x: torch.Tensor, *, threshold: float = 0.0,
+                     impl: str = "auto") -> torch.Tensor:
+    """Binarize + bitpack (kernels/binarize_pack.py) with impl
+    dispatch: (M, S) float32 -> (M, ceil(S/32)) int32 words."""
+    if resolve_impl(impl, x) == "cuda":
+        return _bp.binarize_pack(x, threshold=threshold)
+    return _bp.binarize_pack_torch(x, threshold)
 
 
 # --------------------------------------------------------------------------

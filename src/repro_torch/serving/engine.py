@@ -18,7 +18,9 @@ With cfg.precision == "bnn" every projection runs the packed
 XNOR-popcount GEMM — the paper's inference mode.  On a CUDA device the
 projections and the paged attention are the hand-written Hopper
 kernels (kernels/); ``Engine(..., device="cpu")`` runs their plain
-PyTorch versions and exists for tests.
+PyTorch versions and exists for tests.  The attached PhotonicCostModel
+reports what the modeled OXBNN accelerator would sustain on the same
+token stream (``stats()["photonic"]``), next to the measured wall clock.
 """
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as M
 from repro_torch.serving import roles as R
 from repro_torch.serving.block_cache import MixerStateCache
+from repro_torch.serving.cost_model import PhotonicCostModel
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
@@ -73,11 +77,14 @@ class EngineConfig:
                                      # 0 = auto (2x the block pool's
                                      # token capacity)
     max_batched_tokens: int = 256
+    accelerator: str = "OXBNN_50"    # photonic cost-model target
     prefix_cache: bool = False       # content-addressed block reuse: not
                                      # ported
     preempt_policy: str = "recompute"   # swap-to-host: not ported
     spec_k: int = 0                  # speculative decoding: not ported
     role: str = "mixed"              # disaggregated roles: not ported
+    link_gbps: float = 100.0         # modeled inter-shard link bandwidth
+                                     # (prefill->decode handoff transfer)
 
     def __post_init__(self):
         for name, (value, item) in _SLICE_ONLY.items():
@@ -128,6 +135,13 @@ class Engine:
                             policy=ecfg.policy,
                             preempt_policy=ecfg.preempt_policy),
             self.cache)
+        # the fused CUDA kernel never spills packed activations to
+        # device memory; the plain version prices the extra pack pass
+        # per GEMM
+        self.cost_model = PhotonicCostModel(
+            cfg, ecfg.accelerator,
+            fused_bnn=kops.resolve_impl("auto", w) == "cuda",
+            link_gbps=ecfg.link_gbps)
         self.requests: dict[int, Request] = {}
         self.step_count = 0
         self._next_rid = 0
@@ -354,4 +368,24 @@ class Engine:
                                for r in self.requests.values()),
             "cancelled": self._cancelled,
             "mixer": self.cache.mixer_section(),
+            "photonic": self._photonic_section(),
+        }
+
+    def _photonic_section(self) -> dict:
+        """The modeled accelerator's report on the served stream, built
+        as the JAX engine builds it.  Prefix-cache skips, speculative
+        verify passes and scoring are not ported, so their counts are
+        0 (ROADMAP.md queue 1, item 8)."""
+        cm = self.cost_model
+        return {
+            **cm.report(),
+            **cm.serving_report(
+                prefill_tokens=self._prefilled,
+                decode_tokens=self._decoded,
+                skipped_tokens=0,
+                prefill_passes=self._prefill_calls,
+                prefill_chunk=self.ecfg.prefill_chunk),
+            **cm.speculative_report(verify_passes=0, verify_tokens=0,
+                                    committed_tokens=0),
+            **cm.scoring_report(score_tokens=0, score_passes=0),
         }
