@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time goes when the port serves bnn-lm-100m on one card.
+"""Where the time goes when the port serves a model on one card.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_profile.py [--out DIR]
+    python3 chip_profile.py [--arch ARCH] [--out DIR]
 
-Serves the same seeded traffic as ``chip_smoke.py``'s serving phase
-(full-width bnn-lm-100m, precision "bnn", 16 requests) three times:
+Serves the same seeded traffic as ``chip_smoke.py``'s serving phase of
+``ARCH`` (default bnn-lm-100m at full width, 16 requests; mixtral-8x7b
+and deepseek-v2-lite-16b at published width and 4 layers, 8 requests,
+as the smoke's family phases), precision "bnn", three times:
 a warm-up run (kernel build, weight packing), a timed run, and a run
 under ``torch.profiler``.  It prints, as JSON lines:
 
@@ -26,6 +28,7 @@ writes the profiler's table there too.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -40,24 +43,55 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import chip_smoke  # noqa: E402  (the smoke's traffic and engine settings)
 
 
-def _steps(dev, cfg, ecfg) -> dict:
+def _workload(arch: str):
+    """(cfg, engine config, prompts, new tokens, late requests, steps
+    before they arrive, kernels of the path) as chip_smoke.py serves
+    ``arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EngineConfig
+    if arch == "bnn-lm-100m":
+        cfg = get_config(arch).replace(precision="bnn")
+        return (cfg, EngineConfig(block_size=16, num_blocks=1025,
+                                  max_batch=8, prefill_chunk=128,
+                                  max_model_len=1024),
+                chip_smoke.traffic(cfg.vocab), 64, 8, 10,
+                chip_smoke.SERVING_KERNELS)
+    cfg = get_config(arch).replace(precision="bnn", n_layers=4)
+    if arch == "mixtral-8x7b":
+        return (cfg, EngineConfig(**chip_smoke.MIXTRAL_ENGINE),
+                chip_smoke.family_traffic(cfg.vocab, (4400, 4700)), 32, 4, 4,
+                ("fused_bnn", "paged_attention_ring", "binarize_pack"))
+    return (cfg, EngineConfig(**chip_smoke.DEEPSEEK_ENGINE),
+            chip_smoke.family_traffic(cfg.vocab, seed=1), 32, 4, 4,
+            ("fused_bnn", "paged_attention_mla", "binarize_pack"))
+
+
+def _serve(dev, work):
+    cfg, ecfg, prompts, max_new, n_late, late_after, required = work
+    return chip_smoke.phase_serving(dev, cfg, ecfg, max_new=max_new,
+                                    late_after=late_after, prompts=prompts,
+                                    n_late=n_late, required=required)
+
+
+def _steps(dev, work) -> dict:
     """Timed run: host wall per engine step, by what the step ran."""
     from repro_torch.models import transformer as M
     from repro_torch.serving import Engine
+    cfg, ecfg, prompts, max_new, n_late, late_after, _req = work
     params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
                     device=dev)
-    prompts = chip_smoke.traffic(cfg.vocab)
     eng = Engine(params, cfg, ecfg, device=dev)
     times: dict[str, list[float]] = {"prefill+decode": [], "decode": [],
                                      "prefill": []}
-    for p in prompts[:8]:
-        eng.submit(p, 64)
-    late = prompts[8:]
+    early = len(prompts) - n_late
+    for p in prompts[:early]:
+        eng.submit(p, max_new)
+    late = prompts[early:]
     step = 0
     while late or not eng.scheduler.idle:
-        if step == 10:
+        if step == late_after:
             for p in late:
-                eng.submit(p, 64)
+                eng.submit(p, max_new)
             late = []
         n_ev = len(eng.scheduler.trace)
         t0 = time.perf_counter()
@@ -76,6 +110,9 @@ def _steps(dev, cfg, ecfg) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="bnn-lm-100m",
+                    choices=("bnn-lm-100m", "mixtral-8x7b",
+                             "deepseek-v2-lite-16b"))
     ap.add_argument("--out", default=None, help="directory for the table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,25 +122,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-    from repro_torch.serving import EngineConfig
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    cfg = get_config("bnn-lm-100m").replace(precision="bnn")
-    ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
-                        prefill_chunk=128, max_model_len=1024)
-    chip_smoke.phase_serving(dev, cfg, ecfg)                      # warm-up
-    steps = _steps(dev, cfg, ecfg)
+    work = _workload(args.arch)
+    _serve(dev, work)                                             # warm-up
+    gc.collect()
+    steps = _steps(dev, work)
+    gc.collect()
     timed_wall = sum(v["total_s"] for v in steps.values())
-    print(json.dumps({"steps": steps, "timed_wall_s": timed_wall}), flush=True)
+    print(json.dumps({"arch": args.arch, "steps": steps,
+                      "timed_wall_s": timed_wall}), flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        chip_smoke.phase_serving(dev, cfg, ecfg)
+        _serve(dev, work)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels: dict[str, float] = {}
@@ -115,8 +151,14 @@ def main() -> int:
     ours = sum(v for k, v in kernels.items()
                if any(s in k for s in ("fused_bnn_kernel",
                                        "paged_attention_kernel",
-                                       "binarize_pack_kernel")))
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+                                       "binarize_pack_kernel", "mla_",
+                                       "batched_sgemm_kernel")))
+    # names cut to 80 characters can collide (template instantiations):
+    # their times add up
+    short: dict[str, float] = {}
+    for k, v in kernels.items():
+        short[k[:80]] = short.get(k[:80], 0.0) + v
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:20]
     print(json.dumps({"device": {
         "profiled_wall_s": wall, "kernel_ms": busy_ms,
         "busy_share": busy_ms / (1e3 * wall) if wall else float("nan"),
@@ -124,7 +166,7 @@ def main() -> int:
         # same kernels over the untraced run's wall
         "busy_share_of_timed_run": busy_ms / (1e3 * timed_wall),
         "port_kernels_share_of_kernel_time": ours / busy_ms if busy_ms else 0.0,
-        "top_kernels_ms": {k[:80]: v for k, v in top}}}), flush=True)
+        "top_kernels_ms": dict(top)}}), flush=True)
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)

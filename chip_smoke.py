@@ -8,23 +8,31 @@ Phases (each check raises, and the script then exits non-zero):
               version, and the build of the kernel library from
               src/repro_torch/csrc/ (nvcc, sm_90a).
   2. kernels  each hand-written kernel against its plain PyTorch version
-              on the card, at the main path's shapes: fused BNN GEMM
+              on the card, at the main paths' shapes: fused BNN GEMM
               (bit-exact, four modes), weight packing (bit-exact), paged
-              GQA attention (float32, MAX_ATTN_ERR).  Each is timed
-              (device time, from CUDA-graph replays; and issued from
-              Python, eager) beside its plain version, one library call
-              as a yardstick, and its bound on this card.
+              GQA attention (float32, MAX_ATTN_ERR); the ring variant at
+              mixtral's shapes (C = 1 and a C = 128 causal chunk, rows
+              below and above the ring's capacity and one under a block;
+              MAX_ATTN_ERR) and the MLA variant at deepseek-v2-lite's
+              (C = 1, C = 128 causal, a ring case; MAX_MLA_REL_ERR).
+              Each is timed (device time, from CUDA-graph replays; and
+              called from Python, eager) beside its plain version, one
+              library call as a yardstick (for MLA the two expansion
+              matmuls plus SDPA, together), and its bound on this card.
   3. serving  bnn-lm-100m at full width (precision="bnn", seeded random
               weights) served by the port's Engine: 16 requests, 8 of
-              them submitted after 10 steps.  Every kernel's launch
-              count over this run must be > 0.
+              them submitted after 10 steps.  The serving kernels'
+              launch counts over this run must be > 0.
   4. e2e      two finished requests re-run teacher-forced through
-              prefill_chunk, once through the kernels and once through
-              the plain versions: hidden states layer by layer within
-              MAX_HIDDEN_ERR, the sign bits of every BNN projection's
-              input equal (a flip is accepted only within 1e-5 x its
-              row's RMS of zero, and printed), and the kernel path's
-              greedy tokens equal what the engine generated.
+              prefill_chunk's layers, once through the kernels and once
+              through the plain versions, each attention and each FFN /
+              MoE sublayer on the kernel route's input: the sign bits of
+              every BNN projection's input equal (a flip is accepted
+              only within 1e-5 x its row's RMS of zero, and printed), an
+              MoE routing difference only at a router near-tie of the
+              plain path (gap < MAX_ROUTE_GAP, printed), the outputs
+              within MAX_HIDDEN_ERR elsewhere, and the kernel path's
+              greedy tokens equal to what the engine generated.
   5. conv     the paper's binarized-conv path (core/conv.bnn_conv2d) at
               every groups == 1 layer of VGG-small, ResNet18,
               MobileNet_V2 and ShuffleNet_V2 (photonic/workloads.py),
@@ -40,14 +48,25 @@ Phases (each check raises, and the script then exits non-zero):
   6. photonic the engine's modelled OXBNN section from the serving run
               and the simulator's Fig. 7 comparison — modelled numbers
               of the photonic accelerators, not measurements.
+  7. families mixtral-8x7b (GQA, sliding-window ring, MoE) and
+              deepseek-v2-lite-16b (MLA latents, MoE with shared
+              experts, a leading dense layer) at their published widths,
+              4 layers each, seeded random weights, one after the other:
+              8 requests each (mixtral: two prompts of 4400 and 4700
+              tokens, longer than its ring, the rest 64-512 tokens), 32
+              new tokens, 4 submitted after 4 steps; the ring must wrap
+              (ring_reuses > 0), each path's kernels must launch, and
+              two finished requests of each go through the phase-4
+              check.  Prints tokens/s, ring reuses and peak memory.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, conv), error, times and bound; the last line is
-the run's verdict with the device.  Imports nothing of JAX or the JAX
-package.
+on its paths (serving, conv, mixtral, deepseek), error, times and
+bound; the last line is the run's verdict with the device.  Imports
+nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -64,6 +83,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12         # densest integer rate: int8 tensor cores
 FP32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 MAX_ATTN_ERR = 1e-4              # |kernel - plain| for attention outputs
+MAX_MLA_REL_ERR = 1e-4           # MLA: |kernel - plain| <= this x
+                                 # max(1, max|plain|); the kernel's absorbed
+                                 # order sums the R = 512 latent terms
+                                 # differently
+MAX_ROUTE_GAP = 1e-6             # an MoE routing difference is rounding only
+                                 # where the plain path's k-th and (k+1)-th
+                                 # router probabilities are closer than this
 MAX_HIDDEN_ERR = 1e-4            # |kernels - plain| per layer hidden state
 FLIP_RMS_FRACTION = 1e-5         # a sign flip closer to 0 than this x RMS
                                  # is rounding, not a fault
@@ -305,6 +331,191 @@ def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
     return rows
 
 
+def _ragged_rows(b, c, max_len, rng, dev):
+    """kv_len up to ``max_len`` (the first row at it, the last 0: fully
+    masked) and the q_offset of a decode (c = 1) or a prefill chunk."""
+    lens = rng.integers(c, max_len + 1, size=b)
+    lens[0], lens[-1] = max_len, 0
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q_off = (kv_len - c).clamp_min(0) if c > 1 else kv_len - 1
+    return kv_len, q_off.to(torch.int32).contiguous()
+
+
+def _visible(kpos, kv_len, q_off, c, causal, window):
+    """(B, C, S) bool: the keys each chunk query sees (the masks of the
+    kernels' plain versions)."""
+    qpos = q_off.long()[:, None] + torch.arange(c, device=kpos.device)
+    m = ((kpos >= 0) & (kpos < kv_len.long()[:, None]))[:, None, :]
+    m = m.expand(kpos.shape[0], c, kpos.shape[1])
+    if causal:
+        m = m & (qpos[:, :, None] >= kpos[:, None, :])
+    if window:
+        m = m & (qpos[:, :, None] - kpos[:, None, :] < window)
+    return m
+
+
+def check_ring_attention(dev, c: int, gen: torch.Generator,
+                         timed: bool) -> dict:
+    """mixtral's ring at its published shapes: B=8, H=32, Hkv=8, Dh=128,
+    BS=16, MB=264 (4224 slots), window 4096.  ``newest`` covers rows
+    below the capacity (slots never written), above it (wrapped) and a
+    kv_len below one block.  C > 1 is a causal prefill chunk ending at
+    ``newest``."""
+    from repro_torch.kernels import paged_attention as pa
+    b, h, hkv, dh, bs, mb, window = 8, 32, 8, 128, 16, 264, 4096
+    newest = torch.tensor([100, 2000, 4223, 4300, 6000, 8191, 5, 3000],
+                          dtype=torch.int32, device=dev)
+    kv_len = (newest + 1).to(torch.int32)
+    q_off = newest if c == 1 else (kv_len - c).clamp_min(0).to(torch.int32)
+    causal = c > 1
+    nb = b * mb + 1
+    tab = (1 + torch.randperm(b * mb, generator=gen, device=dev)).reshape(
+        b, mb).to(torch.int32)
+    q = torch.randn(b, c, h, dh, device=dev, generator=gen)
+    kp = torch.randn(nb, bs, hkv, dh, device=dev, generator=gen)
+    vp = torch.randn(nb, bs, hkv, dh, device=dev, generator=gen)
+    kw = dict(kv_len=kv_len, q_offset=q_off, causal=causal, window=window,
+              ring=True, newest=newest)
+    got = pa.paged_attention(q, kp, vp, tab, **kw)
+    want = pa.paged_attention_torch(q, kp, vp, tab, **kw)
+    err = (got - want).abs().max().item()
+    if not err <= MAX_ATTN_ERR:
+        raise AssertionError(f"paged_attention ring C={c}: max abs err "
+                             f"{err:.3g} > {MAX_ATTN_ERR}")
+    row = {"shape": f"B={b} C={c} H={h} Hkv={hkv} Dh={dh} BS={bs} MB={mb} "
+                    f"window={window} newest={newest.tolist()}",
+           "max_abs_err": err}
+    if timed:
+        kpos = pa.ring_key_positions(newest, mb, bs)
+        vis = _visible(kpos, kv_len, q_off, c, causal, window)
+        # what this run's data needs: each row's visible keys once
+        n_keys = int(vis.any(dim=1).sum())
+        n_bytes = (2 * n_keys * hkv * dh + 2 * q.numel()) * 4 + \
+            tab.numel() * 4
+        n_ops = 4 * int(vis.sum()) * h * dh
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops,
+                                                    FP32_FLOPS_PER_S)
+        run = lambda: pa.paged_attention(q, kp, vp, tab, **kw)
+        row["ms"] = time_ms(run)
+        row["eager_ms"] = eager_ms(run)
+        row["plain_ms"] = time_ms(
+            lambda: pa.paged_attention_torch(q, kp, vp, tab, **kw), iters=3)
+        # yardstick: SDPA over the gathered K/V (heads repeated for GQA)
+        # with the ring's mask
+        keys = kp[tab.long()].reshape(b, mb * bs, hkv, dh)
+        vals = vp[tab.long()].reshape(b, mb * bs, hkv, dh)
+        keys = keys.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        vals = vals.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        mask = vis[:, None].expand(b, h, c, mb * bs)
+        qt = q.transpose(1, 2)
+        fsdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = time_ms(lambda: fsdpa(qt, keys, vals,
+                                                  attn_mask=mask))
+    return row
+
+
+def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
+                        ring: bool = False) -> dict:
+    """deepseek-v2-lite's latent attention at its published shapes: B=8,
+    H=16, nope 128, rope 64, R=512, Dv=128, BS=16, MB=64 (kv_len up to
+    1024, the last row fully masked); ``ring`` reads the same table as a
+    ring (newest below and above its 1024 slots)."""
+    from repro_torch.kernels import paged_attention as pa
+    b, h, nope, dr, r, dv, bs, mb = 8, 16, 128, 64, 512, 128, 16, 64
+    rng = np.random.default_rng(11 + c)
+    newest = None
+    if ring:
+        newest = torch.tensor([100, 1023, 1500, 3000, 5, 700, 2047, 4000],
+                              dtype=torch.int32, device=dev)
+        kv_len = (newest + 1).to(torch.int32)
+        q_off = newest if c == 1 else \
+            (kv_len - c).clamp_min(0).to(torch.int32)
+    else:
+        kv_len, q_off = _ragged_rows(b, c, mb * bs, rng, dev)
+    causal = c > 1
+    nb = b * mb + 1
+    tab = (1 + torch.randperm(b * mb, generator=gen, device=dev)).reshape(
+        b, mb).to(torch.int32)
+    q = torch.randn(b, c, h, nope + dr, device=dev, generator=gen)
+    ckv = torch.randn(nb, bs, r, device=dev, generator=gen)
+    krope = torch.randn(nb, bs, dr, device=dev, generator=gen)
+    k_up = torch.randn(r, h * nope, device=dev, generator=gen) * r ** -0.5
+    v_up = torch.randn(r, h * dv, device=dev, generator=gen) * r ** -0.5
+    kw = dict(k_up=k_up, v_up=v_up, nope_dim=nope, kv_len=kv_len,
+              q_offset=q_off, causal=causal, ring=ring, newest=newest)
+    got = pa.paged_attention_mla(q, ckv, krope, tab, **kw)
+    want = pa.paged_attention_mla_torch(q, ckv, krope, tab, **kw)
+    err = (got - want).abs().max().item()
+    limit = MAX_MLA_REL_ERR * max(1.0, want.abs().max().item())
+    if not err <= limit:
+        raise AssertionError(f"paged_attention_mla C={c} ring={ring}: max "
+                             f"abs err {err:.3g} > {limit:.3g}")
+    if not ring and got[-1].abs().max().item() != 0.0:
+        raise AssertionError("paged_attention_mla: fully-masked row is not "
+                             "zero")
+    row = {"shape": f"B={b} C={c} H={h} nope={nope} rope={dr} R={r} Dv={dv} "
+                    f"BS={bs} MB={mb} ring={ring}", "max_abs_err": err,
+           "limit": limit}
+    if timed:
+        kpos = (pa.ring_key_positions(newest, mb, bs) if ring else
+                torch.arange(mb * bs, device=dev)[None].expand(b, mb * bs))
+        vis = _visible(kpos, kv_len, q_off, c, causal, None)
+        n_keys = int(vis.any(dim=1).sum())
+        rows = b * c * h
+        n_bytes = n_keys * (r + dr) * 4 + (k_up.numel() + v_up.numel()) * 4 \
+            + (q.numel() + got.numel() + tab.numel()) * 4
+        # the absorbed form: q . k_up per query row; a (R + Dr)-wide score
+        # and an R-wide weighted sum per visible (query, key) and head;
+        # v_up per query row
+        pairs = int(vis.sum()) * h
+        n_ops = 2 * rows * nope * r + pairs * (2 * (r + dr) + 2 * r) + \
+            2 * rows * r * dv
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops,
+                                                    FP32_FLOPS_PER_S)
+        run = lambda: pa.paged_attention_mla(q, ckv, krope, tab, **kw)
+        row["ms"] = time_ms(run)
+        row["eager_ms"] = eager_ms(run)
+        row["plain_ms"] = time_ms(
+            lambda: pa.paged_attention_mla_torch(q, ckv, krope, tab, **kw),
+            iters=3)
+        # yardstick, labelled as such: the two expansion matmuls plus SDPA
+        # over the gathered latents, timed together
+        lat = ckv[tab.long()].reshape(b, mb * bs, r)
+        rope = krope[tab.long()].reshape(b, mb * bs, 1, dr).expand(
+            b, mb * bs, h, dr)
+        mask = vis[:, None].expand(b, h, c, mb * bs)
+        qt = q.transpose(1, 2)
+        fsdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def library():
+            k_nope = torch.matmul(lat, k_up).reshape(b, mb * bs, h, nope)
+            vals = torch.matmul(lat, v_up).reshape(b, mb * bs, h, dv)
+            keys = torch.cat([k_nope, rope], dim=-1)
+            return fsdpa(qt, keys.transpose(1, 2), vals.transpose(1, 2),
+                         attn_mask=mask)
+        row["library_ms"] = time_ms(library)
+        row["library"] = "k_up and v_up matmuls + SDPA"
+    return row
+
+
+def phase_attention_variants(dev) -> dict[str, list[dict]]:
+    """The ring and MLA variants at the published shapes of their
+    configurations, each against its plain version, timed."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {"paged_attention_ring": [check_ring_attention(dev, c, gen, True)
+                                     for c in (1, 128)],
+            "paged_attention_mla": [check_mla_attention(dev, c, gen, True)
+                                    for c in (1, 128)]}
+    rows["paged_attention_mla"].append(check_mla_attention(dev, 1, gen, True,
+                                                           ring=True))
+    # off the paths, checked untimed: a ring prefill chunk of MLA
+    check_mla_attention(dev, 5, gen, False, ring=True)
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"[kernels] {name} {json.dumps(r)}")
+    return rows
+
+
 # --------------------------------------------------------------- phase 3
 
 
@@ -316,26 +527,36 @@ def traffic(vocab: int, n_requests: int = 16, prompt_lens=(64, 512),
     return [rng.integers(0, vocab, size=n) for n in lens]
 
 
+SERVING_KERNELS = ("fused_bnn", "paged_attention", "binarize_pack")
+
+
 def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
-                  prompt_lens=(64, 512), late_after: int = 10, seed: int = 0):
+                  prompt_lens=(64, 512), late_after: int = 10, seed: int = 0,
+                  *, prompts=None, n_late: int | None = None,
+                  required=SERVING_KERNELS):
     """Serve seeded traffic through the port's Engine; returns the engine,
-    its params and the finished outputs.  Kernel launch counts are reset
-    just before the engine is built (its weights pack on first use)."""
+    its params, the finished outputs, the launch counts and the stats.
+    ``prompts`` replaces the drawn traffic; the last ``n_late`` (default
+    half) are submitted after ``late_after`` steps.  Kernel launch
+    counts are reset just before the engine is built (its weights pack
+    on first use); every kernel in ``required`` must have launched."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as M
     from repro_torch.serving import Engine
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = M.init(gen, cfg, device=dev)
-    prompts = traffic(cfg.vocab, n_requests, prompt_lens, seed)
+    if prompts is None:
+        prompts = traffic(cfg.vocab, n_requests, prompt_lens, seed)
+    n_requests = len(prompts)
+    early = n_requests - (n_requests // 2 if n_late is None else n_late)
     ops.reset_launches()
     eng = Engine(params, cfg, ecfg, device=dev)
-    half = n_requests // 2
     t0 = time.perf_counter()
-    for p in prompts[:half]:
+    for p in prompts[:early]:
         eng.submit(p, max_new)
     for _ in range(late_after):
         eng.step()
-    for p in prompts[half:]:
+    for p in prompts[early:]:
         eng.submit(p, max_new)
     out = eng.run()
     torch.cuda.synchronize() if dev.type == "cuda" else None
@@ -361,77 +582,161 @@ def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
         f"preemptions={st['preemptions']} prefill_calls={st['prefill_calls']} "
         f"decode_calls={st['decode_calls']}")
     log(f"[serving] launches {json.dumps(launches)}")
-    for name in ("fused_bnn", "paged_attention", "binarize_pack"):
+    for name in required:
         if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the serving path")
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{cfg.name} serving path")
     return eng, params, out, launches, st
 
 
 # --------------------------------------------------------------- phase 4
 
+# taps of the inputs of binarized projections (their sign bits are what
+# the XNOR GEMM sees)
+BNN_TAPS = ("q", "k", "v", "o", "q_down", "q_up", "kv_down", "gate", "up",
+            "down", "moe_in", "moe_down_in")
+
+
+def _check_signs(where, name, a, b, skip_rows=None) -> set[int]:
+    """Sign bits of one BNN input, kernel route ``a`` vs plain ``b``
+    (rows = chunk positions); a flip is accepted only within
+    FLIP_RMS_FRACTION x its row's RMS of zero, and printed.  Returns the
+    positions with accepted flips."""
+    n = a.shape[0]
+    a2, b2 = a.reshape(n, -1, a.shape[-1]), b.reshape(n, -1, b.shape[-1])
+    if skip_rows is not None:
+        a2, b2 = a2[~skip_rows], b2[~skip_rows]
+        pos_of = (~skip_rows).nonzero()[:, 0]
+    else:
+        pos_of = torch.arange(n, device=a.device)
+    diff = (a2 >= 0) != (b2 >= 0)
+    if not diff.any():
+        return set()
+    rms = b2.float().pow(2).mean(dim=-1, keepdim=True).sqrt()
+    near = b2.abs() <= FLIP_RMS_FRACTION * rms
+    if (diff & ~near).any():
+        raise AssertionError(f"{where} {name}: {int((diff & ~near).sum())} "
+                             "sign bits differ away from 0")
+    flipped = set()
+    for i, j, col in diff.nonzero().tolist():
+        pos = int(pos_of[i])
+        flipped.add(pos)
+        log(f"[e2e] {where} {name} pos {pos} col {col}: sign flip at "
+            f"{b2[i, j, col].item():.3g} (row rms {rms[i, j, 0].item():.3g})")
+    return flipped
+
+
+def _check_sublayer(where, taps_k, taps_p, y_k, y_p) -> tuple[int, float]:
+    """One sublayer (attention, or FFN / MoE) run on the same input by
+    both routes: the sign bits of every BNN input, the MoE routing
+    (a difference accepted only at a near-tie of the plain path's
+    router), and the outputs within MAX_HIDDEN_ERR — at the positions
+    no accepted flip or routing difference explains.  Returns (accepted
+    flips, max output error)."""
+    flipped: set[int] = set()
+    probs = differs = None
+    for (name, a), (name_p, b) in zip(taps_k, taps_p, strict=True):
+        if name != name_p:
+            raise AssertionError(f"{where}: taps {name} vs {name_p}")
+        if name == "router_probs":
+            probs = b
+        elif name == "topk":
+            differs = (a != b).any(dim=-1)
+            for pos in differs.nonzero()[:, 0].tolist():
+                top = probs[pos].sort(descending=True).values
+                k = a.shape[-1]
+                gap = (top[k - 1] - top[k]).item()
+                if not gap < MAX_ROUTE_GAP:
+                    raise AssertionError(
+                        f"{where} pos {pos}: experts {a[pos].tolist()} vs "
+                        f"{b[pos].tolist()} with router gap {gap:.3g}")
+                log(f"[e2e] {where} pos {pos}: routing {a[pos].tolist()} vs "
+                    f"{b[pos].tolist()} at a router near-tie (gap {gap:.3g})")
+                flipped.add(pos)
+        elif name in BNN_TAPS:
+            skip = differs if name == "moe_down_in" else None
+            flipped |= _check_signs(where, name, a, b, skip)
+    ok = torch.ones(y_k.shape[0], dtype=torch.bool, device=y_k.device)
+    ok[list(flipped)] = False
+    err = (y_k[ok] - y_p[ok]).abs().max().item() if ok.any() else 0.0
+    if not err <= MAX_HIDDEN_ERR:
+        raise AssertionError(f"{where}: output differs by {err:.3g}")
+    return len(flipped), err
+
 
 def _teacher_forced(params, cfg, seq: np.ndarray, chunk: int, bs: int,
-                    impl: str, dev):
-    """Prefill the whole sequence in chunks on fresh pools; returns
-    (logits (T, V), per-layer taps, each concatenated over the valid
-    positions of every chunk)."""
+                    ring_blocks: int, dev, where: str):
+    """Prefill ``seq`` in chunks through the kernels ("auto") and the
+    plain versions ("torch") on fresh pools, layer by layer and
+    re-synchronised at every sublayer: both routes run each attention
+    and each FFN / MoE on the kernel route's input, so a difference is
+    held to the sublayer that made it.  Returns (kernel route's logits
+    (T, V), plain route's logits, accepted flips, worst output error)."""
+    from repro_torch.layers import common as C
     from repro_torch.models import transformer as M
     t = len(seq)
-    mb = -(-t // bs)
-    pools = M.init_paged_state(cfg, mb + 1, bs, device=dev)
+    # a ring table is exactly the ring wide: positions wrap modulo it
+    mb = ring_blocks or -(-t // bs)
+    routes = ("auto", "torch")
+    pools = {r: M.init_paged_state(cfg, mb + 1, bs, device=dev)
+             for r in routes}
     table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)[None]
-    logits, taps = [], []
+    logits = {r: [] for r in routes}
+    flips, worst = 0, 0.0
     with torch.no_grad():
         for pos in range(0, t, chunk):
             n = min(chunk, t - pos)
             toks = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
             toks[0, :n] = torch.from_numpy(seq[pos:pos + n].astype(np.int64))
-            tap: list = []
-            lg, _ = M.prefill_chunk(
-                params, cfg, toks, pools, table,
-                torch.tensor([pos], dtype=torch.int32, device=dev),
-                torch.tensor([n], dtype=torch.int32, device=dev),
-                impl=impl, taps=tap)
-            logits.append(lg[0, :n])
-            taps.append([x[0, :n] for x in tap])
-    per_tap = [torch.cat([c[i] for c in taps]) for i in range(len(taps[0]))]
-    return torch.cat(logits), per_tap
+            lengths = torch.tensor([pos], dtype=torch.int32, device=dev)
+            n_valid = torch.tensor([n], dtype=torch.int32, device=dev)
+            x = M._embed(params, cfg, toks)
+            for li, (mix, f, p) in enumerate(M._iter_layers(cfg, params)):
+                h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+                ys, taps = {}, {}
+                for r in routes:
+                    taps[r] = []
+                    ys[r], _ = M._mixer(mix).prefill_chunk(
+                        p["attn"], cfg, h, pools[r][li], table, lengths,
+                        n_valid, precision=cfg.precision,
+                        ring=bool(ring_blocks), impl=r, taps=taps[r])
+                nf, err = _check_sublayer(
+                    f"{where} pos {pos} layer {li} {mix}",
+                    *[[(nm, v[0, :n]) for nm, v in taps[r]] for r in routes],
+                    *[ys[r][0, :n] for r in routes])
+                flips, worst = flips + nf, max(worst, err)
+                xm = x + ys["auto"]
+                outs, taps = {}, {}
+                for r in routes:
+                    taps[r] = []
+                    outs[r] = M._ffn(p, cfg, f, xm, r, paged=True,
+                                     taps=taps[r])
+                nf, err = _check_sublayer(
+                    f"{where} pos {pos} layer {li} {f}",
+                    *[[(nm, v[0, :n]) for nm, v in taps[r]] for r in routes],
+                    *[outs[r][0, :n] for r in routes])
+                flips, worst = flips + nf, max(worst, err)
+                x = outs["auto"]
+                xp = outs["torch"]
+            for r, v in (("auto", x), ("torch", xp)):
+                v = C.norm(v, params["final_norm"], cfg.norm, cfg.norm_eps)
+                logits[r].append(torch.matmul(v, params["head"]["w"])[0, :n])
+    return (torch.cat(logits["auto"]), torch.cat(logits["torch"]), flips,
+            worst)
 
 
-def phase_e2e(dev, cfg, params, eng, out, n_check: int = 2):
-    """Teacher-forced kernels-vs-plain check on finished requests."""
-    names = ("q", "k", "v", "o", "gate", "up", "down", "hidden")
+def phase_e2e(dev, cfg, params, eng, out, rids=None):
+    """Teacher-forced kernels-vs-plain check on finished requests (the
+    first two by default), layer by layer; the kernel route reproduces
+    the engine's greedy tokens."""
     flips_total = 0
-    worst_hidden = 0.0
-    for rid in sorted(out)[:n_check]:
+    for rid in (sorted(out)[:2] if rids is None else rids):
         req = eng.requests[rid]
         seq = out[rid]
-        lg_k, taps_k = _teacher_forced(params, cfg, seq, eng.ecfg.prefill_chunk,
-                                       eng.ecfg.block_size, "auto", dev)
-        lg_p, taps_p = _teacher_forced(params, cfg, seq, eng.ecfg.prefill_chunk,
-                                       eng.ecfg.block_size, "torch", dev)
-        for i, (a, b) in enumerate(zip(taps_k, taps_p, strict=True)):
-            layer, name = divmod(i, len(names))
-            err = (a - b).abs().max().item()
-            if names[name] == "hidden":
-                worst_hidden = max(worst_hidden, err)
-                if not err <= MAX_HIDDEN_ERR:
-                    raise AssertionError(f"rid {rid} layer {layer}: hidden "
-                                         f"state differs by {err:.3g}")
-                continue
-            diff = (a >= 0) != (b >= 0)
-            if diff.any():
-                rms = b.float().pow(2).mean(dim=-1, keepdim=True).sqrt()
-                near = b.abs() <= FLIP_RMS_FRACTION * rms
-                if (diff & ~near).any():
-                    raise AssertionError(
-                        f"rid {rid} layer {layer} {names[name]}: "
-                        f"{int((diff & ~near).sum())} sign bits differ away from 0")
-                for pos, col in diff.nonzero().tolist():
-                    log(f"[e2e] rid {rid} layer {layer} {names[name]} pos {pos} "
-                        f"col {col}: sign flip at {b[pos, col].item():.3g} "
-                        f"(row rms {rms[pos, 0].item():.3g})")
-                flips_total += int(diff.sum())
+        lg_k, lg_p, flips, worst = _teacher_forced(
+            params, cfg, seq, eng.ecfg.prefill_chunk, eng.ecfg.block_size,
+            eng.cache.ring_blocks, dev, f"{cfg.name} rid {rid}")
+        flips_total += flips
         p = req.prompt_len
         greedy = lg_k[p - 1:-1].argmax(dim=-1).cpu().numpy()
         if not np.array_equal(greedy, seq[p:]):
@@ -441,10 +746,12 @@ def phase_e2e(dev, cfg, params, eng, out, n_check: int = 2):
         lerr = (lg_k - lg_p).abs().max().item()
         if not torch.isfinite(lg_k).all() or not lerr <= MAX_HIDDEN_ERR * 10:
             raise AssertionError(f"rid {rid}: logits differ by {lerr:.3g}")
-        log(f"[e2e] rid {rid} tokens={len(seq)} layers={cfg.n_layers} "
-            f"max_hidden_err={worst_hidden:.3g} max_logit_err={lerr:.3g} "
-            f"greedy tokens match engine: {len(seq) - p}")
-    log(f"[e2e] sign flips accepted: {flips_total}")
+        log(f"[e2e] {cfg.name} rid {rid} tokens={len(seq)} "
+            f"layers={cfg.n_layers} max_sublayer_err={worst:.3g} "
+            f"max_logit_err={lerr:.3g} greedy tokens match engine: "
+            f"{len(seq) - p}")
+    log(f"[e2e] {cfg.name} sign flips and routing differences accepted: "
+        f"{flips_total}")
 
 
 # --------------------------------------------------------------- phase 5
@@ -640,6 +947,52 @@ def phase_photonic(st: dict):
         for a in g if a != "OXBNN_50"))
 
 
+# --------------------------------------------------------------- phase 7
+
+
+MIXTRAL_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
+                      prefill_chunk=128, max_model_len=8192)
+DEEPSEEK_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
+                       prefill_chunk=128, max_model_len=1024)
+
+
+def family_traffic(vocab: int, long_lens=(), seed: int = 0):
+    """8 seeded prompts: ``long_lens`` first and fifth (one early, one
+    late), the rest 64-512 tokens."""
+    rng = np.random.default_rng(seed)
+    lens = list(rng.integers(64, 513, size=8 - len(long_lens)))
+    for i, n in zip((0, 4), long_lens):
+        lens.insert(i, n)
+    return [rng.integers(0, vocab, size=int(n)) for n in lens]
+
+
+def phase_family(dev, smi: str, arch: str, n_layers: int, ecfg, prompts,
+                 required, e2e_rids):
+    """Serve one model family at its published widths (depth cut to
+    ``n_layers``) and re-check two finished requests layer by layer;
+    returns the serving run's launch counts."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(precision="bnn", n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng, params, out, launches, st = phase_serving(
+        dev, cfg, ecfg, max_new=32, late_after=4, prompts=prompts, n_late=4,
+        required=required)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    blk = st["mixer"]["blocks"]
+    if eng.cache.ring_blocks and not blk["ring_reuses"] > 0:
+        raise AssertionError(f"{arch}: the ring never wrapped")
+    log(f"[{arch}] layers={n_layers} (published {get_config(arch).n_layers}) "
+        f"total_tokens_per_s={st['total_tokens_per_s']:.1f} "
+        f"decode_tokens_per_s={st['decode_tokens_per_s']:.1f} "
+        f"layout={blk['layout']} ring_blocks={blk['ring_blocks']} "
+        f"ring_reuses={blk['ring_reuses']} peak_memory_gib={peak_gib:.2f} "
+        f"card={smi}")
+    phase_e2e(dev, cfg, params, eng, out, rids=e2e_rids(eng, out))
+    return launches
+
+
+# -------------------------------------------------------------------- main
 # -------------------------------------------------------------------- main
 
 
@@ -655,26 +1008,46 @@ def main() -> int:
     from repro_torch.serving import EngineConfig
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     cfg = get_config("bnn-lm-100m").replace(precision="bnn")
     rows = phase_kernels(dev, cfg)
+    rows.update(phase_attention_variants(dev))
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
                         prefill_chunk=128, max_model_len=1024)
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
+    del eng, params, out
     conv_rows, conv_launches = phase_conv(dev)
     phase_photonic(st)
+    # mixtral: 2 prompts longer than its 4224-token ring (one early, one
+    # late); the e2e re-check takes the first of them (its ring wrapped)
+    # and the shortest request
+    mixtral = phase_family(
+        dev, smi, "mixtral-8x7b", 4, EngineConfig(**MIXTRAL_ENGINE),
+        family_traffic(32000, (4400, 4700)),
+        ("fused_bnn", "paged_attention_ring", "binarize_pack"),
+        lambda eng, out: [0, min(out, key=lambda r: len(out[r]))])
+    gc.collect()
+    deepseek = phase_family(
+        dev, smi, "deepseek-v2-lite-16b", 4, EngineConfig(**DEEPSEEK_ENGINE),
+        family_traffic(102400, seed=1),
+        ("fused_bnn", "paged_attention_mla", "binarize_pack"),
+        lambda eng, out: sorted(out)[:2])
+    gc.collect()
     rows["xnor_popcount"] = conv_rows["xnor_popcount"]
     rows["binarize_pack"] += conv_rows["binarize_pack_conv"]
     # one representative main-path shape per kernel for the summary line
     # (decode projection / decode attention / one weight / the conv
-    # layer with the most XNOR work); every shape is in the [kernels]
-    # and [conv] lines above
+    # layer with the most XNOR work / decode over the ring / MLA
+    # decode); every shape is in the [kernels] and [conv] lines above
     pick = {"fused_bnn": rows["fused_bnn"][4],
             "paged_attention": rows["paged_attention"][0],
             "binarize_pack": rows["binarize_pack"][0],
-            "xnor_popcount": conv_rows["xnor_popcount_most_work"]}
-    paths = {"serving": launches, "conv": conv_launches}
+            "xnor_popcount": conv_rows["xnor_popcount_most_work"],
+            "paged_attention_ring": rows["paged_attention_ring"][0],
+            "paged_attention_mla": rows["paged_attention_mla"][0]}
+    paths = {"serving": launches, "conv": conv_launches, "mixtral": mixtral,
+             "deepseek": deepseek}
     kernels = []
     for k in ops.KERNELS:
         r = pick[k.name]
@@ -686,7 +1059,8 @@ def main() -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rows[k.name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"],
+            **({"library": r["library"]} if "library" in r else {})})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

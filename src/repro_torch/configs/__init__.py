@@ -1,7 +1,9 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-The port carries the configs its slices serve; the other architectures
-arrive with their mixer families (ROADMAP.md queue 1, item 7).
+The port carries the configs its slices serve: the paper-native BNN LM,
+mixtral (sliding-window ring + MoE) and deepseek-v2-lite (MLA + MoE);
+the SSM and hybrid architectures arrive with their mixer families
+(ROADMAP.md queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import importlib
 from repro_torch.configs.base import ArchConfig, reduced  # noqa: F401
 
 _REGISTRY = {
+    "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "bnn-lm-100m": "bnn_lm_100m",
 }
 

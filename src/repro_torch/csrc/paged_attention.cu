@@ -1,19 +1,23 @@
 // Paged GQA attention: walk each row's block table over the K/V pools
 // with an online softmax, causal and window masks, per-row kv_len and
-// q_offset.
+// q_offset — over a paged table or a sliding-window ring.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention.py
-// (paged_attention -> _paged_attn_kernel) in its layout="gqa",
-// ring=False variant.  Shapes: q (B, C, H, Dh); k/v pools
-// (NB, BS, Hkv, Dh); block_table (B, MB); kv_len, q_offset (B,); out
-// (B, C, H, Dh), all float32 / int32.  Semantics as the Pallas body:
-// q is scaled by Dh^-0.5 before the dot; key kpos = i*BS + j is valid
-// iff kpos < kv_len[b], and (causal) q_offset[b] + c >= kpos, and
-// (window > 0) q_offset[b] + c - kpos < window; masked scores are
-// -1e30 and their weights are exactly 0; a row with l = 0 writes zeros.
+// (paged_attention -> _paged_attn_kernel) in its layout="gqa" variants,
+// ring=False and ring=True.  Shapes: q (B, C, H, Dh); k/v pools
+// (NB, BS, Hkv, Dh); block_table (B, MB); kv_len, q_offset, newest
+// (B,); out (B, C, H, Dh), all float32 / int32.  Semantics as the
+// Pallas body: q is scaled by Dh^-0.5 before the dot; slot s = i*BS + j
+// holds key position kpos = s, or on a ring
+// kpos = newest[b] - ((newest[b] - s) mod (MB*BS)) with a FLOOR modulo
+// (newest - s is negative for slots the ring has not reached; those
+// come out negative: never written); a key is valid iff 0 <= kpos <
+// kv_len[b], and (causal) q_offset[b] + c >= kpos, and (window > 0)
+// q_offset[b] + c - kpos < window; masked scores are -1e30 and their
+// weights are exactly 0; a row with l = 0 writes zeros.
 //
 // Bound on this card: memory — the K and V bytes a row's walk gathers,
-// kv_len * Hkv * Dh * 2 * 4 per batch row.
+// min(kv_len, MB*BS) * Hkv * Dh * 2 * 4 per batch row.
 //
 // Design: the TPU walked the table as a sequential grid axis with the
 // (m, l, acc) state in VMEM scratch.  Here one block owns one
@@ -22,12 +26,21 @@
 // with a private online-softmax state per query row, and the NW partial
 // states are merged at the end (the split-K of flash decoding, inside
 // one block).  That keeps all NW warps busy at decode, where a tile
-// holds a single query row.  The walk stops at the last block any query
-// of the tile can see (kv_len, and the causal bound), which skips only
-// blocks whose every weight would be 0.  Each warp stages its K/V block
-// (BS x Dh floats of this head) in its own slice of shared memory — K
-// with a padded row so lane j reading key j hits distinct banks — so
-// the walk needs no block-wide barrier.  Per query row, lane j scores
+// holds a single query row.  On a paged table the walk stops at the
+// last block any query of the tile can see (kv_len, and the causal
+// bound).  On a ring positions are not monotone in the block index, so
+// the walk covers the whole table width, and a warp first asks of each
+// block whether any of its slots is visible to any query of the tile
+// (one ballot) and skips it when none is — a block whose every weight
+// would be 0.  The two walks are two instantiations of one template.
+// Each warp stages its K/V block (BS x Dh floats of this head) in its
+// own slice of shared memory — K with a padded row so lane j reading
+// key j hits distinct banks — so the walk needs no block-wide barrier;
+// it loads 16 bytes a lane, four loads in flight, so the walk does not
+// wait on memory latency one float at a time.
+// At Dh = 128 a block uses (16*128 + 8*16*257 + 8*16*130) * 4 = 206 KB
+// of the 227 KB of shared memory: one block per SM.  The V width is
+// Dh.  Per query row, lane j scores
 // key j, the block max and sum come from warp shuffles, and lane d
 // updates output dims d, d+32, ... with the weights broadcast by
 // shuffle.  All softmax state is float32.
@@ -40,12 +53,26 @@ constexpr int QT = 16;          // query rows (c, g) per block
 constexpr int NW = 8;           // warps per block, each walking 1/NW of the keys
 constexpr float NEG_INF = -1e30f;
 
+// Absolute position of table slot s: s itself, or on a ring of cap
+// slots the newest position congruent to s (floor modulo; negative =
+// never written).
+template <bool RING>
+__device__ __forceinline__ int key_pos(int s, int newest, int cap) {
+  if (!RING) return s;
+  int d = (newest - s) % cap;
+  if (d < 0) d += cap;
+  return newest - d;
+}
+
+// RING = false compiles the paged walk alone; RING = true the ring's.
+template <bool RING>
 __global__ void paged_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ kpool,
     const float* __restrict__ vpool, const int32_t* __restrict__ table,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
-    float* __restrict__ out, int C, int H, int Hkv, int Dh, int BS, int MB,
-    int causal, int window, float scale) {
+    const int32_t* __restrict__ newest_pos, float* __restrict__ out, int C,
+    int H, int Hkv, int Dh, int BS, int MB, int causal, int window,
+    float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, kvh = blockIdx.y;
   const int G = H / Hkv, R = C * G;
@@ -73,18 +100,42 @@ __global__ void paged_attention_kernel(
   __syncthreads();                                // Qs ready
 
   const int len = kv_len[b], qoff = q_off[b];
-  int kmax = len;                      // keys [0, kmax) can be visible
-  if (causal) kmax = min(kmax, qoff + (r0 + nr - 1) / G + 1);
-  const int nblk = kmax > 0 ? min(MB, (kmax + BS - 1) / BS) : 0;
+  const int newest = RING ? newest_pos[b] : 0, cap = MB * BS;
+  const int qlo = qoff + r0 / G, qhi = qoff + (r0 + nr - 1) / G;
+  int nblk = MB;                       // a ring walks the whole table
+  if (!RING) {
+    int kmax = len;                    // keys [0, kmax) can be visible
+    if (causal) kmax = min(kmax, qhi + 1);
+    nblk = kmax > 0 ? min(MB, (kmax + BS - 1) / BS) : 0;
+  }
 
   for (int i = warp; i < nblk; i += NW) {         // warp-uniform
+    if (RING) {
+      bool any = false;                // a slot some query can see?
+      for (int j0 = 0; j0 < BS; j0 += 32) {
+        const int j = j0 + lane;
+        const int kpos = key_pos<RING>(i * BS + j, newest, cap);
+        bool vis = j < BS && kpos >= 0 && kpos < len;
+        if (causal) vis = vis && kpos <= qhi;
+        if (window > 0) vis = vis && qlo - kpos < window;
+        any = any || vis;
+      }
+      if (!__any_sync(0xffffffffu, any)) continue;
+    }
     const size_t phys = (size_t)table[(size_t)b * MB + i];
     __syncwarp();                                 // previous block consumed
-    for (int e = lane; e < BS * Dh; e += 32) {
+#pragma unroll 4
+    for (int e = 4 * lane; e < BS * Dh; e += 128) {   // 16-byte loads
       const int j = e / Dh, d = e % Dh;
       const size_t src = ((phys * BS + j) * Hkv + kvh) * Dh + d;
-      Ks[j * ldk + d] = kpool[src];
-      Vs[e] = vpool[src];
+      const float4 k4 = *reinterpret_cast<const float4*>(kpool + src);
+      const float4 v4 = *reinterpret_cast<const float4*>(vpool + src);
+      float* kd = Ks + j * ldk + d;
+      kd[0] = k4.x;
+      kd[1] = k4.y;
+      kd[2] = k4.z;
+      kd[3] = k4.w;
+      *reinterpret_cast<float4*>(Vs + e) = v4;
     }
     __syncwarp();
     for (int r = 0; r < nr; ++r) {
@@ -92,8 +143,9 @@ __global__ void paged_attention_kernel(
       const float* qr = Qs + r * Dh;
       float m_prev = Ms[r], l_prev = Ls[r];
       for (int j0 = 0; j0 < BS; j0 += 32) {
-        const int j = j0 + lane, kpos = i * BS + j;
-        bool valid = j < BS && kpos < len;
+        const int j = j0 + lane;
+        const int kpos = key_pos<RING>(i * BS + j, newest, cap);
+        bool valid = j < BS && (!RING || kpos >= 0) && kpos < len;
         if (causal) valid = valid && qpos >= kpos;
         if (window > 0) valid = valid && qpos - kpos < window;
         float s = NEG_INF;
@@ -160,29 +212,37 @@ __global__ void paged_attention_kernel(
 extern "C" int pa_paged_attention(const void* q, const void* kpool,
                                   const void* vpool, const void* table,
                                   const void* kv_len, const void* q_off,
-                                  void* out, int B, int C, int H, int Hkv,
-                                  int Dh, int BS, int MB, int causal,
-                                  int window, float scale, void* stream) {
+                                  const void* newest, void* out, int B,
+                                  int C, int H, int Hkv, int Dh, int BS,
+                                  int MB, int causal, int window, int ring,
+                                  float scale, void* stream) {
   if (B == 0 || C == 0) return (int)cudaGetLastError();
-  if (Hkv <= 0 || H % Hkv != 0 || Dh <= 0 || BS <= 0 || MB <= 0)
+  // the walk stages K/V rows with 16-byte loads: rows of Dh floats start
+  // 16-byte aligned in the pools and, with BS % 4 == 0, in every warp's
+  // shared-memory slice
+  if (Hkv <= 0 || H % Hkv != 0 || Dh <= 0 || BS <= 0 || MB <= 0 ||
+      (ring && newest == nullptr) || Dh % 4 || BS % 4 ||
+      (uintptr_t)kpool % 16 || (uintptr_t)vpool % 16)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)QT * Dh + (size_t)NW * BS * (2 * Dh + 1) +
                        (size_t)NW * QT * (Dh + 2));
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  static size_t opted_in = 48 * 1024;   // dynamic smem allowed so far
-  if (smem > opted_in) {
+  static size_t opted_in[2] = {48 * 1024, 48 * 1024};   // per variant
+  const auto kernel = ring ? paged_attention_kernel<true>
+                           : paged_attention_kernel<false>;
+  if (smem > opted_in[ring != 0]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in = smem;
+    opted_in[ring != 0] = smem;
   }
   const int R = C * (H / Hkv);
   const dim3 grid(B, Hkv, (R + QT - 1) / QT);
-  paged_attention_kernel<<<grid, NW * 32, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, NW * 32, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)kpool, (const float*)vpool,
       (const int32_t*)table, (const int32_t*)kv_len, (const int32_t*)q_off,
-      (float*)out, C, H, Hkv, Dh, BS, MB, causal, window, scale);
+      (const int32_t*)newest, (float*)out, C, H, Hkv, Dh, BS, MB, causal,
+      window, scale);
   return (int)cudaGetLastError();
 }

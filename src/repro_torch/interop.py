@@ -5,8 +5,12 @@ The caller hands over the pytree with every leaf already a numpy array
 jax nor the JAX package.  The JAX layout stacks each repeated layer
 period along a leading axis for ``lax.scan`` (``segments(cfg)``); the
 port keeps one dict per layer, so the stacked segment is unstacked in
-the same walk as the JAX package's ``_iter_layers``.  A tied head
-becomes ``embed.w.T`` (a view: the two share storage).
+the same walk as the JAX package's ``_iter_layers``; a leading
+unrolled segment (DeepSeek's dense first layer) is already one dict
+per layer.  Every leaf converts alike: attention, MLA (q, kv_down,
+k_up, v_up, o) and MoE leaves (router, the (E, d_in, d_out) expert
+stacks, the shared FFN).  A tied head becomes ``embed.w.T`` (a view:
+the two share storage).
 """
 from __future__ import annotations
 

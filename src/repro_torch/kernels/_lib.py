@@ -36,8 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "bp_binarize_pack": [_P, _P, _I, _I, _I, _F, _P],
     "fb_fused_bnn": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "pa_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _F, _P],
+    "pa_paged_attention": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "pm_paged_attention_mla": [_P] * 13 + [_I] * 13 + [_F, _P],
     "xp_xnor_popcount": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

@@ -7,9 +7,14 @@
     fused binarize->pack->XNOR-popcount GEMM against the weight's
     cached packed form.
 
+``expert_dense`` is the same projection for one expert of a MoE
+layer's (E, K, N) weight stack, packed once per stack.
+
 ``paged_attention`` is what the attention block calls over the paged
-KV pools.  ``pack_activations`` and ``xnor_matmul`` are the two steps
-of the unfused packed GEMM that ``core/conv.bnn_conv2d`` runs:
+KV pools (GQA, paged or sliding-window ring); ``paged_attention_mla``
+what the MLA block calls over its paged latent pools.
+``pack_activations`` and ``xnor_matmul`` are the two steps of the
+unfused packed GEMM that ``core/conv.bnn_conv2d`` runs:
 binarize-pack, then the packed x packed XNOR-popcount GEMM;
 ``xnor_matmul_torch`` is the latter's plain version (the JAX package's
 ``xnor_matmul_xla``).
@@ -25,7 +30,11 @@ Nothing falls back: a kernel that fails to build or launch raises.
 Weights are packed once: ``binarize_pack(w.T)`` and
 ``alpha = mean(|w|, axis=0)`` are cached per (weight identity, impl,
 scale) and recomputed only when the weight's ``_version`` moves (it was
-written in place).  An entry is evicted with its weight (weakref).
+written in place).  An entry is evicted with its weight (weakref).  An
+expert stack (E, K, N) is packed as a whole, into (E, N, Kw) words and
+(E, N) alphas, under the stack's identity: a per-expert view ``w[e]``
+is a new tensor at every call, so keying on it would repack every
+expert at every step.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import weakref
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.kernels import binarize_pack as _bp
 from repro_torch.kernels import fused_bnn as _fb
 from repro_torch.kernels import paged_attention as _pa
@@ -40,7 +50,8 @@ from repro_torch.kernels import xnor_popcount as _xp
 
 IMPLS = ("auto", "cuda", "torch")
 
-KERNELS = (_fb.KERNEL, _pa.KERNEL, _bp.KERNEL, _xp.KERNEL)
+KERNELS = (_fb.KERNEL, _pa.KERNEL, _bp.KERNEL, _xp.KERNEL, _pa.KERNEL_RING,
+           _pa.KERNEL_MLA)
 
 
 def resolve_impl(impl: str, t: torch.Tensor) -> str:
@@ -100,23 +111,52 @@ def packed_weight_cache_info() -> dict:
     return {"entries": len(_weight_pack_cache)}
 
 
-def _pack_weight(w: torch.Tensor, impl: str, scale: bool
-                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(N, Kw) packed transpose of w (K, N) plus its LQ-Nets alpha
-    column scales, cached per weight identity and version."""
+def _cached(w: torch.Tensor, impl: str, scale: bool, pack):
+    """``pack(w)`` cached per (identity, impl, scale) and ``_version``."""
     key = (id(w), impl, scale)
     hit = _weight_pack_cache.get(key)
     if hit is not None and hit[0] == w._version:
         return hit[1], hit[2]
-    wt = w.detach().float().t().contiguous()
-    wp = (_bp.binarize_pack(wt) if impl == "cuda"
-          else _bp.binarize_pack_torch(wt))
-    alpha = torch.mean(torch.abs(w.detach().float()), dim=0) if scale else None
+    wp, alpha = pack(w.detach())
     if hit is None:
         # id() values recycle after gc — evict the entry with its owner
         weakref.finalize(w, _weight_pack_cache.pop, key, None)
     _weight_pack_cache[key] = (w._version, wp, alpha)
     return wp, alpha
+
+
+def _pack_rows(wt: torch.Tensor, impl: str) -> torch.Tensor:
+    return (_bp.binarize_pack(wt) if impl == "cuda"
+            else _bp.binarize_pack_torch(wt))
+
+
+def _pack_weight(w: torch.Tensor, impl: str, scale: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(N, Kw) packed transpose of w (K, N) plus its LQ-Nets alpha
+    column scales, cached per weight identity and version."""
+    def pack(wd):
+        wp = _pack_rows(wd.float().t().contiguous(), impl)
+        return wp, (torch.mean(torch.abs(wd.float()), dim=0) if scale
+                    else None)
+    return _cached(w, impl, scale, pack)
+
+
+def _pack_stack(w: torch.Tensor, impl: str
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E, N, Kw) packed transposes of an expert stack w (E, K, N) and
+    its (E, N) alphas, cached per stack identity and version.  Packed
+    one expert at a time, so the transposed float copy is one expert's
+    size."""
+    def pack(wd):
+        e, k, n = wd.shape
+        wp = torch.empty((e, n, packing.packed_len(k)), dtype=torch.int32,
+                         device=wd.device)
+        alpha = torch.empty((e, n), dtype=torch.float32, device=wd.device)
+        for i in range(e):
+            wp[i] = _pack_rows(wd[i].float().t().contiguous(), impl)
+            alpha[i] = torch.mean(torch.abs(wd[i].float()), dim=0)
+        return wp, alpha
+    return _cached(w, impl, True, pack)
 
 
 def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",
@@ -145,12 +185,46 @@ def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",
     raise ValueError(f"unknown precision {precision!r}")
 
 
+def expert_dense(x: torch.Tensor, w: torch.Tensor, e: int, *,
+                 precision: str = "bf16", impl: str = "auto"
+                 ) -> torch.Tensor:
+    """``x (M, K) @ w[e]`` for expert ``e`` of the stack ``w`` (E, K, N),
+    at the precision of ``bnn_dense`` (bnn: the fused GEMM against the
+    stack's cached packed words, ``dot_scaled`` with alpha = mean |w[e]|
+    over K, as the JAX package's ``moe._expert_matmul``)."""
+    if precision != "bnn":      # the float matmul, or bnn_dense's refusals
+        return bnn_dense(x, w[e], precision=precision, impl=impl)
+    impl = resolve_impl(impl, x)
+    x2 = x.float().contiguous()
+    wp, alpha = _pack_stack(w, impl)
+    fn = _fb.fused_bnn_matmul if impl == "cuda" else \
+        _fb.fused_bnn_matmul_torch
+    return fn(x2, wp[e], x2.shape[-1], mode="dot_scaled",
+              alpha=alpha[e]).to(x.dtype)
+
+
 def paged_attention(q, k_pool, v_pool, block_table, *, kv_len, q_offset,
                     causal: bool = False, window: int | None = None,
+                    ring: bool = False, newest=None,
                     impl: str = "auto") -> torch.Tensor:
-    """Paged GQA attention (kernels/paged_attention.py) with impl
-    dispatch."""
+    """Paged GQA attention, paged or ring (kernels/paged_attention.py),
+    with impl dispatch."""
     fn = _pa.paged_attention if resolve_impl(impl, q) == "cuda" else \
         _pa.paged_attention_torch
     return fn(q, k_pool, v_pool, block_table, kv_len=kv_len,
-              q_offset=q_offset, causal=causal, window=window)
+              q_offset=q_offset, causal=causal, window=window, ring=ring,
+              newest=newest)
+
+
+def paged_attention_mla(q, c_kv_pool, k_rope_pool, block_table, *, k_up,
+                        v_up, nope_dim: int, kv_len, q_offset,
+                        causal: bool = False, window: int | None = None,
+                        ring: bool = False, newest=None,
+                        impl: str = "auto") -> torch.Tensor:
+    """Paged MLA latent attention (kernels/paged_attention.py) with impl
+    dispatch."""
+    fn = _pa.paged_attention_mla if resolve_impl(impl, q) == "cuda" else \
+        _pa.paged_attention_mla_torch
+    return fn(q, c_kv_pool, k_rope_pool, block_table, k_up=k_up, v_up=v_up,
+              nope_dim=nope_dim, kv_len=kv_len, q_offset=q_offset,
+              causal=causal, window=window, ring=ring, newest=newest)

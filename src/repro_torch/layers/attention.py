@@ -6,7 +6,8 @@ in chunks of ``q_chunk`` and, for each, KV is walked in chunks of
 the same order as the JAX package (so the float results agree to
 rounding).  Supports causal masking, sliding windows, GQA/MQA head
 grouping, per-row ``q_offset``/``kv_len``, and zeros for fully-masked
-rows.
+rows, and explicit per-slot key positions (``k_positions``) for the
+ring-buffer caches of sliding-window models.
 
 Shapes: q (B, T, H, Dh), k/v (B, S, Hkv, Dh); H = G * Hkv.
 """
@@ -72,6 +73,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: int | None = None,
               q_offset=0,
               kv_len=None,
+              k_positions: torch.Tensor | None = None,
               q_chunk: int = 512,
               kv_chunk: int = 1024) -> torch.Tensor:
     """Chunked flash-style attention.
@@ -79,6 +81,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_offset: absolute position of q[:, 0]; scalar or (B,) per row
       (continuous-batching decode / chunked prefill).
     kv_len: optional valid length of k/v; scalar or (B,) per row.
+    k_positions: optional (B, S) absolute position of every key slot,
+      replacing the default arange — a ring-buffer cache stores keys out
+      of positional order.  The causal, window and kv_len masks use
+      these positions; a negative entry marks a never-written slot and
+      is always masked.
     """
     b, t, h, dh = q.shape
     s = k.shape[1]
@@ -95,10 +102,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vp = F.pad(v, (0, 0, 0, 0, 0, sp - s))
     eff_len = _per_row(kv_len if kv_len is not None else s, b, dev)
     q_off = _per_row(q_offset, b, dev)
-    # padded slots (>= s) get position -1: a zero-K pad slot never
-    # passes the masks, even when kv_len overshoots the real S
-    ar = torch.arange(sp, device=dev)
-    kpos_full = torch.where(ar < s, ar, -1)[None].expand(b, sp)
+    if k_positions is None:
+        # padded slots (>= s) get position -1: a zero-K pad slot never
+        # passes the masks, even when kv_len overshoots the real S
+        ar = torch.arange(sp, device=dev)
+        kpos_full = torch.where(ar < s, ar, -1)[None].expand(b, sp)
+    else:
+        kpos_full = F.pad(k_positions.long(), (0, sp - s), value=-1)
 
     outs = []
     for qi in range(tp // q_chunk):
@@ -120,7 +130,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_reference(q, k, v, *, causal=True, window=None, q_offset=0,
-                        kv_len=None):
+                        kv_len=None, k_positions=None):
     """O(T*S) reference for tests."""
     b, t, h, dh = q.shape
     s = k.shape[1]
@@ -130,7 +140,8 @@ def attention_reference(q, k, v, *, causal=True, window=None, q_offset=0,
     vf = v.repeat_interleave(g, dim=2).float()
     scores = torch.einsum("bthd,bshd->bhts", q.float() * dh ** -0.5, kf)
     q_pos = torch.arange(t, device=dev)[None] + _per_row(q_offset, b, dev)[:, None]
-    k_pos = torch.arange(s, device=dev)[None].expand(b, s)
+    k_pos = (torch.arange(s, device=dev)[None].expand(b, s)
+             if k_positions is None else k_positions.long())
     mask = k_pos[:, None, :] >= 0
     if causal:
         mask = mask & (q_pos[:, :, None] >= k_pos[:, None, :])

@@ -73,11 +73,12 @@ def norm(x: torch.Tensor, params, kind: str = "rmsnorm",
 
 
 def dense(x: torch.Tensor, params, precision: str = "bf16",
-          impl: str = "auto", taps: list | None = None) -> torch.Tensor:
+          impl: str = "auto", taps: list | None = None,
+          name: str = "dense") -> torch.Tensor:
     """Projection with OXBNN precision dispatch (see kernels/ops.py).
-    ``taps``, when a list, receives the projection's input."""
+    ``taps``, when a list, receives ``(name, input)``."""
     if taps is not None:
-        taps.append(x)
+        taps.append((name, x))
     y = kops.bnn_dense(x, params["w"], precision=precision, impl=impl)
     if "b" in params:
         y = y + params["b"].to(y.dtype)

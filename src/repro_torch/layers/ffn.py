@@ -22,17 +22,19 @@ def init(gen: torch.Generator, d_model: int, d_ff: int, kind: str = "swiglu",
 def forward(params, x: torch.Tensor, kind: str = "swiglu",
             precision: str = "bf16", impl: str = "auto",
             taps: list | None = None) -> torch.Tensor:
-    """``taps``, when a list, receives the input of each projection."""
+    """``taps``, when a list, receives ``(name, input)`` of each
+    projection."""
+    def proj(v, name):
+        return C.dense(v, params[name], precision, impl, taps, name)
+
     if kind == "swiglu":
-        h = F.silu(C.dense(x, params["gate"], precision, impl, taps)) * \
-            C.dense(x, params["up"], precision, impl, taps)
+        h = F.silu(proj(x, "gate")) * proj(x, "up")
     elif kind == "geglu":
-        h = C.gelu(C.dense(x, params["gate"], precision, impl, taps)) * \
-            C.dense(x, params["up"], precision, impl, taps)
+        h = C.gelu(proj(x, "gate")) * proj(x, "up")
     elif kind == "gelu":
-        h = C.gelu(C.dense(x, params["up"], precision, impl, taps))
+        h = C.gelu(proj(x, "up"))
     elif kind == "relu":
-        h = F.relu(C.dense(x, params["up"], precision, impl, taps))
+        h = F.relu(proj(x, "up"))
     else:
         raise ValueError(kind)
-    return C.dense(h, params["down"], precision, impl, taps)
+    return proj(h, "down")

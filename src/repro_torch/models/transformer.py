@@ -1,4 +1,11 @@
-"""Decoder LM, dense family: GQA attention + GLU FFN per layer.
+"""Decoder LM: GQA (optionally sliding-window) or MLA attention, then a
+GLU FFN or a MoE FFN, per layer.
+
+Families this port runs (``check_supported``):
+  dense   GQA attention + GLU FFN                    (bnn-lm-100m)
+  moe     GQA + sliding window (ring caches) + MoE   (mixtral)
+          MLA + MoE with shared experts, leading
+          dense layers of width ``dense_d_ff``        (deepseek-v2-lite)
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``head`` (tied
 to ``embed.w.T`` when ``cfg.tie_embeddings``) and ``layers``, a list of
@@ -8,16 +15,17 @@ for ``lax.scan``; the port keeps one dict per layer, which is what its
 eager layer loop walks (``interop.params_from_numpy`` unstacks).
 
 Every projection dispatches through the OXBNN precision modes
-(kernels/ops.bnn_dense): bf16 baseline and bnn (packed XNOR-popcount
-inference).  Other mixer and FFN families (SSM, MLA, MoE) are not
-ported yet (ROADMAP.md queue 1, item 7).
+(kernels/ops.bnn_dense, ops.expert_dense): bf16 baseline and bnn
+(packed XNOR-popcount inference).  The SSM mixer (mamba2), the jamba
+hybrid and the modality front-ends are not ported yet (ROADMAP.md
+queue 1, item 7).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.layers import attn_block, common as C, ffn
+from repro_torch.layers import attn_block, common as C, ffn, mla, moe
 
 # ---------------------------------------------------------------------------
 # layer plan
@@ -66,16 +74,13 @@ def segments(cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig):
-    """Raise for what the dense-family port does not run yet."""
+    """Raise for what the port does not run yet: SSM layers (mamba2 and
+    the jamba hybrid) and the modality front-ends."""
     for mix, f in layer_plan(cfg):
-        if mix != "gqa" or f not in ("dense", "none"):
+        if mix not in ("gqa", "mla") or f not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({mix}, {f}) is not ported "
-                "(ROADMAP.md queue 1, item 7)")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window ring caches are not ported "
-            "(ROADMAP.md queue 1, item 7)")
+                "(ROADMAP.md queue 1, item 7: mamba2 and the jamba hybrid)")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.frontend} front-end is not ported "
@@ -86,12 +91,24 @@ def check_supported(cfg: ArchConfig):
 # init
 
 
-def _init_layer(gen, cfg: ArchConfig, mix: str, f: str, device) -> dict:
+def _init_layer(gen, cfg: ArchConfig, mix: str, f: str, dense_width: bool,
+                device) -> dict:
+    """One layer; ``dense_width`` marks the leading dense layers, whose
+    FFN is ``dense_d_ff`` wide where the config sets one."""
+    mod = mla if mix == "mla" else attn_block
     p = {"norm1": C.norm_init(cfg.d_model, cfg.norm, device=device),
-         "attn": attn_block.init(gen, cfg, device=device)}
+         "attn": mod.init(gen, cfg, device=device)}
     if f != "none":
         p["norm2"] = C.norm_init(cfg.d_model, cfg.norm, device=device)
-        p["ffn"] = ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.act,
+    if f == "dense":
+        width = cfg.dense_d_ff if (dense_width and cfg.dense_d_ff) \
+            else cfg.d_ff
+        p["ffn"] = ffn.init(gen, cfg.d_model, width, cfg.act, device=device)
+    elif f == "moe":
+        p["ffn"] = moe.init(gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                            cfg.n_experts, cfg.act,
+                            n_shared=cfg.n_shared_experts,
+                            shared_d_ff=cfg.moe_d_ff or cfg.d_ff,
                             device=device)
     return p
 
@@ -107,8 +124,9 @@ def init(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
     params["head"] = ({"w": params["embed"]["w"].t()} if cfg.tie_embeddings
                       else C.dense_init(gen, cfg.d_model, cfg.vocab,
                                         device=device))
-    params["layers"] = [_init_layer(gen, cfg, mix, f, device)
-                        for mix, f in layer_plan(cfg)]
+    params["layers"] = [_init_layer(gen, cfg, mix, f, i < cfg.first_dense,
+                                    device)
+                        for i, (mix, f) in enumerate(layer_plan(cfg))]
     return params
 
 
@@ -118,12 +136,26 @@ def _iter_layers(cfg: ArchConfig, params):
         yield mix, f, p
 
 
-def _ffn(params, cfg: ArchConfig, f: str, x, impl, taps=None):
+def _ffn(params, cfg: ArchConfig, f: str, x, impl, *, paged: bool,
+         taps=None):
+    """The layer's FFN with its residual.  A MoE layer dispatches with the
+    config's finite capacity over a full sequence, as the JAX package
+    does, and drop-free on the serving path (``paged``): a finite
+    capacity would let batch composition and padding decide which
+    tokens keep their experts."""
     if f == "none":
         return x
     h = C.norm(x, params["norm2"], cfg.norm, cfg.norm_eps)
-    return x + ffn.forward(params["ffn"], h, cfg.act, cfg.precision, impl,
-                           taps)
+    if f == "moe":
+        y, _aux = moe.forward(
+            params["ffn"], h, top_k=cfg.top_k, kind=cfg.act,
+            capacity_factor=0.0 if paged else cfg.capacity_factor,
+            precision=cfg.precision,
+            dispatch_groups=1 if paged else cfg.moe_dispatch_groups,
+            impl=impl, taps=taps)
+    else:
+        y = ffn.forward(params["ffn"], h, cfg.act, cfg.precision, impl, taps)
+    return x + y
 
 
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -145,9 +177,14 @@ def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
     for mix, f, p in _iter_layers(cfg, params):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-        x = x + attn_block.forward(p["attn"], cfg, h, positions,
+        if mix == "mla":
+            y = mla.forward(p["attn"], cfg, h, positions,
+                            precision=cfg.precision,
+                            window=cfg.sliding_window, impl=impl)
+        else:
+            y = attn_block.forward(p["attn"], cfg, h, positions,
                                    precision=cfg.precision, impl=impl)
-        x = _ffn(p, cfg, f, x, impl)
+        x = _ffn(p, cfg, f, x + y, impl, paged=False)
     return C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
 
 
@@ -160,58 +197,69 @@ def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # paged decode / chunked prefill (continuous-batching serving path; see
 # repro_torch/serving/engine.py).  The pools are updated in place.
+# Every mixer kind has the same entry points over its own pool layout —
+# paged K/V blocks (gqa) or paged compressed latents (mla); a
+# sliding-window config runs its block tables as rings (ring=True).
+
+
+def _mixer(mix: str):
+    return mla if mix == "mla" else attn_block
 
 
 def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
                      dtype=torch.float32, device=None) -> list[dict]:
-    """Flat per-layer list of KV pools (layer order == plan order)."""
+    """Flat per-layer list of pools (layer order == plan order): K/V
+    blocks for GQA layers, latent blocks for MLA layers."""
     check_supported(cfg)
-    return [attn_block.init_paged_state(cfg, num_blocks, block_size, dtype,
-                                        device)
-            for _ in layer_plan(cfg)]
+    return [_mixer(mix).init_paged_state(cfg, num_blocks, block_size, dtype,
+                                         device)
+            for mix, _f in layer_plan(cfg)]
 
 
 def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                       block_table: torch.Tensor, lengths: torch.Tensor,
                       active: torch.Tensor | None = None, *,
-                      impl: str = "auto"):
-    """One decode token per row against the paged KV pools.
+                      ring: bool = False, impl: str = "auto"):
+    """One decode token per row against the paged pools.
 
     tokens (B, 1) int; block_table (B, max_blocks) int32; lengths (B,)
-    int32 per-row cache fill; active (B,) masks padded batch slots.
+    int32 per-row cache fill; active (B,) masks padded batch slots;
+    ring=True runs the block tables as sliding-window rings.
     Returns (logits (B, 1, V), caches).
     """
     x = _embed(params, cfg, tokens)
     for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-        y, _ = attn_block.paged_decode_step(
+        y, _ = _mixer(mix).paged_decode_step(
             p["attn"], cfg, h, caches[li], block_table, lengths,
-            precision=cfg.precision, active=active, impl=impl)
-        x = _ffn(p, cfg, f, x + y, impl)
+            precision=cfg.precision, active=active, ring=ring, impl=impl)
+        x = _ffn(p, cfg, f, x + y, impl, paged=True)
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return torch.matmul(x, params["head"]["w"]), caches
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                   block_table: torch.Tensor, lengths: torch.Tensor,
-                  n_valid: torch.Tensor, *, impl: str = "auto",
-                  taps: list | None = None):
+                  n_valid: torch.Tensor, *, ring: bool = False,
+                  impl: str = "auto", taps: list | None = None):
     """Chunked prefill: append a chunk of C tokens per row.
 
     tokens (B, C) int (padded past n_valid); lengths (B,) tokens already
-    cached; n_valid (B,) real tokens in this chunk.  ``taps``, when a
-    list, receives per layer the input of each projection (q, k, v, o,
-    then the FFN's) and the layer's output.
+    cached; n_valid (B,) real tokens in this chunk; ring as in
+    ``paged_decode_step``.  ``taps``, when a list, receives per layer
+    ``(name, tensor)``: the input of each projection (q, k, v or q,
+    kv_down; o; then the FFN's or the MoE layer's, see ``moe.forward``)
+    and ``("hidden", layer output)``.
     Returns (logits (B, C, V), caches) — logits at every chunk position.
     """
     x = _embed(params, cfg, tokens)
     for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-        y, _ = attn_block.prefill_chunk(
+        y, _ = _mixer(mix).prefill_chunk(
             p["attn"], cfg, h, caches[li], block_table, lengths, n_valid,
-            precision=cfg.precision, impl=impl, taps=taps)
-        x = _ffn(p, cfg, f, x + y, impl, taps)
+            precision=cfg.precision, ring=ring, impl=impl, taps=taps)
+        x = _ffn(p, cfg, f, x + y, impl, paged=True, taps=taps)
         if taps is not None:
-            taps.append(x)
+            taps.append(("hidden", x))
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return torch.matmul(x, params["head"]["w"]), caches

@@ -2,14 +2,21 @@
 device pools, and block-table assembly.
 
 ``BlockKVCache`` is the block-family ``MixerState``: the device pools
-hold one (num_blocks, block_size, Hkv, Dh) K and V buffer per attention
-layer; this class owns the host-side bookkeeping — which physical
-blocks belong to which sequence, and the padded (B, max_blocks) block
-tables the step functions consume.  Every used block carries a
-refcount, as in the JAX package, where prefix sharing gives a block
-several owners; this slice runs without the prefix index, swap-to-host
-and copy-on-write (ROADMAP.md queue 1, item 8), so every block here has
-exactly one owner.
+hold one (num_blocks, block_size, Hkv, Dh) K and V buffer per GQA layer,
+or one (num_blocks, block_size, R) c_kv and (num_blocks, block_size,
+Dr) k_rope latent buffer per MLA layer; this class owns the host-side
+bookkeeping — which physical blocks belong to which sequence, and the
+padded (B, max_blocks) block tables the step functions consume.  With
+``ring_blocks > 0`` the tables are sliding-window rings: a sequence
+never owns more than ``ring_blocks`` blocks, growth past them recycles
+the trailing block in place (``ring_reuses``), and the table is exactly
+``min(ceil(max_model_len / block_size), ring_blocks)`` wide — the step
+functions take the ring's capacity from that width.
+
+Every used block carries a refcount, as in the JAX package, where
+prefix sharing gives a block several owners; the port runs without the
+prefix index, swap-to-host and copy-on-write (ROADMAP.md queue 1, item
+8), so every block here has exactly one owner.
 
 Block 0 is reserved as a scratch block (padded rows and masked writes
 are redirected there), so the allocator hands out ids from
@@ -20,18 +27,18 @@ are redirected there), so the allocator hands out ids from
   alloc(n) is all-or-nothing
 
 ``MixerStateCache`` at the bottom is what the engine instantiates: the
-composite over the per-layer layouts (``mixer_state.layer_layouts``),
-here the paged attention layout only.
+composite over the per-layer layouts (``mixer_state.layer_layouts``):
+the paged and ring block layouts (recurrent slots are not ported).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.layers import attn_block
+from repro_torch.layers import attn_block, mla
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serving.mixer_state import (
-    LAYOUT_PAGED, MixerState, layer_layouts)
+    LAYOUT_PAGED, LAYOUT_RING, MixerState, layer_layouts, ring_block_count)
 
 
 class BlockAllocator:
@@ -108,41 +115,65 @@ class BlockAllocator:
 
 class BlockKVCache(MixerState):
     """Block-family mixer state: device pools + refcounted allocator +
-    block-table assembly (paged layout)."""
+    block-table assembly.  ``ring_blocks > 0`` switches the paged layout
+    into the sliding-window ring layout."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  max_model_len: int, dtype=torch.float32,
-                 layer_ids: list[int] | None = None, device="cpu"):
+                 layer_ids: list[int] | None = None, ring_blocks: int = 0,
+                 device="cpu"):
         self.cfg = cfg
         self.block_size = block_size
         self.num_blocks = num_blocks
+        self.ring_blocks = ring_blocks
         plan = layer_plan(cfg)
         if layer_ids is None:
             layer_ids = [i for i, (mix, _f) in enumerate(plan)
                          if mix != "ssm"]
         self.layer_ids = list(layer_ids)
         self.max_blocks_per_seq = -(-max_model_len // block_size)
+        if ring_blocks:
+            self.max_blocks_per_seq = min(self.max_blocks_per_seq,
+                                          ring_blocks)
         self.allocator = BlockAllocator(num_blocks)
-        self.pools = [attn_block.init_paged_state(cfg, num_blocks,
-                                                  block_size, dtype, device)
-                      for _ in self.layer_ids]
+        self.pools = [(mla if plan[li][0] == "mla" else attn_block)
+                      .init_paged_state(cfg, num_blocks, block_size, dtype,
+                                        device)
+                      for li in self.layer_ids]
+        self.blocks_allocated = 0
+        self.ring_reuses = 0             # trailing blocks recycled in place
         self.peak_used = 0               # occupancy high-water mark
 
     def blocks_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.block_size)
+
+    def blocks_needed(self, n_tokens: int) -> int:
+        """Physical blocks a sequence of n_tokens occupies — capped at
+        the ring size for the sliding-window layout."""
+        n = self.blocks_for(n_tokens)
+        return min(n, self.ring_blocks) if self.ring_blocks else n
 
     # ------------------------------------------------------ allocation
 
     def _alloc(self, n: int) -> list[int] | None:
         got = self.allocator.alloc(n)
         if got is not None:
+            self.blocks_allocated += len(got)
             self.peak_used = max(self.peak_used, self.allocator.num_used)
         return got
 
     def ensure_capacity(self, req, n_tokens: int) -> bool:
         """Grow ``req.blocks`` to cover n_tokens cache slots; False if
-        the pool cannot supply the missing blocks (caller preempts)."""
-        need = self.blocks_for(n_tokens) - len(req.blocks)
+        the pool cannot supply the missing blocks (caller preempts).
+        In ring mode growth past the window allocates nothing — the
+        trailing block is recycled in place (counted as a reuse)."""
+        if self.ring_blocks:
+            virt = self.blocks_for(n_tokens)
+            prev = max(req.virtual_blocks, self.ring_blocks)
+            if virt > prev:
+                self.ring_reuses += virt - prev
+            req.virtual_blocks = max(req.virtual_blocks, virt)
+        need = self.blocks_needed(n_tokens) - len(req.blocks)
         if need <= 0:
             return True
         got = self._alloc(need)
@@ -159,11 +190,12 @@ class BlockKVCache(MixerState):
     def alloc_prompt(self, req) -> bool:
         """Admission-time allocation of the whole prompt's blocks;
         all-or-nothing, False when the pool is short."""
-        got = self._alloc(self.blocks_for(req.prompt_len))
+        got = self._alloc(self.blocks_needed(req.prompt_len))
         if got is None:
             return False
         req.blocks = got
         req.pos = 0
+        req.virtual_blocks = self.blocks_for(req.prompt_len)
         return True
 
     # ----------------------------------------------------- block table
@@ -184,13 +216,17 @@ class BlockKVCache(MixerState):
 
     def stats(self) -> dict:
         cap = self.allocator.capacity
+        writes = self.ring_reuses + self.blocks_allocated
         return {
-            "layout": "paged",
+            "layout": "ring" if self.ring_blocks else "paged",
             "layers": len(self.layer_ids),
             "num_blocks": cap,
             "used_blocks": self.allocator.num_used,
             "peak_used_blocks": self.peak_used,
             "occupancy": self.peak_used / cap if cap else 0.0,
+            "ring_blocks": self.ring_blocks,
+            "ring_reuses": self.ring_reuses,
+            "ring_reuse_rate": self.ring_reuses / writes if writes else 0.0,
         }
 
 
@@ -198,23 +234,29 @@ class MixerStateCache:
     """Composite MixerState the engine instantiates, dispatching per
     layer via ``mixer_state.layer_layouts``.  Presents the per-layer
     pool list the step functions update in place and fans every
-    request-lifecycle call out to the member states.  This slice holds
-    the paged attention state only; other layouts raise."""
+    request-lifecycle call out to the member states.  The port holds
+    the block-family state (paged or ring, over K/V or latent pools);
+    the recurrent slot layout raises."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
-                 max_model_len: int, dtype=torch.float32, device="cpu"):
+                 max_model_len: int, dtype=torch.float32,
+                 prefill_chunk: int = 16, device="cpu"):
         self.cfg = cfg
         self.block_size = block_size
         self.layouts = layer_layouts(cfg)
-        other = sorted(set(self.layouts) - {LAYOUT_PAGED})
+        other = sorted(set(self.layouts) - {LAYOUT_PAGED, LAYOUT_RING})
         if other:
             raise NotImplementedError(
                 f"{cfg.name}: mixer-state layouts {other} are not ported "
-                "(ROADMAP.md queue 1, item 7)")
+                "(ROADMAP.md queue 1, item 7: mamba2 and the jamba hybrid)")
+        self.ring_blocks = (
+            ring_block_count(cfg.sliding_window, block_size, prefill_chunk)
+            if cfg.sliding_window else 0)
         self.attn = BlockKVCache(
             cfg, num_blocks=num_blocks, block_size=block_size,
             max_model_len=max_model_len, dtype=dtype,
-            layer_ids=list(range(len(self.layouts))), device=device)
+            layer_ids=list(range(len(self.layouts))),
+            ring_blocks=self.ring_blocks, device=device)
 
     # ------------------------------------------------------ device pools
 
@@ -226,7 +268,8 @@ class MixerStateCache:
 
     def fits(self, n_tokens: int) -> bool:
         """Can a request of n_tokens total ever be scheduled?"""
-        return self.attn.blocks_for(n_tokens) <= self.attn.allocator.capacity
+        return self.attn.blocks_needed(n_tokens) <= \
+            self.attn.allocator.capacity
 
     # ------------------------------------------------------ lifecycle
 

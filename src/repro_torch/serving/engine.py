@@ -122,7 +122,8 @@ class Engine:
         self.tracer = Tracer()
         self.cache = MixerStateCache(
             cfg, num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
-            max_model_len=ecfg.max_model_len, device=self.device)
+            max_model_len=ecfg.max_model_len,
+            prefill_chunk=ecfg.prefill_chunk, device=self.device)
         # admission token budget: 0 = derive from the block pool (2x
         # its token capacity)
         mtif = ecfg.max_tokens_in_flight or \
@@ -155,7 +156,8 @@ class Engine:
         # cb(rid, new_tokens, done) at every commit point.  None = no
         # streaming overhead.
         self.on_commit = None
-        fns = R.build_step_fns(cfg)
+        # sliding-window configs run their block tables as rings
+        fns = R.build_step_fns(cfg, ring=self.cache.ring_blocks > 0)
         self._prefill_fn = fns.prefill
         self._decode_fn = fns.decode
 

@@ -2,10 +2,12 @@
 layout.
 
 The JAX package runs three layouts through this protocol (paged KV
-blocks, sliding-window ring tables, recurrent SSM slots).  This slice
-of the port carries the paged layout of full-attention GQA stacks,
-``block_cache.BlockKVCache``; ``layer_layouts`` still names every
-layer's layout, so a stack that needs another one is refused by name.
+blocks, sliding-window ring tables, recurrent SSM slots).  The port
+carries the two block layouts, both in ``block_cache.BlockKVCache``:
+paged K/V or MLA latent blocks, and (``ring_blocks > 0``) the
+window-sized ring tables of sliding-window stacks.  ``layer_layouts``
+still names every layer's layout, so a stack that needs recurrent slots
+is refused by name.
 """
 from __future__ import annotations
 
@@ -29,6 +31,18 @@ def layer_layouts(cfg) -> list[str]:
         else:
             out.append(LAYOUT_PAGED)
     return out
+
+
+def ring_block_count(window: int, block_size: int,
+                     prefill_chunk: int) -> int:
+    """Blocks a sliding-window ring table needs.
+
+    The ring must still hold every key a query can attend AFTER a full
+    prefill chunk lands: the first chunk query at position L needs keys
+    back to L - window + 1 while the newest write sits at
+    L + chunk - 1, so capacity >= window + chunk - 1 tokens.
+    """
+    return -(-(window + max(prefill_chunk, 1) - 1) // block_size)
 
 
 class MixerState(abc.ABC):

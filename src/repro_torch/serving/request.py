@@ -36,6 +36,7 @@ class Request:
     pos: int = 0                       # tokens written to the KV cache
     out: list[int] = field(default_factory=list)
     blocks: list[int] = field(default_factory=list)
+    virtual_blocks: int = 0            # logical high-water (ring reuse stat)
     preemptions: int = 0
     streamed: int = 0                  # commit-callback delivery watermark
                                        # into ``out``; survives recompute
@@ -82,6 +83,7 @@ class Request:
         self.pos = 0
         self.out.clear()
         self.blocks = []
+        self.virtual_blocks = 0
         self.preemptions += 1
 
     def full_sequence(self) -> np.ndarray:

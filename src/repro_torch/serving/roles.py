@@ -29,15 +29,16 @@ class StepFns:
     decode: Callable
 
 
-def build_step_fns(cfg) -> StepFns:
+def build_step_fns(cfg, *, ring: bool = False) -> StepFns:
     """Construct the prefill/decode closures of a mixed-role worker;
-    ``cfg`` is baked in, params, pools and the per-step arrays stay
-    arguments.  Each returns (next tokens (B,), logits, pools)."""
+    ``cfg`` and ``ring`` (the block tables are sliding-window rings) are
+    baked in, params, pools and the per-step arrays stay arguments.
+    Each returns (next tokens (B,), logits, pools)."""
 
     @torch.no_grad()
     def _prefill(params, pools, tokens, table, lengths, n_valid):
         logits, pools = M.prefill_chunk(params, cfg, tokens, pools, table,
-                                        lengths, n_valid)
+                                        lengths, n_valid, ring=ring)
         # chunk-final logits row -> the would-be next token (used by
         # the engine only when this chunk completes the prompt)
         last = (n_valid.long() - 1).clamp_min(0)
@@ -47,7 +48,8 @@ def build_step_fns(cfg) -> StepFns:
     @torch.no_grad()
     def _decode(params, pools, tokens, table, lengths, active):
         logits, pools = M.paged_decode_step(params, cfg, tokens, pools,
-                                            table, lengths, active)
+                                            table, lengths, active,
+                                            ring=ring)
         return sample_tokens(logits[:, -1]), logits, pools
 
     return StepFns(prefill=_prefill, decode=_decode)

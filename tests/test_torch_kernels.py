@@ -178,18 +178,30 @@ def test_paged_attention_plain_matches_pallas_and_oracle(case):
             assert not got[i].any() and not pallas[i].any()
 
 
-def test_paged_attention_refuses_unported_variants():
-    q = torch.zeros(1, 1, 2, 4)
-    pool = torch.zeros(2, 4, 2, 4)
-    tab = torch.zeros(1, 1, dtype=torch.int32)
-    one = torch.ones(1, dtype=torch.int32)
-    for kw in (dict(ring=True), dict(layout="mla")):
-        with pytest.raises(NotImplementedError):
-            pa.paged_attention(q, pool, pool, tab, kv_len=one, q_offset=one,
-                               **kw)
-
-
 # ------------------------------------------------------------ dispatch
+
+
+def test_c_signatures_match_the_sources():
+    """Every C entry point's ctypes argtypes (kernels/_lib.py) match its
+    declaration in csrc/*.cu, argument by argument: a pointer where the
+    source takes ``void*``, an int where it takes ``int``, a float where
+    it takes ``float`` — a call with a missing or extra argument would
+    otherwise fail only on the card."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _lib
+    kinds = {ctypes.c_void_p: "void*", ctypes.c_int: "int",
+             ctypes.c_float: "float"}
+    decls = {}
+    for src in _lib.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     text):
+            decls[name] = ["void*" if "*" in a else a.split()[-2]
+                           for a in args.split(",")]
+    assert set(decls) == set(_lib._SIGNATURES)
+    for name, argtypes in _lib._SIGNATURES.items():
+        assert [kinds[t] for t in argtypes] == decls[name], name
 
 
 def test_resolve_impl_follows_the_tensor_device():
