@@ -13,13 +13,18 @@ a warm-up run (kernel build, weight packing), a timed run, and a run
 under ``torch.profiler``.  It prints, as JSON lines:
 
   * ``steps``   host wall time per engine step, split by kind (prefill
-                step / decode step), from the timed run;
+                step / decode step), and the engine's total and decode
+                tokens/s, from the timed run;
   * ``device``  from the profiled run: the summed device time of every
                 kernel, by name (top 20), the share of wall time the
                 device spent in kernels (busy share; kernels run on one
                 stream, so their times do not overlap) over the profiled
                 run and over the timed run, and the share of kernel time
-                in the port's own kernels.
+                in the port's own kernels;
+  * ``fused_bnn_shapes``  from the profiled run: every fused BNN GEMM
+                call by (M bucket, N, S) — its count and summed device
+                time (the pack launch and the GEMM launch of each call,
+                matched to the calls in issue order).
 
 The profiled run is slower than the timed one (tracing costs host
 time); its shares are what to read, not its wall time.  ``--out``
@@ -103,9 +108,73 @@ def _steps(dev, work) -> dict:
         if kind:
             times[kind].append(dt)
         step += 1
-    return {k: {"count": len(v), "mean_ms": 1e3 * float(np.mean(v)),
-                "total_s": float(np.sum(v))}
-            for k, v in times.items() if v}
+    st = eng.stats()
+    out = {k: {"count": len(v), "mean_ms": 1e3 * float(np.mean(v)),
+               "total_s": float(np.sum(v))}
+           for k, v in times.items() if v}
+    out["tokens_per_s"] = {"total": st["total_tokens_per_s"],
+                           "decode": st["decode_tokens_per_s"]}
+    return out
+
+
+M_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+def _m_bucket(m: int) -> str:
+    lo = 1
+    for hi in M_BUCKETS:
+        if m <= hi:
+            return str(hi) if lo == hi else f"{lo}-{hi}"
+        lo = hi + 1
+    return f">{M_BUCKETS[-1]}"
+
+
+def _record_gemm_shapes():
+    """Wrap the fused GEMM's wrapper so that every call appends its
+    (M, N, S); returns the list and a function that unwraps it."""
+    from repro_torch.kernels import fused_bnn as fb
+    calls: list[tuple[int, int, int]] = []
+    orig = fb.fused_bnn_matmul
+
+    def recorded(x, wp, s, **kw):
+        if x.device.type == "cuda":
+            calls.append((x.shape[0], wp.shape[0], s))
+        return orig(x, wp, s, **kw)
+    fb.fused_bnn_matmul = recorded
+
+    def restore():
+        fb.fused_bnn_matmul = orig
+    return calls, restore
+
+
+def _gemm_histogram(prof, calls) -> list[dict]:
+    """Match the profiled GEMM launches to the recorded calls, in issue
+    order (one stream): a call's device time is its GEMM kernel plus the
+    pack kernel launched just before it."""
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ("fused_bnn" in ev.name
+                       or "pack_rows_kernel" in ev.name)),
+                 key=lambda ev: ev.time_range.start)
+    per_call, pending = [], 0.0
+    for ev in evs:
+        dur = ev.time_range.elapsed_us() / 1e3
+        if "pack_rows_kernel" in ev.name:
+            pending += dur
+        else:
+            per_call.append(pending + dur)
+            pending = 0.0
+    if len(per_call) != len(calls):
+        raise RuntimeError(f"{len(per_call)} GEMM launches traced for "
+                           f"{len(calls)} calls")
+    hist: dict[tuple[str, int, int], list[float]] = {}
+    for (m, n, s), ms in zip(calls, per_call):
+        key = (_m_bucket(m), n, s)
+        hist.setdefault(key, [0, 0.0])
+        hist[key][0] += 1
+        hist[key][1] += ms
+    return [{"m": k[0], "n": k[1], "s": k[2], "count": v[0], "device_ms": v[1]}
+            for k, v in sorted(hist.items(), key=lambda kv: -kv[1][1])]
 
 
 def main() -> int:
@@ -132,16 +201,21 @@ def main() -> int:
     gc.collect()
     steps = _steps(dev, work)
     gc.collect()
-    timed_wall = sum(v["total_s"] for v in steps.values())
+    timed_wall = sum(v["total_s"] for k, v in steps.items()
+                     if k != "tokens_per_s")
     print(json.dumps({"arch": args.arch, "steps": steps,
                       "timed_wall_s": timed_wall}), flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _serve(dev, work)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    calls, restore = _record_gemm_shapes()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _serve(dev, work)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        restore()
     kernels: dict[str, float] = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -149,8 +223,8 @@ def main() -> int:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + dur
     busy_ms = sum(kernels.values())
     ours = sum(v for k, v in kernels.items()
-               if any(s in k for s in ("fused_bnn_kernel",
-                                       "paged_attention_kernel",
+               if any(s in k for s in ("fused_bnn_", "pack_rows_kernel",
+                                       "paged_attention_",
                                        "binarize_pack_kernel", "mla_",
                                        "batched_sgemm_kernel")))
     # names cut to 80 characters can collide (template instantiations):
@@ -167,6 +241,8 @@ def main() -> int:
         "busy_share_of_timed_run": busy_ms / (1e3 * timed_wall),
         "port_kernels_share_of_kernel_time": ours / busy_ms if busy_ms else 0.0,
         "top_kernels_ms": dict(top)}}), flush=True)
+    print(json.dumps({"fused_bnn_shapes": _gemm_histogram(prof, calls)}),
+          flush=True)
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)

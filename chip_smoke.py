@@ -182,34 +182,55 @@ def phase_device() -> str:
 
 def check_fused_bnn(dev, m: int, n: int, s: int, gen: torch.Generator,
                     timed: bool) -> dict:
+    """Every measured alternative of the kernel (activations packed once
+    or inside the GEMM; the tensor-core product on binary or int8 mma)
+    bit-exact against the plain version in all four modes.  Timed: the
+    defaults (``ms``), packing inside the GEMM (``ms_pack_in_gemm``) and,
+    at M > 8, the int8 product (``ms_int8_mma``)."""
     from repro_torch.kernels import binarize_pack as bp, fused_bnn as fb
     x = torch.randn(m, s, device=dev, generator=gen)
     w = torch.randn(s, n, device=dev, generator=gen)
     wp = bp.binarize_pack_torch(w.t().contiguous())
     alpha = torch.rand(n, device=dev, generator=gen) + 0.5
-    for mode in MODES:
-        got = fb.fused_bnn_matmul(x, wp, s, mode=mode, alpha=alpha)
-        want = fb.fused_bnn_matmul_torch(x, wp, s, mode=mode, alpha=alpha)
-        torch.cuda.synchronize() if dev.type == "cuda" else None
-        if got.dtype != want.dtype or not torch.equal(got, want):
-            bad = (got.float() != want.float()).sum().item()
-            raise AssertionError(f"fused_bnn M={m} N={n} S={s} {mode}: "
-                                 f"{bad} elements differ from the plain version")
-    row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0}
-    if timed:
-        kw = -(-s // 32)
-        n_bytes = m * s * 4 + n * kw * 4 + n * 4 + m * n * 4
-        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 2 * m * n * s,
-                                                    INT8_OPS_PER_S)
-        run = lambda: fb.fused_bnn_matmul(x, wp, s, mode="dot_scaled",
-                                          alpha=alpha)
-        row["ms"] = time_ms(run)
-        row["eager_ms"] = eager_ms(run)
-        row["plain_ms"] = time_ms(lambda: fb.fused_bnn_matmul_torch(
-            x, wp, s, mode="dot_scaled", alpha=alpha), iters=3)
-        xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
-        ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
-        row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws))
+    default = fb.PACK_ONCE, fb.BINARY_MMA
+    run = lambda: fb.fused_bnn_matmul(x, wp, s, mode="dot_scaled",
+                                      alpha=alpha)
+    try:
+        for fb.PACK_ONCE, fb.BINARY_MMA in ((True, True), (False, True),
+                                            (True, False)):
+            for mode in MODES:
+                got = fb.fused_bnn_matmul(x, wp, s, mode=mode, alpha=alpha)
+                want = fb.fused_bnn_matmul_torch(x, wp, s, mode=mode,
+                                                 alpha=alpha)
+                torch.cuda.synchronize()
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    bad = (got.float() != want.float()).sum().item()
+                    raise AssertionError(
+                        f"fused_bnn M={m} N={n} S={s} {mode} pack_once="
+                        f"{fb.PACK_ONCE} binary_mma={fb.BINARY_MMA}: {bad} "
+                        "elements differ from the plain version")
+        row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0}
+        if timed:
+            kw = -(-s // 32)
+            n_bytes = m * s * 4 + n * kw * 4 + n * 4 + m * n * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                n_bytes, 2 * m * n * s, INT8_OPS_PER_S)
+            fb.PACK_ONCE, fb.BINARY_MMA = False, True
+            row["ms_pack_in_gemm"] = time_ms(run)
+            if m > 8:
+                fb.PACK_ONCE, fb.BINARY_MMA = True, False
+                row["ms_int8_mma"] = time_ms(run)
+            fb.PACK_ONCE, fb.BINARY_MMA = default
+            row["ms"] = time_ms(run)
+            row["eager_ms"] = eager_ms(run)
+            row["plain_ms"] = time_ms(lambda: fb.fused_bnn_matmul_torch(
+                x, wp, s, mode="dot_scaled", alpha=alpha), iters=3)
+            xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
+            ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
+            row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws))
+            row["beats_library"] = row["ms"] < row["library_ms"]
+    finally:
+        fb.PACK_ONCE, fb.BINARY_MMA = default
     return row
 
 
@@ -295,7 +316,20 @@ def check_paged_attention(dev, b: int, c: int, h: int, hkv: int, dh: int,
         fsdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(lambda: fsdpa(qt, keys, vals,
                                                   attn_mask=mask))
+        row["beats_library"] = row["ms"] < row["library_ms"]
     return row
+
+
+# (M, N, S) of the families' BNN GEMMs, timed in phase 2; an expert's
+# M is the rows routed to it, spread over 1-128 at prefill and 1-2 at
+# decode (chip_profile.py's fused_bnn_shapes)
+FAMILY_GEMMS = (
+    (128, 4096, 4096), (128, 1024, 4096),     # mixtral q/o, k/v
+    (128, 14336, 4096), (32, 14336, 4096),    # an expert's w1/w3: prefill
+    (32, 4096, 14336),                        # ... w2: prefill
+    (1, 14336, 4096), (2, 4096, 14336),       # w1/w3, w2: decode
+    (12, 1408, 2048), (1, 2048, 1408),        # deepseek expert w1, w2
+)
 
 
 def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
@@ -319,12 +353,27 @@ def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
         rows["paged_attention"].append(check_paged_attention(
             dev, 8, c, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16, 1024,
             gen, True))
-    # off the main path, checked untimed: ragged row tiles of the GEMM,
-    # grouped heads and a window mask in the attention
-    for m in (3, 130):
-        check_fused_bnn(dev, m, 40, 100, gen, False)
+    # the served families' widths (section "families"): mixtral's
+    # attention projections at a prefill chunk, its experts' w1/w3 and w2
+    # at the rows an expert gets in a prefill step and at decode, and a
+    # deepseek-v2-lite expert's
+    for m, n, s in FAMILY_GEMMS:
+        rows["fused_bnn"].append(check_fused_bnn(dev, m, n, s, gen, True))
+    # edges, untimed and bit-exact: row counts around both paths' tiles,
+    # N not a multiple of any tile, S around word and tile boundaries
+    for m in (1, 2, 3, 17, 33, 127, 129, 257):
+        for s in (100, 4095, 4097, 14336):
+            check_fused_bnn(dev, m, 77, s, gen, False)
     check_paged_attention(dev, 3, 4, 12, 4, 64, 16, 100, gen, False)
     check_paged_attention(dev, 3, 4, 4, 2, 16, 4, 40, gen, False, window=5)
+    # attention around the decode tile (R = C * G = 16) and the prefill
+    # tile (64 rows): G = 4 at C = 4, 5, 17, 128, Dh = 128 and 64, with a
+    # window that cuts a block and a key tile mid-way
+    for c in (4, 5, 17, 128):
+        for dh, window in ((128, None), (128, 100), (64, 37)):
+            check_paged_attention(dev, 3, c, 16, 4, dh, 16, 700, gen, False,
+                                  window=window)
+    check_paged_attention(dev, 3, 17, 12, 12, 64, 16, 300, gen, False)
     for name, rs in rows.items():
         for r in rs:
             log(f"[kernels] {name} {json.dumps(r)}")
@@ -354,17 +403,20 @@ def _visible(kpos, kv_len, q_off, c, causal, window):
     return m
 
 
+RING_NEWEST = (100, 2000, 4223, 4300, 6000, 8191, 5, 3000)
+
+
 def check_ring_attention(dev, c: int, gen: torch.Generator,
-                         timed: bool) -> dict:
+                         timed: bool, newest=RING_NEWEST,
+                         window: int = 4096) -> dict:
     """mixtral's ring at its published shapes: B=8, H=32, Hkv=8, Dh=128,
     BS=16, MB=264 (4224 slots), window 4096.  ``newest`` covers rows
     below the capacity (slots never written), above it (wrapped) and a
     kv_len below one block.  C > 1 is a causal prefill chunk ending at
     ``newest``."""
     from repro_torch.kernels import paged_attention as pa
-    b, h, hkv, dh, bs, mb, window = 8, 32, 8, 128, 16, 264, 4096
-    newest = torch.tensor([100, 2000, 4223, 4300, 6000, 8191, 5, 3000],
-                          dtype=torch.int32, device=dev)
+    b, h, hkv, dh, bs, mb = len(newest), 32, 8, 128, 16, 264
+    newest = torch.tensor(newest, dtype=torch.int32, device=dev)
     kv_len = (newest + 1).to(torch.int32)
     q_off = newest if c == 1 else (kv_len - c).clamp_min(0).to(torch.int32)
     causal = c > 1
@@ -411,6 +463,7 @@ def check_ring_attention(dev, c: int, gen: torch.Generator,
         fsdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(lambda: fsdpa(qt, keys, vals,
                                                   attn_mask=mask))
+        row["beats_library"] = row["ms"] < row["library_ms"]
     return row
 
 
@@ -508,8 +561,18 @@ def phase_attention_variants(dev) -> dict[str, list[dict]]:
                                     for c in (1, 128)]}
     rows["paged_attention_mla"].append(check_mla_attention(dev, 1, gen, True,
                                                            ring=True))
-    # off the paths, checked untimed: a ring prefill chunk of MLA
+    # off the paths, checked untimed: a ring prefill chunk of MLA; ring
+    # chunks around the decode and prefill tiles (G = 4: R = 16, 20, 68),
+    # rings that have just wrapped (newest = capacity - 1, capacity,
+    # capacity + 1, + one block), a window that cuts a block and a key
+    # tile mid-way
     check_mla_attention(dev, 5, gen, False, ring=True)
+    for c in (4, 5, 17):
+        check_ring_attention(dev, c, gen, False)
+    for c in (1, 17, 128):
+        check_ring_attention(dev, c, gen, False,
+                             newest=(4223, 4224, 4225, 4240, 4224 + 70),
+                             window=1000)
     for name, rs in rows.items():
         for r in rs:
             log(f"[kernels] {name} {json.dumps(r)}")

@@ -9,6 +9,16 @@ Modes as ``ref.epilogue``: bitcount, dot, dot_scaled, binary_act.
 ``fused_bnn_matmul`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel (csrc/fused_bnn.cu) or raises; on a CPU tensor it
 computes ``fused_bnn_matmul_torch``, the plain version.
+
+Two switches select measured alternatives of the kernel (chip_smoke.py
+times both sides of each); the defaults are the faster ones.
+``PACK_ONCE``: True hands the kernel an (M, ceil(Kw/4)*4) int32 scratch
+allocated here, so it packs the activations once in a first launch
+(design b; the kernel still packs inside the GEMM where its decode grid
+is a single wave); False packs them inside the GEMM's blocks on every
+path (design a).  ``BINARY_MMA``: the tensor-core path (M > 8) on
+binary ``mma`` (``.b1``, AND + popcount) or on int8 ``mma`` over +-1
+bytes.
 """
 from __future__ import annotations
 
@@ -20,6 +30,9 @@ from repro_torch.kernels import _lib, ref
 KERNEL = _lib.KernelInfo(
     "fused_bnn", "src/repro_torch/csrc/fused_bnn.cu",
     "src/repro/kernels/fused_bnn.py:99")
+
+PACK_ONCE = True
+BINARY_MMA = True
 
 _OUT_DTYPE = {"bitcount": torch.int32, "dot": torch.int32,
               "dot_scaled": torch.float32, "binary_act": torch.uint8}
@@ -63,8 +76,13 @@ def fused_bnn_matmul(x: torch.Tensor, wp: torch.Tensor, s: int, *,
     _lib.check(wp, "wp", torch.int32, (n, kw), x.device)
     _lib.check(alpha, "alpha", torch.float32, (n,), x.device)
     out = torch.empty((m, n), dtype=_OUT_DTYPE[mode], device=x.device)
+    scratch = None
+    if PACK_ONCE:
+        scratch = torch.empty((m, -(-kw // 4) * 4), dtype=torch.int32,
+                              device=x.device)
     _lib.launch("fb_fused_bnn", _lib.ptr(x), _lib.ptr(wp), _lib.ptr(alpha),
-                _lib.ptr(out), m, n, s, kw, float(threshold),
-                ref.MODES.index(mode))
+                _lib.ptr(out),
+                None if scratch is None else _lib.ptr(scratch), m, n, s, kw,
+                float(threshold), ref.MODES.index(mode), int(BINARY_MMA))
     KERNEL.launches += 1
     return out

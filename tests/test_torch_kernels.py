@@ -35,9 +35,16 @@ def _i32(a) -> torch.Tensor:
 # ------------------------------------------------------------ BNN GEMM
 
 
-@pytest.mark.parametrize("n", [5, 64])
-@pytest.mark.parametrize("s", [33, 100, 768])
-@pytest.mark.parametrize("m", [1, 3, 130])
+# (M, S, N): every combination of M in {1, 3, 130}, S in {33, 100, 768},
+# N in {5, 64}; then the rows around the kernel's CUDA-core and
+# tensor-core paths (M = 2, 33) at S one bit either side of a 32-word
+# K tile (4095, 4097)
+FUSED_CASES = [(m, s, n) for m in (1, 3, 130) for s in (33, 100, 768)
+               for n in (5, 64)] + [(2, 4095, 5), (2, 4097, 64),
+                                    (33, 4095, 64), (33, 4097, 5)]
+
+
+@pytest.mark.parametrize("m,s,n", FUSED_CASES)
 def test_fused_bnn_plain_matches_pallas_and_ref(m, s, n):
     rng = np.random.default_rng(1000 * m + 10 * s + n)
     x = rng.standard_normal((m, s)).astype(np.float32)
@@ -139,6 +146,10 @@ PAGED_CASES = [
     ("chunk_causal", 2, 4, 4, 4, [16, 9], [12, 5], True, None),
     ("ragged_masked_row", 3, 4, 4, 2, [11, 16, 0], [7, 12, 0], True, None),
     ("window", 2, 4, 4, 1, [16, 10], [12, 6], True, 5),
+    # R = C * G above the kernel's 16-row decode tile and not a multiple
+    # of its 64-row prefill tile; a window that cuts a block mid-way
+    ("tile_ragged", 2, 17, 4, 2, [16, 11], [0, 0], True, None),
+    ("tile_window", 2, 17, 4, 1, [16, 13], [0, 2], True, 3),
 ]
 
 

@@ -120,7 +120,7 @@ def _ring_table(rng, b):
 
 
 @pytest.mark.parametrize("window", [None, 10])
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 3, 5, 17])
 def test_paged_attention_ring_gqa_matches_pallas_and_oracle(c, window):
     rng = np.random.default_rng(10 * c + (window or 0))
     b, h, hkv, dh = 3, 4, 2, 16
