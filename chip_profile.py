@@ -24,7 +24,8 @@ under ``torch.profiler``.  It prints, as JSON lines:
   * ``fused_bnn_shapes``  from the profiled run: every fused BNN GEMM
                 call by (M bucket, N, S) — its count and summed device
                 time (the pack launch and the GEMM launch of each call,
-                matched to the calls in issue order).
+                read from the host range the wrapper names while
+                tracing).
 
 The profiled run is slower than the timed one (tracing costs host
 time); its shares are what to read, not its wall time.  ``--out``
@@ -129,46 +130,45 @@ def _m_bucket(m: int) -> str:
     return f">{M_BUCKETS[-1]}"
 
 
-def _record_gemm_shapes():
-    """Wrap the fused GEMM's wrapper so that every call appends its
-    (M, N, S); returns the list and a function that unwraps it."""
-    from repro_torch.kernels import fused_bnn as fb
-    calls: list[tuple[int, int, int]] = []
-    orig = fb.fused_bnn_matmul
-
-    def recorded(x, wp, s, **kw):
-        if x.device.type == "cuda":
-            calls.append((x.shape[0], wp.shape[0], s))
-        return orig(x, wp, s, **kw)
-    fb.fused_bnn_matmul = recorded
-
-    def restore():
-        fb.fused_bnn_matmul = orig
-    return calls, restore
+def _is_kernel(ev) -> bool:
+    """A traced device kernel (a named range's projection onto the
+    device is none)."""
+    return ev.device_type == torch.autograd.DeviceType.CUDA and \
+        not getattr(ev, "is_user_annotation", False)
 
 
-def _gemm_histogram(prof, calls) -> list[dict]:
-    """Match the profiled GEMM launches to the recorded calls, in issue
-    order (one stream): a call's device time is its GEMM kernel plus the
-    pack kernel launched just before it."""
-    evs = sorted((ev for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and ("fused_bnn" in ev.name
-                       or "pack_rows_kernel" in ev.name)),
-                 key=lambda ev: ev.time_range.start)
-    per_call, pending = [], 0.0
-    for ev in evs:
-        dur = ev.time_range.elapsed_us() / 1e3
-        if "pack_rows_kernel" in ev.name:
-            pending += dur
-        else:
-            per_call.append(pending + dur)
-            pending = 0.0
-    if len(per_call) != len(calls):
-        raise RuntimeError(f"{len(per_call)} GEMM launches traced for "
-                           f"{len(calls)} calls")
+def _gemm_histogram(prof) -> list[dict]:
+    """Every fused BNN GEMM call of the profiled run by (M bucket, N, S):
+    its count and device time.  While the profiler runs, the wrapper
+    names each call's host range ``fused_bnn M=.. N=.. S=..``; the
+    kernel launches issued inside that range (the pack and the GEMM;
+    the engine issues from one thread) share their correlation id with
+    the kernels they started."""
+    evs = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    calls = sorted((ev for ev in evs if ev.device_type == cpu
+                    and ev.name.startswith("fused_bnn M=")),
+                   key=lambda ev: ev.time_range.start)
+    launches = sorted((ev for ev in evs if ev.device_type == cpu
+                       and "LaunchKernel" in ev.name),
+                      key=lambda ev: ev.time_range.start)
+    kernel_ms = {ev.id: ev.time_range.elapsed_us() / 1e3
+                 for ev in evs if _is_kernel(ev)}
     hist: dict[tuple[str, int, int], list[float]] = {}
-    for (m, n, s), ms in zip(calls, per_call):
+    j = 0
+    for call in calls:
+        lo, hi = call.time_range.start, call.time_range.end
+        while j < len(launches) and launches[j].time_range.start < lo:
+            j += 1
+        ms, n_kernels, k = 0.0, 0, j
+        while k < len(launches) and launches[k].time_range.start <= hi:
+            if launches[k].id in kernel_ms:
+                ms += kernel_ms[launches[k].id]
+                n_kernels += 1
+            k += 1
+        if not n_kernels:
+            raise RuntimeError(f"{call.name}: no kernel traced in the call")
+        m, n, s = (int(f.split("=")[1]) for f in call.name.split()[1:])
         key = (_m_bucket(m), n, s)
         hist.setdefault(key, [0, 0.0])
         hist[key][0] += 1
@@ -206,24 +206,21 @@ def main() -> int:
     print(json.dumps({"arch": args.arch, "steps": steps,
                       "timed_wall_s": timed_wall}), flush=True)
 
-    calls, restore = _record_gemm_shapes()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _serve(dev, work)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        restore()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _serve(dev, work)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kernels: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if _is_kernel(ev):
             dur = ev.time_range.elapsed_us() / 1e3
             kernels[ev.name] = kernels.get(ev.name, 0.0) + dur
     busy_ms = sum(kernels.values())
     ours = sum(v for k, v in kernels.items()
                if any(s in k for s in ("fused_bnn_", "pack_rows_kernel",
+                                       "bnn_gemm::",
                                        "paged_attention_",
                                        "binarize_pack_kernel", "mla_",
                                        "batched_sgemm_kernel")))
@@ -241,7 +238,7 @@ def main() -> int:
         "busy_share_of_timed_run": busy_ms / (1e3 * timed_wall),
         "port_kernels_share_of_kernel_time": ours / busy_ms if busy_ms else 0.0,
         "top_kernels_ms": dict(top)}}), flush=True)
-    print(json.dumps({"fused_bnn_shapes": _gemm_histogram(prof, calls)}),
+    print(json.dumps({"fused_bnn_shapes": _gemm_histogram(prof)}),
           flush=True)
     if args.out:
         out = Path(args.out)

@@ -66,6 +66,7 @@ nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -80,7 +81,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-INT8_OPS_PER_S = 1979e12         # densest integer rate: int8 tensor cores
+INT8_OPS_PER_S = 1979e12         # densest documented integer rate: int8
+                                 # tensor cores (the binary mma's is
+                                 # measured: b1_ops_per_s)
 FP32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 MAX_ATTN_ERR = 1e-4              # |kernel - plain| for attention outputs
 MAX_MLA_REL_ERR = 1e-4           # MLA: |kernel - plain| <= this x
@@ -151,6 +154,37 @@ def warm_clocks(dev, seconds: float = 1.0):
     torch.cuda.synchronize()
 
 
+@functools.lru_cache(maxsize=None)
+def b1_ops_per_s(dev) -> float:
+    """The binary tensor-core product's rate on this card, measured once:
+    a tight loop of independent mma.m16n8k256.b1 (AND + popcount) in 4
+    blocks of 8 warps per SM (csrc/fused_bnn.cu ``fb_b1_mma_rate``),
+    2 x 16 x 8 x 256 operations an mma, as int8's 2 M N K."""
+    from repro_torch.kernels import _lib
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    iters, reps = 4096, 5
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    probe = lambda: _lib.launch("fb_b1_mma_rate", _lib.ptr(out), blocks,
+                                iters)
+    probe()                                      # build, warm up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        probe()
+    end.record()
+    torch.cuda.synchronize()
+    n_ops = reps * blocks * 8 * iters * 8 * 2 * 16 * 8 * 256
+    return n_ops / (start.elapsed_time(end) / 1e3)
+
+
+def xnor_gemm_ops_per_s(dev) -> float:
+    """The rate of an XNOR-popcount GEMM's bound: the faster of the int8
+    data-sheet rate and the binary mma's measured one."""
+    return max(INT8_OPS_PER_S, b1_ops_per_s(dev))
+
+
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_rate * 1e3
@@ -171,6 +205,11 @@ def phase_device() -> str:
     _lib.LIBRARY.load()
     log(f"[device] kernel library {_lib.LIBRARY.path.name} built in "
         f"{_lib.LIBRARY.build_s:.1f} s")
+    dev = torch.device("cuda")
+    warm_clocks(dev)
+    log(f"[device] binary mma.m16n8k256 rate {b1_ops_per_s(dev) / 1e12:.1f} "
+        f"TOP/s measured (int8 data sheet {INT8_OPS_PER_S / 1e12:.0f}); "
+        f"XNOR GEMM bounds use {xnor_gemm_ops_per_s(dev) / 1e12:.1f}")
     return smi
 
 
@@ -182,55 +221,37 @@ def phase_device() -> str:
 
 def check_fused_bnn(dev, m: int, n: int, s: int, gen: torch.Generator,
                     timed: bool) -> dict:
-    """Every measured alternative of the kernel (activations packed once
-    or inside the GEMM; the tensor-core product on binary or int8 mma)
-    bit-exact against the plain version in all four modes.  Timed: the
-    defaults (``ms``), packing inside the GEMM (``ms_pack_in_gemm``) and,
-    at M > 8, the int8 product (``ms_int8_mma``)."""
+    """The kernel bit-exact against the plain version in all four modes;
+    timed in "dot_scaled"."""
     from repro_torch.kernels import binarize_pack as bp, fused_bnn as fb
     x = torch.randn(m, s, device=dev, generator=gen)
     w = torch.randn(s, n, device=dev, generator=gen)
     wp = bp.binarize_pack_torch(w.t().contiguous())
     alpha = torch.rand(n, device=dev, generator=gen) + 0.5
-    default = fb.PACK_ONCE, fb.BINARY_MMA
-    run = lambda: fb.fused_bnn_matmul(x, wp, s, mode="dot_scaled",
-                                      alpha=alpha)
-    try:
-        for fb.PACK_ONCE, fb.BINARY_MMA in ((True, True), (False, True),
-                                            (True, False)):
-            for mode in MODES:
-                got = fb.fused_bnn_matmul(x, wp, s, mode=mode, alpha=alpha)
-                want = fb.fused_bnn_matmul_torch(x, wp, s, mode=mode,
-                                                 alpha=alpha)
-                torch.cuda.synchronize()
-                if got.dtype != want.dtype or not torch.equal(got, want):
-                    bad = (got.float() != want.float()).sum().item()
-                    raise AssertionError(
-                        f"fused_bnn M={m} N={n} S={s} {mode} pack_once="
-                        f"{fb.PACK_ONCE} binary_mma={fb.BINARY_MMA}: {bad} "
-                        "elements differ from the plain version")
-        row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0}
-        if timed:
-            kw = -(-s // 32)
-            n_bytes = m * s * 4 + n * kw * 4 + n * 4 + m * n * 4
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                n_bytes, 2 * m * n * s, INT8_OPS_PER_S)
-            fb.PACK_ONCE, fb.BINARY_MMA = False, True
-            row["ms_pack_in_gemm"] = time_ms(run)
-            if m > 8:
-                fb.PACK_ONCE, fb.BINARY_MMA = True, False
-                row["ms_int8_mma"] = time_ms(run)
-            fb.PACK_ONCE, fb.BINARY_MMA = default
-            row["ms"] = time_ms(run)
-            row["eager_ms"] = eager_ms(run)
-            row["plain_ms"] = time_ms(lambda: fb.fused_bnn_matmul_torch(
-                x, wp, s, mode="dot_scaled", alpha=alpha), iters=3)
-            xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
-            ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
-            row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws))
-            row["beats_library"] = row["ms"] < row["library_ms"]
-    finally:
-        fb.PACK_ONCE, fb.BINARY_MMA = default
+    for mode in MODES:
+        got = fb.fused_bnn_matmul(x, wp, s, mode=mode, alpha=alpha)
+        want = fb.fused_bnn_matmul_torch(x, wp, s, mode=mode, alpha=alpha)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            bad = (got.float() != want.float()).sum().item()
+            raise AssertionError(f"fused_bnn M={m} N={n} S={s} {mode}: {bad} "
+                                 "elements differ from the plain version")
+    row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0}
+    if timed:
+        kw = -(-s // 32)
+        n_bytes = m * s * 4 + n * kw * 4 + n * 4 + m * n * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n_bytes, 2 * m * n * s, xnor_gemm_ops_per_s(dev))
+        run = lambda: fb.fused_bnn_matmul(x, wp, s, mode="dot_scaled",
+                                          alpha=alpha)
+        row["ms"] = time_ms(run)
+        row["eager_ms"] = eager_ms(run)
+        row["plain_ms"] = time_ms(lambda: fb.fused_bnn_matmul_torch(
+            x, wp, s, mode="dot_scaled", alpha=alpha), iters=3)
+        xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
+        ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
+        row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws))
+        row["beats_library"] = row["ms"] < row["library_ms"]
     return row
 
 
@@ -374,6 +395,11 @@ def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
             check_paged_attention(dev, 3, c, 16, 4, dh, 16, 700, gen, False,
                                   window=window)
     check_paged_attention(dev, 3, 17, 12, 12, 64, 16, 300, gen, False)
+    # a head width the tiled path is not built for: R = 68 query rows
+    # take the decode walk, 16 rows a block
+    for window in (None, 37):
+        check_paged_attention(dev, 3, 17, 16, 4, 32, 16, 300, gen, False,
+                              window=window)
     for name, rs in rows.items():
         for r in rs:
             log(f"[kernels] {name} {json.dumps(r)}")
@@ -841,8 +867,8 @@ def check_xnor_popcount(dev, m: int, n: int, s: int, gen: torch.Generator,
     if timed:
         kw = -(-s // 32)
         n_bytes = (m + n) * kw * 4 + m * n * 4          # dot: int32 out
-        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 2 * m * n * s,
-                                                    INT8_OPS_PER_S)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n_bytes, 2 * m * n * s, xnor_gemm_ops_per_s(dev))
         run = lambda: xp.xnor_popcount_matmul(ip, wp, s, mode="dot")
         row["ms"] = time_ms(run)
         row["eager_ms"] = eager_ms(run)

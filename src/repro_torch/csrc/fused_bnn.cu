@@ -11,7 +11,8 @@
 // packed weight, N * Kw * 4 bytes: 73.7 KB for a 768 x 768 projection,
 // 7.3 MB for a mixtral expert's 14336 x 4096 (2.2 us at 3.35 TB/s).  At
 // prefill (M = 128, N = 2048, S = 768) the bytes are 0.6 MB and the
-// 2 M N S = 0.40 G operations take 0.2 us at the int8 tensor-core rate;
+// 2 M N S = 0.40 G operations take 0.2 us at the int8 tensor-core rate
+// (less at the binary mma's, which chip_smoke.py measures on the card);
 // both are far below launch latency, so the goal there is a short
 // critical path, not the roofline.  At mixtral's prefill widths (M = 32
 // rows of an expert, N = 14336, S = 4096) it is the weight's 7.3 MB
@@ -23,9 +24,7 @@
 // flight; KwP is Kw rounded up to 4 words, zero-filled, so every packed
 // row is 16-byte aligned).  Where the decode path's grid is a single
 // wave, its blocks pack the rows themselves instead (design a): the
-// re-reads are few and a launch is saved.  Without a scratch every path
-// packs in its blocks (design a everywhere, the measured alternative).
-// Then, chosen by M:
+// re-reads are few and a launch is saved.  Then, chosen by M:
 //  * M <= 8 (decode, and mixtral's experts at decode; S <= 49152): a
 //    read of the packed weight on CUDA cores.  The packed rows sit in
 //    shared memory; each output column is owned by LPC lanes (the power
@@ -33,30 +32,21 @@
 //    most 32); each lane loads its chunks of UNR columns' weight rows
 //    with vector loads, the next chunks before using these, adds
 //    popc(x ^ w) for every row, and the LPC lanes reduce by shuffles.
-//  * M > 8: tensor cores.  A block owns a 64 x 64 output tile (64 x 32
-//    where 64-wide tiles would not fill the card), four warps; K runs in
-//    tiles of 32 words (1024 bits) staged with cp.async, double-
-//    buffered.  The product is binary mma.m16n8k256 with AND + popcount
-//    on the packed words as they are: 8 words per step, no expansion;
-//    the row and column popcounts, summed on the way, turn the both-one
-//    count c into mismatches pa + pb - 2c.  The alternative (measured,
-//    not the default) is int8 mma.m16n8k32: each packed word is one
-//    k = 32 step, its nibbles expanded in registers into four +-1 bytes
-//    (bit -> byte by one multiply, then ~(t * 0xFE) maps 0/1 to -1/+1),
-//    accumulated in int32, exact for any S < 2^31; the integer ALUs'
-//    expansion, not the tensor cores, bounds it.
+//  * M > 8: the packed x packed core of bnn_gemm.cuh on tensor cores
+//    (binary mma.m16n8k256 with AND + popcount).  Binary mma beat int8
+//    mma.m16n8k32 on +-1 bytes expanded from the words at every shape
+//    the smoke times (the int8 product was 1.06-3.1x slower, bound by
+//    the integer ALUs' expansion), so it is the one product.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bnn_epilogue.cuh"
+#include "bnn_gemm.cuh"
 
 namespace {
 
 constexpr int SMALL_M = 8;      // rows the CUDA-core path takes
 constexpr int SMALL_WARPS = 8;
-constexpr int TBM = 64, TBN = 64, TKW = 32;   // tensor-core tile (words)
-constexpr int LDW = TKW + 4;    // smem row stride: 16-byte rows, and rows
-                                // g = 0..7 of a fragment on distinct banks
 constexpr int PACK_THREADS = 256;
 
 // One packed word: bit j = (row[32k + j] >= thr), 0 past S.
@@ -85,31 +75,6 @@ __device__ __forceinline__ uint32_t pack_word(const float* __restrict__ row,
       w |= (uint32_t)(c0 + j < S && v[j] >= thr) << j;
   }
   return w;
-}
-
-// Four bits of w from bit `sh` on as four int8 lanes of +-1 (bit 1 -> +1).
-__device__ __forceinline__ uint32_t pm1_nibble(uint32_t w, int sh) {
-  const uint32_t t = (((w >> sh) & 0xFu) * 0x00204081u) & 0x01010101u;
-  return ~(t * 0xFEu);
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // VEC packed words as one load (16, 8 or 4 bytes).
@@ -220,290 +185,136 @@ __global__ __launch_bounds__(SMALL_WARPS * 32) void fused_bnn_small_kernel(
   }
 }
 
-// M > 8: a 64 x BN output tile per block on tensor cores, four warps of
-// 32 x BN/2.  BINARY: mma.m16n8k256.b1 with .and.popc on the packed words
-// as they are (8 words per step; row and column popcounts turn the
-// both-one count into mismatches); else int8 mma.m16n8k32 on +-1 bytes
-// expanded from each word.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_b1_and(int (&c)[4], const uint32_t (&a)[4],
-                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The binary mma's peak rate, which no data sheet gives for this card:
+// every warp runs `iters` rounds of 8 independent mma.m16n8k256.b1 on
+// registers; the caller times the launch.
+__global__ __launch_bounds__(256) void b1_mma_rate_kernel(int* out,
+                                                          int iters) {
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, ~threadIdx.x,
+                         threadIdx.x ^ 0x5555u};
+  int acc[8][4] = {};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      bnn_gemm::mma_b1_and(acc[j], a, a[j & 3], a[(j + 1) & 3]);
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    sum += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
 }
 
-template <int VEC, bool PREPACKED, bool BINARY, int BN>
-__global__ __launch_bounds__(128) void fused_bnn_tc_kernel(
-    const float* __restrict__ x, const uint32_t* __restrict__ xp,
-    const uint32_t* __restrict__ wp, const float* __restrict__ alpha,
-    void* __restrict__ out, int M, int N, int S, int Kw, int KwP, float thr,
-    int mode, bool vec4) {
-  constexpr int NI = BN / 16;                     // n fragments per warp
-  __shared__ __align__(16) uint32_t As[2][TBM][LDW];
-  __shared__ __align__(16) uint32_t Bs[2][BN][LDW];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * (BN / 2);
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * BN;
-  const int nk = (Kw + TKW - 1) / TKW;
-
-  auto load_tile = [&](int st, int kt) {
-    const int k0 = kt * TKW;
-    constexpr int CPR = TKW / VEC;                 // chunks per row
-    for (int c = tid; c < BN * CPR; c += 128) {
-      const int r = c / CPR, kk = (c % CPR) * VEC, n = n0 + r, k = k0 + kk;
-      const bool ok = n < N && k < Kw;             // Kw % VEC == 0
-      cp_async<VEC * 4>(&Bs[st][r][kk], ok ? wp + (size_t)n * Kw + k : wp,
-                        ok ? VEC * 4 : 0);
-    }
-    if (PREPACKED) {
-      for (int c = tid; c < TBM * (TKW / 4); c += 128) {
-        const int r = c / (TKW / 4), kk = (c % (TKW / 4)) * 4;
-        const int m = m0 + r, k = k0 + kk;
-        const bool ok = m < M && k < KwP;          // KwP % 4 == 0
-        cp_async<16>(&As[st][r][kk], ok ? xp + (size_t)m * KwP + k : xp,
-                     ok ? 16 : 0);
-      }
-    } else {
-      for (int c = tid; c < TBM * TKW; c += 128) {
-        const int r = c / TKW, kk = c % TKW, m = m0 + r, k = k0 + kk;
-        As[st][r][kk] = m < M && k < Kw
-                            ? pack_word(x + (size_t)m * S, k, S, thr, vec4)
-                            : 0u;
-      }
-    }
-  };
-
-  int acc[2][NI][4];
-  int pa[2][2] = {{0, 0}, {0, 0}}, pb[NI];        // popcounts (BINARY)
-#pragma unroll
-  for (int j = 0; j < NI; ++j) {
-    pb[j] = 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+// SMs of the current device, read once per device.
+cudaError_t sm_count(int* sms) {
+  static int count[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return err;
   }
-  const bool live[2] = {m0 + wm < M, m0 + wm + 16 < M};   // warp-uniform
-
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) load_tile(st ^ 1, kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int kend = min(TKW, KwP - kt * TKW);     // words past KwP are 0
-    if (live[0] && BINARY) {
-      for (int k8 = 0; k8 < kend; k8 += 8) {
-        uint32_t b[NI][2];
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          const uint32_t* row = Bs[st][wn + ni * 8 + g];
-          b[ni][0] = row[k8 + t];
-          b[ni][1] = row[k8 + 4 + t];
-          pb[ni] += __popc(b[ni][0]) + __popc(b[ni][1]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          if (!live[mi]) continue;
-          const uint32_t* r0 = As[st][wm + mi * 16 + g];
-          const uint32_t* r1 = As[st][wm + mi * 16 + 8 + g];
-          const uint32_t a[4] = {r0[k8 + t], r1[k8 + t], r0[k8 + 4 + t],
-                                 r1[k8 + 4 + t]};
-          pa[mi][0] += __popc(a[0]) + __popc(a[2]);
-          pa[mi][1] += __popc(a[1]) + __popc(a[3]);
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni)
-            mma_b1_and(acc[mi][ni], a, b[ni][0], b[ni][1]);
-        }
-      }
-    } else if (live[0]) {
-      for (int k4 = 0; k4 < kend; k4 += 4) {
-        uint4 aw[2][2], bw[NI];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            aw[mi][h] = *reinterpret_cast<const uint4*>(
-                &As[st][wm + mi * 16 + h * 8 + g][k4]);
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          bw[ni] = *reinterpret_cast<const uint4*>(&Bs[st][wn + ni * 8 + g][k4]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t b[NI][2];
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni) {
-            const uint32_t w = (&bw[ni].x)[kk];
-            b[ni][0] = pm1_nibble(w, 4 * t);
-            b[ni][1] = pm1_nibble(w, 16 + 4 * t);
-          }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            if (!live[mi]) continue;
-            const uint32_t w0 = (&aw[mi][0].x)[kk], w1 = (&aw[mi][1].x)[kk];
-            const uint32_t a[4] = {pm1_nibble(w0, 4 * t), pm1_nibble(w1, 4 * t),
-                                   pm1_nibble(w0, 16 + 4 * t),
-                                   pm1_nibble(w1, 16 + 4 * t)};
-#pragma unroll
-            for (int ni = 0; ni < NI; ++ni)
-              mma_s8(acc[mi][ni], a, b[ni][0], b[ni][1]);
-          }
-        }
-      }
-    }
-    __syncthreads();                              // stage st consumed
-  }
-
-  // int8: every position processed past S (pads, the zero words up to
-  // KwP) is 0 on both sides and added +1, so z = (dot - (32 KwP - S) + S)
-  // / 2.  BINARY: acc counts positions where both are 1; the 4 lanes t of
-  // a row (column) hold parts of its popcount; mismatches = pa + pb - 2 acc.
-  const int pad = KwP * 32 - S;
-  if (BINARY) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          pa[mi][h] += __shfl_xor_sync(0xffffffffu, pa[mi][h], off);
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-        pb[ni] += __shfl_xor_sync(0xffffffffu, pb[ni], off);
-    }
-  }
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni) {
-    // column 2t + e of this fragment is lane (2t + e) * 4's column g
-    int pbc[2] = {0, 0};
-    if (BINARY) {
-      pbc[0] = __shfl_sync(0xffffffffu, pb[ni], (2 * t) * 4);
-      pbc[1] = __shfl_sync(0xffffffffu, pb[ni], (2 * t + 1) * 4);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + mi * 16 + g + (e >> 1) * 8;
-        const int n = n0 + wn + ni * 8 + 2 * t + (e & 1);
-        const int z = BINARY
-            ? S - (pa[mi][e >> 1] + pbc[e & 1] - 2 * acc[mi][ni][e])
-            : (acc[mi][ni][e] - pad + S) >> 1;
-        if (m < M && n < N) bnn_store(out, (size_t)m * N + n, z, S, alpha, n, mode);
-      }
-  }
+  *sms = count[dev];
+  return cudaSuccess;
 }
 
 struct Args {
   const float* x;
-  const uint32_t* xp;
+  uint32_t* xp;
   const uint32_t* wp;
   const float* alpha;
   void* out;
   int M, N, S, Kw, KwP;
   float thr;
   int mode;
-  bool vec4, binary;
+  bool vec4;
   cudaStream_t stream;
 };
 
-// The CUDA-core path's launch shape: lpc lanes per column (log2), blocks.
+// The CUDA-core path's launch shape: lpc lanes per column (log2), UNR
+// columns per lane group, blocks.
 struct SmallShape {
   int lg, unr, blocks;
 };
 template <int VEC>
-SmallShape small_shape(int N, int Kw) {
+SmallShape small_shape(int N, int Kw, int sms) {
   const int chunks = Kw / VEC;
   int lg = 0;
   while ((1 << lg) < chunks && lg < 5) ++lg;
   const int cols = SMALL_WARPS * (32 >> lg);      // per block, UNR = 1
   const int blocks1 = (N + cols - 1) / cols;
   // a grid of several waves gives each lane 4 columns' loads in flight
-  const int unr = blocks1 >= 4 * 132 ? 4 : 1;
+  const int unr = blocks1 >= 4 * sms ? 4 : 1;
   return {lg, unr, (N + cols * unr - 1) / (cols * unr)};
 }
 
 template <int VEC, bool PRE>
-cudaError_t launch(const Args& a, const SmallShape& sh) {
-  if (a.M <= SMALL_M && (size_t)a.M * a.KwP * 4 <= 48 * 1024) {
-    const size_t smem = sizeof(uint32_t) * a.M * a.KwP;
-    const auto k = sh.unr == 4 ? fused_bnn_small_kernel<VEC, PRE, 4>
-                               : fused_bnn_small_kernel<VEC, PRE, 1>;
-    k<<<sh.blocks, SMALL_WARPS * 32, smem, a.stream>>>(
-        a.x, a.xp, a.wp, a.alpha, a.out, a.M, a.N, a.S, a.Kw, a.KwP, sh.lg,
-        a.thr, a.mode, a.vec4);
-    return cudaGetLastError();
-  }
-  // 32-column tiles where 64-column ones would not fill the card
-  const int mt = (a.M + TBM - 1) / TBM;
-  const bool narrow = mt * ((a.N + 63) / 64) < 132;
-  const int bn = narrow ? 32 : 64;
-  const dim3 grid((a.N + bn - 1) / bn, mt);
-  const auto k = a.binary
-      ? (narrow ? fused_bnn_tc_kernel<VEC, PRE, true, 32>
-                : fused_bnn_tc_kernel<VEC, PRE, true, 64>)
-      : (narrow ? fused_bnn_tc_kernel<VEC, PRE, false, 32>
-                : fused_bnn_tc_kernel<VEC, PRE, false, 64>);
-  k<<<grid, 128, 0, a.stream>>>(a.x, a.xp, a.wp, a.alpha, a.out, a.M, a.N,
-                                a.S, a.Kw, a.KwP, a.thr, a.mode, a.vec4);
+cudaError_t launch_small(const Args& a, const SmallShape& sh) {
+  const size_t smem = sizeof(uint32_t) * a.M * a.KwP;
+  const auto k = sh.unr == 4 ? fused_bnn_small_kernel<VEC, PRE, 4>
+                             : fused_bnn_small_kernel<VEC, PRE, 1>;
+  k<<<sh.blocks, SMALL_WARPS * 32, smem, a.stream>>>(
+      a.x, a.xp, a.wp, a.alpha, a.out, a.M, a.N, a.S, a.Kw, a.KwP, sh.lg,
+      a.thr, a.mode, a.vec4);
   return cudaGetLastError();
 }
 
-template <bool PRE>
-cudaError_t launch_vec(const Args& a, int vec) {
-  if (vec == 4) return launch<4, PRE>(a, small_shape<4>(a.N, a.Kw));
-  if (vec == 2) return launch<2, PRE>(a, small_shape<2>(a.N, a.Kw));
-  return launch<1, PRE>(a, small_shape<1>(a.N, a.Kw));
+cudaError_t pack_rows(const Args& a) {
+  const int words = a.M * a.KwP;
+  pack_rows_kernel<<<(words + PACK_THREADS - 1) / PACK_THREADS, PACK_THREADS,
+                     0, a.stream>>>(a.x, a.xp, a.M, a.S, a.Kw, a.KwP, a.thr,
+                                    a.vec4);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch(const Args& a, int sms) {
+  if (a.M <= SMALL_M && (size_t)a.M * a.KwP * 4 <= 48 * 1024) {
+    const SmallShape sh = small_shape<VEC>(a.N, a.Kw, sms);
+    // a single wave packs in its blocks and saves the pack launch
+    if (sh.blocks <= sms) return launch_small<VEC, false>(a, sh);
+    const cudaError_t err = pack_rows(a);
+    return err != cudaSuccess ? err : launch_small<VEC, true>(a, sh);
+  }
+  const cudaError_t err = pack_rows(a);
+  if (err != cudaSuccess) return err;
+  return bnn_gemm::launch_tc<VEC>(a.xp, a.wp, a.alpha, a.out, a.M, a.N, a.S,
+                                  a.Kw, a.KwP, a.mode, sms, a.stream);
 }
 
 }  // namespace
 
-// xp: an (M, KwP) int32 scratch, KwP = Kw rounded up to 4, or null.
-// With a scratch the activations are packed once, in a first launch
-// (design b), except where the CUDA-core path's grid is a single wave:
-// there each block packs them itself (design a) and saves the launch.
-// Null packs inside the GEMM blocks on every path (design a, measured
-// beside b).  binary: the tensor-core path's product on b1 mma (1) or
-// int8 mma (0).
+// xp: an (M, KwP) int32 scratch, 16-byte aligned, KwP = Kw rounded up
+// to 4: the packed activations (design b).  The decode path leaves it
+// unused where its grid is a single wave.
 extern "C" int fb_fused_bnn(const void* x, const void* wp, const void* alpha,
                             void* out, void* xp, int M, int N, int S, int Kw,
-                            float thr, int mode, int binary, void* stream) {
+                            float thr, int mode, void* stream) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
-  if (xp != nullptr && (uintptr_t)xp % 16) return (int)cudaErrorInvalidValue;
-  const int KwP = (Kw + 3) & ~3;
+  if (xp == nullptr || (uintptr_t)xp % 16) return (int)cudaErrorInvalidValue;
   const uintptr_t wa = (uintptr_t)wp;
   const int vec = Kw % 4 == 0 && wa % 16 == 0 ? 4
                   : Kw % 2 == 0 && wa % 8 == 0 ? 2 : 1;
-  Args a{(const float*)x, (const uint32_t*)xp, (const uint32_t*)wp,
-         (const float*)alpha, out, M, N, S, Kw, KwP, thr, mode,
-         S % 4 == 0 && (uintptr_t)x % 16 == 0, binary != 0,
-         (cudaStream_t)stream};
-  const bool small = M <= SMALL_M && (size_t)M * KwP * 4 <= 48 * 1024;
-  const int small_blocks = vec == 4   ? small_shape<4>(N, Kw).blocks
-                           : vec == 2 ? small_shape<2>(N, Kw).blocks
-                                      : small_shape<1>(N, Kw).blocks;
-  if (xp == nullptr || (small && small_blocks <= 132)) {
-    a.xp = nullptr;
-    return (int)launch_vec<false>(a, vec);
-  }
-  const int words = M * KwP;
-  pack_rows_kernel<<<(words + PACK_THREADS - 1) / PACK_THREADS, PACK_THREADS,
-                     0, a.stream>>>(a.x, (uint32_t*)xp, M, S, Kw, KwP, thr,
-                                    a.vec4);
-  const cudaError_t err = cudaGetLastError();
+  const Args a{(const float*)x, (uint32_t*)xp, (const uint32_t*)wp,
+               (const float*)alpha, out, M, N, S, Kw, (Kw + 3) & ~3, thr,
+               mode, S % 4 == 0 && (uintptr_t)x % 16 == 0,
+               (cudaStream_t)stream};
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_vec<true>(a, vec);
+  if (vec == 4) return (int)launch<4>(a, sms);
+  if (vec == 2) return (int)launch<2>(a, sms);
+  return (int)launch<1>(a, sms);
+}
+
+// The rate probe: `blocks` x 256 threads of the binary mma loop above
+// on `stream`, one int per thread to `out`; each warp does 8 * iters
+// mma.m16n8k256, 2 * 16 * 8 * 256 operations each.  The caller times it.
+extern "C" int fb_b1_mma_rate(void* out, int blocks, int iters,
+                              void* stream) {
+  b1_mma_rate_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((int*)out,
+                                                               iters);
+  return (int)cudaGetLastError();
 }

@@ -481,19 +481,20 @@ extern "C" int pa_paged_attention(const void* q, const void* kpool,
                                   int MB, int causal, int window, int ring,
                                   float scale, void* stream) {
   if (B == 0 || C == 0) return (int)cudaGetLastError();
-  // the walk stages K/V rows with 16-byte loads: rows of Dh floats start
-  // 16-byte aligned in the pools and, with BS % 4 == 0, in every warp's
-  // shared-memory slice
+  // the walks move Q, K/V and output rows with 16-byte accesses: rows of
+  // Dh floats start 16-byte aligned in q, out and the pools and, with
+  // BS % 4 == 0, in every warp's shared-memory slice
   if (Hkv <= 0 || H % Hkv != 0 || Dh <= 0 || BS <= 0 || MB <= 0 ||
       (ring && newest == nullptr) || Dh % 4 || BS % 4 ||
-      (uintptr_t)kpool % 16 || (uintptr_t)vpool % 16)
+      (uintptr_t)kpool % 16 || (uintptr_t)vpool % 16 || (uintptr_t)q % 16 ||
+      (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
   // prefill chunks (more query rows than one decode tile) take the tiled
-  // path at the head widths it is built for
+  // path at the head widths it is built for; other widths take the
+  // decode walk, 16 rows a block
   const int R = C * (H / Hkv);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (R > QT && (Dh == 64 || Dh == 128) && (uintptr_t)q % 16 == 0 &&
-      (uintptr_t)out % 16 == 0) {
+  if (R > QT && (Dh == 64 || Dh == 128)) {
     const auto tiled = Dh == 64
         ? (ring ? launch_tiled<64, true> : launch_tiled<64, false>)
         : (ring ? launch_tiled<128, true> : launch_tiled<128, false>);

@@ -1,28 +1,26 @@
 """Fused binarize -> bitpack -> XNOR-popcount GEMM:
 (M, S) float x  x  (N, ceil(S/32)) packed weights  ->  (M, N).
 
-The activation side is binarized (``x >= threshold``) and packed inside
-the kernel, so packed activations never reach device memory; only the
-weight arrives pre-packed (kernels/ops.py packs each weight once).
+The activation side is binarized (``x >= threshold``) and packed by
+the kernel itself; only the weight arrives pre-packed (kernels/ops.py
+packs each weight once).
 Modes as ``ref.epilogue``: bitcount, dot, dot_scaled, binary_act.
 
 ``fused_bnn_matmul`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel (csrc/fused_bnn.cu) or raises; on a CPU tensor it
 computes ``fused_bnn_matmul_torch``, the plain version.
 
-Two switches select measured alternatives of the kernel (chip_smoke.py
-times both sides of each); the defaults are the faster ones.
-``PACK_ONCE``: True hands the kernel an (M, ceil(Kw/4)*4) int32 scratch
-allocated here, so it packs the activations once in a first launch
-(design b; the kernel still packs inside the GEMM where its decode grid
-is a single wave); False packs them inside the GEMM's blocks on every
-path (design a).  ``BINARY_MMA``: the tensor-core path (M > 8) on
-binary ``mma`` (``.b1``, AND + popcount) or on int8 ``mma`` over +-1
-bytes.
+The wrapper hands the kernel an (M, ceil(Kw/4)*4) int32 scratch for
+the packed activations: the kernel packs them once, in a first launch,
+except where its decode grid is a single wave and its blocks pack them
+themselves.  Under ``torch.profiler`` each launch is a
+``fused_bnn M=.. N=.. S=..`` range, so a trace can sum device time by
+shape (``chip_profile.py``).
 """
 from __future__ import annotations
 
 import torch
+import torch.autograd.profiler as _profiler
 
 from repro_torch.core import packing
 from repro_torch.kernels import _lib, ref
@@ -30,9 +28,6 @@ from repro_torch.kernels import _lib, ref
 KERNEL = _lib.KernelInfo(
     "fused_bnn", "src/repro_torch/csrc/fused_bnn.cu",
     "src/repro/kernels/fused_bnn.py:99")
-
-PACK_ONCE = True
-BINARY_MMA = True
 
 _OUT_DTYPE = {"bitcount": torch.int32, "dot": torch.int32,
               "dot_scaled": torch.float32, "binary_act": torch.uint8}
@@ -76,13 +71,15 @@ def fused_bnn_matmul(x: torch.Tensor, wp: torch.Tensor, s: int, *,
     _lib.check(wp, "wp", torch.int32, (n, kw), x.device)
     _lib.check(alpha, "alpha", torch.float32, (n,), x.device)
     out = torch.empty((m, n), dtype=_OUT_DTYPE[mode], device=x.device)
-    scratch = None
-    if PACK_ONCE:
-        scratch = torch.empty((m, -(-kw // 4) * 4), dtype=torch.int32,
-                              device=x.device)
-    _lib.launch("fb_fused_bnn", _lib.ptr(x), _lib.ptr(wp), _lib.ptr(alpha),
-                _lib.ptr(out),
-                None if scratch is None else _lib.ptr(scratch), m, n, s, kw,
-                float(threshold), ref.MODES.index(mode), int(BINARY_MMA))
+    scratch = torch.empty((m, -(-kw // 4) * 4), dtype=torch.int32,
+                          device=x.device)
+    args = (_lib.ptr(x), _lib.ptr(wp), _lib.ptr(alpha), _lib.ptr(out),
+            _lib.ptr(scratch), m, n, s, kw, float(threshold),
+            ref.MODES.index(mode))
+    if _profiler._is_profiler_enabled:        # tracing: name the shape
+        with torch.profiler.record_function(f"fused_bnn M={m} N={n} S={s}"):
+            _lib.launch("fb_fused_bnn", *args)
+    else:
+        _lib.launch("fb_fused_bnn", *args)
     KERNEL.launches += 1
     return out

@@ -181,10 +181,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     mb = block_table.shape[1]
     if hkv == 0 or h % hkv:
         raise ValueError(f"paged_attention: {h} heads over {hkv} kv heads")
-    if dh % 4 or bs % 4 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_attention: the kernel loads K/V rows 16 "
-                         "bytes at a time; Dh and the block size must be "
-                         "multiples of 4 and the pools 16-byte aligned")
+    if dh % 4 or bs % 4 or any(t.data_ptr() % 16
+                               for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_attention: the kernel moves Q and K/V rows "
+                         "16 bytes at a time; Dh and the block size must be "
+                         "multiples of 4 and q and the pools 16-byte aligned")
     dev = q.device
     _lib.check(q, "q", torch.float32, (b, c, h, dh), dev)
     _lib.check(k_pool, "k_pool", torch.float32, (nb, bs, hkv, dh), dev)
