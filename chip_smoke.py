@@ -14,11 +14,16 @@ Phases (each check raises, and the script then exits non-zero):
               mixtral's shapes (C = 1 and a C = 128 causal chunk, rows
               below and above the ring's capacity and one under a block;
               MAX_ATTN_ERR) and the MLA variant at deepseek-v2-lite's
-              (C = 1, C = 128 causal, a ring case; MAX_MLA_REL_ERR).
-              Each is timed (device time, from CUDA-graph replays; and
-              called from Python, eager) beside its plain version, one
-              library call as a yardstick (for MLA the two expansion
-              matmuls plus SDPA, together), and its bound on this card.
+              (C = 1, C = 128 causal, a ring case; MAX_MLA_REL_ERR;
+              untimed at C = 2, 4, 5, 17 around its decode block and
+              prefill tile, with a window cutting a block, and ring
+              chunks over a ring that has just wrapped).  Each is timed
+              (device time, from CUDA-graph replays; and called from
+              Python, eager) beside its plain version, one library call
+              as a yardstick (for MLA the two expansion matmuls plus
+              SDPA, together), and its bound on this card; a kernel
+              faster than its bound fails the run.  MLA rows add the
+              device time of each launch by kernel name (torch.profiler).
   3. serving  bnn-lm-100m at full width (precision="bnn", seeded random
               weights) served by the port's Engine: 16 requests, 8 of
               them submitted after 10 steps.  The serving kernels'
@@ -38,13 +43,15 @@ Phases (each check raises, and the script then exits non-zero):
               MobileNet_V2 and ShuffleNet_V2 (photonic/workloads.py),
               batch 1, published shapes, seeded inputs and weights:
               the XNOR-popcount GEMM kernel bit-exact against its plain
-              version (four modes at two shapes, then every distinct
-              layer shape in "dot" mode, each timed), weight/patch
+              version in four modes (edge shapes around its routes and
+              tiles, an ip view at an odd word offset, every route of
+              its plan; then every distinct layer shape, timed in
+              "dot" mode), weight/patch
               packing bit-exact at the patch shapes, every layer through
               the kernels equal to its plain path and to the sign-conv
-              oracle exactly (launch counts over that run must be > 0),
-              and a chained binary VGG-small stack conv2..conv6 equal
-              on all three routes.
+              oracle exactly (launch counts over that run must be > 0;
+              device times summed per network), and a chained binary
+              VGG-small stack conv2..conv6 equal on all three routes.
   6. photonic the engine's modelled OXBNN section from the serving run
               and the simulator's Fig. 7 comparison — modelled numbers
               of the photonic accelerators, not measurements.
@@ -85,6 +92,8 @@ INT8_OPS_PER_S = 1979e12         # densest documented integer rate: int8
                                  # tensor cores (the binary mma's is
                                  # measured: b1_ops_per_s)
 FP32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
+TF32X3_FLOPS_PER_S = 495e12 / 3  # float32 work as 3xTF32 tensor-core
+                                 # products: the TF32 data-sheet rate / 3
 MAX_ATTN_ERR = 1e-4              # |kernel - plain| for attention outputs
 MAX_MLA_REL_ERR = 1e-4           # MLA: |kernel - plain| <= this x
                                  # max(1, max|plain|); the kernel's absorbed
@@ -142,6 +151,35 @@ def eager_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_ms(fn, iters: int = 10) -> dict[str, float]:
+    """Device time per call of each kernel ``fn`` launches, by kernel
+    name, from a ``torch.profiler`` trace of ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
+            out[ev.name] = out.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3 / iters
+    if not out:
+        raise AssertionError("the profiler traced no kernel on the card")
+    return out
+
+
+def check_bound(row: dict, what: str) -> None:
+    """A kernel faster than its bound means a wrong bound: refuse it."""
+    if not row["bound_ms"] <= row["ms"]:
+        raise AssertionError(f"{what} {row['shape']}: {row['ms']:.5g} ms "
+                             f"beats its bound {row['bound_ms']:.5g} ms")
 
 
 def warm_clocks(dev, seconds: float = 1.0):
@@ -252,6 +290,7 @@ def check_fused_bnn(dev, m: int, n: int, s: int, gen: torch.Generator,
         ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
         row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws))
         row["beats_library"] = row["ms"] < row["library_ms"]
+        check_bound(row, "fused_bnn")
     return row
 
 
@@ -273,6 +312,7 @@ def check_binarize_pack(dev, m: int, s: int, gen: torch.Generator,
         row["eager_ms"] = eager_ms(lambda: bp.binarize_pack(x))
         row["plain_ms"] = time_ms(lambda: bp.binarize_pack_torch(x), iters=5)
         row["library_ms"] = None
+        check_bound(row, "binarize_pack")
     return row
 
 
@@ -338,6 +378,7 @@ def check_paged_attention(dev, b: int, c: int, h: int, hkv: int, dh: int,
         row["library_ms"] = time_ms(lambda: fsdpa(qt, keys, vals,
                                                   attn_mask=mask))
         row["beats_library"] = row["ms"] < row["library_ms"]
+        check_bound(row, "paged_attention")
     return row
 
 
@@ -490,26 +531,32 @@ def check_ring_attention(dev, c: int, gen: torch.Generator,
         row["library_ms"] = time_ms(lambda: fsdpa(qt, keys, vals,
                                                   attn_mask=mask))
         row["beats_library"] = row["ms"] < row["library_ms"]
+        check_bound(row, "paged_attention")
     return row
 
 
+MLA_RING_NEWEST = (100, 1023, 1500, 3000, 5, 700, 2047, 4000)
+
+
 def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
-                        ring: bool = False) -> dict:
+                        ring: bool = False, newest=MLA_RING_NEWEST,
+                        window: int | None = None) -> dict:
     """deepseek-v2-lite's latent attention at its published shapes: B=8,
     H=16, nope 128, rope 64, R=512, Dv=128, BS=16, MB=64 (kv_len up to
     1024, the last row fully masked); ``ring`` reads the same table as a
-    ring (newest below and above its 1024 slots)."""
+    ring (``newest`` below and above its 1024 slots; B = len(newest)).
+    C > 1 is a causal chunk ending at each row's last key."""
     from repro_torch.kernels import paged_attention as pa
     b, h, nope, dr, r, dv, bs, mb = 8, 16, 128, 64, 512, 128, 16, 64
     rng = np.random.default_rng(11 + c)
-    newest = None
     if ring:
-        newest = torch.tensor([100, 1023, 1500, 3000, 5, 700, 2047, 4000],
-                              dtype=torch.int32, device=dev)
+        b = len(newest)
+        newest = torch.tensor(newest, dtype=torch.int32, device=dev)
         kv_len = (newest + 1).to(torch.int32)
         q_off = newest if c == 1 else \
             (kv_len - c).clamp_min(0).to(torch.int32)
     else:
+        newest = None
         kv_len, q_off = _ragged_rows(b, c, mb * bs, rng, dev)
     causal = c > 1
     nb = b * mb + 1
@@ -521,24 +568,29 @@ def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
     k_up = torch.randn(r, h * nope, device=dev, generator=gen) * r ** -0.5
     v_up = torch.randn(r, h * dv, device=dev, generator=gen) * r ** -0.5
     kw = dict(k_up=k_up, v_up=v_up, nope_dim=nope, kv_len=kv_len,
-              q_offset=q_off, causal=causal, ring=ring, newest=newest)
+              q_offset=q_off, causal=causal, window=window, ring=ring,
+              newest=newest)
     got = pa.paged_attention_mla(q, ckv, krope, tab, **kw)
     want = pa.paged_attention_mla_torch(q, ckv, krope, tab, **kw)
     err = (got - want).abs().max().item()
     limit = MAX_MLA_REL_ERR * max(1.0, want.abs().max().item())
     if not err <= limit:
-        raise AssertionError(f"paged_attention_mla C={c} ring={ring}: max "
-                             f"abs err {err:.3g} > {limit:.3g}")
-    if not ring and got[-1].abs().max().item() != 0.0:
-        raise AssertionError("paged_attention_mla: fully-masked row is not "
-                             "zero")
+        raise AssertionError(f"paged_attention_mla C={c} ring={ring} "
+                             f"window={window}: max abs err {err:.3g} > "
+                             f"{limit:.3g}")
+    kpos = (pa.ring_key_positions(newest, mb, bs) if ring else
+            torch.arange(mb * bs, device=dev)[None].expand(b, mb * bs))
+    vis = _visible(kpos, kv_len, q_off, c, causal, window)
+    blind = ~vis.any(dim=-1)                    # (B, C): rows that see no key
+    if blind.any() and got[blind].abs().max().item() != 0.0:
+        raise AssertionError(f"paged_attention_mla C={c} ring={ring}: a "
+                             "fully-masked row is not zero")
+    tiled = pa.mla_tiled(c, h, r, dr)
     row = {"shape": f"B={b} C={c} H={h} nope={nope} rope={dr} R={r} Dv={dv} "
-                    f"BS={bs} MB={mb} ring={ring}", "max_abs_err": err,
-           "limit": limit}
+                    f"BS={bs} MB={mb} ring={ring} window={window}",
+           "max_abs_err": err, "limit": limit,
+           "path": "tiled" if tiled else "walk"}
     if timed:
-        kpos = (pa.ring_key_positions(newest, mb, bs) if ring else
-                torch.arange(mb * bs, device=dev)[None].expand(b, mb * bs))
-        vis = _visible(kpos, kv_len, q_off, c, causal, None)
         n_keys = int(vis.any(dim=1).sum())
         rows = b * c * h
         n_bytes = n_keys * (r + dr) * 4 + (k_up.numel() + v_up.numel()) * 4 \
@@ -549,11 +601,17 @@ def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
         pairs = int(vis.sum()) * h
         n_ops = 2 * rows * nope * r + pairs * (2 * (r + dr) + 2 * r) + \
             2 * rows * r * dv
-        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops,
-                                                    FP32_FLOPS_PER_S)
+        # the tiled path multiplies on tensor cores in 3xTF32; the decode
+        # walk on the CUDA cores in float32
+        row["bound_rate"] = ("3xTF32, 495/3 TFLOP/s" if tiled
+                             else "float32, 67 TFLOP/s")
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n_bytes, n_ops, TF32X3_FLOPS_PER_S if tiled else FP32_FLOPS_PER_S)
         run = lambda: pa.paged_attention_mla(q, ckv, krope, tab, **kw)
         row["ms"] = time_ms(run)
         row["eager_ms"] = eager_ms(run)
+        row["launch_ms"] = launch_ms(run)
+        check_bound(row, "paged_attention_mla")
         row["plain_ms"] = time_ms(
             lambda: pa.paged_attention_mla_torch(q, ckv, krope, tab, **kw),
             iters=3)
@@ -593,6 +651,16 @@ def phase_attention_variants(dev) -> dict[str, list[dict]]:
     # capacity + 1, + one block), a window that cuts a block and a key
     # tile mid-way
     check_mla_attention(dev, 5, gen, False, ring=True)
+    # MLA around the decode block (C * H = 16) and the tiled path's
+    # 64-row tile (C = 2, 4, 5, 17 at H = 16), a window that cuts a
+    # latent block, ring chunks over a ring that has just wrapped
+    for c in (2, 4, 5, 17):
+        check_mla_attention(dev, c, gen, False)
+    check_mla_attention(dev, 17, gen, False, window=37)
+    check_mla_attention(dev, 128, gen, False, window=300)
+    for c in (17, 128):
+        check_mla_attention(dev, c, gen, False, ring=True,
+                            newest=(1023, 1024, 1025, 1040, 1024 + 70))
     for c in (4, 5, 17):
         check_ring_attention(dev, c, gen, False)
     for c in (1, 17, 128):
@@ -846,14 +914,24 @@ def phase_e2e(dev, cfg, params, eng, out, rids=None):
 # --------------------------------------------------------------- phase 5
 
 def check_xnor_popcount(dev, m: int, n: int, s: int, gen: torch.Generator,
-                        timed: bool, modes=MODES) -> dict:
+                        timed: bool, modes=MODES, kw: int | None = None,
+                        offset: int = 0) -> dict:
     """The packed x packed GEMM kernel against its plain version on
     operands packed from seeded floats (pad bits 0, as the conv path
-    packs them)."""
-    from repro_torch.kernels import binarize_pack as bp, xnor_popcount as xp
+    packs them), over ``kw`` words (default ceil(s/32); more words are
+    zero), ip a view ``offset`` words into its buffer."""
+    from repro_torch.kernels import _lib, binarize_pack as bp
+    from repro_torch.kernels import xnor_popcount as xp
     x = torch.randn(m, s, device=dev, generator=gen)
     w = torch.randn(n, s, device=dev, generator=gen)
     ip, wp = bp.binarize_pack_torch(x), bp.binarize_pack_torch(w)
+    kw = kw or ip.shape[1]
+    ip = torch.nn.functional.pad(ip, (0, kw - ip.shape[1]))
+    wp = torch.nn.functional.pad(wp, (0, kw - wp.shape[1])).contiguous()
+    if offset:
+        buf = torch.zeros(m * kw + offset, dtype=torch.int32, device=dev)
+        buf[offset:] = ip.reshape(-1)
+        ip = buf[offset:].view(m, kw)
     alpha = torch.rand(n, device=dev, generator=gen) + 0.5
     for mode in modes:
         got = xp.xnor_popcount_matmul(ip, wp, s, mode=mode, alpha=alpha)
@@ -861,11 +939,13 @@ def check_xnor_popcount(dev, m: int, n: int, s: int, gen: torch.Generator,
         torch.cuda.synchronize()
         if got.dtype != want.dtype or not torch.equal(got, want):
             bad = (got.float() != want.float()).sum().item()
-            raise AssertionError(f"xnor_popcount M={m} N={n} S={s} {mode}: "
-                                 f"{bad} elements differ from the plain version")
-    row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0}
+            raise AssertionError(f"xnor_popcount M={m} N={n} S={s} Kw={kw} "
+                                 f"offset={offset} {mode}: {bad} elements "
+                                 "differ from the plain version")
+    plan = xp.xnor_plan(m, n, kw, _lib.sm_count(dev))
+    row = {"shape": f"M={m} N={n} S={s}", "max_abs_err": 0.0,
+           "plan": list(plan)}
     if timed:
-        kw = -(-s // 32)
         n_bytes = (m + n) * kw * 4 + m * n * 4          # dot: int32 out
         row["bound_ms"], row["bound_by"] = bound_ms(
             n_bytes, 2 * m * n * s, xnor_gemm_ops_per_s(dev))
@@ -878,7 +958,42 @@ def check_xnor_popcount(dev, m: int, n: int, s: int, gen: torch.Generator,
         xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16)
         ws = torch.where(w >= 0, 1.0, -1.0).to(torch.bfloat16)
         row["library_ms"] = time_ms(lambda: torch.matmul(xs, ws.t()))
+        check_bound(row, "xnor_popcount")
     return row
+
+
+# (Kw, S) of the XNOR GEMM edge checks: a word, 3 and 5 words (not a
+# multiple of 4), VGG's 144 and 256; and 8 words over S = 100 (Kw past
+# ceil(S/32): zero words)
+XNOR_EDGE_K = ((1, 27), (3, 70), (5, 147), (144, 4608), (256, 8192),
+               (8, 100))
+
+
+def check_xnor_edges(dev, gen: torch.Generator) -> None:
+    """Bit-exact in four modes around both routes (M = 8 / 9) and the
+    tensor-core tile (64 / 65 rows), at N around the column tiles, K
+    around word and vector widths; ip at an odd word offset (1-word
+    copies); every route of ``xnor_plan`` at least once."""
+    plans = set()
+    for m in (1, 8, 9, 49, 64, 65):
+        for kw, s in XNOR_EDGE_K:
+            for n in (10, 77, 1000):
+                r = check_xnor_popcount(dev, m, n, s, gen, False, kw=kw)
+                plans.add((*r["plan"][:2], r["plan"][2] > 1))
+    for m, n, kw, s in ((1, 1000, 144, 4608), (9, 77, 5, 147),
+                        (64, 512, 144, 4608), (65, 77, 256, 8192),
+                        (8449, 96, 10, 300)):
+        r = check_xnor_popcount(dev, m, n, s, gen, False, kw=kw, offset=1)
+        plans.add((*r["plan"][:2], r["plan"][2] > 1))
+    # (route, tile width, split): weight read, CUDA-core tiles, binary
+    # mma tiles 32 and 64 wide, split K
+    want = {(0, 0, False), (1, 0, False), (2, 32, False), (2, 32, True),
+            (2, 64, False)}
+    if not want <= plans:
+        raise AssertionError(f"xnor_popcount edges took routes {plans}, "
+                             f"not all of {want}")
+    log(f"[conv] xnor_popcount edges bit-exact in four modes; routes "
+        f"(route, bn, split) {sorted(plans)}")
 
 
 def conv_layers() -> list[tuple[str, object]]:
@@ -922,13 +1037,12 @@ def phase_conv(dev) -> tuple[dict, dict[str, int]]:
     log(f"[conv] {len(layers)} ungrouped layers, {len(shapes)} distinct "
         f"GEMM shapes (M, N, S)")
 
-    # 1. the GEMM kernel against its plain version
-    for m, n, s in ((1, 1024, 8192), (3136, 64, 576), (3, 70, 33)):
-        check_xnor_popcount(dev, m, n, s, gen, False)
+    # 1. the GEMM kernel against its plain version: edges, then every
+    # distinct layer shape (four modes, timed in "dot")
+    check_xnor_edges(dev, gen)
     gemm = {}
     for m, n, s in shapes:
-        gemm[(m, n, s)] = check_xnor_popcount(dev, m, n, s, gen, True,
-                                              modes=("dot",))
+        gemm[(m, n, s)] = check_xnor_popcount(dev, m, n, s, gen, True)
         log(f"[conv] xnor_popcount {json.dumps(gemm[(m, n, s)])}")
 
     # 2. packing at the patch shapes (M, S) and the weight shapes (N, S)
@@ -949,6 +1063,7 @@ def phase_conv(dev) -> tuple[dict, dict[str, int]]:
     for name in ("binarize_pack", "xnor_popcount"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the conv path")
+    nets: dict[str, dict] = {}      # per network: summed device times
     for (net, layer, x, w), got in zip(cases, outs, strict=True):
         args = conv_args(layer)
         want_shape = (1, layer.h_out, layer.w_out, layer.c_out)
@@ -978,6 +1093,13 @@ def phase_conv(dev) -> tuple[dict, dict[str, int]]:
                "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
                    xs, ws, stride=layer.stride))}
         log(f"[conv] layer {json.dumps(row)}")
+        tot = nets.setdefault(net, dict.fromkeys(
+            ("layers", "layer_ms", "gemm_ms", "library_ms", "bound_ms"), 0))
+        tot["layers"] += 1
+        for k in ("layer_ms", "gemm_ms", "library_ms", "bound_ms"):
+            tot[k] += row[k]
+    for net, tot in nets.items():
+        log(f"[conv] network {net} {json.dumps(tot)}")
 
     # 4. a chained binary stack: VGG-small conv2..conv6, each layer's
     # comparator output fed on as {-1,+1} (pooled where the stage halves)

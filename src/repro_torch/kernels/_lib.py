@@ -38,8 +38,8 @@ _SIGNATURES = {
     "fb_b1_mma_rate": [_P, _I, _I, _P],
     "fb_fused_bnn": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "pa_paged_attention": [_P] * 8 + [_I] * 10 + [_F, _P],
-    "pm_paged_attention_mla": [_P] * 13 + [_I] * 13 + [_F, _P],
-    "xp_xnor_popcount": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pm_paged_attention_mla": [_P] * 13 + [_I] * 14 + [_F, _P],
+    "xp_xnor_popcount": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 
@@ -130,6 +130,19 @@ def launch(fn_name: str, *args) -> None:
     err = fn(*args, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read from its properties once per
+    device (the kernels' launch policies ask for it on every call)."""
+    idx = torch.cuda.current_device() if device.index is None else device.index
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

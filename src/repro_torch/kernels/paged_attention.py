@@ -14,7 +14,9 @@ Three variants of the Pallas kernel's template
   k_rope (NB, BS, Dr); per-head K_nope = c_kv · k_up and V = c_kv · v_up
   with k_up (R, H * nope) and v_up (R, H * Dv); q packs [nope ++ rope]
   on its last axis.  ``ring`` composes here too.
-  csrc/paged_attention_mla.cu.
+  csrc/paged_attention_mla.cu: a decode walk (split over ``mla_splits``
+  parts) for C·H <= 16 query rows per batch row, a tiled prefill path
+  (``mla_tiled``) for more.
 
 block_table (B, MB) int32 physical block ids; kv_len/q_offset (B,)
 int32 per-row valid length and absolute position of q[:, 0].  q is
@@ -45,7 +47,8 @@ KERNEL_MLA = _lib.KernelInfo(
     _REPLACES)
 
 NEG_INF = -1e30
-MLA_ROWS = 16          # query rows (c, h) per block of the MLA walk
+MLA_ROWS = 16          # query rows (c, h) per block of the MLA decode walk
+MLA_TILED_WIDTHS = (512, 64)   # (R, Dr) the MLA tiled prefill path takes
 
 
 def ring_key_positions(newest: torch.Tensor, mb: int, bs: int
@@ -211,6 +214,13 @@ def mla_splits(b: int, c: int, h: int, mb: int, sm_count: int) -> int:
     return max(1, min(-(-2 * sm_count // ctas), mb // 4))
 
 
+def mla_tiled(c: int, h: int, r: int, dr: int) -> bool:
+    """Whether the MLA kernel takes its tiled prefill path (64 query rows
+    a block, tensor cores): more query rows per batch row than one
+    decode block holds, at the latent widths the path is built for."""
+    return c * h > MLA_ROWS and (r, dr) == MLA_TILED_WIDTHS
+
+
 def paged_attention_mla(q: torch.Tensor, c_kv_pool: torch.Tensor,
                         k_rope_pool: torch.Tensor, block_table: torch.Tensor,
                         *, k_up: torch.Tensor, v_up: torch.Tensor,
@@ -237,11 +247,13 @@ def paged_attention_mla(q: torch.Tensor, c_kv_pool: torch.Tensor,
                          f"nope {nope_dim} + rope {dr}, or v_up "
                          f"{tuple(v_up.shape)} does not split over {h} heads")
     dv = v_up.shape[1] // h
-    if r % 4 or dr % 4 or c_kv_pool.data_ptr() % 16 or \
-            k_rope_pool.data_ptr() % 16:
-        raise ValueError("paged_attention_mla: the kernel loads latent and "
-                         "rope rows 16 bytes at a time; R and Dr must be "
-                         "multiples of 4 and the pools 16-byte aligned")
+    if any(x % 4 for x in (r, dr, nope_dim, dv)) or any(
+            t.data_ptr() % 16 for t in (q, c_kv_pool, k_rope_pool, k_up,
+                                        v_up)):
+        raise ValueError("paged_attention_mla: the kernels move rows 16 "
+                         "bytes at a time; R, Dr, nope and Dv must be "
+                         "multiples of 4 and q, the pools, k_up and v_up "
+                         "16-byte aligned")
     dev = q.device
     _lib.check(q, "q", torch.float32, (b, c, h, dq), dev)
     _lib.check(c_kv_pool, "c_kv_pool", torch.float32, (nb, bs, r), dev)
@@ -249,20 +261,22 @@ def paged_attention_mla(q: torch.Tensor, c_kv_pool: torch.Tensor,
     _lib.check(k_up, "k_up", torch.float32, (r, h * nope_dim), dev)
     _lib.check(v_up, "v_up", torch.float32, (r, h * dv), dev)
     newest_p = _check_rows(q, block_table, kv_len, q_offset, ring, newest)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ns = mla_splits(b, c, h, mb, sms)
+    tiled = mla_tiled(c, h, r, dr)
+    ns = 1 if tiled else mla_splits(b, c, h, mb, _lib.sm_count(dev))
     rows = b * c * h
     q_lat = torch.empty((rows, r), dtype=torch.float32, device=dev)
-    part = torch.empty((ns, rows, r + 2), dtype=torch.float32, device=dev)
+    part = None if tiled else torch.empty((ns, rows, r + 2),
+                                          dtype=torch.float32, device=dev)
     merged = torch.empty((rows, r), dtype=torch.float32, device=dev)
     out = torch.empty((b, c, h, dv), dtype=torch.float32, device=dev)
     _lib.launch("pm_paged_attention_mla", _lib.ptr(q), _lib.ptr(c_kv_pool),
                 _lib.ptr(k_rope_pool), _lib.ptr(block_table),
                 _lib.ptr(kv_len), _lib.ptr(q_offset), newest_p,
                 _lib.ptr(k_up), _lib.ptr(v_up), _lib.ptr(q_lat),
-                _lib.ptr(part), _lib.ptr(merged), _lib.ptr(out), b, c, h, r,
-                dr, nope_dim, dv, bs, mb, int(causal), int(window or 0),
-                int(ring), ns, float(dq ** -0.5))
+                None if part is None else _lib.ptr(part), _lib.ptr(merged),
+                _lib.ptr(out), b, c, h, r, dr, nope_dim, dv, bs, mb,
+                int(causal), int(window or 0), int(ring), ns, int(tiled),
+                float(dq ** -0.5))
     KERNEL_MLA.launches += 1
     return out
 

@@ -36,9 +36,11 @@ def _i32(a) -> torch.Tensor:
 # ------------------------------------------------------ XNOR-popcount GEMM
 
 # M=1 and N=70 (not a multiple of the CUDA kernel's 64-wide tile) occur
-# at every S, and S runs over a word edge on both sides
-GEMM_SHAPES = [(m, n, s) for s in (1, 31, 33, 100)
-               for m, n in ((1, 70), (9, 3))]
+# at every S, and S runs over a word edge on both sides; M = 8 / 9
+# straddle the kernel's CUDA-core and tensor-core routes and M = 65 its
+# 64-row tile; Kw = 1, 2, 5 words are not multiples of 4, Kw = 4 is
+GEMM_SHAPES = [(m, n, s) for s in (1, 31, 33, 100, 147)
+               for m, n in ((1, 70), (9, 3), (8, 17), (65, 9))]
 
 
 @pytest.fixture(scope="session")
@@ -96,6 +98,45 @@ def test_xnor_popcount_plain_matches_pallas(gemm_cases, m, n, s):
         xp.xnor_popcount_matmul_torch(ipt, wpt, s, mode="dot_scaled").numpy(),
         np.asarray(jxp.xnor_popcount_matmul(ip, wp, s, mode="dot_scaled",
                                             interpret=True)))
+
+
+@pytest.mark.parametrize("sms", [108, 114, 132])
+def test_xnor_plan_covers_the_conv_shapes(sms):
+    """The kernel's launch plan at every distinct GEMM shape of the four
+    BNNs' groups == 1 layers, for cards of several SM counts: M <= 8 reads
+    the packed weight on CUDA cores; K under one binary mma step takes
+    the CUDA-core tiles; every other shape launches at least one wave of
+    blocks, or its K is too short to split further; a split has parts of
+    a multiple of 8 words, none of them empty, over 32-wide tiles."""
+    from repro_torch.photonic import workloads as wl
+    shapes = {(l.h_out * l.w_out, l.c_out, -(-l.s // 32))
+              for make in wl.WORKLOADS.values() for l in make()
+              if l.groups == 1}
+    assert len(shapes) == 51
+    routes = set()
+    for m, n, kw in sorted(shapes):
+        route, bn, parts, part_words = xp.xnor_plan(m, n, kw, sms)
+        routes.add((route, bn, parts > 1))
+        if m <= xp.SMALL_M:
+            assert (route, parts, part_words) == (xp.ROUTE_READ, 1, kw)
+            continue
+        if kw < xp.MMA_STEP_WORDS:
+            assert (route, parts, part_words) == (xp.ROUTE_TILE, 1, kw)
+            continue
+        assert route == xp.ROUTE_MMA and bn in (32, 64), (m, n, kw)
+        tiles = -(-m // xp.TILE_M) * -(-n // bn)
+        assert (parts - 1) * part_words < kw <= parts * part_words
+        if parts == 1:
+            assert part_words == kw
+            assert tiles >= sms or -(-kw // 8) < 2 * xp.MIN_PART_WORDS // 8
+        else:
+            assert bn == 32 and part_words % 8 == 0
+            assert part_words >= xp.MIN_PART_WORDS
+            assert tiles * parts >= sms or part_words == xp.MIN_PART_WORDS
+        if bn == 32:                        # 64-wide tiles would not fill
+            assert -(-m // xp.TILE_M) * -(-n // 64) < sms
+    assert routes == {(xp.ROUTE_READ, 0, False), (xp.ROUTE_TILE, 0, False),
+                      (xp.ROUTE_MMA, 32, False), (xp.ROUTE_MMA, 32, True)}
 
 
 def test_pack_activations_matches_jax_pack():

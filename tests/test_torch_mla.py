@@ -44,7 +44,8 @@ def _latent_case(c, seed):
     """Pools, table, q, k_up/v_up and per-row lengths; row 2 has
     kv_len 0 (fully masked)."""
     rng = np.random.default_rng(seed)
-    b, mb, bs, h, r, dr, nope, dv = 3, 3, 4, 4, 16, 8, 8, 8
+    b, bs, h, r, dr, nope, dv = 3, 4, 4, 16, 8, 8, 8
+    mb = -(-(8 + c) // bs)            # the table holds every key
     nb = b * mb + 1
     d = dict(
         ckv=rng.standard_normal((nb, bs, r)).astype(np.float32),
@@ -65,8 +66,10 @@ def _plain(d, nope, causal):
         kv_len=_t(d["kv_len"]), q_offset=_t(d["q_off"]), causal=causal)
 
 
+# c * H = 20 and 68 query rows cross the CUDA kernel's 16-row decode
+# block and its 64-row prefill tile
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 3, 5, 17])
 def test_paged_attention_mla_plain_matches_pallas_and_oracle(c, causal):
     d, nope = _latent_case(c, 30 + c + 2 * causal)
     got = _plain(d, nope, causal).numpy()
@@ -101,7 +104,9 @@ def test_paged_attention_mla_plain_matches_pallas_and_oracle(c, causal):
 def _absorbed(d, nope, causal):
     """The CUDA kernel's order: q_lat = scale * q_nope . k_up_h^T, scores
     q_lat . c_kv + scale * q_rope . k_rope, the softmax's weights applied
-    to the latents, then v_up per head."""
+    to the latents, then v_up per head.  (Its tiled prefill path sums
+    the score's 576 terms in two halves and multiplies in 3xTF32; this
+    reference keeps float32 products.)"""
     q, ckv, krope = map(torch.from_numpy, (d["q"], d["ckv"], d["krope"]))
     k_up, v_up = torch.from_numpy(d["k_up"]), torch.from_numpy(d["v_up"])
     b, c, h, dq = q.shape
@@ -131,12 +136,22 @@ def _absorbed(d, nope, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 3, 5, 17])
 def test_absorbed_order_equals_plain_version(c, causal):
     d, nope = _latent_case(c, 40 + c + 2 * causal)
     np.testing.assert_allclose(_absorbed(d, nope, causal).numpy(),
                                _plain(d, nope, causal).numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+# C * H query rows a batch row: 16 or fewer take the CUDA kernel's decode
+# walk, more its tiled path, which is built for R = 512, Dr = 64
+@pytest.mark.parametrize("c,h,r,dr,tiled", [
+    (1, 16, 512, 64, False), (2, 16, 512, 64, True),
+    (128, 16, 512, 64, True), (4, 4, 512, 64, False),
+    (5, 4, 512, 64, True), (128, 16, 256, 64, False)])
+def test_mla_route_by_query_rows(c, h, r, dr, tiled):
+    assert pa.mla_tiled(c, h, r, dr) is tiled
 
 
 # ------------------------------------------------------------ MLA block
