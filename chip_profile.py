@@ -36,6 +36,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -130,6 +131,25 @@ def _m_bucket(m: int) -> str:
     return f">{M_BUCKETS[-1]}"
 
 
+CSRC = Path(__file__).resolve().parent / "src" / "repro_torch" / "csrc"
+
+
+def port_kernel_names() -> set[str]:
+    """The name of every ``__global__`` function in the port's CUDA
+    sources (``csrc/*.cu`` and ``*.cuh``)."""
+    pat = re.compile(r"__global__\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                     r"void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {name for src in sorted(CSRC.glob("*.cu*"))
+            for name in pat.findall(src.read_text())}
+
+
+def is_port_kernel(name: str, names: frozenset[str]) -> bool:
+    """Whether a traced kernel, by its demangled name (``void
+    ns::kernel<...>(...)``), is one of the port's ``names``: an
+    identifier of the name that opens a template or argument list."""
+    return any(tok in names for tok in re.findall(r"(\w+)\s*[<(]", name))
+
+
 def _is_kernel(ev) -> bool:
     """A traced device kernel (a named range's projection onto the
     device is none)."""
@@ -218,12 +238,8 @@ def main() -> int:
             dur = ev.time_range.elapsed_us() / 1e3
             kernels[ev.name] = kernels.get(ev.name, 0.0) + dur
     busy_ms = sum(kernels.values())
-    ours = sum(v for k, v in kernels.items()
-               if any(s in k for s in ("fused_bnn_", "pack_rows_kernel",
-                                       "bnn_gemm::",
-                                       "paged_attention_",
-                                       "binarize_pack_kernel", "mla_",
-                                       "batched_sgemm_kernel")))
+    names = frozenset(port_kernel_names())
+    ours = sum(v for k, v in kernels.items() if is_port_kernel(k, names))
     # names cut to 80 characters can collide (template instantiations):
     # their times add up
     short: dict[str, float] = {}

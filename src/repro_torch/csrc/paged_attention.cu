@@ -24,40 +24,58 @@
 //
 // Two paths, chosen by the query rows R = C * G of a (batch row, kv
 // head): R <= QT (decode) takes the split walk below; R > QT (prefill
-// chunks, Dh = 64 or 128) the tiled path further down.
+// chunks, Dh = 64 or 128) the tiled path further down.  Other head
+// widths take the split walk at any R.
 //
-// Decode design: the TPU walked the table as a sequential grid axis with the
-// (m, l, acc) state in VMEM scratch.  Here one block owns one
-// (batch row, kv head, tile of QT query rows) and its WARPS split the
-// row's logical blocks between them: warp w walks blocks w, w + NW, ...
-// with a private online-softmax state per query row, and the NW partial
-// states are merged at the end (the split-K of flash decoding, inside
-// one block).  That keeps all NW warps busy at decode, where a tile
-// holds a single query row.  On a paged table the walk stops at the
-// last block any query of the tile can see (kv_len, and the causal
-// bound).  On a ring positions are not monotone in the block index, so
-// the walk covers the whole table width, and a warp first asks of each
-// block whether any of its slots is visible to any query of the tile
-// (one ballot) and skips it when none is — a block whose every weight
-// would be 0.  The two walks are two instantiations of one template.
-// Each warp stages its K/V block (BS x Dh floats of this head) in its
-// own slice of shared memory — K with a padded row so lane j reading
-// key j hits distinct banks — so the walk needs no block-wide barrier;
-// it loads 16 bytes a lane, four loads in flight, so the walk does not
-// wait on memory latency one float at a time.
-// At Dh = 128 a block uses (16*128 + 8*16*257 + 8*16*130) * 4 = 206 KB
-// of the 227 KB of shared memory: one block per SM.  The V width is
-// Dh.  Per query row, lane j scores
-// key j, the block max and sum come from warp shuffles, and lane d
-// updates output dims d, d+32, ... with the weights broadcast by
-// shuffle.  All softmax state is float32.
+// Decode design (flash decoding).  The TPU walked the table as a
+// sequential grid axis with the (m, l, acc) state in VMEM scratch; at
+// decode that is one long serial walk per (batch row, kv head), too few
+// of them to fill 132 SMs.  Here the walk runs in POSITION space: the
+// keys a tile of DR query rows can see are the positions [lo, hi]
+// (kv_len, the causal bound, the window, and on a ring the capacity
+// behind `newest`), each at table slot p (paged) or p mod (MB*BS)
+// (ring), so a ring walks only its visible arc.  Positions are cut into
+// parts of PART_KEYS (a constant): part k holds [k*PART_KEYS,
+// (k+1)*PART_KEYS), and one block walks one part of one (batch row, kv
+// head, row tile).  The grid has `nsplit` blocks per row tile, sized on
+// the host from the table width alone (kernels/paged_attention
+// .decode_parts); a block past its row's last part exits at once.  A
+// row's parts, the tiles inside a part and the merge order depend only
+// on that row's own positions: a row sums in the same order whatever the
+// batch, the table width or the other rows hold.
+// Inside a block, 4 warps stage DK-key tiles of K and V into shared
+// memory with cp.async, double-buffered, so the next tile's bytes are
+// in flight while one is scored; registers are capped for 3 blocks an
+// SM (at Dh = 128: 168 registers, 64 KB of shared memory a block),
+// which measured faster than 3 stages at 2 blocks an SM, or 4 blocks.
+// Eight lanes share a key: lane i holds float4 chunks i, i + 8, ... of
+// the key (and of the DR query rows, in registers), so a warp scores
+// four keys at once with every lane busy, and a key's dot is three
+// shuffles.  Each 8-lane group keeps its own
+// online-softmax state and output accumulator in registers (its dims,
+// DR rows) over the keys it was given; the 16 groups merge in group
+// order through shared memory at the end of the part.  A row that
+// needs one part writes its output there; otherwise each part stores
+// (acc, m, l) to a scratch, bumps its row tile's counter, and the last
+// part to arrive merges the parts in part order, divides, writes the
+// output and leaves the counter at 0 for the next launch (the split-K
+// of csrc/bnn_gemm.cuh, one launch).  All softmax state is float32;
+// masked keys weigh exactly 0 and a row that sees no key writes zeros.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
-constexpr int QT = 16;          // query rows (c, g) per block
-constexpr int NW = 8;           // warps per block, each walking 1/NW of the keys
+constexpr int QT = 16;          // query rows (c, g) a decode tile may hold
+constexpr int DR = 4;           // query rows per decode block
+constexpr int PART_KEYS = 256;  // positions per part of the decode walk
+constexpr int DK = 32;          // keys per staged K/V tile
+constexpr int DSTAGES = 2;      // K/V tile stages: one loads, one is scored
+constexpr int DTHREADS = 128;   // 4 warps = 16 groups of 8 lanes
+constexpr int DGROUPS = DTHREADS / 8;
+constexpr int KPG = DK / DGROUPS;    // keys of a tile per group
 constexpr float NEG_INF = -1e30f;
 
 // Absolute position of table slot s: s itself, or on a ring of cap
@@ -71,147 +89,326 @@ __device__ __forceinline__ int key_pos(int s, int newest, int cap) {
   return newest - d;
 }
 
-// RING = false compiles the paged walk alone; RING = true the ring's.
-template <bool RING>
-__global__ void paged_attention_kernel(
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// Parts of PART_KEYS positions the grid must give a row tile: every
+// part its visible positions can touch.  A paged row sees positions
+// inside [0, cap); a ring row at most cap consecutive ones, which may
+// start mid-part.  Mirrored by kernels/paged_attention.decode_parts.
+inline int decode_parts(int cap, int ring) {
+  return ring ? (cap - 1 + PART_KEYS - 1) / PART_KEYS + 1
+              : (cap + PART_KEYS - 1) / PART_KEYS;
+}
+
+// NC float4 chunks of a key per lane (Dh <= 32 * NC).  Grid (nsplit,
+// Hkv * row tiles, B); `part` (B, Hkv, row tiles * DR, nsplit, Dh + 2)
+// floats and `counters` (B * Hkv * row tiles) ints, 0 between launches;
+// both unused when nsplit == 1.
+template <int NC>
+__global__ __launch_bounds__(DTHREADS, 3) void paged_attention_decode_kernel(
     const float* __restrict__ q, const float* __restrict__ kpool,
     const float* __restrict__ vpool, const int32_t* __restrict__ table,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
-    const int32_t* __restrict__ newest_pos, float* __restrict__ out, int C,
-    int H, int Hkv, int Dh, int BS, int MB, int causal, int window,
-    float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int G = H / Hkv, R = C * G;
-  const int r0 = blockIdx.z * QT, nr = min(QT, R - r0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ldk = Dh + 1;
-  float* Qs = smem;                               // [QT][Dh], pre-scaled
-  float* Ks = Qs + QT * Dh + warp * BS * (2 * Dh + 1);   // this warp's
-  float* Vs = Ks + BS * ldk;                             // K/V block
-  float* St = smem + QT * Dh + NW * BS * (2 * Dh + 1);
-  float* Acc = St + warp * QT * (Dh + 2);         // this warp's [QT][Dh]
-  float* Ms = Acc + QT * Dh;                      // [QT]
-  float* Ls = Ms + QT;                            // [QT]
-
-  for (int e = tid; e < nr * Dh; e += blockDim.x) {
-    const int r = e / Dh, d = e % Dh, row = r0 + r;
-    const int c = row / G, h = kvh * G + row % G;
-    Qs[e] = q[(((size_t)b * C + c) * H + h) * Dh + d] * scale;
-  }
-  for (int e = lane; e < nr * Dh; e += 32) Acc[e] = 0.f;
-  for (int r = lane; r < nr; r += 32) {
-    Ms[r] = NEG_INF;
-    Ls[r] = 0.f;
-  }
-  __syncthreads();                                // Qs ready
-
+    const int32_t* __restrict__ newest_pos, float* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ counters, int C, int H,
+    int Hkv, int Dh, int BS, int MB, int causal, int window, int ring,
+    int nsplit, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int z = blockIdx.x, kvh = blockIdx.y % Hkv;
+  const int rt = blockIdx.y / Hkv, ntiles = gridDim.y / Hkv, b = blockIdx.z;
+  const int G = H / Hkv, R = C * G, r0 = rt * DR, nr = min(DR, R - r0);
+  const int CH = Dh / 4, cap = MB * BS;
   const int len = kv_len[b], qoff = q_off[b];
-  const int newest = RING ? newest_pos[b] : 0, cap = MB * BS;
   const int qlo = qoff + r0 / G, qhi = qoff + (r0 + nr - 1) / G;
-  int nblk = MB;                       // a ring walks the whole table
-  if (!RING) {
-    int kmax = len;                    // keys [0, kmax) can be visible
-    if (causal) kmax = min(kmax, qhi + 1);
-    nblk = kmax > 0 ? min(MB, (kmax + BS - 1) / BS) : 0;
+
+  // the positions [lo, hi] some row of the tile can see; its parts
+  int lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  int hi = causal ? min(len - 1, qhi) : len - 1;
+  if (ring) {
+    const int nw = newest_pos[b];
+    hi = min(hi, nw);
+    lo = max(lo, nw - cap + 1);
+  } else {
+    hi = min(hi, cap - 1);
+  }
+  const int kf = lo / PART_KEYS;
+  const int nlive = hi >= lo ? hi / PART_KEYS - kf + 1 : 1;
+  if (z >= nlive) return;                       // past this row's arc
+  const int ps = max(lo, (kf + z) * PART_KEYS);
+  const int pe = min(hi, (kf + z + 1) * PART_KEYS - 1);
+
+  float* Ks = smem;                              // [DSTAGES][DK][Dh]
+  float* Vs = Ks + DSTAGES * DK * Dh;            // [DSTAGES][DK][Dh]
+  long long* Off = reinterpret_cast<long long*>(Vs + DSTAGES * DK * Dh);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int grp = tid >> 3, lig = lane & 7;      // key group, lane in it
+
+  float4 qv[DR][NC];
+  int qpos[DR];
+#pragma unroll
+  for (int r = 0; r < DR; ++r) {
+    const int row = r0 + min(r, nr - 1);        // rows past R: unused
+    qpos[r] = qoff + row / G;
+    const float* qr = q + (((size_t)b * C + row / G) * H + kvh * G + row % G)
+        * Dh;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int ch = lig + 8 * i;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nr && ch < CH) {
+        v = *reinterpret_cast<const float4*>(qr + 4 * ch);
+        v.x *= scale; v.y *= scale; v.z *= scale; v.w *= scale;
+      }
+      qv[r][i] = v;
+    }
   }
 
-  for (int i = warp; i < nblk; i += NW) {         // warp-uniform
-    if (RING) {
-      bool any = false;                // a slot some query can see?
-      for (int j0 = 0; j0 < BS; j0 += 32) {
-        const int j = j0 + lane;
-        const int kpos = key_pos<RING>(i * BS + j, newest, cap);
-        bool vis = j < BS && kpos >= 0 && kpos < len;
-        if (causal) vis = vis && kpos <= qhi;
-        if (window > 0) vis = vis && qlo - kpos < window;
-        any = any || vis;
+  // tiles of DK positions, aligned to DK, covering [ps, pe]
+  const int ts0 = ps / DK * DK;
+  const int ntile = ps <= pe ? (pe - ts0) / DK + 1 : 0;
+  // the pool offset of each key of tile t (-1 outside [ps, pe])
+  auto offsets = [&](int st, int t) {
+    if (tid < DK) {
+      const int p = ts0 + t * DK + tid;
+      long long off = -1;
+      if (p >= ps && p <= pe) {
+        const int slot = ring ? p % cap : p;
+        const long long phys = table[(size_t)b * MB + slot / BS];
+        off = ((phys * BS + slot % BS) * Hkv + kvh) * (long long)Dh;
       }
-      if (!__any_sync(0xffffffffu, any)) continue;
+      Off[st * DK + tid] = off;
     }
-    const size_t phys = (size_t)table[(size_t)b * MB + i];
-    __syncwarp();                                 // previous block consumed
-#pragma unroll 4
-    for (int e = 4 * lane; e < BS * Dh; e += 128) {   // 16-byte loads
-      const int j = e / Dh, d = e % Dh;
-      const size_t src = ((phys * BS + j) * Hkv + kvh) * Dh + d;
-      const float4 k4 = *reinterpret_cast<const float4*>(kpool + src);
-      const float4 v4 = *reinterpret_cast<const float4*>(vpool + src);
-      float* kd = Ks + j * ldk + d;
-      kd[0] = k4.x;
-      kd[1] = k4.y;
-      kd[2] = k4.z;
-      kd[3] = k4.w;
-      *reinterpret_cast<float4*>(Vs + e) = v4;
+  };
+  // this thread's (key, chunk) copies: e = tid + DTHREADS * k
+  const int j0 = tid / CH, c0 = tid % CH;
+  const int dj = DTHREADS / CH, dc = DTHREADS % CH;
+  auto load = [&](int st) {
+    for (int j = j0, c = c0; j < DK;) {
+      const long long off = Off[st * DK + j];
+      float* kd = Ks + (st * DK + j) * Dh + 4 * c;
+      float* vd = Vs + (st * DK + j) * Dh + 4 * c;
+      if (off >= 0) {
+        cp_async16(kd, kpool + off + 4 * c, 16);
+        cp_async16(vd, vpool + off + 4 * c, 16);
+      } else {                       // outside the part: zeros, masked
+        cp_async16(kd, kpool, 0);
+        cp_async16(vd, vpool, 0);
+      }
+      j += dj;
+      c += dc;
+      if (c >= CH) {
+        c -= CH;
+        ++j;
+      }
     }
-    __syncwarp();
-    for (int r = 0; r < nr; ++r) {
-      const int qpos = qoff + (r0 + r) / G;
-      const float* qr = Qs + r * Dh;
-      float m_prev = Ms[r], l_prev = Ls[r];
-      for (int j0 = 0; j0 < BS; j0 += 32) {
-        const int j = j0 + lane;
-        const int kpos = key_pos<RING>(i * BS + j, newest, cap);
-        bool valid = j < BS && (!RING || kpos >= 0) && kpos < len;
-        if (causal) valid = valid && qpos >= kpos;
-        if (window > 0) valid = valid && qpos - kpos < window;
-        float s = NEG_INF;
-        if (valid) {
-          const float* kr = Ks + j * ldk;
-          float dot = 0.f;
-          for (int d = 0; d < Dh; ++d) dot += qr[d] * kr[d];
-          s = dot;
-        }
-        float mx = s;
+  };
+
+  float4 acc[DR][NC];
+  float m_i[DR], l_i[DR];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_new = fmaxf(m_prev, mx);
-        const float p = valid ? expf(s - m_new) : 0.f;
-        float psum = p;
+  for (int r = 0; r < DR; ++r) {
+    m_i[r] = NEG_INF;
+    l_i[r] = 0.f;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          psum += __shfl_xor_sync(0xffffffffu, psum, off);
-        const float a = expf(m_prev - m_new);
-        l_prev = l_prev * a + psum;
-        const int jn = min(32, BS - j0);
-        for (int d0 = 0; d0 < Dh; d0 += 32) {     // warp-uniform
-          const int d = d0 + lane;
-          float o = d < Dh ? Acc[r * Dh + d] * a : 0.f;
-          for (int jj = 0; jj < jn; ++jj) {
-            const float pj = __shfl_sync(0xffffffffu, p, jj);
-            if (d < Dh) o += pj * Vs[(j0 + jj) * Dh + d];
-          }
-          if (d < Dh) Acc[r * Dh + d] = o;
+    for (int i = 0; i < NC; ++i) acc[r][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+#pragma unroll
+  for (int t = 0; t < DSTAGES - 1; ++t)
+    if (t < ntile) offsets(t, t);
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < DSTAGES - 1; ++t) {
+    if (t < ntile) load(t);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int t = 0; t < ntile; ++t) {                // block-uniform
+    const int st = t % DSTAGES, tn = t + DSTAGES - 1;
+    if (tn < ntile) offsets(tn % DSTAGES, tn);
+    __syncthreads();             // offsets of tn ready; tile t-1 consumed
+    if (tn < ntile) load(tn % DSTAGES);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(DSTAGES - 1));
+    __syncthreads();             // tile t in shared memory
+
+    float s[KPG][DR];
+    bool valid[KPG][DR];
+#pragma unroll
+    for (int kk = 0; kk < KPG; ++kk) {
+      const int j = grp + DGROUPS * kk, p = ts0 + t * DK + j;
+      const float* kr = Ks + (st * DK + j) * Dh;
+      float4 kf4[NC];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int ch = lig + 8 * i;
+        kf4[i] = ch < CH ? *reinterpret_cast<const float4*>(kr + 4 * ch)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const bool in = p >= ps && p <= pe;
+#pragma unroll
+      for (int r = 0; r < DR; ++r) {
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < NC; ++i) d += dot4(qv[r][i], kf4[i]);
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        d += __shfl_xor_sync(0xffffffffu, d, 4);
+        bool v = in && r < nr;
+        if (causal) v = v && p <= qpos[r];
+        if (window > 0) v = v && qpos[r] - p < window;
+        s[kk][r] = d;
+        valid[kk][r] = v;
+      }
+    }
+    float pw[KPG][DR];
+#pragma unroll
+    for (int r = 0; r < DR; ++r) {
+      float m_new = m_i[r];
+#pragma unroll
+      for (int kk = 0; kk < KPG; ++kk)
+        if (valid[kk][r]) m_new = fmaxf(m_new, s[kk][r]);
+      const float a = expf(m_i[r] - m_new);
+      float l = l_i[r] * a;
+#pragma unroll
+      for (int kk = 0; kk < KPG; ++kk) {
+        pw[kk][r] = valid[kk][r] ? expf(s[kk][r] - m_new) : 0.f;
+        l += pw[kk][r];
+      }
+      l_i[r] = l;
+      m_i[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        acc[r][i].x *= a; acc[r][i].y *= a;
+        acc[r][i].z *= a; acc[r][i].w *= a;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KPG; ++kk) {
+      const float* vr = Vs + (st * DK + grp + DGROUPS * kk) * Dh;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int ch = lig + 8 * i;
+        if (ch >= CH) continue;
+        const float4 v = *reinterpret_cast<const float4*>(vr + 4 * ch);
+#pragma unroll
+        for (int r = 0; r < DR; ++r) {
+          const float w = pw[kk][r];
+          acc[r][i].x += w * v.x; acc[r][i].y += w * v.y;
+          acc[r][i].z += w * v.z; acc[r][i].w += w * v.w;
         }
-        m_prev = m_new;
       }
-      __syncwarp();
-      if (lane == 0) {
-        Ms[r] = m_prev;
-        Ls[r] = l_prev;
-      }
-      __syncwarp();
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();                             // the stages are free
+
+  // the 16 groups' states, merged in group order
+  float* Ag = smem;                            // [DGROUPS][DR][Dh]
+  float* Mg = Ag + DGROUPS * DR * Dh;          // [DGROUPS][DR]
+  float* Lg = Mg + DGROUPS * DR;               // [DGROUPS][DR]
+#pragma unroll
+  for (int r = 0; r < DR; ++r) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int ch = lig + 8 * i;
+      if (ch < CH)
+        *reinterpret_cast<float4*>(Ag + (grp * DR + r) * Dh + 4 * ch) =
+            acc[r][i];
+    }
+    if (lig == 0) {
+      Mg[grp * DR + r] = m_i[r];
+      Lg[grp * DR + r] = l_i[r];
     }
   }
   __syncthreads();
-
-  // merge the NW partial states of each query row; a row no warp saw a
-  // key for keeps m = -1e30, l = 0, acc = 0 in every slice and writes 0
-  for (int e = tid; e < nr * Dh; e += blockDim.x) {
-    const int r = e / Dh, d = e % Dh, row = r0 + r;
+  const size_t prow = ((size_t)b * Hkv + kvh) * ntiles * DR + r0;
+  const int W = Dh + 2;                        // a part row: acc, m, l
+  for (int e = tid; e < nr * Dh; e += DTHREADS) {
+    const int r = e / Dh, d = e % Dh;
     float m = NEG_INF;
-    for (int w = 0; w < NW; ++w) m = fmaxf(m, St[w * QT * (Dh + 2) + QT * Dh + r]);
+    for (int g = 0; g < DGROUPS; ++g) m = fmaxf(m, Mg[g * DR + r]);
     float l = 0.f, o = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float* S = St + w * QT * (Dh + 2);
-      const float a = expf(S[QT * Dh + r] - m);
-      l += S[QT * Dh + QT + r] * a;
-      o += S[e] * a;
+    for (int g = 0; g < DGROUPS; ++g) {
+      const float a = expf(Mg[g * DR + r] - m);
+      l += Lg[g * DR + r] * a;
+      o += Ag[(g * DR + r) * Dh + d] * a;
     }
-    const int c = row / G, h = kvh * G + row % G;
-    out[(((size_t)b * C + c) * H + h) * Dh + d] = o / fmaxf(l, 1e-20f);
+    if (nlive == 1) {
+      const int row = r0 + r;
+      out[(((size_t)b * C + row / G) * H + kvh * G + row % G) * Dh + d] =
+          o / fmaxf(l, 1e-20f);
+    } else {
+      float* dst = part + ((prow + r) * nsplit + z) * W;
+      __stcg(dst + d, o);
+      if (d == 0) {
+        __stcg(dst + Dh, m);
+        __stcg(dst + Dh + 1, l);
+      }
+    }
   }
+  if (nlive == 1) return;
+
+  // the last part of the row tile to arrive merges them, in part order
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* ctr = counters + ((size_t)b * Hkv + kvh) * ntiles + rt;
+    last = atomicAdd(ctr, 1) == nlive - 1;
+    if (last) *ctr = 0;                        // every part has arrived
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = tid; e < nr * Dh; e += DTHREADS) {
+    const int r = e / Dh, d = e % Dh;
+    const float* src = part + (prow + r) * nsplit * W;
+    float m = NEG_INF;
+    for (int k = 0; k < nlive; ++k) m = fmaxf(m, __ldcg(src + k * W + Dh));
+    float l = 0.f, o = 0.f;
+    for (int k = 0; k < nlive; ++k) {
+      const float a = expf(__ldcg(src + k * W + Dh) - m);
+      l += __ldcg(src + k * W + Dh + 1) * a;
+      o += __ldcg(src + k * W + d) * a;
+    }
+    const int row = r0 + r;
+    out[(((size_t)b * C + row / G) * H + kvh * G + row % G) * Dh + d] =
+        o / fmaxf(l, 1e-20f);
+  }
+}
+
+template <int NC>
+cudaError_t launch_decode(const void* q, const void* kpool,
+                          const void* vpool, const void* table,
+                          const void* kv_len, const void* q_off,
+                          const void* newest, void* out, void* part,
+                          void* counters, int B, int C, int H, int Hkv,
+                          int Dh, int BS, int MB, int causal, int window,
+                          int ring, int nsplit, float scale,
+                          cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * DSTAGES * DK * Dh +
+                      sizeof(long long) * DSTAGES * DK;
+  static size_t granted[dyn_smem::MAX_DEVICES] = {};
+  const auto kernel = paged_attention_decode_kernel<NC>;
+  const cudaError_t err = dyn_smem::opt_in(kernel, smem, granted);
+  if (err != cudaSuccess) return err;
+  const int R = C * (H / Hkv);
+  const dim3 grid(nsplit, Hkv * ((R + DR - 1) / DR), B);
+  kernel<<<grid, DTHREADS, smem, stream>>>(
+      (const float*)q, (const float*)kpool, (const float*)vpool,
+      (const int32_t*)table, (const int32_t*)kv_len, (const int32_t*)q_off,
+      (const int32_t*)newest, (float*)out, (float*)part, (int*)counters, C,
+      H, Hkv, Dh, BS, MB, causal, window, ring, nsplit, scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------
@@ -234,13 +431,6 @@ __global__ void paged_attention_kernel(
 constexpr int TQ = 64;          // query rows per block
 constexpr int TK = 64;          // keys per K/V tile
 constexpr int TT = 256;         // threads
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
 
 template <int DH, bool RING>
 __global__ __launch_bounds__(TT, 1) void paged_attention_tiled_kernel(
@@ -453,14 +643,10 @@ cudaError_t launch_tiled(const void* q, const void* kpool, const void* vpool,
   constexpr size_t smem = sizeof(float) *
       ((size_t)TQ * (DH + 4) + 2 * TK * (DH + 4) + 2 * TK * DH +
        (size_t)TK * (TQ + 4));
-  static bool opted_in = false;
+  static size_t granted[dyn_smem::MAX_DEVICES] = {};
   const auto kernel = paged_attention_tiled_kernel<DH, RING>;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  const cudaError_t err = dyn_smem::opt_in(kernel, smem, granted);
+  if (err != cudaSuccess) return err;
   const int R = C * (H / Hkv);
   const dim3 grid(B, Hkv, (R + TQ - 1) / TQ);
   kernel<<<grid, TT, smem, stream>>>(
@@ -473,17 +659,19 @@ cudaError_t launch_tiled(const void* q, const void* kpool, const void* vpool,
 
 }  // namespace
 
+// `part` and `counters` as paged_attention_decode_kernel's, needed on the
+// decode walk when nsplit > 1; nsplit must cover decode_parts(MB*BS).
 extern "C" int pa_paged_attention(const void* q, const void* kpool,
                                   const void* vpool, const void* table,
                                   const void* kv_len, const void* q_off,
-                                  const void* newest, void* out, int B,
-                                  int C, int H, int Hkv, int Dh, int BS,
-                                  int MB, int causal, int window, int ring,
-                                  float scale, void* stream) {
+                                  const void* newest, void* out, void* part,
+                                  void* counters, int B, int C, int H,
+                                  int Hkv, int Dh, int BS, int MB,
+                                  int causal, int window, int ring,
+                                  int nsplit, float scale, void* stream) {
   if (B == 0 || C == 0) return (int)cudaGetLastError();
   // the walks move Q, K/V and output rows with 16-byte accesses: rows of
-  // Dh floats start 16-byte aligned in q, out and the pools and, with
-  // BS % 4 == 0, in every warp's shared-memory slice
+  // Dh floats start 16-byte aligned in q, out and the pools
   if (Hkv <= 0 || H % Hkv != 0 || Dh <= 0 || BS <= 0 || MB <= 0 ||
       (ring && newest == nullptr) || Dh % 4 || BS % 4 ||
       (uintptr_t)kpool % 16 || (uintptr_t)vpool % 16 || (uintptr_t)q % 16 ||
@@ -491,7 +679,7 @@ extern "C" int pa_paged_attention(const void* q, const void* kpool,
     return (int)cudaErrorInvalidValue;
   // prefill chunks (more query rows than one decode tile) take the tiled
   // path at the head widths it is built for; other widths take the
-  // decode walk, 16 rows a block
+  // decode walk, DR rows a block
   const int R = C * (H / Hkv);
   const cudaStream_t st = (cudaStream_t)stream;
   if (R > QT && (Dh == 64 || Dh == 128)) {
@@ -501,24 +689,13 @@ extern "C" int pa_paged_attention(const void* q, const void* kpool,
     return (int)tiled(q, kpool, vpool, table, kv_len, q_off, newest, out, B,
                       C, H, Hkv, BS, MB, causal, window, scale, st);
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)QT * Dh + (size_t)NW * BS * (2 * Dh + 1) +
-                       (size_t)NW * QT * (Dh + 2));
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  static size_t opted_in[2] = {48 * 1024, 48 * 1024};   // per variant
-  const auto kernel = ring ? paged_attention_kernel<true>
-                           : paged_attention_kernel<false>;
-  if (smem > opted_in[ring != 0]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[ring != 0] = smem;
-  }
-  const dim3 grid(B, Hkv, (R + QT - 1) / QT);
-  kernel<<<grid, NW * 32, smem, st>>>(
-      (const float*)q, (const float*)kpool, (const float*)vpool,
-      (const int32_t*)table, (const int32_t*)kv_len, (const int32_t*)q_off,
-      (const int32_t*)newest, (float*)out, C, H, Hkv, Dh, BS, MB, causal,
-      window, scale);
-  return (int)cudaGetLastError();
+  if (Dh > 256 || nsplit < decode_parts(MB * BS, ring) ||
+      (nsplit > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const auto decode = Dh <= 32 ? launch_decode<1>
+                      : Dh <= 64 ? launch_decode<2>
+                      : Dh <= 128 ? launch_decode<4> : launch_decode<8>;
+  return (int)decode(q, kpool, vpool, table, kv_len, q_off, newest, out,
+                     part, counters, B, C, H, Hkv, Dh, BS, MB, causal,
+                     window, ring, nsplit, scale, st);
 }

@@ -62,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int RT = 16;            // query rows (c, h) per walk block
@@ -755,14 +757,9 @@ extern "C" int pm_paged_attention_mla(
 
   // 2. the walk over the latent blocks (3. merge its parts)
   if (tiled_walk) {
-    static bool opted_in = false;
-    if (!opted_in) {
-      err = cudaFuncSetAttribute(mla_tiled_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)tiled::SMEM);
-      if (err != cudaSuccess) return (int)err;
-      opted_in = true;
-    }
+    static size_t granted[dyn_smem::MAX_DEVICES] = {};
+    err = dyn_smem::opt_in(mla_tiled_kernel, tiled::SMEM, granted);
+    if (err != cudaSuccess) return (int)err;
     const dim3 g2((rows + tiled::TQ - 1) / tiled::TQ, B);
     mla_tiled_kernel<<<g2, tiled::THREADS, tiled::SMEM, st>>>(
         (const float*)q, (const float*)q_lat, (const float*)ckv,
@@ -777,14 +774,9 @@ extern "C" int pm_paged_attention_mla(
                                          (size_t)RT * R + (size_t)RT * BS +
                                          3 * RT);
     if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    static size_t opted_in = 48 * 1024;   // dynamic smem allowed so far
-    if (smem > opted_in) {
-      err = cudaFuncSetAttribute(mla_walk_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      opted_in = smem;
-    }
+    static size_t granted[dyn_smem::MAX_DEVICES] = {};
+    err = dyn_smem::opt_in(mla_walk_kernel, smem, granted);
+    if (err != cudaSuccess) return (int)err;
     const dim3 g2(B, (rows + RT - 1) / RT, nsplit);
     mla_walk_kernel<<<g2, WALK_THREADS, smem, st>>>(
         (const float*)q, (const float*)q_lat, (const float*)ckv,

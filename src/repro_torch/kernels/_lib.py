@@ -13,6 +13,7 @@ count: a wrapper adds one exactly where it calls into the library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,7 +38,7 @@ _SIGNATURES = {
     "bp_binarize_pack": [_P, _P, _I, _I, _I, _F, _P],
     "fb_b1_mma_rate": [_P, _I, _I, _P],
     "fb_fused_bnn": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-    "pa_paged_attention": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "pa_paged_attention": [_P] * 10 + [_I] * 11 + [_F, _P],
     "pm_paged_attention_mla": [_P] * 13 + [_I] * 14 + [_F, _P],
     "xp_xnor_popcount": [_P] * 6 + [_I] * 9 + [_P],
 }
@@ -122,12 +123,17 @@ def build() -> Path:
     return out
 
 
-def launch(fn_name: str, *args) -> None:
-    """Call one C entry point on the current CUDA stream; raise on any
-    CUDA error it reports."""
+def launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call one C entry point on ``device``, the device of the tensors
+    in ``args``: under that device (the entry points read the current
+    device's SM count and shared-memory opt-ins) and on its current
+    stream.  Raise on any CUDA error it reports."""
     fn = getattr(LIBRARY.load(), fn_name)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, ctypes.c_void_p(stream))
+    idx = device.index
+    switch = idx is not None and idx != torch.cuda.current_device()
+    with torch.cuda.device(idx) if switch else contextlib.nullcontext():
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
 

@@ -42,7 +42,7 @@ def binarize_pack(x: torch.Tensor, *, threshold: float = 0.0) -> torch.Tensor:
     _lib.check(x, "x", torch.float32, (m, s), x.device)
     kw = packing.packed_len(s)
     out = torch.empty((m, kw), dtype=torch.int32, device=x.device)
-    _lib.launch("bp_binarize_pack", _lib.ptr(x), _lib.ptr(out), m, s, kw,
-                float(threshold))
+    _lib.launch("bp_binarize_pack", x.device, _lib.ptr(x), _lib.ptr(out), m,
+                s, kw, float(threshold))
     KERNEL.launches += 1
     return out

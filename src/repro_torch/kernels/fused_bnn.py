@@ -78,8 +78,8 @@ def fused_bnn_matmul(x: torch.Tensor, wp: torch.Tensor, s: int, *,
             ref.MODES.index(mode))
     if _profiler._is_profiler_enabled:        # tracing: name the shape
         with torch.profiler.record_function(f"fused_bnn M={m} N={n} S={s}"):
-            _lib.launch("fb_fused_bnn", *args)
+            _lib.launch("fb_fused_bnn", x.device, *args)
     else:
-        _lib.launch("fb_fused_bnn", *args)
+        _lib.launch("fb_fused_bnn", x.device, *args)
     KERNEL.launches += 1
     return out

@@ -4,7 +4,10 @@ Three variants of the Pallas kernel's template
 (src/repro/kernels/paged_attention.py), one KernelInfo each:
 
 * GQA (``paged_attention``): q (B, C, H, Dh); k/v pools
-  (NB, BS, Hkv, Dh); grouped heads.  csrc/paged_attention.cu.
+  (NB, BS, Hkv, Dh); grouped heads.  csrc/paged_attention.cu: a split
+  decode walk (``decode_parts`` parts of DECODE_PART_KEYS positions a
+  row, merged in the launch) for C·G <= 16 query rows per (batch row,
+  kv head), a tiled prefill path (``gqa_tiled``) for more.
 * GQA over a sliding-window ring (``paged_attention(..., ring=True)``):
   the same pools, but slot s of the (MB * BS)-slot table holds position
   ``newest - ((newest - s) mod (MB * BS))`` (floor modulo), where
@@ -49,6 +52,10 @@ KERNEL_MLA = _lib.KernelInfo(
 NEG_INF = -1e30
 MLA_ROWS = 16          # query rows (c, h) per block of the MLA decode walk
 MLA_TILED_WIDTHS = (512, 64)   # (R, Dr) the MLA tiled prefill path takes
+DECODE_ROWS = 4        # query rows per block of the GQA decode walk
+DECODE_PART_KEYS = 256     # positions per part of the GQA decode walk
+GQA_TILED_ROWS = 16    # more query rows than this per (batch row, kv
+GQA_TILED_WIDTHS = (64, 128)   # head), at these Dh, take the tiled path
 
 
 def ring_key_positions(newest: torch.Tensor, mb: int, bs: int
@@ -195,13 +202,64 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _lib.check(v_pool, "v_pool", torch.float32, (nb, bs, hkv, dh), dev)
     newest_p = _check_rows(q, block_table, kv_len, q_offset, ring, newest)
     out = torch.empty_like(q)
-    _lib.launch("pa_paged_attention", _lib.ptr(q), _lib.ptr(k_pool),
+    g = h // hkv
+    ns = 1 if gqa_tiled(c, g, dh) else decode_parts(mb, bs, ring)
+    part = counters = None
+    if ns > 1:          # each part's (acc, m, l) per query row, merged by
+        tiles = -(-(c * g) // DECODE_ROWS)      # the last part to arrive
+        part = torch.empty((b, hkv, tiles * DECODE_ROWS, ns, dh + 2),
+                           dtype=torch.float32, device=dev)
+        counters = _decode_counters(dev, b * hkv * tiles)
+    _lib.launch("pa_paged_attention", dev, _lib.ptr(q), _lib.ptr(k_pool),
                 _lib.ptr(v_pool), _lib.ptr(block_table), _lib.ptr(kv_len),
-                _lib.ptr(q_offset), newest_p, _lib.ptr(out), b, c, h, hkv,
-                dh, bs, mb, int(causal), int(window or 0), int(ring),
-                float(dh ** -0.5))
+                _lib.ptr(q_offset), newest_p, _lib.ptr(out),
+                None if part is None else _lib.ptr(part),
+                None if counters is None else _lib.ptr(counters),
+                b, c, h, hkv, dh, bs, mb, int(causal), int(window or 0),
+                int(ring), ns, float(dh ** -0.5))
     (KERNEL_RING if ring else KERNEL).launches += 1
     return out
+
+
+def gqa_tiled(c: int, g: int, dh: int) -> bool:
+    """Whether the GQA kernel takes its tiled prefill path: more query
+    rows per (batch row, kv head) than a decode tile, at the head widths
+    the path is built for; every other call takes the decode walk."""
+    return c * g > GQA_TILED_ROWS and dh in GQA_TILED_WIDTHS
+
+
+def decode_parts(mb: int, bs: int, ring: bool) -> int:
+    """Blocks the GQA decode walk's grid gives each (batch row, kv head,
+    row tile): one per part of DECODE_PART_KEYS consecutive positions
+    that the row's visible keys can touch, from the table width alone
+    (no batch size, no device read).  A paged row sees positions inside
+    [0, mb * bs); a ring row at most mb * bs consecutive positions,
+    which may start mid-part.  A block whose part lies past its row's
+    visible keys exits at once."""
+    cap = mb * bs
+    if ring:
+        return -(-(cap - 1) // DECODE_PART_KEYS) + 1
+    return -(-cap // DECODE_PART_KEYS)
+
+
+_counters: dict[torch.device, torch.Tensor] = {}
+_retired: list[torch.Tensor] = []
+
+
+def _decode_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` per-row-tile counters of the decode walk's merge on
+    ``device``: zeroed once and left at zero by every launch (the last
+    part of a row tile resets its counter).  Launches that share them run
+    in order on one stream.  A buffer that is outgrown stays allocated:
+    a captured CUDA graph may still point at it."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
+        size = max(n, 4096, 2 * (0 if buf is None else buf.numel()))
+        buf = _counters[device] = torch.zeros(size, dtype=torch.int32,
+                                              device=device)
+    return buf
 
 
 def mla_splits(b: int, c: int, h: int, mb: int, sm_count: int) -> int:
@@ -269,8 +327,9 @@ def paged_attention_mla(q: torch.Tensor, c_kv_pool: torch.Tensor,
                                           dtype=torch.float32, device=dev)
     merged = torch.empty((rows, r), dtype=torch.float32, device=dev)
     out = torch.empty((b, c, h, dv), dtype=torch.float32, device=dev)
-    _lib.launch("pm_paged_attention_mla", _lib.ptr(q), _lib.ptr(c_kv_pool),
-                _lib.ptr(k_rope_pool), _lib.ptr(block_table),
+    _lib.launch("pm_paged_attention_mla", dev, _lib.ptr(q),
+                _lib.ptr(c_kv_pool), _lib.ptr(k_rope_pool),
+                _lib.ptr(block_table),
                 _lib.ptr(kv_len), _lib.ptr(q_offset), newest_p,
                 _lib.ptr(k_up), _lib.ptr(v_up), _lib.ptr(q_lat),
                 None if part is None else _lib.ptr(part), _lib.ptr(merged),

@@ -132,8 +132,8 @@ def xnor_popcount_matmul(ip: torch.Tensor, wp: torch.Tensor, s: int, *,
         part = torch.empty((parts, tiles, TILE_M * bn), dtype=torch.int32,
                            device=ip.device)
         part_ptr = _lib.ptr(part)
-    _lib.launch("xp_xnor_popcount", _lib.ptr(ip), _lib.ptr(wp), alpha_ptr,
-                _lib.ptr(out), part_ptr, counters, m, n, s, kw, route, bn,
-                parts, part_words, ref.MODES.index(mode))
+    _lib.launch("xp_xnor_popcount", ip.device, _lib.ptr(ip), _lib.ptr(wp),
+                alpha_ptr, _lib.ptr(out), part_ptr, counters, m, n, s, kw,
+                route, bn, parts, part_words, ref.MODES.index(mode))
     KERNEL.launches += 1
     return out

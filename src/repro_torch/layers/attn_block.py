@@ -124,18 +124,19 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
                       block_table: torch.Tensor, lengths: torch.Tensor, *,
                       precision: str = "bf16",
                       active: torch.Tensor | None = None,
-                      ring: bool = False,
-                      impl: str = "auto") -> tuple[torch.Tensor, dict]:
+                      ring: bool = False, impl: str = "auto",
+                      taps: list | None = None) -> tuple[torch.Tensor, dict]:
     """One-token decode against the paged pool with PER-ROW lengths.
 
     x (B, 1, d); block_table (B, max_blocks) int32; lengths (B,) int32
     current per-sequence cache fill; active (B,) bool masks padded batch
     slots; ring=True treats the table as a sliding-window ring.  The
-    pools in ``cache`` are updated in place.
+    pools in ``cache`` are updated in place.  ``taps`` as in
+    ``prefill_chunk``.
     """
     b = x.shape[0]
     positions = lengths[:, None].long()                          # (B, 1)
-    q, k, v = _qkv(params, cfg, x, positions, precision, impl)
+    q, k, v = _qkv(params, cfg, x, positions, precision, impl, taps)
     valid = (torch.ones((b, 1), dtype=torch.bool, device=x.device)
              if active is None else active[:, None])
     scatter_blocks(cache["k"], block_table, positions, k, valid, ring=ring)
@@ -143,7 +144,7 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     o = _paged_attend(cfg, q, cache, block_table, lengths, lengths + 1,
                       lengths, ring, causal=False, impl=impl)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return C.dense(o, params["o"], precision, impl), cache
+    return C.dense(o, params["o"], precision, impl, taps, "o"), cache
 
 
 def prefill_chunk(params, cfg, x: torch.Tensor, cache,

@@ -129,15 +129,15 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
                       block_table: torch.Tensor, lengths: torch.Tensor, *,
                       precision: str = "bf16",
                       active: torch.Tensor | None = None,
-                      ring: bool = False,
-                      impl: str = "auto") -> tuple[torch.Tensor, dict]:
+                      ring: bool = False, impl: str = "auto",
+                      taps: list | None = None) -> tuple[torch.Tensor, dict]:
     """One-token decode against the paged latent pool, per-row lengths
-    (arguments as ``attn_block.paged_decode_step``); the pools are
-    updated in place."""
+    (arguments as ``attn_block.paged_decode_step``, ``taps`` as in
+    ``prefill_chunk``); the pools are updated in place."""
     b = x.shape[0]
     positions = lengths[:, None].long()
     q_nope, q_rope, c_kv, k_rope = _project(params, cfg, x, positions,
-                                            precision, impl)
+                                            precision, impl, taps)
     valid = (torch.ones((b, 1), dtype=torch.bool, device=x.device)
              if active is None else active[:, None])
     _write_latents(cache, block_table, positions, c_kv, k_rope, valid, ring)
@@ -145,7 +145,7 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     o = _paged_attend(params, cfg, q, cache, block_table, lengths,
                       lengths + 1, lengths, ring, causal=False, impl=impl)
     o = o.reshape(b, 1, cfg.n_heads * cfg.v_head_dim)
-    return C.dense(o, params["o"], precision, impl), cache
+    return C.dense(o, params["o"], precision, impl, taps, "o"), cache
 
 
 def prefill_chunk(params, cfg, x: torch.Tensor, cache,
