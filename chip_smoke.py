@@ -17,18 +17,20 @@ Phases (each check raises, and the script then exits non-zero):
               (C = 1, C = 128 causal, a ring case; MAX_MLA_REL_ERR;
               untimed at C = 2, 4, 5, 17 around its decode block and
               prefill tile, with a window cutting a block, and ring
-              chunks over a ring that has just wrapped).  The GQA and
-              ring decode walk also at kv_len around its part
+              chunks over a ring that has just wrapped).  The GQA, ring
+              and MLA decode walks also at kv_len around their part
               boundaries (and 0, 1, BS - 1), over rings whose visible
               arc wraps at a part boundary, under windows that cut a
               part; each row of a C = 1 call bit-equal to the same row
-              run alone (B = 1), timed at B = 8 and B = 1.  Each is timed
-              (device time, from CUDA-graph replays; and called from
-              Python, eager) beside its plain version, one library call
-              as a yardstick (for MLA the two expansion matmuls plus
-              SDPA, together), and its bound on this card; a kernel
-              faster than its bound fails the run.  MLA rows add the
-              device time of each launch by kernel name (torch.profiler).
+              run alone (B = 1); GQA and ring timed at B = 8 and B = 1.
+              Each is timed (device time, from CUDA-graph replays; and
+              called from Python, eager) beside its plain version, one
+              library call as a yardstick (for MLA the absorbed form in
+              PyTorch calls, k_up matmul + SDPA over the latents + v_up
+              matmul, with the decompressing form beside it), and its
+              bound on this card; a kernel faster than its bound fails
+              the run.  MLA rows add the device time of each launch by
+              kernel name (torch.profiler).
   3. serving  bnn-lm-100m at full width (precision="bnn", seeded random
               weights) served by the port's Engine: 16 requests, 8 of
               them submitted after 10 steps.  The serving kernels'
@@ -60,7 +62,11 @@ Phases (each check raises, and the script then exits non-zero):
               tiles, an ip view at an odd word offset, every route of
               its plan; then every distinct layer shape, timed in
               "dot" mode), weight/patch
-              packing bit-exact at the patch shapes, every layer through
+              packing bit-exact at the patch shapes, the patch-packing
+              kernel (patches read from the NHWC input) bit-exact
+              against im2col + pack at every distinct layer input,
+              timed, and at thresholds that tell its two padding rules
+              apart, every layer through
               the kernels equal to its plain path and to the sign-conv
               oracle exactly (launch counts over that run must be > 0;
               device times summed per network), and a chained binary
@@ -90,6 +96,7 @@ from __future__ import annotations
 
 import functools
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -103,6 +110,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+L2_BYTES = 50 * 2 ** 20          # H100 L2 cache (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12         # densest documented integer rate: int8
                                  # tensor cores (the binary mma's is
                                  # measured: b1_ops_per_s)
@@ -188,6 +196,19 @@ def launch_ms(fn, iters: int = 10) -> dict[str, float]:
     if not out:
         raise AssertionError("the profiler traced no kernel on the card")
     return out
+
+
+def cold_inputs(x: torch.Tensor):
+    """A callable that returns ``x`` or one of its copies in turn: where
+    ``x`` is over an eighth of the L2 cache, enough copies that the
+    replays of ``time_ms`` read it from device memory, as a first use
+    does, not from L2."""
+    n = x.numel() * x.element_size()
+    copies = [x]
+    if n > L2_BYTES // 8:
+        copies += [x.clone() for _ in range(-(-2 * L2_BYTES // n))]
+    it = itertools.cycle(copies)
+    return lambda: next(it)
 
 
 def check_bound(row: dict, what: str) -> None:
@@ -323,11 +344,43 @@ def check_binarize_pack(dev, m: int, s: int, gen: torch.Generator,
         kw = -(-s // 32)
         row["bound_ms"], row["bound_by"] = bound_ms(m * s * 4 + m * kw * 4,
                                                     m * s, INT8_OPS_PER_S)
-        row["ms"] = time_ms(lambda: bp.binarize_pack(x))
-        row["eager_ms"] = eager_ms(lambda: bp.binarize_pack(x))
+        xs = cold_inputs(x)
+        row["ms"] = time_ms(lambda: bp.binarize_pack(xs()))
+        row["eager_ms"] = eager_ms(lambda: bp.binarize_pack(xs()))
         row["plain_ms"] = time_ms(lambda: bp.binarize_pack_torch(x), iters=5)
         row["library_ms"] = None
         check_bound(row, "binarize_pack")
+    return row
+
+
+def check_pack_patches(dev, x: torch.Tensor, k: int, stride: int,
+                       padding: str, timed: bool,
+                       threshold: float = 0.0) -> dict:
+    """The patch-packing kernel bit-exact against its plain version (the
+    patch matrix written out, then packed) on the NHWC input ``x`` of a
+    k x k conv; timed against its byte bound: the input read once, the
+    words written once."""
+    from repro_torch.kernels import binarize_pack as bp
+    args = (x, k, k, stride, padding)
+    got = bp.pack_patches(*args, threshold=threshold)
+    want = bp.pack_patches_torch(*args, threshold=threshold)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"pack_patches {tuple(x.shape)} k={k} "
+                             f"stride={stride} {padding} thr={threshold}: "
+                             f"words differ from the plain version")
+    row = {"shape": f"x={tuple(x.shape)} k={k} stride={stride} {padding}",
+           "M": got.shape[0], "S": k * k * x.shape[-1], "max_abs_err": 0.0}
+    if timed:
+        n_bytes = x.numel() * 4 + got.numel() * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, got.numel() * 32,
+                                                    INT8_OPS_PER_S)
+        run = lambda: bp.pack_patches(*args)
+        row["ms"] = time_ms(run)
+        row["eager_ms"] = eager_ms(run)
+        row["plain_ms"] = time_ms(lambda: bp.pack_patches_torch(*args),
+                                  iters=5)
+        row["library_ms"] = None
+        check_bound(row, "pack_patches")
     return row
 
 
@@ -605,12 +658,14 @@ MLA_RING_NEWEST = (100, 1023, 1500, 3000, 5, 700, 2047, 4000)
 
 def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
                         ring: bool = False, newest=MLA_RING_NEWEST,
-                        window: int | None = None) -> dict:
+                        window: int | None = None, lens=None) -> dict:
     """deepseek-v2-lite's latent attention at its published shapes: B=8,
     H=16, nope 128, rope 64, R=512, Dv=128, BS=16, MB=64 (kv_len up to
-    1024, the last row fully masked); ``ring`` reads the same table as a
-    ring (``newest`` below and above its 1024 slots; B = len(newest)).
-    C > 1 is a causal chunk ending at each row's last key."""
+    1024, the last row fully masked, or the given ``lens``); ``ring``
+    reads the same table as a ring (``newest`` below and above its 1024
+    slots; B = len(newest)).  C > 1 is a causal chunk ending at each
+    row's last key.  At C = 1 each row of the batch must equal, bit for
+    bit, the same row run alone."""
     from repro_torch.kernels import paged_attention as pa
     b, h, nope, dr, r, dv, bs, mb = 8, 16, 128, 64, 512, 128, 16, 64
     rng = np.random.default_rng(11 + c)
@@ -620,6 +675,12 @@ def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
         kv_len = (newest + 1).to(torch.int32)
         q_off = newest if c == 1 else \
             (kv_len - c).clamp_min(0).to(torch.int32)
+    elif lens is not None:
+        newest = None
+        b = len(lens)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q_off = (kv_len - c).clamp_min(0) if c > 1 else kv_len - 1
+        q_off = q_off.to(torch.int32).contiguous()
     else:
         newest = None
         kv_len, q_off = _ragged_rows(b, c, mb * bs, rng, dev)
@@ -650,11 +711,19 @@ def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
     if blind.any() and got[blind].abs().max().item() != 0.0:
         raise AssertionError(f"paged_attention_mla C={c} ring={ring}: a "
                              "fully-masked row is not zero")
+    if c == 1:
+        _check_rows_alone(
+            got, lambda i: pa.paged_attention_mla(
+                q[i:i + 1], ckv, krope, tab[i:i + 1], **{
+                    **kw, "kv_len": kv_len[i:i + 1],
+                    "q_offset": q_off[i:i + 1],
+                    "newest": None if newest is None else newest[i:i + 1]}),
+            f"paged_attention_mla B={b} C=1 ring={ring} window={window}")
     tiled = pa.mla_tiled(c, h, r, dr)
     row = {"shape": f"B={b} C={c} H={h} nope={nope} rope={dr} R={r} Dv={dv} "
                     f"BS={bs} MB={mb} ring={ring} window={window}",
            "max_abs_err": err, "limit": limit,
-           "path": "tiled" if tiled else "walk"}
+           "path": "tiled" if tiled else "decode"}
     if timed:
         n_keys = int(vis.any(dim=1).sum())
         rows = b * c * h
@@ -664,14 +733,17 @@ def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
         # and an R-wide weighted sum per visible (query, key) and head;
         # v_up per query row
         pairs = int(vis.sum()) * h
-        n_ops = 2 * rows * nope * r + pairs * (2 * (r + dr) + 2 * r) + \
-            2 * rows * r * dv
-        # the tiled path multiplies on tensor cores in 3xTF32; the decode
-        # walk on the CUDA cores in float32
-        row["bound_rate"] = ("3xTF32, 495/3 TFLOP/s" if tiled
-                             else "float32, 67 TFLOP/s")
+        gemm_ops = 2 * rows * nope * r + 2 * rows * r * dv
+        walk_ops = pairs * (2 * (r + dr) + 2 * r)
+        # both walks multiply on tensor cores in 3xTF32; the GEMMs too on
+        # the tiled route, in float32 on CUDA cores on the decode route
+        row["bound_rate"] = ("3xTF32, 495/3 TFLOP/s" if tiled else
+                             "GEMMs float32 67 TFLOP/s, walk 3xTF32 "
+                             "495/3 TFLOP/s")
+        gemm_rate = TF32X3_FLOPS_PER_S if tiled else FP32_FLOPS_PER_S
         row["bound_ms"], row["bound_by"] = bound_ms(
-            n_bytes, n_ops, TF32X3_FLOPS_PER_S if tiled else FP32_FLOPS_PER_S)
+            n_bytes, gemm_ops + walk_ops, (gemm_ops + walk_ops) / (
+                gemm_ops / gemm_rate + walk_ops / TF32X3_FLOPS_PER_S))
         run = lambda: pa.paged_attention_mla(q, ckv, krope, tab, **kw)
         row["ms"] = time_ms(run)
         row["eager_ms"] = eager_ms(run)
@@ -680,23 +752,52 @@ def check_mla_attention(dev, c: int, gen: torch.Generator, timed: bool,
         row["plain_ms"] = time_ms(
             lambda: pa.paged_attention_mla_torch(q, ckv, krope, tab, **kw),
             iters=3)
-        # yardstick, labelled as such: the two expansion matmuls plus SDPA
-        # over the gathered latents, timed together
         lat = ckv[tab.long()].reshape(b, mb * bs, r)
-        rope = krope[tab.long()].reshape(b, mb * bs, 1, dr).expand(
-            b, mb * bs, h, dr)
+        rope = krope[tab.long()].reshape(b, mb * bs, dr)
         mask = vis[:, None].expand(b, h, c, mb * bs)
-        qt = q.transpose(1, 2)
         fsdpa = torch.nn.functional.scaled_dot_product_attention
+        scale = (nope + dr) ** -0.5
+        # the library yardstick: the absorbed form in PyTorch calls —
+        # torch.matmul of q_nope by each head's k_up, SDPA over the
+        # gathered latents as keys (R + Dr wide) and values (R wide),
+        # every head's query rows against the row's one latent sequence,
+        # torch.matmul by each head's v_up (weights laid out per head
+        # once, outside the timing)
+        k_up_h = k_up.reshape(r, h, nope).permute(1, 2, 0).contiguous()
+        v_up_h = v_up.reshape(r, h, dv).permute(1, 0, 2).contiguous()
+        keys = torch.cat([lat, rope], dim=-1)[:, None]  # (B, 1, S, R + Dr)
+        vals = lat[:, None]                              # (B, 1, S, R)
+        mask_hc = mask.reshape(b, 1, h * c, mb * bs)
 
         def library():
-            k_nope = torch.matmul(lat, k_up).reshape(b, mb * bs, h, nope)
-            vals = torch.matmul(lat, v_up).reshape(b, mb * bs, h, dv)
-            keys = torch.cat([k_nope, rope], dim=-1)
-            return fsdpa(qt, keys.transpose(1, 2), vals.transpose(1, 2),
-                         attn_mask=mask)
+            qn = q[..., :nope].permute(2, 0, 1, 3).reshape(h, b * c, nope)
+            q_lat = torch.matmul(qn, k_up_h)            # (H, B*C, R)
+            qa = torch.cat([q_lat.reshape(h, b, c, r).permute(1, 0, 2, 3),
+                            q[..., nope:].transpose(1, 2)], dim=-1)
+            o = fsdpa(qa.reshape(b, 1, h * c, r + dr), keys, vals,
+                      attn_mask=mask_hc, scale=scale)
+            o = o.reshape(b, h, c, r).permute(1, 0, 2, 3).reshape(h, b * c, r)
+            return torch.matmul(o, v_up_h)              # (H, B*C, Dv)
+        lib_out = library().reshape(h, b, c, dv).permute(1, 2, 0, 3)
+        if not (lib_out - want).abs().max().item() <= 10 * limit:
+            raise AssertionError("the absorbed library yardstick computes "
+                                 "another function than the plain version")
         row["library_ms"] = time_ms(library)
-        row["library"] = "k_up and v_up matmuls + SDPA"
+        row["library"] = ("absorbed: matmul by k_up + SDPA over the latents "
+                          "+ matmul by v_up")
+
+        # the decompressing yardstick: both expansion matmuls of every
+        # gathered key, then SDPA over per-head K and V
+        rope_h = rope[:, :, None].expand(b, mb * bs, h, dr)
+        qt = q.transpose(1, 2)
+
+        def decompress():
+            k_nope = torch.matmul(lat, k_up).reshape(b, mb * bs, h, nope)
+            v_h = torch.matmul(lat, v_up).reshape(b, mb * bs, h, dv)
+            k_h = torch.cat([k_nope, rope_h], dim=-1)
+            return fsdpa(qt, k_h.transpose(1, 2), v_h.transpose(1, 2),
+                         attn_mask=mask)
+        row["library_decompress_ms"] = time_ms(decompress)
     return row
 
 
@@ -718,6 +819,19 @@ def phase_attention_variants(dev) -> dict[str, list[dict]]:
     # capacity + 1, + one block), a window that cuts a block and a key
     # tile mid-way
     check_mla_attention(dev, 5, gen, False, ring=True)
+    # the MLA decode walk's parts: kv_len one short of, at and one past a
+    # part boundary (k * MLA_PART_KEYS), 0, 1 and BS - 1, with and
+    # without a window that cuts a part; rings whose arc starts one
+    # short of, at and one past a part boundary, and wraps (at a
+    # multiple of the 1024-slot capacity: a part boundary)
+    from repro_torch.kernels.paged_attention import MLA_PART_KEYS as mk
+    edges = (mk - 1, mk, mk + 1, 3 * mk - 1, 3 * mk, 3 * mk + 1, 0, 1, 15)
+    for window in (None, 100):
+        check_mla_attention(dev, 1, gen, False, window=window, lens=edges)
+        check_mla_attention(dev, 1, gen, False, ring=True, window=window,
+                            newest=(1023 + mk - 1, 1023 + mk, 1023 + mk + 1,
+                                    2047, 2048, 2049, 1023 + 3 * mk,
+                                    3 * 1024 + 5))
     # MLA around the decode block (C * H = 16) and the tiled path's
     # 64-row tile (C = 2, 4, 5, 17 at H = 16), a window that cuts a
     # latent block, ring chunks over a ring that has just wrapped
@@ -1022,8 +1136,8 @@ def decode_replay(params, cfg, eng, rid: int, dev, where: str):
     inactive), through the kernels and the plain versions layer by layer,
     re-synchronised at every sublayer as in ``_teacher_forced``; the
     plain route starts from the kernel route's cache.  Every kernel sees
-    the shapes the engine gave it (the MLA decode plan depends on the
-    batch), so the kernel route reproduces the engine's tokens exactly.
+    the shapes the engine gave it, so the kernel route reproduces the
+    engine's tokens exactly.
     Returns (greedy tokens of the kernel route, accepted flips, worst
     output error, the kernel route's decode sublayers {position:
     [(label, taps, output)]})."""
@@ -1298,7 +1412,7 @@ def _pool2(a: torch.Tensor) -> torch.Tensor:
 def phase_conv(dev) -> tuple[dict, dict[str, int]]:
     """Checks and times the conv path; returns the rows for the kernel
     table and the launch counts of the run over every layer."""
-    from repro_torch.core import conv
+    from repro_torch.core import conv, patches
     from repro_torch.core.binarize import b01_to_pm1
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1322,13 +1436,32 @@ def phase_conv(dev) -> tuple[dict, dict[str, int]]:
         gemm[(m, n, s)] = check_xnor_popcount(dev, m, n, s, gen, True)
         log(f"[conv] xnor_popcount {json.dumps(gemm[(m, n, s)])}")
 
-    # 2. packing at the patch shapes (M, S) and the weight shapes (N, S)
+    # 2. packing at the patch shapes (M, S) and the weight shapes (N, S);
+    # the patch rows packed from each distinct layer input, and at
+    # thresholds that tell the two padding rules apart (a padded tap is
+    # 0.0, a position past S -1.0) on a C_in that is no multiple of 4
     packs = {}
     for m, n, s in shapes:
         for rows in (m, n):
             if (rows, s) not in packs:
                 packs[(rows, s)] = check_binarize_pack(dev, rows, s, gen, True)
                 log(f"[conv] binarize_pack {json.dumps(packs[(rows, s)])}")
+    patch_rows = {}
+    for net, layer, x, _w in cases:
+        key = (tuple(x.shape), layer.k, *conv_args(layer).values())
+        if key not in patch_rows:
+            patch_rows[key] = {"layer": f"{net}.{layer.name}",
+                               **check_pack_patches(dev, x, layer.k,
+                                                    **conv_args(layer),
+                                                    timed=True)}
+            log(f"[conv] pack_patches {json.dumps(patch_rows[key])}")
+    xe = torch.randn(2, 9, 7, 5, device=dev, generator=gen)
+    for thr in (-2.0, -0.5, 0.5):
+        for k, stride, padding in ((3, 2, "SAME"), (3, 1, "VALID"),
+                                   (1, 1, "SAME")):
+            check_pack_patches(dev, xe, k, stride, padding, False, thr)
+            check_pack_patches(dev, xe[..., :4].contiguous(), k, stride,
+                               padding, False, thr)
 
     # 3. the main path: every layer through bnn_conv2d on the card
     ops.reset_launches()
@@ -1337,7 +1470,7 @@ def phase_conv(dev) -> tuple[dict, dict[str, int]]:
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in ops.KERNELS}
     log(f"[conv] launches {json.dumps(launches)}")
-    for name in ("binarize_pack", "xnor_popcount"):
+    for name in ("binarize_pack", "pack_patches", "xnor_popcount"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the conv path")
     nets: dict[str, dict] = {}      # per network: summed device times
@@ -1358,8 +1491,8 @@ def phase_conv(dev) -> tuple[dict, dict[str, int]]:
         g = gemm[(m, n, s)]
         # the library yardstick: cuDNN's bf16 conv of the sign tensors,
         # NCHW/OIHW, padded as JAX pads
-        xs = conv._pad(torch.where(x >= 0, 1.0, -1.0), layer.k, layer.k,
-                       **args)
+        xs = patches.pad(torch.where(x >= 0, 1.0, -1.0), layer.k, layer.k,
+                         **args)
         xs = xs.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
         ws = torch.where(w >= 0, 1.0, -1.0).permute(3, 2, 0, 1)
         ws = ws.to(torch.bfloat16).contiguous()
@@ -1408,7 +1541,8 @@ def phase_conv(dev) -> tuple[dict, dict[str, int]]:
         f"activations set, equal on kernels, plain and oracle routes")
     return {"xnor_popcount": list(gemm.values()),
             "xnor_popcount_most_work": gemm[max(gemm, key=math.prod)],
-            "binarize_pack_conv": list(packs.values())}, launches
+            "binarize_pack_conv": list(packs.values()),
+            "pack_patches": list(patch_rows.values())}, launches
 
 
 # --------------------------------------------------------------- phase 6
@@ -1524,16 +1658,20 @@ def main() -> int:
     gc.collect()
     rows["xnor_popcount"] = conv_rows["xnor_popcount"]
     rows["binarize_pack"] += conv_rows["binarize_pack_conv"]
+    rows["pack_patches"] = conv_rows["pack_patches"]
     # one representative main-path shape per kernel for the summary line
     # (decode projection / decode attention / one weight / the conv
     # layer with the most XNOR work / decode over the ring / MLA
-    # decode); every shape is in the [kernels] and [conv] lines above
+    # decode / the conv input with the most patch bits); every shape is
+    # in the [kernels] and [conv] lines above
     pick = {"fused_bnn": rows["fused_bnn"][4],
             "paged_attention": rows["paged_attention"][0],
             "binarize_pack": rows["binarize_pack"][0],
             "xnor_popcount": conv_rows["xnor_popcount_most_work"],
             "paged_attention_ring": rows["paged_attention_ring"][0],
-            "paged_attention_mla": rows["paged_attention_mla"][0]}
+            "paged_attention_mla": rows["paged_attention_mla"][0],
+            "pack_patches": max(rows["pack_patches"],
+                                key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "conv": conv_launches, "mixtral": mixtral,
              "deepseek": deepseek}
     kernels = []

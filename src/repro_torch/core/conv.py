@@ -6,21 +6,18 @@ windows are flattened to vectors of S = kh*kw*C_in (im2col), weights to
 each output pixel is one PCA bitcount result, optionally pushed through
 the comparator to emit the next layer's binary activations.
 
-Layouts are the JAX package's: NHWC activations, HWIO weights, flattened
-as ``w.reshape(S, C_out)`` with patches in (kh, kw, C) order, so the
-tests hand both packages the same arrays.
-
-Padding is JAX's: "SAME" pads pad_total = max((ceil(in/s)-1)*s + k - in,
-0) per spatial axis, pad_total // 2 low and the rest high — for a 3x3/2
-conv on an even input that is (0, 1), not PyTorch's symmetric 1 — so
-every pad here is explicit (``F.pad``); "VALID" pads nothing.
+Layouts and padding are the JAX package's (``core/patches.py``): NHWC
+activations, HWIO weights flattened as ``w.reshape(S, C_out)`` with
+patches in (kh, kw, C) order, JAX's asymmetric SAME.
 
 Precision modes:
   bf16       plain float conv (the baseline path)
-  bnn        packed XNOR-popcount: binarize-pack of the patches and of
-             the weights, then the XNOR-popcount GEMM (on a CUDA tensor
-             the hand-written kernels, on a CPU tensor their plain
-             versions; ``impl`` as ``kernels/ops.resolve_impl``)
+  bnn        packed XNOR-popcount: the patches binarized and packed
+             straight from the NHWC input, the weight's packed words
+             (cached per weight and version), the XNOR-popcount GEMM,
+             and the SAME border term (cached too) subtracted (on a CUDA
+             tensor the hand-written kernels, on a CPU tensor their
+             plain versions; ``impl`` as ``kernels/ops.resolve_impl``)
   bnn_train  STE-binarized conv: not ported (raises)
 """
 from __future__ import annotations
@@ -28,45 +25,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import patches
 from repro_torch.core.binarize import sign_pm1
 from repro_torch.kernels import ops
-
-
-def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
-    """JAX's SAME split of one spatial axis: (low, high)."""
-    total = max((-(-size // stride) - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _pad(x: torch.Tensor, kh: int, kw: int, stride: int,
-         padding: str) -> torch.Tensor:
-    """Pad an NHWC tensor with zeros as JAX's ``padding`` would."""
-    if padding == "VALID":
-        return x
-    if padding != "SAME":
-        raise ValueError(f"unknown padding {padding!r} (SAME or VALID)")
-    (hlo, hhi), (wlo, whi) = (_same_pads(x.shape[1], kh, stride),
-                              _same_pads(x.shape[2], kw, stride))
-    return F.pad(x, (0, 0, wlo, whi, hlo, hhi))
-
-
-def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int,
-            padding: str) -> torch.Tensor:
-    """x: (B, H, W, C) -> patches (B, H', W', kh*kw*C), in (kh, kw, C)
-    order to match the flattened HWIO weight.  ``Tensor.unfold`` (like
-    JAX's ``conv_general_dilated_patches`` and ``F.unfold``) yields each
-    window channel-major, (C, kh, kw); it is reordered here."""
-    xp = _pad(x, kh, kw, stride, padding)
-    win = xp.unfold(1, kh, stride).unfold(2, kw, stride)   # B,H',W',C,kh,kw
-    b, ho, wo, c = win.shape[:4]
-    return win.permute(0, 1, 2, 4, 5, 3).reshape(b, ho, wo, kh * kw * c)
 
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
                padding: str) -> torch.Tensor:
     """Float conv of NHWC x with HWIO w, JAX padding; NHWC out."""
     kh, kw = w.shape[:2]
-    xp = _pad(x, kh, kw, stride, padding).permute(0, 3, 1, 2)
+    xp = patches.pad(x, kh, kw, stride, padding).permute(0, 3, 1, 2)
     y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride)
     return y.permute(0, 2, 3, 1)
 
@@ -93,32 +61,46 @@ def bnn_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         raise ValueError(f"unknown precision {precision!r}")
     impl = ops.resolve_impl(impl, x)
 
-    patches = _im2col(x.float(), kh, kw, stride, padding)      # (B,H',W',S)
-    b, ho, wo, _ = patches.shape
-    ip = ops.pack_activations(patches.reshape(b * ho * wo, s), impl=impl)
-    wp = ops.pack_activations(w.float().reshape(s, cout).t().contiguous(),
-                              impl=impl)
+    b, h, width = x.shape[:3]
+    ho, wo = patches.out_size(h, width, kh, kw, stride, padding)
+    ip = ops.pack_patches(x.float().contiguous(), kh, kw, stride, padding,
+                          impl=impl)                         # (B*H'*W', Kw)
+    wp = ops.pack_conv_weight(w, impl=impl)                  # (C_out, Kw)
     dot = ops.xnor_matmul(ip, wp, s, mode="dot", impl=impl)
-    dot = dot.reshape(b, ho, wo, cout).float()
+    dot = dot.reshape(b, ho, wo, cout)
 
     if padding == "SAME" and (kh > 1 or kw > 1):
         # Border correction: SAME-padded zeros binarize to +1 in the
         # packed path (sign(0) = +1) but contribute 0 in the {-1,+1}
         # conv; on the XPC, border windows simply have shorter vectors
-        # (Fig. 1).  Padded contribution per output = sum(sign w) minus
-        # the sum over the taps that land inside the image.  The inside
-        # taps are the im2col of a one-channel ones image (1 inside, 0
-        # in the padding) times sign(w) summed over C_in: a product of
-        # small integers, exact in float32.
-        ws = sign_pm1(w.float()).sum(dim=2)                      # kh,kw,Cout
-        ones = torch.ones((1, x.shape[1], x.shape[2], 1), device=x.device)
-        inside = _im2col(ones, kh, kw, stride, padding) @ \
-            ws.reshape(kh * kw, cout)                            # 1,H',W',Cout
-        dot = dot - (ws.sum(dim=(0, 1)) - inside)
+        # (Fig. 1).  The term depends on the weight and the input's
+        # size only, so it is cached with them; the int32 dot and the
+        # float32 term meet in one subtraction.
+        border = ops.cached_per_weight(
+            w, ("border", h, width, stride, padding),
+            lambda wt: _border_term(wt, h, width, stride, padding))
+        dot = dot - border
+    else:
+        dot = dot.float()
 
     if binary_out:
         return (dot > 0).to(torch.uint8)     # == compare(z, S_eff/2)
     return dot
+
+
+def _border_term(w: torch.Tensor, h: int, width: int, stride: int,
+                 padding: str) -> torch.Tensor:
+    """(H', W', C_out) float32: what the SAME padding's +1 bits add to
+    each output, sum(sign w) minus the sum over the taps that land inside
+    the image.  The inside taps are the im2col of a one-channel ones
+    image (1 inside, 0 in the padding) times sign(w) summed over C_in: a
+    product of small integers, exact in float32."""
+    kh, kw, _cin, cout = w.shape
+    ws = sign_pm1(w.float()).sum(dim=2)                         # kh,kw,Cout
+    ones = torch.ones((1, h, width, 1), device=w.device)
+    inside = patches.im2col(ones, kh, kw, stride, padding) @ \
+        ws.reshape(kh * kw, cout)                               # 1,H',W',Cout
+    return (ws.sum(dim=(0, 1)) - inside)[0]
 
 
 def reference_sign_conv2d(x: torch.Tensor, w: torch.Tensor, *,
@@ -130,7 +112,7 @@ def reference_sign_conv2d(x: torch.Tensor, w: torch.Tensor, *,
     exact in float32 in any order, on either device; cuDNN is not used
     because its Winograd and FFT algorithms round."""
     kh, kw = w.shape[:2]
-    xs = _pad(sign_pm1(x.float()), kh, kw, stride, padding)
+    xs = patches.pad(sign_pm1(x.float()), kh, kw, stride, padding)
     ws = sign_pm1(w.float())
     ho = (xs.shape[1] - kh) // stride + 1
     wo = (xs.shape[2] - kw) // stride + 1

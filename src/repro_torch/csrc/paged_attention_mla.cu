@@ -24,40 +24,20 @@
 // Design: the TPU kept k_up and v_up resident in VMEM and decompressed
 // every gathered block per head.  Here the two 4 MB matrices cannot sit
 // in a block's 227 KB of shared memory, so the kernel computes the same
-// function in the absorbed order, in three or four launches on one
-// stream:
-//   1. q_lat[b, c, h, :] = scale * q_nope[b, c, h] . k_up[:, h]^T  (R wide)
-//      — a batched GEMM, one batch per head (tf32x3_gemm_kernel);
+// function in the absorbed order, in three launches on one stream:
+//   1. q_lat[b, c, h, :] = scale * q_nope[b, c, h] . k_up[:, h]^T  (R wide);
 //   2. the walk, with an online softmax over an R-wide accumulator of
-//      the weighted LATENTS per query row; skipped are blocks no query of
-//      the tile can see (kv_len, causal, window, never-written ring
-//      slots).  Two paths, chosen by the wrapper:
-//      * decode (C * H <= 16 query rows per batch row, or widths other
-//        than R = 512, Dr = 64): mla_walk_kernel.  A block owns RT = 16
-//        query rows (c, h) of one batch row and one part of its table
-//        (the walk is split into `nsplit` parts when B * tiles would
-//        leave the card idle).  It stages each latent block (BS x
-//        (R + Dr) floats; 16-byte loads) in shared memory ONCE for all
-//        16 rows, scores q_lat . c_kv + q_rope . k_rope on CUDA cores,
-//        and writes its part's (acc, m, l); then
-//   3.   merge the parts' (m, l, acc) and divide by l;
-//      * prefill (tiled, more query rows): mla_tiled_kernel, described
-//        at it; it writes the normalised accumulator itself (no launch
-//        3);
-//   4. out[b, c, h, :] = acc[b, c, h] . v_up[:, h]  — the batched GEMM
-//      again.
-// The GEMMs and the tiled walk multiply on tensor cores in 3xTF32:
-// each float32 operand x splits into hi = x rounded to the nearest TF32
-// value and lo = x - hi rounded the same way; hi.hi + hi.lo + lo.hi is
-// the product to about 3 * 2^-22 of |x y|, against 2^-11 for one TF32
-// product.  Each 8-deep step's products are summed on the tensor core
-// from zero and added to the running float32 sum outside it (mma3): the
-// tensor core's own sums truncate, and chained over a 576-long dot they
-// left the tiled walk several times further from the plain version than
-// the float32 decode walk, enough to flip sign bits of the o
-// projection's input between a request's decode and a prefill of it.
-// The decode walk's arithmetic is float32 on the CUDA cores.  The
-// summation order differs from decompress-then-dot.
+//      the weighted LATENTS per query row, normalised at its end;
+//   3. out[b, c, h, :] = acc[b, c, h] . v_up[:, h].
+// Two routes, chosen by the wrapper (kernels/paged_attention.mla_tiled):
+//   * decode (C * H <= 16 query rows per batch row, or widths other than
+//     R = 512, Dr = 64): the two small-M GEMMs (float32 on CUDA cores)
+//     and the split decode walk below (3xTF32 on tensor cores);
+//   * prefill (more query rows): the 3xTF32 tensor-core GEMM
+//     (tf32x3_gemm_kernel) and the tiled walk (mla_tiled_kernel).
+// Every decode launch sums each output element in an order fixed by
+// that element's own row and positions: a row's result does not depend
+// on the batch it runs in, nor on the card.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -66,10 +46,17 @@
 
 namespace {
 
-constexpr int RT = 16;            // query rows (c, h) per walk block
-constexpr int WALK_THREADS = 256;
-constexpr int GT = 64;            // GEMM output tile (GT x GT)
-constexpr int GK = 32;            // GEMM K tile
+constexpr int RT = 8;             // query rows (c, h) a decode block owns
+constexpr int MR = 16;            // rows of its mma tiles (RT.. are zeros)
+constexpr int PART_KEYS = 128;    // positions per part of the decode walk
+constexpr int DK = 16;            // keys per staged latent tile
+constexpr int STAGES = 2;         // latent tile stages: one loads, one is used
+constexpr int WALK_THREADS = 256; // 8 warps
+constexpr int WALK_WARPS = WALK_THREADS / 32;
+constexpr int MAX_R = 512;        // latent width the decode walk holds
+constexpr int GM = 16;            // rows of a small-M GEMM block
+constexpr int GT = 64;            // tiled GEMM output tile (GT x GT)
+constexpr int GK = 32;            // tiled GEMM K tile
 constexpr int GLD = GK + 8;       // its smem row stride: rows g = 0..3 of a
                                   // fragment's 8-byte loads on distinct banks
 constexpr int GTHREADS = 128;     // 4 warps of 32 x 32
@@ -237,181 +224,535 @@ __device__ __forceinline__ int key_pos(int s, int ring, int newest, int cap) {
   return newest - d;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// part (nsplit, B*C*H, R + 2): per query row the part's unnormalised
-// accumulator of weighted latents, then its running max and sum.
-__global__ void mla_walk_kernel(
+// ------------------------------------------------- small-M decode GEMMs
+//
+// At decode the two GEMMs have M = B * C <= 16 rows per head and read a
+// 4 MB weight each: they are bound by streaming that weight once.  Both
+// give each block a slab of weight columns for GM rows (more rows take
+// more blocks along z, each reading the slab again, from L2), and sum
+// every output in an order that depends only on its own column: the
+// result of a row does not depend on how many rows came with it.
+
+// q_lat[m, h, r] = scale * sum_n q[m, h, n] k_up[r, h * nope + n], for
+// m < M = B * C.  Block (r slab of 32, head h, rows GM z..): the slab's
+// 32 k_up rows (32 x nope floats, contiguous per row) and the GM query
+// rows are staged in shared memory; thread (column j, row group g) sums
+// rows g and g + 8 serially over n.  Grid (ceil(R / 32), H, ceil(M / GM)).
+__global__ __launch_bounds__(256) void absorb_small_kernel(
+    const float* __restrict__ q, const float* __restrict__ k_up,
+    float* __restrict__ q_lat, int M, int H, int R, int nope, int Dq,
+    float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldw = nope + 4;          // 16-byte rows, 8 lanes on 32 banks
+  float* Ws = smem;                  // [32][ldw]
+  float* As = Ws + 32 * ldw;         // [GM][nope]
+  const int h = blockIdx.y, r0 = blockIdx.x * 32, m0 = blockIdx.z * GM;
+  const int mr = min(GM, M - m0), nc = nope / 4, tid = threadIdx.x;
+  for (int e = tid; e < 32 * nc; e += 256) {
+    const int j = e / nc, c = e - j * nc, r = r0 + j;
+    const float4 v = r < R ? ld4(k_up + (size_t)r * H * nope + h * nope + 4 * c)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(Ws + j * ldw + 4 * c) = v;
+  }
+  for (int e = tid; e < mr * nc; e += 256) {
+    const int m = e / nc, c = e - m * nc;
+    *reinterpret_cast<float4*>(As + m * nope + 4 * c) =
+        ld4(q + ((size_t)(m0 + m) * H + h) * Dq + 4 * c);
+  }
+  __syncthreads();
+  const int j = tid & 31, g = tid >> 5, r = r0 + j;
+  if (r >= R) return;
+  for (int m = g; m < mr; m += 8) {
+    float d = 0.f;
+    for (int c = 0; c < nc; ++c)
+      d += dot4(ld4(As + m * nope + 4 * c), ld4(Ws + j * ldw + 4 * c));
+    q_lat[((size_t)(m0 + m) * H + h) * R + r] = scale * d;
+  }
+}
+
+// out[m, h, v] = sum_r merged[m, h, r] v_up[r, h * Dv + v].  Block
+// (v slab of 8, head h, rows GM z..): the GM merged rows of head h are
+// staged in shared memory; thread (column j, part p) sums r = p, p + 32,
+// ... serially for all rows, reading v_up straight from memory (8
+// neighbouring columns, 32 bytes, a row); the 32 parts are then added
+// in part order.  Grid (ceil(Dv / 8), H, ceil(M / GM)).
+__global__ __launch_bounds__(256) void v_up_small_kernel(
+    const float* __restrict__ merged, const float* __restrict__ v_up,
+    float* __restrict__ out, int M, int H, int R, int Dv) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                  // [GM][R]
+  float* Red = As + GM * R;          // [32][GM][8]
+  const int h = blockIdx.y, v0 = blockIdx.x * 8, m0 = blockIdx.z * GM;
+  const int mr = min(GM, M - m0), tid = threadIdx.x, rc = R / 4;
+  for (int e = tid; e < mr * rc; e += 256) {
+    const int m = e / rc, c = e - m * rc;
+    *reinterpret_cast<float4*>(As + m * R + 4 * c) =
+        ld4(merged + ((size_t)(m0 + m) * H + h) * R + 4 * c);
+  }
+  __syncthreads();
+  const int j = tid & 7, p = tid >> 3, v = v0 + j;
+  float acc[GM];
+#pragma unroll
+  for (int m = 0; m < GM; ++m) acc[m] = 0.f;
+  if (v < Dv) {
+    const float* w = v_up + (size_t)h * Dv + v;
+    const size_t ldv = (size_t)H * Dv;
+#pragma unroll 4
+    for (int r = p; r < R; r += 32) {
+      const float wr = __ldg(w + r * ldv);
+#pragma unroll
+      for (int m = 0; m < GM; ++m)
+        if (m < mr) acc[m] += As[m * R + r] * wr;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < GM; ++m) Red[(p * GM + m) * 8 + j] = acc[m];
+  __syncthreads();
+  if (tid >= GM * 8) return;
+  const int m = tid >> 3, jj = tid & 7;
+  if (m >= mr || v0 + jj >= Dv) return;
+  float o = 0.f;
+  for (int pp = 0; pp < 32; ++pp) o += Red[(pp * GM + m) * 8 + jj];
+  out[((size_t)(m0 + m) * H + h) * Dv + v0 + jj] = o;
+}
+
+// ------------------------------------------------------ the decode walk
+//
+// The TPU walked the table as a sequential grid axis; at decode that is
+// one serial walk per batch row, 8 of them at deepseek's B = 8.  Here,
+// as paged_attention.cu's GQA decode walk, the walk runs in POSITION
+// space: the keys a tile of RT query rows can see are the positions
+// [lo, hi] (kv_len, the causal bound, the window, and on a ring the
+// capacity behind `newest`), each at table slot p (paged) or
+// p mod (MB * BS) (ring), so a ring walks only its visible arc.
+// Positions are cut into parts of PART_KEYS: one block walks one part of
+// one (batch row, row tile), and the grid has `nsplit` blocks a row
+// tile, sized from the table width alone
+// (kernels/paged_attention.mla_decode_parts); a block past its row's
+// last part exits at once.
+// A block owns RT = 8 query rows (half of deepseek's 16 heads of one
+// position) and computes them as the top half of 16-row mma tiles: the
+// last part of a row tile merges every part's R-wide accumulators alone,
+// at one SM's read rate, so 8 rows a block halve that critical path and
+// double the blocks that share the latent reads.
+// Each latent tile of DK keys (c_kv ++ k_rope, 2304 bytes a key at
+// deepseek's widths) comes in by bulk copies (TMA, two a key, one lane
+// a key spread over the 8 warps, counted on an mbarrier), STAGES deep: a
+// per-thread cp.async of 16 bytes could not be issued fast enough.  Keys
+// outside the part copy a real latent row too (finite values) and are
+// masked.  Both products run on tensor cores in 3xTF32 (mma3, as the
+// tiled walk), each 8-deep step summed from zero; on CUDA cores the
+// 576-wide products of a tile waited on shared memory.  Per tile, with
+// 8 warps:
+//   scores  warp w multiplies its eighth of the key width, 9 k-steps of
+//           8, for all MR x DK (row, key) pairs; its query fragments (hi
+//           and lo parts) stay in registers for the whole part; the 8
+//           warps' partial sums are added in warp order;
+//   softmax thread (row, key): masks, the row's max and sum over the
+//           tile by shuffles among its 16 threads, the running (m, l)
+//           kept by each of them;
+//   P . K   warp w keeps the accumulator of the MR rows for its 64 of
+//           the R latent dims in registers, rescales it and adds the
+//           tile's weighted latents.
+// A row that needs one part writes its normalised accumulator; otherwise
+// each part stores (acc, m, l) to a scratch, bumps its row tile's
+// counter, and the last part to arrive merges the parts in part order,
+// divides, writes and leaves the counter at 0 for the next launch (the
+// protocol of paged_attention.cu's decode walk).  Softmax state is
+// float32; masked keys weigh exactly 0 and a row that sees no key
+// writes zeros.
+
+constexpr int KSW = 9;            // k-steps of 8 dims a warp scores (W <= 576)
+
+// Parts of PART_KEYS positions the grid must give a row tile.  Mirrored
+// by kernels/paged_attention.mla_decode_parts.
+inline int decode_parts(int cap, int ring) {
+  return ring ? (cap - 1 + PART_KEYS - 1) / PART_KEYS + 1
+              : (cap + PART_KEYS - 1) / PART_KEYS;
+}
+
+// Shared memory of the decode walk for key width W (= R + Dr): the
+// stages, the partial scores, the weights, the row state, the part's
+// latent rows and the stages' mbarriers.
+inline size_t walk_smem(int W) {
+  const size_t wp = (size_t)W + 4;
+  return sizeof(float) * ((size_t)STAGES * DK * wp +
+                          (size_t)WALK_WARPS * MR * DK + MR * (DK + 8) +
+                          3 * MR) +
+         sizeof(long long) * PART_KEYS + sizeof(uint64_t) * STAGES;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "wait_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra wait_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Grid (nsplit, row tiles, B).  `part` (B, row tiles * RT, nsplit,
+// R + 4) floats and `counters` (B * row tiles) ints, 0 between
+// launches; both unused when nsplit == 1.  merged (B * C * H, R).
+__global__ __launch_bounds__(WALK_THREADS, 1) void mla_decode_kernel(
     const float* __restrict__ q, const float* __restrict__ q_lat,
     const float* __restrict__ ckv, const float* __restrict__ krope,
     const int32_t* __restrict__ table, const int32_t* __restrict__ kv_len,
     const int32_t* __restrict__ q_off, const int32_t* __restrict__ newest_pos,
-    float* __restrict__ part, int B, int C, int H, int R, int Dr, int nope,
-    int BS, int MB, int causal, int window, int ring, int nsplit,
-    float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, split = blockIdx.z;
-  const int rows = C * H;
-  const int r0 = blockIdx.y * RT, nr = min(RT, rows - r0);
-  const int W = R + Dr, ldw = W + 1, Dq = nope + Dr;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* Qs = smem;                  // [RT][ldw]: q_lat ++ scale * q_rope
-  float* Ks = Qs + RT * ldw;         // [BS][ldw]: c_kv ++ k_rope of a block
-  float* Acc = Ks + BS * ldw;        // [RT][R]
-  float* P = Acc + RT * R;           // [RT][BS]: scores, then weights
-  float* Mx = P + RT * BS;           // [RT] running max
-  float* Lx = Mx + RT;               // [RT] running sum
-  float* Al = Lx + RT;               // [RT] this block's rescale
-
-  const size_t row0 = (size_t)b * rows + r0;
-  for (int e = tid; e < nr * W; e += blockDim.x) {
-    const int r = e / W, d = e - r * W;
-    Qs[r * ldw + d] = d < R ? q_lat[(row0 + r) * R + d]
-                            : scale * q[(row0 + r) * Dq + nope + (d - R)];
-  }
-  for (int e = tid; e < nr * R; e += blockDim.x) Acc[e] = 0.f;
-  for (int r = tid; r < nr; r += blockDim.x) {
-    Mx[r] = NEG_INF;
-    Lx[r] = 0.f;
-  }
-
+    float* __restrict__ merged, float* __restrict__ part,
+    int* __restrict__ counters, int C, int H, int R, int Dr, int nope, int BS,
+    int MB, int causal, int window, int ring, int nsplit, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int z = blockIdx.x, rt = blockIdx.y, ntiles = gridDim.y;
+  const int b = blockIdx.z, rows = C * H;
+  const int r0 = rt * RT, nr = min(RT, rows - r0);
+  const int W = R + Dr, WP = W + 4, RCH = R / 4;
+  const int Dq = nope + Dr, cap = MB * BS;
   const int len = kv_len[b], qoff = q_off[b];
-  const int newest = ring ? newest_pos[b] : 0, cap = MB * BS;
   const int qlo = qoff + r0 / H, qhi = qoff + (r0 + nr - 1) / H;
-  int nblk = MB;                     // a ring walks the whole table
-  if (!ring) {
-    int kmax = len;
-    if (causal) kmax = min(kmax, qhi + 1);
-    nblk = kmax > 0 ? min(MB, (kmax + BS - 1) / BS) : 0;
-  }
-  const int per = (nblk + nsplit - 1) / nsplit;
-  const int i_end = min(nblk, (split + 1) * per);
 
-  for (int i = split * per; i < i_end; ++i) {
-    int vis = 0;                     // a slot some query of the tile sees?
-    for (int j = tid; j < BS; j += blockDim.x) {
-      const int kpos = key_pos(i * BS + j, ring, newest, cap);
-      bool v = kpos >= 0 && kpos < len;
-      if (causal) v = v && kpos <= qhi;
-      if (window > 0) v = v && qlo - kpos < window;
-      vis |= (int)v;
+  // the positions [lo, hi] some row of the tile can see; its parts
+  int lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  int hi = causal ? min(len - 1, qhi) : len - 1;
+  if (ring) {
+    const int nw = newest_pos[b];
+    hi = min(hi, nw);
+    lo = max(lo, nw - cap + 1);
+  } else {
+    hi = min(hi, cap - 1);
+  }
+  const int kf = lo / PART_KEYS;
+  const int nlive = hi >= lo ? hi / PART_KEYS - kf + 1 : 1;
+  if (z >= nlive) return;                       // past this row's arc
+  const int ps = max(lo, (kf + z) * PART_KEYS);
+  const int pe = min(hi, (kf + z + 1) * PART_KEYS - 1);
+
+  constexpr int PLD = DK + 8;                   // weights' row stride
+  float* Ks = smem;                             // [STAGES][DK][WP]
+  float* Sp = Ks + STAGES * DK * WP;            // [warps][MR][DK] partials
+  float* Ps = Sp + WALK_WARPS * MR * DK;        // [MR][PLD] weights
+  float* Al = Ps + MR * PLD;                    // [MR] rescale
+  float* Mx = Al + MR;                          // [MR] the part's max
+  float* Lx = Mx + MR;                          // [MR] the part's sum
+  long long* Off = reinterpret_cast<long long*>(Lx + MR);  // [PART_KEYS]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Off + PART_KEYS);  // [STAGES]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row0 = (size_t)b * rows + r0;
+
+  // tiles of DK positions, aligned to DK, covering [ps, pe]; the latent
+  // row of every key (row 0 of the pools outside [ps, pe]: masked)
+  const int ts0 = ps / DK * DK;
+  const int ntile = ps <= pe ? (pe - ts0) / DK + 1 : 0;
+  for (int i = tid; i < ntile * DK; i += WALK_THREADS) {
+    const int p = ts0 + i;
+    long long key = -1;
+    if (p >= ps && p <= pe) {
+      const int slot = ring ? p % cap : p;
+      key = (long long)table[(size_t)b * MB + slot / BS] * BS + slot % BS;
     }
-    if (!__syncthreads_or(vis)) continue;   // block-uniform
-    const size_t phys = (size_t)table[(size_t)b * MB + i];
-    const int W4 = W / 4;            // 16-byte loads, several in flight
-#pragma unroll 4
-    for (int e = tid; e < BS * W4; e += blockDim.x) {
-      const int j = e / W4, d = 4 * (e - j * W4);
-      const float4 v = d < R
-          ? *reinterpret_cast<const float4*>(ckv + (phys * BS + j) * R + d)
-          : *reinterpret_cast<const float4*>(krope + (phys * BS + j) * Dr +
-                                             (d - R));
-      float* dst = Ks + j * ldw + d;
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
+    Off[i] = key;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          smem_u32(bar + s)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();                              // offsets, barriers
+  const uint32_t tile_bytes = (uint32_t)(DK * W * 4);
+  // tile tt into stage st: warp w copies keys w * DK / 8 .., one lane a
+  // key (bulk copies issued by one warp queue behind each other); lane 0
+  // of warp 0 arms the stage's mbarrier with the tile's bytes
+  auto load = [&](int st, int tt) {
+    if (warp == 0 && lane == 0)
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_u32(bar + st)),
+          "r"(tile_bytes)
+          : "memory");
+    if (lane < DK / WALK_WARPS) {
+      const int j = warp * (DK / WALK_WARPS) + lane;
+      const long long key = max(Off[tt * DK + j], 0LL);
+      float* dst = Ks + (st * DK + j) * WP;
+      bulk_copy(dst, ckv + key * R, R * 4, bar + st);
+      bulk_copy(dst + R, krope + key * Dr, Dr * 4, bar + st);
     }
-    __syncthreads();
-    for (int e = tid; e < nr * BS; e += blockDim.x) {
-      const int r = e / BS, j = e - r * BS;
-      const int kpos = key_pos(i * BS + j, ring, newest, cap);
-      const int qpos = qoff + (r0 + r) / H;
-      bool valid = kpos >= 0 && kpos < len;
-      if (causal) valid = valid && qpos >= kpos;
-      if (window > 0) valid = valid && qpos - kpos < window;
-      float s = -INFINITY;           // masked: weight exactly 0 below
-      if (valid) {
-        const float* qr = Qs + r * ldw;
-        const float* kr = Ks + j * ldw;
-        float dot = 0.f;
-        for (int d = 0; d < W; ++d) dot += qr[d] * kr[d];
-        s = dot;
+  };
+  for (int s = 0; s < STAGES - 1 && s < ntile; ++s) load(s, s);
+
+  // this warp's query fragments: rows g, g + 8 of q_lat ++ scale *
+  // q_rope (zeros past nr and W), dims k0 + t, k0 + t + 4 of its
+  // k-steps, split into TF32 hi and lo parts once for the whole part
+  auto qval = [&](int r, int d) -> float {
+    if (r >= nr || d >= W) return 0.f;
+    return d < R ? q_lat[(row0 + r) * R + d]
+                 : scale * q[(row0 + r) * Dq + nope + (d - R)];
+  };
+  uint32_t qh[KSW][4], ql[KSW][4];
+#pragma unroll
+  for (int kk = 0; kk < KSW; ++kk) {
+    const int k0 = 8 * (KSW * warp + kk) + t;
+    split_tf32(qval(g, k0), qh[kk][0], ql[kk][0]);
+    split_tf32(qval(g + 8, k0), qh[kk][1], ql[kk][1]);
+    split_tf32(qval(g, k0 + 4), qh[kk][2], ql[kk][2]);
+    split_tf32(qval(g + 8, k0 + 4), qh[kk][3], ql[kk][3]);
+  }
+
+  // softmax role: row sr, keys sk + 16 u
+  const int sr = tid >> 4, sk = tid & 15;
+  const int qpos = qoff + (r0 + sr) / H;
+  float m_run = NEG_INF, l_run = 0.f;
+  // P . K role: rows g, g + 8, dims d0 + 8 nf + 2t (+1)
+  const int d0 = 64 * warp;
+  float o[8][4];
+#pragma unroll
+  for (int nf = 0; nf < 8; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
+
+  for (int tt = 0; tt < ntile; ++tt) {          // block-uniform
+    const int st = tt % STAGES, tn = tt + STAGES - 1;
+    if (tn < ntile) load(tn % STAGES, tn);      // consumed at tt - 1's end
+    mbar_wait(bar + st, (uint32_t)(tt / STAGES) & 1u);
+    const float* K = Ks + st * DK * WP;
+
+    {
+      float s[DK / 8][4];
+#pragma unroll
+      for (int nf = 0; nf < DK / 8; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nf][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSW; ++kk) {
+        // past W the query fragment is 0: any key column will do
+        const int k0 = min(8 * (KSW * warp + kk), W - 8);
+#pragma unroll
+        for (int nf = 0; nf < DK / 8; ++nf) {
+          const float* kr = K + (8 * nf + g) * WP + k0 + t;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kr[0], bh0, bl0);
+          split_tf32(kr[4], bh1, bl1);
+          mma3(s[nf], qh[kk], ql[kk], bh0, bh1, bl0, bl1);
+        }
       }
-      P[r * BS + j] = s;
+      float* sp = Sp + warp * MR * DK;
+#pragma unroll
+      for (int nf = 0; nf < DK / 8; ++nf) {
+        *reinterpret_cast<float2*>(sp + g * DK + 8 * nf + 2 * t) =
+            make_float2(s[nf][0], s[nf][1]);
+        *reinterpret_cast<float2*>(sp + (g + 8) * DK + 8 * nf + 2 * t) =
+            make_float2(s[nf][2], s[nf][3]);
+      }
     }
-    __syncthreads();
-    for (int r = warp; r < nr; r += blockDim.x >> 5) {
-      const float m_prev = Mx[r];
-      float mx = -INFINITY;
-      for (int j = lane; j < BS; j += 32) mx = fmaxf(mx, P[r * BS + j]);
-      const float m_new = fmaxf(m_prev, warp_max(mx));
+    __syncthreads();             // every warp's partial scores
+
+    {
+      float sv[DK / 16];
+      bool v[DK / 16];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int u = 0; u < DK / 16; ++u) {
+        const int key = sk + 16 * u;
+        float a = 0.f;
+#pragma unroll
+        for (int w = 0; w < WALK_WARPS; ++w)
+          a += Sp[(w * MR + sr) * DK + key];
+        const int p = ts0 + tt * DK + key;
+        bool ok = sr < nr && p >= ps && p <= pe;
+        if (causal) ok = ok && p <= qpos;
+        if (window > 0) ok = ok && qpos - p < window;
+        sv[u] = a;
+        v[u] = ok;
+        if (ok) mx = fmaxf(mx, a);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run, mx);
+      const float a = expf(m_run - m_new);
       float psum = 0.f;
-      for (int j = lane; j < BS; j += 32) {
-        const float s = P[r * BS + j];
-        const float p = s == -INFINITY ? 0.f : expf(s - m_new);
-        P[r * BS + j] = p;
-        psum += p;
+#pragma unroll
+      for (int u = 0; u < DK / 16; ++u) {
+        const float pw = v[u] ? expf(sv[u] - m_new) : 0.f;
+        Ps[sr * PLD + sk + 16 * u] = pw;
+        psum += pw;
       }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        Al[r] = a;
-        Lx[r] = Lx[r] * a + psum;
-        Mx[r] = m_new;
-      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_run = l_run * a + psum;
+      m_run = m_new;
+      if (sk == 0) Al[sr] = a;
     }
-    __syncthreads();
-    for (int e = tid; e < nr * R; e += blockDim.x) {
-      const int r = e / R, d = e - r * R;
-      const float* pr = P + r * BS;
-      float o = Acc[e] * Al[r];
-      for (int j = 0; j < BS; ++j) o += pr[j] * Ks[j * ldw + d];
-      Acc[e] = o;
-    }
-    __syncthreads();
-  }
+    __syncthreads();             // the weights and rescales
 
+    {
+      const float a0 = Al[g], a1 = Al[g + 8];
+#pragma unroll
+      for (int nf = 0; nf < 8; ++nf) {
+        o[nf][0] *= a0; o[nf][1] *= a0;
+        o[nf][2] *= a1; o[nf][3] *= a1;
+      }
+#pragma unroll
+      for (int ks = 0; ks < DK / 8; ++ks) {
+        // keys 8 ks + 2t, + 1 as the fragment's k = t, t + 4 (split_a)
+        uint32_t ph[4], pl[4];
+        split_a(*reinterpret_cast<const float2*>(Ps + g * PLD + 8 * ks + 2 * t),
+                *reinterpret_cast<const float2*>(Ps + (g + 8) * PLD + 8 * ks +
+                                                 2 * t),
+                ph, pl);
+        const float* k0 = K + (8 * ks + 2 * t) * WP + g;
+#pragma unroll
+        for (int nf = 0; nf < 8; ++nf) {
+          // columns past R are computed from column 0 and not stored
+          const int d = d0 + 8 * nf < R ? d0 + 8 * nf : 0;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(k0[d], bh0, bl0);
+          split_tf32(k0[WP + d], bh1, bl1);
+          mma3(o[nf], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();             // stage st and the weights consumed
+  }
+  if (sk == 0) {
+    Mx[sr] = m_run;
+    Lx[sr] = l_run;
+  }
   __syncthreads();
-  float* dst = part + ((size_t)split * B * rows + row0) * (R + 2);
-  for (int e = tid; e < nr * R; e += blockDim.x) {
-    const int r = e / R, d = e - r * R;
-    dst[(size_t)r * (R + 2) + d] = Acc[e];
-  }
-  for (int r = tid; r < nr; r += blockDim.x) {
-    dst[(size_t)r * (R + 2) + R] = Mx[r];
-    dst[(size_t)r * (R + 2) + R + 1] = Lx[r];
-  }
-}
 
-// merged[row, :] = sum_s acc_s e^(m_s - m) / sum_s l_s e^(m_s - m); a
-// row no part saw a key for has m_s = -1e30, l_s = 0, acc_s = 0 and
-// comes out 0.
-__global__ void mla_merge_kernel(const float* __restrict__ part,
-                                 float* __restrict__ merged, int rows_total,
-                                 int R, int nsplit) {
-  const size_t row = blockIdx.x;
-  const size_t stride = (size_t)rows_total * (R + 2);
-  const float* p = part + row * (R + 2);
-  float m = NEG_INF;
-  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, p[s * stride + R]);
-  float l = 0.f;
-  for (int s = 0; s < nsplit; ++s)
-    l += p[s * stride + R + 1] * expf(p[s * stride + R] - m);
-  const float inv = 1.f / fmaxf(l, 1e-20f);
-  for (int d = threadIdx.x; d < R; d += blockDim.x) {
-    float o = 0.f;
-    for (int s = 0; s < nsplit; ++s)
-      o += p[s * stride + d] * expf(p[s * stride + R] - m);
-    merged[row * R + d] = o * inv;
+  const int PW = R + 4;                         // a part row: acc, m, l
+  const size_t prow = ((size_t)b * ntiles + rt) * RT;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = g + 8 * h2;
+    if (r >= nr) continue;
+    const float l = fmaxf(Lx[r], 1e-20f);
+    float* dst = nlive == 1 ? merged + (row0 + r) * R
+                            : part + ((prow + r) * nsplit + z) * PW;
+#pragma unroll
+    for (int nf = 0; nf < 8; ++nf) {
+      const int d = d0 + 8 * nf + 2 * t;
+      if (d >= R) break;
+      float2 v = make_float2(o[nf][2 * h2], o[nf][2 * h2 + 1]);
+      if (nlive == 1) {
+        v.x /= l;
+        v.y /= l;
+        *reinterpret_cast<float2*>(dst + d) = v;
+      } else {
+        __stcg(reinterpret_cast<float2*>(dst + d), v);
+      }
+    }
+  }
+  if (nlive == 1) return;
+  if (tid < nr) {
+    float* dst = part + ((prow + tid) * nsplit + z) * PW;
+    __stcg(dst + R, Mx[tid]);
+    __stcg(dst + R + 1, Lx[tid]);
+  }
+
+  // the last part of the row tile to arrive merges them, in part order
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* ctr = counters + (size_t)b * ntiles + rt;
+    last = atomicAdd(ctr, 1) == nlive - 1;
+    if (last) *ctr = 0;                         // every part has arrived
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // each part's (m, l), then its weight exp(m_k - m) per row, in the
+  // stages' memory (the host checks that 2 * RT * nsplit floats fit)
+  float* Wk = Ks;                               // [RT][nlive]
+  float* Lk = Ks + RT * nlive;                  // [RT][nlive]
+  for (int e = tid; e < nr * nlive; e += WALK_THREADS) {
+    const int r = e / nlive, k = e - r * nlive;
+    const float* src = part + ((prow + r) * nsplit + k) * PW;
+    Wk[e] = __ldcg(src + R);
+    Lk[e] = __ldcg(src + R + 1);
+  }
+  __syncthreads();
+  if (tid < nr) {
+    float m = NEG_INF;
+    for (int k = 0; k < nlive; ++k) m = fmaxf(m, Wk[tid * nlive + k]);
+    float l = 0.f;
+    for (int k = 0; k < nlive; ++k) {
+      const float a = expf(Wk[tid * nlive + k] - m);
+      Wk[tid * nlive + k] = a;
+      l += Lk[tid * nlive + k] * a;
+    }
+    Lx[tid] = fmaxf(l, 1e-20f);
+  }
+  __syncthreads();
+  // thread tid merges (row, 16-byte chunk) pairs tid + 256 i, each over
+  // the parts in part order, MK parts' loads in flight at a time
+  constexpr int MP = RT * MAX_R / 4 / WALK_THREADS;  // pairs a thread
+  constexpr int MK = 2;
+  float4 acc[MP];
+#pragma unroll
+  for (int i = 0; i < MP; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; k0 < nlive; k0 += MK) {
+    float4 v[MK][MP];
+#pragma unroll
+    for (int u = 0; u < MK; ++u)
+#pragma unroll
+      for (int i = 0; i < MP; ++i) {
+        const int e = tid + WALK_THREADS * i, r = e / RCH, c = e - r * RCH;
+        const int k = min(k0 + u, nlive - 1);
+        v[u][i] = r < nr ? __ldcg(reinterpret_cast<const float4*>(
+                               part + ((prow + r) * nsplit + k) * PW + 4 * c))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+    for (int u = 0; u < MK; ++u) {
+      if (k0 + u >= nlive) break;
+#pragma unroll
+      for (int i = 0; i < MP; ++i) {
+        const int r = min((tid + WALK_THREADS * i) / RCH, nr - 1);
+        const float a = Wk[r * nlive + k0 + u];
+        acc[i].x += v[u][i].x * a; acc[i].y += v[u][i].y * a;
+        acc[i].z += v[u][i].z * a; acc[i].w += v[u][i].w * a;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MP; ++i) {
+    const int e = tid + WALK_THREADS * i, r = e / RCH, c = e - r * RCH;
+    if (r >= nr) continue;
+    const float l = Lx[r];
+    *reinterpret_cast<float4*>(merged + (row0 + r) * R + 4 * c) =
+        make_float4(acc[i].x / l, acc[i].y / l, acc[i].z / l, acc[i].w / l);
   }
 }
 
 // ------------------------------------------------------ the tiled walk
 //
-// Prefill chunks (C * H > RT query rows per batch row) at R = 512,
+// Prefill chunks (C * H > 16 query rows per batch row) at R = 512,
 // Dr = 64.  A block owns TQ = 64 query rows (4 positions x 16 heads at
 // H = 16) of one batch row: every latent key is staged once for all 64
 // rows, 4x the decode walk's reuse.  The absorbed query tile ([64][576]
@@ -721,42 +1062,50 @@ __global__ __launch_bounds__(tiled::THREADS, 1) void mla_tiled_kernel(
 
 }  // namespace
 
-// tiled_walk != 0 takes the tiled walk (R = 512, Dr = 64, q and merged
-// 16-byte aligned) and needs no `part`; otherwise the decode walk over
-// `nsplit` parts of (nsplit, B*C*H, R + 2) floats and the merge.  The
-// GEMMs read q, k_up, v_up and merged 16 bytes at a time: nope, Dr, Dv
-// and R are multiples of 4 and the four are 16-byte aligned.
+// tiled_walk != 0 takes the prefill route (R = 512, Dr = 64): the 3xTF32
+// GEMMs and the tiled walk; it needs neither `part` nor `counters`.
+// Otherwise the decode route: the small-M GEMMs and the split walk over
+// `nsplit` parts (at least decode_parts(MB * BS, ring)), R <= 512, with
+// `part` (B, row tiles * RT, nsplit, R + 4) floats and `counters`
+// (B * row tiles) ints, 0 between launches, when nsplit > 1.  Rows move
+// 16 bytes at a time: nope, Dr, Dv and R are multiples of 4 and q, the
+// pools, k_up, v_up, q_lat and merged 16-byte aligned.
 extern "C" int pm_paged_attention_mla(
     const void* q, const void* ckv, const void* krope, const void* table,
     const void* kv_len, const void* q_off, const void* newest,
     const void* k_up, const void* v_up, void* q_lat, void* part,
-    void* merged, void* out, int B, int C, int H, int R, int Dr, int nope,
-    int Dv, int BS, int MB, int causal, int window, int ring, int nsplit,
-    int tiled_walk, float scale, void* stream) {
+    void* counters, void* merged, void* out, int B, int C, int H, int R,
+    int Dr, int nope, int Dv, int BS, int MB, int causal, int window,
+    int ring, int nsplit, int tiled_walk, float scale, void* stream) {
   if (B == 0 || C == 0) return (int)cudaGetLastError();
   const auto a16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
   if (H <= 0 || R <= 0 || Dr <= 0 || nope <= 0 || Dv <= 0 || BS <= 0 ||
       MB <= 0 || nsplit <= 0 || (ring && newest == nullptr) || R % 4 ||
       Dr % 4 || nope % 4 || Dv % 4 || !a16(ckv) || !a16(krope) || !a16(q) ||
-      !a16(k_up) || !a16(v_up) || !a16(q_lat) || !a16(merged) ||
-      (tiled_walk ? R != tiled::R || Dr != tiled::DR || nsplit != 1
-             : part == nullptr))
+      !a16(k_up) || !a16(v_up) || !a16(q_lat) || !a16(merged))
+    return (int)cudaErrorInvalidValue;
+  if (tiled_walk ? R != tiled::R || Dr != tiled::DR || nsplit != 1
+                 : R > MAX_R || R % 8 || (R + Dr) % 8 ||
+                       R + Dr > 8 * KSW * WALK_WARPS ||
+                       nsplit < decode_parts(MB * BS, ring) ||
+                       2 * RT * nsplit > STAGES * DK * (R + Dr + 4) ||
+                       (nsplit > 1 && (part == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int M = B * C, rows = C * H, Dq = nope + Dr;
+  cudaError_t err;
 
-  // 1. absorb k_up into the query: q_lat (B*C, H, R)
-  const Strides s1 = {Dq, (long long)H * Dq, 1, nope, 1, (long long)H * nope,
-                      R, (long long)H * R, 1};
-  const dim3 g1((R + GT - 1) / GT, (M + GT - 1) / GT, H);
-  tf32x3_gemm_kernel<<<g1, GTHREADS, 0, st>>>(
-      (const float*)q, (const float*)k_up, (float*)q_lat, M, R, nope, s1,
-      scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // 2. the walk over the latent blocks (3. merge its parts)
   if (tiled_walk) {
+    // 1. absorb k_up into the query: q_lat (B*C, H, R)
+    const Strides s1 = {Dq, (long long)H * Dq, 1, nope, 1,
+                        (long long)H * nope, R, (long long)H * R, 1};
+    const dim3 g1((R + GT - 1) / GT, (M + GT - 1) / GT, H);
+    tf32x3_gemm_kernel<<<g1, GTHREADS, 0, st>>>(
+        (const float*)q, (const float*)k_up, (float*)q_lat, M, R, nope, s1,
+        scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // 2. the tiled walk, normalised
     static size_t granted[dyn_smem::MAX_DEVICES] = {};
     err = dyn_smem::opt_in(mla_tiled_kernel, tiled::SMEM, granted);
     if (err != cudaSuccess) return (int)err;
@@ -768,36 +1117,47 @@ extern "C" int pm_paged_attention_mla(
         H, nope, BS, MB, causal, window, ring, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-  } else {
-    const size_t ldw = (size_t)R + Dr + 1;
-    const size_t smem = sizeof(float) * ((size_t)RT * ldw + (size_t)BS * ldw +
-                                         (size_t)RT * R + (size_t)RT * BS +
-                                         3 * RT);
-    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    static size_t granted[dyn_smem::MAX_DEVICES] = {};
-    err = dyn_smem::opt_in(mla_walk_kernel, smem, granted);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 g2(B, (rows + RT - 1) / RT, nsplit);
-    mla_walk_kernel<<<g2, WALK_THREADS, smem, st>>>(
-        (const float*)q, (const float*)q_lat, (const float*)ckv,
-        (const float*)krope, (const int32_t*)table, (const int32_t*)kv_len,
-        (const int32_t*)q_off, (const int32_t*)newest, (float*)part, B, C, H,
-        R, Dr, nope, BS, MB, causal, window, ring, nsplit, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    mla_merge_kernel<<<B * rows, 128, 0, st>>>((const float*)part,
-                                               (float*)merged, B * rows, R,
-                                               nsplit);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    // 3. decompress V after the walk: out (B*C, H, Dv)
+    const Strides s3 = {R, (long long)H * R, 1, Dv, (long long)H * Dv, 1,
+                        Dv, (long long)H * Dv, 1};
+    const dim3 g3((Dv + GT - 1) / GT, (M + GT - 1) / GT, H);
+    tf32x3_gemm_kernel<<<g3, GTHREADS, 0, st>>>(
+        (const float*)merged, (const float*)v_up, (float*)out, M, Dv, R, s3,
+        1.f);
+    return (int)cudaGetLastError();
   }
 
-  // 4. decompress V after the walk: out (B*C, H, Dv)
-  const Strides s4 = {R, (long long)H * R, 1, Dv, (long long)H * Dv, 1,
-                      Dv, (long long)H * Dv, 1};
-  const dim3 g4((Dv + GT - 1) / GT, (M + GT - 1) / GT, H);
-  tf32x3_gemm_kernel<<<g4, GTHREADS, 0, st>>>(
-      (const float*)merged, (const float*)v_up, (float*)out, M, Dv, R, s4,
-      1.f);
+  const int mz = (M + GM - 1) / GM;
+  // 1. absorb k_up into the query
+  const size_t sm1 = sizeof(float) * (32 * (size_t)(nope + 4) + GM * nope);
+  static size_t granted1[dyn_smem::MAX_DEVICES] = {};
+  err = dyn_smem::opt_in(absorb_small_kernel, sm1, granted1);
+  if (err != cudaSuccess) return (int)err;
+  absorb_small_kernel<<<dim3((R + 31) / 32, H, mz), 256, sm1, st>>>(
+      (const float*)q, (const float*)k_up, (float*)q_lat, M, H, R, nope, Dq,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 2. the split walk, merged by the last part of each row tile
+  const size_t sm2 = walk_smem(R + Dr);
+  static size_t granted2[dyn_smem::MAX_DEVICES] = {};
+  err = dyn_smem::opt_in(mla_decode_kernel, sm2, granted2);
+  if (err != cudaSuccess) return (int)err;
+  mla_decode_kernel<<<dim3(nsplit, (rows + RT - 1) / RT, B), WALK_THREADS,
+                      sm2, st>>>(
+      (const float*)q, (const float*)q_lat, (const float*)ckv,
+      (const float*)krope, (const int32_t*)table, (const int32_t*)kv_len,
+      (const int32_t*)q_off, (const int32_t*)newest, (float*)merged,
+      (float*)part, (int*)counters, C, H, R, Dr, nope, BS, MB, causal,
+      window, ring, nsplit, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 3. decompress V
+  const size_t sm3 = sizeof(float) * ((size_t)GM * R + 32 * GM * 8);
+  static size_t granted3[dyn_smem::MAX_DEVICES] = {};
+  err = dyn_smem::opt_in(v_up_small_kernel, sm3, granted3);
+  if (err != cudaSuccess) return (int)err;
+  v_up_small_kernel<<<dim3((Dv + 7) / 8, H, mz), 256, sm3, st>>>(
+      (const float*)merged, (const float*)v_up, (float*)out, M, H, R, Dv);
   return (int)cudaGetLastError();
 }

@@ -35,11 +35,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (name, argtypes) of every C entry point; each returns cudaGetLastError()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "bp_binarize_pack": [_P, _P, _I, _I, _I, _F, _P],
+    "bp_binarize_pack": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "bp_pack_patches": [_P, _P] + [_I] * 12 + [_F, _I, _P],
     "fb_b1_mma_rate": [_P, _I, _I, _P],
     "fb_fused_bnn": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "pa_paged_attention": [_P] * 10 + [_I] * 11 + [_F, _P],
-    "pm_paged_attention_mla": [_P] * 13 + [_I] * 14 + [_F, _P],
+    "pm_paged_attention_mla": [_P] * 14 + [_I] * 14 + [_F, _P],
     "xp_xnor_popcount": [_P] * 6 + [_I] * 9 + [_P],
 }
 

@@ -13,11 +13,13 @@ layer's (E, K, N) weight stack, packed once per stack.
 ``paged_attention`` is what the attention block calls over the paged
 KV pools (GQA, paged or sliding-window ring); ``paged_attention_mla``
 what the MLA block calls over its paged latent pools.
-``pack_activations`` and ``xnor_matmul`` are the two steps of the
-unfused packed GEMM that ``core/conv.bnn_conv2d`` runs:
-binarize-pack, then the packed x packed XNOR-popcount GEMM;
-``xnor_matmul_torch`` is the latter's plain version (the JAX package's
-``xnor_matmul_xla``).
+``pack_patches``, ``pack_conv_weight`` and ``xnor_matmul`` are the
+steps of the unfused packed GEMM that ``core/conv.bnn_conv2d`` runs:
+the patches binarized and packed straight from the NHWC input, the
+weight's cached packed words, then the packed x packed XNOR-popcount
+GEMM; ``xnor_matmul_torch`` is the latter's plain version (the JAX
+package's ``xnor_matmul_xla``).  ``pack_activations`` packs an (M, S)
+matrix.
 
 Dispatch (``resolve_impl``) follows the tensor's device:
   impl="auto"   a CUDA tensor launches the Hopper kernel (or raises);
@@ -30,7 +32,9 @@ Nothing falls back: a kernel that fails to build or launch raises.
 Weights are packed once: ``binarize_pack(w.T)`` and
 ``alpha = mean(|w|, axis=0)`` are cached per (weight identity, impl,
 scale) and recomputed only when the weight's ``_version`` moves (it was
-written in place).  An entry is evicted with its weight (weakref).  An
+written in place); ``cached_per_weight`` keeps every such per-weight
+value (a conv weight's packed words and its SAME border term too).  An
+entry is evicted with its weight (weakref).  An
 expert stack (E, K, N) is packed as a whole, into (E, N, Kw) words and
 (E, N) alphas, under the stack's identity: a per-expert view ``w[e]``
 is a new tensor at every call, so keying on it would repack every
@@ -51,7 +55,7 @@ from repro_torch.kernels import xnor_popcount as _xp
 IMPLS = ("auto", "cuda", "torch")
 
 KERNELS = (_fb.KERNEL, _pa.KERNEL, _bp.KERNEL, _xp.KERNEL, _pa.KERNEL_RING,
-           _pa.KERNEL_MLA)
+           _pa.KERNEL_MLA, _bp.KERNEL_PATCHES)
 
 
 def resolve_impl(impl: str, t: torch.Tensor) -> str:
@@ -100,29 +104,40 @@ def pack_activations(x: torch.Tensor, *, threshold: float = 0.0,
     return _bp.binarize_pack_torch(x, threshold)
 
 
+def pack_patches(x: torch.Tensor, kh: int, kw: int, stride: int,
+                 padding: str, *, threshold: float = 0.0,
+                 impl: str = "auto") -> torch.Tensor:
+    """Binarize + bitpack of a conv's patch rows, read from the NHWC
+    input (kernels/binarize_pack.py) with impl dispatch:
+    (B, H, W, C) float32 -> (B*H'*W', ceil(kh*kw*C/32)) int32 words."""
+    fn = _bp.pack_patches if resolve_impl(impl, x) == "cuda" else \
+        _bp.pack_patches_torch
+    return fn(x, kh, kw, stride, padding, threshold=threshold)
+
+
 # --------------------------------------------------------------------------
 # packed-weight cache: one pack per weight identity and version
 
-_weight_pack_cache: dict[tuple[int, str, bool],
-                         tuple[int, torch.Tensor, torch.Tensor | None]] = {}
+_weight_pack_cache: dict[tuple, tuple[int, object]] = {}
 
 
 def packed_weight_cache_info() -> dict:
     return {"entries": len(_weight_pack_cache)}
 
 
-def _cached(w: torch.Tensor, impl: str, scale: bool, pack):
-    """``pack(w)`` cached per (identity, impl, scale) and ``_version``."""
-    key = (id(w), impl, scale)
-    hit = _weight_pack_cache.get(key)
+def cached_per_weight(w: torch.Tensor, key: tuple, make):
+    """``make(w.detach())``, cached per (identity of ``w``, ``key``) and
+    recomputed when ``w._version`` moves (an in-place write)."""
+    full = (id(w), *key)
+    hit = _weight_pack_cache.get(full)
     if hit is not None and hit[0] == w._version:
-        return hit[1], hit[2]
-    wp, alpha = pack(w.detach())
+        return hit[1]
+    value = make(w.detach())
     if hit is None:
         # id() values recycle after gc — evict the entry with its owner
-        weakref.finalize(w, _weight_pack_cache.pop, key, None)
-    _weight_pack_cache[key] = (w._version, wp, alpha)
-    return wp, alpha
+        weakref.finalize(w, _weight_pack_cache.pop, full, None)
+    _weight_pack_cache[full] = (w._version, value)
+    return value
 
 
 def _pack_rows(wt: torch.Tensor, impl: str) -> torch.Tensor:
@@ -138,7 +153,7 @@ def _pack_weight(w: torch.Tensor, impl: str, scale: bool
         wp = _pack_rows(wd.float().t().contiguous(), impl)
         return wp, (torch.mean(torch.abs(wd.float()), dim=0) if scale
                     else None)
-    return _cached(w, impl, scale, pack)
+    return cached_per_weight(w, ("dense", impl, scale), pack)
 
 
 def _pack_stack(w: torch.Tensor, impl: str
@@ -156,7 +171,18 @@ def _pack_stack(w: torch.Tensor, impl: str
             wp[i] = _pack_rows(wd[i].float().t().contiguous(), impl)
             alpha[i] = torch.mean(torch.abs(wd[i].float()), dim=0)
         return wp, alpha
-    return _cached(w, impl, True, pack)
+    return cached_per_weight(w, ("stack", impl), pack)
+
+
+def pack_conv_weight(w: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """(C_out, Kw) packed words of an HWIO conv weight flattened as its
+    patches are, ``w.reshape(S, C_out)``, cached per weight identity and
+    version (the JAX conv packs it at every call; the words are the
+    same)."""
+    impl = resolve_impl(impl, w)
+    kh, kw, cin, cout = w.shape
+    return cached_per_weight(w, ("conv", impl), lambda wt: _pack_rows(
+        wt.float().reshape(kh * kw * cin, cout).t().contiguous(), impl))
 
 
 def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",

@@ -17,9 +17,10 @@ Three variants of the Pallas kernel's template
   k_rope (NB, BS, Dr); per-head K_nope = c_kv · k_up and V = c_kv · v_up
   with k_up (R, H * nope) and v_up (R, H * Dv); q packs [nope ++ rope]
   on its last axis.  ``ring`` composes here too.
-  csrc/paged_attention_mla.cu: a decode walk (split over ``mla_splits``
-  parts) for C·H <= 16 query rows per batch row, a tiled prefill path
-  (``mla_tiled``) for more.
+  csrc/paged_attention_mla.cu: for C·H <= 16 query rows per batch row
+  a decode route (two small-M GEMMs and a split walk over
+  ``mla_decode_parts`` parts of MLA_PART_KEYS positions a row, merged
+  in the launch), a tiled prefill route (``mla_tiled``) for more.
 
 block_table (B, MB) int32 physical block ids; kv_len/q_offset (B,)
 int32 per-row valid length and absolute position of q[:, 0].  q is
@@ -50,7 +51,10 @@ KERNEL_MLA = _lib.KernelInfo(
     _REPLACES)
 
 NEG_INF = -1e30
-MLA_ROWS = 16          # query rows (c, h) per block of the MLA decode walk
+MLA_ROWS = 16          # most query rows (c, h) of a batch row at decode
+MLA_TILE_ROWS = 8      # query rows a block of the MLA decode walk owns
+MLA_PART_KEYS = 128    # positions per part of the MLA decode walk
+MLA_DECODE_MAX_R = 512     # latent width the MLA decode walk holds
 MLA_TILED_WIDTHS = (512, 64)   # (R, Dr) the MLA tiled prefill path takes
 DECODE_ROWS = 4        # query rows per block of the GQA decode walk
 DECODE_PART_KEYS = 256     # positions per part of the GQA decode walk
@@ -262,14 +266,15 @@ def _decode_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def mla_splits(b: int, c: int, h: int, mb: int, sm_count: int) -> int:
-    """How many parts the MLA kernel cuts each row's block walk into:
-    enough blocks to fill the card's ``sm_count`` SMs twice over at
-    decode (B blocks of 16 query rows otherwise), each part at least 4
-    table blocks long; 1 at prefill, where the query tiles already fill
-    it."""
-    ctas = b * -(-(c * h) // MLA_ROWS)
-    return max(1, min(-(-2 * sm_count // ctas), mb // 4))
+def mla_decode_parts(mb: int, bs: int, ring: bool) -> int:
+    """Blocks the MLA decode walk's grid gives each (batch row, tile of
+    MLA_TILE_ROWS query rows): one per part of MLA_PART_KEYS consecutive
+    positions that the row's visible keys can touch, from the table
+    width alone, as ``decode_parts`` for the GQA walk."""
+    cap = mb * bs
+    if ring:
+        return -(-(cap - 1) // MLA_PART_KEYS) + 1
+    return -(-cap // MLA_PART_KEYS)
 
 
 def mla_tiled(c: int, h: int, r: int, dr: int) -> bool:
@@ -320,22 +325,29 @@ def paged_attention_mla(q: torch.Tensor, c_kv_pool: torch.Tensor,
     _lib.check(v_up, "v_up", torch.float32, (r, h * dv), dev)
     newest_p = _check_rows(q, block_table, kv_len, q_offset, ring, newest)
     tiled = mla_tiled(c, h, r, dr)
-    ns = 1 if tiled else mla_splits(b, c, h, mb, _lib.sm_count(dev))
+    if not tiled and r > MLA_DECODE_MAX_R:
+        raise ValueError(f"paged_attention_mla: the decode walk holds a "
+                         f"latent of at most {MLA_DECODE_MAX_R}, not {r}")
+    ns = 1 if tiled else mla_decode_parts(mb, bs, ring)
     rows = b * c * h
     q_lat = torch.empty((rows, r), dtype=torch.float32, device=dev)
-    part = None if tiled else torch.empty((ns, rows, r + 2),
-                                          dtype=torch.float32, device=dev)
     merged = torch.empty((rows, r), dtype=torch.float32, device=dev)
     out = torch.empty((b, c, h, dv), dtype=torch.float32, device=dev)
+    part = counters = None
+    if ns > 1:          # each part's (acc, m, l) per query row, merged by
+        tiles = -(-(c * h) // MLA_TILE_ROWS)    # the last part to arrive
+        part = torch.empty((b, tiles * MLA_TILE_ROWS, ns, r + 4),
+                           dtype=torch.float32, device=dev)
+        counters = _decode_counters(dev, b * tiles)
     _lib.launch("pm_paged_attention_mla", dev, _lib.ptr(q),
                 _lib.ptr(c_kv_pool), _lib.ptr(k_rope_pool),
                 _lib.ptr(block_table),
                 _lib.ptr(kv_len), _lib.ptr(q_offset), newest_p,
                 _lib.ptr(k_up), _lib.ptr(v_up), _lib.ptr(q_lat),
-                None if part is None else _lib.ptr(part), _lib.ptr(merged),
-                _lib.ptr(out), b, c, h, r, dr, nope_dim, dv, bs, mb,
-                int(causal), int(window or 0), int(ring), ns, int(tiled),
-                float(dq ** -0.5))
+                None if part is None else _lib.ptr(part),
+                None if counters is None else _lib.ptr(counters),
+                _lib.ptr(merged), _lib.ptr(out), b, c, h, r, dr, nope_dim,
+                dv, bs, mb, int(causal), int(window or 0), int(ring), ns,
+                int(tiled), float(dq ** -0.5))
     KERNEL_MLA.launches += 1
     return out
-

@@ -17,10 +17,10 @@ import pytest
 import torch
 
 from repro.core import binarize as jbin, conv as jconv
-from repro.kernels import ops as jops, ref as jref
+from repro.kernels import binarize_pack as jbp, ops as jops, ref as jref
 from repro.kernels import xnor_popcount as jxp
-from repro_torch.core import binarize, conv
-from repro_torch.kernels import ops, xnor_popcount as xp
+from repro_torch.core import binarize, conv, patches
+from repro_torch.kernels import binarize_pack as bp, ops, xnor_popcount as xp
 
 torch.set_num_threads(1)
 
@@ -149,6 +149,93 @@ def test_pack_activations_matches_jax_pack():
         np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
+# ------------------------------------------------------- patch packing
+
+# (B, H, W, C_in, k, stride, padding, threshold): strides 1 and 2, SAME
+# and VALID, C_in and S = k*k*C_in off multiples of 32 (and of 4: the
+# CUDA kernel's scalar route), 1x1 and 3x3, thresholds at which the two
+# padding rules differ (a padded tap is 0.0, a position past S -1.0)
+PATCH_CASES = [
+    (1, 8, 8, 3, 3, 1, "SAME", 0.0),
+    (2, 9, 7, 5, 3, 2, "SAME", 0.0),
+    (1, 8, 8, 40, 3, 2, "VALID", 0.0),
+    (1, 6, 6, 33, 1, 1, "SAME", 0.0),
+    (1, 7, 7, 16, 1, 2, "VALID", 0.0),
+    (1, 10, 10, 4, 3, 2, "SAME", -0.5),
+    (1, 5, 6, 12, 3, 1, "SAME", 0.5),
+    (1, 12, 14, 3, 7, 2, "SAME", -2.0),
+]
+
+
+@pytest.mark.parametrize("case", PATCH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_pack_patches_plain_matches_jax_pack_of_im2col(case):
+    b, h, w, cin, k, stride, padding, thr = case
+    rng = np.random.default_rng(b + h + 3 * w + cin + k + stride)
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+    x[0, 0, 0, :] = 0.0               # an in-image zero: the 0.0 pad's bit
+    jpatches = jconv._im2col(jnp.asarray(x), k, k, stride, padding)
+    want = np.asarray(jbp.binarize_pack(
+        jpatches.reshape(-1, jpatches.shape[-1]), threshold=thr,
+        interpret=True)).view(np.int32)
+    xt = torch.from_numpy(x)
+    got = bp.pack_patches_torch(xt, k, k, stride, padding, threshold=thr)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for impl in ("auto", "torch"):       # the CPU entries take it too
+        np.testing.assert_array_equal(
+            ops.pack_patches(xt, k, k, stride, padding, threshold=thr,
+                             impl=impl).numpy(), want)
+    np.testing.assert_array_equal(
+        bp.pack_patches(xt, k, k, stride, padding, threshold=thr).numpy(),
+        want)
+
+
+def test_pack_patches_keeps_both_padding_rules():
+    """Every in-image value below the threshold: a word's bits are then
+    set only where a tap falls in the spatial padding (0.0 >= thr) or,
+    at thr <= -1, past S (-1.0 >= thr)."""
+    x = torch.full((1, 4, 4, 2), -3.0)
+    s = 9 * 2                                          # one word, 14 past S
+    taps_out = np.zeros((4, 4, 3, 3), bool)            # (oy, ox, i, j)
+    for oy in range(4):
+        for ox in range(4):
+            for i in range(3):
+                for j in range(3):
+                    y, xx = oy - 1 + i, ox - 1 + j
+                    taps_out[oy, ox, i, j] = not (0 <= y < 4 and 0 <= xx < 4)
+    for thr, past_s in ((-0.5, 0), (-2.0, 1)):
+        got = bp.pack_patches_torch(x, 3, 3, 1, "SAME", threshold=thr)
+        words = got.numpy().view(np.uint32)[:, 0]
+        for row, word in enumerate(words):
+            bits = [(int(word) >> e) & 1 for e in range(32)]
+            oy, ox = divmod(row, 4)
+            want = [int(taps_out[oy, ox, e // 6, (e // 2) % 3])
+                    for e in range(s)] + [past_s] * (32 - s)
+            assert bits == want, (thr, oy, ox)
+
+
+def test_conv_weight_cache_misses_after_in_place_edit():
+    """The packed conv weight and its SAME border term are cached per
+    weight identity and version: a second call packs nothing; an
+    in-place write repacks, and the result follows the new weight."""
+    x, w, stride, padding = _conv_inputs(CASES[0])
+    kw = dict(stride=stride, padding=padding)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w.copy())
+    before = ops.packed_weight_cache_info()["entries"]
+    first = conv.bnn_conv2d(xt, wt, **kw)
+    assert ops.packed_weight_cache_info()["entries"] == before + 2
+    np.testing.assert_array_equal(conv.bnn_conv2d(xt, wt, **kw).numpy(),
+                                  first.numpy())
+    assert ops.packed_weight_cache_info()["entries"] == before + 2
+    wt.neg_()                                      # a new _version
+    got = conv.bnn_conv2d(xt, wt, **kw)
+    assert ops.packed_weight_cache_info()["entries"] == before + 2
+    want = np.asarray(jconv.bnn_conv2d(jnp.asarray(x), jnp.asarray(-w),
+                                       precision="bnn", impl="xla", **kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(got.numpy(), first.numpy())
+
+
 # ------------------------------------------------------------ binarized conv
 
 CASES = [
@@ -221,11 +308,12 @@ def test_bnn_conv_matches_jax_exactly(jax_conv, case):
     (56, 1, 2, (0, 0)),
 ])
 def test_same_padding_is_jax_not_torch(size, k, stride, pads):
-    assert conv._same_pads(size, k, stride) == pads
+    assert patches.same_pads(size, k, stride) == pads
     # the JAX package's patches agree on the output size
     x = jnp.zeros((1, size, size, 1))
     jp = jconv._im2col(x, k, k, stride, "SAME")
-    tp = conv._im2col(torch.zeros((1, size, size, 1)), k, k, stride, "SAME")
+    tp = patches.im2col(torch.zeros((1, size, size, 1)), k, k, stride,
+                        "SAME")
     assert tuple(tp.shape) == tuple(jp.shape)
 
 
@@ -235,7 +323,7 @@ def test_im2col_patch_order_matches_jax():
     x = rng.standard_normal((2, 7, 6, 3)).astype(np.float32)
     for k, stride, padding in ((3, 1, "SAME"), (3, 2, "SAME"), (2, 1, "VALID")):
         np.testing.assert_array_equal(
-            conv._im2col(torch.from_numpy(x), k, k, stride, padding).numpy(),
+            patches.im2col(torch.from_numpy(x), k, k, stride, padding).numpy(),
             np.asarray(jconv._im2col(jnp.asarray(x), k, k, stride, padding)))
 
 

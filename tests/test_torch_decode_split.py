@@ -340,9 +340,11 @@ def test_every_port_kernel_counts_as_the_ports_own():
     srcs = "".join(p.read_text() for p in sorted(_lib.CSRC.glob("*.cu*")))
     assert len(names) == srcs.count("__global__") >= 12
     assert {"paged_attention_decode_kernel", "paged_attention_tiled_kernel",
-            "tf32x3_gemm_kernel", "mla_walk_kernel", "mla_merge_kernel",
-            "mla_tiled_kernel", "small_kernel", "tc_kernel", "tile_kernel",
-            "binarize_pack_kernel", "pack_rows_kernel"} <= names
+            "tf32x3_gemm_kernel", "mla_decode_kernel", "absorb_small_kernel",
+            "v_up_small_kernel", "mla_tiled_kernel", "small_kernel",
+            "tc_kernel", "tile_kernel", "binarize_pack_kernel",
+            "pack_patches_kernel", "pack_rows_kernel"} <= names
+    assert not {"mla_walk_kernel", "mla_merge_kernel"} & names
     frozen = frozenset(names)
     for n in names:                      # the profiler's demangled names
         assert prof.is_port_kernel(
