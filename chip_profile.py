@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card:
 
 Serves the same seeded traffic as ``chip_smoke.py``'s serving phase of
 ``ARCH`` (default bnn-lm-100m at full width, 16 requests; mixtral-8x7b
-and deepseek-v2-lite-16b at published width and 4 layers, 8 requests,
-as the smoke's family phases), precision "bnn", three times:
+and deepseek-v2-lite-16b at published width and 4 layers, 8 requests;
+mamba2-1.3b at published width and depth, 48 layers, 16 requests; as
+the smoke's family phases), precision "bnn", three times:
 a warm-up run (kernel build, weight packing), a timed run, and a run
 under ``torch.profiler``.  It prints, as JSON lines:
 
@@ -63,6 +64,12 @@ def _workload(arch: str):
                                   max_model_len=1024),
                 chip_smoke.traffic(cfg.vocab), 64, 8, 10,
                 chip_smoke.SERVING_KERNELS)
+    if arch == "mamba2-1.3b":
+        cfg = get_config(arch).replace(precision="bnn")
+        return (cfg, EngineConfig(**chip_smoke.MAMBA2_ENGINE),
+                chip_smoke.family_traffic(cfg.vocab, seed=2, n=16,
+                                          lens=(16, 1500)), 32, 4, 4,
+                ("fused_bnn", "binarize_pack"))
     cfg = get_config(arch).replace(precision="bnn", n_layers=4)
     if arch == "mixtral-8x7b":
         return (cfg, EngineConfig(**chip_smoke.MIXTRAL_ENGINE),
@@ -201,7 +208,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="bnn-lm-100m",
                     choices=("bnn-lm-100m", "mixtral-8x7b",
-                             "deepseek-v2-lite-16b"))
+                             "deepseek-v2-lite-16b", "mamba2-1.3b"))
     ap.add_argument("--out", default=None, help="directory for the table")
     args = ap.parse_args()
     if not torch.cuda.is_available():

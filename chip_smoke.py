@@ -85,10 +85,23 @@ Phases (each check raises, and the script then exits non-zero):
               finished requests go through the phase-4 check (mixtral:
               the first, whose ring wrapped, and the shortest;
               deepseek: all eight).  Prints tokens/s, ring reuses and
-              peak memory.
+              peak memory.  Then mamba2-1.3b (the Mamba-2 SSD mixer
+              over recurrent slots, no FFN) at its published widths
+              and depth, 48 layers: 16 requests of 16-1500 tokens, 32
+              new tokens, 4 submitted after 4 steps, 5 slots under a
+              batch of 8, so admissions wait for a slot and released
+              slots are handed out again (zeroed); the longest request
+              and the first on a reused slot are re-checked (the
+              replay in the engine's slot; the chunked re-check runs
+              the SSD dual form where the engine ran the recurrence,
+              and prints how far apart they are).  Phase 2 checks and
+              times the
+              fused BNN GEMM at mamba2's in_proj (N = 8512, K = 2048)
+              and out_proj (N = 2048, K = 4096) at M = 1, 8, 128, and
+              each weight's pack.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, conv, mixtral, deepseek), error, times and
+on its paths (serving, conv, mixtral, deepseek, mamba2), error, times and
 bound; the last line is the run's verdict with the device.  Imports
 nothing of JAX or the JAX package.
 """
@@ -486,6 +499,12 @@ FAMILY_GEMMS = (
 )
 
 
+# mamba2-1.3b's BNN weights (K, N): in_proj (2 d_inner + 2 state + heads
+# = 8512 outputs) and out_proj; and the reduced config's (d_model 64)
+MAMBA2_WEIGHTS = {"in_proj": (2048, 8512), "out_proj": (4096, 2048)}
+MAMBA2_REDUCED_WEIGHTS = ((64, 304), (128, 64))
+
+
 def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
     warm_clocks(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -517,6 +536,20 @@ def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
     # deepseek-v2-lite expert's
     for m, n, s in FAMILY_GEMMS:
         rows["fused_bnn"].append(check_fused_bnn(dev, m, n, s, gen, True))
+    # mamba2-1.3b's in_proj (N = 8512, not a multiple of any N tile) and
+    # out_proj at a decode row, a full decode bucket and a prefill chunk,
+    # and each weight's pack; the reduced config's untimed
+    for name, (k_in, n_out) in MAMBA2_WEIGHTS.items():
+        for m in (1, 8, 128):
+            rows["fused_bnn"].append({"weight": f"mamba2 {name}",
+                                      **check_fused_bnn(dev, m, n_out, k_in,
+                                                        gen, True)})
+        rows["binarize_pack"].append(
+            {"weight": f"mamba2 {name}",
+             **check_binarize_pack(dev, n_out, k_in, gen, True)})
+    for k_in, n_out in MAMBA2_REDUCED_WEIGHTS:
+        for m in (1, 8, 128):
+            check_fused_bnn(dev, m, n_out, k_in, gen, False)
     # edges, untimed and bit-exact: row counts around both paths' tiles,
     # N not a multiple of any tile, S around word and tile boundaries
     for m in (1, 2, 3, 17, 33, 127, 129, 257):
@@ -813,6 +846,9 @@ def phase_attention_variants(dev) -> dict[str, list[dict]]:
                                     for c in (1, 128)]}
     rows["paged_attention_mla"].append(check_mla_attention(dev, 1, gen, True,
                                                            ring=True))
+    # the engine's smallest decode bucket: one row at kv_len 1024
+    rows["paged_attention_mla"].append(check_mla_attention(dev, 1, gen, True,
+                                                           lens=(1024,)))
     # off the paths, checked untimed: a ring prefill chunk of MLA; ring
     # chunks around the decode and prefill tiles (G = 4: R = 16, 20, 68),
     # rings that have just wrapped (newest = capacity - 1, capacity,
@@ -942,7 +978,7 @@ def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
 # taps of the inputs of binarized projections (their sign bits are what
 # the XNOR GEMM sees)
 BNN_TAPS = ("q", "k", "v", "o", "q_down", "q_up", "kv_down", "gate", "up",
-            "down", "moe_in", "moe_down_in")
+            "down", "moe_in", "moe_down_in", "in_proj", "out_proj")
 
 
 def _check_signs(where, name, a, b, skip_rows=None) -> set[int]:
@@ -1060,11 +1096,13 @@ def _teacher_forced(params, cfg, seq: np.ndarray, chunk: int, bs: int,
     from repro_torch.layers import common as C
     from repro_torch.models import transformer as M
     t = len(seq)
-    # a ring table is exactly the ring wide: positions wrap modulo it
+    # a ring table is exactly the ring wide: positions wrap modulo it;
+    # SSM layers run in recurrent slot 1
     mb = ring_blocks or -(-t // bs)
-    pools = {r: M.init_paged_state(cfg, mb + 1, bs, device=dev)
+    pools = {r: M.init_paged_state(cfg, mb + 1, bs, 2, device=dev)
              for r in ROUTES}
     table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)[None]
+    slots = torch.ones(1, dtype=torch.int32, device=dev)
     logits = {r: [] for r in ROUTES}
     kept: dict[int, list] = {}
     flips, worst = 0, 0.0
@@ -1080,10 +1118,10 @@ def _teacher_forced(params, cfg, seq: np.ndarray, chunk: int, bs: int,
                 h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
 
                 def mix_step(r, taps, li=li, mix=mix, p=p, h=h):
-                    y, _ = M._mixer(mix).prefill_chunk(
-                        p["attn"], cfg, h, pools[r][li], table, lengths,
-                        n_valid, precision=cfg.precision,
-                        ring=bool(ring_blocks), impl=r, taps=taps)
+                    y = M.mixer_prefill(
+                        mix, p["attn"], cfg, h, pools[r][li], table, lengths,
+                        n_valid, slots, ring=bool(ring_blocks), impl=r,
+                        taps=taps)
                     taps[:] = [(nm, v[0, :n]) for nm, v in taps]
                     return x + y, y[0, :n]
 
@@ -1127,13 +1165,21 @@ def engine_calls(eng, rid: int) -> list[tuple]:
     return calls
 
 
+def engine_slot(eng, rid: int) -> int:
+    """The recurrent slot the engine gave request ``rid`` at its last
+    admission (0 for a stack without SSM layers)."""
+    return [e["slot"] for e in eng.scheduler.trace
+            if e["event"] == "admit" and e["rid"] == rid][-1] or 0
+
+
 def decode_replay(params, cfg, eng, rid: int, dev, where: str):
     """Re-run request ``rid`` as the engine ran it: the prompt in the
     engine's prefill chunks through the kernels (the chunked re-check
     holds the same chunks against the plain versions), then every
     generated position as a C = 1 ``paged_decode_step`` at the engine's
-    row, padded batch and table width (the other rows copy the request,
-    inactive), through the kernels and the plain versions layer by layer,
+    row, padded batch, table width and recurrent slot (the other rows
+    copy the request, inactive), through the kernels and the plain
+    versions layer by layer,
     re-synchronised at every sublayer as in ``_teacher_forced``; the
     plain route starts from the kernel route's cache.  Every kernel sees
     the shapes the engine gave it, so the kernel route reproduces the
@@ -1147,12 +1193,14 @@ def decode_replay(params, cfg, eng, rid: int, dev, where: str):
     seq = req.full_sequence()
     ecfg, ring = eng.ecfg, bool(eng.cache.ring_blocks)
     chunk, bs = ecfg.prefill_chunk, ecfg.block_size
-    mb = eng.cache.attn.max_blocks_per_seq
+    mb = eng.cache.table_width
+    slot = engine_slot(eng, rid)
     calls = engine_calls(eng, rid)
     if sum(c[0] == "decode" for c in calls) != len(req.out) - 1:
         raise AssertionError(f"{where}: {len(req.out)} tokens from "
                              f"{len(calls)} engine calls")
-    pools = {"auto": M.init_paged_state(cfg, mb + 1, bs, device=dev)}
+    pools = {"auto": M.init_paged_state(cfg, mb + 1, bs, slot + 1,
+                                        device=dev)}
     row_table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)
     tokens, kept = [], {}
     flips, worst = 0, 0.0
@@ -1169,6 +1217,7 @@ def decode_replay(params, cfg, eng, rid: int, dev, where: str):
                     params, cfg, toks, pools["auto"], row_table[None],
                     torch.tensor([a], dtype=torch.int32, device=dev),
                     torch.tensor([n], dtype=torch.int32, device=dev),
+                    torch.tensor([slot], dtype=torch.int32, device=dev),
                     ring=ring, impl="auto")
                 tokens.append(int(logits[0, n - 1].argmax()))
                 pos += n
@@ -1183,15 +1232,15 @@ def decode_replay(params, cfg, eng, rid: int, dev, where: str):
             active[row] = True
             table = row_table[None].expand(bsz, mb).contiguous()
             lengths = torch.full((bsz,), pos, dtype=torch.int32, device=dev)
+            slots = torch.full((bsz,), slot, dtype=torch.int32, device=dev)
             x = M._embed(params, cfg, toks)
             for li, (mix, f, p) in enumerate(M._iter_layers(cfg, params)):
                 h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
 
                 def mix_step(r, taps, li=li, mix=mix, p=p, h=h):
-                    y, _ = M._mixer(mix).paged_decode_step(
-                        p["attn"], cfg, h, pools[r][li], table, lengths,
-                        precision=cfg.precision, active=active, ring=ring,
-                        impl=r, taps=taps)
+                    y = M.mixer_decode(
+                        mix, p["attn"], cfg, h, pools[r][li], table, lengths,
+                        slots, active, ring=ring, impl=r, taps=taps)
                     taps[:] = [(nm, v[row]) for nm, v in taps]
                     return x + y, y[row]
 
@@ -1241,17 +1290,45 @@ def _cross_check(where, kept_replay, kept_chunked, chunk_path) -> int | None:
     return None
 
 
+def _route_gap(kept_replay, kept_chunked) -> tuple[float, int, int]:
+    """How far the chunked re-check's BNN inputs are from the replay's at
+    the generated positions: (max |difference| / the row's RMS, sign
+    flips, flips farther than FLIP_RMS_FRACTION x RMS from 0)."""
+    worst, flips, far = 0.0, 0, 0
+    for pos in kept_replay:
+        for (_l, taps_r, _y), (_l2, taps_c, _y2) in zip(
+                kept_replay[pos], kept_chunked[pos], strict=True):
+            for (name, a), (_n, b) in zip(taps_r, taps_c, strict=True):
+                if name not in BNN_TAPS:
+                    continue
+                rms = b.float().pow(2).mean().sqrt()
+                worst = max(worst, ((a - b).abs().max() / rms).item())
+                diff = (a >= 0) != (b >= 0)
+                flips += int(diff.sum())
+                far += int((diff & (b.abs() > FLIP_RMS_FRACTION * rms)).sum())
+    return worst, flips, far
+
+
 def phase_e2e(dev, cfg, params, eng, out, rids=None):
     """Two re-checks of finished requests (the first two by default),
     each running the kernels and the plain versions layer by layer: a
     decode replay of what the engine ran, whose kernel route must
     reproduce the engine's greedy tokens exactly, and a teacher-forced
     chunked prefill, which must reproduce them up to the first place
-    where it parts from the replay by an accepted difference."""
+    where it parts from the replay by an accepted difference.
+
+    An SSM stack's chunked re-check runs the generated positions in the
+    SSD dual form where the engine (and the replay) ran the recurrence;
+    how far the two routes' BNN inputs are apart is printed (the dual
+    form's decay exp(cum_t - cum_s) is a difference of two running
+    sums, so it strays further than attention's rounding does)."""
     from repro_torch.kernels import paged_attention as pa
     flips_total = 0
     chunk = eng.ecfg.prefill_chunk
-    if cfg.attn_kind == "mla":
+    ssm = cfg.attn_kind == "none"
+    if ssm:
+        path = "SSD dual form"
+    elif cfg.attn_kind == "mla":
         path = ("MLA tiled 3xTF32 path" if pa.mla_tiled(
             chunk, cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim)
             else "MLA decode walk")
@@ -1279,6 +1356,13 @@ def phase_e2e(dev, cfg, params, eng, out, rids=None):
             params, cfg, seq, chunk, eng.ecfg.block_size,
             eng.cache.ring_blocks, dev, where, keep_from=p)
         flips_total += flips
+        if ssm:
+            gap, nflip, nfar = _route_gap(kept_r, kept_c)
+            log(f"[e2e] {where}: the chunked re-check ({path}) against the "
+                f"replay (recurrence) at the generated positions: BNN inputs "
+                f"differ by up to {gap:.3g} x RMS, {nflip} sign flips, "
+                f"{nfar} of them farther than {FLIP_RMS_FRACTION} x RMS "
+                "from 0")
         part = _cross_check(where, kept_r, kept_c, path)
         greedy = lg_k[p - 1:-1].argmax(dim=-1).cpu().numpy()
         # the token at seq[i] comes from the logits at position i - 1
@@ -1292,6 +1376,7 @@ def phase_e2e(dev, cfg, params, eng, out, rids=None):
         if not torch.isfinite(lg_k).all() or not lerr <= MAX_HIDDEN_ERR * 10:
             raise AssertionError(f"{where}: logits differ by {lerr:.3g}")
         log(f"[e2e] {where} tokens={len(seq)} layers={cfg.n_layers} "
+            f"slot={engine_slot(eng, rid)} "
             f"max_sublayer_err={max(worst, worst_r):.3g} "
             f"max_logit_err={lerr:.3g} decode replay reproduces the "
             f"engine's {len(seq) - p} greedy tokens ({replay_s:.2f} s); "
@@ -1576,23 +1661,49 @@ MIXTRAL_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
                       prefill_chunk=128, max_model_len=8192)
 DEEPSEEK_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
                        prefill_chunk=128, max_model_len=1024)
+# 5 allocatable recurrent slots under a batch of 8: admissions wait for a
+# slot, and released slots are handed out again
+MAMBA2_ENGINE = dict(max_batch=8, num_slots=6, prefill_chunk=128,
+                     max_model_len=2048)
 
 
-def family_traffic(vocab: int, long_lens=(), seed: int = 0):
-    """8 seeded prompts: ``long_lens`` first and fifth (one early, one
-    late), the rest 64-512 tokens."""
+def family_traffic(vocab: int, long_lens=(), seed: int = 0, n: int = 8,
+                   lens=(64, 512)):
+    """``n`` seeded prompts: ``long_lens`` first and fifth (one early,
+    one late), the rest ``lens[0]``-``lens[1]`` tokens."""
     rng = np.random.default_rng(seed)
-    lens = list(rng.integers(64, 513, size=8 - len(long_lens)))
-    for i, n in zip((0, 4), long_lens):
-        lens.insert(i, n)
-    return [rng.integers(0, vocab, size=int(n)) for n in lens]
+    sizes = list(rng.integers(lens[0], lens[1] + 1, size=n - len(long_lens)))
+    for i, m in zip((0, 4), long_lens):
+        sizes.insert(i, m)
+    return [rng.integers(0, vocab, size=int(m)) for m in sizes]
+
+
+def slot_owners(eng) -> dict[int, list[int]]:
+    """Recurrent slot -> the requests admitted to it, in order."""
+    owners: dict[int, list[int]] = {}
+    for e in eng.scheduler.trace:
+        if e["event"] == "admit" and e["slot"] is not None:
+            owners.setdefault(e["slot"], []).append(e["rid"])
+    return owners
+
+
+def mamba2_rids(eng, out) -> list[int]:
+    """The longest request and the first one admitted to a slot another
+    request had released."""
+    reused = [rids[1] for rids in slot_owners(eng).values() if len(rids) > 1]
+    if not reused:
+        raise AssertionError("no recurrent slot was handed out twice")
+    longest = max(out, key=lambda r: len(out[r]))
+    return [longest] + [min(r for r in reused if r != longest)]
 
 
 def phase_family(dev, smi: str, arch: str, n_layers: int, ecfg, prompts,
                  required, e2e_rids):
     """Serve one model family at its published widths (depth cut to
     ``n_layers``) and re-check the finished requests ``e2e_rids`` picks
-    layer by layer; returns the serving run's launch counts."""
+    layer by layer; returns the serving run's launch counts.  A ring
+    must wrap; recurrent slots must all be in use at once, and one
+    must be handed out again."""
     from repro_torch.configs import get_config
     cfg = get_config(arch).replace(precision="bnn", n_layers=n_layers)
     torch.cuda.empty_cache()
@@ -1601,15 +1712,31 @@ def phase_family(dev, smi: str, arch: str, n_layers: int, ecfg, prompts,
         dev, cfg, ecfg, max_new=32, late_after=4, prompts=prompts, n_late=4,
         required=required)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    blk = st["mixer"]["blocks"]
-    if eng.cache.ring_blocks and not blk["ring_reuses"] > 0:
-        raise AssertionError(f"{arch}: the ring never wrapped")
+    mixer = st["mixer"]
+    if "blocks" in mixer:
+        blk = mixer["blocks"]
+        if eng.cache.ring_blocks and not blk["ring_reuses"] > 0:
+            raise AssertionError(f"{arch}: the ring never wrapped")
+        layout = (f"layout={blk['layout']} ring_blocks={blk['ring_blocks']} "
+                  f"ring_reuses={blk['ring_reuses']}")
+    else:
+        sl = mixer["slots"]
+        if sl["peak_used_slots"] != sl["num_slots"]:
+            raise AssertionError(f"{arch}: {sl['peak_used_slots']} of "
+                                 f"{sl['num_slots']} slots ever in use")
+        waits = sum(e["event"] == "defer" and e["reason"] == "no_blocks"
+                    for e in eng.scheduler.trace)
+        if not waits:
+            raise AssertionError(f"{arch}: no admission waited for a slot")
+        layout = (f"layout=slot num_slots={sl['num_slots']} "
+                  f"peak_used_slots={sl['peak_used_slots']} "
+                  f"occupancy={sl['occupancy']:.3f} "
+                  f"admissions_waiting_for_a_slot={waits} "
+                  f"slot_owners={json.dumps(slot_owners(eng))}")
     log(f"[{arch}] layers={n_layers} (published {get_config(arch).n_layers}) "
         f"total_tokens_per_s={st['total_tokens_per_s']:.1f} "
         f"decode_tokens_per_s={st['decode_tokens_per_s']:.1f} "
-        f"layout={blk['layout']} ring_blocks={blk['ring_blocks']} "
-        f"ring_reuses={blk['ring_reuses']} peak_memory_gib={peak_gib:.2f} "
-        f"card={smi}")
+        f"{layout} peak_memory_gib={peak_gib:.2f} card={smi}")
     phase_e2e(dev, cfg, params, eng, out, rids=e2e_rids(eng, out))
     return launches
 
@@ -1656,6 +1783,14 @@ def main() -> int:
         ("fused_bnn", "paged_attention_mla", "binarize_pack"),
         lambda eng, out: sorted(out))
     gc.collect()
+    # mamba2 at its published depth: 16 prompts of 16-1500 tokens (most
+    # longer than one prefill chunk); the e2e re-check takes the longest
+    # and the first request that got a released slot
+    mamba2 = phase_family(
+        dev, smi, "mamba2-1.3b", 48, EngineConfig(**MAMBA2_ENGINE),
+        family_traffic(50280, seed=2, n=16, lens=(16, 1500)),
+        ("fused_bnn", "binarize_pack"), mamba2_rids)
+    gc.collect()
     rows["xnor_popcount"] = conv_rows["xnor_popcount"]
     rows["binarize_pack"] += conv_rows["binarize_pack_conv"]
     rows["pack_patches"] = conv_rows["pack_patches"]
@@ -1673,7 +1808,7 @@ def main() -> int:
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "conv": conv_launches, "mixtral": mixtral,
-             "deepseek": deepseek}
+             "deepseek": deepseek, "mamba2": mamba2}
     kernels = []
     for k in ops.KERNELS:
         r = pick[k.name]

@@ -1,9 +1,10 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
 The port carries the configs its slices serve: the paper-native BNN LM,
-mixtral (sliding-window ring + MoE) and deepseek-v2-lite (MLA + MoE);
-the SSM and hybrid architectures arrive with their mixer families
-(ROADMAP.md queue 1, item 7).
+mixtral (sliding-window ring + MoE), deepseek-v2-lite (MLA + MoE) and
+mamba2 (SSD over recurrent slots); the dense configs, the jamba hybrid
+and the modality front-ends arrive with their slices (ROADMAP.md queue
+1, items 3, 5 and 6).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ _REGISTRY = {
     "mixtral-8x7b": "mixtral_8x7b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "bnn-lm-100m": "bnn_lm_100m",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 

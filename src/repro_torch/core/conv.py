@@ -56,7 +56,7 @@ def bnn_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if precision == "bnn_train":
         raise NotImplementedError(
             "precision='bnn_train' (STE training) is not ported "
-            "(ROADMAP.md queue 1, item 10)")
+            "(ROADMAP.md queue 1, item 8)")
     if precision != "bnn":
         raise ValueError(f"unknown precision {precision!r}")
     impl = ops.resolve_impl(impl, x)

@@ -8,8 +8,9 @@ port keeps one dict per layer, so the stacked segment is unstacked in
 the same walk as the JAX package's ``_iter_layers``; a leading
 unrolled segment (DeepSeek's dense first layer) is already one dict
 per layer.  Every leaf converts alike: attention, MLA (q, kv_down,
-k_up, v_up, o) and MoE leaves (router, the (E, d_in, d_out) expert
-stacks, the shared FFN).  A tied head becomes ``embed.w.T`` (a view:
+k_up, v_up, o), MoE leaves (router, the (E, d_in, d_out) expert
+stacks, the shared FFN) and Mamba-2 leaves (in_proj, conv_w, conv_b,
+A_log, D, dt_bias, norm, out_proj).  A tied head becomes ``embed.w.T`` (a view:
 the two share storage).
 """
 from __future__ import annotations

@@ -207,7 +207,7 @@ def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",
     if precision == "bnn_train":
         raise NotImplementedError(
             "precision='bnn_train' (STE training) is not ported "
-            "(ROADMAP.md queue 1, item 10)")
+            "(ROADMAP.md queue 1, item 8)")
     raise ValueError(f"unknown precision {precision!r}")
 
 

@@ -1,31 +1,34 @@
-"""Decoder LM: GQA (optionally sliding-window) or MLA attention, then a
-GLU FFN or a MoE FFN, per layer.
+"""Decoder LM: GQA (optionally sliding-window) or MLA attention, or the
+Mamba-2 SSD mixer, then a GLU FFN, a MoE FFN or none, per layer.
 
 Families this port runs (``check_supported``):
   dense   GQA attention + GLU FFN                    (bnn-lm-100m)
   moe     GQA + sliding window (ring caches) + MoE   (mixtral)
           MLA + MoE with shared experts, leading
           dense layers of width ``dense_d_ff``        (deepseek-v2-lite)
+  ssm     Mamba-2 SSD mixer over recurrent slots,
+          no FFN                                     (mamba2)
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``head`` (tied
 to ``embed.w.T`` when ``cfg.tie_embeddings``) and ``layers``, a list of
-per-layer dicts in plan order (``norm1``, ``attn``, ``norm2``, ``ffn``).
+per-layer dicts in plan order (``norm1``, ``attn`` (the mixer, the SSD
+block's too, as in the JAX package), ``norm2``, ``ffn``).
 The JAX package stacks the repeated layer period along a leading axis
 for ``lax.scan``; the port keeps one dict per layer, which is what its
 eager layer loop walks (``interop.params_from_numpy`` unstacks).
 
 Every projection dispatches through the OXBNN precision modes
 (kernels/ops.bnn_dense, ops.expert_dense): bf16 baseline and bnn
-(packed XNOR-popcount inference).  The SSM mixer (mamba2), the jamba
-hybrid and the modality front-ends are not ported yet (ROADMAP.md
-queue 1, item 7).
+(packed XNOR-popcount inference).  The jamba hybrid (SSD slots beside
+paged attention in one stack) and the modality front-ends are not
+ported yet (ROADMAP.md queue 1, items 5 and 6).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.layers import attn_block, common as C, ffn, mla, moe
+from repro_torch.layers import attn_block, common as C, ffn, mamba2, mla, moe
 
 # ---------------------------------------------------------------------------
 # layer plan
@@ -74,17 +77,25 @@ def segments(cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig):
-    """Raise for what the port does not run yet: SSM layers (mamba2 and
-    the jamba hybrid) and the modality front-ends."""
-    for mix, f in layer_plan(cfg):
-        if mix not in ("gqa", "mla") or f not in ("dense", "moe", "none"):
+    """Raise for what the port does not run yet: a stack that mixes SSM
+    and attention layers (the jamba hybrid) and the modality
+    front-ends."""
+    plan = layer_plan(cfg)
+    for mix, f in plan:
+        if mix not in ("gqa", "mla", "ssm") or \
+                f not in ("dense", "moe", "none"):
             raise NotImplementedError(
-                f"{cfg.name}: layer kind ({mix}, {f}) is not ported "
-                "(ROADMAP.md queue 1, item 7: mamba2 and the jamba hybrid)")
+                f"{cfg.name}: layer kind ({mix}, {f}) is not ported")
+    mixers = {mix for mix, _f in plan}
+    if "ssm" in mixers and len(mixers) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a stack of SSM and {sorted(mixers - {'ssm'})} "
+            "layers is not ported (ROADMAP.md queue 1, item 5: the jamba "
+            "hybrid)")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.frontend} front-end is not ported "
-            "(ROADMAP.md queue 1, item 7)")
+            "(ROADMAP.md queue 1, item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +106,7 @@ def _init_layer(gen, cfg: ArchConfig, mix: str, f: str, dense_width: bool,
                 device) -> dict:
     """One layer; ``dense_width`` marks the leading dense layers, whose
     FFN is ``dense_d_ff`` wide where the config sets one."""
-    mod = mla if mix == "mla" else attn_block
+    mod = {"mla": mla, "ssm": mamba2}.get(mix, attn_block)
     p = {"norm1": C.norm_init(cfg.d_model, cfg.norm, device=device),
          "attn": mod.init(gen, cfg, device=device)}
     if f != "none":
@@ -181,6 +192,9 @@ def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             y = mla.forward(p["attn"], cfg, h, positions,
                             precision=cfg.precision,
                             window=cfg.sliding_window, impl=impl)
+        elif mix == "ssm":
+            y = mamba2.forward(p["attn"], cfg, h, chunk=cfg.ssd_chunk,
+                               precision=cfg.precision, impl=impl)
         else:
             y = attn_block.forward(p["attn"], cfg, h, positions,
                                    precision=cfg.precision, impl=impl)
@@ -198,41 +212,86 @@ def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 # paged decode / chunked prefill (continuous-batching serving path; see
 # repro_torch/serving/engine.py).  The pools are updated in place.
 # Every mixer kind has the same entry points over its own pool layout —
-# paged K/V blocks (gqa) or paged compressed latents (mla); a
-# sliding-window config runs its block tables as rings (ring=True).
+# paged K/V blocks (gqa), paged compressed latents (mla) or one
+# recurrent slot per request (ssm); a sliding-window config runs its
+# block tables as rings (ring=True).  ``mixer_decode`` and
+# ``mixer_prefill`` run one layer's mixer; attention layers read the
+# block table and lengths, SSM layers the slots.
 
 
 def _mixer(mix: str):
     return mla if mix == "mla" else attn_block
 
 
+def mixer_decode(mix: str, p, cfg: ArchConfig, h, cache, block_table,
+                 lengths, slots, active, *, ring: bool, impl: str,
+                 taps: list | None = None):
+    """One layer's mixer at decode; returns its output."""
+    if mix == "ssm":
+        y, _ = mamba2.paged_decode_step(p, cfg, h, cache, slots,
+                                        precision=cfg.precision,
+                                        active=active, impl=impl, taps=taps)
+    else:
+        y, _ = _mixer(mix).paged_decode_step(
+            p, cfg, h, cache, block_table, lengths, precision=cfg.precision,
+            active=active, ring=ring, impl=impl, taps=taps)
+    return y
+
+
+def mixer_prefill(mix: str, p, cfg: ArchConfig, h, cache, block_table,
+                  lengths, n_valid, slots, *, ring: bool, impl: str,
+                  taps: list | None = None):
+    """One layer's mixer over a prefill chunk; returns its output."""
+    if mix == "ssm":
+        y, _ = mamba2.prefill_chunk(p, cfg, h, cache, slots, n_valid,
+                                    precision=cfg.precision, impl=impl,
+                                    taps=taps)
+    else:
+        y, _ = _mixer(mix).prefill_chunk(
+            p, cfg, h, cache, block_table, lengths, n_valid,
+            precision=cfg.precision, ring=ring, impl=impl, taps=taps)
+    return y
+
+
 def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
-                     dtype=torch.float32, device=None) -> list[dict]:
+                     num_slots: int = 0, dtype=torch.float32,
+                     device=None) -> list[dict]:
     """Flat per-layer list of pools (layer order == plan order): K/V
-    blocks for GQA layers, latent blocks for MLA layers."""
+    blocks for GQA layers, latent blocks for MLA layers, ``num_slots``
+    recurrent slots (slot 0 scratch) for SSM layers."""
     check_supported(cfg)
-    return [_mixer(mix).init_paged_state(cfg, num_blocks, block_size, dtype,
-                                         device)
-            for mix, _f in layer_plan(cfg)]
+    pools = []
+    for mix, _f in layer_plan(cfg):
+        if mix == "ssm":
+            if num_slots < 2:
+                raise ValueError(f"{cfg.name}: SSM layers need num_slots >= "
+                                 f"2 (slot 0 is scratch), got {num_slots}")
+            pools.append(mamba2.init_paged_state(cfg, num_slots, dtype,
+                                                 device))
+        else:
+            pools.append(_mixer(mix).init_paged_state(
+                cfg, num_blocks, block_size, dtype, device))
+    return pools
 
 
 def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                       block_table: torch.Tensor, lengths: torch.Tensor,
-                      active: torch.Tensor | None = None, *,
+                      active: torch.Tensor | None = None,
+                      slots: torch.Tensor | None = None, *,
                       ring: bool = False, impl: str = "auto"):
     """One decode token per row against the paged pools.
 
     tokens (B, 1) int; block_table (B, max_blocks) int32; lengths (B,)
     int32 per-row cache fill; active (B,) masks padded batch slots;
-    ring=True runs the block tables as sliding-window rings.
+    slots (B,) int32 recurrent slot ids for SSM layers; ring=True runs
+    the block tables as sliding-window rings.
     Returns (logits (B, 1, V), caches).
     """
     x = _embed(params, cfg, tokens)
     for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-        y, _ = _mixer(mix).paged_decode_step(
-            p["attn"], cfg, h, caches[li], block_table, lengths,
-            precision=cfg.precision, active=active, ring=ring, impl=impl)
+        y = mixer_decode(mix, p["attn"], cfg, h, caches[li], block_table,
+                         lengths, slots, active, ring=ring, impl=impl)
         x = _ffn(p, cfg, f, x + y, impl, paged=True)
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return torch.matmul(x, params["head"]["w"]), caches
@@ -240,24 +299,26 @@ def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                   block_table: torch.Tensor, lengths: torch.Tensor,
-                  n_valid: torch.Tensor, *, ring: bool = False,
-                  impl: str = "auto", taps: list | None = None):
+                  n_valid: torch.Tensor, slots: torch.Tensor | None = None,
+                  *, ring: bool = False, impl: str = "auto",
+                  taps: list | None = None):
     """Chunked prefill: append a chunk of C tokens per row.
 
     tokens (B, C) int (padded past n_valid); lengths (B,) tokens already
-    cached; n_valid (B,) real tokens in this chunk; ring as in
-    ``paged_decode_step``.  ``taps``, when a list, receives per layer
-    ``(name, tensor)``: the input of each projection (q, k, v or q,
-    kv_down; o; then the FFN's or the MoE layer's, see ``moe.forward``)
-    and ``("hidden", layer output)``.
+    cached; n_valid (B,) real tokens in this chunk; slots (B,) recurrent
+    slot ids for SSM layers; ring as in ``paged_decode_step``.  ``taps``,
+    when a list, receives per layer ``(name, tensor)``: the input of
+    each projection (q, k, v or q, kv_down; o; or in_proj, out_proj;
+    then the FFN's or the MoE layer's, see ``moe.forward``) and
+    ``("hidden", layer output)``.
     Returns (logits (B, C, V), caches) — logits at every chunk position.
     """
     x = _embed(params, cfg, tokens)
     for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-        y, _ = _mixer(mix).prefill_chunk(
-            p["attn"], cfg, h, caches[li], block_table, lengths, n_valid,
-            precision=cfg.precision, ring=ring, impl=impl, taps=taps)
+        y = mixer_prefill(mix, p["attn"], cfg, h, caches[li], block_table,
+                          lengths, n_valid, slots, ring=ring, impl=impl,
+                          taps=taps)
         x = _ffn(p, cfg, f, x + y, impl, paged=True, taps=taps)
         if taps is not None:
             taps.append(("hidden", x))

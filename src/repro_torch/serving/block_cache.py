@@ -16,7 +16,7 @@ functions take the ring's capacity from that width.
 Every used block carries a refcount, as in the JAX package, where
 prefix sharing gives a block several owners; the port runs without the
 prefix index, swap-to-host and copy-on-write (ROADMAP.md queue 1, item
-8), so every block here has exactly one owner.
+7), so every block here has exactly one owner.
 
 Block 0 is reserved as a scratch block (padded rows and masked writes
 are redirected there), so the allocator hands out ids from
@@ -28,7 +28,8 @@ are redirected there), so the allocator hands out ids from
 
 ``MixerStateCache`` at the bottom is what the engine instantiates: the
 composite over the per-layer layouts (``mixer_state.layer_layouts``):
-the paged and ring block layouts (recurrent slots are not ported).
+the paged and ring block layouts, or the recurrent slots of an SSM
+stack (a stack of both, the jamba hybrid, is not ported).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ import torch
 from repro_torch.layers import attn_block, mla
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serving.mixer_state import (
-    LAYOUT_PAGED, LAYOUT_RING, MixerState, layer_layouts, ring_block_count)
+    LAYOUT_SLOT, MixerState, RecurrentSlotState, layer_layouts,
+    ring_block_count)
 
 
 class BlockAllocator:
@@ -231,63 +233,88 @@ class BlockKVCache(MixerState):
 
 
 class MixerStateCache:
-    """Composite MixerState the engine instantiates, dispatching per
-    layer via ``mixer_state.layer_layouts``.  Presents the per-layer
-    pool list the step functions update in place and fans every
-    request-lifecycle call out to the member states.  The port holds
-    the block-family state (paged or ring, over K/V or latent pools);
-    the recurrent slot layout raises."""
+    """Composite MixerState the engine instantiates: one block-family
+    state (paged/ring over K/V or latent pools) or one slot-family state
+    (recurrent slots), dispatching per layer via
+    ``mixer_state.layer_layouts``.  Presents the per-layer pool list the
+    step functions update in place, and passes every request-lifecycle
+    call to its member.  A stack that needs both (the jamba hybrid)
+    raises."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  max_model_len: int, dtype=torch.float32,
-                 prefill_chunk: int = 16, device="cpu"):
+                 num_slots: int = 8, prefill_chunk: int = 16, device="cpu"):
         self.cfg = cfg
         self.block_size = block_size
         self.layouts = layer_layouts(cfg)
-        other = sorted(set(self.layouts) - {LAYOUT_PAGED, LAYOUT_RING})
-        if other:
+        attn_ids = [i for i, l in enumerate(self.layouts)
+                    if l != LAYOUT_SLOT]
+        slot_ids = [i for i, l in enumerate(self.layouts)
+                    if l == LAYOUT_SLOT]
+        if attn_ids and slot_ids:
             raise NotImplementedError(
-                f"{cfg.name}: mixer-state layouts {other} are not ported "
-                "(ROADMAP.md queue 1, item 7: mamba2 and the jamba hybrid)")
+                f"{cfg.name}: a stack of block and slot mixer-state "
+                "layouts is not ported (ROADMAP.md queue 1, item 5: the "
+                "jamba hybrid)")
         self.ring_blocks = (
             ring_block_count(cfg.sliding_window, block_size, prefill_chunk)
-            if cfg.sliding_window else 0)
+            if (attn_ids and cfg.sliding_window) else 0)
         self.attn = BlockKVCache(
             cfg, num_blocks=num_blocks, block_size=block_size,
-            max_model_len=max_model_len, dtype=dtype,
-            layer_ids=list(range(len(self.layouts))),
-            ring_blocks=self.ring_blocks, device=device)
+            max_model_len=max_model_len, dtype=dtype, layer_ids=attn_ids,
+            ring_blocks=self.ring_blocks, device=device) \
+            if attn_ids else None
+        self.ssm = RecurrentSlotState(cfg, slot_ids, num_slots, dtype,
+                                      device) if slot_ids else None
+        self._member = self.attn if self.attn is not None else self.ssm
 
     # ------------------------------------------------------ device pools
 
     @property
     def pools(self) -> list[dict]:
-        return self.attn.pools
+        out = [None] * len(self.layouts)
+        for li, p in zip(self._member.layer_ids, self._member.pools):
+            out[li] = p
+        return out
 
     # ------------------------------------------------------ capacity
 
     def fits(self, n_tokens: int) -> bool:
         """Can a request of n_tokens total ever be scheduled?"""
-        return self.attn.blocks_needed(n_tokens) <= \
-            self.attn.allocator.capacity
+        return (self.attn is None
+                or self.attn.blocks_needed(n_tokens)
+                <= self.attn.allocator.capacity)
 
     # ------------------------------------------------------ lifecycle
 
     def alloc_prompt(self, req) -> bool:
-        return self.attn.alloc_prompt(req)
+        return self._member.alloc_prompt(req)
 
     def ensure_capacity(self, req, n_tokens: int) -> bool:
-        return self.attn.ensure_capacity(req, n_tokens)
+        return self._member.ensure_capacity(req, n_tokens)
 
     def release(self, req):
-        self.attn.release(req)
+        self._member.release(req)
 
     # ------------------------------------------------------ step arrays
 
+    @property
+    def table_width(self) -> int:
+        return self.attn.max_blocks_per_seq if self.attn is not None else 1
+
     def table_rows(self, reqs, batch: int) -> np.ndarray:
-        return self.attn.table_rows(reqs, batch)
+        if self.attn is not None:
+            return self.attn.table_rows(reqs, batch)
+        return np.zeros((batch, 1), np.int32)
+
+    def slot_rows(self, reqs, batch: int) -> np.ndarray:
+        if self.ssm is not None:
+            return self.ssm.slot_rows(reqs, batch)
+        return np.zeros(batch, np.int32)
 
     # ------------------------------------------------------ stats
 
     def mixer_section(self) -> dict:
-        return {"blocks": self.attn.stats()}
+        if self.attn is not None:
+            return {"blocks": self.attn.stats()}
+        return {"slots": self.ssm.stats()}

@@ -8,11 +8,12 @@ without draining it (continuous batching).
 The decode batch is padded to power-of-two buckets and prefill always
 runs at the fixed (1, prefill_chunk) shape, as in the JAX package (there
 the fixed shapes bound the jit cache; here they keep the kernels'
-launch shapes few).  The KV pools live on the engine's device and the
-step functions update them in place.  Token selection happens on the
+launch shapes few).  The mixer-state pools (K/V or latent blocks, or
+recurrent SSM slots) live on the engine's device and the step functions
+update them in place.  Token selection happens on the
 device, next to the logits (greedy in this slice).  A stop token
 finishes the request at the step it is emitted, releasing its blocks
-immediately.
+or slot immediately.
 
 With cfg.precision == "bnn" every projection runs the packed
 XNOR-popcount GEMM — the paper's inference mode.  On a CUDA device the
@@ -57,11 +58,11 @@ def nearest_rank(sorted_vals, p: float) -> float:
 # fixed value: field -> (the value it supports, ROADMAP.md item that
 # brings the rest)
 _SLICE_ONLY = {
-    "policy": ("fcfs", "queue 1, item 8"),
-    "prefix_cache": (False, "queue 1, item 8"),
-    "preempt_policy": ("recompute", "queue 1, item 8"),
-    "spec_k": (0, "queue 1, item 8"),
-    "role": ("mixed", "queue 1, item 8"),
+    "policy": ("fcfs", "queue 1, item 7"),
+    "prefix_cache": (False, "queue 1, item 7"),
+    "preempt_policy": ("recompute", "queue 1, item 7"),
+    "spec_k": (0, "queue 1, item 7"),
+    "role": ("mixed", "queue 1, item 7"),
 }
 
 
@@ -72,10 +73,13 @@ class EngineConfig:
     max_batch: int = 8               # decode slots (padded to 2^k buckets)
     prefill_chunk: int = 16
     max_model_len: int = 256         # prompt + generation bound per request
+    num_slots: int = 0               # recurrent slots (SSM layers), slot 0
+                                     # scratch; 0 = max_batch + 1
     policy: str = "fcfs"             # only fcfs is ported
     max_tokens_in_flight: int = 0    # KV-footprint admission budget;
                                      # 0 = auto (2x the block pool's
-                                     # token capacity)
+                                     # token capacity; unbounded without
+                                     # a block pool)
     max_batched_tokens: int = 256
     accelerator: str = "OXBNN_50"    # photonic cost-model target
     prefix_cache: bool = False       # content-addressed block reuse: not
@@ -123,11 +127,16 @@ class Engine:
         self.cache = MixerStateCache(
             cfg, num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
             max_model_len=ecfg.max_model_len,
+            num_slots=ecfg.num_slots or ecfg.max_batch + 1,
             prefill_chunk=ecfg.prefill_chunk, device=self.device)
         # admission token budget: 0 = derive from the block pool (2x
-        # its token capacity)
-        mtif = ecfg.max_tokens_in_flight or \
-            2 * self.cache.attn.allocator.capacity * ecfg.block_size
+        # its token capacity).  Slot-only stacks have no block pool;
+        # max_batch and the slots bound their admission instead.
+        mtif = ecfg.max_tokens_in_flight
+        if mtif == 0:
+            a = self.cache.attn
+            mtif = (2 * a.allocator.capacity * ecfg.block_size
+                    if a is not None else 1 << 30)
         self.scheduler = Scheduler(
             SchedulerConfig(max_batch=ecfg.max_batch,
                             max_tokens_in_flight=mtif,
@@ -266,10 +275,11 @@ class Engine:
         tokens = np.zeros((1, cp), np.int64)
         tokens[0, :chunk] = req.prompt[req.pos:req.pos + chunk]
         table = self.cache.table_rows([req], 1)
+        slots = self.cache.slot_rows([req], 1)
         tok, _logits, _pools = self._prefill_fn(
             self.params, self.cache.pools, self._tensor(tokens),
             self._tensor(table), self._tensor(np.array([req.pos], np.int32)),
-            self._tensor(np.array([chunk], np.int32)))
+            self._tensor(np.array([chunk], np.int32)), self._tensor(slots))
         req.pos += chunk
         self._prefilled += chunk
         self._prefill_calls += 1
@@ -317,10 +327,11 @@ class Engine:
             lengths[i] = r.pos
             active[i] = True
         table = self.cache.table_rows(ready, bucket)
+        slots = self.cache.slot_rows(ready, bucket)
         next_tok, _logits, _pools = self._decode_fn(
             self.params, self.cache.pools, self._tensor(tokens),
             self._tensor(table), self._tensor(lengths),
-            self._tensor(active))
+            self._tensor(active), self._tensor(slots))
         next_tok = next_tok.cpu().numpy()
         self._max_concurrent = max(self._max_concurrent, len(ready))
         self._decode_calls += 1
@@ -377,7 +388,7 @@ class Engine:
         """The modeled accelerator's report on the served stream, built
         as the JAX engine builds it.  Prefix-cache skips, speculative
         verify passes and scoring are not ported, so their counts are
-        0 (ROADMAP.md queue 1, item 8)."""
+        0 (ROADMAP.md queue 1, item 7)."""
         cm = self.cost_model
         return {
             **cm.report(),

@@ -13,7 +13,7 @@ events); a policy owns the *decisions*:
 
 This slice ports ``fcfs``; the JAX package's ``priority`` and ``slo``
 policies come with the serving-breadth slice (ROADMAP.md queue 1,
-item 8).
+item 7).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def make_policy(name: str) -> FCFSPolicy:
     if name in ("priority", "slo"):
         raise NotImplementedError(
             f"scheduling policy {name!r} is not ported "
-            "(ROADMAP.md queue 1, item 8)")
+            "(ROADMAP.md queue 1, item 7)")
     if name not in POLICIES:
         raise ValueError(
             f"unknown policy {name!r} (want one of {sorted(POLICIES)})")

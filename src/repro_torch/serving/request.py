@@ -1,9 +1,10 @@
 """Request lifecycle for the continuous-batching engine.
 
 A request moves QUEUED -> PREFILL -> DECODE -> FINISHED.  Under
-block-pool pressure the scheduler preempts by RECOMPUTE: blocks are
-dropped and the request returns to QUEUED with its progress discarded
-(the JAX package's swap-to-host path is not ported yet).
+block-pool pressure the scheduler preempts by RECOMPUTE: blocks (or its
+recurrent slot) are dropped and the request returns to QUEUED with its
+progress discarded (the JAX package's swap-to-host path is not ported
+yet).
 """
 from __future__ import annotations
 
@@ -33,9 +34,10 @@ class Request:
 
     # runtime (owned by the scheduler/engine)
     state: State = State.QUEUED
-    pos: int = 0                       # tokens written to the KV cache
+    pos: int = 0                       # tokens written to the mixer state
     out: list[int] = field(default_factory=list)
-    blocks: list[int] = field(default_factory=list)
+    blocks: list[int] = field(default_factory=list)   # block-family layers
+    slot: int | None = None            # recurrent-slot-family layers
     virtual_blocks: int = 0            # logical high-water (ring reuse stat)
     preemptions: int = 0
     streamed: int = 0                  # commit-callback delivery watermark
@@ -83,6 +85,7 @@ class Request:
         self.pos = 0
         self.out.clear()
         self.blocks = []
+        self.slot = None
         self.virtual_blocks = 0
         self.preemptions += 1
 

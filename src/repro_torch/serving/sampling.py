@@ -3,7 +3,7 @@
 ``SamplingParams`` travels with every request.  This slice of the port
 serves greedy decoding only: ``temperature > 0`` raises until the
 sampling slice brings a counter-based generator (ROADMAP.md queue 1,
-item 6, "Sampling decision"), and with it the per-row sampling operands
+item 7, "Sampled decoding"), and with it the per-row sampling operands
 (the JAX package's ``sampling_rows``).  Greedy is exact argmax, first
 index on ties, as ``jnp.argmax``.
 """
@@ -29,7 +29,7 @@ class SamplingParams:
         if self.temperature > 0:
             raise NotImplementedError(
                 "sampled decoding (temperature > 0) is not ported yet "
-                "(ROADMAP.md queue 1, item 6)")
+                "(ROADMAP.md queue 1, item 7)")
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1]: {self.top_p}")
         if self.top_k < 0:

@@ -2,8 +2,10 @@
 interleaving, and block-pressure preemption.
 
 Each engine step the scheduler emits a StepPlan:
-  * admit   — queued requests move to running while a batch slot, the
-              token budget, and prompt blocks are all available;
+  * admit   — queued requests move to running while a batch row, the
+              token budget, and prompt blocks (or a recurrent slot) are
+              all available; a request short of either defers as
+              ``no_blocks``, as in the JAX package;
   * prefill — ONE running request advances by one prompt chunk (chunk
               size capped so prefill tokens + decode rows stay under
               ``max_batched_tokens`` — decode latency is protected from
@@ -55,7 +57,7 @@ class Scheduler:
         if cfg.preempt_policy == "swap":
             raise NotImplementedError(
                 "preempt_policy='swap' (swap-to-host) is not ported "
-                "(ROADMAP.md queue 1, item 8)")
+                "(ROADMAP.md queue 1, item 7)")
         if cfg.preempt_policy != "recompute":
             raise ValueError(f"unknown preempt_policy {cfg.preempt_policy}")
         self.cfg = cfg
@@ -109,7 +111,7 @@ class Scheduler:
             self.running.append(req)
             plan.admitted.append(req)
             self._ev(step, "admit", req.rid, running=len(self.running),
-                     blocks=len(req.blocks))
+                     blocks=len(req.blocks), slot=req.slot)
 
     # ---------------------------------------------------------- preemption
 

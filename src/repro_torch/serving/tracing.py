@@ -5,7 +5,7 @@ owns one ``Tracer``, and its span accumulators are the single source of
 wall-time truth — ``Engine.stats()`` reads ``span_total("step")``.  The
 JAX tracer's recording half (per-step and per-request JSONL records,
 the trace schema and its replay) comes with the serving-breadth slice
-(ROADMAP.md queue 1, item 8).
+(ROADMAP.md queue 1, item 7).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Shared checks of a whole model family of the port against the JAX
-package (tests/test_torch_family_swa.py, tests/test_torch_family_mla.py):
+package (tests/test_torch_family_swa.py, tests/test_torch_family_mla.py,
+tests/test_torch_family_ssm.py):
 config equality, parameter conversion, chunked prefill + paged decode
 logits and greedy continuations, the full-sequence forward, and the
 serving engine's greedy tokens and stats.
@@ -72,32 +73,44 @@ def check_round_trip(arch, jax_params, torch_params):
             for k in path:
                 node = node[k.key]
             np.testing.assert_array_equal(np_(node), np.asarray(leaf))
-    np.testing.assert_array_equal(np_(torch_params["head"]["w"]),
-                                  np.asarray(jax_params["head"]["w"]))
+    if tcfg.tie_embeddings:               # a view of the embedding
+        assert "head" not in jax_params
+        head = torch_params["head"]["w"]
+        assert head.data_ptr() == torch_params["embed"]["w"].data_ptr()
+        np.testing.assert_array_equal(np_(head),
+                                      np.asarray(jax_params["embed"]["w"]).T)
+    else:
+        np.testing.assert_array_equal(np_(torch_params["head"]["w"]),
+                                      np.asarray(jax_params["head"]["w"]))
 
 
 def model_runs(arch, jax_params, torch_params, *, prompt_len, chunk, bs,
-               table_width, ring, n_decode=8):
+               table_width, ring, n_decode=8, slot=0):
     """Per precision: the prompt through chunked prefill, then
     ``n_decode`` greedy paged-decode steps, the same weights through
-    both packages, each side feeding back its own greedy token.  Returns
-    {precision: {side: (logits (prompt_len + n_decode, V), tokens)}}."""
+    both packages, each side feeding back its own greedy token; SSM
+    layers run in recurrent slot ``slot`` (a pool of slot + 1 rows).
+    Returns {precision: {side: (logits (prompt_len + n_decode, V),
+    tokens)}}."""
     out = {}
     table = np.arange(1, table_width + 1, dtype=np.int32)[None]
     num_blocks = table_width + 1
+    num_slots = slot + 1 if slot else 0
+    slots = np.array([slot], np.int32)
     for precision in ("bnn", "bf16"):
         jcfg, tcfg = cfgs(arch, precision)
         prompt = np.random.default_rng(3).integers(
             0, jcfg.vocab, size=prompt_len).astype(np.int32)
         j_prefill = jax.jit(lambda p, *a: JM.prefill_chunk(
-            p, jcfg, *a, ring=ring, attn_impl="xla"))
+            p, jcfg, *a, jnp.asarray(slots), ring=ring, attn_impl="xla"))
         j_decode = jax.jit(lambda p, *a: JM.paged_decode_step(
-            p, jcfg, *a, ring=ring, attn_impl="xla"))
+            p, jcfg, *a, None, jnp.asarray(slots), ring=ring,
+            attn_impl="xla"))
         runs = {}
         for side in ("jax", "torch"):
-            caches = (JM.init_paged_state(jcfg, num_blocks, bs)
+            caches = (JM.init_paged_state(jcfg, num_blocks, bs, num_slots)
                       if side == "jax" else
-                      M.init_paged_state(tcfg, num_blocks, bs))
+                      M.init_paged_state(tcfg, num_blocks, bs, num_slots))
             logits = []
             for pos in range(0, prompt_len, chunk):
                 n = min(chunk, prompt_len - pos)
@@ -112,7 +125,8 @@ def model_runs(arch, jax_params, torch_params, *, prompt_len, chunk, bs,
                 else:
                     lg, caches = M.prefill_chunk(
                         torch_params, tcfg, torch.from_numpy(toks).long(),
-                        caches, *map(torch.from_numpy, args[1:]), ring=ring)
+                        caches, *map(torch.from_numpy, args[1:]),
+                        torch.from_numpy(slots), ring=ring)
                 logits.append(np_(lg)[0, :n])
             tok = int(np.argmax(logits[-1][-1]))
             toks_out = [tok]
@@ -126,7 +140,8 @@ def model_runs(arch, jax_params, torch_params, *, prompt_len, chunk, bs,
                     lg, caches = M.paged_decode_step(
                         torch_params, tcfg, torch.tensor([[tok]]), caches,
                         torch.from_numpy(table),
-                        torch.tensor([n], dtype=torch.int32), ring=ring)
+                        torch.tensor([n], dtype=torch.int32), None,
+                        torch.from_numpy(slots), ring=ring)
                 logits.append(np_(lg)[0])
                 tok = int(np.argmax(logits[-1][-1]))
                 toks_out.append(tok)
@@ -171,6 +186,11 @@ def engine_pair(arch, jax_params, torch_params, ecfg_kw, prompts, max_new,
             (te, drive(te, prompts, max_new, late, late_after)))
 
 
+def member(cache):
+    """The port's cache member: the block pool, or the recurrent slots."""
+    return cache.attn if cache.attn is not None else cache.ssm
+
+
 def check_engine_tokens(pair):
     (je, (jrids, jout)), (te, (trids, tout)) = pair
     assert trids == jrids and sorted(tout) == sorted(jout) == jrids
@@ -182,13 +202,13 @@ def check_engine_tokens(pair):
     late_admits = [e["step"] for e in te.scheduler.trace
                    if e["event"] == "admit"]
     assert max(late_admits) > 0                  # admitted mid-stream
-    te.cache.attn.allocator.check()
-    assert te.cache.attn.allocator.num_used == 0
+    member(te.cache).allocator.check()
+    assert member(te.cache).allocator.num_used == 0
 
 
 def check_engine_stats(pair):
-    """The mixer (block/ring) and photonic sections equal the JAX
-    engine's on the same traffic."""
+    """The mixer (block/ring or slot) and photonic sections equal the
+    JAX engine's on the same traffic."""
     (je, _), (te, _) = pair
     jst, tst = je.stats(), te.stats()
     for key in ("preemptions", "prefill_tokens", "decoded_tokens"):

@@ -387,7 +387,7 @@ def test_cuda_impl_on_cpu_tensor_raises():
 def test_bnn_train_and_unknown_precision_raise():
     x = torch.zeros((1, 4, 4, 2))
     w = torch.zeros((3, 3, 2, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
         conv.bnn_conv2d(x, w, precision="bnn_train")
     with pytest.raises(ValueError):
         conv.bnn_conv2d(x, w, precision="int4")

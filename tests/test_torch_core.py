@@ -47,13 +47,15 @@ def test_import_hygiene_no_jax_no_repro():
         "             or m.startswith('jaxlib') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
-        "print('N', sum(m.startswith('repro_torch') for m in sys.modules))\n")
+        "print('N', sum(m.startswith('repro_torch') for m in sys.modules))\n"
+        "print('SSM', 'repro_torch.layers.mamba2' in sys.modules)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     n = int(res.stdout.split("N ")[1].split()[0])
     assert n >= 25, res.stdout          # every subpackage was walked
+    assert "SSM True" in res.stdout, res.stdout   # the SSD mixer too
 
 
 @pytest.mark.parametrize("s", SIZES)

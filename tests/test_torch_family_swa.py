@@ -95,20 +95,33 @@ def test_engine_stats_match_jax(served):
     F.check_engine_stats(served)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
-def test_ssm_and_hybrid_stacks_are_refused_by_name(arch):
-    """The families this port does not run yet (SSM layers) are refused
-    by the model stack and by the mixer-state cache, naming their
-    ROADMAP item."""
+def _hybrid_cfg(case):
+    """The reduced jamba hybrid, or the reduced mamba2 with one attention
+    layer in every period of 2: both mix slot and block layouts."""
     import dataclasses
 
     from repro import configs as jconfigs
     from repro.configs.base import reduced as jreduced
     from repro_torch.configs.base import ArchConfig
+    if case == "jamba":
+        j = jreduced(jconfigs.get_config("jamba-1.5-large-398b"))
+    else:
+        j = jreduced(jconfigs.get_config("mamba2-1.3b")).replace(
+            attn_kind="gqa", attn_period=2, n_heads=4, n_kv_heads=4,
+            head_dim=16)
+    return ArchConfig(**dataclasses.asdict(j))
+
+
+@pytest.mark.parametrize("case", ["jamba", "mamba2_attn_period"])
+def test_ssm_and_hybrid_stacks_are_refused_by_name(case):
+    """Stacks that mix SSM and attention layers (the jamba hybrid) are
+    refused by the model stack and by the mixer-state cache, naming
+    their ROADMAP item; a pure SSM stack (mamba2) is served."""
     from repro_torch.models import transformer as M
     from repro_torch.serving.block_cache import MixerStateCache
-    cfg = ArchConfig(**dataclasses.asdict(jreduced(jconfigs.get_config(arch))))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    cfg = _hybrid_cfg(case)
+    assert {mix for mix, _f in M.layer_plan(cfg)} == {"ssm", "gqa"}
+    with pytest.raises(NotImplementedError, match="item 5: the jamba"):
         M.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5: the jamba"):
         MixerStateCache(cfg, num_blocks=9, block_size=4, max_model_len=32)

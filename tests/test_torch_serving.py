@@ -257,12 +257,12 @@ def test_commit_stream_and_cancel(models, continuous_run):
     dict(prefix_cache=True), dict(preempt_policy="swap"), dict(spec_k=2),
     dict(policy="slo"), dict(role="prefill")])
 def test_unported_engine_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
         EngineConfig(**option)
 
 
 def test_sampled_decoding_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
         SamplingParams(temperature=0.7)
 
 
