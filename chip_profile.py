@@ -8,10 +8,14 @@ Run from the repository root on a machine with a CUDA card:
 Serves the same seeded traffic as ``chip_smoke.py``'s serving phase of
 ``ARCH`` (default bnn-lm-100m at full width, 16 requests; mixtral-8x7b
 and deepseek-v2-lite-16b at published width and 4 layers, 8 requests;
-mamba2-1.3b at published width and depth, 48 layers, 16 requests; as
-the smoke's family phases), precision "bnn", three times:
+mamba2-1.3b at published width and depth, 48 layers, 16 requests;
+jamba-1.5-large-398b at published width, the window of published layers
+2-4, 12 requests; as the smoke's family phases), precision "bnn", three
+times:
 a warm-up run (kernel build, weight packing), a timed run, and a run
-under ``torch.profiler``.  It prints, as JSON lines:
+under ``torch.profiler``.  The timed and the profiled run start at the
+engine (the seeded weights are made before; their packing at first use
+is in both).  It prints, as JSON lines:
 
   * ``steps``   host wall time per engine step, split by kind (prefill
                 step / decode step), and the engine's total and decode
@@ -70,6 +74,12 @@ def _workload(arch: str):
                 chip_smoke.family_traffic(cfg.vocab, seed=2, n=16,
                                           lens=(16, 1500)), 32, 4, 4,
                 ("fused_bnn", "binarize_pack"))
+    if arch == "jamba-1.5-large-398b":
+        cfg = chip_smoke.jamba_window(get_config(arch).replace(
+            precision="bnn"))
+        return (cfg, EngineConfig(**chip_smoke.JAMBA_ENGINE),
+                chip_smoke.jamba_traffic(cfg.vocab), 32, 4, 4,
+                chip_smoke.SERVING_KERNELS)
     cfg = get_config(arch).replace(precision="bnn", n_layers=4)
     if arch == "mixtral-8x7b":
         return (cfg, EngineConfig(**chip_smoke.MIXTRAL_ENGINE),
@@ -80,11 +90,12 @@ def _workload(arch: str):
             ("fused_bnn", "paged_attention_mla", "binarize_pack"))
 
 
-def _serve(dev, work):
+def _serve(dev, work, watch=None):
     cfg, ecfg, prompts, max_new, n_late, late_after, required = work
     return chip_smoke.phase_serving(dev, cfg, ecfg, max_new=max_new,
                                     late_after=late_after, prompts=prompts,
-                                    n_late=n_late, required=required)
+                                    n_late=n_late, required=required,
+                                    watch=watch)
 
 
 def _steps(dev, work) -> dict:
@@ -208,7 +219,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="bnn-lm-100m",
                     choices=("bnn-lm-100m", "mixtral-8x7b",
-                             "deepseek-v2-lite-16b", "mamba2-1.3b"))
+                             "deepseek-v2-lite-16b", "mamba2-1.3b",
+                             "jamba-1.5-large-398b"))
     ap.add_argument("--out", default=None, help="directory for the table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -233,12 +245,19 @@ def main() -> int:
     print(json.dumps({"arch": args.arch, "steps": steps,
                       "timed_wall_s": timed_wall}), flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _serve(dev, work)
+    # traced from the engine's start: the weights' init (the timed run
+    # leaves it out too) is not serving; their packing at first use is
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t0 = []
+
+    def start(_eng):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        prof.start()
+        t0.append(time.perf_counter())
+    _serve(dev, work, watch=start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0[0]
+    prof.stop()
     kernels: dict[str, float] = {}
     for ev in prof.events():
         if _is_kernel(ev):

@@ -98,12 +98,33 @@ Phases (each check raises, and the script then exits non-zero):
               times the
               fused BNN GEMM at mamba2's in_proj (N = 8512, K = 2048)
               and out_proj (N = 2048, K = 4096) at M = 1, 8, 128, and
-              each weight's pack.
+              each weight's pack.  Last, with everything before it
+              freed, the jamba hybrid (jamba-1.5-large-398b) at
+              published width, the window of published layers 2-4
+              ((ssm, dense), (gqa, moe), (ssm, dense); ≈ 52 GB of
+              float32 weights): 12 requests of 16-1500 tokens, 32 new
+              tokens, 4 submitted after 4 steps, 5 recurrent slots and
+              256 blocks under a batch of 8.  All 5 slots must be in
+              use at once; from the cache's recorded admissions and the
+              trace's no_blocks defers, one admission must wait for a
+              slot while the blocks were free, and one must find a
+              slot but too few blocks and give the slot back.  The
+              longest request and the first that gave a slot back are
+              re-checked, the replay in the engine's own slot and
+              block table.  Phase 2 checks and times the three kernels
+              of its path at its shapes: the fused BNN GEMM at every
+              projection (in_proj N = 32928, out_proj, q/o, k/v, the
+              FFN's and each expert's w1/w3 and w2) at M = 1, 8, 128
+              and an expert's routed rows at prefill (M = 16), the pack
+              of in_proj's weight and of an expert matrix, and paged
+              GQA at H = 64, Hkv = 8, Dh = 128 (B = 8 and 1, C = 1 and
+              128; kv_len around the decode walk's parts, C around its
+              tile).
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, conv, mixtral, deepseek, mamba2), error, times and
-bound; the last line is the run's verdict with the device.  Imports
-nothing of JAX or the JAX package.
+on its paths (serving, conv, mixtral, deepseek, mamba2, jamba), error,
+times and bound; the last line is the run's verdict with the device.
+Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -470,9 +491,12 @@ def check_paged_attention(dev, b: int, c: int, h: int, hkv: int, dh: int,
         row["eager_ms"] = eager_ms(run)
         row["plain_ms"] = time_ms(
             lambda: pa.paged_attention_torch(q, kp, vp, tab, **kw), iters=5)
-        # yardstick: SDPA over the already-gathered K/V with a bool mask
-        keys = kp[tab.long()].reshape(b, mb * bs, hkv, dh).transpose(1, 2)
-        vals = vp[tab.long()].reshape(b, mb * bs, hkv, dh).transpose(1, 2)
+        # yardstick: SDPA over the already-gathered K/V (heads repeated
+        # for GQA) with a bool mask
+        keys = kp[tab.long()].reshape(b, mb * bs, hkv, dh)
+        vals = vp[tab.long()].reshape(b, mb * bs, hkv, dh)
+        keys = keys.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        vals = vals.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
         kpos = torch.arange(mb * bs, device=dev)
         mask = kpos[None, None] < kv_len.long()[:, None, None]
         if causal:
@@ -503,6 +527,18 @@ FAMILY_GEMMS = (
 # = 8512 outputs) and out_proj; and the reduced config's (d_model 64)
 MAMBA2_WEIGHTS = {"in_proj": (2048, 8512), "out_proj": (4096, 2048)}
 MAMBA2_REDUCED_WEIGHTS = ((64, 304), (128, 64))
+
+
+# jamba-1.5-large's BNN weights (K, N) in the served window (layers 2-4):
+# SSD in_proj (2 d_inner + 2 state + heads = 32928 outputs, a tail at
+# every N tile) and out_proj, attention q/o and k/v, the dense FFN's and
+# each expert's w1/w3 and w2
+JAMBA_WEIGHTS = {"in_proj": (8192, 32928), "out_proj": (16384, 8192),
+                 "q/o": (8192, 8192), "k/v": (8192, 1024),
+                 "w1/w3": (8192, 24576), "w2": (24576, 8192)}
+# an expert's routed rows in a 128-token prefill chunk (top-2 of 16: 16
+# on average); at decode (8 rows: 1) they are the M = 1 rows above
+JAMBA_EXPERT_PREFILL_M = 16
 
 
 def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
@@ -584,6 +620,46 @@ def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
         for r in rs:
             log(f"[kernels] {name} {json.dumps(r)}")
     return rows
+
+
+def phase_jamba_kernels(dev, rows: dict[str, list[dict]]) -> None:
+    """The three kernels of the jamba window's path at its shapes, each
+    against its plain version, timed; rows appended to ``rows``: the
+    fused BNN GEMM at every projection (M = 1, 8, 128) and an expert's
+    routed rows at prefill, the pack of in_proj's weight and of one
+    expert matrix, and paged GQA (ring off) at H = 64, Hkv = 8 (group
+    8), Dh = 128 over a 2048-token table, B = 8 and 1, C = 1 and 128;
+    untimed, kv_len around the decode walk's parts and C around its
+    16-row tile (C * G = 16, 24, 136)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    new = {k: [] for k in ("fused_bnn", "binarize_pack", "paged_attention")}
+    for name, (k_in, n_out) in JAMBA_WEIGHTS.items():
+        ms = (1, 8, 128) + ((JAMBA_EXPERT_PREFILL_M,) if name in
+                            ("w1/w3", "w2") else ())
+        for m in ms:
+            new["fused_bnn"].append({"weight": f"jamba {name}",
+                                     **check_fused_bnn(dev, m, n_out, k_in,
+                                                       gen, True)})
+    for name in ("in_proj", "w1/w3"):
+        k_in, n_out = JAMBA_WEIGHTS[name]
+        new["binarize_pack"].append(
+            {"weight": f"jamba {name}",
+             **check_binarize_pack(dev, n_out, k_in, gen, True)})
+    for b, c in ((8, 1), (1, 1), (8, 128), (1, 128)):
+        new["paged_attention"].append(
+            {"model": "jamba", **check_paged_attention(
+                dev, b, c, 64, 8, 128, 16, 2048, gen, True)})
+    from repro_torch.kernels.paged_attention import DECODE_PART_KEYS as kp
+    check_paged_attention(dev, 0, 1, 64, 8, 128, 16, 2048, gen, False,
+                          lens=(kp - 1, kp, kp + 1, 4 * kp - 1, 4 * kp,
+                                4 * kp + 1, 7 * kp + 1, 2047, 2048, 0, 1,
+                                15))
+    for c in (2, 3, 17):
+        check_paged_attention(dev, 3, c, 64, 8, 128, 16, 700, gen, False)
+    for name, rs in new.items():
+        for r in rs:
+            log(f"[kernels] {name} {json.dumps(r)}")
+        rows[name] += rs
 
 
 def _ragged_rows(b, c, max_len, rng, dev):
@@ -917,13 +993,15 @@ SERVING_KERNELS = ("fused_bnn", "paged_attention", "binarize_pack")
 def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
                   prompt_lens=(64, 512), late_after: int = 10, seed: int = 0,
                   *, prompts=None, n_late: int | None = None,
-                  required=SERVING_KERNELS):
+                  required=SERVING_KERNELS, watch=None):
     """Serve seeded traffic through the port's Engine; returns the engine,
     its params, the finished outputs, the launch counts and the stats.
     ``prompts`` replaces the drawn traffic; the last ``n_late`` (default
     half) are submitted after ``late_after`` steps.  Kernel launch
     counts are reset just before the engine is built (its weights pack
-    on first use); every kernel in ``required`` must have launched."""
+    on first use); every kernel in ``required`` must have launched.
+    ``watch(engine)``, when given, is called on the new engine before
+    the first request."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as M
     from repro_torch.serving import Engine
@@ -935,6 +1013,8 @@ def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
     early = n_requests - (n_requests // 2 if n_late is None else n_late)
     ops.reset_launches()
     eng = Engine(params, cfg, ecfg, device=dev)
+    if watch is not None:
+        watch(eng)
     t0 = time.perf_counter()
     for p in prompts[:early]:
         eng.submit(p, max_new)
@@ -1172,14 +1252,17 @@ def engine_slot(eng, rid: int) -> int:
             if e["event"] == "admit" and e["rid"] == rid][-1] or 0
 
 
-def decode_replay(params, cfg, eng, rid: int, dev, where: str):
+def decode_replay(params, cfg, eng, rid: int, dev, where: str,
+                  blocks=None):
     """Re-run request ``rid`` as the engine ran it: the prompt in the
     engine's prefill chunks through the kernels (the chunked re-check
     holds the same chunks against the plain versions), then every
     generated position as a C = 1 ``paged_decode_step`` at the engine's
     row, padded batch, table width and recurrent slot (the other rows
-    copy the request, inactive), through the kernels and the plain
-    versions layer by layer,
+    copy the request, inactive), and, given the physical ``blocks`` it
+    held, over a pool of the engine's size in those blocks (else blocks
+    1.. of a pool of the table's width), through the kernels and the
+    plain versions layer by layer,
     re-synchronised at every sublayer as in ``_teacher_forced``; the
     plain route starts from the kernel route's cache.  Every kernel sees
     the shapes the engine gave it, so the kernel route reproduces the
@@ -1199,9 +1282,15 @@ def decode_replay(params, cfg, eng, rid: int, dev, where: str):
     if sum(c[0] == "decode" for c in calls) != len(req.out) - 1:
         raise AssertionError(f"{where}: {len(req.out)} tokens from "
                              f"{len(calls)} engine calls")
-    pools = {"auto": M.init_paged_state(cfg, mb + 1, bs, slot + 1,
+    if blocks is None:
+        n_blocks = mb + 1
+        row_table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)
+    else:                          # the engine's table row: 0 past blocks
+        n_blocks = ecfg.num_blocks
+        row_table = torch.zeros(mb, dtype=torch.int32, device=dev)
+        row_table[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+    pools = {"auto": M.init_paged_state(cfg, n_blocks, bs, slot + 1,
                                         device=dev)}
-    row_table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)
     tokens, kept = [], {}
     flips, worst = 0, 0.0
     pos = 0
@@ -1309,42 +1398,49 @@ def _route_gap(kept_replay, kept_chunked) -> tuple[float, int, int]:
     return worst, flips, far
 
 
-def phase_e2e(dev, cfg, params, eng, out, rids=None):
+def phase_e2e(dev, cfg, params, eng, out, rids=None, held=None):
     """Two re-checks of finished requests (the first two by default),
     each running the kernels and the plain versions layer by layer: a
     decode replay of what the engine ran, whose kernel route must
     reproduce the engine's greedy tokens exactly, and a teacher-forced
     chunked prefill, which must reproduce them up to the first place
     where it parts from the replay by an accepted difference.
+    ``held`` (rid -> the physical blocks the engine gave it) runs the
+    replay in the engine's own table.
 
-    An SSM stack's chunked re-check runs the generated positions in the
-    SSD dual form where the engine (and the replay) ran the recurrence;
-    how far the two routes' BNN inputs are apart is printed (the dual
-    form's decay exp(cum_t - cum_s) is a difference of two running
-    sums, so it strays further than attention's rounding does)."""
+    The chunked re-check of a stack with SSM layers runs the generated
+    positions in the SSD dual form where the engine (and the replay)
+    ran the recurrence; how far the two routes' BNN inputs are apart is
+    printed (the dual form's decay exp(cum_t - cum_s) is a difference
+    of two running sums, so it strays further than attention's rounding
+    does)."""
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer as M
     flips_total = 0
     chunk = eng.ecfg.prefill_chunk
-    ssm = cfg.attn_kind == "none"
-    if ssm:
-        path = "SSD dual form"
-    elif cfg.attn_kind == "mla":
-        path = ("MLA tiled 3xTF32 path" if pa.mla_tiled(
+    mixers = {mix for mix, _f in M.layer_plan(cfg)}
+    ssm = "ssm" in mixers
+    paths = []
+    if "mla" in mixers:
+        paths.append("MLA tiled 3xTF32 path" if pa.mla_tiled(
             chunk, cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim)
             else "MLA decode walk")
-    else:
-        path = ("GQA tiled path" if pa.gqa_tiled(
+    if "gqa" in mixers:
+        paths.append("GQA tiled path" if pa.gqa_tiled(
             chunk, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
             else "GQA decode walk")
-    path += f", chunks of {chunk}"
+    if ssm:
+        paths.append("SSD dual form")
+    path = " + ".join(paths) + f", chunks of {chunk}"
     for rid in (sorted(out)[:2] if rids is None else rids):
         req = eng.requests[rid]
         seq = out[rid]
         p = req.prompt_len
         where = f"{cfg.name} rid {rid}"
         t0 = time.perf_counter()
-        tok_r, flips, worst_r, kept_r = decode_replay(params, cfg, eng, rid,
-                                                       dev, where)
+        tok_r, flips, worst_r, kept_r = decode_replay(
+            params, cfg, eng, rid, dev, where,
+            None if held is None else held[rid])
         replay_s = time.perf_counter() - t0
         flips_total += flips
         if not np.array_equal(tok_r, seq[p:]):
@@ -1359,7 +1455,7 @@ def phase_e2e(dev, cfg, params, eng, out, rids=None):
         if ssm:
             gap, nflip, nfar = _route_gap(kept_r, kept_c)
             log(f"[e2e] {where}: the chunked re-check ({path}) against the "
-                f"replay (recurrence) at the generated positions: BNN inputs "
+                f"replay (SSD recurrence) at the generated positions: BNN inputs "
                 f"differ by up to {gap:.3g} x RMS, {nflip} sign flips, "
                 f"{nfar} of them farther than {FLIP_RMS_FRACTION} x RMS "
                 "from 0")
@@ -1377,7 +1473,8 @@ def phase_e2e(dev, cfg, params, eng, out, rids=None):
             raise AssertionError(f"{where}: logits differ by {lerr:.3g}")
         log(f"[e2e] {where} tokens={len(seq)} layers={cfg.n_layers} "
             f"slot={engine_slot(eng, rid)} "
-            f"max_sublayer_err={max(worst, worst_r):.3g} "
+            + ("" if held is None else f"blocks={len(held[rid])} ")
+            + f"max_sublayer_err={max(worst, worst_r):.3g} "
             f"max_logit_err={lerr:.3g} decode replay reproduces the "
             f"engine's {len(seq) - p} greedy tokens ({replay_s:.2f} s); "
             f"chunked re-check: {len(seq) - p - differ.size} equal"
@@ -1665,6 +1762,26 @@ DEEPSEEK_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
 # slot, and released slots are handed out again
 MAMBA2_ENGINE = dict(max_batch=8, num_slots=6, prefill_chunk=128,
                      max_model_len=2048)
+# jamba: 5 slots under a batch of 8 and a block pool of 256 blocks (4096
+# tokens) under 12 prompts of 16-1500 tokens: admissions wait for a slot
+# with blocks free, and find a slot but too few blocks
+JAMBA_ENGINE = dict(block_size=16, num_blocks=257, max_batch=8, num_slots=6,
+                    prefill_chunk=128, max_model_len=2048)
+JAMBA_PUBLISHED_LAYERS = (2, 5)      # the served window of the 72 layers
+
+
+def jamba_window(cfg):
+    """jamba-1.5-large cut to published layers 2-4, (ssm, dense), (gqa,
+    moe), (ssm, dense): every width as published, one full-width
+    16-expert MoE layer (two would not fit on one 80 GB card in
+    float32), SSD layers on both sides of the attention layer."""
+    lo, hi = JAMBA_PUBLISHED_LAYERS
+    return cfg.replace(n_layers=hi - lo, attn_offset=cfg.attn_offset - lo,
+                       scan_period=hi - lo)
+
+
+def jamba_traffic(vocab: int):
+    return family_traffic(vocab, seed=3, n=12, lens=(16, 1500))
 
 
 def family_traffic(vocab: int, long_lens=(), seed: int = 0, n: int = 8,
@@ -1687,7 +1804,7 @@ def slot_owners(eng) -> dict[int, list[int]]:
     return owners
 
 
-def mamba2_rids(eng, out) -> list[int]:
+def mamba2_rids(eng, out, _rec=None) -> list[int]:
     """The longest request and the first one admitted to a slot another
     request had released."""
     reused = [rids[1] for rids in slot_owners(eng).values() if len(rids) > 1]
@@ -1697,48 +1814,129 @@ def mamba2_rids(eng, out) -> list[int]:
     return [longest] + [min(r for r in reused if r != longest)]
 
 
-def phase_family(dev, smi: str, arch: str, n_layers: int, ecfg, prompts,
-                 required, e2e_rids):
-    """Serve one model family at its published widths (depth cut to
-    ``n_layers``) and re-check the finished requests ``e2e_rids`` picks
-    layer by layer; returns the serving run's launch counts.  A ring
-    must wrap; recurrent slots must all be in use at once, and one
-    must be handed out again."""
-    from repro_torch.configs import get_config
-    cfg = get_config(arch).replace(precision="bnn", n_layers=n_layers)
+def watch_admissions(eng) -> dict:
+    """Record a hybrid engine's admissions (a recurrent slot and the
+    prompt's blocks) at its cache: for every attempt the request, its
+    outcome, the blocks its prompt needs, both members' free counts
+    before and after, and the request's position and slot after it
+    (``attempts``); at every release the blocks the request held
+    (``held``: its last release is at its finish)."""
+    cache = eng.cache
+    rec = {"attempts": [], "held": {}}
+    alloc, release = cache.alloc_prompt, cache.release
+
+    def free():
+        return {"slots": cache.ssm.allocator.num_free,
+                "blocks": cache.attn.allocator.num_free}
+
+    def alloc_prompt(req):
+        before = free()
+        ok = alloc(req)
+        rec["attempts"].append({
+            "rid": req.rid, "ok": ok,
+            "blocks_needed": cache.attn.blocks_needed(req.prompt_len),
+            "free_before": before, "free_after": free(), "pos": req.pos,
+            "slot": req.slot})
+        return ok
+
+    def release_(req):
+        rec["held"][req.rid] = list(req.blocks)
+        release(req)
+
+    cache.alloc_prompt, cache.release = alloc_prompt, release_
+    return rec
+
+
+def shortages(eng, rec) -> tuple[list[dict], list[dict]]:
+    """From the recorded admissions of a hybrid engine: (the attempts
+    that waited for a slot while the prompt's blocks were free, the
+    attempts that found a free slot but too few blocks, and gave the
+    slot back: both members' free counts as before, the request at
+    position 0 without a slot).  Every failed attempt must be one of
+    the scheduler's ``no_blocks`` defers."""
+    failed = [a for a in rec["attempts"] if not a["ok"]]
+    defers = [e["rid"] for e in eng.scheduler.trace
+              if e["event"] == "defer" and e["reason"] == "no_blocks"]
+    if [a["rid"] for a in failed] != defers:
+        raise AssertionError("the failed admissions are not the trace's "
+                             "no_blocks defers")
+    slot_waits = [a for a in failed if a["free_before"]["slots"] == 0
+                  and a["free_before"]["blocks"] >= a["blocks_needed"]]
+    released = [a for a in failed if a["free_before"]["slots"] > 0
+                and a["free_before"]["blocks"] < a["blocks_needed"]
+                and a["free_after"] == a["free_before"]
+                and a["pos"] == 0 and a["slot"] is None]
+    return slot_waits, released
+
+
+def phase_family(dev, smi: str, cfg, depth: str, ecfg, prompts, required,
+                 e2e_rids):
+    """Serve one model family at its published widths (``cfg``, its
+    depth cut as ``depth`` says) and re-check the finished requests
+    ``e2e_rids(eng, out, rec)`` picks layer by layer; returns the
+    serving run's launch counts.  A ring must wrap; recurrent slots must
+    all be in use at once, and an admission must wait for one.  A
+    hybrid stack's admissions (slots and blocks) are recorded (``rec``,
+    from ``watch_admissions``): one must wait for a slot while the
+    blocks are free, one must find a slot but too few blocks and give
+    the slot back, and the replay runs in the engine's own table."""
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    rec = {}
+
+    def watch(eng):
+        if eng.cache.attn is not None and eng.cache.ssm is not None:
+            rec.update(watch_admissions(eng))
     eng, params, out, launches, st = phase_serving(
         dev, cfg, ecfg, max_new=32, late_after=4, prompts=prompts, n_late=4,
-        required=required)
+        required=required, watch=watch)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    mixer = st["mixer"]
+    arch, mixer, layout = cfg.name, st["mixer"], []
     if "blocks" in mixer:
         blk = mixer["blocks"]
         if eng.cache.ring_blocks and not blk["ring_reuses"] > 0:
             raise AssertionError(f"{arch}: the ring never wrapped")
-        layout = (f"layout={blk['layout']} ring_blocks={blk['ring_blocks']} "
-                  f"ring_reuses={blk['ring_reuses']}")
-    else:
+        layout.append(f"blocks={json.dumps(blk)}")
+    if "slots" in mixer:
         sl = mixer["slots"]
         if sl["peak_used_slots"] != sl["num_slots"]:
             raise AssertionError(f"{arch}: {sl['peak_used_slots']} of "
                                  f"{sl['num_slots']} slots ever in use")
-        waits = sum(e["event"] == "defer" and e["reason"] == "no_blocks"
-                    for e in eng.scheduler.trace)
+        if rec:
+            slot_waits, released = shortages(eng, rec)
+            if not released:
+                raise AssertionError(f"{arch}: no admission found a slot "
+                                     "but too few blocks")
+            waits = len(slot_waits)
+            layout.append(
+                f"admissions_giving_back_a_slot={len(released)} "
+                f"(rids {sorted({a['rid'] for a in released})}; first "
+                f"{json.dumps(released[0])})")
+        else:                          # no block pool: every defer waits
+            waits = sum(e["event"] == "defer" and e["reason"] == "no_blocks"
+                        for e in eng.scheduler.trace)
         if not waits:
             raise AssertionError(f"{arch}: no admission waited for a slot")
-        layout = (f"layout=slot num_slots={sl['num_slots']} "
-                  f"peak_used_slots={sl['peak_used_slots']} "
-                  f"occupancy={sl['occupancy']:.3f} "
-                  f"admissions_waiting_for_a_slot={waits} "
-                  f"slot_owners={json.dumps(slot_owners(eng))}")
-    log(f"[{arch}] layers={n_layers} (published {get_config(arch).n_layers}) "
-        f"total_tokens_per_s={st['total_tokens_per_s']:.1f} "
+        layout.append(f"slots={json.dumps(sl)} "
+                      f"admissions_waiting_for_a_slot={waits} "
+                      f"slot_owners={json.dumps(slot_owners(eng))}")
+    log(f"[{arch}] {depth} total_tokens_per_s={st['total_tokens_per_s']:.1f} "
         f"decode_tokens_per_s={st['decode_tokens_per_s']:.1f} "
-        f"{layout} peak_memory_gib={peak_gib:.2f} card={smi}")
-    phase_e2e(dev, cfg, params, eng, out, rids=e2e_rids(eng, out))
+        f"preemptions={st['preemptions']} {' '.join(layout)} "
+        f"peak_memory_gib={peak_gib:.2f} card={smi}")
+    phase_e2e(dev, cfg, params, eng, out, rids=e2e_rids(eng, out, rec),
+              held=rec.get("held"))
     return launches
+
+
+def jamba_rids(eng, out, rec) -> list[int]:
+    """The longest request and the first that found a slot but too few
+    blocks."""
+    longest = max(out, key=lambda r: len(out[r]))
+    _waits, released = shortages(eng, rec)
+    return [longest] + [next(a["rid"] for a in released
+                             if a["rid"] != longest)]
 
 
 # -------------------------------------------------------------------- main
@@ -1761,6 +1959,7 @@ def main() -> int:
     cfg = get_config("bnn-lm-100m").replace(precision="bnn")
     rows = phase_kernels(dev, cfg)
     rows.update(phase_attention_variants(dev))
+    phase_jamba_kernels(dev, rows)
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
                         prefill_chunk=128, max_model_len=1024)
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
@@ -1771,25 +1970,40 @@ def main() -> int:
     # mixtral: 2 prompts longer than its 4224-token ring (one early, one
     # late); the e2e re-check takes the first of them (its ring wrapped)
     # and the shortest request
+    cut = "layers={} (published {})"
     mixtral = phase_family(
-        dev, smi, "mixtral-8x7b", 4, EngineConfig(**MIXTRAL_ENGINE),
+        dev, smi, get_config("mixtral-8x7b").replace(precision="bnn",
+                                                     n_layers=4),
+        cut.format(4, 32), EngineConfig(**MIXTRAL_ENGINE),
         family_traffic(32000, (4400, 4700)),
         ("fused_bnn", "paged_attention_ring", "binarize_pack"),
-        lambda eng, out: [0, min(out, key=lambda r: len(out[r]))])
-    gc.collect()
+        lambda eng, out, _rec: [0, min(out, key=lambda r: len(out[r]))])
     deepseek = phase_family(
-        dev, smi, "deepseek-v2-lite-16b", 4, EngineConfig(**DEEPSEEK_ENGINE),
+        dev, smi, get_config("deepseek-v2-lite-16b").replace(
+            precision="bnn", n_layers=4),
+        cut.format(4, 27), EngineConfig(**DEEPSEEK_ENGINE),
         family_traffic(102400, seed=1),
         ("fused_bnn", "paged_attention_mla", "binarize_pack"),
-        lambda eng, out: sorted(out))
-    gc.collect()
+        lambda eng, out, _rec: sorted(out))
     # mamba2 at its published depth: 16 prompts of 16-1500 tokens (most
     # longer than one prefill chunk); the e2e re-check takes the longest
     # and the first request that got a released slot
     mamba2 = phase_family(
-        dev, smi, "mamba2-1.3b", 48, EngineConfig(**MAMBA2_ENGINE),
+        dev, smi, get_config("mamba2-1.3b").replace(precision="bnn"),
+        cut.format(48, 48), EngineConfig(**MAMBA2_ENGINE),
         family_traffic(50280, seed=2, n=16, lens=(16, 1500)),
         ("fused_bnn", "binarize_pack"), mamba2_rids)
+    # jamba: published layers 2-4 (ssm, dense), (gqa, moe), (ssm, dense)
+    # at published width (≈ 52 GB of float32 weights, so everything
+    # before is freed first); the e2e re-check takes the longest request
+    # and one that found a slot but too few blocks
+    full = get_config("jamba-1.5-large-398b")
+    lo, hi = JAMBA_PUBLISHED_LAYERS
+    jamba = phase_family(
+        dev, smi, jamba_window(full.replace(precision="bnn")),
+        f"window=layers {lo}-{hi - 1} of {full.n_layers}",
+        EngineConfig(**JAMBA_ENGINE), jamba_traffic(full.vocab),
+        SERVING_KERNELS, jamba_rids)
     gc.collect()
     rows["xnor_popcount"] = conv_rows["xnor_popcount"]
     rows["binarize_pack"] += conv_rows["binarize_pack_conv"]
@@ -1808,7 +2022,7 @@ def main() -> int:
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "conv": conv_launches, "mixtral": mixtral,
-             "deepseek": deepseek, "mamba2": mamba2}
+             "deepseek": deepseek, "mamba2": mamba2, "jamba": jamba}
     kernels = []
     for k in ops.KERNELS:
         r = pick[k.name]

@@ -41,13 +41,28 @@ def xnor_bitcount_packed(ip: torch.Tensor, wp: torch.Tensor,
     return z_pad - (ip.shape[-1] * packing.WORD_BITS - s)
 
 
+# words of the (rows, N, Kw) XNOR temporary one block of rows may hold:
+# the popcount widens it to int64 twice over, so a whole (M, N, Kw) at
+# M = 128 and a 32928 x 8192 weight would take tens of GB
+XNOR_BLOCK_WORDS = 1 << 26
+
+
 def xnor_matmul_packed(ip: torch.Tensor, wp: torch.Tensor,
                        s: int) -> torch.Tensor:
     """Packed XNOR-bitcount 'matmul': (..., M, Kw) x (N, Kw) -> (..., M, N)
-    int32.  Every output element is one PCA bitcount result."""
-    xnor = ~(ip[..., :, None, :] ^ wp[None, :, :])
-    z_pad = torch.sum(packing.popcount_u32(xnor), dim=-1, dtype=torch.int32)
-    return z_pad - (ip.shape[-1] * packing.WORD_BITS - s)
+    int32.  Every output element is one PCA bitcount result.  Computed
+    in blocks of rows of at most ``XNOR_BLOCK_WORDS`` temporary words
+    (integer sums: the blocking changes no bit)."""
+    rows = max(1, XNOR_BLOCK_WORDS // max(1, wp.numel()))
+    m = ip.shape[-2]
+    blocks = [ip[..., i:i + rows, :] for i in range(0, m, rows)] or [ip]
+    pad = ip.shape[-1] * packing.WORD_BITS - s
+    out = []
+    for block in blocks:
+        xnor = ~(block[..., :, None, :] ^ wp[None, :, :])
+        out.append(torch.sum(packing.popcount_u32(xnor), dim=-1,
+                             dtype=torch.int32) - pad)
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-2)
 
 
 def bnn_matmul_infer(x: torch.Tensor, w: torch.Tensor,

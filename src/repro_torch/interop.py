@@ -5,9 +5,11 @@ The caller hands over the pytree with every leaf already a numpy array
 jax nor the JAX package.  The JAX layout stacks each repeated layer
 period along a leading axis for ``lax.scan`` (``segments(cfg)``); the
 port keeps one dict per layer, so the stacked segment is unstacked in
-the same walk as the JAX package's ``_iter_layers``; a leading
-unrolled segment (DeepSeek's dense first layer) is already one dict
-per layer.  Every leaf converts alike: attention, MLA (q, kv_down,
+the same walk as the JAX package's ``_iter_layers`` (a period may mix
+mixer and FFN kinds under its ``l{i}`` keys, as jamba's period of 8
+does: SSD and GQA mixers, dense and MoE FFNs); a leading unrolled
+segment (DeepSeek's dense first layer) is already one dict per
+layer.  Every leaf converts alike: attention, MLA (q, kv_down,
 k_up, v_up, o), MoE leaves (router, the (E, d_in, d_out) expert
 stacks, the shared FFN) and Mamba-2 leaves (in_proj, conv_w, conv_b,
 A_log, D, dt_bias, norm, out_proj).  A tied head becomes ``embed.w.T`` (a view:

@@ -2,12 +2,17 @@
 Mamba-2 SSD mixer, then a GLU FFN, a MoE FFN or none, per layer.
 
 Families this port runs (``check_supported``):
-  dense   GQA attention + GLU FFN                    (bnn-lm-100m)
+  dense   GQA attention + GLU FFN                    (bnn-lm-100m, llama,
+                                                      qwen, gemma)
   moe     GQA + sliding window (ring caches) + MoE   (mixtral)
           MLA + MoE with shared experts, leading
           dense layers of width ``dense_d_ff``        (deepseek-v2-lite)
   ssm     Mamba-2 SSD mixer over recurrent slots,
           no FFN                                     (mamba2)
+  hybrid  SSD layers over recurrent slots, one GQA
+          layer over paged blocks per
+          ``attn_period``, MoE every ``moe_every``
+          layers, a dense FFN on the others           (jamba)
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``head`` (tied
 to ``embed.w.T`` when ``cfg.tie_embeddings``) and ``layers``, a list of
@@ -19,9 +24,8 @@ eager layer loop walks (``interop.params_from_numpy`` unstacks).
 
 Every projection dispatches through the OXBNN precision modes
 (kernels/ops.bnn_dense, ops.expert_dense): bf16 baseline and bnn
-(packed XNOR-popcount inference).  The jamba hybrid (SSD slots beside
-paged attention in one stack) and the modality front-ends are not
-ported yet (ROADMAP.md queue 1, items 5 and 6).
+(packed XNOR-popcount inference).  The modality front-ends (musicgen,
+pixtral) are not ported yet (ROADMAP.md queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -77,21 +81,13 @@ def segments(cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig):
-    """Raise for what the port does not run yet: a stack that mixes SSM
-    and attention layers (the jamba hybrid) and the modality
+    """Raise for what the port does not run yet: the modality
     front-ends."""
-    plan = layer_plan(cfg)
-    for mix, f in plan:
+    for mix, f in layer_plan(cfg):
         if mix not in ("gqa", "mla", "ssm") or \
                 f not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({mix}, {f}) is not ported")
-    mixers = {mix for mix, _f in plan}
-    if "ssm" in mixers and len(mixers) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a stack of SSM and {sorted(mixers - {'ssm'})} "
-            "layers is not ported (ROADMAP.md queue 1, item 5: the jamba "
-            "hybrid)")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.frontend} front-end is not ported "
@@ -149,11 +145,13 @@ def _iter_layers(cfg: ArchConfig, params):
 
 def _ffn(params, cfg: ArchConfig, f: str, x, impl, *, paged: bool,
          taps=None):
-    """The layer's FFN with its residual.  A MoE layer dispatches with the
-    config's finite capacity over a full sequence, as the JAX package
-    does, and drop-free on the serving path (``paged``): a finite
-    capacity would let batch composition and padding decide which
-    tokens keep their experts."""
+    """The layer's FFN with its residual, after any mixer (an SSD
+    layer's too).  A MoE layer dispatches with the config's finite
+    capacity over a full sequence, as the JAX package does, and
+    drop-free on the serving path (``paged``): a finite capacity would
+    let batch composition, padding and the chunk width decide which
+    tokens keep their experts (in the JAX package it made jamba's
+    logits depend on the chunk width)."""
     if f == "none":
         return x
     h = C.norm(x, params["norm2"], cfg.norm, cfg.norm_eps)
@@ -258,7 +256,8 @@ def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
                      device=None) -> list[dict]:
     """Flat per-layer list of pools (layer order == plan order): K/V
     blocks for GQA layers, latent blocks for MLA layers, ``num_slots``
-    recurrent slots (slot 0 scratch) for SSM layers."""
+    recurrent slots (slot 0 scratch) for SSM layers; a hybrid stack
+    holds both kinds, each at its layer's place."""
     check_supported(cfg)
     pools = []
     for mix, _f in layer_plan(cfg):

@@ -28,8 +28,8 @@ are redirected there), so the allocator hands out ids from
 
 ``MixerStateCache`` at the bottom is what the engine instantiates: the
 composite over the per-layer layouts (``mixer_state.layer_layouts``):
-the paged and ring block layouts, or the recurrent slots of an SSM
-stack (a stack of both, the jamba hybrid, is not ported).
+the paged and ring block layouts, the recurrent slots of an SSM stack,
+or both at once (the jamba hybrid), admitted all-or-nothing.
 """
 from __future__ import annotations
 
@@ -234,12 +234,12 @@ class BlockKVCache(MixerState):
 
 class MixerStateCache:
     """Composite MixerState the engine instantiates: one block-family
-    state (paged/ring over K/V or latent pools) or one slot-family state
-    (recurrent slots), dispatching per layer via
+    state (paged/ring over K/V or latent pools) and/or one slot-family
+    state (recurrent slots), dispatching per layer via
     ``mixer_state.layer_layouts``.  Presents the per-layer pool list the
     step functions update in place, and passes every request-lifecycle
-    call to its member.  A stack that needs both (the jamba hybrid)
-    raises."""
+    call to its members all-or-nothing: a hybrid stack (jamba) admits a
+    request only with a slot AND its prompt blocks."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  max_model_len: int, dtype=torch.float32,
@@ -251,11 +251,6 @@ class MixerStateCache:
                     if l != LAYOUT_SLOT]
         slot_ids = [i for i, l in enumerate(self.layouts)
                     if l == LAYOUT_SLOT]
-        if attn_ids and slot_ids:
-            raise NotImplementedError(
-                f"{cfg.name}: a stack of block and slot mixer-state "
-                "layouts is not ported (ROADMAP.md queue 1, item 5: the "
-                "jamba hybrid)")
         self.ring_blocks = (
             ring_block_count(cfg.sliding_window, block_size, prefill_chunk)
             if (attn_ids and cfg.sliding_window) else 0)
@@ -266,15 +261,17 @@ class MixerStateCache:
             if attn_ids else None
         self.ssm = RecurrentSlotState(cfg, slot_ids, num_slots, dtype,
                                       device) if slot_ids else None
-        self._member = self.attn if self.attn is not None else self.ssm
+        self._members = [m for m in (self.attn, self.ssm) if m is not None]
 
     # ------------------------------------------------------ device pools
 
     @property
     def pools(self) -> list[dict]:
+        """Every member's pools, each at its layer's place."""
         out = [None] * len(self.layouts)
-        for li, p in zip(self._member.layer_ids, self._member.pools):
-            out[li] = p
+        for m in self._members:
+            for li, p in zip(m.layer_ids, m.pools):
+                out[li] = p
         return out
 
     # ------------------------------------------------------ capacity
@@ -288,13 +285,29 @@ class MixerStateCache:
     # ------------------------------------------------------ lifecycle
 
     def alloc_prompt(self, req) -> bool:
-        return self._member.alloc_prompt(req)
+        """Admission: the slot first, then the prompt's blocks.  When the
+        blocks are short the slot goes back and the request is as
+        before (``pos`` 0), as in the JAX package's composite; its joint
+        prefix match with the slot snapshots is not ported (ROADMAP.md
+        queue 1, item 7)."""
+        if self.ssm is not None and not self.ssm.alloc_prompt(req):
+            return False
+        if self.attn is not None and not self.attn.alloc_prompt(req):
+            if self.ssm is not None:
+                self.ssm.release(req)
+                req.pos = 0
+            return False
+        return True
 
     def ensure_capacity(self, req, n_tokens: int) -> bool:
-        return self._member.ensure_capacity(req, n_tokens)
+        if self.ssm is not None and \
+                not self.ssm.ensure_capacity(req, n_tokens):
+            return False
+        return self.attn is None or self.attn.ensure_capacity(req, n_tokens)
 
     def release(self, req):
-        self._member.release(req)
+        for m in self._members:
+            m.release(req)
 
     # ------------------------------------------------------ step arrays
 
@@ -315,6 +328,10 @@ class MixerStateCache:
     # ------------------------------------------------------ stats
 
     def mixer_section(self) -> dict:
+        """Each member's stats: ``blocks``, ``slots`` or both."""
+        out = {}
         if self.attn is not None:
-            return {"blocks": self.attn.stats()}
-        return {"slots": self.ssm.stats()}
+            out["blocks"] = self.attn.stats()
+        if self.ssm is not None:
+            out["slots"] = self.ssm.stats()
+        return out

@@ -8,10 +8,10 @@ without draining it (continuous batching).
 The decode batch is padded to power-of-two buckets and prefill always
 runs at the fixed (1, prefill_chunk) shape, as in the JAX package (there
 the fixed shapes bound the jit cache; here they keep the kernels'
-launch shapes few).  The mixer-state pools (K/V or latent blocks, or
-recurrent SSM slots) live on the engine's device and the step functions
-update them in place.  Token selection happens on the
-device, next to the logits (greedy in this slice).  A stop token
+launch shapes few).  The mixer-state pools (K/V or latent blocks,
+recurrent SSM slots, or both in a hybrid stack) live on the engine's
+device and the step functions update them in place.  Token selection
+happens on the device, next to the logits (greedy in this slice).  A stop token
 finishes the request at the step it is emitted, releasing its blocks
 or slot immediately.
 
@@ -130,8 +130,9 @@ class Engine:
             num_slots=ecfg.num_slots or ecfg.max_batch + 1,
             prefill_chunk=ecfg.prefill_chunk, device=self.device)
         # admission token budget: 0 = derive from the block pool (2x
-        # its token capacity).  Slot-only stacks have no block pool;
-        # max_batch and the slots bound their admission instead.
+        # its token capacity; a hybrid's too).  Slot-only stacks have
+        # no block pool; max_batch and the slots bound their admission
+        # instead.
         mtif = ecfg.max_tokens_in_flight
         if mtif == 0:
             a = self.cache.attn

@@ -60,8 +60,11 @@ def check_config(arch, shrink):
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
-def check_round_trip(arch, jax_params, torch_params):
-    jcfg, tcfg = cfgs(arch, "bnn")
+def check_round_trip(arch, jax_params, torch_params, arch_cfgs=None):
+    """Every leaf of every layer equal after ``params_from_numpy``, the
+    layers in plan order; ``arch_cfgs`` (jax, port) replaces the reduced
+    configs of ``arch``."""
+    jcfg, tcfg = arch_cfgs or cfgs(arch, "bnn")
     layers = list(JM._iter_layers(jcfg, jax_params))
     assert len(layers) == len(torch_params["layers"]) == tcfg.n_layers
     assert [(m, f) for m, f, _ in layers] == M.layer_plan(tcfg)

@@ -48,7 +48,9 @@ def test_import_hygiene_no_jax_no_repro():
         "             or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
         "print('N', sum(m.startswith('repro_torch') for m in sys.modules))\n"
-        "print('SSM', 'repro_torch.layers.mamba2' in sys.modules)\n")
+        "print('SSM', 'repro_torch.layers.mamba2' in sys.modules)\n"
+        "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
+        "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -56,6 +58,9 @@ def test_import_hygiene_no_jax_no_repro():
     n = int(res.stdout.split("N ")[1].split()[0])
     assert n >= 25, res.stdout          # every subpackage was walked
     assert "SSM True" in res.stdout, res.stdout   # the SSD mixer too
+    # every config of the registry (11) and base.py: the jamba hybrid,
+    # the dense and the front-end configs too
+    assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout
 
 
 @pytest.mark.parametrize("s", SIZES)
@@ -126,6 +131,28 @@ def test_xnor_bit_exact(s):
                               scale=False).numpy(),
         np.asarray(jxnor.bnn_matmul_infer(jnp.asarray(x), jnp.asarray(w),
                                           scale=False)))
+
+
+@pytest.mark.parametrize("block_words", [1, 100, 1 << 26])
+def test_xnor_matmul_in_row_blocks_bit_exact(block_words, monkeypatch):
+    """The plain XNOR GEMM computes in blocks of rows (its int64
+    temporaries would not fit beside a full-width model at M = 128):
+    one row a block, a few rows, one block, all equal to the JAX
+    package's, at leading batch dimensions too."""
+    rng = np.random.default_rng(9)
+    s = 100
+    i01 = rng.integers(0, 2, size=(2, 37, s)).astype(np.uint8)
+    w01 = rng.integers(0, 2, size=(5, s)).astype(np.uint8)
+    ip_j = jpacking.pack_bits(jnp.asarray(i01))
+    wp_j = jpacking.pack_bits(jnp.asarray(w01))
+    want = np.asarray(jxnor.xnor_matmul_packed(ip_j, wp_j, s))
+    monkeypatch.setattr(xnor, "XNOR_BLOCK_WORDS", block_words)
+    ip_t = torch.from_numpy(np.array(ip_j).view(np.int32))
+    wp_t = torch.from_numpy(np.array(wp_j).view(np.int32))
+    np.testing.assert_array_equal(
+        xnor.xnor_matmul_packed(ip_t, wp_t, s).numpy(), want)
+    np.testing.assert_array_equal(
+        xnor.xnor_matmul_packed(ip_t[0], wp_t, s).numpy(), want[0])
 
 
 @pytest.mark.parametrize("shrink", [False, True])

@@ -96,8 +96,9 @@ def test_engine_stats_match_jax(served):
 
 
 def _hybrid_cfg(case):
-    """The reduced jamba hybrid, or the reduced mamba2 with one attention
-    layer in every period of 2: both mix slot and block layouts."""
+    """The reduced jamba hybrid, the reduced mamba2 with one attention
+    layer in every period of 2 (both mix slot and block layouts), or a
+    reduced front-end config."""
     import dataclasses
 
     from repro import configs as jconfigs
@@ -105,23 +106,43 @@ def _hybrid_cfg(case):
     from repro_torch.configs.base import ArchConfig
     if case == "jamba":
         j = jreduced(jconfigs.get_config("jamba-1.5-large-398b"))
-    else:
+    elif case == "mamba2_attn_period":
         j = jreduced(jconfigs.get_config("mamba2-1.3b")).replace(
             attn_kind="gqa", attn_period=2, n_heads=4, n_kv_heads=4,
             head_dim=16)
+    else:
+        j = jreduced(jconfigs.get_config(case))
     return ArchConfig(**dataclasses.asdict(j))
 
 
-@pytest.mark.parametrize("case", ["jamba", "mamba2_attn_period"])
+@pytest.mark.parametrize("case", ["jamba", "mamba2_attn_period",
+                                  "musicgen-large", "pixtral-12b"])
 def test_ssm_and_hybrid_stacks_are_refused_by_name(case):
     """Stacks that mix SSM and attention layers (the jamba hybrid) are
-    refused by the model stack and by the mixer-state cache, naming
-    their ROADMAP item; a pure SSM stack (mamba2) is served."""
+    admitted by the model stack, and the mixer-state cache builds both
+    members, the slots for the SSM layers and the blocks for the
+    attention layers; the modality front-ends stay refused by the model
+    stack, naming their ROADMAP item."""
     from repro_torch.models import transformer as M
     from repro_torch.serving.block_cache import MixerStateCache
     cfg = _hybrid_cfg(case)
-    assert {mix for mix, _f in M.layer_plan(cfg)} == {"ssm", "gqa"}
-    with pytest.raises(NotImplementedError, match="item 5: the jamba"):
-        M.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="item 5: the jamba"):
-        MixerStateCache(cfg, num_blocks=9, block_size=4, max_model_len=32)
+    if cfg.frontend != "none":
+        with pytest.raises(NotImplementedError,
+                           match=f"{cfg.frontend} front-end is not ported "
+                                 r"\(ROADMAP.md queue 1, item 6\)"):
+            M.check_supported(cfg)
+        return
+    plan = M.layer_plan(cfg)
+    assert {mix for mix, _f in plan} == {"ssm", "gqa"}
+    M.check_supported(cfg)
+    cache = MixerStateCache(cfg, num_blocks=9, block_size=4, max_model_len=32,
+                            num_slots=3)
+    assert cache.attn.layer_ids == [i for i, (m, _f) in enumerate(plan)
+                                    if m == "gqa"]
+    assert cache.ssm.layer_ids == [i for i, (m, _f) in enumerate(plan)
+                                   if m == "ssm"]
+    pools = cache.pools
+    assert len(pools) == len(plan)
+    for (mix, _f), pool in zip(plan, pools):
+        assert set(pool) == ({"h", "conv"} if mix == "ssm" else {"k", "v"})
+    assert set(cache.mixer_section()) == {"blocks", "slots"}
