@@ -65,7 +65,8 @@ def _workload(arch: str):
         cfg = get_config(arch).replace(precision="bnn")
         return (cfg, EngineConfig(block_size=16, num_blocks=1025,
                                   max_batch=8, prefill_chunk=128,
-                                  max_model_len=1024),
+                                  max_model_len=1024,
+                                  **chip_smoke.NO_PREFIX),
                 chip_smoke.traffic(cfg.vocab), 64, 8, 10,
                 chip_smoke.SERVING_KERNELS)
     if arch == "mamba2-1.3b":

@@ -33,7 +33,9 @@ Phases (each check raises, and the script then exits non-zero):
               kernel name (torch.profiler).
   3. serving  bnn-lm-100m at full width (precision="bnn", seeded random
               weights) served by the port's Engine: 16 requests, 8 of
-              them submitted after 10 steps.  The serving kernels'
+              them submitted after 10 steps (no prefix cache, recompute
+              preemption, as phases 4 and 7 too: their decode replays
+              assume no adopted blocks).  The serving kernels'
               launch counts over this run must be > 0.
   4. e2e      two finished requests re-run by two routes, each once
               through the kernels and once through the plain versions,
@@ -53,6 +55,30 @@ Phases (each check raises, and the script then exits non-zero):
               first difference must be one of the accepted kinds, and
               is printed), its greedy tokens equal the engine's up to
               that point.
+  serve       the server as users start it: bnn-lm-100m at published
+              width (precision="bnn", seeded weights) through
+              repro_torch.launch.serve's run functions.  24 requests:
+              one of 4 system prompts of 384 tokens, then a unique
+              suffix of 32-256 tokens in whole blocks (3 repeat an
+              earlier prompt whole), 64 new tokens each, 8 at step 0
+              and 16 after 8 steps, max_batch=8, prefill_chunk=128.
+              A: greedy with the JAX engine's defaults (prefix cache,
+              swap preemption) over 193 blocks: prefix hits, a
+              copy-on-write copy, swap-outs and swap-ins must occur,
+              and every swap-in's blocks must be bit-equal to their
+              bytes at swap-out.  B: greedy, no prefix cache,
+              recompute, 1025 blocks: tokens equal A's.  C: sampled
+              (temperature 0.8, top-k 50, top-p 0.95, seed 1000 +
+              request) under A's config; D: the same requests all at
+              once under B's: tokens equal C's; C': C with a stop
+              token for two requests (their token 10 in C): each ends
+              at the stop token's first occurrence, equal to C up to
+              there.  E: the legacy loop (batch 4, prompts of 128, 64
+              new, greedy) equals the paged serve on the same prompts.
+              Prints tokens/s, prefill tokens skipped, swaps and the
+              bytes and ms of their copies, what sampling adds to a
+              decode step, and peak memory; the serving kernels'
+              launches over A-E must be > 0.
   5. conv     the paper's binarized-conv path (core/conv.bnn_conv2d) at
               every groups == 1 layer of VGG-small, ResNet18,
               MobileNet_V2 and ShuffleNet_V2 (photonic/workloads.py),
@@ -122,7 +148,7 @@ Phases (each check raises, and the script then exits non-zero):
               tile).
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, conv, mixtral, deepseek, mamba2, jamba), error,
+on its paths (serving, serve, conv, mixtral, deepseek, mamba2, jamba), error,
 times and bound; the last line is the run's verdict with the device.
 Imports nothing of JAX or the JAX package.
 """
@@ -1484,6 +1510,240 @@ def phase_e2e(dev, cfg, params, eng, out, rids=None, held=None):
         f"{flips_total}")
 
 
+# ------------------------------------------------------------- [serve]
+#
+# The server as users start it: bnn-lm-100m at published width through
+# repro_torch.launch.serve's run functions, with the JAX engine's
+# defaults (prefix cache, swap preemption), greedy and sampled decoding,
+# stop tokens, and the legacy loop.
+
+# phases 3, 4 and 7 run without the prefix cache and with recompute
+# preemption, as they did before the engine took the JAX defaults: their
+# decode replays assume no adopted blocks
+NO_PREFIX = dict(prefix_cache=False, preempt_policy="recompute")
+# ~193 blocks: 8 running requests of 400-700 tokens need more than the
+# pool holds even with their system prompts shared, so requests swap
+SERVE_ENGINE = dict(block_size=16, num_blocks=194, max_batch=8,
+                    prefill_chunk=128, max_model_len=1024)
+# no pressure: no prefix cache, recompute, a pool for every request
+SERVE_CALM = dict(SERVE_ENGINE, num_blocks=1025, **NO_PREFIX)
+SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+SERVE_NEW, SERVE_LATE, SERVE_LATE_AFTER = 64, 16, 8
+SERVE_STOP_ROWS, SERVE_STOP_AT = (3, 17), 10
+SERVE_LEGACY = dict(batch=4, prompt_len=128, gen=64)
+
+
+def serve_traffic(vocab: int, seed: int = 4) -> list[np.ndarray]:
+    """24 prompts: one of 4 system prompts of 384 tokens (24 blocks of
+    16), then a unique suffix of 32-256 tokens in whole blocks; requests
+    12, 17 and 22 repeat requests 8, 13 and 18 whole, while those still
+    hold their blocks (every block matched: the last token is prefilled
+    again, into a copy)."""
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(0, vocab, 384) for _ in range(4)]
+    prompts = [np.concatenate([systems[i % 4], rng.integers(
+        0, vocab, 16 * int(rng.integers(2, 17)))]) for i in range(21)]
+    for at, src in ((12, 8), (17, 13), (22, 18)):
+        prompts.insert(at, prompts[src].copy())
+    return prompts
+
+
+def serve_sampling(b: int, stop=()):
+    from repro_torch.serving import SamplingParams
+    return SamplingParams(**SERVE_SAMPLING, seed=1000 + b, stop=stop)
+
+
+def watch_swaps(eng, rec: dict):
+    """Wrap the engine's block pool so that every swap-out records the
+    request's blocks (every layer's K and V) and every successful
+    swap-in checks the restored blocks bit-equal to them."""
+    attn = eng.cache.attn
+    swap_out, swap_in = attn.swap_out, attn.swap_in
+    rec.update(saved={}, checked=0, blocks=0, out_ms=[], in_ms=[])
+
+    def _span_ms(name, call):
+        t = attn.tracer.span_total(name)
+        ok = call()
+        return ok, 1e3 * (attn.tracer.span_total(name) - t)
+
+    def _blocks(req):
+        ids = torch.tensor(req.blocks, dtype=torch.long,
+                           device=attn._device())
+        return [{k: v.index_select(0, ids).clone() for k, v in p.items()}
+                for p in attn.pools]
+
+    def out(req):
+        rec["saved"][req.rid] = _blocks(req)
+        n = attn.swapped_blocks
+        _ok, ms = _span_ms("swap_out", lambda: swap_out(req))
+        rec["out_ms"].append((attn.swapped_blocks - n, ms))
+
+    def back(req):
+        ok, ms = _span_ms("swap_in", lambda: swap_in(req))
+        want = rec["saved"].pop(req.rid)
+        if ok:
+            rec["in_ms"].append((len(req.blocks), ms))
+            for li, (got, w) in enumerate(zip(_blocks(req), want)):
+                for k in w:
+                    if not torch.equal(got[k], w[k]):
+                        raise AssertionError(
+                            f"[serve] rid {req.rid}: layer {li} {k} not "
+                            "bit-equal after the swap round trip")
+            rec["checked"] += 1
+            rec["blocks"] += len(req.blocks)
+        elif ok is False:           # deferred: swapped out still
+            rec["saved"][req.rid] = want
+        return ok
+
+    attn.swap_out, attn.swap_in = out, back
+
+
+def _serve_line(tag, eng, wall):
+    st = eng.stats()
+    log(f"[serve] {tag}: total_tokens_per_s={st['total_tokens_per_s']:.1f} "
+        f"decode_tokens_per_s={st['decode_tokens_per_s']:.1f} "
+        f"steps={st['steps']} decode_calls={st['decode_calls']} "
+        f"prefill_calls={st['prefill_calls']} "
+        f"prefill_tokens={st['prefill_tokens']} wall_s={wall:.3f}")
+    return st
+
+
+def phase_serve(dev, smi: str, smoke: bool = False):
+    """The [serve] phase (A-E of the module docstring) on ``dev``:
+    bnn-lm-100m at published width, seeded weights (``smoke``: the
+    reduced config, as the CPU test runs it; the traffic's lengths and
+    content are the same).  Returns the kernel launches over A-E."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig, sample_tokens
+    arch = "bnn-lm-100m"
+    cfg, params = SV.setup(arch, smoke=smoke, precision="bnn", seed=0,
+                           device=dev)
+    cuda = dev.type == "cuda"
+    prompts = serve_traffic(cfg.vocab)
+    ops.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    log(f"[serve] {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers} "
+        f"vocab={cfg.vocab} requests={len(prompts)} prompt_tokens="
+        f"{sum(map(len, prompts))} new={SERVE_NEW} late={SERVE_LATE} "
+        f"after {SERVE_LATE_AFTER} steps; {smi}")
+
+    def serve(tag, ecfg, sampling=None, late=SERVE_LATE, watch=None,
+              stops=None):
+        def sp(b):
+            if sampling is None:
+                return SV.SamplingParams()
+            return sampling(b, stops.get(b, ())) if stops else sampling(b)
+        t0 = time.perf_counter()
+        eng, seqs = SV.run(params, cfg, prompts, SERVE_NEW,
+                           EngineConfig(**ecfg), sampling=sp,
+                           late_after=SERVE_LATE_AFTER if late else 0,
+                           n_late=late, watch=watch, device=dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        st = _serve_line(tag, eng, time.perf_counter() - t0)
+        for b, s in enumerate(seqs):
+            if not ((s >= 0) & (s < cfg.vocab)).all():
+                raise AssertionError(f"[serve] {tag}: request {b} emitted "
+                                     "a token out of the vocab")
+        return eng, seqs, st
+
+    def same(tag, got, want, upto=None):
+        for b, (g, w) in enumerate(zip(got, want)):
+            n = len(w) if upto is None else upto[b]
+            if len(g) != n or not np.array_equal(g, w[:n]):
+                j = next((i for i in range(min(len(g), n)) if g[i] != w[i]),
+                         min(len(g), n))
+                raise AssertionError(
+                    f"[serve] {tag}: request {b} parts at position {j} "
+                    f"(lengths {len(g)} vs {n})")
+
+    # A: greedy, prefix cache and swap (the defaults)
+    rec = {}
+    eng_a, out_a, st_a = serve("A greedy prefix+swap", SERVE_ENGINE,
+                               watch=lambda e: watch_swaps(e, rec))
+    pc, sw = st_a["prefix_cache"], st_a["swap"]
+    log(f"[serve] A prefix_cache hits={pc['hits']} queries={pc['queries']} "
+        f"hit_rate={pc['hit_rate']:.3f} skipped_prefill_tokens="
+        f"{pc['skipped_prefill_tokens']} cow_copies={pc['cow_copies']} "
+        f"evictions={pc['evictions']} preemptions={st_a['preemptions']}")
+    log(f"[serve] A swap swap_outs={sw['swap_outs']} swap_ins={sw['swap_ins']}"
+        f" swapped_blocks={sw['swapped_blocks']} readopted_blocks="
+        f"{sw['readopted_blocks']} swap_lost={eng_a.scheduler.swap_losts} "
+        f"d2h_bytes={sw['swap_out_bytes']} d2h_ms={1e3 * sw['swap_out_s']:.3f}"
+        f" h2d_ms={1e3 * sw['swap_in_s']:.3f} checked_swap_ins="
+        f"{rec['checked']} checked_blocks={rec['blocks']} "
+        f"peak_used_blocks={st_a['mixer']['blocks']['peak_used_blocks']}")
+    log(f"[serve] A each swap: out (blocks copied, ms) "
+        f"{[(n, round(ms, 3)) for n, ms in rec['out_ms']]}; in (blocks "
+        f"held after it, re-adopted ones included, ms) "
+        f"{[(n, round(ms, 3)) for n, ms in rec['in_ms']]}")
+    if pc["hits"] <= 0 or pc["cow_copies"] <= 0:
+        raise AssertionError("[serve] A: no prefix hit or no copy-on-write")
+    if sw["swap_outs"] <= 0 or sw["swap_ins"] <= 0:
+        raise AssertionError("[serve] A: no swap-out or no swap-in")
+    if rec["checked"] != sw["swap_ins"]:
+        raise AssertionError("[serve] A: a swap-in went unchecked")
+    # B: greedy, no prefix cache, recompute, no pressure
+    eng_b, out_b, st_b = serve("B greedy calm", SERVE_CALM)
+    same("B == A", out_b, out_a)
+    # C: sampled under A's config; D: the same requests all at once
+    # under B's; C': two requests stop at their token 10 of C
+    eng_c, out_c, st_c = serve("C sampled prefix+swap", SERVE_ENGINE,
+                               serve_sampling)
+    eng_d, out_d, _ = serve("D sampled calm, all at once", SERVE_CALM,
+                            serve_sampling, late=0)
+    same("D == C", out_d, out_c)
+    stops, upto = {}, [len(s) for s in out_c]
+    for b in SERVE_STOP_ROWS:
+        gen = list(out_c[b][len(prompts[b]):])
+        stops[b] = (int(gen[SERVE_STOP_AT]),)
+        upto[b] = len(prompts[b]) + gen.index(stops[b][0]) + 1
+    _e, out_s, _ = serve("C' sampled with stop tokens", SERVE_ENGINE,
+                         serve_sampling, stops=stops)
+    same("C' == C up to the first stop token", out_s, out_c, upto)
+    log(f"[serve] C' stop tokens {stops}: requests end at lengths "
+        f"{[len(out_s[b]) for b in SERVE_STOP_ROWS]} (prompt + first "
+        f"occurrence + 1)")
+    # E: the legacy loop against the paged serve on the same prompts
+    lp = SV.make_prompts(cfg, SERVE_LEGACY["batch"],
+                         SERVE_LEGACY["prompt_len"], 0)
+    legacy, legacy_tps = SV.run_legacy(params, cfg, lp, SERVE_LEGACY["gen"],
+                                       device=dev)
+    paged = SV.serve(arch, smoke=smoke, params=params, prompts=lp,
+                     device=dev, gen=SERVE_LEGACY["gen"], precision="bnn",
+                     verbose=False)
+    same("E legacy == paged", list(legacy), list(paged))
+    log(f"[serve] E legacy tokens/s={legacy_tps:.1f} (batch "
+        f"{SERVE_LEGACY['batch']}, prompts {SERVE_LEGACY['prompt_len']}, "
+        f"{SERVE_LEGACY['gen']} new); tokens equal the paged serve's")
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    log(f"[serve] launches {json.dumps(launches)}")
+    for name in SERVING_KERNELS if cuda else ():
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "serve path")
+    # what sampling adds to one decode step (B = 8 rows, V = 32000)
+    c_step = st_c["wall_s"] / max(st_c["steps"], 1)
+    a_step = st_a["wall_s"] / max(st_a["steps"], 1)
+    if cuda:
+        x = torch.randn(8, cfg.vocab, device=dev)
+        args = [torch.full((8,), v, device=dev) for v in (
+            1000, 0.8, 50, 0.95)]
+        args[0], args[2] = args[0].long(), args[2].long()
+        idx = torch.arange(8, device=dev) + 500
+        greedy_ms = eager_ms(lambda: sample_tokens(x))
+        sampled_ms = eager_ms(lambda: sample_tokens(x, idx, *args))
+        log(f"[serve] sampling per decode step (B=8, V={cfg.vocab}): "
+            f"sample_tokens {sampled_ms:.4f} ms vs greedy argmax "
+            f"{greedy_ms:.4f} ms (eager, synchronised); engine wall per "
+            f"step C {1e3 * c_step:.3f} ms vs A {1e3 * a_step:.3f} ms")
+        log(f"[serve] peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    return launches
+
+
 # --------------------------------------------------------------- phase 5
 
 def check_xnor_popcount(dev, m: int, n: int, s: int, gen: torch.Generator,
@@ -1755,18 +2015,18 @@ def phase_photonic(st: dict):
 
 
 MIXTRAL_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
-                      prefill_chunk=128, max_model_len=8192)
+                      prefill_chunk=128, max_model_len=8192, **NO_PREFIX)
 DEEPSEEK_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
-                       prefill_chunk=128, max_model_len=1024)
+                       prefill_chunk=128, max_model_len=1024, **NO_PREFIX)
 # 5 allocatable recurrent slots under a batch of 8: admissions wait for a
 # slot, and released slots are handed out again
 MAMBA2_ENGINE = dict(max_batch=8, num_slots=6, prefill_chunk=128,
-                     max_model_len=2048)
+                     max_model_len=2048, **NO_PREFIX)
 # jamba: 5 slots under a batch of 8 and a block pool of 256 blocks (4096
 # tokens) under 12 prompts of 16-1500 tokens: admissions wait for a slot
 # with blocks free, and find a slot but too few blocks
 JAMBA_ENGINE = dict(block_size=16, num_blocks=257, max_batch=8, num_slots=6,
-                    prefill_chunk=128, max_model_len=2048)
+                    prefill_chunk=128, max_model_len=2048, **NO_PREFIX)
 JAMBA_PUBLISHED_LAYERS = (2, 5)      # the served window of the 72 layers
 
 
@@ -1961,10 +2221,12 @@ def main() -> int:
     rows.update(phase_attention_variants(dev))
     phase_jamba_kernels(dev, rows)
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
-                        prefill_chunk=128, max_model_len=1024)
+                        prefill_chunk=128, max_model_len=1024, **NO_PREFIX)
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
     del eng, params, out
+    serve_launches = phase_serve(dev, smi)
+    gc.collect()
     conv_rows, conv_launches = phase_conv(dev)
     phase_photonic(st)
     # mixtral: 2 prompts longer than its 4224-token ring (one early, one
@@ -2021,7 +2283,8 @@ def main() -> int:
             "paged_attention_mla": rows["paged_attention_mla"][0],
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
-    paths = {"serving": launches, "conv": conv_launches, "mixtral": mixtral,
+    paths = {"serving": launches, "serve": serve_launches,
+             "conv": conv_launches, "mixtral": mixtral,
              "deepseek": deepseek, "mamba2": mamba2, "jamba": jamba}
     kernels = []
     for k in ops.KERNELS:

@@ -4,8 +4,8 @@ A copy of the JAX package's registry, every config compared field by
 field in the tests: the paper-native BNN LM, the dense decoders, mixtral
 (sliding-window ring + MoE), deepseek-v2-lite (MLA + MoE), mamba2 (SSD
 over recurrent slots) and jamba (SSD slots beside paged GQA attention,
-with MoE).  musicgen and pixtral are registered, but the model stack
-refuses their modality front-ends (ROADMAP.md queue 1, item 6).
+with MoE), and musicgen and pixtral with their stub modality front-ends
+(precomputed frame / patch embeddings).
 """
 from __future__ import annotations
 

@@ -3,8 +3,7 @@
 48L d_model=2048 32H (kv=32) d_ff=8192 vocab=2048.  The EnCodec /
 conditioning frontend is a STUB in the JAX package (precomputed frame
 embeddings (B, T, d_model)); the backbone predicts codebook tokens.  The
-port refuses the front-end until it is ported (ROADMAP.md queue 1, item
-6).
+port runs the same stub (``logits_fn(..., embeds=...)``).
 (MusicGen uses learned positions + LayerNorm + GELU; we keep LayerNorm
 + GELU and use RoPE for positions — noted adaptation.)
 """

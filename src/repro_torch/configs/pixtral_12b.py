@@ -3,8 +3,8 @@
 40L d_model=5120 32H GQA(kv=8) d_ff=14336 vocab=131072 (mistral-nemo
 style backbone, head_dim=128).  The pixtral-ViT frontend is a STUB in
 the JAX package (precomputed patch embeddings prepended to the text
-tokens, frontend_prefix of the sequence).  The port refuses the
-front-end until it is ported (ROADMAP.md queue 1, item 6).
+tokens, frontend_prefix of the sequence).  The port runs the same stub
+(``logits_fn(..., prefix_embeds=..., tokens=...)``).
 """
 from repro_torch.configs.base import ArchConfig
 

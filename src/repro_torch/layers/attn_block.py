@@ -1,6 +1,8 @@
 """GQA attention block: QKV/O projections + RoPE around the attention
-core, over a full sequence (``forward``) or the block-paged KV cache of
-the serving engine (``paged_decode_step`` / ``prefill_chunk``)."""
+core, over a full sequence (``forward``), the dense per-batch cache of
+the legacy decode loop (``init_cache`` / ``decode_step``) or the
+block-paged KV cache of the serving engine (``paged_decode_step`` /
+``prefill_chunk``)."""
 from __future__ import annotations
 
 import torch
@@ -44,6 +46,44 @@ def forward(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     o = o.reshape(b, t, cfg.n_heads * cfg.head_dim)
     return C.dense(o, params["o"], precision, impl)
+
+
+# ---------------------------------------------------------------------------
+# dense per-batch KV cache (the legacy decode loop, the engine's oracle)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
+               device=None) -> dict:
+    """(B, L, Hkv, Dh) K and V; a sliding-window config keeps a
+    window-sized ring (L = min(max_len, window))."""
+    length = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(params, cfg, x: torch.Tensor, cache, length: int, *,
+                precision: str = "bf16", impl: str = "auto"
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token decode at position ``length`` (one scalar for the whole
+    batch); the cache's K/V are written in place at slot ``length``
+    (``length % L`` for a sliding-window ring).  x (B, 1, d)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), length, dtype=torch.long,
+                           device=x.device)
+    q, k, v = _qkv(params, cfg, x, positions, precision, impl)
+    size = cache["k"].shape[1]
+    slot = length % size if cfg.sliding_window else length
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    # a ring holds the last `window` tokens: attending over all valid
+    # slots with no causal mask within them is the same attention
+    o = attn_mod.attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                           causal=False, kv_len=min(length + 1, size),
+                           q_chunk=1, kv_chunk=cfg.kv_chunk)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return C.dense(o, params["o"], precision, impl), cache
 
 
 # ---------------------------------------------------------------------------

@@ -87,6 +87,39 @@ def forward(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# dense per-batch latent cache (the legacy decode loop)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
+               device=None) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), **kw),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  **kw)}
+
+
+def decode_step(params, cfg, x: torch.Tensor, cache, length: int, *,
+                precision: str = "bf16", impl: str = "auto"
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token decode at position ``length``: the latents are written
+    in place, then the whole cache is decompressed (``_expand_kv``) and
+    attended causally up to ``length``.  x (B, 1, d)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), length, dtype=torch.long,
+                           device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _project(params, cfg, x, positions,
+                                            precision, impl)
+    cache["c_kv"][:, length] = c_kv[:, 0]
+    cache["k_rope"][:, length] = k_rope[:, 0]
+    k, v = _expand_kv(params, cfg, cache["c_kv"], cache["k_rope"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = attn_mod.attention(q, k, v, causal=True, q_offset=length,
+                           kv_len=length + 1)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.v_head_dim)
+    return C.dense(o, params["o"], precision, impl), cache
+
+
+# ---------------------------------------------------------------------------
 # block-paged latent cache (serving engine; see repro_torch/serving/).
 # The block-table machinery is the GQA pool's (attn_block.scatter_blocks
 # is shape-generic); each block holds the COMPRESSED latents, per token

@@ -22,10 +22,21 @@ The JAX package stacks the repeated layer period along a leading axis
 for ``lax.scan``; the port keeps one dict per layer, which is what its
 eager layer loop walks (``interop.params_from_numpy`` unstacks).
 
+  audio / vlm  dense backbone, stub modality front-end
+          (precomputed frame / patch embeddings)     (musicgen, pixtral)
+
 Every projection dispatches through the OXBNN precision modes
 (kernels/ops.bnn_dense, ops.expert_dense): bf16 baseline and bnn
-(packed XNOR-popcount inference).  The modality front-ends (musicgen,
-pixtral) are not ported yet (ROADMAP.md queue 1, item 6).
+(packed XNOR-popcount inference).  The stub front-ends are the JAX
+package's: the full-sequence forward takes ``prefix_embeds`` (the vlm
+patch embeddings) and ``embeds`` (the audio frame embeddings) beside
+the tokens; the serving paths and the legacy decode loop take tokens.
+
+Three ways through the stack: the full-sequence forward
+(``hidden_states`` / ``logits_fn``), the legacy decode loop over a
+dense per-batch cache (``init_cache`` / ``decode_step``, the serving
+engine's oracle), and the serving paths over paged pools
+(``prefill_chunk`` / ``paged_decode_step``).
 """
 from __future__ import annotations
 
@@ -81,17 +92,16 @@ def segments(cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig):
-    """Raise for what the port does not run yet: the modality
-    front-ends."""
+    """Raise for a layer kind the port does not run (every config of
+    ``configs/`` runs)."""
     for mix, f in layer_plan(cfg):
         if mix not in ("gqa", "mla", "ssm") or \
                 f not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({mix}, {f}) is not ported")
-    if cfg.frontend != "none":
+    if cfg.frontend not in ("none", "audio", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.frontend} front-end is not ported "
-            "(ROADMAP.md queue 1, item 6)")
+            f"{cfg.name}: front-end {cfg.frontend!r} is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +147,12 @@ def init(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
     return params
 
 
+def abstract_init(cfg: ArchConfig, seed: int = 0) -> dict:
+    """The params' shapes and dtypes without allocating anything: the
+    init on the ``meta`` device (the JAX package's ``eval_shape``)."""
+    return init(torch.Generator().manual_seed(seed), cfg, device="meta")
+
+
 def _iter_layers(cfg: ArchConfig, params):
     """Yield (mix, ffn_kind, layer_params) in plan order."""
     for (mix, f), p in zip(layer_plan(cfg), params["layers"], strict=True):
@@ -168,7 +184,19 @@ def _ffn(params, cfg: ArchConfig, f: str, x, impl, *, paged: bool,
 
 
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["w"][tokens]
+    return _embed_inputs(params, cfg, tokens)
+
+
+def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
+                  prefix_embeds=None) -> torch.Tensor:
+    """The input hidden sequence: ``prefix_embeds`` (vlm patch
+    embeddings), ``embeds`` (audio frame embeddings), then the tokens'
+    embeddings, concatenated along the sequence in that order, then
+    ``embed_scale`` over the whole, as in the JAX package."""
+    parts = [e for e in (prefix_embeds, embeds) if e is not None]
+    if tokens is not None:
+        parts.append(params["embed"]["w"][tokens])
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * (cfg.d_model ** 0.5)
     return x
@@ -178,11 +206,15 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 # full forward
 
 
-def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
+                  *, embeds: torch.Tensor | None = None,
+                  prefix_embeds: torch.Tensor | None = None,
                   impl: str = "auto") -> torch.Tensor:
-    """Run the decoder stack over (B, T) tokens; returns hidden (B,T,d)."""
-    x = _embed(params, cfg, tokens)
-    b, t = tokens.shape
+    """Run the decoder stack over (B, T) tokens, or the stub front-ends'
+    (B, T, d) embeddings, or both (``_embed_inputs``); returns hidden
+    (B, T_total, d)."""
+    x = _embed_inputs(params, cfg, tokens, embeds, prefix_embeds)
+    b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
     for mix, f, p in _iter_layers(cfg, params):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
@@ -200,10 +232,65 @@ def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
 
 
-def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
+              *, embeds: torch.Tensor | None = None,
+              prefix_embeds: torch.Tensor | None = None,
               impl: str = "auto") -> torch.Tensor:
-    h = hidden_states(params, cfg, tokens, impl=impl)
+    h = hidden_states(params, cfg, tokens, embeds=embeds,
+                      prefix_embeds=prefix_embeds, impl=impl)
     return torch.matmul(h, params["head"]["w"])
+
+
+# ---------------------------------------------------------------------------
+# legacy decode: one token for the whole batch at one scalar position,
+# over a dense per-batch cache (the serving engine's oracle; the JAX
+# package's ``serve --engine legacy``).  Layers in plan order, as
+# ``_iter_layers`` walks them; the caches are one dict per layer.
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> list[dict]:
+    """Per-layer dense caches: (B, L, Hkv, Dh) K/V for GQA (a window's
+    ring for a sliding-window config), (B, L, R) latents for MLA, the
+    recurrent state for SSM layers."""
+    check_supported(cfg)
+    caches = []
+    for mix, _f in layer_plan(cfg):
+        if mix == "ssm":
+            caches.append(mamba2.init_cache(cfg, batch, dtype, device))
+        else:
+            caches.append(_mixer(mix).init_cache(cfg, batch, max_len, dtype,
+                                                 device))
+    return caches
+
+
+def _decode_layer(p, cfg: ArchConfig, mix: str, f: str, x, cache,
+                  length: int, impl: str):
+    h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+    if mix == "ssm":
+        y, cache = mamba2.decode_step(p["attn"], cfg, h, cache,
+                                      precision=cfg.precision, impl=impl)
+    else:
+        y, cache = _mixer(mix).decode_step(p["attn"], cfg, h, cache, length,
+                                           precision=cfg.precision,
+                                           impl=impl)
+    # drop-free MoE routing (``paged``), as the JAX package's legacy step
+    return _ffn(p, cfg, f, x + y, impl, paged=True), cache
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
+                length: int, *, impl: str = "auto"):
+    """tokens (B, 1) int; ``length`` the cache fill (one scalar for the
+    whole batch).  Returns (logits (B, 1, V), caches): attention caches
+    are written in place, an SSM layer's entry is its new state."""
+    x = _embed(params, cfg, tokens)
+    new = []
+    for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
+        x, c = _decode_layer(p, cfg, mix, f, x, caches[li], length, impl)
+        new.append(c)
+    x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return torch.matmul(x, params["head"]["w"]), new
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,42 @@
-"""Block-paged KV state: refcounted free-list allocator, the per-layer
-device pools, and block-table assembly.
+"""Block-paged mixer state: refcounted free-list allocator, content-
+addressed prefix index, copy-on-write, swap-to-host, and the composite
+cache over the block layouts and the recurrent slots.
 
 ``BlockKVCache`` is the block-family ``MixerState``: the device pools
 hold one (num_blocks, block_size, Hkv, Dh) K and V buffer per GQA layer,
 or one (num_blocks, block_size, R) c_kv and (num_blocks, block_size,
-Dr) k_rope latent buffer per MLA layer; this class owns the host-side
-bookkeeping — which physical blocks belong to which sequence, and the
-padded (B, max_blocks) block tables the step functions consume.  With
-``ring_blocks > 0`` the tables are sliding-window rings: a sequence
-never owns more than ``ring_blocks`` blocks, growth past them recycles
-the trailing block in place (``ring_reuses``), and the table is exactly
-``min(ceil(max_model_len / block_size), ring_blocks)`` wide — the step
-functions take the ring's capacity from that width.
+Dr) k_rope latent buffer per MLA layer; every op here is shape-generic.
+This class owns the host-side bookkeeping — which physical blocks
+belong to which sequence, the padded (B, max_blocks) block tables the
+step functions consume — and the ownership model of the JAX package:
 
-Every used block carries a refcount, as in the JAX package, where
-prefix sharing gives a block several owners; the port runs without the
-prefix index, swap-to-host and copy-on-write (ROADMAP.md queue 1, item
-7), so every block here has exactly one owner.
+  * every used block carries a REFCOUNT — a block may be owned by
+    several sequences at once (a shared prompt prefix) plus the prefix
+    index itself; it returns to the free list only when the last
+    reference drops;
+  * the PREFIX INDEX maps a content hash chain (one sha256 per full
+    token block, chained on the parent hash, ``chunk_key``: the JAX
+    package's keys) to the physical block already holding that KV — an
+    incoming prompt walks the chain and adopts every hit instead of
+    re-prefilling it;
+  * a shared block is NEVER written in place: ``make_writable`` copies
+    it to a fresh block first (copy-on-write, ``_cow_copy``);
+  * ``swap_out``/``swap_in`` move a preempted sequence's blocks to host
+    memory and back — except blocks already REGISTERED in the prefix
+    index, which the index keeps resident: ``swap_in`` re-adopts them
+    by content hash.  If the index evicted the chain while the request
+    was parked, ``swap_in`` reports the content lost and the scheduler
+    falls back to recompute.  The device-to-host copy is synchronous:
+    the host buffer is complete before the device blocks return to the
+    free list, where the next prefill may take them at once.
+
+With ``ring_blocks > 0`` the tables are sliding-window rings: a sequence
+never owns more than ``ring_blocks`` blocks, growth past them recycles
+the trailing block in place (``ring_reuses``), the table is exactly
+``min(ceil(max_model_len / block_size), ring_blocks)`` wide (the step
+functions take the ring's capacity from that width), and prefix
+registration/matching stops at the ring depth — blocks past it get
+overwritten, so only the head of the prompt is shareable.
 
 Block 0 is reserved as a scratch block (padded rows and masked writes
 are redirected there), so the allocator hands out ids from
@@ -29,9 +49,15 @@ are redirected there), so the allocator hands out ids from
 ``MixerStateCache`` at the bottom is what the engine instantiates: the
 composite over the per-layer layouts (``mixer_state.layer_layouts``):
 the paged and ring block layouts, the recurrent slots of an SSM stack,
-or both at once (the jamba hybrid), admitted all-or-nothing.
+or both at once (the jamba hybrid), admitted all-or-nothing.  The
+prefix cache and swap apply to its block member; a stack with
+recurrent slots refuses them until the slot snapshots are ported
+(ROADMAP.md queue 1, item 7).
 """
 from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -41,6 +67,54 @@ from repro_torch.models.transformer import layer_plan
 from repro_torch.serving.mixer_state import (
     LAYOUT_SLOT, MixerState, RecurrentSlotState, layer_layouts,
     ring_block_count)
+from repro_torch.serving.tracing import Tracer
+
+SLOT_SNAPSHOTS = "ROADMAP.md queue 1, item 7, \"Slot snapshots\""
+
+
+def chunk_key(parent: str, tokens: np.ndarray) -> str:
+    """Content hash of one full token block, chained on the parent
+    block's key so equal windows at different prefix depths differ (the
+    JAX package's ``chunk_key``: the same keys)."""
+    h = hashlib.sha256()
+    h.update(parent.encode())
+    h.update(np.ascontiguousarray(tokens, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def _cow_copy(pool: dict, src: int, dst: int):
+    """Block ``dst`` of every tensor in one layer's pool becomes a copy
+    of block ``src``, in place."""
+    for v in pool.values():
+        v[dst].copy_(v[src])
+
+
+def _host_restore(pool: dict, dst: torch.Tensor, host: dict):
+    """Write copies (n, block_size, ...) into blocks ``dst`` (n,) of one
+    layer's pool, in place: one ``index_copy_`` per tensor."""
+    for k, v in pool.items():
+        v.index_copy_(0, dst, host[k])
+
+
+def _sync(dev: torch.device):
+    """Wait for the device's queued work, so that a span measures the
+    copies that follow and not what was queued before them."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _split(flat: torch.Tensor, like: list[dict]) -> list[dict]:
+    """Per-layer dicts of views into one flat buffer, shaped as the
+    (n, block_size, ...) tensors of ``like``, in their order."""
+    out, at = [], 0
+    for layer in like:
+        views = {}
+        for k, shape in layer.items():
+            n = int(np.prod(shape))
+            views[k] = flat[at:at + n].view(shape)
+            at += n
+        out.append(views)
+    return out
 
 
 class BlockAllocator:
@@ -115,16 +189,99 @@ class BlockAllocator:
             "scratch block entered circulation"
 
 
+class PrefixIndex:
+    """hash-chain -> physical block, LRU-ordered for eviction.
+
+    The index holds one reference on every entry's block, so cached KV
+    survives its producing request; under pool pressure ``evict`` drops
+    idle entries leaf-first in LRU order.  Each entry remembers its
+    parent key: evicting a chain's head before its tail would leave
+    unreachable entries that still pin blocks, so only entries no other
+    entry chains from are candidates, and freeing a leaf exposes its
+    parent as the next one (per-key child counts, kept incrementally)."""
+
+    def __init__(self):
+        self._map: OrderedDict[str, tuple[int, str]] = OrderedDict()
+        self._children: dict[str, int] = {}   # key -> entries chained on it
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def lookup(self, key: str) -> int | None:
+        entry = self._map.get(key)
+        if entry is None:
+            return None
+        self._map.move_to_end(key)
+        return entry[0]
+
+    def insert(self, key: str, block: int, parent: str,
+               allocator: BlockAllocator) -> bool:
+        """Register block under key (index takes a reference); a
+        duplicate key keeps the existing block."""
+        if key in self._map:
+            self._map.move_to_end(key)
+            return False
+        allocator.incref(block)
+        self._map[key] = (block, parent)
+        if parent:
+            self._children[parent] = self._children.get(parent, 0) + 1
+        return True
+
+    def evict(self, allocator: BlockAllocator, n: int) -> int:
+        """Free up to n cached blocks nobody else references (leaf
+        entries in LRU order first); returns how many were freed.  A
+        parent that becomes a leaf is re-examined at once."""
+        freed = 0
+        for key in list(self._map):
+            if freed >= n:
+                break
+            work = [key]
+            while work and freed < n:
+                k = work.pop()
+                if k not in self._map or self._children.get(k, 0):
+                    continue                 # gone, or a chain needs it
+                block, parent = self._map[k]
+                if allocator.refcount(block) != 1:
+                    continue                 # a sequence still reads it
+                del self._map[k]
+                allocator.decref(block)
+                self.evictions += 1
+                freed += 1
+                if parent:
+                    self._children[parent] -= 1
+                    if not self._children[parent]:
+                        del self._children[parent]
+                        work.append(parent)  # newly a leaf: retry now
+        return freed
+
+    def check(self):
+        """Assert the incremental child counts match a full recount and
+        no surviving entry's parent was evicted from under it."""
+        recount: dict[str, int] = {}
+        for _, parent in self._map.values():
+            if parent:
+                recount[parent] = recount.get(parent, 0) + 1
+        assert recount == self._children, "child counts drifted"
+        for key, (_, parent) in self._map.items():
+            assert not parent or parent in self._map, \
+                f"entry {key} orphaned (parent evicted first)"
+
+
 class BlockKVCache(MixerState):
     """Block-family mixer state: device pools + refcounted allocator +
-    block-table assembly.  ``ring_blocks > 0`` switches the paged layout
-    into the sliding-window ring layout."""
+    prefix index + block-table assembly.  ``ring_blocks > 0`` switches
+    the paged layout into the sliding-window ring layout."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  max_model_len: int, dtype=torch.float32,
+                 prefix_cache: bool = True,
                  layer_ids: list[int] | None = None, ring_blocks: int = 0,
-                 device="cpu"):
+                 tracer: Tracer | None = None, device="cpu"):
         self.cfg = cfg
+        # wall-time accounting of the swaps goes through the tracer's
+        # spans (the engine shares its tracer)
+        self.tracer = tracer if tracer is not None else Tracer()
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.ring_blocks = ring_blocks
@@ -142,6 +299,19 @@ class BlockKVCache(MixerState):
                       .init_paged_state(cfg, num_blocks, block_size, dtype,
                                         device)
                       for li in self.layer_ids]
+        self.prefix = PrefixIndex() if prefix_cache else None
+        # prefix-cache counters (engine.stats surfaces these)
+        self.prefix_queries = 0          # full prompt blocks walked
+        self.prefix_hits = 0             # blocks adopted from the index
+        self.skipped_prefill_tokens = 0  # prompt tokens never re-prefilled
+        self.cow_copies = 0
+        # swap counters
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swapped_blocks = 0          # blocks that took the host trip
+        self.readopted_blocks = 0        # blocks re-adopted from the index
+        self.swap_out_bytes = 0          # bytes copied device -> host
+        # occupancy / ring counters
         self.blocks_allocated = 0
         self.ring_reuses = 0             # trailing blocks recycled in place
         self.peak_used = 0               # occupancy high-water mark
@@ -155,10 +325,38 @@ class BlockKVCache(MixerState):
         n = self.blocks_for(n_tokens)
         return min(n, self.ring_blocks) if self.ring_blocks else n
 
+    def _chain_depth(self, n_full: int, max_tokens: int | None = None) -> int:
+        """Full prompt blocks the index may cover: capped at the ring
+        depth and at ``max_tokens``."""
+        if self.ring_blocks:
+            n_full = min(n_full, self.ring_blocks)
+        if max_tokens is not None:
+            n_full = min(n_full, max_tokens // self.block_size)
+        return n_full
+
+    def reset_stats(self, *, flush_prefix: bool = False):
+        """Zero the prefix/swap counters (e.g. after a warm-up);
+        ``flush_prefix`` also drops every idle cached block."""
+        if self.prefix is not None:
+            if flush_prefix:
+                self.prefix.evict(self.allocator, len(self.prefix))
+            self.prefix.evictions = 0
+        self.prefix_queries = self.prefix_hits = 0
+        self.skipped_prefill_tokens = self.cow_copies = 0
+        self.swap_outs = self.swap_ins = self.swapped_blocks = 0
+        self.readopted_blocks = self.swap_out_bytes = 0
+        self.tracer.reset_spans("swap_out", "swap_in")
+        self.blocks_allocated = self.ring_reuses = 0
+        self.peak_used = self.allocator.num_used
+
     # ------------------------------------------------------ allocation
 
     def _alloc(self, n: int) -> list[int] | None:
+        """alloc, evicting idle prefix-cached blocks under pressure."""
         got = self.allocator.alloc(n)
+        if got is None and self.prefix is not None:
+            self.prefix.evict(self.allocator, n - self.allocator.num_free)
+            got = self.allocator.alloc(n)
         if got is not None:
             self.blocks_allocated += len(got)
             self.peak_used = max(self.peak_used, self.allocator.num_used)
@@ -189,15 +387,190 @@ class BlockKVCache(MixerState):
             self.allocator.free(req.blocks)
         req.blocks = []
 
-    def alloc_prompt(self, req) -> bool:
-        """Admission-time allocation of the whole prompt's blocks;
-        all-or-nothing, False when the pool is short."""
-        got = self._alloc(self.blocks_needed(req.prompt_len))
+    # ---------------------------------------------------- prefix cache
+
+    def match_prefix(self, prompt: np.ndarray,
+                     max_tokens: int | None = None
+                     ) -> tuple[list[int], int, str]:
+        """Walk the prompt's full-block hash chain through the index.
+
+        Returns (matched block ids NOT yet increfed, tokens covered,
+        chain key of the last match).  A full-prompt match keeps every
+        block but re-prefills the final token, so the caller always has
+        one prefill position left to produce first-token logits (the
+        write lands in a shared block — copy-on-write handles it).
+        ``max_tokens`` caps the match depth."""
+        if self.prefix is None or not len(self.prefix):
+            return [], 0, ""
+        bs = self.block_size
+        n_full = self._chain_depth(len(prompt) // bs, max_tokens)
+        blocks, parent = [], ""
+        for j in range(n_full):
+            key = chunk_key(parent, prompt[j * bs:(j + 1) * bs])
+            b = self.prefix.lookup(key)
+            if b is None:
+                break
+            blocks.append(b)
+            parent = key
+        n_tok = len(blocks) * bs
+        if n_tok >= len(prompt):
+            n_tok = len(prompt) - 1
+        return blocks, n_tok, parent
+
+    def alloc_prompt(self, req, max_match: int | None = None) -> bool:
+        """Admission-time allocation: adopt prefix-cached blocks for the
+        matched prompt head, allocate fresh blocks for the rest, and
+        start the request at ``pos = matched tokens`` (prefill skip).
+        All-or-nothing; False when the pool is short."""
+        matched, n_tok, parent = self.match_prefix(req.prompt, max_match)
+        for b in matched:           # pin before _alloc may evict LRU entries
+            self.allocator.incref(b)
+        got = self._alloc(self.blocks_needed(req.prompt_len) - len(matched))
+        if got is None:
+            for b in matched:
+                self.allocator.decref(b)
+            return False
+        req.blocks = matched + got
+        req.pos = n_tok
+        req.skipped_prefill = n_tok
+        req.n_registered = len(matched)
+        req.prefix_key = parent
+        req.virtual_blocks = self.blocks_for(req.prompt_len)
+        # counted only on successful admission: a deferred request
+        # re-matches every retry and would otherwise deflate hit_rate
+        if self.prefix is not None:
+            n_full = self._chain_depth(req.prompt_len // self.block_size,
+                                       max_match)
+            self.prefix_queries += min(len(matched) + 1, n_full)
+            self.prefix_hits += len(matched)
+        self.skipped_prefill_tokens += n_tok
+        return True
+
+    def register_prefix(self, req):
+        """Publish req's freshly prefilled FULL prompt blocks into the
+        index (content-hash chained after the already-registered head);
+        a ring stops at its depth."""
+        if self.prefix is None:
+            return
+        bs = self.block_size
+        n_full = self._chain_depth(min(req.pos, req.prompt_len) // bs)
+        while req.n_registered < n_full:
+            j = req.n_registered
+            key = chunk_key(req.prefix_key, req.prompt[j * bs:(j + 1) * bs])
+            self.prefix.insert(key, req.blocks[j], req.prefix_key,
+                               self.allocator)
+            req.prefix_key = key
+            req.n_registered += 1
+
+    # --------------------------------------------------- copy-on-write
+
+    def writable_indices(self, pos: int, n: int) -> range:
+        """Logical block indices a write of n tokens at pos touches
+        (virtual — ``make_writable`` maps them into the ring)."""
+        bs = self.block_size
+        return range(pos // bs, (pos + n - 1) // bs + 1)
+
+    def make_writable(self, req, idx: int) -> bool:
+        """Copy-on-write: if req's idx-th block is shared, move req onto
+        a private copy before it is written.  False when no block is
+        available for the copy (caller preempts)."""
+        if self.ring_blocks:
+            idx = idx % self.ring_blocks
+        block = req.blocks[idx]
+        if self.allocator.refcount(block) == 1:
+            return True
+        got = self._alloc(1)
         if got is None:
             return False
-        req.blocks = got
-        req.pos = 0
-        req.virtual_blocks = self.blocks_for(req.prompt_len)
+        for pool in self.pools:
+            _cow_copy(pool, block, got[0])
+        self.allocator.decref(block)
+        req.blocks[idx] = got[0]
+        self.cow_copies += 1
+        return True
+
+    # ---------------------------------------------------- swap-to-host
+
+    def _device(self):
+        return next(iter(self.pools[0].values())).device
+
+    def swap_out(self, req):
+        """Park req's blocks off the device.  Blocks REGISTERED in the
+        prefix index skip the copy — the index keeps them resident and
+        ``swap_in`` re-adopts them by content hash (a ring that wrapped
+        no longer maps its leading blocks to the chain, so it copies
+        all).  The rest are copied to host memory, synchronously, before
+        req drops every device reference."""
+        _sync(self._device())
+        with self.tracer.span("swap_out"):
+            readopt = 0
+            no_wrap = self.blocks_for(req.pos) <= (self.ring_blocks
+                                                   or self.max_blocks_per_seq)
+            if self.prefix is not None and req.n_registered and no_wrap:
+                readopt = req.n_registered
+            ids = torch.tensor(req.blocks[readopt:], dtype=torch.long,
+                               device=self._device())
+            # one gather on the device, one synchronous copy to the host
+            # (pageable memory: the copy is complete when .cpu() returns)
+            flat = torch.cat([v.index_select(0, ids).reshape(-1)
+                              for pool in self.pools
+                              for v in pool.values()]).cpu()
+            host = _split(flat, [{k: (len(ids),) + tuple(v.shape[1:])
+                                  for k, v in pool.items()}
+                                 for pool in self.pools])
+            req.host_kv = host
+            req.swap_readopt = readopt
+            self.allocator.free(req.blocks)
+            req.blocks = []
+            self.swap_outs += 1
+            self.swapped_blocks += len(ids)
+            self.swap_out_bytes += flat.numel() * flat.element_size()
+
+    def swap_in(self, req) -> bool | None:
+        """Restore a swapped request.  Registered blocks are re-adopted
+        from the prefix index (content hash -> resident block, no copy);
+        the rest get fresh blocks and their host copies.  False when the
+        pool is short; None when a registered block's chain was evicted
+        while parked — the content is gone and the caller must fall back
+        to recompute."""
+        bs = self.block_size
+        adopted, parent = [], ""
+        for j in range(req.swap_readopt):
+            key = chunk_key(parent, req.prompt[j * bs:(j + 1) * bs])
+            b = self.prefix.lookup(key) if self.prefix is not None else None
+            if b is None:
+                for a in adopted:
+                    self.allocator.decref(a)
+                return None
+            self.allocator.incref(b)
+            adopted.append(b)
+            parent = key
+        n = next(iter(req.host_kv[0].values())).shape[0]
+        got = self._alloc(n)
+        if got is None:
+            for a in adopted:
+                self.allocator.decref(a)
+            return False
+        dev = self._device()
+        _sync(dev)
+        with self.tracer.span("swap_in"):
+            dst = torch.tensor(got, dtype=torch.long, device=dev)
+            shapes = [{k: tuple(a.shape) for k, a in layer.items()}
+                      for layer in req.host_kv]
+            # one copy to the device of the whole buffer that swap_out's
+            # per-layer views share, then one scatter a tensor
+            flat = next(iter(req.host_kv[0].values()))._base
+            if flat is None:
+                flat = torch.cat([a.reshape(-1) for layer in req.host_kv
+                                  for a in layer.values()])
+            for pool, layer in zip(self.pools, _split(flat.to(dev), shapes)):
+                _host_restore(pool, dst, layer)
+            _sync(dev)                  # the span covers the copies
+        req.blocks = adopted + got
+        req.host_kv = None
+        req.swap_readopt = 0
+        self.swap_ins += 1
+        self.readopted_blocks += len(adopted)
         return True
 
     # ----------------------------------------------------- block table
@@ -239,26 +612,37 @@ class MixerStateCache:
     ``mixer_state.layer_layouts``.  Presents the per-layer pool list the
     step functions update in place, and passes every request-lifecycle
     call to its members all-or-nothing: a hybrid stack (jamba) admits a
-    request only with a slot AND its prompt blocks."""
+    request only with a slot AND its prompt blocks.  The prefix cache,
+    copy-on-write and swap are the block member's; a stack with
+    recurrent slots refuses the prefix cache."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  max_model_len: int, dtype=torch.float32,
-                 num_slots: int = 8, prefill_chunk: int = 16, device="cpu"):
+                 prefix_cache: bool = True, num_slots: int = 8,
+                 prefill_chunk: int = 16, tracer: Tracer | None = None,
+                 device="cpu"):
         self.cfg = cfg
+        self.tracer = tracer if tracer is not None else Tracer()
         self.block_size = block_size
         self.layouts = layer_layouts(cfg)
         attn_ids = [i for i, l in enumerate(self.layouts)
                     if l != LAYOUT_SLOT]
         slot_ids = [i for i, l in enumerate(self.layouts)
                     if l == LAYOUT_SLOT]
+        if slot_ids and prefix_cache:
+            raise NotImplementedError(
+                f"{cfg.name}: the prefix cache of a stack with recurrent "
+                f"slots needs the slot snapshots, not ported yet "
+                f"({SLOT_SNAPSHOTS}); pass prefix_cache=False")
         self.ring_blocks = (
             ring_block_count(cfg.sliding_window, block_size, prefill_chunk)
             if (attn_ids and cfg.sliding_window) else 0)
         self.attn = BlockKVCache(
             cfg, num_blocks=num_blocks, block_size=block_size,
-            max_model_len=max_model_len, dtype=dtype, layer_ids=attn_ids,
-            ring_blocks=self.ring_blocks, device=device) \
-            if attn_ids else None
+            max_model_len=max_model_len, dtype=dtype,
+            prefix_cache=prefix_cache, layer_ids=attn_ids,
+            ring_blocks=self.ring_blocks, tracer=self.tracer,
+            device=device) if attn_ids else None
         self.ssm = RecurrentSlotState(cfg, slot_ids, num_slots, dtype,
                                       device) if slot_ids else None
         self._members = [m for m in (self.attn, self.ssm) if m is not None]
@@ -273,6 +657,10 @@ class MixerStateCache:
             for li, p in zip(m.layer_ids, m.pools):
                 out[li] = p
         return out
+
+    @property
+    def prefix(self):
+        return self.attn.prefix if self.attn is not None else None
 
     # ------------------------------------------------------ capacity
 
@@ -295,7 +683,7 @@ class MixerStateCache:
         if self.attn is not None and not self.attn.alloc_prompt(req):
             if self.ssm is not None:
                 self.ssm.release(req)
-                req.pos = 0
+                req.pos = req.skipped_prefill = 0
             return False
         return True
 
@@ -308,6 +696,28 @@ class MixerStateCache:
     def release(self, req):
         for m in self._members:
             m.release(req)
+
+    def make_writable(self, req, idx: int) -> bool:
+        return self.attn is None or self.attn.make_writable(req, idx)
+
+    def writable_indices(self, pos: int, n: int) -> range:
+        if self.attn is None:
+            return range(0)
+        return self.attn.writable_indices(pos, n)
+
+    def register_prefix(self, req):
+        if self.attn is not None:
+            self.attn.register_prefix(req)
+
+    def swap_out(self, req):
+        if self.ssm is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: swapping a recurrent slot needs the "
+                f"slot snapshots, not ported yet ({SLOT_SNAPSHOTS})")
+        self.attn.swap_out(req)
+
+    def swap_in(self, req) -> bool | None:
+        return self.attn.swap_in(req)
 
     # ------------------------------------------------------ step arrays
 
@@ -326,6 +736,50 @@ class MixerStateCache:
         return np.zeros(batch, np.int32)
 
     # ------------------------------------------------------ stats
+
+    def reset_stats(self, *, flush_prefix: bool = False):
+        if self.attn is not None:
+            self.attn.reset_stats(flush_prefix=flush_prefix)
+
+    def prefix_section(self) -> dict:
+        """The JAX package's keys; the slot snapshot index is not ported,
+        so its keys read 0."""
+        a = self.attn
+        on = a is not None and a.prefix is not None
+        queries = a.prefix_queries if a else 0
+        hits = a.prefix_hits if a else 0
+        return {
+            "enabled": on,
+            "queries": queries,
+            "hits": hits,
+            "hit_rate": hits / queries if queries else 0.0,
+            "skipped_prefill_tokens": a.skipped_prefill_tokens if a else 0,
+            "cow_copies": a.cow_copies if a else 0,
+            "cached_blocks": len(a.prefix) if on else 0,
+            "evictions": a.prefix.evictions if on else 0,
+            "snapshot_queries": 0,
+            "snapshot_hits": 0,
+            "snapshot_stores": 0,
+            "cached_snapshots": 0,
+            "snapshot_evictions": 0,
+            "snapshot_occupancy": 0.0,
+        }
+
+    def swap_section(self) -> dict:
+        """The JAX package's keys (slot swaps read 0), plus the bytes
+        copied to the host."""
+        a = self.attn
+        return {
+            "swap_outs": a.swap_outs if a else 0,
+            "swap_ins": a.swap_ins if a else 0,
+            "swapped_blocks": a.swapped_blocks if a else 0,
+            "readopted_blocks": a.readopted_blocks if a else 0,
+            "swapped_slots": 0,
+            "readopted_snapshots": 0,
+            "swap_out_bytes": a.swap_out_bytes if a else 0,
+            "swap_out_s": self.tracer.span_total("swap_out"),
+            "swap_in_s": self.tracer.span_total("swap_in"),
+        }
 
     def mixer_section(self) -> dict:
         """Each member's stats: ``blocks``, ``slots`` or both."""

@@ -10,10 +10,23 @@ runs at the fixed (1, prefill_chunk) shape, as in the JAX package (there
 the fixed shapes bound the jit cache; here they keep the kernels'
 launch shapes few).  The mixer-state pools (K/V or latent blocks,
 recurrent SSM slots, or both in a hybrid stack) live on the engine's
-device and the step functions update them in place.  Token selection
-happens on the device, next to the logits (greedy in this slice).  A stop token
-finishes the request at the step it is emitted, releasing its blocks
-or slot immediately.
+device and the step functions update them in place.
+
+Token selection happens on the device, next to the logits
+(serving/sampling.py): each request carries SamplingParams
+(temperature / top-k / top-p / seed / stop tokens) and the random
+stream of the token at sequence index i is keyed by
+fold_in(PRNGKey(seed), i), JAX's own bits — so a sampled stream does not
+depend on batch composition, padding, preemption or swap-in.  A stop
+token finishes the request at its first occurrence, releasing its
+blocks or slot immediately.
+
+With the JAX engine's defaults a prompt is first matched against the
+prefix index (adopted blocks are not prefilled again; a shared block is
+copied before it is written), and a preempted request's blocks are
+swapped to host memory and restored when it is re-admitted.  Stacks
+with recurrent slots run without both until the slot snapshots are
+ported (ROADMAP.md queue 1, item 7).
 
 With cfg.precision == "bnn" every projection runs the packed
 XNOR-popcount GEMM — the paper's inference mode.  On a CUDA device the
@@ -35,10 +48,10 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as M
 from repro_torch.serving import roles as R
-from repro_torch.serving.block_cache import MixerStateCache
+from repro_torch.serving.block_cache import SLOT_SNAPSHOTS, MixerStateCache
 from repro_torch.serving.cost_model import PhotonicCostModel
 from repro_torch.serving.request import Request, State
-from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.sampling import SamplingParams, sampling_rows
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.tracing import Tracer
 
@@ -54,13 +67,11 @@ def nearest_rank(sorted_vals, p: float) -> float:
     return sorted_vals[min(idx, n - 1)]
 
 
-# options of the JAX package's EngineConfig that this slice keeps at a
+# options of the JAX package's EngineConfig that the port keeps at a
 # fixed value: field -> (the value it supports, ROADMAP.md item that
 # brings the rest)
 _SLICE_ONLY = {
     "policy": ("fcfs", "queue 1, item 7"),
-    "prefix_cache": (False, "queue 1, item 7"),
-    "preempt_policy": ("recompute", "queue 1, item 7"),
     "spec_k": (0, "queue 1, item 7"),
     "role": ("mixed", "queue 1, item 7"),
 }
@@ -82,20 +93,36 @@ class EngineConfig:
                                      # a block pool)
     max_batched_tokens: int = 256
     accelerator: str = "OXBNN_50"    # photonic cost-model target
-    prefix_cache: bool = False       # content-addressed block reuse: not
-                                     # ported
-    preempt_policy: str = "recompute"   # swap-to-host: not ported
+    prefix_cache: bool = True        # content-addressed prompt block reuse
+    preempt_policy: str = "swap"     # swap | recompute (fallback)
+    snapshot_slots: int = 0          # recurrent prefix-snapshot pool rows
+                                     # (the slot snapshots are not ported)
     spec_k: int = 0                  # speculative decoding: not ported
+    attn_impl: str = "auto"          # paged attention: auto | cuda | torch
+    bnn_impl: str = "auto"           # packed BNN GEMM: auto | cuda | torch
+                                     # (one dispatch in the port: the two
+                                     # must be equal)
     role: str = "mixed"              # disaggregated roles: not ported
     link_gbps: float = 100.0         # modeled inter-shard link bandwidth
                                      # (prefill->decode handoff transfer)
 
     def __post_init__(self):
+        if self.preempt_policy not in ("swap", "recompute"):
+            raise ValueError(f"unknown preempt_policy {self.preempt_policy}")
+        for impl in (self.attn_impl, self.bnn_impl):
+            if impl not in kops.IMPLS:
+                raise ValueError(f"unknown impl {impl!r} (want one of "
+                                 f"{kops.IMPLS})")
+        if self.attn_impl != self.bnn_impl:
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r} with bnn_impl="
+                f"{self.bnn_impl!r}: the port dispatches every kernel "
+                "through one impl, so the two must be equal")
         for name, (value, item) in _SLICE_ONLY.items():
             if getattr(self, name) != value:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (ROADMAP.md {item}); this slice runs "
+                    f"ported yet (ROADMAP.md {item}); the port runs "
                     f"{name}={value!r}")
 
 
@@ -115,6 +142,13 @@ class Engine:
                  device=None):
         self.device = _resolve_device(device)
         M.check_supported(cfg)
+        if "ssm" in (mix for mix, _f in M.layer_plan(cfg)) and (
+                ecfg.prefix_cache or ecfg.preempt_policy == "swap"):
+            raise NotImplementedError(
+                f"{cfg.name}: prefix_cache=True and preempt_policy='swap' "
+                f"need the slot snapshots of its recurrent layers, not "
+                f"ported yet ({SLOT_SNAPSHOTS}); pass prefix_cache=False, "
+                f"preempt_policy='recompute'")
         w = params["embed"]["w"]
         if w.device.type != self.device.type:
             raise ValueError(f"params live on {w.device}, engine on "
@@ -127,8 +161,10 @@ class Engine:
         self.cache = MixerStateCache(
             cfg, num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
             max_model_len=ecfg.max_model_len,
+            prefix_cache=ecfg.prefix_cache,
             num_slots=ecfg.num_slots or ecfg.max_batch + 1,
-            prefill_chunk=ecfg.prefill_chunk, device=self.device)
+            prefill_chunk=ecfg.prefill_chunk, tracer=self.tracer,
+            device=self.device)
         # admission token budget: 0 = derive from the block pool (2x
         # its token capacity; a hybrid's too).  Slot-only stacks have
         # no block pool; max_batch and the slots bound their admission
@@ -167,7 +203,8 @@ class Engine:
         # streaming overhead.
         self.on_commit = None
         # sliding-window configs run their block tables as rings
-        fns = R.build_step_fns(cfg, ring=self.cache.ring_blocks > 0)
+        fns = R.build_step_fns(cfg, ring=self.cache.ring_blocks > 0,
+                               impl=ecfg.bnn_impl)
         self._prefill_fn = fns.prefill
         self._decode_fn = fns.decode
 
@@ -215,8 +252,10 @@ class Engine:
     def cancel(self, rid: int) -> bool:
         """Drop a request.  Queued requests leave the queue; running
         ones release their blocks through the same path preemption
-        uses.  The request ends in the terminal CANCELLED state.
-        Returns False when rid is unknown or already terminal."""
+        uses; swapped ones drop their host copies (``swap_out`` already
+        freed the device blocks).  The request ends in the terminal
+        CANCELLED state.  Returns False when rid is unknown or already
+        terminal."""
         req = self.requests.get(rid)
         if req is None or req.state in (State.FINISHED, State.CANCELLED):
             return False
@@ -226,6 +265,7 @@ class Engine:
             self.cache.release(req)
         elif req in sched.queue:
             sched.queue.remove(req)
+            req.host_kv = None
         req.state = State.CANCELLED
         req.finish_step = self.step_count
         req.finish_s = time.perf_counter()
@@ -272,18 +312,26 @@ class Engine:
     def _run_prefill(self, step: int, req: Request, chunk: int):
         if not self.scheduler.grow_or_preempt(step, req, req.pos + chunk):
             return                     # req itself was preempted
+        # copy-on-write: never scatter into a block another owner shares
+        # (the full-prefix-match case re-prefills its final token here)
+        for idx in self.cache.writable_indices(req.pos, chunk):
+            if not self.scheduler.make_writable(step, req, idx):
+                return
         cp = self.ecfg.prefill_chunk   # fixed padded shape
         tokens = np.zeros((1, cp), np.int64)
         tokens[0, :chunk] = req.prompt[req.pos:req.pos + chunk]
         table = self.cache.table_rows([req], 1)
         slots = self.cache.slot_rows([req], 1)
+        srows = sampling_rows([req], 1)
         tok, _logits, _pools = self._prefill_fn(
             self.params, self.cache.pools, self._tensor(tokens),
             self._tensor(table), self._tensor(np.array([req.pos], np.int32)),
-            self._tensor(np.array([chunk], np.int32)), self._tensor(slots))
+            self._tensor(np.array([chunk], np.int32)), self._tensor(slots),
+            *srows.as_args(self.device))
         req.pos += chunk
         self._prefilled += chunk
         self._prefill_calls += 1
+        self.cache.register_prefix(req)
         self.scheduler._ev(step, "prefill", req.rid, tokens=chunk,
                            pos=req.pos)
         if req.pos == req.prompt_len:
@@ -306,11 +354,14 @@ class Engine:
         return b
 
     def _ready_rows(self, step: int, reqs: list[Request]) -> list[Request]:
-        """Grow every decodable row by one cache position, dropping rows
-        that get preempted along the way."""
+        """Grow + copy-on-write every decodable row for one cache
+        position, dropping rows that get preempted along the way."""
+        sched = self.scheduler
         ready = [r for r in reqs
-                 if r in self.scheduler.running and r.state == State.DECODE
-                 and self.scheduler.grow_or_preempt(step, r, r.pos + 1)]
+                 if r in sched.running and r.state == State.DECODE
+                 and sched.grow_or_preempt(step, r, r.pos + 1)
+                 and all(sched.make_writable(step, r, idx)
+                         for idx in self.cache.writable_indices(r.pos, 1))]
         # a later grow may have preempted an earlier 'ready' row
         return [r for r in ready
                 if r in self.scheduler.running and r.state == State.DECODE]
@@ -329,10 +380,12 @@ class Engine:
             active[i] = True
         table = self.cache.table_rows(ready, bucket)
         slots = self.cache.slot_rows(ready, bucket)
+        srows = sampling_rows(ready, bucket)
         next_tok, _logits, _pools = self._decode_fn(
             self.params, self.cache.pools, self._tensor(tokens),
             self._tensor(table), self._tensor(lengths),
-            self._tensor(active), self._tensor(slots))
+            self._tensor(active), self._tensor(slots),
+            *srows.as_args(self.device))
         next_tok = next_tok.cpu().numpy()
         self._max_concurrent = max(self._max_concurrent, len(ready))
         self._decode_calls += 1
@@ -352,11 +405,21 @@ class Engine:
 
     # -------------------------------------------------------------- stats
 
+    def reset_stats(self, *, flush_prefix: bool = False):
+        """Zero the token/wall/cache counters without touching request
+        or scheduler state (a measured window after a warm-up);
+        ``flush_prefix`` also drops every idle cached block."""
+        self.tracer.reset_spans("step")
+        self._decoded = self._prefilled = self._prefill_calls = 0
+        self._max_concurrent = self._decode_calls = self._cancelled = 0
+        self.cache.reset_stats(flush_prefix=flush_prefix)
+
     def stats(self) -> dict:
         finished = [r for r in self.requests.values()
                     if r.state == State.FINISHED]
         lat = sorted(r.finish_s - r.submit_s for r in finished
                      if r.finish_s is not None and r.submit_s is not None)
+        prefix = self.cache.prefix_section()
         # the span accumulator (serving/tracing.py) is the single
         # source of wall-time truth
         wall_s = self.tracer.span_total("step")
@@ -381,22 +444,25 @@ class Engine:
             "preemptions": sum(r.preemptions
                                for r in self.requests.values()),
             "cancelled": self._cancelled,
+            "prefix_cache": prefix,
+            "swap": self.cache.swap_section(),
             "mixer": self.cache.mixer_section(),
-            "photonic": self._photonic_section(),
+            "photonic": self._photonic_section(
+                prefix["skipped_prefill_tokens"]),
         }
 
-    def _photonic_section(self) -> dict:
+    def _photonic_section(self, skipped_tokens: int) -> dict:
         """The modeled accelerator's report on the served stream, built
-        as the JAX engine builds it.  Prefix-cache skips, speculative
-        verify passes and scoring are not ported, so their counts are
-        0 (ROADMAP.md queue 1, item 7)."""
+        as the JAX engine builds it.  Speculative verify passes and
+        scoring are not ported, so their counts are 0 (ROADMAP.md queue
+        1, item 7)."""
         cm = self.cost_model
         return {
             **cm.report(),
             **cm.serving_report(
                 prefill_tokens=self._prefilled,
                 decode_tokens=self._decoded,
-                skipped_tokens=0,
+                skipped_tokens=skipped_tokens,
                 prefill_passes=self._prefill_calls,
                 prefill_chunk=self.ecfg.prefill_chunk),
             **cm.speculative_report(verify_passes=0, verify_tokens=0,

@@ -1,10 +1,18 @@
 """Request lifecycle for the continuous-batching engine.
 
-A request moves QUEUED -> PREFILL -> DECODE -> FINISHED.  Under
-block-pool pressure the scheduler preempts by RECOMPUTE: blocks (or its
-recurrent slot) are dropped and the request returns to QUEUED with its
-progress discarded (the JAX package's swap-to-host path is not ported
-yet).
+A request moves QUEUED -> PREFILL -> DECODE -> FINISHED.  Preemption
+(block-pool pressure) takes one of two paths, chosen by the scheduler's
+``preempt_policy``:
+
+  * ``swap``      — KV blocks are copied to host buffers and the
+                    request parks as SWAPPED with its progress intact;
+                    re-admission restores the blocks and resumes where
+                    it left off (block-family stacks; a recurrent slot's
+                    swap comes with the slot snapshots, ROADMAP.md
+                    queue 1, item 7);
+  * ``recompute`` — blocks (or the recurrent slot) are dropped and the
+                    request returns to QUEUED with its progress
+                    discarded.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ class State(enum.Enum):
     QUEUED = "queued"
     PREFILL = "prefill"
     DECODE = "decode"
+    SWAPPED = "swapped"                # preempted, KV parked on the host
     FINISHED = "finished"
     CANCELLED = "cancelled"            # terminal: caller dropped the request
 
@@ -38,13 +47,20 @@ class Request:
     out: list[int] = field(default_factory=list)
     blocks: list[int] = field(default_factory=list)   # block-family layers
     slot: int | None = None            # recurrent-slot-family layers
-    virtual_blocks: int = 0            # logical high-water (ring reuse stat)
     preemptions: int = 0
     streamed: int = 0                  # commit-callback delivery watermark
                                        # into ``out``; survives recompute
                                        # preemption (the regenerated
                                        # tokens are identical, so they are
                                        # not re-delivered)
+    # prefix-cache bookkeeping (owned by BlockKVCache)
+    skipped_prefill: int = 0           # prompt tokens adopted from the index
+    n_registered: int = 0              # full prompt blocks published
+    prefix_key: str = ""               # hash-chain key of the last one
+    virtual_blocks: int = 0            # logical high-water (ring reuse stat)
+    # swap-to-host: per-layer host copies of owned blocks (block family)
+    host_kv: list | None = None
+    swap_readopt: int = 0              # leading blocks to re-adopt by hash
     # step/time marks for latency accounting
     submit_step: int | None = None
     admit_step: int | None = None
@@ -86,7 +102,18 @@ class Request:
         self.out.clear()
         self.blocks = []
         self.slot = None
+        self.host_kv = None
+        self.swap_readopt = 0
+        self.skipped_prefill = 0
+        self.n_registered = 0
+        self.prefix_key = ""
         self.virtual_blocks = 0
+        self.preemptions += 1
+
+    def park_swapped(self):
+        """Swap preemption keeps progress; blocks were moved to
+        ``host_kv`` by BlockKVCache.swap_out before this is called."""
+        self.state = State.SWAPPED
         self.preemptions += 1
 
     def full_sequence(self) -> np.ndarray:

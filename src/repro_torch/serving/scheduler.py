@@ -5,7 +5,12 @@ Each engine step the scheduler emits a StepPlan:
   * admit   — queued requests move to running while a batch row, the
               token budget, and prompt blocks (or a recurrent slot) are
               all available; a request short of either defers as
-              ``no_blocks``, as in the JAX package;
+              ``no_blocks``, as in the JAX package.  A fresh request's
+              prompt is first matched against the prefix index
+              (``cache.alloc_prompt``): cached blocks are adopted and
+              prefill starts past them.  A SWAPPED request is restored
+              from its host copies (``cache.swap_in``) and resumes
+              exactly where it was preempted;
   * prefill — ONE running request advances by one prompt chunk (chunk
               size capped so prefill tokens + decode rows stay under
               ``max_batched_tokens`` — decode latency is protected from
@@ -13,8 +18,9 @@ Each engine step the scheduler emits a StepPlan:
   * decode  — every running request past its prompt decodes one token.
 
 Ordering and victim selection live in ``serving/policy.py``.  When the
-block pool runs dry the policy's victim is preempted by recompute: its
-progress is dropped and it re-runs from scratch.
+block pool runs dry the policy's victim is preempted; ``preempt_policy``
+picks how: "swap" parks its KV on the host and resumes it later,
+"recompute" drops its progress and re-runs it from scratch.
 
 Every action appends a trace event — tests assert continuous batching
 (mid-stream admission, concurrent decode) on this trace.
@@ -34,7 +40,7 @@ class SchedulerConfig:
     max_batched_tokens: int = 256     # per-step compute budget
     prefill_chunk: int = 16
     policy: str = "fcfs"
-    preempt_policy: str = "recompute"
+    preempt_policy: str = "swap"      # swap | recompute
 
 
 @dataclass
@@ -54,11 +60,7 @@ class Scheduler:
         # ``cache`` implements the MixerState request-lifecycle calls
         # (BlockKVCache or the MixerStateCache composite) — the
         # scheduler never sees layouts.
-        if cfg.preempt_policy == "swap":
-            raise NotImplementedError(
-                "preempt_policy='swap' (swap-to-host) is not ported "
-                "(ROADMAP.md queue 1, item 7)")
-        if cfg.preempt_policy != "recompute":
+        if cfg.preempt_policy not in ("swap", "recompute"):
             raise ValueError(f"unknown preempt_policy {cfg.preempt_policy}")
         self.cfg = cfg
         self.cache = cache
@@ -67,7 +69,8 @@ class Scheduler:
         self.running: list[Request] = []
         self.trace: list[dict] = []
         self._order = 0
-        self.preempts = 0        # evicted victims
+        self.preempts = 0        # evict + swap_out victims
+        self.swap_losts = 0      # parked content evicted while swapped
 
     # ------------------------------------------------------------- events
 
@@ -102,6 +105,29 @@ class Scheduler:
                     > self.cfg.max_tokens_in_flight):
                 self._ev(step, "defer", req.rid, reason="token_budget")
                 break
+            if req.state == State.SWAPPED:
+                ok = self.cache.swap_in(req)
+                if ok is None:
+                    # a re-adoptable block's hash chain was evicted
+                    # while the request was parked: the content is
+                    # gone, fall back to recompute-from-scratch (the
+                    # request stays in this admission pass as QUEUED)
+                    req.reset_for_requeue()
+                    self.swap_losts += 1
+                    self._ev(step, "swap_lost", req.rid,
+                             preemptions=req.preemptions)
+                elif not ok:
+                    self._ev(step, "defer", req.rid, reason="no_blocks")
+                    break
+                else:
+                    req.state = (State.DECODE if req.pos >= req.prompt_len
+                                 else State.PREFILL)
+                    self.queue.remove(req)
+                    self.running.append(req)
+                    plan.admitted.append(req)
+                    self._ev(step, "swap_in", req.rid, pos=req.pos,
+                             blocks=len(req.blocks))
+                    continue
             if not self.cache.alloc_prompt(req):
                 self._ev(step, "defer", req.rid, reason="no_blocks")
                 break
@@ -111,7 +137,8 @@ class Scheduler:
             self.running.append(req)
             plan.admitted.append(req)
             self._ev(step, "admit", req.rid, running=len(self.running),
-                     blocks=len(req.blocks), slot=req.slot)
+                     blocks=len(req.blocks),
+                     cached_tokens=req.skipped_prefill, slot=req.slot)
 
     # ---------------------------------------------------------- preemption
 
@@ -124,9 +151,17 @@ class Scheduler:
         victim = self.policy.victim(self.running)
         self.running.remove(victim)
         self.preempts += 1
-        self.cache.release(victim)
-        victim.reset_for_requeue()
-        self._ev(step, "evict", victim.rid, preemptions=victim.preemptions)
+        # a request with no computed KV has nothing worth swapping
+        if self.cfg.preempt_policy == "swap" and victim.pos > 0:
+            self.cache.swap_out(victim)
+            victim.park_swapped()
+            self._ev(step, "swap_out", victim.rid, pos=victim.pos,
+                     preemptions=victim.preemptions)
+        else:
+            self.cache.release(victim)
+            victim.reset_for_requeue()
+            self._ev(step, "evict", victim.rid,
+                     preemptions=victim.preemptions)
         self.queue.append(victim)
         return victim is not protect
 
@@ -134,6 +169,14 @@ class Scheduler:
         """Ensure req's blocks cover n_tokens cache slots, preempting
         under pool pressure.  False iff req itself got preempted."""
         while not self.cache.ensure_capacity(req, n_tokens):
+            if not self._preempt_one(step, req):
+                return False
+        return True
+
+    def make_writable(self, step: int, req: Request, idx: int) -> bool:
+        """Copy-on-write req's idx-th block if shared, preempting for
+        the copy's block under pressure.  False iff req was preempted."""
+        while not self.cache.make_writable(req, idx):
             if not self._preempt_one(step, req):
                 return False
         return True
@@ -159,13 +202,16 @@ class Scheduler:
     # ----------------------------------------------------------- diagnostics
 
     def stall_reasons(self) -> dict[int, tuple[str, str]]:
-        """rid -> (state, last recorded defer reason) for every queued
-        request, so a stalled ``Engine.run()`` can report WHY each
-        request cannot make progress."""
+        """rid -> (state, last recorded stall reason) for every queued
+        or swapped request — the latest ``defer`` reason or
+        ``swap_lost`` event — so a stalled ``Engine.run()`` can report
+        WHY each request cannot make progress."""
         last: dict[int, str] = {}
         for e in self.trace:
             if e["event"] == "defer":
                 last[e["rid"]] = e["reason"]
+            elif e["event"] == "swap_lost":
+                last[e["rid"]] = "swap_lost"
         return {r.rid: (r.state.value, last.get(r.rid, "never_considered"))
                 for r in self.queue}
 

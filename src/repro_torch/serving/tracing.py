@@ -2,7 +2,8 @@
 
 The span half of the JAX package's ``serving/tracing.py``: the engine
 owns one ``Tracer``, and its span accumulators are the single source of
-wall-time truth — ``Engine.stats()`` reads ``span_total("step")``.  The
+wall-time truth — ``Engine.stats()`` reads ``span_total("step")``, the
+swap section ``span_total("swap_out")`` and ``span_total("swap_in")``.  The
 JAX tracer's recording half (per-step and per-request JSONL records,
 the trace schema and its replay) comes with the serving-breadth slice
 (ROADMAP.md queue 1, item 7).
@@ -48,3 +49,9 @@ class Tracer:
 
     def span_total(self, name: str) -> float:
         return self.span_totals.get(name, 0.0)
+
+    def reset_spans(self, *names: str):
+        """Zero the named accumulators (e.g. after a warm-up)."""
+        for n in names:
+            self.span_totals.pop(n, None)
+            self.span_counts.pop(n, None)

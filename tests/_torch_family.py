@@ -3,7 +3,9 @@ package (tests/test_torch_family_swa.py, tests/test_torch_family_mla.py,
 tests/test_torch_family_ssm.py):
 config equality, parameter conversion, chunked prefill + paged decode
 logits and greedy continuations, the full-sequence forward, and the
-serving engine's greedy tokens and stats.
+serving engine's greedy tokens and stats; and the Poisson trace with
+shared prompt heads that holds the prefix cache and swap to JAX
+(tests/test_torch_prefix_swap.py, tests/test_torch_sampling.py).
 
 The JAX weights come from ``repro.models.transformer.init(PRNGKey(0))``
 on the reduced config; the JAX side runs its XLA paths
@@ -184,7 +186,9 @@ def engine_pair(arch, jax_params, torch_params, ecfg_kw, prompts, max_new,
     je = JEngine(jax_params, jcfg, JEngineConfig(
         **ecfg_kw, prefix_cache=False, preempt_policy="recompute",
         attn_impl="xla", bnn_impl="xla"))
-    te = Engine(torch_params, tcfg, EngineConfig(**ecfg_kw), device="cpu")
+    te = Engine(torch_params, tcfg, EngineConfig(
+        **ecfg_kw, prefix_cache=False, preempt_policy="recompute"),
+        device="cpu")
     return ((je, drive(je, prompts, max_new, late, late_after)),
             (te, drive(te, prompts, max_new, late, late_after)))
 
@@ -224,3 +228,53 @@ def check_engine_stats(pair):
             assert math.isclose(got[key], w, rel_tol=ENGINE_RTOL), key
         else:
             assert got[key] == w, key
+
+
+# ------------------------------ prefix cache and swap (a Poisson trace)
+
+PREFIX_FAMILIES = {
+    # arch: (engine config, shared head, tails, new tokens)
+    "bnn-lm-100m": (dict(block_size=4, num_blocks=12, max_batch=3,
+                         prefill_chunk=4, max_model_len=40),
+                    12, (4, 5, 2), 8),
+    "mixtral-8x7b": (dict(block_size=4, num_blocks=12, max_batch=3,
+                          prefill_chunk=4, max_model_len=64),
+                     16, (4, 9, 3), 10),
+    "deepseek-v2-lite-16b": (dict(block_size=4, num_blocks=12, max_batch=3,
+                                  prefill_chunk=4, max_model_len=40),
+                             12, (4, 5, 2), 8),
+}
+
+
+def poisson_trace(vocab, shared_len, tails, n=7, seed=7):
+    """Seeded Poisson arrivals (quantised to engine steps); even
+    requests share a prompt head of whole blocks, the last but one
+    repeats the first whole, the last is the head alone (every block
+    matched: its final token is prefilled into a copy)."""
+    rng = np.random.default_rng(seed)
+    arrival = np.cumsum(rng.exponential(2.0, n)).astype(int)
+    shared = rng.integers(0, vocab, shared_len)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab,
+                                                    tails[i % len(tails)])])
+               if i % 2 == 0 else
+               rng.integers(0, vocab, shared_len // 2 + tails[i % len(tails)])
+               for i in range(n)]
+    prompts[-2] = prompts[0].copy()
+    prompts[-1] = shared.copy()
+    return arrival, prompts
+
+
+def drive_trace(eng, arrival, prompts, gen, sampling=None):
+    """Submit each prompt at its arrival step (request i under
+    ``sampling(i)``), run to completion; every request finishes.
+    Returns each request's prompt + generated tokens, in order."""
+    rids, i = {}, 0
+    while i < len(prompts) or not eng.scheduler.idle:
+        while i < len(prompts) and eng.step_count >= arrival[i]:
+            rids[i] = eng.submit(prompts[i], gen,
+                                 sampling=sampling(i) if sampling else None)
+            i += 1
+        eng.step()
+    assert all(eng.requests[r].state.value == "finished"
+               for r in rids.values())
+    return [eng.requests[rids[k]].full_sequence() for k in range(len(prompts))]

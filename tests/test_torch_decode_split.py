@@ -222,7 +222,9 @@ def served(request):
     ecfg, lens, max_new = FAMILIES[arch]
     cfg = reduced(get_config(arch)).replace(precision="bnn")
     params = M.init(torch.Generator().manual_seed(0), cfg)
-    eng = Engine(params, cfg, EngineConfig(**ecfg), device="cpu")
+    eng = Engine(params, cfg, EngineConfig(
+        **ecfg, prefix_cache=False, preempt_policy="recompute"),
+        device="cpu")
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
     for p, n in zip(prompts[:3], max_new[:3]):

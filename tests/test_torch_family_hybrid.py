@@ -72,7 +72,9 @@ def _watched_pair(arch_cfgs, jp, tp, ecfg_kw, prompts, max_new):
     je = JEngine(jp, jcfg, JEngineConfig(
         **ecfg_kw, prefix_cache=False, preempt_policy="recompute",
         attn_impl="xla", bnn_impl="xla"))
-    te = Engine(tp, tcfg, EngineConfig(**ecfg_kw), device="cpu")
+    te = Engine(tp, tcfg, EngineConfig(
+        **ecfg_kw, prefix_cache=False, preempt_policy="recompute"),
+        device="cpu")
     recs = [S.watch_admissions(je), S.watch_admissions(te)]
     served = [(e, F.drive(e, prompts, max_new, late=2, late_after=3))
               for e in (je, te)]
@@ -160,7 +162,7 @@ def _caches(num_blocks):
     kw = dict(num_blocks=num_blocks, block_size=BS, max_model_len=64,
               num_slots=3, prefill_chunk=CHUNK)
     return (JCache(jcfg, **kw, prefix_cache=False),
-            MixerStateCache(tcfg, **kw))
+            MixerStateCache(tcfg, **kw, prefix_cache=False))
 
 
 def _state(cache, req, ok):

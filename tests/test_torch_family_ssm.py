@@ -132,7 +132,9 @@ def test_reused_slots_must_be_zeroed(models, monkeypatch):
     monkeypatch.setattr(mixer_state.RecurrentSlotState, "_alloc_slot",
                         alloc_without_zeroing)
     _jcfg, tcfg = F.cfgs(ARCH, "bnn")
-    te = Engine(models[1], tcfg, EngineConfig(**ENGINE), device="cpu")
+    te = Engine(models[1], tcfg, EngineConfig(
+        **ENGINE, prefix_cache=False, preempt_policy="recompute"),
+        device="cpu")
     _rids, tout = F.drive(te, _prompts(), list(MAX_NEW), 2, 3)
     first = {rids[0] for rids in S.slot_owners(te).values()}
     for rid in first:                     # fresh slots: zeros either way

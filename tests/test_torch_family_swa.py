@@ -121,22 +121,24 @@ def test_ssm_and_hybrid_stacks_are_refused_by_name(case):
     """Stacks that mix SSM and attention layers (the jamba hybrid) are
     admitted by the model stack, and the mixer-state cache builds both
     members, the slots for the SSM layers and the blocks for the
-    attention layers; the modality front-ends stay refused by the model
-    stack, naming their ROADMAP item."""
+    attention layers; it refuses the prefix cache by name until the
+    slot snapshots are ported.  The modality front-ends' backbones are
+    admitted too (their stub front-ends are ported)."""
     from repro_torch.models import transformer as M
     from repro_torch.serving.block_cache import MixerStateCache
     cfg = _hybrid_cfg(case)
     if cfg.frontend != "none":
-        with pytest.raises(NotImplementedError,
-                           match=f"{cfg.frontend} front-end is not ported "
-                                 r"\(ROADMAP.md queue 1, item 6\)"):
-            M.check_supported(cfg)
+        M.check_supported(cfg)
+        assert {mix for mix, _f in M.layer_plan(cfg)} == {"gqa"}
         return
     plan = M.layer_plan(cfg)
     assert {mix for mix, _f in plan} == {"ssm", "gqa"}
     M.check_supported(cfg)
-    cache = MixerStateCache(cfg, num_blocks=9, block_size=4, max_model_len=32,
-                            num_slots=3)
+    kw = dict(num_blocks=9, block_size=4, max_model_len=32, num_slots=3)
+    with pytest.raises(NotImplementedError,
+                       match=r'ROADMAP.md queue 1, item 7, "Slot snapshots"'):
+        MixerStateCache(cfg, **kw)
+    cache = MixerStateCache(cfg, **kw, prefix_cache=False)
     assert cache.attn.layer_ids == [i for i, (m, _f) in enumerate(plan)
                                     if m == "gqa"]
     assert cache.ssm.layer_ids == [i for i, (m, _f) in enumerate(plan)

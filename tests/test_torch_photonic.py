@@ -285,7 +285,9 @@ def served_pair():
     je = JEngine(jp, jcfg, JEngineConfig(
         **ecfg, prefix_cache=False, preempt_policy="recompute",
         attn_impl="xla", bnn_impl="xla"))
-    te = Engine(tp, tcfg, EngineConfig(**ecfg), device="cpu")
+    te = Engine(tp, tcfg, EngineConfig(
+        **ecfg, prefix_cache=False, preempt_policy="recompute"),
+        device="cpu")
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, 128, n) for n in (5, 9, 3)]
     for eng in (je, te):

@@ -4,8 +4,10 @@ identical greedy tokens under continuous batching with mid-stream
 admission and under recompute preemption — plus stop tokens, the
 slice's refused options, cancellation and streaming.
 
-Both engines run the slice's configuration (fcfs, mixed role, no
-prefix cache, recompute preemption, greedy); the JAX side runs its XLA
+Both engines run fcfs, mixed role, no prefix cache, recompute
+preemption, greedy (the prefix cache, swap and sampling are held to
+JAX in tests/test_torch_prefix_swap.py and
+tests/test_torch_sampling.py); the JAX side runs its XLA
 paths (``attn_impl="xla"``, ``bnn_impl="xla"``), the port its plain
 kernel versions on the CPU."""
 import random
@@ -161,7 +163,9 @@ def _pair(models, ecfg_kw, prompts, max_new, late=0, late_after=0):
     je = JEngine(jp, jcfg, JEngineConfig(
         **ecfg_kw, prefix_cache=False, preempt_policy="recompute",
         attn_impl="xla", bnn_impl="xla"))
-    te = Engine(tp, tcfg, EngineConfig(**ecfg_kw), device="cpu")
+    te = Engine(tp, tcfg, EngineConfig(
+        **ecfg_kw, prefix_cache=False, preempt_policy="recompute"),
+        device="cpu")
     j = _drive(je, prompts, max_new, late, late_after)
     t = _drive(te, prompts, max_new, late, late_after)
     return (je, j), (te, t)
@@ -250,20 +254,20 @@ def test_commit_stream_and_cancel(models, continuous_run):
     assert sorted(out) == [a]
     np.testing.assert_array_equal(out[a], jout[jrids[0]])
     assert streamed[a] == list(out[a][3:])
-    assert eng.cache.attn.allocator.num_used == 0
+    # only the prefix index's cached blocks stay, one reference each
+    attn = eng.cache.attn
+    assert attn.allocator.num_used == len(attn.prefix)
+    assert all(attn.allocator.refcount(b) == 1
+               for b in range(1, attn.allocator.num_blocks)
+               if attn.allocator.refcount(b))
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefix_cache=True), dict(preempt_policy="swap"), dict(spec_k=2),
-    dict(policy="slo"), dict(role="prefill")])
+    dict(spec_k=2), dict(policy="slo"), dict(policy="priority"),
+    dict(role="prefill"), dict(role="decode")])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
         EngineConfig(**option)
-
-
-def test_sampled_decoding_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        SamplingParams(temperature=0.7)
 
 
 def test_engine_rejects_oversized_request(models):
