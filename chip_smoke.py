@@ -15,7 +15,7 @@ Phases (each check raises, and the script then exits non-zero):
               below and above the ring's capacity and one under a block;
               MAX_ATTN_ERR) and the MLA variant at deepseek-v2-lite's
               (C = 1, C = 128 causal, a ring case; MAX_MLA_REL_ERR;
-              untimed at C = 2, 4, 5, 17 around its decode block and
+              untimed at C = 2, 4, 17 around its decode block and
               prefill tile, with a window cutting a block, and ring
               chunks over a ring that has just wrapped).  The GQA, ring
               and MLA decode walks also at kv_len around their part
@@ -23,7 +23,11 @@ Phases (each check raises, and the script then exits non-zero):
               arc wraps at a part boundary, under windows that cut a
               part; each row of a C = 1 call bit-equal to the same row
               run alone (B = 1); GQA and ring timed at B = 8 and B = 1.
-              Each is timed (device time, from CUDA-graph replays; and
+              The speculative verify's shape, timed: C = 5 over B = 8
+              with ragged kv_len and each row's real queries 1-5
+              (n_valid), GQA at bnn-lm-100m's and jamba's heads, the
+              ring at mixtral's over a ring whose visible arc has just
+              wrapped, MLA at deepseek-v2-lite's.  Each is timed (device time, from CUDA-graph replays; and
               called from Python, eager) beside its plain version, one
               library call as a yardstick (for MLA the absorbed form in
               PyTorch calls, k_up matmul + SDPA over the latents + v_up
@@ -78,7 +82,24 @@ Phases (each check raises, and the script then exits non-zero):
               Prints tokens/s, prefill tokens skipped, swaps and the
               bytes and ms of their copies, what sampling adds to a
               decode step, and peak memory; the serving kernels'
-              launches over A-E must be > 0.
+              launches over A-E must be > 0.  Then the sampled bits on
+              the card against the CPU's: random_bits and uniform
+              bit-equal at seeded (seed, index) keys, gumbel within
+              GUMBEL_ULPS ulps, sample_tokens on fixed logits equal
+              except at a printed near-tie (NEAR_TIE, TOP_P_ULPS).
+  spec        speculative decoding (spec_k 4, spec_ngram 3) on
+              bnn-lm-100m at published width through launch.serve's
+              run functions: 16 requests (8 periodic prompts, a seeded
+              unit of 4-16 tokens repeated to 128-512 tokens, and 8 of
+              [serve]'s), 64 new, 8 after 8 steps, under A's config,
+              greedy and sampled, each beside the same traffic with
+              spec_k 0: verify steps and drafts in each run, accepted
+              drafts and a partly accepted verify step over the phase,
+              tokens equal spec_k 0's (a request that parts is
+              re-checked by phase 4's machinery, the verify's route in
+              chunks of spec_k + 1 against the decode replay, and
+              passes only if they part first by an accepted
+              difference, printed, before its tokens do).
   5. conv     the paper's binarized-conv path (core/conv.bnn_conv2d) at
               every groups == 1 layer of VGG-small, ResNet18,
               MobileNet_V2 and ShuffleNet_V2 (photonic/workloads.py),
@@ -145,10 +166,28 @@ Phases (each check raises, and the script then exits non-zero):
               of in_proj's weight and of an expert matrix, and paged
               GQA at H = 64, Hkv = 8, Dh = 128 (B = 8 and 1, C = 1 and
               128; kv_len around the decode walk's parts, C around its
-              tile).
+              tile).  Each family's traffic carries 2 periodic prompts
+              (mixtral, deepseek, mamba2): after its phase run, the
+              same traffic with spec_k 4 must give the phase run's
+              tokens (or part only as [spec] allows), with verify
+              steps, mixtral's ring wrapping, mamba2's slots repaired.
+              Then the JAX defaults (prefix cache with slot snapshots,
+              swap) against a control without them (no prefix cache,
+              recompute), equal tokens: mamba2 at 48 layers on 12
+              requests over 3 shared heads of 256 tokens (two 128-token
+              chunks) with suffixes of 16-512, 2 whole repeats, 32 new,
+              4 after 4 steps, 5 slots, and two forced preemptions of
+              the youngest request (one parked at a snapshot in the
+              index: re-adopted; one mid-decode: a host trip, its slot
+              restored bit-equal); the jamba window on 12 such requests
+              (suffixes 16-608 for the first 6, 608-1200 after) with 5
+              slots and 256 blocks: both members skip the same tokens
+              and both admission shortages occur.  Snapshot hits and
+              skipped prefill tokens > 0 in both.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, serve, conv, mixtral, deepseek, mamba2, jamba), error,
+on its paths (serving, serve, conv, spec, mixtral, deepseek, mamba2,
+jamba, each family's speculative run and the defaults pairs), error,
 times and bound; the last line is the run's verdict with the device.
 Imports nothing of JAX or the JAX package.
 """
@@ -456,12 +495,15 @@ def _check_rows_alone(got: torch.Tensor, alone, what: str) -> None:
 def check_paged_attention(dev, b: int, c: int, h: int, hkv: int, dh: int,
                           bs: int, max_len: int, gen: torch.Generator,
                           timed: bool, window: int | None = None,
-                          lens=None) -> dict:
+                          lens=None, n_valid=None) -> dict:
     """Ragged kv_len up to ``max_len`` over shuffled physical blocks (the
     first row at it; with B > 1 the last row has kv_len 0: fully
     masked), or the given ``lens``.  C > 1 runs causal, with each row's
-    queries ending at its last key (a prefill chunk).  At C = 1 each row
-    of the batch must equal, bit for bit, the same row run alone."""
+    queries ending at its last key (a prefill chunk), or, given per-row
+    ``n_valid``, a speculative verify: row i's chunk starts at kv_len -
+    n_valid[i] and its queries past n_valid[i] are padding.  At C = 1
+    each row of the batch must equal, bit for bit, the same row run
+    alone."""
     from repro_torch.kernels import paged_attention as pa
     mb = -(-max_len // bs)
     rng = np.random.default_rng(7)
@@ -475,7 +517,10 @@ def check_paged_attention(dev, b: int, c: int, h: int, hkv: int, dh: int,
     nb = b * mb + 1
     table = (1 + rng.permutation(b * mb)).reshape(b, mb).astype(np.int32)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-    q_off = (kv_len - c).clamp_min(0) if c > 1 else kv_len - 1
+    if n_valid is not None:
+        q_off = kv_len - torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    else:
+        q_off = (kv_len - c).clamp_min(0) if c > 1 else kv_len - 1
     q_off = q_off.to(torch.int32).contiguous()
     tab = torch.tensor(table, device=dev)
     q = torch.randn(b, c, h, dh, device=dev, generator=gen)
@@ -500,7 +545,9 @@ def check_paged_attention(dev, b: int, c: int, h: int, hkv: int, dh: int,
                 q_offset=q_off[i:i + 1], causal=causal, window=window),
             f"paged_attention B={b} C=1")
     row = {"shape": f"B={b} C={c} H={h} Hkv={hkv} Dh={dh} BS={bs} "
-                    f"kv_len<={max_len}", "max_abs_err": err}
+                    f"kv_len<={max_len}"
+                    + ("" if n_valid is None else
+                       f" n_valid={list(n_valid)}"), "max_abs_err": err}
     if timed:
         # what this run's data needs: each row's visible keys once
         qpos = q_off.long()[:, None] + torch.arange(c, device=dev)
@@ -592,6 +639,11 @@ def phase_kernels(dev, cfg) -> dict[str, list[dict]]:
     rows["paged_attention"].append(check_paged_attention(
         dev, 1, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16, 1024, gen,
         True))
+    # the speculative verify ([spec]): C = spec_k + 1 = 5 over 8 rows,
+    # ragged kv_len, each row's real queries 1-5
+    rows["paged_attention"].append(check_paged_attention(
+        dev, 8, VERIFY_C, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16,
+        1024, gen, True, lens=VERIFY_LENS, n_valid=VERIFY_N_VALID))
     # the served families' widths (section "families"): mixtral's
     # attention projections at a prefill chunk, its experts' w1/w3 and w2
     # at the rows an expert gets in a prefill step and at decode, and a
@@ -675,6 +727,10 @@ def phase_jamba_kernels(dev, rows: dict[str, list[dict]]) -> None:
         new["paged_attention"].append(
             {"model": "jamba", **check_paged_attention(
                 dev, b, c, 64, 8, 128, 16, 2048, gen, True)})
+    new["paged_attention"].append(
+        {"model": "jamba", **check_paged_attention(
+            dev, 8, VERIFY_C, 64, 8, 128, 16, 2048, gen, True,
+            lens=[2 * n for n in VERIFY_LENS], n_valid=VERIFY_N_VALID)})
     from repro_torch.kernels.paged_attention import DECODE_PART_KEYS as kp
     check_paged_attention(dev, 0, 1, 64, 8, 128, 16, 2048, gen, False,
                           lens=(kp - 1, kp, kp + 1, 4 * kp - 1, 4 * kp,
@@ -712,21 +768,34 @@ def _visible(kpos, kv_len, q_off, c, causal, window):
 
 
 RING_NEWEST = (100, 2000, 4223, 4300, 6000, 8191, 5, 3000)
+# the speculative verify's attention: C = spec_k + 1 with spec_k 4, each
+# row's real queries 1-5 (n_valid), ragged kv_len; the ring's newest
+# positions just past its 4224 slots (the arc has just wrapped) and one
+# short of them
+VERIFY_C = 5
+VERIFY_N_VALID = (1, 2, 3, 4, 5, 5, 3, 1)
+VERIFY_LENS = (1024, 7, 300, 513, 640, 256, 900, 1)
+VERIFY_RING_NEWEST = (4223, 4224, 4225, 4226, 4228, 4230, 4300, 4500)
 
 
 def check_ring_attention(dev, c: int, gen: torch.Generator,
                          timed: bool, newest=RING_NEWEST,
-                         window: int = 4096) -> dict:
+                         window: int = 4096, n_valid=None) -> dict:
     """mixtral's ring at its published shapes: B=8, H=32, Hkv=8, Dh=128,
     BS=16, MB=264 (4224 slots), window 4096.  ``newest`` covers rows
     below the capacity (slots never written), above it (wrapped) and a
     kv_len below one block.  C > 1 is a causal prefill chunk ending at
-    ``newest``."""
+    ``newest``, or, given per-row ``n_valid``, a speculative verify whose
+    row i starts at newest + 1 - n_valid[i] (queries past n_valid[i] are
+    padding)."""
     from repro_torch.kernels import paged_attention as pa
     b, h, hkv, dh, bs, mb = len(newest), 32, 8, 128, 16, 264
     newest = torch.tensor(newest, dtype=torch.int32, device=dev)
     kv_len = (newest + 1).to(torch.int32)
     q_off = newest if c == 1 else (kv_len - c).clamp_min(0).to(torch.int32)
+    if n_valid is not None:
+        q_off = (kv_len - torch.tensor(n_valid, dtype=torch.int32,
+                                       device=dev)).to(torch.int32)
     causal = c > 1
     nb = b * mb + 1
     tab = (1 + torch.randperm(b * mb, generator=gen, device=dev)).reshape(
@@ -757,8 +826,9 @@ def check_ring_attention(dev, c: int, gen: torch.Generator,
                 ring=True, newest=newest[i:i + 1]),
             f"paged_attention ring B={b} C=1")
     row = {"shape": f"B={b} C={c} H={h} Hkv={hkv} Dh={dh} BS={bs} MB={mb} "
-                    f"window={window} newest={newest.tolist()}",
-           "max_abs_err": err}
+                    f"window={window} newest={newest.tolist()}"
+                    + ("" if n_valid is None else
+                       f" n_valid={list(n_valid)}"), "max_abs_err": err}
     if timed:
         # what this run's data needs: each row's visible keys once
         n_keys = int(vis.any(dim=1).sum())
@@ -951,6 +1021,14 @@ def phase_attention_variants(dev) -> dict[str, list[dict]]:
     # the engine's smallest decode bucket: one row at kv_len 1024
     rows["paged_attention_mla"].append(check_mla_attention(dev, 1, gen, True,
                                                            lens=(1024,)))
+    # the speculative verify ([spec]): MLA at C = 5 over 8 rows; the ring
+    # at C = 5 with each row's real queries 1-5, over a ring whose
+    # visible arc has just wrapped (newest around its 4224 slots)
+    rows["paged_attention_mla"].append(check_mla_attention(dev, VERIFY_C,
+                                                           gen, True))
+    rows["paged_attention_ring"].append(check_ring_attention(
+        dev, VERIFY_C, gen, True, newest=VERIFY_RING_NEWEST,
+        n_valid=VERIFY_N_VALID))
     # off the paths, checked untimed: a ring prefill chunk of MLA; ring
     # chunks around the decode and prefill tiles (G = 4: R = 16, 20, 68),
     # rings that have just wrapped (newest = capacity - 1, capacity,
@@ -973,7 +1051,7 @@ def phase_attention_variants(dev) -> dict[str, list[dict]]:
     # MLA around the decode block (C * H = 16) and the tiled path's
     # 64-row tile (C = 2, 4, 5, 17 at H = 16), a window that cuts a
     # latent block, ring chunks over a ring that has just wrapped
-    for c in (2, 4, 5, 17):
+    for c in (2, 4, 17):
         check_mla_attention(dev, c, gen, False)
     check_mla_attention(dev, 17, gen, False, window=37)
     check_mla_attention(dev, 128, gen, False, window=300)
@@ -1190,9 +1268,12 @@ def _two_routes(where, mix_step, ffn_step, keep=None):
 
 
 def _teacher_forced(params, cfg, seq: np.ndarray, chunk: int, bs: int,
-                    ring_blocks: int, dev, where: str, keep_from: int):
+                    ring_blocks: int, dev, where: str, keep_from: int,
+                    tail_chunk: int | None = None):
     """Prefill ``seq`` in chunks through the kernels ("auto") and the
-    plain versions ("torch") on fresh pools, layer by layer and
+    plain versions ("torch") on fresh pools (``tail_chunk``, when given:
+    the first ``keep_from`` positions in chunks of ``chunk``, the rest in
+    chunks of ``tail_chunk``), layer by layer and
     re-synchronised at every sublayer: both routes run each attention
     and each FFN / MoE on the kernel route's input, so a difference is
     held to the sublayer that made it.  Returns (kernel route's logits
@@ -1212,10 +1293,17 @@ def _teacher_forced(params, cfg, seq: np.ndarray, chunk: int, bs: int,
     logits = {r: [] for r in ROUTES}
     kept: dict[int, list] = {}
     flips, worst = 0, 0.0
+    starts = list(range(0, t, chunk))
+    if tail_chunk:
+        starts = list(range(0, keep_from, chunk)) + list(
+            range(keep_from, t, tail_chunk))
     with torch.no_grad():
-        for pos in range(0, t, chunk):
-            n = min(chunk, t - pos)
-            toks = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
+        for i_s, pos in enumerate(starts):
+            end = starts[i_s + 1] if i_s + 1 < len(starts) else t
+            n = end - pos
+            width = max(n, tail_chunk or 0) if pos >= keep_from and \
+                tail_chunk else chunk
+            toks = torch.zeros((1, width), dtype=torch.int64, device=dev)
             toks[0, :n] = torch.from_numpy(seq[pos:pos + n].astype(np.int64))
             lengths = torch.tensor([pos], dtype=torch.int32, device=dev)
             n_valid = torch.tensor([n], dtype=torch.int32, device=dev)
@@ -1741,6 +1829,512 @@ def phase_serve(dev, smi: str, smoke: bool = False):
             f"step C {1e3 * c_step:.3f} ms vs A {1e3 * a_step:.3f} ms")
         log(f"[serve] peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        check_sampled_bits(dev)
+    return launches
+
+
+# the sampled bits on the card against the CPU's (the CPU's are held to
+# jax.random in tests/test_torch_sampling.py, with the same bounds)
+SAMPLED_KEYS = ((0, 0), (1, 3), (7, 17), (1000, 500), (2 ** 31 + 5, 1023),
+                (2 ** 32 - 1, 99999), (123456789, 2 ** 31 - 1))
+GUMBEL_ULPS = 4          # |gumbel_card - gumbel_cpu| in ulps of max(1, |g|)
+NEAR_TIE = 1e-5          # perturbed scores closer than this may swap
+TOP_P_ULPS = 8           # a top-p boundary this close is a near-tie
+
+
+def check_sampled_bits(dev):
+    """``random_bits`` and ``uniform`` under seeded (seed, index) keys
+    bit-equal on the card and on the CPU, ``gumbel`` within GUMBEL_ULPS
+    ulps, and ``sample_tokens`` on fixed logits (B = 16, V = 32000,
+    greedy and sampled rows, top-k and top-p) equal, except where the
+    CPU's two best perturbed scores lie within NEAR_TIE or a top-p
+    boundary within TOP_P_ULPS ulps moves a token in or out (printed)."""
+    from repro_torch.serving import sampling as ts
+    cpu = torch.device("cpu")
+    v = 32000
+    worst = 0.0
+    for seed, index in SAMPLED_KEYS:
+        got = {}
+        for d in (cpu, dev):
+            k1, k2 = ts.token_key(torch.tensor([seed], device=d),
+                                  torch.tensor([index], device=d))
+            got[d.type] = [f(k1, k2, (v,)).cpu() for f in
+                           (ts.random_bits, ts.uniform, ts.gumbel)]
+        (bc, uc, gc_), (bd, ud, gd) = got["cpu"], got[dev.type]
+        if not torch.equal(bc, bd) or not torch.equal(
+                uc.view(torch.int32), ud.view(torch.int32)):
+            raise AssertionError(f"[serve] sampled bits: key ({seed}, "
+                                 f"{index}): bits or uniforms differ from "
+                                 "the CPU's")
+        spacing = torch.from_numpy(np.spacing(np.maximum(
+            1.0, gc_.abs().numpy()).astype(np.float32)))
+        ulps = ((gd - gc_).abs() / spacing).max().item()
+        worst = max(worst, ulps)
+        if not ulps <= GUMBEL_ULPS:
+            raise AssertionError(f"[serve] sampled bits: key ({seed}, "
+                                 f"{index}): gumbel {ulps} ulps from the "
+                                 "CPU's")
+    rng = np.random.default_rng(5)
+    n = 16
+    logits = rng.standard_normal((n, v)).astype(np.float32) * 3
+    seeds = rng.integers(0, 2 ** 32, n)
+    index = rng.integers(0, 2 ** 20, n)
+    temps = np.where(np.arange(n) % 4 == 0, 0.0,
+                     rng.uniform(0.3, 1.5, n)).astype(np.float32)
+    top_k = np.where(np.arange(n) % 3 == 0, 0,
+                     rng.integers(1, 100, n)).astype(np.int32)
+    top_p = np.where(np.arange(n) % 2 == 0, 1.0,
+                     rng.uniform(0.5, 0.99, n)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (logits, index.astype(np.int64),
+                                          seeds.astype(np.int64), temps,
+                                          top_k, top_p)]
+    tok_c = ts.sample_tokens(*args).numpy()
+    tok_d = ts.sample_tokens(*[a.to(dev) for a in args]).cpu().numpy()
+    # the CPU's perturbed scores and nucleus masks, to explain a difference
+    lf = args[0] / torch.clamp(args[3], min=1e-6)[:, None]
+    filt = {d: ts.filter_rows(lf.to(d), args[4].to(d), args[5].to(d)).cpu()
+            for d in ("cpu", dev.type)}
+    k1, k2 = ts.token_key(args[2], args[1])
+    score = filt["cpu"] + ts.gumbel(k1[:, None], k2[:, None], (v,))
+    accepted = []
+    for r in np.flatnonzero(tok_c != tok_d):
+        top = score[r].sort(descending=True).values
+        gap = (top[0] - top[1]).item()
+        moved = (filt["cpu"][r] > ts.NEG) != (filt[dev.type][r] > ts.NEG)
+        probs = torch.softmax(lf[r].sort(descending=True).values, dim=-1)
+        mass = (torch.cumsum(probs, 0) - probs)
+        p = float(top_p[r])
+        near_p = bool(moved.any()) and bool(
+            ((mass - p).abs() <= TOP_P_ULPS * np.spacing(np.float32(p)))
+            .any())
+        if not (temps[r] > 0 and (gap < NEAR_TIE or near_p)):
+            raise AssertionError(f"[serve] sample_tokens row {r}: card "
+                                 f"{tok_d[r]} vs CPU {tok_c[r]} (top-two "
+                                 f"gap {gap:.3g}, no near-tie)")
+        accepted.append((int(r), gap, near_p))
+    log(f"[serve] sampled bits on the card: random_bits and uniform "
+        f"bit-equal to the CPU's at {len(SAMPLED_KEYS)} keys x {v}, gumbel "
+        f"within {worst:.3g} ulps (bound {GUMBEL_ULPS}); sample_tokens "
+        f"equal at {n - len(accepted)} of {n} rows"
+        + (f"; near-ties accepted (row, gap, top-p boundary) {accepted}"
+           if accepted else ""))
+
+
+# ------------------------------------------------ slot snapshots, defaults
+#
+# mamba2 and jamba under the JAX engine's defaults (prefix cache with
+# snapshot_slots = 2 x max_batch, swap preemption) on traffic with shared
+# heads, beside the same traffic without the prefix cache and under
+# recompute (the control): the tokens must be equal.
+
+PREFIX_HEAD, PREFIX_SUFFIX = 256, (16, 512)
+JAMBA_PREFIX_SUFFIX, JAMBA_PREFIX_SEED = (16, 1200), 6
+
+
+def prefix_traffic(vocab: int, seed: int, n: int = 12, heads: int = 3,
+                   repeats=((9, 1), (11, 6)), suffix=PREFIX_SUFFIX,
+                   long_from: int | None = None) -> list[np.ndarray]:
+    """``n`` prompts: one of ``heads`` heads of PREFIX_HEAD tokens (two
+    128-token chunks, so snapshots land on the chunk grid), then a unique
+    suffix of ``suffix`` tokens; request ``at`` repeats request ``src``
+    whole for each (at, src) of ``repeats``; with ``long_from``, the
+    suffixes of the requests before it are drawn from the lower half of
+    ``suffix`` and the rest from the upper half.  The lengths are drawn
+    first, so they do not depend on ``vocab``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = suffix
+    if long_from is None:
+        lens = rng.integers(lo, hi + 1, size=n)
+    else:
+        mid = (lo + hi) // 2
+        lens = np.concatenate([rng.integers(lo, mid + 1, size=long_from),
+                               rng.integers(mid, hi + 1, size=n - long_from)])
+    hs = [rng.integers(0, vocab, PREFIX_HEAD) for _ in range(heads)]
+    prompts = [np.concatenate([hs[i % heads], rng.integers(0, vocab, m)])
+               for i, m in enumerate(lens)]
+    for at, src in repeats:
+        prompts[at] = prompts[src].copy()
+    return prompts
+
+
+def watch_slot_swaps(eng, rec: dict):
+    """Wrap the engine's slot member so that every swap-out keeps a copy
+    of the request's slot (every layer's state) and every swap-in that
+    came back from the host checks the slot bit-equal to it."""
+    ssm = eng.cache.ssm
+    swap_out, swap_in = ssm.swap_out, ssm.swap_in
+    rec.update(saved={}, checked=0)
+
+    def out(req):
+        rec["saved"][req.rid] = [{k: v[req.slot].clone()
+                                  for k, v in p.items()} for p in ssm.pools]
+        swap_out(req)
+
+    def back(req):
+        host = req.host_state is not None
+        ok = swap_in(req)
+        want = rec["saved"].pop(req.rid)
+        if ok and host:
+            for li, (p, w) in enumerate(zip(ssm.pools, want)):
+                for k, v in w.items():
+                    if not torch.equal(p[k][req.slot], v):
+                        raise AssertionError(
+                            f"rid {req.rid}: layer {li} {k} of its slot not "
+                            "bit-equal after the host round trip")
+            rec["checked"] += 1
+        elif ok is False:
+            rec["saved"][req.rid] = want
+        return ok
+
+    ssm.swap_out, ssm.swap_in = out, back
+
+
+def forced_preempts(eng, done: dict):
+    """After a step: preempt the policy's victim (the youngest running
+    request) once while it is parked exactly at a snapshot in the index
+    (swap-in re-adopts it: no host trip), and once while it is past its
+    prompt (a host trip).  ``done`` records which ran."""
+    sched = eng.scheduler
+    if not sched.running or len(done) == 2:
+        return
+    v = sched.policy.victim(sched.running)
+    bs = eng.ecfg.block_size
+    snaps = eng.cache.ssm.snapshots
+    parked = (v.state.value == "prefill" and 0 < v.pos < v.prompt_len
+              and v.pos % eng.ecfg.prefill_chunk == 0
+              and v.snap_registered == v.pos // bs
+              and snaps is not None and v.snap_key in snaps)
+    decoding = v.state.value == "decode" and v.pos > v.prompt_len
+    for kind, hit in (("at_snapshot", parked), ("mid_decode", decoding)):
+        if hit and kind not in done:
+            sched._preempt_one(eng.step_count, None)
+            done[kind] = v.rid
+            return
+
+
+def serve_forced(eng, prompts, max_new, late_after, n_late, forced=None):
+    """Submit all but the last ``n_late`` prompts, step ``late_after``
+    times, submit the rest, run to the end; ``forced(eng)`` runs after
+    every step.  Returns each request's tokens, in order."""
+    early = len(prompts) - n_late
+    rids = [eng.submit(p, max_new) for p in prompts[:early]]
+    for _ in range(late_after):
+        eng.step()
+        if forced:
+            forced(eng)
+    rids += [eng.submit(p, max_new) for p in prompts[early:]]
+    while not eng.scheduler.idle:
+        if not eng.step():
+            raise RuntimeError(f"stalled: {eng.scheduler.stall_reasons()}")
+        if forced:
+            forced(eng)
+    return [eng.requests[r].full_sequence() for r in rids]
+
+
+def phase_defaults(dev, smi, cfg, params, ecfg_kw, prompts, depth,
+                   hybrid: bool):
+    """Serve ``prompts`` (32 new tokens each, 4 after 4 steps) under the
+    JAX engine's defaults over ``ecfg_kw`` and, as the control, without
+    the prefix cache and under recompute; returns the defaults run's
+    kernel launches.  Gates: equal tokens, snapshot hits and skipped
+    prefill tokens; mamba2 (``hybrid`` False): two forced preemptions,
+    one re-adopting a snapshot, one taking the host trip, which must
+    restore the slot bit-equal; jamba: both members skip the same
+    tokens, and the admission shortages of its phase still occur."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, EngineConfig
+    arch = cfg.name
+    on = {k: v for k, v in ecfg_kw.items()
+          if k not in ("prefix_cache", "preempt_policy")}
+    ops.reset_launches()
+    eng = Engine(params, cfg, EngineConfig(**on), device=dev)
+    rec, adm, done = {}, {}, {}
+    watch_slot_swaps(eng, rec)
+    if hybrid:
+        adm.update(watch_admissions(eng))
+    t0 = time.perf_counter()
+    out = serve_forced(eng, prompts, 32, 4, 4,
+                       None if hybrid else lambda e: forced_preempts(e, done))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    ctl = Engine(params, cfg, EngineConfig(**{**on, **NO_PREFIX}),
+                 device=dev)
+    want = serve_forced(ctl, prompts, 32, 4, 4)
+    for b, (g, w) in enumerate(zip(out, want)):
+        if not np.array_equal(g, w):
+            j = int(np.flatnonzero(g != w)[0]) if len(g) == len(w) else -1
+            raise AssertionError(f"[{arch}] defaults: request {b} parts "
+                                 f"from the control at position {j}")
+    st = eng.stats()
+    pc, sw = st["prefix_cache"], st["swap"]
+    if pc["snapshot_hits"] <= 0 or pc["skipped_prefill_tokens"] <= 0:
+        raise AssertionError(f"[{arch}] defaults: no snapshot hit or no "
+                             "prefill token skipped")
+    extra = ""
+    if hybrid:
+        a, m = eng.cache.attn, eng.cache.ssm
+        if a.skipped_prefill_tokens != m.skipped_prefill_tokens:
+            raise AssertionError(f"[{arch}] defaults: the attention member "
+                                 f"skipped {a.skipped_prefill_tokens} "
+                                 f"tokens, the slots {m.skipped_prefill_tokens}")
+        slot_waits, released = shortages(eng, adm)
+        if not slot_waits or not released:
+            raise AssertionError(f"[{arch}] defaults: the admissions no "
+                                 "longer wait for a slot and give a slot "
+                                 "back")
+        extra = (f"both members skipped {a.skipped_prefill_tokens} tokens; "
+                 f"admissions_waiting_for_a_slot={len(slot_waits)} "
+                 f"admissions_giving_back_a_slot={len(released)} ")
+    else:
+        if len(done) != 2 or sw["readopted_snapshots"] < 1 \
+                or sw["swapped_slots"] < 1:
+            raise AssertionError(f"[{arch}] defaults: forced preemptions "
+                                 f"{done}, readopted_snapshots="
+                                 f"{sw['readopted_snapshots']}, swapped_slots="
+                                 f"{sw['swapped_slots']}")
+        extra = f"forced preemptions (kind: rid) {done} "
+    if not hybrid and rec["checked"] < 1:
+        raise AssertionError(f"[{arch}] defaults: no host trip came back "
+                             "to be checked")
+    log(f"[{arch}] defaults {depth}: requests={len(prompts)} prompt_tokens="
+        f"{sum(map(len, prompts))} snapshot_hits={pc['snapshot_hits']} "
+        f"snapshot_queries={pc['snapshot_queries']} snapshot_stores="
+        f"{pc['snapshot_stores']} snapshot_evictions="
+        f"{pc['snapshot_evictions']} block_hits={pc['hits'] - pc['snapshot_hits']} "
+        f"skipped_prefill_tokens={pc['skipped_prefill_tokens']} "
+        f"preemptions={st['preemptions']} swap_outs={sw['swap_outs']} "
+        f"swap_ins={sw['swap_ins']} swapped_slots={sw['swapped_slots']} "
+        f"readopted_snapshots={sw['readopted_snapshots']} "
+        f"swap_lost={eng.scheduler.swap_losts} host_trips_checked="
+        f"{rec['checked']} {extra}total_tokens_per_s="
+        f"{st['total_tokens_per_s']:.1f} wall_s={wall:.3f}; tokens equal "
+        f"the control's (no prefix cache, recompute: total_tokens_per_s="
+        f"{ctl.stats()['total_tokens_per_s']:.1f}); {smi}")
+    log(f"[{arch}] defaults launches {json.dumps(launches)}")
+    return launches
+
+
+# ---------------------------------------------------------------- [spec]
+#
+# Speculative decoding (prompt-lookup drafts, one verify forward a step):
+# bnn-lm-100m at published width through repro_torch.launch.serve's run
+# functions, greedy and sampled, beside the same traffic with spec_k 0;
+# then mixtral, deepseek and mamba2 on their phase's traffic.
+
+SPEC_K, SPEC_NGRAM, SPEC_NEW = 4, 3, 64
+
+
+def periodic_prompts(vocab: int, n: int, seed: int,
+                     lens=(128, 512)) -> list[np.ndarray]:
+    """``n`` prompts, each a seeded unit of 4-16 tokens repeated to
+    ``lens`` tokens: prompt lookup always finds a draft."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        unit = rng.integers(0, vocab, int(rng.integers(4, 17)))
+        m = int(rng.integers(lens[0], lens[1] + 1))
+        out.append(np.tile(unit, -(-m // len(unit)))[:m])
+    return out
+
+
+def spec_traffic(vocab: int) -> list[np.ndarray]:
+    """8 periodic prompts, then 8 of [serve]'s chat prompts."""
+    return periodic_prompts(vocab, 8, seed=21) + serve_traffic(vocab)[:8]
+
+
+def partial_steps(eng) -> int:
+    """Verify steps that accepted part of their draft: more committed
+    tokens than rows (one is the verifier's own), fewer than fed."""
+    return sum(1 for e in eng.scheduler.trace if e["event"] == "spec_decode"
+               and len(e["rids"]) < e["committed"]
+               < len(e["rids"]) + e["drafted"])
+
+
+def spec_gates(where, eng):
+    """Verify steps ran and drafts were proposed; returns the stats and
+    the partly accepted verify steps (gated over the phase: a sampled
+    run of random weights rarely draws a draft's token)."""
+    sp = eng.stats()["speculative"]
+    if not (sp["spec_steps"] > 0 and sp["draft_tokens"] > 0):
+        raise AssertionError(f"{where}: speculative stats {sp}")
+    return sp, partial_steps(eng)
+
+
+def spec_recheck(dev, cfg, params, prompt, max_new, ecfg_kw, sampling,
+                 got: np.ndarray, want: np.ndarray, where: str):
+    """A speculative request whose tokens part from its control's: serve
+    it alone with ``ecfg_kw`` (no prefix cache, recompute) and spec_k 0
+    (its tokens must equal the control's), then hold phase 4's decode
+    replay (the C = 1 decode route the control ran) against the chunked
+    re-check with the prompt in prefill chunks and every generated
+    position in chunks of spec_k + 1 (the verify's route: the tiled
+    attention walk, the SSD dual form) sublayer by sublayer.  Passes only
+    if they part first by an accepted difference (printed) at a position
+    before the token where ``got`` leaves ``want``."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig
+    p = len(prompt)
+    g = int(np.flatnonzero(got[p:len(want)] != want[p:len(got)])[0]) + p
+    solo, (seq,) = SV.run(params, cfg, [prompt], max_new,
+                          EngineConfig(**ecfg_kw), device=dev,
+                          sampling=lambda _b: sampling)
+    if not np.array_equal(seq, want):
+        raise AssertionError(f"{where}: the request served alone leaves "
+                             "the control's tokens")
+    _tok, _f, _w, kept_r = decode_replay(params, cfg, solo, 0, dev, where)
+    _lk, _lp, _f2, _w2, kept_c = _teacher_forced(
+        params, cfg, seq, solo.ecfg.prefill_chunk, solo.ecfg.block_size,
+        solo.cache.ring_blocks, dev, where, keep_from=p,
+        tail_chunk=SPEC_K + 1)
+    part = _cross_check(where, kept_r, kept_c,
+                        f"generated positions in chunks of {SPEC_K + 1}")
+    if part is None or part >= g:
+        raise AssertionError(f"{where}: the speculative tokens part from "
+                             f"the control's at position {g} with no "
+                             "accepted difference of the two routes before "
+                             "it")
+    log(f"{where}: the speculative tokens part from the control's at "
+        f"position {g}, after the verify route (chunks of {SPEC_K + 1}) "
+        f"parts from the decode route at pos {part} by the accepted "
+        "difference printed above; equal up to it")
+    return g
+
+
+def same_or_rechecked(dev, cfg, params, prompts, max_new, ecfg_kw, sampling,
+                      got, want, where) -> list[int]:
+    """Each request's speculative tokens equal its control's, or part
+    only after an accepted difference (``spec_recheck``); returns the
+    requests that parted."""
+    parted = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        if len(g) == len(w) and np.array_equal(g, w):
+            continue
+        spec_recheck(dev, cfg, params, prompts[b], max_new,
+                     {**ecfg_kw, **NO_PREFIX},
+                     None if sampling is None else sampling(b), g, w,
+                     f"{where} request {b}")
+        parted.append(b)
+    return parted
+
+
+def phase_spec(dev, smi: str, smoke: bool = False):
+    """The [spec] phase: bnn-lm-100m at published width (``smoke``: the
+    reduced config) through launch.serve's run functions, 16 requests
+    (``spec_traffic``), 64 new tokens each, 8 after 8 steps, under
+    [serve]'s A config (prefix cache, swap, 193 blocks) with spec_k 4 and
+    spec_ngram 3, greedy and sampled (SERVE_SAMPLING, seed 1000 +
+    request), each beside the same traffic with spec_k 0.  Returns the
+    kernel launches over the speculative runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig
+    cfg, params = SV.setup("bnn-lm-100m", smoke=smoke, precision="bnn",
+                           seed=0, device=dev)
+    prompts = spec_traffic(cfg.vocab)
+    cuda = dev.type == "cuda"
+    log(f"[spec] {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers} "
+        f"requests={len(prompts)} prompt_tokens={sum(map(len, prompts))} "
+        f"new={SPEC_NEW} spec_k={SPEC_K} spec_ngram={SPEC_NGRAM}; {smi}")
+    launches = {k.name: 0 for k in ops.KERNELS}
+    accepted = partly = 0
+    spec_kw = dict(SERVE_ENGINE, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM)
+    for tag, sampling in (("greedy", None), ("sampled", serve_sampling)):
+        sp_fn = (lambda b: SV.SamplingParams()) if sampling is None \
+            else sampling
+        runs = {}
+        for name, kw in (("spec", spec_kw), ("plain", SERVE_ENGINE)):
+            if name == "spec":
+                ops.reset_launches()
+            t0 = time.perf_counter()
+            eng, seqs = SV.run(params, cfg, prompts, SPEC_NEW,
+                               EngineConfig(**kw), sampling=sp_fn,
+                               late_after=8, n_late=8, device=dev)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            runs[name] = (eng, seqs, time.perf_counter() - t0)
+            if name == "spec":
+                for k in ops.KERNELS:
+                    launches[k.name] += k.launches
+        (eng, got, wall), (ctl, want, wall_c) = runs["spec"], runs["plain"]
+        sp, part = spec_gates(f"[spec] {tag}", eng)
+        accepted += sp["accepted_tokens"]
+        partly += part
+        parted = same_or_rechecked(dev, cfg, params, prompts, SPEC_NEW,
+                                   SERVE_ENGINE, sampling, got, want,
+                                   f"[spec] {tag}")
+        st, stc = eng.stats(), ctl.stats()
+        log(f"[spec] {tag}: spec_steps={sp['spec_steps']} draft_tokens="
+            f"{sp['draft_tokens']} accepted_tokens={sp['accepted_tokens']} "
+            f"acceptance_rate={sp['acceptance_rate']:.3f} "
+            f"tokens_per_decode_step={sp['tokens_per_decode_step']:.3f} "
+            f"partly_accepted_steps={part} modeled_spec_speedup="
+            f"{st['photonic']['modeled_spec_speedup']:.3f} "
+            f"preemptions={st['preemptions']} swap_outs="
+            f"{st['swap']['swap_outs']}; total_tokens_per_s="
+            f"{st['total_tokens_per_s']:.1f} decode_calls="
+            f"{st['decode_calls']} wall_s={wall:.3f} vs spec_k 0: "
+            f"total_tokens_per_s={stc['total_tokens_per_s']:.1f} "
+            f"decode_calls={stc['decode_calls']} wall_s={wall_c:.3f}; "
+            f"tokens equal spec_k 0's"
+            + (f" except requests {parted} (rechecked above)"
+               if parted else ""))
+    if accepted <= 0 or partly <= 0:
+        raise AssertionError(f"[spec]: {accepted} draft tokens accepted, "
+                             f"{partly} verify steps accepted part of "
+                             "their draft")
+    log(f"[spec] launches {json.dumps(launches)}")
+    for name in SERVING_KERNELS if cuda else ():
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "[spec] path")
+    return launches
+
+
+def spec_family(dev, cfg, params, ecfg_kw, prompts, control, where,
+                required):
+    """One family's phase traffic (its ``prompts``, with 2 periodic
+    prompts among them) served again with spec_k 4, 32 new tokens, 4
+    after 4 steps, against ``control``, the phase's own run on the same
+    traffic; returns the speculative run's kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, EngineConfig
+    ops.reset_launches()
+    eng = Engine(params, cfg, EngineConfig(**ecfg_kw, spec_k=SPEC_K,
+                                           spec_ngram=SPEC_NGRAM),
+                 device=dev)
+    t0 = time.perf_counter()
+    got = serve_forced(eng, prompts, 32, 4, 4)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    want = [control[r] for r in sorted(control)]
+    sp = eng.stats()["speculative"]
+    if not (sp["spec_steps"] > 0 and sp["draft_tokens"] > 0):
+        raise AssertionError(f"{where}: no verify step ({sp})")
+    if eng.cache.ssm is not None and sp["repairs"] < 1:
+        raise AssertionError(f"{where}: no slot repair ({sp})")
+    if eng.cache.ring_blocks and \
+            not eng.stats()["mixer"]["blocks"]["ring_reuses"] > 0:
+        raise AssertionError(f"{where}: the ring never wrapped")
+    parted = same_or_rechecked(dev, cfg, params, prompts, 32, ecfg_kw, None,
+                               got, want, where)
+    st = eng.stats()
+    log(f"{where} spec_k={SPEC_K}: spec_steps={sp['spec_steps']} "
+        f"draft_tokens={sp['draft_tokens']} accepted_tokens="
+        f"{sp['accepted_tokens']} repairs={sp['repairs']} "
+        f"partly_accepted_steps={partial_steps(eng)} "
+        f"tokens_per_decode_step={sp['tokens_per_decode_step']:.3f} "
+        f"total_tokens_per_s={st['total_tokens_per_s']:.1f} "
+        f"wall_s={wall:.3f}; tokens equal the phase's run"
+        + (f" except requests {parted} (rechecked above)" if parted else ""))
+    log(f"{where} spec launches {json.dumps(launches)}")
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on {where}'s "
+                                 "speculative path")
     return launches
 
 
@@ -2044,6 +2638,14 @@ def jamba_traffic(vocab: int):
     return family_traffic(vocab, seed=3, n=12, lens=(16, 1500))
 
 
+def jamba_prefix_traffic(vocab: int):
+    """The defaults pair's traffic: 12 prompts on 3 shared heads of 256
+    tokens, suffixes long enough that the 256 blocks run short while a
+    slot is free (and a slot while blocks are free), as in the phase."""
+    return prefix_traffic(vocab, seed=JAMBA_PREFIX_SEED,
+                          suffix=JAMBA_PREFIX_SUFFIX, long_from=6)
+
+
 def family_traffic(vocab: int, long_lens=(), seed: int = 0, n: int = 8,
                    lens=(64, 512)):
     """``n`` seeded prompts: ``long_lens`` first and fifth (one early,
@@ -2053,6 +2655,15 @@ def family_traffic(vocab: int, long_lens=(), seed: int = 0, n: int = 8,
     for i, m in zip((0, 4), long_lens):
         sizes.insert(i, m)
     return [rng.integers(0, vocab, size=int(m)) for m in sizes]
+
+
+def with_periodic(prompts, vocab: int, seed: int, n_late: int = 4):
+    """``prompts`` with 2 periodic prompts (``periodic_prompts``) at the
+    end of the early group, the last ``n_late`` left last: the phase's
+    traffic for the speculative run, and the phase's run its control."""
+    early = len(prompts) - n_late
+    return (prompts[:early] + periodic_prompts(vocab, 2, seed)
+            + prompts[early:])
 
 
 def slot_owners(eng) -> dict[int, list[int]]:
@@ -2082,8 +2693,9 @@ def watch_admissions(eng) -> dict:
     (``attempts``); at every release the blocks the request held
     (``held``: its last release is at its finish)."""
     cache = eng.cache
-    rec = {"attempts": [], "held": {}}
-    alloc, release = cache.alloc_prompt, cache.release
+    rec = {"attempts": [], "held": {}, "failed": []}
+    alloc, release, swap_in = cache.alloc_prompt, cache.release, \
+        cache.swap_in
 
     def free():
         return {"slots": cache.ssm.allocator.num_free,
@@ -2097,13 +2709,22 @@ def watch_admissions(eng) -> dict:
             "blocks_needed": cache.attn.blocks_needed(req.prompt_len),
             "free_before": before, "free_after": free(), "pos": req.pos,
             "slot": req.slot})
+        if not ok:
+            rec["failed"].append(req.rid)
+        return ok
+
+    def swap_in_(req):
+        ok = swap_in(req)
+        if ok is False:                 # deferred as no_blocks too
+            rec["failed"].append(req.rid)
         return ok
 
     def release_(req):
         rec["held"][req.rid] = list(req.blocks)
         release(req)
 
-    cache.alloc_prompt, cache.release = alloc_prompt, release_
+    cache.alloc_prompt, cache.release, cache.swap_in = \
+        alloc_prompt, release_, swap_in_
     return rec
 
 
@@ -2112,12 +2733,13 @@ def shortages(eng, rec) -> tuple[list[dict], list[dict]]:
     that waited for a slot while the prompt's blocks were free, the
     attempts that found a free slot but too few blocks, and gave the
     slot back: both members' free counts as before, the request at
-    position 0 without a slot).  Every failed attempt must be one of
-    the scheduler's ``no_blocks`` defers."""
+    position 0 without a slot).  The failed attempts and the swap-ins
+    that found too few blocks must be the scheduler's ``no_blocks``
+    defers."""
     failed = [a for a in rec["attempts"] if not a["ok"]]
     defers = [e["rid"] for e in eng.scheduler.trace
               if e["event"] == "defer" and e["reason"] == "no_blocks"]
-    if [a["rid"] for a in failed] != defers:
+    if rec["failed"] != defers:
         raise AssertionError("the failed admissions are not the trace's "
                              "no_blocks defers")
     slot_waits = [a for a in failed if a["free_before"]["slots"] == 0
@@ -2130,7 +2752,7 @@ def shortages(eng, rec) -> tuple[list[dict], list[dict]]:
 
 
 def phase_family(dev, smi: str, cfg, depth: str, ecfg, prompts, required,
-                 e2e_rids):
+                 e2e_rids, extra=None):
     """Serve one model family at its published widths (``cfg``, its
     depth cut as ``depth`` says) and re-check the finished requests
     ``e2e_rids(eng, out, rec)`` picks layer by layer; returns the
@@ -2139,7 +2761,10 @@ def phase_family(dev, smi: str, cfg, depth: str, ecfg, prompts, required,
     hybrid stack's admissions (slots and blocks) are recorded (``rec``,
     from ``watch_admissions``): one must wait for a slot while the
     blocks are free, one must find a slot but too few blocks and give
-    the slot back, and the replay runs in the engine's own table."""
+    the slot back, and the replay runs in the engine's own table.
+    ``extra(params, out)``, when given, runs last on the same weights
+    (with this run's engine freed) and what it returns is returned
+    beside the launch counts."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2187,7 +2812,12 @@ def phase_family(dev, smi: str, cfg, depth: str, ecfg, prompts, required,
         f"peak_memory_gib={peak_gib:.2f} card={smi}")
     phase_e2e(dev, cfg, params, eng, out, rids=e2e_rids(eng, out, rec),
               held=rec.get("held"))
-    return launches
+    if extra is None:
+        return launches
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, extra(params, out)
 
 
 def jamba_rids(eng, out, rec) -> list[int]:
@@ -2199,7 +2829,87 @@ def jamba_rids(eng, out, rec) -> list[int]:
                              if a["rid"] != longest)]
 
 
-# -------------------------------------------------------------------- main
+def phase_families(dev, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 7 with each family's speculative run and the defaults pairs
+    (mamba2, jamba); returns the kernel launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EngineConfig
+    # mixtral: 2 prompts longer than its 4224-token ring (one early, one
+    # late); the e2e re-check takes the first of them (its ring wrapped)
+    # and the shortest request.  Each family's traffic carries 2 periodic
+    # prompts for its speculative run (``extra``: spec_k 4 on the same
+    # traffic, this run its control)
+    cut = "layers={} (published {})"
+    spec_paths = {}
+
+    def family(name, cfg_f, depth, ecfg_kw, prompts, required, rids,
+               more=None):
+        def extra(params, out):
+            # the weights were packed by the phase's run
+            got = {"spec": spec_family(
+                dev, cfg_f, params, ecfg_kw, prompts, out,
+                f"[{cfg_f.name}]",
+                [k for k in required if k != "binarize_pack"])}
+            if more is not None:
+                got["defaults"] = more(params)
+            return got
+        launches, got = phase_family(dev, smi, cfg_f, depth,
+                                     EngineConfig(**ecfg_kw), prompts,
+                                     required, rids, extra)
+        for k, v in got.items():
+            spec_paths[f"{name}_{k}"] = v
+        return launches
+
+    mixtral = family(
+        "mixtral", get_config("mixtral-8x7b").replace(precision="bnn",
+                                                      n_layers=4),
+        cut.format(4, 32), MIXTRAL_ENGINE,
+        with_periodic(family_traffic(32000, (4400, 4700)), 32000, seed=31),
+        ("fused_bnn", "paged_attention_ring", "binarize_pack"),
+        lambda eng, out, _rec: [0, min(out, key=lambda r: len(out[r]))])
+    ds_prompts = with_periodic(family_traffic(102400, seed=1), 102400,
+                               seed=32)
+    deepseek = family(
+        "deepseek", get_config("deepseek-v2-lite-16b").replace(
+            precision="bnn", n_layers=4),
+        cut.format(4, 27), DEEPSEEK_ENGINE, ds_prompts,
+        ("fused_bnn", "paged_attention_mla", "binarize_pack"),
+        # the eight requests of its phase traffic (not the periodic two)
+        lambda eng, out, _rec: [r for r in sorted(out) if r not in (4, 5)])
+    # mamba2 at its published depth: 16 prompts of 16-1500 tokens (most
+    # longer than one prefill chunk); the e2e re-check takes the longest
+    # and the first request that got a released slot.  Then the JAX
+    # defaults (prefix cache, snapshots, swap) on shared-head traffic
+    # beside its control
+    m_cfg = get_config("mamba2-1.3b").replace(precision="bnn")
+    mamba2 = family(
+        "mamba2", m_cfg, cut.format(48, 48), MAMBA2_ENGINE,
+        with_periodic(family_traffic(50280, seed=2, n=16, lens=(16, 1500)),
+                      50280, seed=33),
+        ("fused_bnn", "binarize_pack"), mamba2_rids,
+        lambda params: phase_defaults(
+            dev, smi, m_cfg, params, MAMBA2_ENGINE,
+            prefix_traffic(50280, seed=5), cut.format(48, 48), False))
+    # jamba: published layers 2-4 (ssm, dense), (gqa, moe), (ssm, dense)
+    # at published width (≈ 52 GB of float32 weights, so everything
+    # before is freed first); the e2e re-check takes the longest request
+    # and one that found a slot but too few blocks; then the defaults
+    # pair on shared heads
+    full = get_config("jamba-1.5-large-398b")
+    lo, hi = JAMBA_PUBLISHED_LAYERS
+    j_cfg = jamba_window(full.replace(precision="bnn"))
+    j_depth = f"window=layers {lo}-{hi - 1} of {full.n_layers}"
+    jamba, j_defaults = phase_family(
+        dev, smi, j_cfg, j_depth, EngineConfig(**JAMBA_ENGINE),
+        jamba_traffic(full.vocab), SERVING_KERNELS, jamba_rids,
+        lambda params, _out: phase_defaults(
+            dev, smi, j_cfg, params, JAMBA_ENGINE,
+            jamba_prefix_traffic(full.vocab), j_depth, True))
+    spec_paths["jamba_defaults"] = j_defaults
+    return {"mixtral": mixtral, "deepseek": deepseek, "mamba2": mamba2,
+            "jamba": jamba, **spec_paths}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2229,43 +2939,9 @@ def main() -> int:
     gc.collect()
     conv_rows, conv_launches = phase_conv(dev)
     phase_photonic(st)
-    # mixtral: 2 prompts longer than its 4224-token ring (one early, one
-    # late); the e2e re-check takes the first of them (its ring wrapped)
-    # and the shortest request
-    cut = "layers={} (published {})"
-    mixtral = phase_family(
-        dev, smi, get_config("mixtral-8x7b").replace(precision="bnn",
-                                                     n_layers=4),
-        cut.format(4, 32), EngineConfig(**MIXTRAL_ENGINE),
-        family_traffic(32000, (4400, 4700)),
-        ("fused_bnn", "paged_attention_ring", "binarize_pack"),
-        lambda eng, out, _rec: [0, min(out, key=lambda r: len(out[r]))])
-    deepseek = phase_family(
-        dev, smi, get_config("deepseek-v2-lite-16b").replace(
-            precision="bnn", n_layers=4),
-        cut.format(4, 27), EngineConfig(**DEEPSEEK_ENGINE),
-        family_traffic(102400, seed=1),
-        ("fused_bnn", "paged_attention_mla", "binarize_pack"),
-        lambda eng, out, _rec: sorted(out))
-    # mamba2 at its published depth: 16 prompts of 16-1500 tokens (most
-    # longer than one prefill chunk); the e2e re-check takes the longest
-    # and the first request that got a released slot
-    mamba2 = phase_family(
-        dev, smi, get_config("mamba2-1.3b").replace(precision="bnn"),
-        cut.format(48, 48), EngineConfig(**MAMBA2_ENGINE),
-        family_traffic(50280, seed=2, n=16, lens=(16, 1500)),
-        ("fused_bnn", "binarize_pack"), mamba2_rids)
-    # jamba: published layers 2-4 (ssm, dense), (gqa, moe), (ssm, dense)
-    # at published width (≈ 52 GB of float32 weights, so everything
-    # before is freed first); the e2e re-check takes the longest request
-    # and one that found a slot but too few blocks
-    full = get_config("jamba-1.5-large-398b")
-    lo, hi = JAMBA_PUBLISHED_LAYERS
-    jamba = phase_family(
-        dev, smi, jamba_window(full.replace(precision="bnn")),
-        f"window=layers {lo}-{hi - 1} of {full.n_layers}",
-        EngineConfig(**JAMBA_ENGINE), jamba_traffic(full.vocab),
-        SERVING_KERNELS, jamba_rids)
+    spec_launches = phase_spec(dev, smi)
+    gc.collect()
+    families = phase_families(dev, smi)
     gc.collect()
     rows["xnor_popcount"] = conv_rows["xnor_popcount"]
     rows["binarize_pack"] += conv_rows["binarize_pack_conv"]
@@ -2284,8 +2960,7 @@ def main() -> int:
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "serve": serve_launches,
-             "conv": conv_launches, "mixtral": mixtral,
-             "deepseek": deepseek, "mamba2": mamba2, "jamba": jamba}
+             "conv": conv_launches, "spec": spec_launches, **families}
     kernels = []
     for k in ops.KERNELS:
         r = pick[k.name]

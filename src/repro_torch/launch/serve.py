@@ -5,8 +5,11 @@ With ``--precision bnn`` every projection runs the packed XNOR-popcount
 GEMM (1-bit weights and activations), the paper's inference mode.
 Requests flow through ``repro_torch.serving.Engine`` with the JAX
 engine's defaults: the prefix cache (prompt blocks shared by content
-hash, copied before a shared block is written) and swap-to-host
-preemption; ``--temperature/--top-k/--top-p/--sampling-seed`` sample
+hash, copied before a shared block is written; recurrent slots restore
+snapshots of shared heads, ``--snapshot-slots`` of them) and
+swap-to-host preemption; ``--spec-k`` turns on speculative decoding
+with prompt-lookup drafts (``--spec-ngram``);
+``--temperature/--top-k/--top-p/--sampling-seed`` sample
 on the card with JAX's (seed, position) keys, ``--stop-token`` ends a
 request at its first occurrence.  ``--engine legacy`` runs the
 token-by-token loop over a dense per-batch cache instead, the engine's
@@ -14,9 +17,8 @@ differential oracle: its greedy tokens equal the engine's.
 
 It runs on the card; ``--device cpu`` is the only way to run it on the
 CPU (the plain PyTorch versions of the kernels).  The options of later
-slices (speculative decoding, streaming, shards, roles, policies,
-tenants, scoring, tracing, slot snapshots, multi-pod meshes) raise and
-name their ROADMAP.md item.
+slices (streaming, shards, roles, policies, tenants, scoring, tracing,
+multi-pod meshes) raise and name their ROADMAP.md item.
 
 Setup and run are split (``setup``, ``make_prompts``, ``run``,
 ``run_legacy``): ``serve``/``serve_legacy`` take ``params`` and
@@ -46,9 +48,6 @@ from repro_torch.serving.sampling import categorical
 # default, the ROADMAP.md item that brings it)
 LATER = {
     "multi_pod": (False, "queue 1, item 10"),
-    "snapshot_slots": (0, 'queue 1, item 7, "Slot snapshots"'),
-    "spec_k": (0, 'queue 1, item 7, "Speculative decoding"'),
-    "spec_ngram": (3, 'queue 1, item 7, "Speculative decoding"'),
     "trace": (None, 'queue 1, item 7, "Tracing"'),
     "replay_photonic": (False, 'queue 1, item 7, "Tracing"'),
     "shards": (1, 'queue 1, item 7, "Sharded serving"'),
@@ -194,7 +193,8 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
           engine: str = "paged", block_size: int | None = None,
           prefill_chunk: int | None = None, accelerator: str = "OXBNN_50",
           verbose: bool = True, prefix_cache: bool = True,
-          preempt_policy: str = "swap", temperature: float = 0.0,
+          preempt_policy: str = "swap", snapshot_slots: int = 0,
+          spec_k: int = 0, spec_ngram: int = 3, temperature: float = 0.0,
           top_k: int = 0, top_p: float = 1.0, sampling_seed: int = 0,
           stop: tuple[int, ...] = (), attn_impl: str = "auto",
           bnn_impl: str = "auto", device=None, params=None, prompts=None,
@@ -222,7 +222,9 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
     ecfg = engine_config(batch, prompt_len, gen, block_size=block_size,
                          prefill_chunk=prefill_chunk,
                          accelerator=accelerator, prefix_cache=prefix_cache,
-                         preempt_policy=preempt_policy, attn_impl=attn_impl,
+                         preempt_policy=preempt_policy,
+                         snapshot_slots=snapshot_slots, spec_k=spec_k,
+                         spec_ngram=spec_ngram, attn_impl=attn_impl,
                          bnn_impl=bnn_impl)
 
     def sampling(b):
@@ -249,6 +251,12 @@ def report(arch: str, eng: Engine):
           f"total-tokens/s={st['total_tokens_per_s']:.1f} "
           f"steps={st['steps']} "
           f"max_concurrent={st['max_concurrent_decode']}")
+    sp = st["speculative"]
+    if sp["enabled"]:
+        print(f"[serve] speculative k={sp['spec_k']}: "
+              f"acceptance={sp['acceptance_rate']:.2f} "
+              f"tokens/step={sp['tokens_per_decode_step']:.2f} "
+              f"modeled-speedup={ph['modeled_spec_speedup']:.2f}x")
     for fam, mx in st["mixer"].items():
         extra = (f" ring_blocks={mx['ring_blocks']} "
                  f"reuse={100 * mx['ring_reuse_rate']:.0f}%"
@@ -288,6 +296,13 @@ def main(argv=None):
     ap.add_argument("--preempt-policy", default="swap",
                     choices=["swap", "recompute"],
                     help="swap-to-host (default) or recompute-on-resume")
+    ap.add_argument("--snapshot-slots", type=int, default=0,
+                    help="recurrent prefix-snapshot pool rows "
+                         "(0 = 2 * max_batch)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative draft length (0 = off)")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="max n-gram for prompt-lookup drafts")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -310,9 +325,6 @@ def main(argv=None):
                          "versions on the CPU")
     # the JAX CLI's options of later slices: each raises when set
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--snapshot-slots", type=int, default=0)
-    ap.add_argument("--spec-k", type=int, default=0)
-    ap.add_argument("--spec-ngram", type=int, default=3)
     ap.add_argument("--trace", default=None, metavar="PATH")
     ap.add_argument("--replay-photonic", action="store_true")
     ap.add_argument("--shards", type=int, default=1)
@@ -329,6 +341,8 @@ def main(argv=None):
         seed=args.seed, engine=args.engine, block_size=args.block_size,
         prefill_chunk=args.prefill_chunk, accelerator=args.accelerator,
         prefix_cache=args.prefix_cache, preempt_policy=args.preempt_policy,
+        snapshot_slots=args.snapshot_slots, spec_k=args.spec_k,
+        spec_ngram=args.spec_ngram,
         greedy=args.temperature <= 0,     # legacy-loop sampling mode
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         sampling_seed=args.sampling_seed, stop=tuple(args.stop_token),

@@ -255,6 +255,35 @@ def _write_slots(cache, dst: torch.Tensor, new: dict):
         cache[k][dst.long()] = new[k].to(cache[k].dtype)
 
 
+def copy_slot(dst_pool: dict, dst: int, src_pool: dict, src: int) -> dict:
+    """Copy one slot's whole recurrent state (h, conv tail) between two
+    slot pools of any row counts, in place: the prefix-snapshot store
+    (a live slot into the snapshot pool) and restore (a snapshot row
+    into the live pool)."""
+    for k, v in dst_pool.items():
+        v[dst].copy_(src_pool[k][src])
+    return dst_pool
+
+
+def snapshot_slots(cache, slots: torch.Tensor) -> dict:
+    """Each row's recurrent slot, copied before a multi-token verify so a
+    partly rejected speculative step can be rolled back.  Advanced
+    indexing returns a copy: the verify then updates the pools in
+    place, and a view would change with them."""
+    idx = slots.long()
+    return {k: v[idx] for k, v in cache.items()}
+
+
+def restore_slots(cache, slots: torch.Tensor, snap: dict) -> dict:
+    """Write per-row snapshots back into the slot pool, in place (the
+    speculative rollback).  Padded rows all point at scratch slot 0 and
+    carry the same snapshot of it, so a repeated index writes equal
+    values and the unspecified order of ``index_put_`` on CUDA cannot
+    matter."""
+    _write_slots(cache, slots, snap)
+    return cache
+
+
 def paged_decode_step(params, cfg, x: torch.Tensor, cache,
                       slots: torch.Tensor, *, precision: str = "bf16",
                       active: torch.Tensor | None = None,

@@ -410,3 +410,45 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
             taps.append(("hidden", x))
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return torch.matmul(x, params["head"]["w"]), caches
+
+
+def snapshot_slot_state(cfg: ArchConfig, caches, slots: torch.Tensor
+                        ) -> list:
+    """Per-layer copies of the rows' recurrent slots before a verify step
+    (None for block-family layers).  Block layouts roll back by
+    rewinding ``lengths`` (writes past the committed length are masked);
+    an SSM slot has folded every verified token into its state, so its
+    only rollback is restore-and-re-advance from this copy."""
+    return [mamba2.snapshot_slots(caches[li], slots) if mix == "ssm" else None
+            for li, (mix, _f) in enumerate(layer_plan(cfg))]
+
+
+def restore_slot_state(cfg: ArchConfig, caches, slots: torch.Tensor,
+                       snaps: list):
+    """Write the slot copies back, in place (the speculative rollback);
+    block-family layers are untouched."""
+    for li, snap in enumerate(snaps):
+        if snap is not None:
+            mamba2.restore_slots(caches[li], slots, snap)
+    return caches
+
+
+def spec_verify(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
+                block_table: torch.Tensor, lengths: torch.Tensor,
+                n_valid: torch.Tensor, slots: torch.Tensor | None = None, *,
+                ring: bool = False, impl: str = "auto"):
+    """Multi-token speculative verify: one prefill-shaped forward over
+    ``[last token, draft...]`` rows scores every draft position at once.
+
+    The contract of ``prefill_chunk`` (logits at all C positions, per-row
+    lengths / n_valid), plus the recurrent slots as they were before the
+    step, so the caller can roll back a rejected suffix: block and ring
+    layouts by committing only ``lengths + accepted``, slot layouts by
+    ``restore_slot_state`` and a masked ``prefill_chunk``.
+    Returns (logits (B, C, V), caches, slot snapshots).
+    """
+    snaps = snapshot_slot_state(cfg, caches, slots)
+    logits, caches = prefill_chunk(params, cfg, tokens, caches, block_table,
+                                   lengths, n_valid, slots, ring=ring,
+                                   impl=impl)
+    return logits, caches, snaps

@@ -49,14 +49,15 @@ are redirected there), so the allocator hands out ids from
 ``MixerStateCache`` at the bottom is what the engine instantiates: the
 composite over the per-layer layouts (``mixer_state.layer_layouts``):
 the paged and ring block layouts, the recurrent slots of an SSM stack,
-or both at once (the jamba hybrid), admitted all-or-nothing.  The
-prefix cache and swap apply to its block member; a stack with
-recurrent slots refuses them until the slot snapshots are ported
-(ROADMAP.md queue 1, item 7).
+or both at once (the jamba hybrid), admitted all-or-nothing.  With the
+prefix cache on, its slot member runs the snapshot index
+(``mixer_state.SlotSnapshotIndex``) and a hybrid's admission matches
+both members jointly: the attention blocks are adopted only down to the
+snapshot depth, so every layer resumes from one position.  Swap parks
+both members' state.
 """
 from __future__ import annotations
 
-import hashlib
 from collections import OrderedDict
 
 import numpy as np
@@ -65,21 +66,9 @@ import torch
 from repro_torch.layers import attn_block, mla
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serving.mixer_state import (
-    LAYOUT_SLOT, MixerState, RecurrentSlotState, layer_layouts,
-    ring_block_count)
+    LAYOUT_SLOT, MixerState, RecurrentSlotState, chunk_key, layer_layouts,
+    ring_block_count, split_flat, sync)
 from repro_torch.serving.tracing import Tracer
-
-SLOT_SNAPSHOTS = "ROADMAP.md queue 1, item 7, \"Slot snapshots\""
-
-
-def chunk_key(parent: str, tokens: np.ndarray) -> str:
-    """Content hash of one full token block, chained on the parent
-    block's key so equal windows at different prefix depths differ (the
-    JAX package's ``chunk_key``: the same keys)."""
-    h = hashlib.sha256()
-    h.update(parent.encode())
-    h.update(np.ascontiguousarray(tokens, np.int32).tobytes())
-    return h.hexdigest()
 
 
 def _cow_copy(pool: dict, src: int, dst: int):
@@ -94,27 +83,6 @@ def _host_restore(pool: dict, dst: torch.Tensor, host: dict):
     layer's pool, in place: one ``index_copy_`` per tensor."""
     for k, v in pool.items():
         v.index_copy_(0, dst, host[k])
-
-
-def _sync(dev: torch.device):
-    """Wait for the device's queued work, so that a span measures the
-    copies that follow and not what was queued before them."""
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def _split(flat: torch.Tensor, like: list[dict]) -> list[dict]:
-    """Per-layer dicts of views into one flat buffer, shaped as the
-    (n, block_size, ...) tensors of ``like``, in their order."""
-    out, at = [], 0
-    for layer in like:
-        views = {}
-        for k, shape in layer.items():
-            n = int(np.prod(shape))
-            views[k] = flat[at:at + n].view(shape)
-            at += n
-        out.append(views)
-    return out
 
 
 class BlockAllocator:
@@ -214,6 +182,12 @@ class PrefixIndex:
             return None
         self._map.move_to_end(key)
         return entry[0]
+
+    def peek(self, key: str) -> int | None:
+        """lookup without the LRU touch: for probes that only measure
+        chain depth and may never adopt the entry."""
+        entry = self._map.get(key)
+        return None if entry is None else entry[0]
 
     def insert(self, key: str, block: int, parent: str,
                allocator: BlockAllocator) -> bool:
@@ -390,7 +364,7 @@ class BlockKVCache(MixerState):
     # ---------------------------------------------------- prefix cache
 
     def match_prefix(self, prompt: np.ndarray,
-                     max_tokens: int | None = None
+                     max_tokens: int | None = None, *, touch: bool = True
                      ) -> tuple[list[int], int, str]:
         """Walk the prompt's full-block hash chain through the index.
 
@@ -399,7 +373,10 @@ class BlockKVCache(MixerState):
         block but re-prefills the final token, so the caller always has
         one prefill position left to produce first-token logits (the
         write lands in a shared block — copy-on-write handles it).
-        ``max_tokens`` caps the match depth."""
+        ``max_tokens`` caps the match depth: a hybrid stack passes the
+        slot snapshot depth, so both families resume from one position.
+        ``touch=False`` probes without promoting entries in LRU order
+        (the hybrid's depth probe may never adopt what it measures)."""
         if self.prefix is None or not len(self.prefix):
             return [], 0, ""
         bs = self.block_size
@@ -407,7 +384,7 @@ class BlockKVCache(MixerState):
         blocks, parent = [], ""
         for j in range(n_full):
             key = chunk_key(parent, prompt[j * bs:(j + 1) * bs])
-            b = self.prefix.lookup(key)
+            b = self.prefix.lookup(key) if touch else self.prefix.peek(key)
             if b is None:
                 break
             blocks.append(b)
@@ -501,7 +478,7 @@ class BlockKVCache(MixerState):
         no longer maps its leading blocks to the chain, so it copies
         all).  The rest are copied to host memory, synchronously, before
         req drops every device reference."""
-        _sync(self._device())
+        sync(self._device())
         with self.tracer.span("swap_out"):
             readopt = 0
             no_wrap = self.blocks_for(req.pos) <= (self.ring_blocks
@@ -515,7 +492,7 @@ class BlockKVCache(MixerState):
             flat = torch.cat([v.index_select(0, ids).reshape(-1)
                               for pool in self.pools
                               for v in pool.values()]).cpu()
-            host = _split(flat, [{k: (len(ids),) + tuple(v.shape[1:])
+            host = split_flat(flat, [{k: (len(ids),) + tuple(v.shape[1:])
                                   for k, v in pool.items()}
                                  for pool in self.pools])
             req.host_kv = host
@@ -552,7 +529,7 @@ class BlockKVCache(MixerState):
                 self.allocator.decref(a)
             return False
         dev = self._device()
-        _sync(dev)
+        sync(dev)
         with self.tracer.span("swap_in"):
             dst = torch.tensor(got, dtype=torch.long, device=dev)
             shapes = [{k: tuple(a.shape) for k, a in layer.items()}
@@ -563,9 +540,9 @@ class BlockKVCache(MixerState):
             if flat is None:
                 flat = torch.cat([a.reshape(-1) for layer in req.host_kv
                                   for a in layer.values()])
-            for pool, layer in zip(self.pools, _split(flat.to(dev), shapes)):
+            for pool, layer in zip(self.pools, split_flat(flat.to(dev), shapes)):
                 _host_restore(pool, dst, layer)
-            _sync(dev)                  # the span covers the copies
+            sync(dev)                  # the span covers the copies
         req.blocks = adopted + got
         req.host_kv = None
         req.swap_readopt = 0
@@ -608,19 +585,17 @@ class BlockKVCache(MixerState):
 class MixerStateCache:
     """Composite MixerState the engine instantiates: one block-family
     state (paged/ring over K/V or latent pools) and/or one slot-family
-    state (recurrent slots), dispatching per layer via
-    ``mixer_state.layer_layouts``.  Presents the per-layer pool list the
-    step functions update in place, and passes every request-lifecycle
-    call to its members all-or-nothing: a hybrid stack (jamba) admits a
-    request only with a slot AND its prompt blocks.  The prefix cache,
-    copy-on-write and swap are the block member's; a stack with
-    recurrent slots refuses the prefix cache."""
+    state (recurrent slots and their snapshot index), dispatching per
+    layer via ``mixer_state.layer_layouts``.  Presents the per-layer pool
+    list the step functions update in place, and passes every
+    request-lifecycle call to its members all-or-nothing: a hybrid stack
+    (jamba) admits a request only with a slot AND its prompt blocks."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  max_model_len: int, dtype=torch.float32,
                  prefix_cache: bool = True, num_slots: int = 8,
-                 prefill_chunk: int = 16, tracer: Tracer | None = None,
-                 device="cpu"):
+                 prefill_chunk: int = 16, snapshot_slots: int = 16,
+                 tracer: Tracer | None = None, device="cpu"):
         self.cfg = cfg
         self.tracer = tracer if tracer is not None else Tracer()
         self.block_size = block_size
@@ -629,11 +604,6 @@ class MixerStateCache:
                     if l != LAYOUT_SLOT]
         slot_ids = [i for i, l in enumerate(self.layouts)
                     if l == LAYOUT_SLOT]
-        if slot_ids and prefix_cache:
-            raise NotImplementedError(
-                f"{cfg.name}: the prefix cache of a stack with recurrent "
-                f"slots needs the slot snapshots, not ported yet "
-                f"({SLOT_SNAPSHOTS}); pass prefix_cache=False")
         self.ring_blocks = (
             ring_block_count(cfg.sliding_window, block_size, prefill_chunk)
             if (attn_ids and cfg.sliding_window) else 0)
@@ -643,9 +613,16 @@ class MixerStateCache:
             prefix_cache=prefix_cache, layer_ids=attn_ids,
             ring_blocks=self.ring_blocks, tracer=self.tracer,
             device=device) if attn_ids else None
-        self.ssm = RecurrentSlotState(cfg, slot_ids, num_slots, dtype,
-                                      device) if slot_ids else None
+        # the slot member's snapshot index is the prefix cache of its
+        # layers, on or off with the block member's
+        self.ssm = RecurrentSlotState(
+            cfg, slot_ids, num_slots, dtype, device, block_size=block_size,
+            snapshot_slots=snapshot_slots if prefix_cache else 0,
+            prefill_chunk=prefill_chunk, tracer=self.tracer) \
+            if slot_ids else None
         self._members = [m for m in (self.attn, self.ssm) if m is not None]
+        self.swap_outs = 0          # by request (a hybrid swaps both
+        self.swap_ins = 0           # members in one event)
 
     # ------------------------------------------------------ device pools
 
@@ -673,18 +650,37 @@ class MixerStateCache:
     # ------------------------------------------------------ lifecycle
 
     def alloc_prompt(self, req) -> bool:
-        """Admission: the slot first, then the prompt's blocks.  When the
-        blocks are short the slot goes back and the request is as
-        before (``pos`` 0), as in the JAX package's composite; its joint
-        prefix match with the slot snapshots is not ported (ROADMAP.md
-        queue 1, item 7)."""
-        if self.ssm is not None and not self.ssm.alloc_prompt(req):
-            return False
-        if self.attn is not None and not self.attn.alloc_prompt(req):
+        """Admission with a JOINT prefix match: every layer must resume
+        prefill from one position, so the attention chain's depth and the
+        snapshot depth are reconciled to their common prefix.  The
+        attention member adopts blocks only down to the snapshot depth,
+        the slot member restores that snapshot, and the request starts
+        past the matched tokens.  A hybrid without snapshots adopts
+        nothing (its slot would still be computed from position 0).  The
+        slot is taken first; when the blocks are short it goes back and
+        the request is as before (``pos`` 0)."""
+        cap = None
+        match = (0, "", 0)
+        if self.ssm is not None:
+            limit = None
+            if self.attn is not None and self.ssm.snapshots is not None:
+                # probe the chain first, without an LRU touch (entries
+                # past the snapshot depth are never adopted): a snapshot
+                # deeper than the adoptable chain cannot be resumed from
+                _, limit, _ = self.attn.match_prefix(req.prompt, touch=False)
+            match = self.ssm.match_prefix(req.prompt, limit=limit)
+            cap = match[0]
+            if not self.ssm.alloc_prompt(req, match, count=False):
+                return False
+        if self.attn is not None and \
+                not self.attn.alloc_prompt(req, max_match=cap):
             if self.ssm is not None:
                 self.ssm.release(req)
                 req.pos = req.skipped_prefill = 0
+                req.snap_registered, req.snap_key = 0, ""
             return False
+        if self.ssm is not None:
+            self.ssm.count_match(match)
         return True
 
     def ensure_capacity(self, req, n_tokens: int) -> bool:
@@ -708,16 +704,38 @@ class MixerStateCache:
     def register_prefix(self, req):
         if self.attn is not None:
             self.attn.register_prefix(req)
+        if self.ssm is not None:
+            self.ssm.register_snapshot(req)
 
     def swap_out(self, req):
-        if self.ssm is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: swapping a recurrent slot needs the "
-                f"slot snapshots, not ported yet ({SLOT_SNAPSHOTS})")
-        self.attn.swap_out(req)
+        if self.attn is not None and req.blocks:
+            self.attn.swap_out(req)
+        if self.ssm is not None and req.slot is not None:
+            self.ssm.swap_out(req)
+        self.swap_outs += 1
 
     def swap_in(self, req) -> bool | None:
-        return self.attn.swap_in(req)
+        """Restore both members, or neither: the slot member's checks run
+        before any block is restored, so nothing has to be rolled back."""
+        if self.ssm is not None:
+            # the re-adoption peek first: an evicted snapshot sends the
+            # whole request to recompute before any block is restored
+            if req.snap_readopt and (
+                    self.ssm.snapshots is None
+                    or self.ssm.snapshots.lookup(req.snap_key) is None):
+                return None
+            if req.slot is None and self.ssm.allocator.num_free < 1:
+                return False
+        if self.attn is not None and req.host_kv is not None:
+            ok = self.attn.swap_in(req)
+            if ok is not True:
+                return ok
+        if self.ssm is not None and (req.host_state is not None
+                                     or req.snap_readopt):
+            restored = self.ssm.swap_in(req)
+            assert restored, "the slot checks above guarantee success"
+        self.swap_ins += 1
+        return True
 
     # ------------------------------------------------------ step arrays
 
@@ -740,45 +758,56 @@ class MixerStateCache:
     def reset_stats(self, *, flush_prefix: bool = False):
         if self.attn is not None:
             self.attn.reset_stats(flush_prefix=flush_prefix)
+        if self.ssm is not None:
+            self.ssm.reset_stats(flush_snapshots=flush_prefix)
+        self.swap_outs = self.swap_ins = 0
 
     def prefix_section(self) -> dict:
-        """The JAX package's keys; the slot snapshot index is not ported,
-        so its keys read 0."""
-        a = self.attn
+        """The JAX package's keys."""
+        a, s = self.attn, self.ssm
+        snaps = s.snapshots if s is not None else None
         on = a is not None and a.prefix is not None
-        queries = a.prefix_queries if a else 0
-        hits = a.prefix_hits if a else 0
+        queries = (a.prefix_queries if a else 0) \
+            + (s.snap_queries if s else 0)
+        hits = (a.prefix_hits if a else 0) + (s.snap_hits if s else 0)
+        # a hybrid's joint match skips the same tokens in both members:
+        # counted once
+        skipped = (a.skipped_prefill_tokens if a is not None
+                   else (s.skipped_prefill_tokens if s else 0))
         return {
-            "enabled": on,
+            "enabled": on or snaps is not None,
             "queries": queries,
             "hits": hits,
             "hit_rate": hits / queries if queries else 0.0,
-            "skipped_prefill_tokens": a.skipped_prefill_tokens if a else 0,
+            "skipped_prefill_tokens": skipped,
             "cow_copies": a.cow_copies if a else 0,
             "cached_blocks": len(a.prefix) if on else 0,
             "evictions": a.prefix.evictions if on else 0,
-            "snapshot_queries": 0,
-            "snapshot_hits": 0,
-            "snapshot_stores": 0,
-            "cached_snapshots": 0,
-            "snapshot_evictions": 0,
-            "snapshot_occupancy": 0.0,
+            "snapshot_queries": s.snap_queries if s else 0,
+            "snapshot_hits": s.snap_hits if s else 0,
+            "snapshot_stores": snaps.stores if snaps else 0,
+            "cached_snapshots": len(snaps) if snaps else 0,
+            "snapshot_evictions": snaps.evictions if snaps else 0,
+            "snapshot_occupancy": (snaps.peak_used / snaps.capacity
+                                   if snaps else 0.0),
         }
 
     def swap_section(self) -> dict:
-        """The JAX package's keys (slot swaps read 0), plus the bytes
-        copied to the host."""
-        a = self.attn
+        """The JAX package's keys, plus the bytes copied to the host."""
+        a, s = self.attn, self.ssm
+        tr = self.tracer
         return {
-            "swap_outs": a.swap_outs if a else 0,
-            "swap_ins": a.swap_ins if a else 0,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
             "swapped_blocks": a.swapped_blocks if a else 0,
             "readopted_blocks": a.readopted_blocks if a else 0,
-            "swapped_slots": 0,
-            "readopted_snapshots": 0,
-            "swap_out_bytes": a.swap_out_bytes if a else 0,
-            "swap_out_s": self.tracer.span_total("swap_out"),
-            "swap_in_s": self.tracer.span_total("swap_in"),
+            "swapped_slots": s.swapped_slots if s else 0,
+            "readopted_snapshots": s.readopted_snapshots if s else 0,
+            "swap_out_bytes": sum(m.swap_out_bytes for m in self._members),
+            "swap_out_s": (tr.span_total("swap_out")
+                           + tr.span_total("snapshot_out")),
+            "swap_in_s": (tr.span_total("swap_in")
+                          + tr.span_total("snapshot_in")),
         }
 
     def mixer_section(self) -> dict:

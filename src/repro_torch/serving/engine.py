@@ -23,10 +23,19 @@ blocks or slot immediately.
 
 With the JAX engine's defaults a prompt is first matched against the
 prefix index (adopted blocks are not prefilled again; a shared block is
-copied before it is written), and a preempted request's blocks are
-swapped to host memory and restored when it is re-admitted.  Stacks
-with recurrent slots run without both until the slot snapshots are
-ported (ROADMAP.md queue 1, item 7).
+copied before it is written; a recurrent slot restores the deepest
+snapshot of its prompt head), and a preempted request's blocks and slot
+are swapped to host memory and restored when it is re-admitted.
+
+Speculative decoding (``spec_k > 0``) drafts tokens by prompt lookup
+(an n-gram match against the request's own prompt and output, on the
+host) and verifies the whole draft in ONE prefill-shaped forward per
+step.  A rejected suffix rolls back per layout: block and ring tables
+by committing only the accepted length (the stale writes past it are
+masked by each row's kv_len and ring positions), recurrent slots by
+restoring their pre-verify copies and re-advancing by the accepted
+prefix.  Since sampling is a pure function of (seed, position), the
+verified stream equals plain decoding's at any temperature.
 
 With cfg.precision == "bnn" every projection runs the packed
 XNOR-popcount GEMM — the paper's inference mode.  On a CUDA device the
@@ -48,10 +57,11 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as M
 from repro_torch.serving import roles as R
-from repro_torch.serving.block_cache import SLOT_SNAPSHOTS, MixerStateCache
+from repro_torch.serving.block_cache import MixerStateCache
 from repro_torch.serving.cost_model import PhotonicCostModel
 from repro_torch.serving.request import Request, State
-from repro_torch.serving.sampling import SamplingParams, sampling_rows
+from repro_torch.serving.sampling import (SamplingParams, prompt_lookup_draft,
+                                         sampling_rows)
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.tracing import Tracer
 
@@ -72,7 +82,6 @@ def nearest_rank(sorted_vals, p: float) -> float:
 # brings the rest)
 _SLICE_ONLY = {
     "policy": ("fcfs", "queue 1, item 7"),
-    "spec_k": (0, "queue 1, item 7"),
     "role": ("mixed", "queue 1, item 7"),
 }
 
@@ -96,8 +105,10 @@ class EngineConfig:
     prefix_cache: bool = True        # content-addressed prompt block reuse
     preempt_policy: str = "swap"     # swap | recompute (fallback)
     snapshot_slots: int = 0          # recurrent prefix-snapshot pool rows
-                                     # (the slot snapshots are not ported)
-    spec_k: int = 0                  # speculative decoding: not ported
+                                     # (0 = 2 * max_batch; gated by
+                                     # prefix_cache like the block index)
+    spec_k: int = 0                  # speculative draft length (0 = off)
+    spec_ngram: int = 3              # max n-gram for prompt-lookup drafts
     attn_impl: str = "auto"          # paged attention: auto | cuda | torch
     bnn_impl: str = "auto"           # packed BNN GEMM: auto | cuda | torch
                                      # (one dispatch in the port: the two
@@ -142,13 +153,6 @@ class Engine:
                  device=None):
         self.device = _resolve_device(device)
         M.check_supported(cfg)
-        if "ssm" in (mix for mix, _f in M.layer_plan(cfg)) and (
-                ecfg.prefix_cache or ecfg.preempt_policy == "swap"):
-            raise NotImplementedError(
-                f"{cfg.name}: prefix_cache=True and preempt_policy='swap' "
-                f"need the slot snapshots of its recurrent layers, not "
-                f"ported yet ({SLOT_SNAPSHOTS}); pass prefix_cache=False, "
-                f"preempt_policy='recompute'")
         w = params["embed"]["w"]
         if w.device.type != self.device.type:
             raise ValueError(f"params live on {w.device}, engine on "
@@ -163,8 +167,15 @@ class Engine:
             max_model_len=ecfg.max_model_len,
             prefix_cache=ecfg.prefix_cache,
             num_slots=ecfg.num_slots or ecfg.max_batch + 1,
-            prefill_chunk=ecfg.prefill_chunk, tracer=self.tracer,
-            device=self.device)
+            prefill_chunk=ecfg.prefill_chunk,
+            snapshot_slots=ecfg.snapshot_slots or 2 * ecfg.max_batch,
+            tracer=self.tracer, device=self.device)
+        # ring rollback: a stale speculative write may only clobber
+        # positions already outside the attention window, which the
+        # prefill-sized ring guarantees when the verify chunk is no wider
+        # than a prefill chunk (k + 1 <= prefill_chunk)
+        self._spec_k = (min(ecfg.spec_k, ecfg.prefill_chunk - 1)
+                        if ecfg.spec_k > 0 else 0)
         # admission token budget: 0 = derive from the block pool (2x
         # its token capacity; a hybrid's too).  Slot-only stacks have
         # no block pool; max_batch and the slots bound their admission
@@ -180,7 +191,8 @@ class Engine:
                             max_batched_tokens=ecfg.max_batched_tokens,
                             prefill_chunk=ecfg.prefill_chunk,
                             policy=ecfg.policy,
-                            preempt_policy=ecfg.preempt_policy),
+                            preempt_policy=ecfg.preempt_policy,
+                            decode_cost=1 + self._spec_k),
             self.cache)
         # the fused CUDA kernel never spills packed activations to
         # device memory; the plain version prices the extra pack pass
@@ -197,6 +209,16 @@ class Engine:
         self._prefill_calls = 0
         self._max_concurrent = 0
         self._decode_calls = 0
+        self._decode_rows = 0            # scheduled rows across decode calls
+        self._decode_produced = 0        # tokens committed by decode calls
+        # speculative counters
+        self._spec_steps = 0
+        self._spec_rows = 0              # per-row verify passes
+        self._verify_tokens = 0          # fed tokens across verify calls
+        self._spec_committed = 0         # tokens committed by verify steps
+        self._draft_tokens = 0
+        self._draft_accepted = 0
+        self._spec_repairs = 0
         self._cancelled = 0
         # incremental token-commit callback (streaming):
         # cb(rid, new_tokens, done) at every commit point.  None = no
@@ -204,9 +226,12 @@ class Engine:
         self.on_commit = None
         # sliding-window configs run their block tables as rings
         fns = R.build_step_fns(cfg, ring=self.cache.ring_blocks > 0,
-                               impl=ecfg.bnn_impl)
+                               impl=ecfg.bnn_impl, spec_k=self._spec_k)
         self._prefill_fn = fns.prefill
         self._decode_fn = fns.decode
+        self._spec_fn = fns.spec
+        self._repair_fn = fns.repair
+        self._has_slots = self.cache.ssm is not None
 
     # ---------------------------------------------------------------- API
 
@@ -266,6 +291,7 @@ class Engine:
         elif req in sched.queue:
             sched.queue.remove(req)
             req.host_kv = None
+            req.host_state = None
         req.state = State.CANCELLED
         req.finish_step = self.step_count
         req.finish_s = time.perf_counter()
@@ -285,7 +311,10 @@ class Engine:
             decode = [r for r in plan.decode if r.state == State.DECODE
                       and r in self.scheduler.running]
             if decode:
-                self._run_decode(step, decode)
+                if self._spec_k:
+                    self._run_decode_spec(step, decode)
+                else:
+                    self._run_decode(step, decode)
             self.step_count += 1
         return plan.has_work
 
@@ -353,21 +382,27 @@ class Engine:
             b <<= 1
         return b
 
-    def _ready_rows(self, step: int, reqs: list[Request]) -> list[Request]:
-        """Grow + copy-on-write every decodable row for one cache
-        position, dropping rows that get preempted along the way."""
+    def _ready_rows(self, step: int, reqs: list[Request],
+                    lookahead) -> list[Request]:
+        """Grow + copy-on-write every decodable row for ``lookahead(r)``
+        new cache positions, dropping rows that get preempted along the
+        way."""
         sched = self.scheduler
-        ready = [r for r in reqs
-                 if r in sched.running and r.state == State.DECODE
-                 and sched.grow_or_preempt(step, r, r.pos + 1)
-                 and all(sched.make_writable(step, r, idx)
-                         for idx in self.cache.writable_indices(r.pos, 1))]
+        ready = []
+        for r in reqs:
+            if r not in sched.running or r.state != State.DECODE:
+                continue
+            n_new = lookahead(r)
+            if sched.grow_or_preempt(step, r, r.pos + n_new) and all(
+                    sched.make_writable(step, r, idx)
+                    for idx in self.cache.writable_indices(r.pos, n_new)):
+                ready.append(r)
         # a later grow may have preempted an earlier 'ready' row
         return [r for r in ready
                 if r in self.scheduler.running and r.state == State.DECODE]
 
     def _run_decode(self, step: int, reqs: list[Request]):
-        ready = self._ready_rows(step, reqs)
+        ready = self._ready_rows(step, reqs, lambda r: 1)
         if not ready:
             return
         bucket = min(self._bucket(len(ready)), self.ecfg.max_batch)
@@ -389,6 +424,8 @@ class Engine:
         next_tok = next_tok.cpu().numpy()
         self._max_concurrent = max(self._max_concurrent, len(ready))
         self._decode_calls += 1
+        self._decode_rows += len(ready)
+        self._decode_produced += len(ready)
         self.scheduler._ev(step, "decode", None,
                            rids=[r.rid for r in ready], batch=bucket)
         now = time.perf_counter()
@@ -403,6 +440,101 @@ class Engine:
                 r.finish_s = now
             self._commit(r, r.done)
 
+    # ------------------------------------------------- speculative decode
+
+    def _run_decode_spec(self, step: int, reqs: list[Request]):
+        """One verify step: draft by prompt lookup, score the whole draft
+        in one multi-token forward, commit the accepted prefix plus the
+        verifier's own next token, roll back the rest."""
+        drafts: dict[int, np.ndarray] = {}
+
+        def lookahead(r: Request) -> int:
+            budget = min(self._spec_k, r.max_new - len(r.out) - 1)
+            d = (prompt_lookup_draft(r.full_sequence(), budget,
+                                     self.ecfg.spec_ngram)
+                 if budget > 0 else np.empty(0, np.int32))
+            drafts[r.rid] = d
+            return len(d) + 1
+
+        ready = self._ready_rows(step, reqs, lookahead)
+        if not ready:
+            return
+        if all(len(drafts[r.rid]) == 0 for r in ready):
+            # nothing to verify: a chunk-wide forward would commit the
+            # same one token per row at prefill-shaped cost, so take the
+            # (B, 1) decode (capacity and copy-on-write above already
+            # cover one token)
+            self._run_decode(step, ready)
+            return
+        bucket = min(self._bucket(len(ready)), self.ecfg.max_batch)
+        c = self._spec_k + 1
+        tokens = np.zeros((bucket, c), np.int64)
+        draft = np.zeros((bucket, c - 1), np.int64)
+        n_valid = np.zeros(bucket, np.int32)
+        lengths = np.zeros(bucket, np.int32)
+        for i, r in enumerate(ready):
+            d = drafts[r.rid]
+            tokens[i, 0] = r.last_token
+            tokens[i, 1:1 + len(d)] = d
+            draft[i, :len(d)] = d
+            n_valid[i] = len(d) + 1
+            lengths[i] = r.pos
+        t_tokens, t_table, t_lengths, t_slots = (
+            self._tensor(tokens),
+            self._tensor(self.cache.table_rows(ready, bucket)),
+            self._tensor(lengths),
+            self._tensor(self.cache.slot_rows(ready, bucket)))
+        srows = sampling_rows(ready, bucket)
+        sampled, n_commit, _pools, snaps = self._spec_fn(
+            self.params, self.cache.pools, t_tokens, t_table, t_lengths,
+            self._tensor(n_valid), t_slots, self._tensor(draft),
+            *srows.as_args(self.device))
+        sampled = sampled.cpu().numpy()
+        n_commit_h = n_commit.cpu().numpy()
+        n = len(ready)
+        # recurrent slots folded the WHOLE draft into their state; a
+        # partial acceptance needs the restore + re-advance
+        if self._has_slots and bool(np.any(n_commit_h[:n] < n_valid[:n])):
+            self._repair_fn(self.params, self.cache.pools, t_tokens,
+                            t_table, t_lengths, n_commit, t_slots, snaps)
+            self._spec_repairs += 1
+        self._max_concurrent = max(self._max_concurrent, n)
+        self._decode_calls += 1
+        self._decode_rows += n
+        self._spec_steps += 1
+        self._spec_rows += n
+        now = time.perf_counter()
+        committed_total = 0
+        for i, r in enumerate(ready):
+            if r.state is not State.DECODE:
+                continue    # cancelled mid-loop by a commit callback
+            m = int(n_commit_h[i])
+            self._verify_tokens += int(n_valid[i])
+            self._draft_tokens += int(n_valid[i]) - 1
+            committed = 0
+            for jj in range(m):
+                r.pos += 1
+                r.out.append(int(sampled[i, jj]))
+                self._decoded += 1
+                committed += 1
+                if r.done:      # stop / max_new mid-draft: finish here
+                    break
+            # credit only draft tokens that committed: a stop landing
+            # mid-draft truncates the accepted prefix
+            self._draft_accepted += min(committed, m - 1)
+            committed_total += committed
+            if r.done:
+                self.scheduler.finish(step, r)
+                r.finish_s = now
+            # the whole accepted burst is ONE commit
+            self._commit(r, r.done)
+        self._spec_committed += committed_total
+        self._decode_produced += committed_total
+        self.scheduler._ev(step, "spec_decode", None,
+                           rids=[r.rid for r in ready], batch=bucket,
+                           drafted=int(n_valid[:n].sum()) - n,
+                           committed=committed_total)
+
     # -------------------------------------------------------------- stats
 
     def reset_stats(self, *, flush_prefix: bool = False):
@@ -412,6 +544,11 @@ class Engine:
         self.tracer.reset_spans("step")
         self._decoded = self._prefilled = self._prefill_calls = 0
         self._max_concurrent = self._decode_calls = self._cancelled = 0
+        self._decode_rows = self._decode_produced = 0
+        self._spec_steps = self._spec_rows = 0
+        self._verify_tokens = self._spec_committed = 0
+        self._draft_tokens = self._draft_accepted = 0
+        self._spec_repairs = 0
         self.cache.reset_stats(flush_prefix=flush_prefix)
 
     def stats(self) -> dict:
@@ -444,6 +581,7 @@ class Engine:
             "preemptions": sum(r.preemptions
                                for r in self.requests.values()),
             "cancelled": self._cancelled,
+            "speculative": self._spec_section(),
             "prefix_cache": prefix,
             "swap": self.cache.swap_section(),
             "mixer": self.cache.mixer_section(),
@@ -451,11 +589,29 @@ class Engine:
                 prefix["skipped_prefill_tokens"]),
         }
 
+    def _spec_section(self) -> dict:
+        drafted = self._draft_tokens
+        return {
+            "enabled": self._spec_k > 0,
+            "spec_k": self._spec_k,
+            "spec_steps": self._spec_steps,
+            "draft_tokens": drafted,
+            "accepted_tokens": self._draft_accepted,
+            "acceptance_rate": (self._draft_accepted / drafted
+                                if drafted else 0.0),
+            # committed tokens per scheduled decode ROW-step: 1.0 for
+            # plain decoding, > 1 when verify steps commit drafts
+            "tokens_per_decode_step": (
+                self._decode_produced / self._decode_rows
+                if self._decode_rows else 0.0),
+            "repairs": self._spec_repairs,
+        }
+
     def _photonic_section(self, skipped_tokens: int) -> dict:
         """The modeled accelerator's report on the served stream, built
-        as the JAX engine builds it.  Speculative verify passes and
-        scoring are not ported, so their counts are 0 (ROADMAP.md queue
-        1, item 7)."""
+        as the JAX engine builds it.  Scoring is not ported, so its
+        counts are 0 (ROADMAP.md queue 1, item 7, "Front-end and
+        replay")."""
         cm = self.cost_model
         return {
             **cm.report(),
@@ -465,7 +621,8 @@ class Engine:
                 skipped_tokens=skipped_tokens,
                 prefill_passes=self._prefill_calls,
                 prefill_chunk=self.ecfg.prefill_chunk),
-            **cm.speculative_report(verify_passes=0, verify_tokens=0,
-                                    committed_tokens=0),
+            **cm.speculative_report(verify_passes=self._spec_rows,
+                                    verify_tokens=self._verify_tokens,
+                                    committed_tokens=self._spec_committed),
             **cm.scoring_report(score_tokens=0, score_passes=0),
         }

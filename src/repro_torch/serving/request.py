@@ -7,9 +7,9 @@ A request moves QUEUED -> PREFILL -> DECODE -> FINISHED.  Preemption
   * ``swap``      — KV blocks are copied to host buffers and the
                     request parks as SWAPPED with its progress intact;
                     re-admission restores the blocks and resumes where
-                    it left off (block-family stacks; a recurrent slot's
-                    swap comes with the slot snapshots, ROADMAP.md
-                    queue 1, item 7);
+                    it left off (a recurrent slot takes the same trip,
+                    or is re-adopted from the snapshot index when the
+                    request was parked at a registered snapshot);
   * ``recompute`` — blocks (or the recurrent slot) are dropped and the
                     request returns to QUEUED with its progress
                     discarded.
@@ -61,6 +61,13 @@ class Request:
     # swap-to-host: per-layer host copies of owned blocks (block family)
     host_kv: list | None = None
     swap_readopt: int = 0              # leading blocks to re-adopt by hash
+    # swap-to-host: per-layer copies of the recurrent slot (slot family)
+    host_state: list | None = None
+    # slot-snapshot prefix bookkeeping (owned by RecurrentSlotState)
+    snap_registered: int = 0           # deepest published snapshot (blocks)
+    snap_key: str = ""                 # hash-chain key at that depth
+    snap_readopt: bool = False         # parked state == a registered
+                                       # snapshot: swap_in re-adopts by hash
     # step/time marks for latency accounting
     submit_step: int | None = None
     admit_step: int | None = None
@@ -103,16 +110,21 @@ class Request:
         self.blocks = []
         self.slot = None
         self.host_kv = None
+        self.host_state = None
         self.swap_readopt = 0
         self.skipped_prefill = 0
         self.n_registered = 0
         self.prefix_key = ""
+        self.snap_registered = 0
+        self.snap_key = ""
+        self.snap_readopt = False
         self.virtual_blocks = 0
         self.preemptions += 1
 
     def park_swapped(self):
         """Swap preemption keeps progress; blocks were moved to
-        ``host_kv`` by BlockKVCache.swap_out before this is called."""
+        ``host_kv`` (a slot to ``host_state``, or marked for re-adoption)
+        by the cache's swap_out before this is called."""
         self.state = State.SWAPPED
         self.preemptions += 1
 

@@ -232,3 +232,30 @@ def sample_tokens(logits: torch.Tensor, index: torch.Tensor | None = None,
     g = gumbel(k1[:, None], k2[:, None], (lf.shape[-1],))
     sampled = torch.argmax(filtered + g, dim=-1)
     return torch.where(temps > 0, sampled, greedy_tok)
+
+
+# ---------------------------------------------------------------------------
+# prompt-lookup drafting (speculative decoding's draft model)
+
+
+def prompt_lookup_draft(seq: np.ndarray, k: int, max_ngram: int = 3
+                        ) -> np.ndarray:
+    """Draft up to ``k`` tokens by n-gram lookup in the sequence itself,
+    on the host: the most recent earlier occurrence of the sequence's
+    final n-gram (longest n first) proposes the tokens that followed it
+    (prompt-lookup decoding, no second model).  Returns an empty array
+    when nothing matches."""
+    seq = np.asarray(seq)
+    ln = len(seq)
+    if k <= 0 or ln < 2:
+        return np.empty(0, np.int32)
+    for n in range(min(max_ngram, ln - 1), 0, -1):
+        pat = seq[ln - n:]
+        # every window that ends before the suffix
+        wins = np.lib.stride_tricks.sliding_window_view(seq[:-1], n)
+        hits = np.nonzero((wins == pat).all(axis=1))[0]
+        for i in hits[::-1]:                 # most recent first
+            cont = seq[i + n:i + n + k]
+            if len(cont):
+                return np.asarray(cont, np.int32)
+    return np.empty(0, np.int32)

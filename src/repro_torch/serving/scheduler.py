@@ -15,7 +15,9 @@ Each engine step the scheduler emits a StepPlan:
               size capped so prefill tokens + decode rows stay under
               ``max_batched_tokens`` — decode latency is protected from
               long prompts, the standard chunked-prefill contract);
-  * decode  — every running request past its prompt decodes one token.
+  * decode  — every running request past its prompt decodes one token
+              (or verifies a speculative draft: ``decode_cost`` tokens a
+              row are charged against the prefill budget).
 
 Ordering and victim selection live in ``serving/policy.py``.  When the
 block pool runs dry the policy's victim is preempted; ``preempt_policy``
@@ -41,6 +43,9 @@ class SchedulerConfig:
     prefill_chunk: int = 16
     policy: str = "fcfs"
     preempt_policy: str = "swap"      # swap | recompute
+    decode_cost: int = 1              # compute tokens one decode row may
+                                      # burn a step (spec_k + 1 when the
+                                      # engine verifies drafts)
 
 
 @dataclass
@@ -71,6 +76,7 @@ class Scheduler:
         self._order = 0
         self.preempts = 0        # evict + swap_out victims
         self.swap_losts = 0      # parked content evicted while swapped
+        self.decode_cost = cfg.decode_cost
 
     # ------------------------------------------------------------- events
 
@@ -190,7 +196,10 @@ class Scheduler:
         prefilling = self.policy.prefill_order(
             [r for r in self.running if r.state == State.PREFILL])
         if prefilling:
-            budget = self.cfg.max_batched_tokens - len(plan.decode)
+            # each decode row may burn decode_cost compute tokens this
+            # step (a speculative verify feeds spec_k + 1 a row, not 1)
+            budget = self.cfg.max_batched_tokens \
+                - len(plan.decode) * self.decode_cost
             req = prefilling[0]
             chunk = min(self.cfg.prefill_chunk, req.prompt_len - req.pos,
                         max(budget, 0))

@@ -3,7 +3,8 @@
 The span half of the JAX package's ``serving/tracing.py``: the engine
 owns one ``Tracer``, and its span accumulators are the single source of
 wall-time truth — ``Engine.stats()`` reads ``span_total("step")``, the
-swap section ``span_total("swap_out")`` and ``span_total("swap_in")``.  The
+swap section ``swap_out`` / ``swap_in`` (the block copies) and
+``snapshot_out`` / ``snapshot_in`` (the recurrent slots').  The
 JAX tracer's recording half (per-step and per-request JSONL records,
 the trace schema and its replay) comes with the serving-breadth slice
 (ROADMAP.md queue 1, item 7).

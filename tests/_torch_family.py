@@ -278,3 +278,55 @@ def drive_trace(eng, arrival, prompts, gen, sampling=None):
     assert all(eng.requests[r].state.value == "finished"
                for r in rids.values())
     return [eng.requests[rids[k]].full_sequence() for k in range(len(prompts))]
+
+
+# ------------------------- the two packages' engines on the same traffic
+
+
+def engines(arch, jax_params, torch_params, *, change=None, **kw):
+    """(JAX Engine on its XLA paths, the port's Engine on the CPU), both
+    under ``EngineConfig(**kw)``; ``change(cfg)``, when given, alters
+    both packages' reduced configs alike."""
+    jcfg, tcfg = cfgs(arch, "bnn")
+    if change is not None:
+        jcfg, tcfg = change(jcfg), change(tcfg)
+    return (JEngine(jax_params, jcfg, JEngineConfig(**kw, attn_impl="xla",
+                                                    bnn_impl="xla")),
+            Engine(torch_params, tcfg, EngineConfig(**kw), device="cpu"))
+
+
+def counts(section: dict) -> dict:
+    """A stats section without its wall times and host bytes (the port
+    adds ``swap_out_bytes``)."""
+    return {k: v for k, v in section.items()
+            if not k.endswith("_s") and k != "swap_out_bytes"}
+
+
+def events(eng) -> list[tuple]:
+    """The scheduler's events: (step, event, rid), and what a speculative
+    step drafted and committed."""
+    return [(e["step"], e["event"], e["rid"], e.get("drafted"),
+             e.get("committed")) for e in eng.scheduler.trace]
+
+
+def check_same_engine(jeng, jout, teng, tout):
+    """The port's engine did what the JAX engine did: equal tokens,
+    prefix-cache, swap and speculative counts, preemptions, mixer
+    sections and scheduler events."""
+    assert len(tout) == len(jout)
+    for a, b in zip(jout, tout):
+        np.testing.assert_array_equal(b, a)
+    js_, ts_ = jeng.stats(), teng.stats()
+    for sec in ("prefix_cache", "swap", "speculative"):
+        assert counts(ts_[sec]) == counts(js_[sec]), sec
+    for key in ("preemptions", "prefill_tokens", "decoded_tokens", "steps"):
+        assert ts_[key] == js_[key], key
+    assert ts_["mixer"] == js_["mixer"]
+    got, want = ts_["photonic"], js_["photonic"]
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if isinstance(w, float):
+            assert math.isclose(got[key], w, rel_tol=ENGINE_RTOL), key
+        else:
+            assert got[key] == w, key
+    assert events(teng) == events(jeng)

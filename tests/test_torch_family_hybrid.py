@@ -2,13 +2,12 @@
 recurrent slots, one GQA layer over paged blocks per period of 8, MoE
 every 2nd layer, a dense FFN on the others) against the JAX package —
 config, parameter conversion, chunked prefill + paged decode logits and
-greedy continuations, the full-sequence forward, the serving engine's
-greedy tokens and stats with 2 slots under a batch of 4 and a block pool
-small enough that admissions wait for a slot while blocks are free and
-find a slot but too few blocks; the composite cache's all-or-nothing
-admission against the JAX ``MixerStateCache``; and the window that
-``chip_smoke.py`` serves at published width (published layers 2-4),
-here at reduced width.  Tolerances in tests/_torch_family.py."""
+greedy continuations, the full-sequence forward, the composite cache's
+all-or-nothing admission against the JAX ``MixerStateCache``, the cost
+model, and the window that ``chip_smoke.py`` serves at published width
+(published layers 2-4).  The serving engine on the hybrid:
+tests/test_torch_hybrid_engine.py and tests/test_torch_hybrid_window.py.  Tolerances in
+tests/_torch_family.py."""
 import importlib.util
 from pathlib import Path
 
@@ -81,12 +80,6 @@ def _watched_pair(arch_cfgs, jp, tp, ecfg_kw, prompts, max_new):
     return served[0], served[1], recs
 
 
-@pytest.fixture(scope="module")
-def served(models):
-    return _watched_pair(F.cfgs(ARCH, "bnn"), *models, ENGINE, _prompts(),
-                         list(MAX_NEW))
-
-
 @pytest.mark.parametrize("shrink", [False, True])
 def test_config_matches_jax(shrink):
     F.check_config(ARCH, shrink)
@@ -123,35 +116,6 @@ def test_full_sequence_forward_matches_jax(models, precision):
     """The MoE layers at the config's finite capacity, three SSD chunks
     of 8 (the last padded)."""
     F.check_logits_fn(ARCH, *models, precision, t=20)
-
-
-def test_engine_matches_jax_with_both_shortages(served):
-    (je, jrun), (te, trun), (jrec, trec) = served
-    F.check_engine_tokens(((je, jrun), (te, trun)))
-    # the composite made the same admission decisions, with the same
-    # free slots and blocks around each, as the JAX composite
-    assert trec["attempts"] == jrec["attempts"]
-    slot_waits, released = S.shortages(te, trec)
-    assert slot_waits and released
-    for a in released:                    # the slot went back, pos 0
-        assert a["free_after"] == a["free_before"] and a["pos"] == 0
-    st = te.stats()
-    assert st["max_concurrent_decode"] >= 2 and st["preemptions"] >= 1
-    assert te.cache.ssm.allocator.num_used == 0
-    te.cache.ssm.allocator.check()
-    te.cache.attn.allocator.check()
-    # the admission budget comes from the block pool
-    assert te.scheduler.cfg.max_tokens_in_flight == 2 * 9 * BS
-
-
-def test_engine_stats_match_jax(served):
-    """Both mixer members (blocks and slots), the photonic section."""
-    (je, jrun), (te, trun), _recs = served
-    F.check_engine_stats(((je, jrun), (te, trun)))
-    mixer = te.stats()["mixer"]
-    assert set(mixer) == {"blocks", "slots"}
-    assert mixer["blocks"]["layers"] == 1 and mixer["slots"]["layers"] == 7
-    assert mixer["slots"]["peak_used_slots"] == 2
 
 
 # --------------------------------------------- the composite's admission
@@ -250,49 +214,6 @@ def test_window_cut_is_published_layers_2_to_4():
     assert window.replace(n_layers=72, attn_offset=3, scan_period=8) == \
         get_config(ARCH)
     assert M.segments(window) == [("scan", M.layer_plan(window), 1)]
-
-
-def test_window_served_by_both_engines_with_identical_tokens():
-    jcfg, tcfg = _window_cfgs()
-    jp, _ = JM.init(jax.random.PRNGKey(1), jcfg)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg)
-    # the period of 3 unstacks as the period of 8 does
-    F.check_round_trip(ARCH, jp, tp, (jcfg, tcfg))
-    (je, jrun), (te, trun), (jrec, trec) = _watched_pair(
-        (jcfg, tcfg), jp, tp, ENGINE, _prompts(), list(MAX_NEW))
-    F.check_engine_tokens(((je, jrun), (te, trun)))
-    assert trec["attempts"] == jrec["attempts"]
-    assert te.stats()["mixer"] == je.stats()["mixer"]
-
-
-def test_smoke_traffic_makes_both_shortages_and_rechecks_on_the_cpu():
-    """The smoke's jamba phase at reduced width on the CPU: its engine
-    settings and its traffic's prompt lengths (admission does not depend
-    on the weights) make every slot busy at once, an admission wait for
-    a slot with blocks free and one find a slot but too few blocks; the
-    picked requests re-check through both routes, the replay in the
-    engine's own slot and table."""
-    _jcfg, tcfg = _window_cfgs()
-    prompts = S.jamba_traffic(tcfg.vocab)
-    full = [len(p) for p in S.jamba_traffic(get_config(ARCH).vocab)]
-    assert [len(p) for p in prompts] == full
-    cpu = torch.device("cpu")
-    rec = {}
-    eng, params, out, launches, st = S.phase_serving(
-        cpu, tcfg, EngineConfig(**S.JAMBA_ENGINE), max_new=32, late_after=4,
-        prompts=prompts, n_late=4, required=(),
-        watch=lambda e: rec.update(S.watch_admissions(e)))
-    slots = st["mixer"]["slots"]
-    assert slots["peak_used_slots"] == slots["num_slots"] == 5
-    slot_waits, released = S.shortages(eng, rec)
-    assert slot_waits and released
-    rids = S.jamba_rids(eng, out, rec)
-    assert len(out[rids[0]]) == max(len(s) for s in out.values())
-    # the replay's table is the one the engine gave the request: every
-    # position but the last token's
-    for rid in rids:
-        assert len(rec["held"][rid]) == -(-(len(out[rid]) - 1) // 16)
-    S.phase_e2e(cpu, tcfg, params, eng, out, rids=rids, held=rec["held"])
 
 
 @pytest.mark.parametrize("which", ["reduced", "window", "published"])

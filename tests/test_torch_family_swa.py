@@ -121,9 +121,10 @@ def test_ssm_and_hybrid_stacks_are_refused_by_name(case):
     """Stacks that mix SSM and attention layers (the jamba hybrid) are
     admitted by the model stack, and the mixer-state cache builds both
     members, the slots for the SSM layers and the blocks for the
-    attention layers; it refuses the prefix cache by name until the
-    slot snapshots are ported.  The modality front-ends' backbones are
-    admitted too (their stub front-ends are ported)."""
+    attention layers; under the prefix cache the slot member runs a
+    snapshot index beside the block member's prefix index, without it
+    neither.  The modality front-ends' backbones are admitted too
+    (their stub front-ends are ported)."""
     from repro_torch.models import transformer as M
     from repro_torch.serving.block_cache import MixerStateCache
     cfg = _hybrid_cfg(case)
@@ -135,10 +136,14 @@ def test_ssm_and_hybrid_stacks_are_refused_by_name(case):
     assert {mix for mix, _f in plan} == {"ssm", "gqa"}
     M.check_supported(cfg)
     kw = dict(num_blocks=9, block_size=4, max_model_len=32, num_slots=3)
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP.md queue 1, item 7, "Slot snapshots"'):
-        MixerStateCache(cfg, **kw)
+    on = MixerStateCache(cfg, **kw, snapshot_slots=5)
+    assert on.prefix is not None and on.ssm.snapshots is not None
+    assert on.ssm.snapshots.capacity == 5
+    assert len(on.ssm.snapshots.pools) == len(on.ssm.layer_ids)
+    assert on.prefix_section()["enabled"]
     cache = MixerStateCache(cfg, **kw, prefix_cache=False)
+    assert cache.prefix is None and cache.ssm.snapshots is None
+    assert not cache.prefix_section()["enabled"]
     assert cache.attn.layer_ids == [i for i, (m, _f) in enumerate(plan)
                                     if m == "gqa"]
     assert cache.ssm.layer_ids == [i for i, (m, _f) in enumerate(plan)

@@ -16,7 +16,7 @@ and ``swap`` stats counts (not wall times), ``preemptions`` and the
 scheduler's event sequence equal too; greedy tokens equal to the same
 trace without the prefix cache and under recompute (sampled decoding
 on the same trace: tests/test_torch_sampling.py).  Stacks with
-recurrent slots refuse both options by name.
+recurrent slots under both options: tests/test_torch_slot_snapshots.py.
 
 The JAX side runs its XLA paths, the port its plain kernel versions on
 the CPU; every comparison here is exact (equal tokens, equal counts,
@@ -354,27 +354,13 @@ def test_cancel_drops_a_swapped_request(bnn_models):
     assert eng.run() == {}
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
-@pytest.mark.parametrize("option", [dict(), dict(prefix_cache=False),
-                                    dict(preempt_policy="recompute")])
-def test_slot_stacks_refuse_prefix_cache_and_swap(arch, option):
-    """A stack with recurrent slots runs only without both options: it
-    never quietly serves without the slot snapshots."""
-    tcfg = F.cfgs(arch, "bnn")[1]
-    from repro_torch.models import transformer as M
-    params = M.init(torch.Generator().manual_seed(0), tcfg)
-    kw = dict(block_size=4, num_blocks=17, max_model_len=32, **option)
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP.md queue 1, item 7, "Slot snapshots"'):
-        Engine(params, tcfg, EngineConfig(**kw), device="cpu")
-
-
 def test_engine_defaults_equal_jax():
     """``EngineConfig()`` takes the JAX engine's defaults."""
     for name in ("prefix_cache", "preempt_policy", "snapshot_slots",
                  "block_size", "num_blocks", "max_batch", "prefill_chunk",
                  "max_model_len", "max_tokens_in_flight",
-                 "max_batched_tokens", "policy", "spec_k", "role",
+                 "max_batched_tokens", "policy", "spec_k", "spec_ngram",
+                 "role",
                  "attn_impl", "bnn_impl"):
         assert getattr(EngineConfig(), name) == \
             getattr(JEngineConfig(), name), name

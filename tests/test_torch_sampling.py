@@ -21,31 +21,18 @@
 * ``sample_tokens`` tokens equal JAX's; a difference is accepted only
   where the top two perturbed scores lie within NEAR_TIE of each other
   (printed; none expected).
-* A row's token does not depend on the batch around it, and a stop
-  token ends a sampled request at its first occurrence.
-* Through the engines: sampled tokens equal the JAX engine's, also on
-  the Poisson trace of tests/test_torch_prefix_swap.py under the prefix
-  cache and swap (reduced bnn-lm-100m, mixtral, deepseek), and equal the
-  same trace served without either (a token is a function of its seed
-  and position)."""
+* A row's token does not depend on the batch around it.
+* Through the engines (tests/test_torch_sampling_engine.py): sampled
+  tokens equal the JAX engine's, a stop token ends a sampled request at
+  its first occurrence."""
 import jax
 import jax.numpy as jnp
-
-import _torch_family as F
 import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
-from repro.configs.base import reduced as jreduced
-from repro.models import transformer as JM
-from repro.serving import Engine as JEngine, EngineConfig as JEngineConfig
 from repro.serving import sampling as js
-from repro_torch import configs as tconfigs
-from repro_torch.configs.base import reduced as treduced
-from repro_torch.interop import params_from_numpy
-from repro_torch.serving import (Engine, EngineConfig, SamplingParams,
-                                 sampling as ts)
+from repro_torch.serving import SamplingParams, sampling as ts
 
 torch.set_num_threads(1)
 
@@ -246,97 +233,3 @@ def test_greedy_operands_skip_the_draws():
     assert not rows.greedy
     assert rows.seeds.tolist() == [7, 0] and rows.temps.tolist() == [0.5, 0]
     assert [a.device.type for a in rows.as_args("cpu")] == ["cpu"] * 4
-
-
-# ------------------------------------------------------ through the engine
-
-ENGINE = dict(block_size=4, num_blocks=33, max_batch=4, prefill_chunk=4,
-              max_model_len=32)
-
-
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jreduced(jconfigs.get_config("bnn-lm-100m")).replace(
-        precision="bnn")
-    tcfg = treduced(tconfigs.get_config("bnn-lm-100m")).replace(
-        precision="bnn")
-    jp, _ = JM.init(jax.random.PRNGKey(0), jcfg)
-    return jcfg, jp, tcfg, params_from_numpy(jax.tree.map(np.asarray, jp),
-                                             tcfg)
-
-
-def _sampled(i):
-    return SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
-                          seed=1000 + i)
-
-
-@pytest.fixture(scope="module")
-def sampled_run(models):
-    jcfg, jp, tcfg, tp = models
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, 128, n) for n in (5, 9, 3, 7)]
-    je = JEngine(jp, jcfg, JEngineConfig(**ENGINE, attn_impl="xla",
-                                         bnn_impl="xla"))
-    te = Engine(tp, tcfg, EngineConfig(**ENGINE), device="cpu")
-    outs = []
-    for eng in (je, te):
-        rids = [eng.submit(p, 12, sampling=_sampled(i))
-                for i, p in enumerate(prompts)]
-        out = eng.run()
-        outs.append([out[r] for r in rids])
-    return prompts, outs
-
-
-def test_engine_sampled_tokens_match_jax(sampled_run):
-    _prompts, (jout, tout) = sampled_run
-    for a, b in zip(jout, tout):
-        np.testing.assert_array_equal(b, a)
-
-
-def test_sampled_stop_token_takes_the_first_occurrence(models, sampled_run):
-    """The stop token is one whose FIRST occurrence in a request's
-    sampled output is at index j > 0: the request ends with exactly
-    j + 1 tokens, equal to that output's head, and frees its blocks."""
-    prompts, (_jout, tout) = sampled_run
-    _jcfg, _jp, tcfg, tp = models
-    gen = list(tout[1][len(prompts[1]):])
-    firsts = [j for j in range(1, len(gen) - 1) if gen.index(gen[j]) == j]
-    assert firsts, f"no token first occurs past index 0 in {gen}"
-    j = firsts[len(firsts) // 2]
-    eng = Engine(tp, tcfg, EngineConfig(**ENGINE), device="cpu")
-    sp = _sampled(1)
-    r = eng.submit(prompts[1], len(gen), sampling=SamplingParams(
-        temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p,
-        seed=sp.seed, stop=(gen[j],)))
-    out = eng.run()
-    assert list(out[r][len(prompts[1]):]) == gen[:j + 1]
-    assert eng.requests[r].blocks == []
-
-
-@pytest.fixture(scope="module", params=sorted(F.PREFIX_FAMILIES))
-def sampled_trace(request):
-    arch = request.param
-    kw, shared, tails, gen = F.PREFIX_FAMILIES[arch]
-    jp, tp = F.models(arch)
-    jcfg, tcfg = F.cfgs(arch, "bnn")
-    arrival, prompts = F.poisson_trace(jcfg.vocab, shared, tails)
-    engines = [
-        JEngine(jp, jcfg, JEngineConfig(**kw, attn_impl="xla",
-                                        bnn_impl="xla")),
-        Engine(tp, tcfg, EngineConfig(**kw), device="cpu"),
-        Engine(tp, tcfg, EngineConfig(**{**kw, "num_blocks": 65},
-                                      prefix_cache=False,
-                                      preempt_policy="recompute"),
-               device="cpu")]
-    return [(e, F.drive_trace(e, arrival, prompts, gen, _sampled))
-            for e in engines]
-
-
-def test_sampled_trace_matches_jax_under_prefix_cache_and_swap(sampled_trace):
-    (_je, jout), (te, tout), (calm, cout) = sampled_trace
-    for a, b, c in zip(jout, tout, cout):
-        np.testing.assert_array_equal(b, a)
-        np.testing.assert_array_equal(c, b)
-    st = te.stats()
-    assert st["prefix_cache"]["hits"] > 0 and st["swap"]["swap_outs"] > 0
-    assert calm.stats()["preemptions"] == 0

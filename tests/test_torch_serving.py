@@ -263,7 +263,7 @@ def test_commit_stream_and_cancel(models, continuous_run):
 
 
 @pytest.mark.parametrize("option", [
-    dict(spec_k=2), dict(policy="slo"), dict(policy="priority"),
+    dict(policy="slo"), dict(policy="priority"),
     dict(role="prefill"), dict(role="decode")])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
