@@ -87,6 +87,35 @@ Phases (each check raises, and the script then exits non-zero):
               bit-equal at seeded (seed, index) keys, gumbel within
               GUMBEL_ULPS ulps, sample_tokens on fixed logits equal
               except at a printed near-tie (NEAR_TIE, TOP_P_ULPS).
+  tenants     the policies, the engine's trace file, the streaming
+              front-end and scoring, on [serve]'s weights and traffic
+              under A's config, through launch.serve's run functions.
+              priority (request b at priority b % 3) and slo (TENANTS:
+              chat latency-class with a budget of 2048 tokens in
+              flight, batch throughput-class; request b's tenant b %
+              2): every request's greedy tokens equal A's; chat's
+              in-flight tokens within its budget after every admission
+              pass.  [trace]: the slo run with start_trace into a
+              temporary file: it validates, its step records' dur_s
+              sum to stats()["wall_s"] and its swap spans to the swap
+              section's times (float equality), tokens equal A's; from
+              its request records, at least one preemption and one
+              tenant_budget defer, and a chat request preempted only
+              while no batch request ran; its photonic replay report
+              printed, its Perfetto export with a track per request;
+              tokens/s traced against untraced (two runs each, in
+              turns).  [stream]: the 24
+              requests through the asyncio front-end (run_stream) with
+              4 scoring requests (the 4 system prompts, each with a
+              128-token suffix: 4 chunks), the last request cancelled
+              after 8 streamed tokens: each uncancelled stream equals
+              A's tokens; after reset_stats(flush_prefix=True) every
+              block is free; scored tokens = Σ(prompt_len − 1); no
+              scoring request adopted a prefix.  [score]: each scoring
+              request's logprobs against a teacher-forced pass of its
+              prompt through the plain versions on the card (phase 4's
+              two routes) within MAX_SCORE_GAP.  fused_bnn and
+              paged_attention must launch on the phase's runs.
   spec        speculative decoding (spec_k 4, spec_ngram 3) on
               bnn-lm-100m at published width through launch.serve's
               run functions: 16 requests (8 periodic prompts, a seeded
@@ -186,9 +215,10 @@ Phases (each check raises, and the script then exits non-zero):
               skipped prefill tokens > 0 in both.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, serve, conv, spec, mixtral, deepseek, mamba2,
-jamba, each family's speculative run and the defaults pairs), error,
-times and bound; the last line is the run's verdict with the device.
+on its paths (serving, serve, tenants, conv, spec, mixtral, deepseek,
+mamba2, jamba, each family's speculative run and the defaults pairs),
+error, times and bound; the last line is the run's verdict with the
+device.
 Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -226,6 +256,7 @@ MAX_ROUTE_GAP = 1e-6             # an MoE routing difference is rounding only
                                  # router probabilities are closer than this
 MAX_HIDDEN_ERR = 1e-4            # |kernels - plain| per layer hidden state
 FLIP_RMS_FRACTION = 1e-5         # a sign flip closer to 0 than this x RMS
+FLIP_POSITIONS: list[int] = []   # every accepted flip's position, in order
                                  # is rounding, not a fault
 MODES = ("bitcount", "dot", "dot_scaled", "binary_act")   # BNN GEMM epilogues
 
@@ -1189,6 +1220,7 @@ def _check_signs(where, name, a, b, skip_rows=None) -> set[int]:
     for i, j, col in diff.nonzero().tolist():
         pos = int(pos_of[i])
         flipped.add(pos)
+        FLIP_POSITIONS.append(pos)
         v, r = b2[i, j, col].item(), rms[i, j, 0].item()
         log(f"[e2e] {where} {name} pos {pos} col {col}: sign flip at "
             f"{v:.3g} (row rms {r:.3g}: {abs(v) / r:.3g} x rms from 0)")
@@ -1700,7 +1732,8 @@ def phase_serve(dev, smi: str, smoke: bool = False):
     """The [serve] phase (A-E of the module docstring) on ``dev``:
     bnn-lm-100m at published width, seeded weights (``smoke``: the
     reduced config, as the CPU test runs it; the traffic's lengths and
-    content are the same).  Returns the kernel launches over A-E."""
+    content are the same).  Returns (the kernel launches over A-E, A's
+    tokens)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as SV
     from repro_torch.serving import EngineConfig, sample_tokens
@@ -1830,6 +1863,403 @@ def phase_serve(dev, smi: str, smoke: bool = False):
         log(f"[serve] peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
         check_sampled_bits(dev)
+    return launches, out_a
+
+
+# ------------------------------------------- [tenants]: the policies, the
+# engine's trace file, the streaming front-end and scoring, on [serve]'s
+# weights (the same seed) and traffic under A's config (SERVE_ENGINE)
+
+TENANTS = "chat=latency:2048,batch=throughput"
+TENANT_NAMES = ("chat", "batch")     # request b's tenant: b % 2
+CHAT_BUDGET = 2048                   # chat's in-flight tokens, at most
+SCORE_SUFFIX = 128                   # a scoring prompt: a system prompt + this
+CANCEL_AFTER = 8                     # streamed tokens, then the last request
+                                     # is cancelled
+MAX_SCORE_GAP = 1e-3                 # |engine logprob - teacher-forced|, nats
+
+
+def tenant_kw(b: int) -> dict:
+    return {"tenant": TENANT_NAMES[b % 2]}
+
+
+def score_prompts(prompts, vocab: int, seed: int = 5) -> list[np.ndarray]:
+    """The 4 system prompts of ``serve_traffic`` (requests 0-3 start
+    with them), each with a seeded suffix of SCORE_SUFFIX tokens: 512
+    tokens, 4 prefill chunks of 128 each."""
+    rng = np.random.default_rng(seed)
+    return [np.concatenate([prompts[i][:384], rng.integers(
+        0, vocab, SCORE_SUFFIX)]).astype(np.int32) for i in range(4)]
+
+
+def watch_tenant_budget(eng, rec: dict):
+    """After every admission pass: chat's in-flight tokens (prompt +
+    max_new of its running requests) within CHAT_BUDGET."""
+    sched = eng.scheduler
+    schedule = sched.schedule
+    rec["max_chat"] = 0
+
+    def checked(step):
+        plan = schedule(step)
+        n = sched.tenant_tokens_in_flight("chat")
+        rec["max_chat"] = max(rec["max_chat"], n)
+        if n > CHAT_BUDGET:
+            raise AssertionError(f"[tenants] step {step}: chat holds {n} "
+                                 f"tokens in flight > {CHAT_BUDGET}")
+        return plan
+
+    sched.schedule = checked
+
+
+def slo_victims(records) -> tuple[list[tuple], dict[str, int]]:
+    """From a trace's request records: each preemption victim as (rid,
+    its tenant, whether a batch request was running then), and the
+    defers by reason.  Raises if a chat request was preempted while a
+    batch request ran."""
+    tenant, running, victims, defers = {}, set(), [], {}
+    for r in records:
+        if r["type"] != "request":
+            continue
+        ev, rid = r["event"], r["rid"]
+        if ev == "submit":
+            tenant[rid] = r["tenant"]
+        elif ev in ("admit", "swap_in"):
+            running.add(rid)
+        elif ev in ("swap_out", "evict"):
+            batch = any(tenant[x] == "batch" for x in running)
+            victims.append((rid, tenant[rid], batch))
+            if batch and tenant[rid] != "batch":
+                raise AssertionError(
+                    f"[tenants] step {r['step']}: chat request {rid} "
+                    "preempted while a batch request was running")
+            running.discard(rid)
+        elif ev in ("finish", "cancelled"):
+            running.discard(rid)
+        elif ev == "defer":
+            defers[r["reason"]] = defers.get(r["reason"], 0) + 1
+    return victims, defers
+
+
+def tenants_setup(dev, smoke: bool = False, want=None) -> dict:
+    """[serve]'s weights (seed 0) and traffic, and A's greedy tokens
+    (``want``, or served here under A's config)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig
+    cfg, params = SV.setup("bnn-lm-100m", smoke=smoke, precision="bnn",
+                           seed=0, device=dev)
+    prompts = serve_traffic(cfg.vocab)
+    late = dict(late_after=SERVE_LATE_AFTER, n_late=SERVE_LATE)
+    if want is None:
+        _e, want = SV.run(params, cfg, prompts, SERVE_NEW,
+                          EngineConfig(**SERVE_ENGINE), device=dev, **late)
+    return dict(dev=dev, cfg=cfg, params=params, prompts=prompts,
+                want=want, late=late)
+
+
+def _tenants_run(ctx, tag, ecfg_kw, **kw):
+    """One run of the phase's traffic through ``launch.serve.run``;
+    logs its line and checks every request's tokens equal A's."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig
+    dev = ctx["dev"]
+    t0 = time.perf_counter()
+    eng, seqs = SV.run(ctx["params"], ctx["cfg"], ctx["prompts"], SERVE_NEW,
+                       EngineConfig(**SERVE_ENGINE, **ecfg_kw), device=dev,
+                       **ctx["late"], **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    log(f"[tenants] {tag}: total_tokens_per_s={st['total_tokens_per_s']:.1f} "
+        f"steps={st['steps']} preemptions={st['preemptions']} "
+        f"swap_outs={st['swap']['swap_outs']} wall_s={wall:.3f}")
+    _same_tokens(f"[tenants] {tag}", seqs, ctx["want"])
+    return eng, st
+
+
+def _same_tokens(tag, got, want):
+    for b, (g, w) in enumerate(zip(got, want, strict=True)):
+        if len(g) != len(w) or not np.array_equal(g, w):
+            raise AssertionError(f"{tag}: request {b}'s tokens differ from "
+                                 "A's (fcfs)")
+
+
+def tenants_priority(ctx) -> dict:
+    """The priority policy (request b at priority b % 3): each
+    request's greedy tokens equal A's.  Returns the run's stats."""
+    return _tenants_run(ctx, "priority", dict(policy="priority"),
+                        request_kw=lambda b: {"priority": b % 3})[1]
+
+
+def tenants_slo(ctx) -> dict:
+    """The slo policy (TENANTS, round-robin): each request's greedy
+    tokens equal A's, chat within its budget after every admission
+    pass.  Returns the run's stats."""
+    rec = {}
+    _e, st = _tenants_run(ctx, "slo", dict(policy="slo", tenants=TENANTS),
+                          request_kw=tenant_kw,
+                          watch=lambda e: watch_tenant_budget(e, rec))
+    log(f"[tenants] slo: chat's most tokens in flight {rec['max_chat']} "
+        f"(budget {CHAT_BUDGET})")
+    return st
+
+
+def tenants_trace(ctx, untraced: dict) -> dict:
+    """The slo run again with ``start_trace`` into a temporary directory:
+    the trace validates, its step records' dur_s sum to wall_s and its
+    swap spans to the swap section's times (float equality), the tokens
+    equal A's; the victims and defers read from its request records
+    (at least one preemption and one tenant_budget defer; a chat
+    request preempted only while no batch request ran); the photonic
+    replay of the file, and its Perfetto export with a track per
+    request; tokens/s traced against untraced, two runs each in turns.
+    Returns the counts the CPU run predicts."""
+    import tempfile
+    from repro_torch.launch import trace_view as TV
+    from repro_torch.serving import (format_report, read_trace,
+                                     replay_trace, validate_trace)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "slo.jsonl")
+        rec = {}
+
+        def watch(e):
+            e.start_trace(path)
+            watch_tenant_budget(e, rec)
+        eng, st = _tenants_run(ctx, "slo traced",
+                               dict(policy="slo", tenants=TENANTS),
+                               request_kw=tenant_kw, watch=watch)
+        eng.stop_trace()
+        records = read_trace(path)
+        validate_trace(records)
+        steps = [r for r in records if r["type"] == "step"]
+        if sum(r["dur_s"] for r in steps) != st["wall_s"]:
+            raise AssertionError("[tenants] the step records' dur_s do not "
+                                 "sum to stats()['wall_s']")
+        spans = {}
+        for r in records:
+            if r["type"] == "span":
+                spans[r["name"]] = spans.get(r["name"], 0.0) + r["dur_s"]
+        sw = st["swap"]
+        if (spans.get("swap_out", 0.0) + spans.get("snapshot_out", 0.0)
+                != sw["swap_out_s"]
+                or spans.get("swap_in", 0.0) + spans.get("snapshot_in", 0.0)
+                != sw["swap_in_s"]):
+            raise AssertionError("[tenants] the swap spans do not sum to "
+                                 "the swap section's times")
+        victims, defers = slo_victims(records)
+        n_pre = len(victims)
+        if n_pre < 1 or defers.get("tenant_budget", 0) < 1:
+            raise AssertionError("[tenants] slo: no preemption or no "
+                                 "tenant_budget defer")
+        log(f"[tenants] slo trace: {len(records)} records, {len(steps)} "
+            f"steps, span seconds {json.dumps(spans)}; victims (rid, "
+            f"tenant, batch running) {victims}; defers {json.dumps(defers)}")
+        # the tracing's cost, in turns: untraced (tenants_slo), traced
+        # (the run above), traced, untraced; a time only the card gives
+        tps = {"untraced": [untraced["total_tokens_per_s"]],
+               "traced": [st["total_tokens_per_s"]]}
+        for tag in ("traced", "untraced") if ctx["dev"].type == "cuda" \
+                else ():
+            again = str(Path(tmp) / "again.jsonl")
+            _e, st2 = _tenants_run(
+                ctx, f"slo {tag} again", dict(policy="slo", tenants=TENANTS),
+                request_kw=tenant_kw,
+                watch=(lambda e: e.start_trace(again)) if tag == "traced"
+                else None)
+            tps[tag].append(st2["total_tokens_per_s"])
+        ratio = sum(tps["traced"]) / sum(tps["untraced"])
+        log(f"[tenants] tracing overhead: total_tokens_per_s traced "
+            f"{tps['traced']} vs untraced {tps['untraced']} (runs in turns "
+            f"untraced, traced, traced, untraced): {ratio:.3f}x")
+        for line in format_report(replay_trace(path)).splitlines():
+            log(f"[tenants] {line}")
+        out = str(Path(tmp) / "slo.perfetto.json")
+        n_events = TV.export_perfetto(path, out)
+        with open(out) as fh:
+            doc = json.load(fh)
+        tracks = {e["args"]["name"] for e in doc["traceEvents"]
+                  if e["ph"] == "M" and e["pid"] == TV.REQUEST_PID
+                  and e["name"] == "thread_name"}
+        want_tracks = {f"rid {rid}" for rid in eng.requests}
+        if tracks != want_tracks:
+            raise AssertionError("[tenants] the Perfetto export lacks a "
+                                 "request's track")
+        log(f"[tenants] perfetto: {n_events} events, {len(tracks)} request "
+            "tracks")
+    return {"preemptions": st["preemptions"], "victims": victims,
+            "defers": defers, "swap_outs": sw["swap_outs"],
+            "swap_ins": sw["swap_ins"], "steps": st["steps"]}
+
+
+def tenants_stream(ctx) -> tuple[dict, dict]:
+    """The 24 requests through the front-end (``launch.serve.run_stream``,
+    slo, TENANTS) with 4 scoring requests (``score_prompts``, tenant
+    batch) beside them; the last request cancelled after CANCEL_AFTER
+    streamed tokens.  Gates: each uncancelled stream equals A's tokens,
+    the cancelled one A's up to where it stopped; every block free after
+    ``reset_stats(flush_prefix=True)``; scored tokens Σ(len − 1); no
+    scoring request adopted a prefix.  Returns (the kernel launches of
+    the run, {"scores": the scoring prompts, "scored": their results,
+    "steps": the run's steps, "cancelled": (request, tokens streamed)})."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig
+    dev, prompts, want = ctx["dev"], ctx["prompts"], ctx["want"]
+    scores = score_prompts(prompts, ctx["cfg"].vocab)
+    rec = {}
+    t0 = time.perf_counter()
+    eng, rids, got, scored = SV.run_stream(
+        ctx["params"], ctx["cfg"], prompts, SERVE_NEW,
+        EngineConfig(**SERVE_ENGINE, policy="slo", tenants=TENANTS),
+        request_kw=tenant_kw, scores=scores,
+        score_kw=lambda i: {"tenant": "batch"}, cancel_after=CANCEL_AFTER,
+        watch=lambda e: watch_tenant_budget(e, rec), device=dev,
+        **ctx["late"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    st = eng.stats()
+    cancelled = None
+    for b, rid in enumerate(rids):
+        stream = got[rid]
+        seq = np.concatenate([prompts[b], np.asarray(stream, np.int64)])
+        if eng.requests[rid].state.value == "cancelled":
+            if b != len(rids) - 1 or len(stream) < CANCEL_AFTER \
+                    or not np.array_equal(seq, want[b][:len(seq)]):
+                raise AssertionError(f"[tenants] stream: request {b} "
+                                     "cancelled wrongly")
+            cancelled = (b, len(stream))
+        elif not np.array_equal(seq, want[b]):
+            raise AssertionError(f"[tenants] stream: request {b}'s stream "
+                                 "differs from A's tokens")
+    if cancelled is None:
+        raise AssertionError("[tenants] stream: no request was cancelled")
+    sc = st["scoring"]
+    if sc["requests"] != len(scores) or sc["scored_tokens"] != sum(
+            len(p) - 1 for p in scores):
+        raise AssertionError(f"[tenants] scoring counts {sc}")
+    admits = {e["rid"]: e for e in eng.scheduler.trace
+              if e["event"] == "admit"}
+    for s in scored:
+        if eng.requests[s["rid"]].skipped_prefill or \
+                admits[s["rid"]]["cached_tokens"]:
+            raise AssertionError(f"[tenants] scoring request {s['rid']} "
+                                 "adopted a prefix")
+    eng.reset_stats(flush_prefix=True)
+    alloc = eng.cache.attn.allocator
+    alloc.check()
+    if alloc.num_used:
+        raise AssertionError(f"[tenants] {alloc.num_used} blocks held after "
+                             "the stream run and a prefix flush")
+    log(f"[tenants] stream: total_tokens_per_s={st['total_tokens_per_s']:.1f}"
+        f" steps={st['steps']} wall_s={wall:.3f}; request {cancelled[0]} "
+        f"cancelled after {cancelled[1]} streamed tokens; scoring {sc}, "
+        f"modeled scoring tokens/s "
+        f"{st['photonic']['modeled_scoring_tokens_per_s']:.0f}; chat's most "
+        f"tokens in flight {rec['max_chat']}; every block free after the "
+        "prefix flush")
+    return launches, {"scores": scores, "scored": scored,
+                      "steps": st["steps"], "cancelled": cancelled}
+
+
+def score_logprobs(logits: np.ndarray, prompt: np.ndarray) -> np.ndarray:
+    """log p(prompt[i + 1] | prompt[:i + 1]) from logits rows 0..T-2, in
+    float64 (the engine's ``_accumulate_score``)."""
+    rows = logits[:len(prompt) - 1].astype(np.float64)
+    mx = rows.max(axis=-1)
+    lse = mx + np.log(np.exp(rows - mx[:, None]).sum(axis=-1))
+    return rows[np.arange(len(rows)), prompt[1:].astype(np.int64)] - lse
+
+
+def plain_teacher_forced(params, cfg, prompt: np.ndarray, dev) -> np.ndarray:
+    """The prompt's logits (T, V) from ``prefill_chunk`` in the engine's
+    chunks on fresh pools, through the plain versions end to end
+    (``impl="torch"``)."""
+    from repro_torch.models import transformer as M
+    chunk, bs = SERVE_ENGINE["prefill_chunk"], SERVE_ENGINE["block_size"]
+    t = len(prompt)
+    mb = -(-t // bs)
+    pools = M.init_paged_state(cfg, mb + 1, bs, 2, device=dev)
+    table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)[None]
+    slots = torch.ones(1, dtype=torch.int32, device=dev)
+    rows = []
+    with torch.no_grad():
+        for pos in range(0, t, chunk):
+            n = min(chunk, t - pos)
+            toks = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
+            toks[0, :n] = torch.from_numpy(
+                prompt[pos:pos + n].astype(np.int64))
+            lg, pools = M.prefill_chunk(
+                params, cfg, toks, pools, table,
+                torch.tensor([pos], dtype=torch.int32, device=dev),
+                torch.tensor([n], dtype=torch.int32, device=dev), slots,
+                impl="torch")
+            rows.append(lg[0, :n].float().cpu().numpy())
+    return np.concatenate(rows)
+
+
+def tenants_scoring_check(ctx, scoring: dict) -> float:
+    """Each scoring request's logprobs against a teacher-forced pass of
+    its prompt through the plain versions on the device
+    (``plain_teacher_forced``): |engine - plain| <= MAX_SCORE_GAP at
+    every scored position.  Past the first position where an accepted
+    sign flip of the kernel route (phase 4's two routes, re-synchronised
+    at each sublayer, each flip printed) parts the routes, the plain
+    pass runs on other inputs and is not held.  Returns the largest gap
+    held."""
+    worst = 0.0
+    for p, s in zip(scoring["scores"], scoring["scored"], strict=True):
+        got = np.asarray(s["logprobs"], np.float64)
+        gap = np.abs(got - score_logprobs(
+            plain_teacher_forced(ctx["params"], ctx["cfg"], p, ctx["dev"]),
+            p))
+        held = len(gap)
+        if gap.max() > MAX_SCORE_GAP:
+            FLIP_POSITIONS.clear()
+            _teacher_forced(ctx["params"], ctx["cfg"], p,
+                            SERVE_ENGINE["prefill_chunk"],
+                            SERVE_ENGINE["block_size"], 0, ctx["dev"],
+                            f"[tenants] score rid {s['rid']}",
+                            keep_from=len(p))
+            held = min(FLIP_POSITIONS, default=len(gap))
+            if gap[:held].max(initial=0.0) > MAX_SCORE_GAP:
+                raise AssertionError(
+                    f"[tenants] score rid {s['rid']}: logprobs differ from "
+                    f"the plain route by {gap[:held].max():.3g} before any "
+                    "accepted flip")
+        worst = max(worst, float(gap[:held].max(initial=0.0)))
+        log(f"[tenants] score rid {s['rid']}: {len(got)} logprobs, ppl "
+            f"{s['ppl']:.3f}; largest gap to the plain route "
+            f"{gap[:held].max(initial=0.0):.3g} over positions 0-{held - 1} "
+            f"(tolerance {MAX_SCORE_GAP})"
+            + (f"; {gap[held:].max():.3g} past an accepted flip"
+               if held < len(gap) else ""))
+    return worst
+
+
+def phase_tenants(dev, smi: str, want=None, smoke: bool = False) -> dict:
+    """The [tenants] phase (module docstring) on ``dev``; ``want``: A's
+    tokens from [serve] (served again here when None; ``smoke``: the
+    reduced config, as the CPU tests run it).  Returns the kernel
+    launches of the phase's main-path runs."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ctx = tenants_setup(dev, smoke, want)
+    log(f"[tenants] {ctx['cfg'].name} d_model={ctx['cfg'].d_model} "
+        f"requests={len(ctx['prompts'])} tenants {TENANTS}; {smi}")
+    ops.reset_launches()
+    tenants_priority(ctx)
+    st = tenants_slo(ctx)
+    tenants_trace(ctx, st)
+    launches, scoring = tenants_stream(ctx)
+    tenants_scoring_check(ctx, scoring)
+    log(f"[tenants] launches {json.dumps(launches)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("fused_bnn", "paged_attention") if dev.type == "cuda" else ():
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "tenants path")
     return launches
 
 
@@ -2935,7 +3365,9 @@ def main() -> int:
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
     del eng, params, out
-    serve_launches = phase_serve(dev, smi)
+    serve_launches, out_a = phase_serve(dev, smi)
+    tenants_launches = phase_tenants(dev, smi, want=out_a)
+    del out_a
     gc.collect()
     conv_rows, conv_launches = phase_conv(dev)
     phase_photonic(st)
@@ -2960,7 +3392,8 @@ def main() -> int:
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "serve": serve_launches,
-             "conv": conv_launches, "spec": spec_launches, **families}
+             "tenants": tenants_launches, "conv": conv_launches,
+             "spec": spec_launches, **families}
     kernels = []
     for k in ops.KERNELS:
         r = pick[k.name]

@@ -15,15 +15,28 @@ request at its first occurrence.  ``--engine legacy`` runs the
 token-by-token loop over a dense per-batch cache instead, the engine's
 differential oracle: its greedy tokens equal the engine's.
 
+``--policy`` picks the scheduler policy (fcfs, priority, slo);
+``--tenants "name=class:budget,..."`` turns on the multi-tenant slo
+policy (latency vs throughput classes, per-tenant token budgets —
+serving/policy.py); with ``--stream`` it assigns requests round-robin
+to the tenants.  ``--trace PATH``
+records the engine's JSONL trace (view it with ``python -m
+repro_torch.launch.trace_view PATH``), ``--replay-photonic`` re-prices
+its steps on the photonic simulator.  Streaming front-end
+(``--stream``): the same engine behind an asyncio server loop
+(serving/frontend.py) — committed tokens stream per request,
+``--cancel-after`` drops the last request mid-decode, and ``--score``
+runs teacher-forced logprob/ppl scoring requests alongside generation.
+
 It runs on the card; ``--device cpu`` is the only way to run it on the
 CPU (the plain PyTorch versions of the kernels).  The options of later
-slices (streaming, shards, roles, policies, tenants, scoring, tracing,
-multi-pod meshes) raise and name their ROADMAP.md item.
+slices (shards, roles, multi-pod meshes) raise and name their
+ROADMAP.md item.
 
 Setup and run are split (``setup``, ``make_prompts``, ``run``,
-``run_legacy``): ``serve``/``serve_legacy`` take ``params`` and
-``prompts`` as well, so the same weights and prompts can be served by
-both packages.
+``run_stream``, ``run_legacy``): ``serve``/``serve_legacy`` take
+``params`` and ``prompts`` as well, so the same weights and prompts can
+be served by both packages.
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch bnn-lm-100m \\
@@ -32,6 +45,7 @@ Usage (on the card):
 from __future__ import annotations
 
 import argparse
+import asyncio
 import time
 
 import numpy as np
@@ -40,7 +54,9 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import reduced
 from repro_torch.models import transformer as M
-from repro_torch.serving import Engine, EngineConfig, SamplingParams
+from repro_torch.serving import (Engine, EngineConfig, Frontend,
+                                 SamplingParams, format_report,
+                                 parse_tenants, replay_trace, tenants_arg)
 from repro_torch.serving.engine import _resolve_device
 from repro_torch.serving.sampling import categorical
 
@@ -48,15 +64,8 @@ from repro_torch.serving.sampling import categorical
 # default, the ROADMAP.md item that brings it)
 LATER = {
     "multi_pod": (False, "queue 1, item 10"),
-    "trace": (None, 'queue 1, item 7, "Tracing"'),
-    "replay_photonic": (False, 'queue 1, item 7, "Tracing"'),
     "shards": (1, 'queue 1, item 7, "Sharded serving"'),
     "roles": (None, 'queue 1, item 7, "Worker roles"'),
-    "policy": (None, 'queue 1, item 7, "Policies"'),
-    "tenants": ("", 'queue 1, item 7, "Policies"'),
-    "stream": (False, 'queue 1, item 7, "Front-end and replay"'),
-    "score": (0, 'queue 1, item 7, "Front-end and replay"'),
-    "cancel_after": (0, 'queue 1, item 7, "Front-end and replay"'),
 }
 
 
@@ -119,25 +128,85 @@ def engine_config(batch: int, prompt_len: int, gen: int, *,
 
 
 def run(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
-        sampling=lambda b: SamplingParams(), late_after: int = 0,
-        n_late: int = 0, watch=None, device=None):
+        sampling=lambda b: SamplingParams(), request_kw=lambda b: {},
+        late_after: int = 0, n_late: int = 0, watch=None, device=None):
     """Serve ``prompts`` (a list of 1-D token arrays), ``gen`` new tokens
-    each, request ``b`` under ``sampling(b)``; the last ``n_late`` are
-    submitted after ``late_after`` steps.  ``watch(engine)``, when given,
-    is called on the new engine before the first request.  Returns (the
-    engine, each request's prompt + generated tokens, in order)."""
+    each, request ``b`` under ``sampling(b)`` with the further submit
+    keywords ``request_kw(b)`` (tenant, priority, ...); the last
+    ``n_late`` are submitted after ``late_after`` steps.
+    ``watch(engine)``, when given, is called on the new engine before
+    the first request.  Returns (the engine, each request's prompt +
+    generated tokens, in order)."""
     eng = Engine(params, cfg, ecfg, device=device)
     if watch is not None:
         watch(eng)
     early = len(prompts) - n_late
-    rids = [eng.submit(prompts[b], gen, sampling=sampling(b))
-            for b in range(early)]
+    rids = [eng.submit(prompts[b], gen, sampling=sampling(b),
+                       **request_kw(b)) for b in range(early)]
     for _ in range(late_after):
         eng.step()
-    rids += [eng.submit(prompts[b], gen, sampling=sampling(b))
+    rids += [eng.submit(prompts[b], gen, sampling=sampling(b),
+                        **request_kw(b))
              for b in range(early, len(prompts))]
     out = eng.run()
     return eng, [out[r] for r in rids]
+
+
+def run_stream(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
+               sampling=lambda b: SamplingParams(), request_kw=lambda b: {},
+               scores=(), score_kw=lambda i: {}, cancel_after: int = 0,
+               late_after: int = 0, n_late: int = 0, watch=None,
+               device=None):
+    """``run`` through the asyncio front-end (serving/frontend.py):
+    every request's committed tokens are consumed as a stream, the last
+    one is cancelled once ``cancel_after`` tokens have streamed (0:
+    none), and each prompt of ``scores`` runs as a teacher-forced
+    scoring request (submit keywords ``score_kw(i)``) alongside.  The
+    last ``n_late`` requests join after the engine has taken
+    ``late_after`` steps.  Returns (the engine, the generation rids in
+    order, rid -> streamed tokens, the scoring results in ``scores``'
+    order: ``Frontend.score``'s dicts)."""
+    eng = Engine(params, cfg, ecfg, device=device)
+    if watch is not None:
+        watch(eng)
+    early = len(prompts) - n_late
+
+    async def go():
+        got: dict[int, list[int]] = {}
+        async with Frontend(eng) as fe:
+            rids = []
+
+            def submit(b):
+                rids.append(fe.submit(prompts[b], gen, sampling=sampling(b),
+                                      **request_kw(b)))
+                return rids[-1]
+
+            async def consume(rid, cancel):
+                toks: list[int] = []
+                async for burst in fe.stream(rid):
+                    toks.extend(burst)
+                    if cancel and len(toks) >= cancel_after:
+                        fe.cancel(rid)
+                got[rid] = toks
+
+            def consumer(b):
+                rid = submit(b)
+                last = b == len(prompts) - 1
+                return consume(rid, bool(cancel_after) and last)
+
+            async def late():
+                while eng.step_count < late_after:
+                    await asyncio.sleep(0)
+                return await asyncio.gather(
+                    *(consumer(b) for b in range(early, len(prompts))))
+
+            results = await asyncio.gather(
+                *(consumer(b) for b in range(early)), late(),
+                *(fe.score(p, **score_kw(i)) for i, p in enumerate(scores)))
+        return rids, got, list(results[early + 1:])
+
+    rids, got, scored = asyncio.run(go())
+    return eng, rids, got, scored
 
 
 @torch.no_grad()
@@ -197,14 +266,29 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
           spec_k: int = 0, spec_ngram: int = 3, temperature: float = 0.0,
           top_k: int = 0, top_p: float = 1.0, sampling_seed: int = 0,
           stop: tuple[int, ...] = (), attn_impl: str = "auto",
-          bnn_impl: str = "auto", device=None, params=None, prompts=None,
-          **later):
+          bnn_impl: str = "auto", policy: str | None = None,
+          tenants: str = "", trace: str | None = None,
+          replay_photonic: bool = False, stream: bool = False,
+          score: int = 0, cancel_after: int = 0, device=None, params=None,
+          prompts=None, **later):
     """Serve ``batch`` requests of ``prompt_len`` tokens, ``gen`` new
     each; returns (batch, prompt_len + gen) token ids, prompts included
-    (a ragged list when stop tokens end some early).  ``params`` (on
-    ``device``) and ``prompts`` replace the seeded ones; ``later`` takes
-    the JAX CLI's options of later slices, which raise unless at their
-    defaults."""
+    (a ragged list when stop tokens end some early; a cancelled request
+    is left out).  ``params`` (on ``device``) and ``prompts`` replace
+    the seeded ones; ``later`` takes the JAX CLI's options of later
+    slices, which raise unless at their defaults.
+
+    ``tenants`` turns on the slo policy (unless ``policy`` says
+    otherwise); with ``stream`` the requests are spread round-robin over
+    the named tenants (the batch path submits them all under the
+    default tenant, as the JAX CLI does).  ``trace`` records the
+    engine's JSONL trace there, ``replay_photonic`` prints its replay
+    report.  ``stream`` drives
+    the engine through the asyncio front-end: requests stream their
+    committed tokens, ``score`` teacher-forced scoring requests (over
+    the prompts in turn) run alongside, and ``cancel_after`` cancels
+    the last request after that many streamed tokens.  Uncancelled
+    streamed output equals the batch path's for the same flags."""
     refuse_later(**later)
     if engine == "legacy":
         return serve_legacy(arch, smoke=smoke, batch=batch,
@@ -219,34 +303,75 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
         prompts = make_prompts(cfg, batch, prompt_len, seed)
     prompts = np.asarray(prompts)
     batch, prompt_len = prompts.shape
+    if policy is None:
+        policy = "slo" if tenants else "fcfs"
     ecfg = engine_config(batch, prompt_len, gen, block_size=block_size,
                          prefill_chunk=prefill_chunk,
                          accelerator=accelerator, prefix_cache=prefix_cache,
                          preempt_policy=preempt_policy,
                          snapshot_slots=snapshot_slots, spec_k=spec_k,
                          spec_ngram=spec_ngram, attn_impl=attn_impl,
-                         bnn_impl=bnn_impl)
+                         bnn_impl=bnn_impl, policy=policy,
+                         tenants=tenants_arg(tenants))
+    names = list(parse_tenants(tenants)) or ["default"]
 
     def sampling(b):
         return SamplingParams(temperature=temperature, top_k=top_k,
                               top_p=top_p, seed=sampling_seed + b,
                               stop=stop)
 
-    eng, seqs = run(params, cfg, list(prompts), gen, ecfg,
-                    sampling=sampling, device=device)
+    def watch(eng):
+        if trace or replay_photonic:
+            eng.start_trace(trace, ring=1 << 16)
+
+    if stream:
+        eng, rids, got, scored = run_stream(
+            params, cfg, list(prompts), gen, ecfg, sampling=sampling,
+            request_kw=lambda b: {"tenant": names[b % len(names)]},
+            scores=[prompts[i % batch] for i in range(score)],
+            score_kw=lambda i: {"tenant": names[i % len(names)]},
+            cancel_after=cancel_after, watch=watch, device=device)
+        seqs = []
+        for b, rid in enumerate(rids):
+            req = eng.requests[rid]
+            cancelled = req.state.name == "CANCELLED"
+            if verbose:
+                tag = " CANCELLED" if cancelled else ""
+                print(f"[serve:stream] rid={rid} tenant={req.tenant} "
+                      f"class={req.slo_class} streamed={len(got[rid])}{tag}")
+            if not cancelled:
+                seqs.append(np.concatenate(
+                    [prompts[b], np.asarray(got[rid], np.int32)]))
+        if verbose:
+            for sc in scored:
+                print(f"[serve:stream] score rid={sc['rid']} "
+                      f"tokens={sc['scored_tokens']} ppl={sc['ppl']:.3f}")
+    else:
+        eng, seqs = run(params, cfg, list(prompts), gen, ecfg,
+                        sampling=sampling, watch=watch, device=device)
+    if trace or replay_photonic:
+        records = eng.tracer.events()
+        eng.stop_trace()
+        if trace and verbose:
+            print(f"[serve] trace -> {trace} (view: python -m "
+                  f"repro_torch.launch.trace_view {trace})")
+        if replay_photonic:
+            print(format_report(replay_trace(trace or records, cfg=cfg,
+                                             accelerator=accelerator)))
     if verbose:
-        report(arch, eng)
+        report(arch, eng, batch)
     if len({len(s) for s in seqs}) > 1:      # early stop: ragged
         return seqs
     return np.stack(seqs)
 
 
-def report(arch: str, eng: Engine):
-    """The JAX CLI's summary lines for one engine run."""
+def report(arch: str, eng: Engine, batch: int):
+    """The JAX CLI's summary lines for one engine run of ``batch``
+    generation requests."""
     st = eng.stats()
     ph, pc, sw = st["photonic"], st["prefix_cache"], st["swap"]
     print(f"[serve] {arch} precision={eng.cfg.precision} "
-          f"batch={len(eng.requests)} device={st['device']} "
+          f"batch={batch} device={st['device']} "
           f"decode-tokens/s={st['decode_tokens_per_s']:.1f} "
           f"total-tokens/s={st['total_tokens_per_s']:.1f} "
           f"steps={st['steps']} "
@@ -323,17 +448,34 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain "
                          "versions on the CPU")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record a structured JSONL engine trace (view "
+                         "with python -m repro_torch.launch.trace_view)")
+    ap.add_argument("--replay-photonic", action="store_true",
+                    help="replay the recorded steps through the "
+                         "photonic simulator (analytic-vs-simulated)")
+    ap.add_argument("--policy", default=None,
+                    choices=["fcfs", "priority", "slo"],
+                    help="scheduler policy (default: slo when "
+                         "--tenants is set, else fcfs)")
+    ap.add_argument("--tenants", default="", metavar="NAME=CLASS:BUDGET",
+                    help="comma-separated tenant spec, e.g. "
+                         "'web=latency:0,bulk=throughput:2048'; "
+                         "requests are assigned round-robin")
+    ap.add_argument("--stream", action="store_true",
+                    help="drive the engine through the asyncio "
+                         "front-end: per-request token streams, "
+                         "cancellation, scoring")
+    ap.add_argument("--score", type=int, default=0,
+                    help="teacher-forced scoring requests to run "
+                         "alongside generation (requires --stream)")
+    ap.add_argument("--cancel-after", type=int, default=0,
+                    help="cancel the last request after this many "
+                         "streamed tokens (requires --stream)")
     # the JAX CLI's options of later slices: each raises when set
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--trace", default=None, metavar="PATH")
-    ap.add_argument("--replay-photonic", action="store_true")
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--roles", default=None)
-    ap.add_argument("--policy", default=None)
-    ap.add_argument("--tenants", default="")
-    ap.add_argument("--stream", action="store_true")
-    ap.add_argument("--score", type=int, default=0)
-    ap.add_argument("--cancel-after", type=int, default=0)
     args = ap.parse_args(argv)
     return serve(
         args.arch, smoke=args.smoke, batch=args.batch,
@@ -347,6 +489,9 @@ def main(argv=None):
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         sampling_seed=args.sampling_seed, stop=tuple(args.stop_token),
         attn_impl=args.attn_impl, bnn_impl=args.bnn_impl,
+        policy=args.policy, tenants=args.tenants, trace=args.trace,
+        replay_photonic=args.replay_photonic, stream=args.stream,
+        score=args.score, cancel_after=args.cancel_after,
         device=args.device,
         **{name: getattr(args, name) for name in LATER})
 

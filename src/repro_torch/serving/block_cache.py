@@ -479,7 +479,7 @@ class BlockKVCache(MixerState):
         all).  The rest are copied to host memory, synchronously, before
         req drops every device reference."""
         sync(self._device())
-        with self.tracer.span("swap_out"):
+        with self.tracer.span("swap_out", rid=req.rid) as sp:
             readopt = 0
             no_wrap = self.blocks_for(req.pos) <= (self.ring_blocks
                                                    or self.max_blocks_per_seq)
@@ -501,7 +501,10 @@ class BlockKVCache(MixerState):
             req.blocks = []
             self.swap_outs += 1
             self.swapped_blocks += len(ids)
-            self.swap_out_bytes += flat.numel() * flat.element_size()
+            n_bytes = flat.numel() * flat.element_size()
+            self.swap_out_bytes += n_bytes
+            sp.extra["blocks"] = len(ids)
+            sp.extra["bytes"] = n_bytes
 
     def swap_in(self, req) -> bool | None:
         """Restore a swapped request.  Registered blocks are re-adopted
@@ -530,7 +533,7 @@ class BlockKVCache(MixerState):
             return False
         dev = self._device()
         sync(dev)
-        with self.tracer.span("swap_in"):
+        with self.tracer.span("swap_in", rid=req.rid, blocks=n):
             dst = torch.tensor(got, dtype=torch.long, device=dev)
             shapes = [{k: tuple(a.shape) for k, a in layer.items()}
                       for layer in req.host_kv]
@@ -658,7 +661,24 @@ class MixerStateCache:
         past the matched tokens.  A hybrid without snapshots adopts
         nothing (its slot would still be computed from position 0).  The
         slot is taken first; when the blocks are short it goes back and
-        the request is as before (``pos`` 0)."""
+        the request is as before (``pos`` 0).
+
+        Scoring requests adopt nothing either: teacher-forced scoring
+        needs the LOGITS of every prompt position, and an adopted prefix
+        skips exactly those forwards (the blocks hold KV, not logits).
+        Their freshly prefilled blocks still register in the index for
+        later requests to reuse."""
+        if req.score:
+            if self.ssm is not None and \
+                    not self.ssm.alloc_prompt(req, (0, "", 0), count=False):
+                return False
+            if self.attn is not None and \
+                    not self.attn.alloc_prompt(req, max_match=0):
+                if self.ssm is not None:
+                    self.ssm.release(req)
+                    req.pos = req.skipped_prefill = 0
+                return False
+            return True
         cap = None
         match = (0, "", 0)
         if self.ssm is not None:

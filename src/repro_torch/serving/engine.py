@@ -37,6 +37,14 @@ restoring their pre-verify copies and re-advancing by the accepted
 prefix.  Since sampling is a pure function of (seed, position), the
 verified stream equals plain decoding's at any temperature.
 
+Scoring requests (``submit(..., score=True)``) run teacher-forced
+chunked prefill only: every chunk's logits rows are read back and the
+log-probability of each next prompt token is summed on the host in
+float64; the request finishes from its last chunk and never decodes.
+``start_trace`` records the engine's structured trace
+(serving/tracing.py): one record a step, the requests' lifecycle events
+and the swap/snapshot copies, in the JAX package's schema.
+
 With cfg.precision == "bnn" every projection runs the packed
 XNOR-popcount GEMM — the paper's inference mode.  On a CUDA device the
 projections and the paged attention are the hand-written Hopper
@@ -49,7 +57,7 @@ from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
@@ -64,6 +72,9 @@ from repro_torch.serving.sampling import (SamplingParams, prompt_lookup_draft,
                                          sampling_rows)
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.tracing import Tracer
+
+STEP_ACTIONS = ("prefix_hits", "snapshot_hits", "preempts", "swap_losts",
+                "swap_outs", "swap_ins")
 
 
 def nearest_rank(sorted_vals, p: float) -> float:
@@ -81,8 +92,7 @@ def nearest_rank(sorted_vals, p: float) -> float:
 # fixed value: field -> (the value it supports, ROADMAP.md item that
 # brings the rest)
 _SLICE_ONLY = {
-    "policy": ("fcfs", "queue 1, item 7"),
-    "role": ("mixed", "queue 1, item 7"),
+    "role": ("mixed", 'queue 1, item 7, "Worker roles"'),
 }
 
 
@@ -95,12 +105,15 @@ class EngineConfig:
     max_model_len: int = 256         # prompt + generation bound per request
     num_slots: int = 0               # recurrent slots (SSM layers), slot 0
                                      # scratch; 0 = max_batch + 1
-    policy: str = "fcfs"             # only fcfs is ported
+    policy: str = "fcfs"             # fcfs | priority | slo
     max_tokens_in_flight: int = 0    # KV-footprint admission budget;
                                      # 0 = auto (2x the block pool's
                                      # token capacity; unbounded without
                                      # a block pool)
     max_batched_tokens: int = 256
+    tenants: str = ""                # slo-policy tenant spec in the
+                                     # canonical "name=class:budget,..."
+                                     # form (policy.tenants_arg)
     accelerator: str = "OXBNN_50"    # photonic cost-model target
     prefix_cache: bool = True        # content-addressed prompt block reuse
     preempt_policy: str = "swap"     # swap | recompute (fallback)
@@ -160,7 +173,9 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
-        # span accumulators: the wall-time source of stats()
+        # one tracer threaded through scheduler + caches: disabled by
+        # default (near-zero cost), start_trace() turns recording on.
+        # Its span accumulators back the wall-time stats either way.
         self.tracer = Tracer()
         self.cache = MixerStateCache(
             cfg, num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
@@ -192,8 +207,9 @@ class Engine:
                             prefill_chunk=ecfg.prefill_chunk,
                             policy=ecfg.policy,
                             preempt_policy=ecfg.preempt_policy,
-                            decode_cost=1 + self._spec_k),
-            self.cache)
+                            decode_cost=1 + self._spec_k,
+                            tenants=ecfg.tenants),
+            self.cache, tracer=self.tracer)
         # the fused CUDA kernel never spills packed activations to
         # device memory; the plain version prices the extra pack pass
         # per GEMM
@@ -204,6 +220,10 @@ class Engine:
         self.requests: dict[int, Request] = {}
         self.step_count = 0
         self._next_rid = 0
+        # a single engine: the trace's shard fields read None and 1
+        self.shard: int | None = None
+        self.n_shards: int = 1
+        self._step_rec: dict | None = None   # per-step trace assembly
         self._decoded = 0
         self._prefilled = 0
         self._prefill_calls = 0
@@ -219,6 +239,10 @@ class Engine:
         self._draft_tokens = 0
         self._draft_accepted = 0
         self._spec_repairs = 0
+        # scoring workload counters (teacher-forced prefill-only)
+        self._score_tokens = 0           # scored prompt positions
+        self._score_passes = 0           # chunked scoring prefill calls
+        self._score_requests = 0         # finished scoring requests
         self._cancelled = 0
         # incremental token-commit callback (streaming):
         # cb(rid, new_tokens, done) at every commit point.  None = no
@@ -235,10 +259,40 @@ class Engine:
 
     # ---------------------------------------------------------------- API
 
+    def start_trace(self, path: str | None = None, *, ring: int = 4096,
+                    capture_logits: bool = False) -> Tracer:
+        """Turn structured tracing on: every step/request/span event
+        goes to a bounded in-memory ring and (when ``path`` is given)
+        streams to JSONL.  The leading meta record makes the trace
+        self-describing — the replay driver and the Perfetto exporter
+        need nothing else (see serving/tracing.py)."""
+        self.tracer.open(path, ring=ring, capture_logits=capture_logits)
+        self.tracer.meta(
+            arch=self.cfg.name, accelerator=self.ecfg.accelerator,
+            config=asdict(self.cfg), engine=asdict(self.ecfg),
+            spec_k=self._spec_k, shard=self.shard,
+            n_shards=self.n_shards, role=self.ecfg.role,
+            link_gbps=self.ecfg.link_gbps, t0=self.tracer.t0)
+        return self.tracer
+
+    def stop_trace(self):
+        """Flush + close the trace stream (the ring stays readable)."""
+        self.tracer.close()
+
     def submit(self, prompt, max_new: int, *, priority: int = 0,
+               arrival_s: float = 0.0,
                sampling: SamplingParams | None = None,
-               rid: int | None = None) -> int:
+               rid: int | None = None, tenant: str = "default",
+               slo_class: str = "", score: bool = False) -> int:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if score:
+            # scoring = chunked teacher-forced prefill only: no decode
+            # loop, so there is no generation budget to reserve
+            max_new = 0
+            if prompt.size < 2:
+                raise ValueError(
+                    "scoring needs >= 2 prompt tokens (each scored "
+                    "position conditions on at least one token)")
         if prompt.size + max_new > self.ecfg.max_model_len:
             raise ValueError(
                 f"request needs {prompt.size + max_new} tokens > "
@@ -251,7 +305,9 @@ class Engine:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid) + 1
         req = Request(rid, prompt, max_new, priority=priority,
-                      sampling=sampling or SamplingParams())
+                      arrival_s=arrival_s,
+                      sampling=sampling or SamplingParams(),
+                      tenant=tenant, slo_class=slo_class, score=score)
         req.submit_s = time.perf_counter()
         self.requests[rid] = req
         self.scheduler.submit(req, self.step_count)
@@ -300,22 +356,57 @@ class Engine:
         self._commit(req, True)
         return True
 
+    def _counter_marks(self) -> tuple:
+        """Cheap cache/scheduler counter snapshot — the step record
+        reports per-step deltas (prefix/snapshot hits, preempt/swap
+        actions).  Built only while tracing is enabled."""
+        c, s = self.cache, self.scheduler
+        a, m = c.attn, c.ssm
+        return (a.prefix_hits if a is not None else 0,
+                m.snap_hits if m is not None else 0,
+                s.preempts, s.swap_losts, c.swap_outs, c.swap_ins)
+
     def step(self) -> bool:
-        """One engine iteration; False when nothing was schedulable."""
-        with self.tracer.span("step"):
-            step = self.step_count
-            plan = self.scheduler.schedule(step)
-            if plan.prefill is not None:
-                self._run_prefill(step, plan.prefill, plan.prefill_tokens)
-            # prefill-side preemption may have requeued planned rows
-            decode = [r for r in plan.decode if r.state == State.DECODE
-                      and r in self.scheduler.running]
-            if decode:
-                if self._spec_k:
-                    self._run_decode_spec(step, decode)
-                else:
-                    self._run_decode(step, decode)
-            self.step_count += 1
+        """One engine iteration; False when nothing was schedulable.
+        Its wall time goes into the ``step`` span total, and (tracing
+        on) the very same float into the step record's ``dur_s``, so
+        ``stats()["wall_s"]`` equals the sum of the step records."""
+        t0 = time.perf_counter()
+        step = self.step_count
+        tr = self.tracer
+        if tr.enabled:
+            self._step_rec = {}
+            marks = self._counter_marks()
+        plan = self.scheduler.schedule(step)
+        if plan.prefill is not None:
+            self._run_prefill(step, plan.prefill, plan.prefill_tokens)
+        # prefill-side preemption may have requeued planned rows
+        decode = [r for r in plan.decode if r.state == State.DECODE
+                  and r in self.scheduler.running]
+        if decode:
+            if self._spec_k:
+                self._run_decode_spec(step, decode)
+            else:
+                self._run_decode(step, decode)
+        self.step_count += 1
+        dt = time.perf_counter() - t0
+        tr.add_time("step", dt)
+        if tr.enabled:
+            rec = self._step_rec
+            self._step_rec = None
+            delta = [b - a for a, b in zip(marks, self._counter_marks())]
+            actions = {k: d for k, d in zip(STEP_ACTIONS, delta) if d}
+            ev = {"type": "step", "step": step, "dur_s": dt,
+                  "kind": "+".join(
+                      k for k in ("prefill", "decode", "spec_verify")
+                      if k in rec) or "idle",
+                  "role": self.ecfg.role}
+            if self.shard is not None:
+                ev["shard"] = self.shard
+            ev.update(rec)
+            if actions:
+                ev["actions"] = actions
+            tr.emit(ev)
         return plan.has_work
 
     def run(self) -> dict[int, np.ndarray]:
@@ -332,6 +423,24 @@ class Engine:
                     f"defer reason per request: {detail}")
         return {rid: r.full_sequence() for rid, r in self.requests.items()
                 if r.state == State.FINISHED}
+
+    # ------------------------------------------- replay-curve feedback
+
+    def apply_replay_curve(self, curve: dict) -> int:
+        """Cap the speculative verify chunk at the modeled DWDM
+        pipeline-fill break-even of a replayed ``decode_batch_curve``
+        (serving/replay.py).  Beyond the break-even width, each extra
+        verified token costs more than a sequential decode step on the
+        modeled hardware, so drafting past it cannot win.  Lowers
+        ``spec_k`` (never raises it — the ring-rollback bound still
+        applies) and the scheduler's per-row decode budget charge.
+        Returns the spec_k now in effect."""
+        from repro_torch.serving.replay import spec_chunk_cap
+        cap = spec_chunk_cap(curve)
+        if cap is not None and self._spec_k and cap - 1 < self._spec_k:
+            self._spec_k = max(cap - 1, 0)
+            self.scheduler.decode_cost = 1 + self._spec_k
+        return self._spec_k
 
     # ------------------------------------------------------------ internals
 
@@ -352,18 +461,44 @@ class Engine:
         table = self.cache.table_rows([req], 1)
         slots = self.cache.slot_rows([req], 1)
         srows = sampling_rows([req], 1)
-        tok, _logits, _pools = self._prefill_fn(
+        tok, logits, _pools = self._prefill_fn(
             self.params, self.cache.pools, self._tensor(tokens),
             self._tensor(table), self._tensor(np.array([req.pos], np.int32)),
             self._tensor(np.array([chunk], np.int32)), self._tensor(slots),
             *srows.as_args(self.device))
+        # the chunk's real logits rows, read back once, when scoring or
+        # capturing needs them (row j predicts prompt position pos+j+1)
+        rows = (logits[0, :chunk].float().cpu().numpy()
+                if req.score or (self._step_rec is not None
+                                 and self.tracer.capture_logits) else None)
+        if req.score:
+            self._accumulate_score(req, rows, chunk)
+            self._score_passes += 1
         req.pos += chunk
         self._prefilled += chunk
         self._prefill_calls += 1
         self.cache.register_prefix(req)
         self.scheduler._ev(step, "prefill", req.rid, tokens=chunk,
                            pos=req.pos)
+        if self._step_rec is not None:
+            info = {"rid": req.rid, "tokens": chunk, "pos": req.pos,
+                    "prompt_len": req.prompt_len}
+            if req.score:
+                info["score"] = True
+            if self.tracer.capture_logits:
+                info["logits"] = rows.tolist()
+            self._step_rec["prefill"] = info
         if req.pos == req.prompt_len:
+            if req.score:
+                # scoring never decodes: the request finishes straight
+                # out of its last prefill chunk, releasing its state
+                req.first_token_step = step
+                req.first_token_s = time.perf_counter()
+                self._score_requests += 1
+                self.scheduler.finish(step, req)
+                req.finish_s = req.first_token_s
+                self._commit(req, True)
+                return
             req.out.append(int(tok[0]))
             req.state = State.DECODE
             req.first_token_step = step
@@ -374,6 +509,22 @@ class Engine:
                 self.scheduler.finish(step, req)
                 req.finish_s = time.perf_counter()
             self._commit(req, req.done)
+
+    def _accumulate_score(self, req: Request, logits: np.ndarray,
+                          chunk: int):
+        """Append log p(prompt[pos+1+j] | prefix) for each scored row
+        of the chunk (row j predicts position pos+j+1; the final row
+        has no target inside the prompt), in float64 on the host."""
+        n = min(chunk, req.prompt_len - req.pos - 1)
+        if n <= 0:
+            return
+        rows = logits[:n].astype(np.float64)
+        mx = rows.max(axis=-1)
+        lse = mx + np.log(np.exp(rows - mx[:, None]).sum(axis=-1))
+        tgt = np.asarray(req.prompt[req.pos + 1:req.pos + 1 + n], np.int64)
+        lp = rows[np.arange(n), tgt] - lse
+        req.logprobs.extend(float(x) for x in lp)
+        self._score_tokens += n
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -416,7 +567,7 @@ class Engine:
         table = self.cache.table_rows(ready, bucket)
         slots = self.cache.slot_rows(ready, bucket)
         srows = sampling_rows(ready, bucket)
-        next_tok, _logits, _pools = self._decode_fn(
+        next_tok, logits, _pools = self._decode_fn(
             self.params, self.cache.pools, self._tensor(tokens),
             self._tensor(table), self._tensor(lengths),
             self._tensor(active), self._tensor(slots),
@@ -428,6 +579,14 @@ class Engine:
         self._decode_produced += len(ready)
         self.scheduler._ev(step, "decode", None,
                            rids=[r.rid for r in ready], batch=bucket)
+        if self._step_rec is not None:
+            info = {"rows": len(ready), "bucket": bucket,
+                    "rids": [r.rid for r in ready],
+                    "fed_tokens": len(ready), "committed": len(ready)}
+            if self.tracer.capture_logits:
+                info["logits"] = (logits[:len(ready), -1].float().cpu()
+                                  .numpy().tolist())
+            self._step_rec["decode"] = info
         now = time.perf_counter()
         for i, r in enumerate(ready):
             if r.state is not State.DECODE:
@@ -534,6 +693,16 @@ class Engine:
                            rids=[r.rid for r in ready], batch=bucket,
                            drafted=int(n_valid[:n].sum()) - n,
                            committed=committed_total)
+        if self._step_rec is not None:
+            self._step_rec["spec_verify"] = {
+                "rows": n, "bucket": bucket,
+                "rids": [r.rid for r in ready],
+                "fed": n_valid[:n].tolist(),
+                "fed_tokens": int(n_valid[:n].sum()),
+                "drafted": int(n_valid[:n].sum()) - n,
+                "accepted": int(np.minimum(
+                    n_commit_h[:n] - 1, n_valid[:n] - 1).clip(0).sum()),
+                "committed": committed_total}
 
     # -------------------------------------------------------------- stats
 
@@ -549,6 +718,8 @@ class Engine:
         self._verify_tokens = self._spec_committed = 0
         self._draft_tokens = self._draft_accepted = 0
         self._spec_repairs = 0
+        self._score_tokens = self._score_passes = 0
+        self._score_requests = 0
         self.cache.reset_stats(flush_prefix=flush_prefix)
 
     def stats(self) -> dict:
@@ -581,6 +752,12 @@ class Engine:
             "preemptions": sum(r.preemptions
                                for r in self.requests.values()),
             "cancelled": self._cancelled,
+            "scoring": {
+                "requests": self._score_requests,
+                "scored_tokens": self._score_tokens,
+                "score_passes": self._score_passes,
+            },
+            "tenants": self.scheduler.tenant_report(),
             "speculative": self._spec_section(),
             "prefix_cache": prefix,
             "swap": self.cache.swap_section(),
@@ -609,9 +786,7 @@ class Engine:
 
     def _photonic_section(self, skipped_tokens: int) -> dict:
         """The modeled accelerator's report on the served stream, built
-        as the JAX engine builds it.  Scoring is not ported, so its
-        counts are 0 (ROADMAP.md queue 1, item 7, "Front-end and
-        replay")."""
+        as the JAX engine builds it."""
         cm = self.cost_model
         return {
             **cm.report(),
@@ -624,5 +799,6 @@ class Engine:
             **cm.speculative_report(verify_passes=self._spec_rows,
                                     verify_tokens=self._verify_tokens,
                                     committed_tokens=self._spec_committed),
-            **cm.scoring_report(score_tokens=0, score_passes=0),
+            **cm.scoring_report(score_tokens=self._score_tokens,
+                                score_passes=self._score_passes),
         }

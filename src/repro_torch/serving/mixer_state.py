@@ -391,13 +391,14 @@ class RecurrentSlotState(MixerState):
         the slot returns to the free list."""
         dev = self._device()
         sync(dev)
-        with self.tracer.span("snapshot_out"):
+        with self.tracer.span("snapshot_out", rid=req.rid) as sp:
             bs = self.block_size
             if (self.snapshots is not None and req.pos
                     and req.pos <= req.prompt_len and req.pos % bs == 0
                     and req.snap_registered == req.pos // bs
                     and req.snap_key in self.snapshots):
                 req.snap_readopt = True
+                sp.extra["bytes"] = 0        # the index keeps the content
             else:
                 s = req.slot
                 flat = torch.cat([v[s].reshape(-1) for pool in self.pools
@@ -406,7 +407,9 @@ class RecurrentSlotState(MixerState):
                     flat, [{k: tuple(v.shape[1:]) for k, v in pool.items()}
                            for pool in self.pools])
                 self.swapped_slots += 1
-                self.swap_out_bytes += flat.numel() * flat.element_size()
+                n_bytes = flat.numel() * flat.element_size()
+                self.swap_out_bytes += n_bytes
+                sp.extra["bytes"] = n_bytes
             self.release(req)
 
     def swap_in(self, req) -> bool | None:
@@ -423,7 +426,7 @@ class RecurrentSlotState(MixerState):
                 return None              # evicted while parked: recompute
             if not self._take_slot(req):
                 return False
-            with self.tracer.span("snapshot_in"):
+            with self.tracer.span("snapshot_in", rid=req.rid, readopt=True):
                 self._restore_row(req.slot, row)
             req.snap_readopt = False
             self.readopted_snapshots += 1
@@ -432,7 +435,7 @@ class RecurrentSlotState(MixerState):
             return False
         dev = self._device()
         sync(dev)
-        with self.tracer.span("snapshot_in"):
+        with self.tracer.span("snapshot_in", rid=req.rid):
             # one copy of the buffer the per-layer views share, then a
             # slot write a tensor
             flat = req.host_state[0]["h"]._base

@@ -39,7 +39,18 @@ class Request:
     prompt: np.ndarray                 # (prompt_len,) int32
     max_new: int
     priority: int = 0                  # higher = scheduled first
+    arrival_s: float = 0.0             # bench-relative arrival time
     sampling: SamplingParams = GREEDY  # decode policy (greedy default)
+    tenant: str = "default"            # slo-policy accounting group
+    slo_class: str = ""                # latency | throughput ("" = take
+                                       # the tenant spec's default;
+                                       # resolved at submit)
+    score: bool = False                # teacher-forced logprob scoring:
+                                       # chunked prefill only, no decode
+
+    # scoring output: one log p(prompt[i+1] | prompt[:i+1]) per scored
+    # position, filled during prefill when ``score`` is set
+    logprobs: list[float] = field(default_factory=list)
 
     # runtime (owned by the scheduler/engine)
     state: State = State.QUEUED
@@ -107,6 +118,7 @@ class Request:
         self.state = State.QUEUED
         self.pos = 0
         self.out.clear()
+        self.logprobs.clear()
         self.blocks = []
         self.slot = None
         self.host_kv = None
@@ -131,3 +143,10 @@ class Request:
     def full_sequence(self) -> np.ndarray:
         return np.concatenate(
             [self.prompt, np.asarray(self.out, np.int32)])
+
+    def score_ppl(self) -> float:
+        """Teacher-forced perplexity over the scored prompt positions
+        (scoring requests only; NaN before any chunk lands)."""
+        if not self.logprobs:
+            return float("nan")
+        return float(np.exp(-np.mean(self.logprobs)))

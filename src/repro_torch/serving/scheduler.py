@@ -19,7 +19,10 @@ Each engine step the scheduler emits a StepPlan:
               (or verifies a speculative draft: ``decode_cost`` tokens a
               row are charged against the prefill budget).
 
-Ordering and victim selection live in ``serving/policy.py``.  When the
+Ordering, victim selection, and policy-specific admission gates live in
+``serving/policy.py`` (``SchedulingPolicy``): "fcfs" (arrival order),
+"priority" (higher first, FCFS within a class), or "slo" (multi-tenant
+latency/throughput classes with per-tenant token budgets).  When the
 block pool runs dry the policy's victim is preempted; ``preempt_policy``
 picks how: "swap" parks its KV on the host and resumes it later,
 "recompute" drops its progress and re-runs it from scratch.
@@ -33,6 +36,7 @@ from dataclasses import dataclass, field
 
 from repro_torch.serving.policy import make_policy
 from repro_torch.serving.request import Request, State
+from repro_torch.serving.tracing import Tracer
 
 
 @dataclass(frozen=True)
@@ -41,11 +45,14 @@ class SchedulerConfig:
     max_tokens_in_flight: int = 1 << 30   # KV-footprint admission budget
     max_batched_tokens: int = 256     # per-step compute budget
     prefill_chunk: int = 16
-    policy: str = "fcfs"
+    policy: str = "fcfs"              # fcfs | priority | slo
     preempt_policy: str = "swap"      # swap | recompute
     decode_cost: int = 1              # compute tokens one decode row may
                                       # burn a step (spec_k + 1 when the
                                       # engine verifies drafts)
+    tenants: str = ""                 # slo-policy tenant spec in the
+                                      # canonical "name=class:budget,..."
+                                      # form (policy.tenants_arg)
 
 
 @dataclass
@@ -61,7 +68,8 @@ class StepPlan:
 
 
 class Scheduler:
-    def __init__(self, cfg: SchedulerConfig, cache):
+    def __init__(self, cfg: SchedulerConfig, cache,
+                 tracer: Tracer | None = None):
         # ``cache`` implements the MixerState request-lifecycle calls
         # (BlockKVCache or the MixerStateCache composite) — the
         # scheduler never sees layouts.
@@ -69,19 +77,28 @@ class Scheduler:
             raise ValueError(f"unknown preempt_policy {cfg.preempt_policy}")
         self.cfg = cfg
         self.cache = cache
-        self.policy = make_policy(cfg.policy)
+        self.policy = make_policy(cfg.policy, tenants=cfg.tenants)
+        self.tracer = tracer if tracer is not None else Tracer()
         self.queue: list[Request] = []
         self.running: list[Request] = []
         self.trace: list[dict] = []
         self._order = 0
         self.preempts = 0        # evict + swap_out victims
         self.swap_losts = 0      # parked content evicted while swapped
+        # live copy of cfg.decode_cost: the engine lowers it when a
+        # replay cost curve caps the speculative verify chunk below the
+        # configured spec_k (Engine.apply_replay_curve)
         self.decode_cost = cfg.decode_cost
 
     # ------------------------------------------------------------- events
 
     def _ev(self, step: int, event: str, rid=None, **extra):
         self.trace.append({"step": step, "event": event, "rid": rid, **extra})
+        # per-request lifecycle timeline: the same events stream into
+        # the structured trace (step-level decode/spec_decode summaries
+        # are covered by the engine's own step records)
+        if rid is not None and self.tracer.enabled:
+            self.tracer.request(step, event, rid, **extra)
 
     # ------------------------------------------------------------- submit
 
@@ -89,19 +106,34 @@ class Scheduler:
         req.submit_step = step
         req._order = self._order  # tie-break for policy sorts
         self._order += 1
+        if not req.slo_class:
+            # defaulted from the tenant spec so traces, stats, and the
+            # slo victim sort all see the resolved class
+            req.slo_class = self.policy.slo_class(req)
         self.queue.append(req)
         self._ev(step, "submit", req.rid, prompt_len=req.prompt_len,
-                 max_new=req.max_new, priority=req.priority)
+                 max_new=req.max_new, priority=req.priority,
+                 tenant=req.tenant, slo_class=req.slo_class)
+
+    def _queue_order(self) -> list[Request]:
+        return self.policy.queue_order(self.queue)
 
     # ----------------------------------------------------------- admission
 
     def tokens_in_flight(self) -> int:
         return sum(r.total_tokens for r in self.running)
 
+    def tenant_tokens_in_flight(self, tenant: str) -> int:
+        return sum(r.total_tokens for r in self.running
+                   if r.tenant == tenant)
+
     def _admit(self, step: int, plan: StepPlan):
-        for req in self.policy.queue_order(self.queue):
+        for req in self._queue_order():
             reason = self.policy.admission_defer(self, req)
             if reason is not None:
+                # policy gate (e.g. a tenant over its token budget):
+                # per-request — tenants behind the gated one keep
+                # admitting
                 self._ev(step, "defer", req.rid, reason=reason)
                 continue
             if len(self.running) >= self.cfg.max_batch:
@@ -150,8 +182,8 @@ class Scheduler:
 
     def _preempt_one(self, step: int, protect: Request) -> bool:
         """Free blocks by preempting the policy's victim — possibly
-        ``protect`` itself.  The victim is the youngest within its
-        priority class (requeued with its ORIGINAL seniority), so the
+        ``protect`` itself.  All policies prefer the youngest within an
+        equivalence class (requeued with its ORIGINAL seniority), so the
         oldest request always keeps its blocks and two growing requests
         can never evict each other forever."""
         victim = self.policy.victim(self.running)
@@ -212,9 +244,10 @@ class Scheduler:
 
     def stall_reasons(self) -> dict[int, tuple[str, str]]:
         """rid -> (state, last recorded stall reason) for every queued
-        or swapped request — the latest ``defer`` reason or
-        ``swap_lost`` event — so a stalled ``Engine.run()`` can report
-        WHY each request cannot make progress."""
+        or swapped request — the latest ``defer`` reason (no_slot /
+        token_budget / no_blocks / tenant_budget) or ``swap_lost``
+        event — so a stalled ``Engine.run()`` can report WHY each
+        request cannot make progress."""
         last: dict[int, str] = {}
         for e in self.trace:
             if e["event"] == "defer":
@@ -223,6 +256,33 @@ class Scheduler:
                 last[e["rid"]] = "swap_lost"
         return {r.rid: (r.state.value, last.get(r.rid, "never_considered"))
                 for r in self.queue}
+
+    def tenant_report(self) -> dict[str, dict]:
+        """Per-tenant live accounting: queued/running counts, in-flight
+        token footprint vs budget, slo class mix, and the last stall
+        reason any of the tenant's requests hit (from the same trace
+        scan as ``stall_reasons`` — ``tenant_budget`` is how an
+        over-budget tenant shows up)."""
+        stalls = {r: reason for r, (_, reason) in self.stall_reasons().items()}
+        out: dict[str, dict] = {}
+        for r in self.queue + self.running:
+            t = out.setdefault(r.tenant, {
+                "queued": 0, "running": 0, "tokens_in_flight": 0,
+                "token_budget": 0, "classes": {}, "stall": None})
+            if r in self.running:
+                t["running"] += 1
+                t["tokens_in_flight"] += r.total_tokens
+            else:
+                t["queued"] += 1
+                if r.rid in stalls:
+                    t["stall"] = stalls[r.rid]
+            klass = r.slo_class or self.policy.slo_class(r)
+            t["classes"][klass] = t["classes"].get(klass, 0) + 1
+        spec = getattr(self.policy, "spec", None)
+        if spec is not None:
+            for name, t in out.items():
+                t["token_budget"] = spec(name).token_budget
+        return out
 
     # ------------------------------------------------------------- lifecycle
 

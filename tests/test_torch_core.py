@@ -50,6 +50,10 @@ def test_import_hygiene_no_jax_no_repro():
         "print('N', sum(m.startswith('repro_torch') for m in sys.modules))\n"
         "print('SSM', 'repro_torch.layers.mamba2' in sys.modules)\n"
         "print('SERVE', 'repro_torch.launch.serve' in sys.modules)\n"
+        "new = ('serving.policy', 'serving.tracing', 'serving.replay',\n"
+        "       'serving.frontend', 'launch.trace_view')\n"
+        "print('SLICE12', all('repro_torch.' + m in sys.modules\n"
+        "                     for m in new))\n"
         "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
         "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -60,6 +64,8 @@ def test_import_hygiene_no_jax_no_repro():
     assert n >= 25, res.stdout          # every subpackage was walked
     assert "SSM True" in res.stdout, res.stdout   # the SSD mixer too
     assert "SERVE True" in res.stdout, res.stdout  # and the serve CLI
+    # the policies, the trace, its replay and viewer, the front-end
+    assert "SLICE12 True" in res.stdout, res.stdout
     # every config of the registry (11) and base.py: the jamba hybrid,
     # the dense and the front-end configs too
     assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout

@@ -1,5 +1,6 @@
-"""Port kernels on the CPU: the plain versions of the fused BNN GEMM,
-weight packing and paged GQA attention against the JAX package's Pallas
+"""Port kernels on the CPU: the plain versions of the fused BNN GEMM
+(its grid of shapes in tests/test_torch_kernels_fused*.py), weight
+packing and paged GQA attention against the JAX package's Pallas
 kernels (run with ``interpret=True``, as its own tests run them on the
 CPU) and against its oracles; plus the dispatch rules.
 
@@ -11,15 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels import binarize_pack as jbp, fused_bnn as jfb
+from repro.kernels import binarize_pack as jbp
 from repro.kernels import paged_attention as jpa, ref as jref
 from repro.layers import attention as jattn, attn_block as jblock
-from repro_torch.kernels import binarize_pack as bp, fused_bnn as fb
+from repro_torch.kernels import binarize_pack as bp
 from repro_torch.kernels import ops, paged_attention as pa, ref
 
 torch.set_num_threads(1)
 
-MODES = ("bitcount", "dot", "dot_scaled", "binary_act")
 ATOL = RTOL = 1e-5          # float32 attention: reduction-order rounding
 
 
@@ -28,53 +28,12 @@ def _words(a) -> np.ndarray:
     return a.view(np.uint32) if a.dtype == np.int32 else a.astype(np.uint32)
 
 
-def _i32(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a).view(np.int32))
-
-
 # ------------------------------------------------------------ BNN GEMM
 
 
-# (M, S, N): every combination of M in {1, 3, 130}, S in {33, 100, 768},
-# N in {5, 64}; then the rows around the kernel's CUDA-core and
-# tensor-core paths (M = 2, 33) at S one bit either side of a 32-word
-# K tile (4095, 4097)
-FUSED_CASES = [(m, s, n) for m in (1, 3, 130) for s in (33, 100, 768)
-               for n in (5, 64)] + [(2, 4095, 5), (2, 4097, 64),
-                                    (33, 4095, 64), (33, 4097, 5)]
-
-
-@pytest.mark.parametrize("m,s,n", FUSED_CASES)
-def test_fused_bnn_plain_matches_pallas_and_ref(m, s, n):
-    rng = np.random.default_rng(1000 * m + 10 * s + n)
-    x = rng.standard_normal((m, s)).astype(np.float32)
-    x[0, :3] = 0.0                                  # >= threshold on zeros
-    w = rng.standard_normal((n, s)).astype(np.float32)
-    alpha = (rng.random(n) + 0.5).astype(np.float32)
-    wp_j = jref.binarize_pack_ref(jnp.asarray(w))
-    ip_j = jref.binarize_pack_ref(jnp.asarray(x))
-    wp_t = _i32(wp_j)
-    for mode in MODES:
-        got = fb.fused_bnn_matmul_torch(torch.from_numpy(x), wp_t, s,
-                                        mode=mode,
-                                        alpha=torch.from_numpy(alpha))
-        pallas = np.asarray(jfb.fused_bnn_matmul(
-            jnp.asarray(x), wp_j, s, mode=mode, alpha=jnp.asarray(alpha),
-            interpret=True))
-        oracle = np.asarray(jref.xnor_popcount_matmul_ref(
-            ip_j, wp_j, s, mode=mode, alpha=jnp.asarray(alpha)))
-        assert got.numpy().dtype == pallas.dtype == oracle.dtype, mode
-        np.testing.assert_array_equal(got.numpy(), pallas, err_msg=mode)
-        np.testing.assert_array_equal(got.numpy(), oracle, err_msg=mode)
-        # the CPU wrapper takes the plain version (same bits)
-        np.testing.assert_array_equal(
-            fb.fused_bnn_matmul(torch.from_numpy(x), wp_t, s, mode=mode,
-                                alpha=torch.from_numpy(alpha)).numpy(),
-            pallas)
-    # the port's own packed oracle agrees with the JAX one
-    np.testing.assert_array_equal(
-        ref.xnor_popcount_matmul_ref(_i32(ip_j), wp_t, s, "dot").numpy(),
-        np.asarray(jref.xnor_popcount_matmul_ref(ip_j, wp_j, s, "dot")))
+# the fused GEMM's grid of (M, S, N) cases: tests/test_torch_kernels_fused.py,
+# tests/test_torch_kernels_fused_wide.py and
+# tests/test_torch_kernels_fused_edge.py
 
 
 @pytest.mark.parametrize("s", [33, 100, 768])

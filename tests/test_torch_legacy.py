@@ -1,16 +1,15 @@
-"""The port's legacy decode loop, stub front-ends and abstract init
-against the JAX package, on the reduced configs and JAX's weights.
+"""The port's legacy decode loop and abstract init against the JAX
+package, on the reduced configs and JAX's weights.
 
 * ``init_cache`` gives JAX's per-layer cache shapes; ``decode_step``
   (one scalar position for the whole batch, a dense cache: GQA, the
   sliding-window ring wrapping, MLA's decompressing form, the SSD
   recurrence) gives JAX's logits at every step within TOL.
-* The three-leg family gate: the port's paged engine = the JAX engine
-  = the port's legacy loop (= the JAX legacy loop) in greedy tokens,
-  for bnn-lm-100m, mixtral, deepseek-v2-lite, musicgen and pixtral,
-  both engines at their defaults (prefix cache on, swap).
-* ``logits_fn`` over the stub front-ends' embeddings (musicgen's audio
-  frames, pixtral's patch prefix before the tokens) within TOL of JAX.
+* The three-leg family gate (paged engine = JAX engine = legacy loop):
+  tests/test_torch_legacy_gate.py (bnn-lm-100m, deepseek-v2-lite),
+  tests/test_torch_legacy_gate_ring.py (mixtral) and
+  tests/test_torch_legacy_stubs.py (musicgen, pixtral, with the stub
+  front-ends' ``logits_fn``), moved there for time.
 * ``abstract_init`` gives JAX's parameter shapes on the ``meta``
   device, allocating nothing.
 
@@ -23,16 +22,13 @@ import torch
 
 import _torch_family as F
 from repro.models import transformer as JM
-from repro.serving import Engine as JEngine, EngineConfig as JEngineConfig
-from repro_torch.launch import serve as S
 from repro_torch.models import transformer as M
-from repro_torch.serving import Engine, EngineConfig
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 MODEL_ARCHS = ("bnn-lm-100m", "mixtral-8x7b", "deepseek-v2-lite-16b",
-               "musicgen-large", "pixtral-12b", "mamba2-1.3b")
+               "mamba2-1.3b")
 
 
 @pytest.fixture(scope="module")
@@ -97,81 +93,6 @@ def test_decode_step_logits_match_jax(models, case, precision):
                                 tc, i)
         np.testing.assert_allclose(F.np_(got), np.asarray(want), **TOL,
                                    err_msg=f"step {i}")
-
-
-def _jax_legacy(jcfg, jp, prompts, gen):
-    """The JAX package's legacy greedy loop (serve_legacy without the
-    mesh)."""
-    b, plen = prompts.shape
-    max_len = plen + gen
-    caches = JM.init_cache(jcfg, b, max_len)
-    dec = jax.jit(lambda p, c, tok, ln: JM.decode_step(p, jcfg, tok, c, ln))
-    tok = jnp.asarray(prompts[:, :1])
-    out = [tok]
-    for i in range(max_len - 1):
-        logits, caches = dec(jp, caches, tok, jnp.int32(i))
-        tok = (jnp.asarray(prompts[:, i + 1:i + 2]) if i + 1 < plen
-               else jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32))
-        out.append(tok)
-    return np.concatenate([np.asarray(t) for t in out], axis=1)
-
-
-@pytest.mark.parametrize("arch", ["bnn-lm-100m", "mixtral-8x7b",
-                                  "deepseek-v2-lite-16b", "musicgen-large",
-                                  "pixtral-12b"])
-def test_three_leg_gate(models, arch):
-    """Paged engine (port) = JAX engine = legacy loop (port and JAX), at
-    both engines' defaults; mixtral's prompts outgrow its 32-token
-    window, so the ring wraps."""
-    jcfg, tcfg = F.cfgs(arch, "bnn")
-    jp, tp = models[arch]
-    plen, gen = (30, 10) if arch == "mixtral-8x7b" else (7, 6)
-    prompts = np.random.default_rng(3).integers(
-        0, jcfg.vocab, (2, plen)).astype(np.int32)
-    kw = dict(block_size=4, num_blocks=33, max_batch=2, prefill_chunk=4,
-              max_model_len=plen + gen)
-    je = JEngine(jp, jcfg, JEngineConfig(**kw, attn_impl="xla",
-                                         bnn_impl="xla"))
-    te = Engine(tp, tcfg, EngineConfig(**kw), device="cpu")
-    engine_out = []
-    for eng in (je, te):
-        rids = [eng.submit(p, gen) for p in prompts]
-        out = eng.run()
-        engine_out.append(np.stack([out[r] for r in rids]))
-    legacy, _tps = S.run_legacy(tp, tcfg, prompts, gen, device="cpu")
-    np.testing.assert_array_equal(engine_out[1], engine_out[0])
-    np.testing.assert_array_equal(legacy, engine_out[1])
-    np.testing.assert_array_equal(legacy, _jax_legacy(jcfg, jp, prompts, gen))
-    if arch == "mixtral-8x7b":
-        assert te.stats()["mixer"]["blocks"]["ring_reuses"] > 0
-
-
-@pytest.mark.parametrize("precision", ["bnn", "bf16"])
-@pytest.mark.parametrize("arch", ["musicgen-large", "pixtral-12b"])
-def test_frontend_logits_match_jax(models, arch, precision):
-    """musicgen: audio frame embeddings alone; pixtral: the patch
-    prefix, then tokens; and each backbone over tokens alone."""
-    jcfg, tcfg = F.cfgs(arch, precision)
-    jp, tp = models[arch]
-    rng = np.random.default_rng(7)
-    b, t = 2, 11
-    emb = (rng.standard_normal((b, t, jcfg.d_model)) * 0.5).astype(np.float32)
-    toks = rng.integers(0, jcfg.vocab, (b, t))
-    if arch == "musicgen-large":
-        jbatch, kw = {"embeds": emb}, dict(embeds=torch.from_numpy(emb))
-    else:
-        pre = emb[:, :jcfg.frontend_prefix]
-        jbatch = {"prefix_embeds": pre, "tokens": toks}
-        kw = dict(prefix_embeds=torch.from_numpy(pre),
-                  tokens=torch.from_numpy(toks))
-    want = np.asarray(JM.logits_fn(jp, jcfg, {k: jnp.asarray(v)
-                                              for k, v in jbatch.items()}))
-    got = F.np_(M.logits_fn(tp, tcfg, **kw))
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, **TOL)
-    want = np.asarray(JM.logits_fn(jp, jcfg, {"tokens": jnp.asarray(toks)}))
-    got = F.np_(M.logits_fn(tp, tcfg, torch.from_numpy(toks)))
-    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("arch", ["bnn-lm-100m", "deepseek-v2-lite-16b",

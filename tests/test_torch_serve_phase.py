@@ -37,5 +37,6 @@ def test_serve_traffic_shares_heads_and_repeats_whole_prompts():
 
 
 def test_serve_phase_gates_hold_at_reduced_width():
-    launches = S.phase_serve(torch.device("cpu"), "cpu", smoke=True)
+    launches, out_a = S.phase_serve(torch.device("cpu"), "cpu", smoke=True)
     assert set(S.SERVING_KERNELS) <= set(launches)
+    assert len(out_a) == 24

@@ -262,9 +262,7 @@ def test_commit_stream_and_cancel(models, continuous_run):
                if attn.allocator.refcount(b))
 
 
-@pytest.mark.parametrize("option", [
-    dict(policy="slo"), dict(policy="priority"),
-    dict(role="prefill"), dict(role="decode")])
+@pytest.mark.parametrize("option", [dict(role="prefill"), dict(role="decode")])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
         EngineConfig(**option)
