@@ -116,6 +116,32 @@ Phases (each check raises, and the script then exits non-zero):
               prompt through the plain versions on the card (phase 4's
               two routes) within MAX_SCORE_GAP.  fused_bnn and
               paged_attention must launch on the phase's runs.
+  shards      worker roles and sharded serving, on [serve]'s weights and
+              traffic with every shard under A's config, all shards on
+              the one card (they step in turn), through launch.serve's
+              run functions with shards and roles.  S2: two mixed
+              shards, after SHARDS_MIGRATE_AT steps the first request
+              in mid-decode migrates (swap-to-peer): tokens equal A's,
+              both shards decode, one migration.  S2 kill: after
+              SHARDS_KILL_AT steps shard 1 stops beating and reap,
+              given an explicit clock, kills it: every request finishes
+              on shard 0 with A's tokens.  PD (roles 1:2, one prefill
+              and two decode shards), greedy, traced per shard: tokens
+              equal A's, each request handed off once, the decode
+              shards prefill nothing, the bytes they adopt sum to
+              handoff_bytes, the three traces validate, the merged
+              Perfetto export has one handoff flow per handoff, the
+              replays' handoffs_in sum to the handoffs; PD sampled (C's
+              sampling): tokens equal C's; PD through the asyncio
+              front-end: each stream equals A's.  The slot path:
+              mamba2-1.3b at published width, 8 of its 48 layers, 8 of
+              its traffic's requests under 1:1 with the defaults:
+              tokens equal one engine's, and handoffs carry recurrent
+              slots.  Every count (handoffs, bytes, defers, steps,
+              preemptions, rescues) equals the CPU run's at reduced
+              width with the full width's handoff bytes and cost model
+              (tests/test_torch_shards_phase*.py); fused_bnn,
+              paged_attention and binarize_pack must launch.
   spec        speculative decoding (spec_k 4, spec_ngram 3) on
               bnn-lm-100m at published width through launch.serve's
               run functions: 16 requests (8 periodic prompts, a seeded
@@ -215,14 +241,15 @@ Phases (each check raises, and the script then exits non-zero):
               skipped prefill tokens > 0 in both.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, serve, tenants, conv, spec, mixtral, deepseek,
-mamba2, jamba, each family's speculative run and the defaults pairs),
-error, times and bound; the last line is the run's verdict with the
+on its paths (serving, serve, tenants, shards, conv, spec, mixtral,
+deepseek, mamba2, jamba, each family's speculative run and the defaults
+pairs), error, times and bound; the last line is the run's verdict with the
 device.
 Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import itertools
@@ -1692,10 +1719,10 @@ def watch_swaps(eng, rec: dict):
         return [{k: v.index_select(0, ids).clone() for k, v in p.items()}
                 for p in attn.pools]
 
-    def out(req):
+    def out(req, peer=None):
         rec["saved"][req.rid] = _blocks(req)
         n = attn.swapped_blocks
-        _ok, ms = _span_ms("swap_out", lambda: swap_out(req))
+        _ok, ms = _span_ms("swap_out", lambda: swap_out(req, peer=peer))
         rec["out_ms"].append((attn.swapped_blocks - n, ms))
 
     def back(req):
@@ -1728,12 +1755,12 @@ def _serve_line(tag, eng, wall):
     return st
 
 
-def phase_serve(dev, smi: str, smoke: bool = False):
+def phase_serve(dev, smi: str, smoke: bool = False, keep=None):
     """The [serve] phase (A-E of the module docstring) on ``dev``:
     bnn-lm-100m at published width, seeded weights (``smoke``: the
     reduced config, as the CPU test runs it; the traffic's lengths and
     content are the same).  Returns (the kernel launches over A-E, A's
-    tokens)."""
+    tokens); ``keep["C"]``, when a dict is given, gets C's tokens."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as SV
     from repro_torch.serving import EngineConfig, sample_tokens
@@ -1816,6 +1843,8 @@ def phase_serve(dev, smi: str, smoke: bool = False):
     eng_d, out_d, _ = serve("D sampled calm, all at once", SERVE_CALM,
                             serve_sampling, late=0)
     same("D == C", out_d, out_c)
+    if keep is not None:
+        keep["C"] = out_c
     stops, upto = {}, [len(s) for s in out_c]
     for b in SERVE_STOP_ROWS:
         gen = list(out_c[b][len(prompts[b]):])
@@ -2263,6 +2292,418 @@ def phase_tenants(dev, smi: str, want=None, smoke: bool = False) -> dict:
     return launches
 
 
+# ------------------------------------------- [shards]: worker roles and
+# sharded serving on [serve]'s weights (seed 0) and traffic, every shard
+# under A's config (SERVE_ENGINE); all shards share the one card
+# (shard_devices tiles it) and step one after another
+
+SHARDS_MIGRATE_AT = 24     # S2: steps before a request migrates mid-decode
+SHARDS_KILL_AT = 24        # S2 kill: steps before shard 1 stops beating
+PD_ROLES = "1:2"           # one prefill shard, two decode shards
+# mamba2's slot path under 1:1: its engine sizes with the JAX defaults
+# (prefix cache with slot snapshots, swap), 8 of its traffic's requests
+MAMBA2_SHARDS = dict(max_batch=8, num_slots=6, prefill_chunk=128,
+                     max_model_len=2048)
+MAMBA2_SHARDS_LAYERS = 8   # of 48: the cut of the slot path's depth
+MAMBA2_SHARDS_NEW = 32
+
+
+def full_width_bytes(full_cfg, block_size: int):
+    """host_bytes as it would count a request's host copies at
+    ``full_cfg``'s widths: the prompt and the tokens, every copied block
+    at the full width's bytes a block, a recurrent slot at its bytes a
+    slot (the pools' shapes on the meta device, nothing allocated)."""
+    from repro_torch.models import transformer as M
+    from repro_torch.serving.mixer_state import LAYOUT_SLOT, layer_layouts
+    pools = M.init_paged_state(full_cfg, 2, block_size, 2, device="meta")
+    per = {True: 0, False: 0}
+    for layout, pool in zip(layer_layouts(full_cfg), pools, strict=True):
+        per[layout == LAYOUT_SLOT] += sum(v[0].nbytes for v in pool.values())
+
+    def count(req) -> int:
+        n = req.prompt.nbytes + 4 * len(req.out)
+        if req.host_kv:
+            n += next(iter(req.host_kv[0].values())).shape[0] * per[False]
+        if req.host_state:
+            n += per[True]
+        return n
+    return count
+
+
+@contextlib.contextmanager
+def as_full_width(ctx, ecfg):
+    """The reduced-width CPU run as the card's prediction: a handoff's
+    bytes (``roles.host_bytes``) and every shard's cost model (the
+    modelled transfer's steps) at the full width's sizes, with the
+    card's fused GEMM.  Yields the ``watch`` that swaps the cost models;
+    a no-op on the card."""
+    from repro_torch.serving import roles
+    from repro_torch.serving.cost_model import PhotonicCostModel
+    full = ctx.get("full_cfg")
+    if full is None:
+        yield lambda se: None
+        return
+    model = PhotonicCostModel(full, ecfg.accelerator, fused_bnn=True,
+                              link_gbps=ecfg.link_gbps)
+    real = roles.host_bytes
+    roles.host_bytes = full_width_bytes(full, ecfg.block_size)
+
+    def watch(se):
+        for e in se.engines:
+            e.cost_model = model
+    try:
+        yield watch
+    finally:
+        roles.host_bytes = real
+
+
+def after_step(k: int, fn):
+    """A ``watch`` that calls ``fn(se)`` once, right after the sharded
+    engine's ``k``-th step."""
+    def watch(se):
+        step, n = se.step, [0]
+
+        def counted():
+            out = step()
+            n[0] += 1
+            if n[0] == k:
+                fn(se)
+            return out
+        se.step = counted
+    return watch
+
+
+def shards_setup(dev, smoke: bool = False, want=None,
+                 want_sampled=None) -> dict:
+    """[serve]'s weights and traffic (``tenants_setup``), A's greedy
+    tokens and C's sampled ones (``want``/``want_sampled``, or served
+    by one engine here and in ``shards_pd_sampled``); ``smoke``: the
+    reduced config, the CPU run that predicts the card's counts
+    (``as_full_width``)."""
+    from repro_torch.configs import get_config
+    ctx = tenants_setup(dev, smoke, want)
+    ctx["want_sampled"] = want_sampled
+    if smoke:
+        ctx["full_cfg"] = get_config("bnn-lm-100m").replace(precision="bnn")
+    return ctx
+
+
+def _shards_run(ctx, tag, shards, roles=None, *, want=None, watch=(),
+                sampling=None, ecfg=None, stream=False):
+    """The phase's traffic through ``launch.serve.run`` (``run_stream``
+    with ``stream``) on a ShardedEngine of ``shards`` shards; logs its
+    line, checks each request's tokens against ``want`` (A's) and that
+    every request finished.  Returns (the sharded engine, its stats)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig
+    dev, prompts = ctx["dev"], ctx["prompts"]
+    ecfg = ecfg or EngineConfig(**SERVE_ENGINE)
+    want = ctx["want"] if want is None else want
+    kw = dict(device=dev, shards=shards, roles=roles, **ctx["late"])
+    if sampling is not None:
+        kw["sampling"] = sampling
+    with as_full_width(ctx, ecfg) as full:
+        def watch_all(se):
+            full(se)
+            for w in watch:
+                w(se)
+        t0 = time.perf_counter()
+        if stream:
+            se, rids, got, _s = SV.run_stream(
+                ctx["params"], ctx["cfg"], prompts, SERVE_NEW, ecfg,
+                watch=watch_all, **kw)
+            seqs = [np.concatenate([prompts[b], np.asarray(got[r], np.int64)])
+                    for b, r in enumerate(rids)]
+        else:
+            se, seqs = SV.run(ctx["params"], ctx["cfg"], prompts, SERVE_NEW,
+                              ecfg, watch=watch_all, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    st = se.stats()
+    if st["finished"] != len(prompts):
+        raise AssertionError(f"[shards] {tag}: {st['finished']} of "
+                             f"{len(prompts)} requests finished")
+    _same_tokens(f"[shards] {tag}", seqs, want)
+    rows = [(p["role"], p["finished"], p["decoded_tokens"],
+             p["prefill_tokens"], p["preemptions"], p["swap_losts"])
+            for p in st["per_shard"]]
+    log(f"[shards] {tag}: total_tokens_per_s="
+        f"{(st['decoded_tokens'] + st['prefill_tokens']) / wall:.1f} "
+        f"aggregate_decode_tokens_per_s="
+        f"{st['aggregate_decode_tokens_per_s']:.1f} wall_s={wall:.3f}; per "
+        f"shard (role, finished, decoded, prefilled, preemptions, "
+        f"swap_losts) {rows}")
+    return se, st
+
+
+def _defers(se) -> list[dict[str, int]]:
+    """Each shard's defers by reason."""
+    out = []
+    for e in se.engines:
+        d = {}
+        for ev in e.scheduler.trace:
+            if ev["event"] == "defer":
+                d[ev["reason"]] = d.get(ev["reason"], 0) + 1
+        out.append(d)
+    return out
+
+
+def _shard_counts(se, st) -> dict:
+    """The counts of a sharded run that depend only on the traffic's
+    lengths and content (the CPU run at reduced width predicts them)."""
+    return {"finished": [p["finished"] for p in st["per_shard"]],
+            "decoded": [p["decoded_tokens"] for p in st["per_shard"]],
+            "prefilled": [p["prefill_tokens"] for p in st["per_shard"]],
+            "preemptions": [p["preemptions"] for p in st["per_shard"]],
+            "swap_losts": [p["swap_losts"] for p in st["per_shard"]],
+            "swap_outs": [e.cache.swap_outs for e in se.engines],
+            "steps": [e.step_count for e in se.engines],
+            "defers": _defers(se), "migrations": st["migrations"],
+            "requeued_lost": st["requeued_lost"],
+            "handoffs": st["handoff"]["handoffs"],
+            "handoff_bytes": st["handoff"]["handoff_bytes"]}
+
+
+def shards_mixed(ctx) -> dict:
+    """S2: two mixed shards; after SHARDS_MIGRATE_AT steps the first
+    request in mid-decode (by rid) migrates to the other shard.  Tokens
+    equal A's, every request finishes, both shards decode, one
+    migration.  Returns the run's counts."""
+    moved = {}
+
+    def migrate(se):
+        rid = min(r for r, q in se.requests.items()
+                  if q.state.value == "decode" and len(q.out) >= 2)
+        moved.update(rid=rid, src=se.shard_of[rid], pos=se.requests[rid].pos)
+        moved["dst"] = se.migrate(rid)
+    se, st = _shards_run(ctx, "S2 mixed, one migration", 2,
+                         watch=[after_step(SHARDS_MIGRATE_AT, migrate)])
+    if not moved or st["migrations"] != 1:
+        raise AssertionError(f"[shards] S2: migrations {st['migrations']}")
+    if any(p["decoded_tokens"] == 0 for p in st["per_shard"]):
+        raise AssertionError("[shards] S2: a shard got no work")
+    log(f"[shards] S2 migrated rid {moved['rid']} at pos {moved['pos']} "
+        f"from shard {moved['src']} to {moved['dst']} after "
+        f"{SHARDS_MIGRATE_AT} steps; its tokens equal A's")
+    return {**_shard_counts(se, st), "migrated": moved}
+
+
+def shards_kill(ctx) -> dict:
+    """S2 kill: after SHARDS_KILL_AT steps shard 1 stops beating (its
+    last beat set past the monitor's ``dead_after``) and ``reap``, given
+    an explicit clock, kills it; every request finishes on shard 0 with A's tokens.
+    Returns the counts, the rescue's (requeued_lost, the swap_lost
+    events by reason) and the states rescued."""
+    rescued = {}
+
+    def silence(se):
+        now = max(se.monitor._last_beat.values())
+        se.monitor.beat(1, now - se.monitor.dead_after - 1.0)
+        states = {}
+        for r in se.engines[1].requests.values():
+            states[r.state.value] = states.get(r.state.value, 0) + 1
+        dead = se.reap(now=now)
+        if dead != [1]:
+            raise AssertionError(f"[shards] S2 kill: reap killed {dead}")
+        rescued["states"] = states
+    se, st = _shards_run(ctx, "S2 kill", 2,
+                         watch=[after_step(SHARDS_KILL_AT, silence)])
+    if se.alive != [0] or not rescued:
+        raise AssertionError(f"[shards] S2 kill: alive {se.alive}")
+    lost = {}                  # by reason: a parked chain evicted, or
+    for ev in se.engines[0].scheduler.trace:      # the shard lost
+        if ev["event"] == "swap_lost":
+            why = ev.get("reason", "chain_evicted")
+            lost[why] = lost.get(why, 0) + 1
+    if st["requeued_lost"] != lost.get("shard_lost", 0):
+        raise AssertionError("[shards] S2 kill: requeued_lost != shard_lost "
+                             "events")
+    log(f"[shards] S2 kill: shard 1 reaped after {SHARDS_KILL_AT} steps "
+        f"holding {json.dumps(rescued['states'])}; requeued_lost="
+        f"{st['requeued_lost']} swap_lost events by reason {json.dumps(lost)}")
+    return {**_shard_counts(se, st), "rescued": rescued["states"],
+            "swap_lost_events": lost}
+
+
+def _record_adoptions(rec: list):
+    """A ``watch``: each decode shard's ``adopt_request`` records the
+    request's ``host_bytes`` as it arrives (before its swap-in)."""
+    from repro_torch.serving import roles
+
+    def watch(se):
+        for e in se.engines:
+            adopt = e.adopt_request
+
+            def recorded(req, *, lost=False, _adopt=adopt):
+                rec.append((req.rid, roles.host_bytes(req)))
+                return _adopt(req, lost=lost)
+            e.adopt_request = recorded
+    return watch
+
+
+def shards_pd(ctx) -> dict:
+    """PD: one prefill and two decode shards, greedy, traced into
+    per-shard files.  Tokens equal A's; every request is handed off
+    once; the decode shards prefill nothing; the bytes the decode
+    shards adopt sum to handoff_bytes; the three traces validate, the
+    merged Perfetto export has one handoff flow per handoff, and the
+    replays' handoffs_in sum to the handoffs.  Returns the counts."""
+    import tempfile
+    from repro_torch.launch import trace_view as TV
+    from repro_torch.serving import read_trace, replay_trace, validate_trace
+    adopted = []
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "pd")
+        se, st = _shards_run(ctx, f"PD {PD_ROLES} greedy traced", 3, PD_ROLES,
+                             watch=[lambda s: s.start_trace(prefix),
+                                    _record_adoptions(adopted)])
+        se.stop_trace()
+        n = len(ctx["prompts"])
+        ho = st["handoff"]
+        outs = {}
+        replays = []
+        for i in range(3):
+            records = read_trace(f"{prefix}.shard{i}.jsonl")
+            validate_trace(records)
+            for r in records:
+                if r["type"] == "span" and r["name"] == "handoff_out":
+                    outs[r["rid"]] = outs.get(r["rid"], 0) + 1
+            replays.append(replay_trace(records)["handoff"])
+        if ho["handoffs"] != n or sorted(outs) != sorted(se.requests) \
+                or set(outs.values()) != {1}:
+            raise AssertionError(f"[shards] PD: {ho['handoffs']} handoffs, "
+                                 f"per request {outs}")
+        if any(p["prefill_tokens"] for p in st["per_shard"][1:]):
+            raise AssertionError("[shards] PD: a decode shard prefilled")
+        if len(adopted) != n or sum(b for _r, b in adopted) \
+                != ho["handoff_bytes"]:
+            raise AssertionError("[shards] PD: the adopted bytes do not sum "
+                                 "to handoff_bytes")
+        if sum(r["handoffs_in"] for r in replays) != n:
+            raise AssertionError("[shards] PD: the replays' handoffs_in do "
+                                 "not sum to the handoffs")
+        out = str(Path(tmp) / "pd.perfetto.json")
+        n_events = TV.export_perfetto_merged(prefix, out)
+        with open(out) as fh:
+            doc = json.load(fh)
+        flows = {ph: sorted(e["id"] for e in doc["traceEvents"]
+                            if e.get("cat") == "handoff" and e["ph"] == ph)
+                 for ph in ("s", "f")}
+        if flows["s"] != flows["f"] or len(flows["s"]) != n:
+            raise AssertionError("[shards] PD: the merged export lacks a "
+                                 "handoff flow")
+    log(f"[shards] PD handoffs={ho['handoffs']} handoff_bytes="
+        f"{ho['handoff_bytes']} modeled_transfer_ms_per_handoff="
+        f"{ho['modeled_transfer_ms_per_handoff']:.4f} host_copy_wall_ms="
+        f"{1e3 * ho['host_copy_wall_s']:.3f}; transfer_pending defers "
+        f"{[d.get('transfer_pending', 0) for d in _defers(se)]}; merged "
+        f"perfetto {n_events} events, {len(flows['s'])} handoff flows")
+    return _shard_counts(se, st)
+
+
+def shards_pd_sampled(ctx) -> dict:
+    """PD sampled ([serve]'s C sampling): tokens equal one engine's
+    (C's, served here when ``ctx`` lacks them)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import EngineConfig
+    if ctx["want_sampled"] is None:
+        _e, ctx["want_sampled"] = SV.run(
+            ctx["params"], ctx["cfg"], ctx["prompts"], SERVE_NEW,
+            EngineConfig(**SERVE_ENGINE), sampling=serve_sampling,
+            device=ctx["dev"], **ctx["late"])
+    se, st = _shards_run(ctx, f"PD {PD_ROLES} sampled", 3, PD_ROLES,
+                         want=ctx["want_sampled"], sampling=serve_sampling)
+    return _shard_counts(se, st)
+
+
+def shards_pd_stream(ctx) -> dict:
+    """PD through the asyncio front-end: each stream equals A's."""
+    se, st = _shards_run(ctx, f"PD {PD_ROLES} front-end", 3, PD_ROLES,
+                         stream=True)
+    return _shard_counts(se, st)
+
+
+def shards_mamba2(ctx) -> dict:
+    """The slot path: mamba2-1.3b at published width, MAMBA2_SHARDS_LAYERS
+    of its 48 layers (the reduced config on the CPU), the first 8 of its
+    traffic's requests under 1:1 with the defaults; tokens equal one
+    engine's, a handoff carries recurrent state, and the bytes the
+    decode shard adopts sum to handoff_bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import EngineConfig
+    dev = ctx["dev"]
+    full = get_config("mamba2-1.3b").replace(precision="bnn")
+    cfg = (reduced(full) if "full_cfg" in ctx
+           else full.replace(n_layers=MAMBA2_SHARDS_LAYERS))
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                    device=dev)
+    prompts = family_traffic(cfg.vocab, seed=2, n=16, lens=(16, 1500))[:8]
+    ecfg = EngineConfig(**MAMBA2_SHARDS)
+    _e, want = SV.run(params, cfg, prompts, MAMBA2_SHARDS_NEW, ecfg,
+                      device=dev)
+    mctx = dict(ctx, cfg=cfg, params=params, prompts=prompts, late={})
+    if "full_cfg" in ctx:
+        mctx["full_cfg"] = full.replace(n_layers=MAMBA2_SHARDS_LAYERS)
+    moved = []
+    t0 = time.perf_counter()
+    with as_full_width(mctx, ecfg) as fw:
+        se, seqs = SV.run(params, cfg, prompts, MAMBA2_SHARDS_NEW, ecfg,
+                          device=dev, shards=2, roles="1:1",
+                          watch=lambda s: (fw(s),
+                                           _record_adoptions(moved)(s)))
+    wall = time.perf_counter() - t0
+    _same_tokens("[shards] mamba2 1:1", seqs, want)
+    st = se.stats()
+    slots = se.engines[0].cache.ssm.swapped_slots
+    if not slots:
+        raise AssertionError("[shards] mamba2 1:1: no handoff moved "
+                             "recurrent state")
+    if len(moved) != st["handoff"]["handoffs"] or sum(
+            b for _r, b in moved) != st["handoff"]["handoff_bytes"]:
+        raise AssertionError("[shards] mamba2 1:1: the adopted bytes do "
+                             "not sum to handoff_bytes")
+    log(f"[shards] mamba2 layers={cfg.n_layers} (published 48) d_model="
+        f"{cfg.d_model} 1:1: {len(prompts)} requests, total_tokens_per_s="
+        f"{(st['decoded_tokens'] + st['prefill_tokens']) / wall:.1f} "
+        f"wall_s={wall:.3f}; handoffs={st['handoff']['handoffs']} "
+        f"bytes={st['handoff']['handoff_bytes']}, {slots} carried a "
+        "recurrent slot; tokens equal one engine's")
+    return {**_shard_counts(se, st), "slot_handoffs": slots}
+
+
+def phase_shards(dev, smi: str, want=None, want_sampled=None,
+                 smoke: bool = False) -> tuple[dict, dict]:
+    """The [shards] phase (module docstring) on ``dev``; ``want`` and
+    ``want_sampled``: A's and C's tokens from [serve] (served again
+    here when None; ``smoke``: the reduced config, the CPU run that
+    predicts the card's counts).  Returns (the kernel launches of the
+    phase's runs, the counts by run)."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ctx = shards_setup(dev, smoke, want, want_sampled)
+    log(f"[shards] {ctx['cfg'].name} d_model={ctx['cfg'].d_model} "
+        f"requests={len(ctx['prompts'])}, every shard A's engine config, "
+        f"all shards on {dev}; {smi}")
+    ops.reset_launches()
+    counts = {"s2": shards_mixed(ctx), "kill": shards_kill(ctx),
+              "pd": shards_pd(ctx), "pd_sampled": shards_pd_sampled(ctx),
+              "pd_stream": shards_pd_stream(ctx)}
+    counts["mamba2"] = shards_mamba2(ctx)
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    log(f"[shards] counts {json.dumps(counts)}")
+    log(f"[shards] launches {json.dumps(launches)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in SERVING_KERNELS if dev.type == "cuda" else ():
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "shards path")
+    return launches, counts
+
+
 # the sampled bits on the card against the CPU's (the CPU's are held to
 # jax.random in tests/test_torch_sampling.py, with the same bounds)
 SAMPLED_KEYS = ((0, 0), (1, 3), (7, 17), (1000, 500), (2 ** 31 + 5, 1023),
@@ -2395,10 +2836,10 @@ def watch_slot_swaps(eng, rec: dict):
     swap_out, swap_in = ssm.swap_out, ssm.swap_in
     rec.update(saved={}, checked=0)
 
-    def out(req):
+    def out(req, peer=None):
         rec["saved"][req.rid] = [{k: v[req.slot].clone()
                                   for k, v in p.items()} for p in ssm.pools]
-        swap_out(req)
+        swap_out(req, peer=peer)
 
     def back(req):
         host = req.host_state is not None
@@ -3365,8 +3806,11 @@ def main() -> int:
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
     del eng, params, out
-    serve_launches, out_a = phase_serve(dev, smi)
+    kept = {}
+    serve_launches, out_a = phase_serve(dev, smi, keep=kept)
     tenants_launches = phase_tenants(dev, smi, want=out_a)
+    shards_launches, _counts = phase_shards(dev, smi, want=out_a,
+                                            want_sampled=kept.pop("C"))
     del out_a
     gc.collect()
     conv_rows, conv_launches = phase_conv(dev)
@@ -3392,7 +3836,8 @@ def main() -> int:
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "serve": serve_launches,
-             "tenants": tenants_launches, "conv": conv_launches,
+             "tenants": tenants_launches, "shards": shards_launches,
+             "conv": conv_launches,
              "spec": spec_launches, **families}
     kernels = []
     for k in ops.KERNELS:

@@ -27,11 +27,16 @@ its steps on the photonic simulator.  Streaming front-end
 (serving/frontend.py) — committed tokens stream per request,
 ``--cancel-after`` drops the last request mid-decode, and ``--score``
 runs teacher-forced logprob/ppl scoring requests alongside generation.
+``--shards N`` serves through a ``ShardedEngine`` (serving/sharded.py):
+N engine shards over the devices (tiled when there are fewer: shards on
+one card share its memory and step in turn), output equal to one
+engine's; ``--roles P:D`` splits them into prefill and decode workers
+(finished prompts handed off over swap-to-peer), and ``--trace PATH``
+then writes ``PATH.shard{i}.jsonl`` per shard.
 
 It runs on the card; ``--device cpu`` is the only way to run it on the
-CPU (the plain PyTorch versions of the kernels).  The options of later
-slices (shards, roles, multi-pod meshes) raise and name their
-ROADMAP.md item.
+CPU (the plain PyTorch versions of the kernels).  The option of a later
+slice (multi-pod meshes) raises and names its ROADMAP.md item.
 
 Setup and run are split (``setup``, ``make_prompts``, ``run``,
 ``run_stream``, ``run_legacy``): ``serve``/``serve_legacy`` take
@@ -55,8 +60,9 @@ from repro_torch import configs
 from repro_torch.configs.base import reduced
 from repro_torch.models import transformer as M
 from repro_torch.serving import (Engine, EngineConfig, Frontend,
-                                 SamplingParams, format_report,
-                                 parse_tenants, replay_trace, tenants_arg)
+                                 SamplingParams, ShardedEngine,
+                                 format_report, parse_tenants, replay_trace,
+                                 tenants_arg)
 from repro_torch.serving.engine import _resolve_device
 from repro_torch.serving.sampling import categorical
 
@@ -64,8 +70,6 @@ from repro_torch.serving.sampling import categorical
 # default, the ROADMAP.md item that brings it)
 LATER = {
     "multi_pod": (False, "queue 1, item 10"),
-    "shards": (1, 'queue 1, item 7, "Sharded serving"'),
-    "roles": (None, 'queue 1, item 7, "Worker roles"'),
 }
 
 
@@ -127,17 +131,32 @@ def engine_config(batch: int, prompt_len: int, gen: int, *,
         max_model_len=max_len, **kw)
 
 
+def make_engine(params, cfg, ecfg: EngineConfig, *, device=None,
+                shards: int = 1, roles: str | None = None):
+    """An ``Engine`` on ``device``, or with ``shards > 1`` a
+    ``ShardedEngine`` of that many shards (worker ``roles``, a "P:D"
+    spec or comma names) over ``device`` (tiled), or over every card
+    when ``device`` is None; ``roles`` is ignored for one shard, as in
+    the JAX CLI."""
+    if shards > 1:
+        return ShardedEngine(params, cfg, ecfg, shards, roles=roles,
+                             devices=None if device is None else [device])
+    return Engine(params, cfg, ecfg, device=device)
+
+
 def run(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
         sampling=lambda b: SamplingParams(), request_kw=lambda b: {},
-        late_after: int = 0, n_late: int = 0, watch=None, device=None):
+        late_after: int = 0, n_late: int = 0, watch=None, device=None,
+        shards: int = 1, roles: str | None = None):
     """Serve ``prompts`` (a list of 1-D token arrays), ``gen`` new tokens
     each, request ``b`` under ``sampling(b)`` with the further submit
     keywords ``request_kw(b)`` (tenant, priority, ...); the last
     ``n_late`` are submitted after ``late_after`` steps.
     ``watch(engine)``, when given, is called on the new engine before
-    the first request.  Returns (the engine, each request's prompt +
-    generated tokens, in order)."""
-    eng = Engine(params, cfg, ecfg, device=device)
+    the first request.  ``shards``/``roles``: ``make_engine``.  Returns
+    (the engine, each request's prompt + generated tokens, in order)."""
+    eng = make_engine(params, cfg, ecfg, device=device, shards=shards,
+                      roles=roles)
     if watch is not None:
         watch(eng)
     early = len(prompts) - n_late
@@ -156,17 +175,20 @@ def run_stream(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
                sampling=lambda b: SamplingParams(), request_kw=lambda b: {},
                scores=(), score_kw=lambda i: {}, cancel_after: int = 0,
                late_after: int = 0, n_late: int = 0, watch=None,
-               device=None):
+               device=None, shards: int = 1, roles: str | None = None):
     """``run`` through the asyncio front-end (serving/frontend.py):
     every request's committed tokens are consumed as a stream, the last
     one is cancelled once ``cancel_after`` tokens have streamed (0:
     none), and each prompt of ``scores`` runs as a teacher-forced
     scoring request (submit keywords ``score_kw(i)``) alongside.  The
     last ``n_late`` requests join after the engine has taken
-    ``late_after`` steps.  Returns (the engine, the generation rids in
+    ``late_after`` steps (of the busiest shard, with ``shards > 1``:
+    ``make_engine``).  Returns (the engine, the generation rids in
     order, rid -> streamed tokens, the scoring results in ``scores``'
     order: ``Frontend.score``'s dicts)."""
-    eng = Engine(params, cfg, ecfg, device=device)
+    eng = make_engine(params, cfg, ecfg, device=device, shards=shards,
+                      roles=roles)
+    engines = getattr(eng, "engines", [eng])
     if watch is not None:
         watch(eng)
     early = len(prompts) - n_late
@@ -195,7 +217,7 @@ def run_stream(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
                 return consume(rid, bool(cancel_after) and last)
 
             async def late():
-                while eng.step_count < late_after:
+                while max(e.step_count for e in engines) < late_after:
                     await asyncio.sleep(0)
                 return await asyncio.gather(
                     *(consumer(b) for b in range(early, len(prompts))))
@@ -269,7 +291,8 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
           bnn_impl: str = "auto", policy: str | None = None,
           tenants: str = "", trace: str | None = None,
           replay_photonic: bool = False, stream: bool = False,
-          score: int = 0, cancel_after: int = 0, device=None, params=None,
+          score: int = 0, cancel_after: int = 0, shards: int = 1,
+          roles: str | None = None, device=None, params=None,
           prompts=None, **later):
     """Serve ``batch`` requests of ``prompt_len`` tokens, ``gen`` new
     each; returns (batch, prompt_len + gen) token ids, prompts included
@@ -288,7 +311,11 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
     committed tokens, ``score`` teacher-forced scoring requests (over
     the prompts in turn) run alongside, and ``cancel_after`` cancels
     the last request after that many streamed tokens.  Uncancelled
-    streamed output equals the batch path's for the same flags."""
+    streamed output equals the batch path's for the same flags.
+    ``shards > 1`` serves through a ``ShardedEngine`` (``roles``: its
+    prefill/decode split), with the same tokens as one engine; its
+    summary is the per-shard rows, the aggregate line and the handoffs,
+    and ``trace`` then names the prefix of the per-shard files."""
     refuse_later(**later)
     if engine == "legacy":
         return serve_legacy(arch, smoke=smoke, batch=batch,
@@ -324,13 +351,15 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
         if trace or replay_photonic:
             eng.start_trace(trace, ring=1 << 16)
 
+    sharded = dict(shards=shards, roles=roles)
     if stream:
         eng, rids, got, scored = run_stream(
             params, cfg, list(prompts), gen, ecfg, sampling=sampling,
             request_kw=lambda b: {"tenant": names[b % len(names)]},
             scores=[prompts[i % batch] for i in range(score)],
             score_kw=lambda i: {"tenant": names[i % len(names)]},
-            cancel_after=cancel_after, watch=watch, device=device)
+            cancel_after=cancel_after, watch=watch, device=device,
+            **sharded)
         seqs = []
         for b, rid in enumerate(rids):
             req = eng.requests[rid]
@@ -348,17 +377,27 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
                       f"tokens={sc['scored_tokens']} ppl={sc['ppl']:.3f}")
     else:
         eng, seqs = run(params, cfg, list(prompts), gen, ecfg,
-                        sampling=sampling, watch=watch, device=device)
+                        sampling=sampling, watch=watch, device=device,
+                        **sharded)
     if trace or replay_photonic:
-        records = eng.tracer.events()
+        shard_records = [e.tracer.events()
+                         for e in getattr(eng, "engines", [eng])]
         eng.stop_trace()
         if trace and verbose:
             print(f"[serve] trace -> {trace} (view: python -m "
                   f"repro_torch.launch.trace_view {trace})")
         if replay_photonic:
-            print(format_report(replay_trace(trace or records, cfg=cfg,
-                                             accelerator=accelerator)))
-    if verbose:
+            if shards > 1:
+                for recs in shard_records:
+                    print(format_report(replay_trace(
+                        recs, cfg=cfg, accelerator=accelerator)))
+            else:
+                print(format_report(replay_trace(
+                    trace or shard_records[0], cfg=cfg,
+                    accelerator=accelerator)))
+    if verbose and shards > 1:
+        report_sharded(arch, eng, batch)
+    elif verbose:
         report(arch, eng, batch)
     if len({len(s) for s in seqs}) > 1:      # early stop: ragged
         return seqs
@@ -399,6 +438,31 @@ def report(arch: str, eng: Engine, batch: int):
           f"(effective {ph['modeled_effective_tokens_per_s']:.0f} "
           f"with pipelined prefill + prefix credit; bottleneck: "
           f"{ph['bottleneck_stage']})")
+
+
+def report_sharded(arch: str, eng: ShardedEngine, batch: int):
+    """The JAX CLI's summary of a sharded run: a row per shard, the
+    aggregate line and, when prompts were handed off, the handoffs."""
+    st = eng.stats()
+    for row in st["per_shard"]:
+        print(f"[serve] shard {row['shard']} ({row['role']})"
+              f"{'' if row['alive'] else ' (dead)'}: "
+              f"decoded={row['decoded_tokens']} "
+              f"decode-tokens/s={row['decode_tokens_per_s']:.1f} "
+              f"finished={row['finished']} "
+              f"swap_losts={row['swap_losts']}")
+    print(f"[serve] {arch} precision={eng.cfg.precision} "
+          f"shards={eng.n_shards} batch={batch} aggregate "
+          f"decode-tokens/s={st['aggregate_decode_tokens_per_s']:.1f} "
+          f"migrations={st['migrations']} "
+          f"requeued_lost={st['requeued_lost']}")
+    ho = st["handoff"]
+    if ho["handoffs"]:
+        print(f"[serve] handoffs={ho['handoffs']} "
+              f"bytes={ho['handoff_bytes']} "
+              f"modeled-transfer={1e3 * ho['modeled_transfer_s']:.3f}ms "
+              f"@{ho['link_gbps']:.0f}Gb/s "
+              f"(host-copy wall {1e3 * ho['host_copy_wall_s']:.1f}ms)")
 
 
 def main(argv=None):
@@ -472,10 +536,17 @@ def main(argv=None):
     ap.add_argument("--cancel-after", type=int, default=0,
                     help="cancel the last request after this many "
                          "streamed tokens (requires --stream)")
-    # the JAX CLI's options of later slices: each raises when set
+    ap.add_argument("--shards", type=int, default=1,
+                    help="serving shards (1 = one engine); shards share "
+                         "a device when there are more shards than "
+                         "devices")
+    ap.add_argument("--roles", default=None, metavar="P:D",
+                    help="split the shards into prefill/decode workers: "
+                         "'P:D' counts (e.g. 1:2) or comma names "
+                         "(prefill,decode,mixed); must cover --shards; "
+                         "default all mixed")
+    # the JAX CLI's option of a later slice: it raises when set
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--shards", type=int, default=1)
-    ap.add_argument("--roles", default=None)
     args = ap.parse_args(argv)
     return serve(
         args.arch, smoke=args.smoke, batch=args.batch,
@@ -492,7 +563,7 @@ def main(argv=None):
         policy=args.policy, tenants=args.tenants, trace=args.trace,
         replay_photonic=args.replay_photonic, stream=args.stream,
         score=args.score, cancel_after=args.cancel_after,
-        device=args.device,
+        shards=args.shards, roles=args.roles, device=args.device,
         **{name: getattr(args, name) for name in LATER})
 
 

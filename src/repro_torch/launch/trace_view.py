@@ -20,8 +20,8 @@ Tracks (load the output at https://ui.perfetto.dev or chrome://tracing):
                             first_token.
 
 Merged multi-shard mode: a sharded server writes one trace per shard
-(``{prefix}.shard{i}.jsonl``; the JAX package's ``ShardedEngine`` does,
-the port's sharded serving is still to come).  Pointing this tool at
+(``{prefix}.shard{i}.jsonl``; the ``ShardedEngine`` of either package
+does, as ``launch.serve --shards N --trace PREFIX``).  Pointing this tool at
 the prefix (or any one shard file with ``--merge-shards``) merges them
 into ONE timeline with a process per worker ROLE (prefill / decode /
 mixed — a thread pair per shard inside it), clocks aligned via each tracer's

@@ -471,19 +471,43 @@ class BlockKVCache(MixerState):
     def _device(self):
         return next(iter(self.pools[0].values())).device
 
-    def swap_out(self, req):
+    def swap_out(self, req, peer: "BlockKVCache | None" = None):
         """Park req's blocks off the device.  Blocks REGISTERED in the
         prefix index skip the copy — the index keeps them resident and
         ``swap_in`` re-adopts them by content hash (a ring that wrapped
         no longer maps its leading blocks to the chain, so it copies
         all).  The rest are copied to host memory, synchronously, before
-        req drops every device reference."""
+        req drops every device reference.
+
+        ``peer`` makes it SWAP-TO-PEER: the re-adoption depth is walked
+        against the PEER's prefix index instead — leading blocks whose
+        hash chain the destination already holds are not copied (its
+        ``swap_in`` re-adopts them there), only the tail is — and the
+        request's prefix registration is rebased onto that chain, so it
+        resumes on the destination."""
         sync(self._device())
         with self.tracer.span("swap_out", rid=req.rid) as sp:
             readopt = 0
             no_wrap = self.blocks_for(req.pos) <= (self.ring_blocks
                                                    or self.max_blocks_per_seq)
-            if self.prefix is not None and req.n_registered and no_wrap:
+            if peer is not None:
+                bs = self.block_size
+                parent = ""
+                if peer.prefix is not None and no_wrap:
+                    n_full = min(req.pos, req.prompt_len) // bs
+                    if self.ring_blocks:
+                        n_full = min(n_full, self.ring_blocks)
+                    while readopt < n_full:
+                        key = chunk_key(
+                            parent,
+                            req.prompt[readopt * bs:(readopt + 1) * bs])
+                        if peer.prefix.peek(key) is None:
+                            break
+                        parent = key
+                        readopt += 1
+                req.n_registered = readopt
+                req.prefix_key = parent
+            elif self.prefix is not None and req.n_registered and no_wrap:
                 readopt = req.n_registered
             ids = torch.tensor(req.blocks[readopt:], dtype=torch.long,
                                device=self._device())
@@ -727,11 +751,13 @@ class MixerStateCache:
         if self.ssm is not None:
             self.ssm.register_snapshot(req)
 
-    def swap_out(self, req):
+    def swap_out(self, req, peer: "MixerStateCache | None" = None):
+        """Park both members; ``peer`` (the destination's composite, for
+        swap-to-peer) hands each member its counterpart's index."""
         if self.attn is not None and req.blocks:
-            self.attn.swap_out(req)
+            self.attn.swap_out(req, peer=peer.attn if peer else None)
         if self.ssm is not None and req.slot is not None:
-            self.ssm.swap_out(req)
+            self.ssm.swap_out(req, peer=peer.ssm if peer else None)
         self.swap_outs += 1
 
     def swap_in(self, req) -> bool | None:

@@ -88,14 +88,6 @@ def nearest_rank(sorted_vals, p: float) -> float:
     return sorted_vals[min(idx, n - 1)]
 
 
-# options of the JAX package's EngineConfig that the port keeps at a
-# fixed value: field -> (the value it supports, ROADMAP.md item that
-# brings the rest)
-_SLICE_ONLY = {
-    "role": ("mixed", 'queue 1, item 7, "Worker roles"'),
-}
-
-
 @dataclass(frozen=True)
 class EngineConfig:
     block_size: int = 16
@@ -126,7 +118,10 @@ class EngineConfig:
     bnn_impl: str = "auto"           # packed BNN GEMM: auto | cuda | torch
                                      # (one dispatch in the port: the two
                                      # must be equal)
-    role: str = "mixed"              # disaggregated roles: not ported
+    role: str = "mixed"              # worker role: mixed | prefill | decode
+                                     # (serving/roles.py; prefill shards
+                                     # hand completed prompts to a decode
+                                     # peer through the ShardedEngine)
     link_gbps: float = 100.0         # modeled inter-shard link bandwidth
                                      # (prefill->decode handoff transfer)
 
@@ -142,12 +137,7 @@ class EngineConfig:
                 f"attn_impl={self.attn_impl!r} with bnn_impl="
                 f"{self.bnn_impl!r}: the port dispatches every kernel "
                 "through one impl, so the two must be equal")
-        for name, (value, item) in _SLICE_ONLY.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (ROADMAP.md {item}); the port runs "
-                    f"{name}={value!r}")
+        R.get_role(self.role)
 
 
 def _resolve_device(device) -> torch.device:
@@ -191,6 +181,12 @@ class Engine:
         # than a prefill chunk (k + 1 <= prefill_chunk)
         self._spec_k = (min(ecfg.spec_k, ecfg.prefill_chunk - 1)
                         if ecfg.spec_k > 0 else 0)
+        # worker role (serving/roles.py): gates which plan rows run and
+        # whether completed prefills park for peer handoff; a prefill
+        # worker never drafts, so its spec budget is zero
+        self.role = R.get_role(ecfg.role)
+        if not self.role.runs_decode:
+            self._spec_k = 0
         # admission token budget: 0 = derive from the block pool (2x
         # its token capacity; a hybrid's too).  Slot-only stacks have
         # no block pool; max_batch and the slots bound their admission
@@ -209,7 +205,7 @@ class Engine:
                             preempt_policy=ecfg.preempt_policy,
                             decode_cost=1 + self._spec_k,
                             tenants=ecfg.tenants),
-            self.cache, tracer=self.tracer)
+            self.cache, tracer=self.tracer, role=self.role)
         # the fused CUDA kernel never spills packed activations to
         # device memory; the plain version prices the extra pack pass
         # per GEMM
@@ -220,9 +216,13 @@ class Engine:
         self.requests: dict[int, Request] = {}
         self.step_count = 0
         self._next_rid = 0
-        # a single engine: the trace's shard fields read None and 1
+        # set by the ShardedEngine when this engine is one of its shards;
+        # a single engine's trace reads None and 1
         self.shard: int | None = None
         self.n_shards: int = 1
+        # a prefill worker's completed prompts, parked for the
+        # ShardedEngine to hand off to a decode peer
+        self.handoff_ready: list[int] = []
         self._step_rec: dict | None = None   # per-step trace assembly
         self._decoded = 0
         self._prefilled = 0
@@ -250,7 +250,8 @@ class Engine:
         self.on_commit = None
         # sliding-window configs run their block tables as rings
         fns = R.build_step_fns(cfg, ring=self.cache.ring_blocks > 0,
-                               impl=ecfg.bnn_impl, spec_k=self._spec_k)
+                               impl=ecfg.bnn_impl, spec_k=self._spec_k,
+                               role=self.role)
         self._prefill_fn = fns.prefill
         self._decode_fn = fns.decode
         self._spec_fn = fns.spec
@@ -348,6 +349,8 @@ class Engine:
             sched.queue.remove(req)
             req.host_kv = None
             req.host_state = None
+        if rid in self.handoff_ready:
+            self.handoff_ready.remove(rid)
         req.state = State.CANCELLED
         req.finish_step = self.step_count
         req.finish_s = time.perf_counter()
@@ -442,6 +445,55 @@ class Engine:
             self.scheduler.decode_cost = 1 + self._spec_k
         return self._spec_k
 
+    # ------------------------------------------------------ shard migration
+
+    def export_request(self, rid: int, peer: "Engine | None" = None):
+        """Detach a live request for migration to a peer shard.  A
+        running request with computed state is serialized through the
+        content-hash swap path — against the PEER's indexes when one is
+        given, so blocks and snapshots the destination already holds
+        never cross — into host (CPU) tensors.  Queued and swapped
+        requests move as they are (their host copies are portable;
+        re-adoption resolves against the destination at admission, and
+        falls back to recompute as ``swap_lost`` if its chains are
+        gone).  Returns the Request, no longer tracked here."""
+        req = self.requests.pop(rid)
+        step = self.step_count
+        if rid in self.handoff_ready:
+            self.handoff_ready.remove(rid)
+        if req in self.scheduler.running:
+            self.scheduler.running.remove(req)
+            if req.pos > 0:
+                self.cache.swap_out(req, peer=peer.cache if peer else None)
+                req.park_swapped()
+            else:
+                self.cache.release(req)
+                req.reset_for_requeue()
+        elif req in self.scheduler.queue:
+            self.scheduler.queue.remove(req)
+        self.scheduler._ev(step, "migrate_out", req.rid, pos=req.pos,
+                           state=req.state.value)
+        return req
+
+    def adopt_request(self, req: Request, *, lost: bool = False):
+        """Take over a migrated request (``export_request``'s
+        counterpart); its host copies go to this engine's device at
+        swap-in.  ``lost=True``: rescued from a dead shard with its
+        device state gone — reset for recompute from scratch, the loss
+        shown as ``swap_lost`` (``Scheduler.adopt``)."""
+        if lost:
+            req.reset_for_requeue()
+            req.transfer_steps = 0
+            req.transfer_until_step = None
+        if req.transfer_steps:
+            # the modelled link still streams this request's state: the
+            # scheduler defers it (transfer_pending) until the arrival
+            # deadline, overlapping the transfer with this shard's steps
+            req.transfer_until_step = self.step_count + req.transfer_steps
+        self.requests[req.rid] = req
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        self.scheduler.adopt(req, self.step_count, lost=lost)
+
     # ------------------------------------------------------------ internals
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -508,6 +560,13 @@ class Engine:
             if req.done:
                 self.scheduler.finish(step, req)
                 req.finish_s = time.perf_counter()
+            elif self.role.hands_off:
+                # a prefill worker is done with the prompt (and its first
+                # token): park it for export to a decode peer, which the
+                # ShardedEngine does right after this step
+                self.handoff_ready.append(req.rid)
+                self.scheduler._ev(step, "handoff_ready", req.rid,
+                                   pos=req.pos)
             self._commit(req, req.done)
 
     def _accumulate_score(self, req: Request, logits: np.ndarray,

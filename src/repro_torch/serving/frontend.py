@@ -1,7 +1,7 @@
 """Asyncio streaming front-end over the continuous-batching engine.
 
-One ``Frontend`` wraps an ``Engine`` and runs its step loop as a
-background asyncio task.  Callers submit requests
+One ``Frontend`` wraps an ``Engine`` or ``ShardedEngine`` and runs its
+step loop as a background asyncio task.  Callers submit requests
 MID-FLIGHT (the next step admits them — continuous batching is the
 engine's native mode), consume committed tokens as an async stream,
 cancel in-flight requests, and run teacher-forced scoring — all
@@ -56,10 +56,14 @@ class Frontend:
     # ------------------------------------------------------------ driver
 
     def _idle(self) -> bool:
-        return self.engine.scheduler.idle
+        # an Engine answers through its scheduler, a ShardedEngine itself
+        sched = getattr(self.engine, "scheduler", None)
+        return sched.idle if sched is not None else self.engine.idle
 
     def _stall_detail(self) -> str:
-        stalls = self.engine.scheduler.stall_reasons()
+        sched = getattr(self.engine, "scheduler", None)
+        stalls = (sched.stall_reasons() if sched is not None
+                  else self.engine.stall_reasons())
         return "; ".join(f"rid={rid}[{state}]: {why}"
                          for rid, (state, why) in sorted(stalls.items()))
 

@@ -382,21 +382,25 @@ class RecurrentSlotState(MixerState):
     def _device(self):
         return self.pools[0]["h"].device
 
-    def swap_out(self, req):
+    def swap_out(self, req, peer: "RecurrentSlotState | None" = None):
         """Park req's slot off the device.  A request parked exactly at a
         snapshot still resident in the index skips the copy: swap_in
         re-adopts it by content hash (an entry evicted before swap_in
         falls back to recompute).  Otherwise the slot is copied to host
         memory, synchronously (one gather, one copy to the host), before
-        the slot returns to the free list."""
+        the slot returns to the free list.  ``peer`` (swap-to-peer)
+        decides re-adoption against the PEER's snapshot index: when the
+        destination holds the snapshot of the parked depth, no state
+        crosses shards."""
         dev = self._device()
         sync(dev)
         with self.tracer.span("snapshot_out", rid=req.rid) as sp:
             bs = self.block_size
-            if (self.snapshots is not None and req.pos
+            index = self.snapshots if peer is None else peer.snapshots
+            if (index is not None and req.pos
                     and req.pos <= req.prompt_len and req.pos % bs == 0
                     and req.snap_registered == req.pos // bs
-                    and req.snap_key in self.snapshots):
+                    and req.snap_key in index):
                 req.snap_readopt = True
                 sp.extra["bytes"] = 0        # the index keeps the content
             else:

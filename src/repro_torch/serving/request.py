@@ -79,6 +79,12 @@ class Request:
     snap_key: str = ""                 # hash-chain key at that depth
     snap_readopt: bool = False         # parked state == a registered
                                        # snapshot: swap_in re-adopts by hash
+    # prefill->decode handoff (serving/sharded.py, serving/roles.py):
+    # the modelled link streams this request's state for transfer_steps
+    # of the destination's steps; its scheduler defers admission
+    # (reason transfer_pending) until step transfer_until_step
+    transfer_steps: int = 0
+    transfer_until_step: int | None = None
     # step/time marks for latency accounting
     submit_step: int | None = None
     admit_step: int | None = None
@@ -131,6 +137,8 @@ class Request:
         self.snap_key = ""
         self.snap_readopt = False
         self.virtual_blocks = 0
+        self.transfer_steps = 0
+        self.transfer_until_step = None
         self.preemptions += 1
 
     def park_swapped(self):

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from repro_torch.serving import roles as R
 from repro_torch.serving.policy import make_policy
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.tracing import Tracer
@@ -61,15 +62,20 @@ class StepPlan:
     prefill: Request | None = None
     prefill_tokens: int = 0
     decode: list[Request] = field(default_factory=list)
+    transfer_waits: int = 0   # queued requests still streaming in over
+                              # the modelled link: the deadline counts
+                              # this shard's steps, so a step with only
+                              # these is still progress
 
     @property
     def has_work(self) -> bool:
-        return bool(self.admitted or self.prefill or self.decode)
+        return bool(self.admitted or self.prefill or self.decode
+                    or self.transfer_waits)
 
 
 class Scheduler:
     def __init__(self, cfg: SchedulerConfig, cache,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None, role: R.Role = R.MIXED):
         # ``cache`` implements the MixerState request-lifecycle calls
         # (BlockKVCache or the MixerStateCache composite) — the
         # scheduler never sees layouts.
@@ -77,6 +83,7 @@ class Scheduler:
             raise ValueError(f"unknown preempt_policy {cfg.preempt_policy}")
         self.cfg = cfg
         self.cache = cache
+        self.role = role
         self.policy = make_policy(cfg.policy, tenants=cfg.tenants)
         self.tracer = tracer if tracer is not None else Tracer()
         self.queue: list[Request] = []
@@ -115,6 +122,25 @@ class Scheduler:
                  max_new=req.max_new, priority=req.priority,
                  tenant=req.tenant, slo_class=req.slo_class)
 
+    def adopt(self, req: Request, step: int, lost: bool = False):
+        """Take over a request migrated from a peer shard.  It arrives
+        QUEUED or SWAPPED (already serialized by the source's
+        ``swap_out``), keeps its rid, sampling state and committed
+        output, and gets a fresh local ``_order``.  ``lost=True``: it
+        was rescued from a dead shard whose device state is gone, reset
+        for recompute, and the loss shows as a host-swap chain eviction
+        does (a ``swap_lost`` event and count, read by
+        ``stall_reasons``)."""
+        req._order = self._order
+        self._order += 1
+        self.queue.append(req)
+        self._ev(step, "migrate_in", req.rid, pos=req.pos,
+                 state=req.state.value, preemptions=req.preemptions)
+        if lost:
+            self.swap_losts += 1
+            self._ev(step, "swap_lost", req.rid,
+                     preemptions=req.preemptions, reason="shard_lost")
+
     def _queue_order(self) -> list[Request]:
         return self.policy.queue_order(self.queue)
 
@@ -129,11 +155,19 @@ class Scheduler:
 
     def _admit(self, step: int, plan: StepPlan):
         for req in self._queue_order():
+            if R.transfer_pending(req, step):
+                # the modelled prefill->decode link is still streaming
+                # this request in: it alone waits, the requests behind
+                # it stay admissible
+                plan.transfer_waits += 1
+                self._ev(step, "defer", req.rid, reason="transfer_pending",
+                         until_step=req.transfer_until_step)
+                continue
             reason = self.policy.admission_defer(self, req)
             if reason is not None:
                 # policy gate (e.g. a tenant over its token budget):
-                # per-request — tenants behind the gated one keep
-                # admitting
+                # per-request, as transfer_pending — tenants behind the
+                # gated one keep admitting
                 self._ev(step, "defer", req.rid, reason=reason)
                 continue
             if len(self.running) >= self.cfg.max_batch:
@@ -224,7 +258,11 @@ class Scheduler:
     def schedule(self, step: int) -> StepPlan:
         plan = StepPlan()
         self._admit(step, plan)
-        plan.decode = [r for r in self.running if r.state == State.DECODE]
+        # a prefill worker never decodes: its DECODE-state requests are
+        # parked for handoff (the ShardedEngine drains them right after
+        # the step) and must not take the prefill token budget
+        plan.decode = ([r for r in self.running if r.state == State.DECODE]
+                       if self.role.runs_decode else [])
         prefilling = self.policy.prefill_order(
             [r for r in self.running if r.state == State.PREFILL])
         if prefilling:
@@ -245,17 +283,23 @@ class Scheduler:
     def stall_reasons(self) -> dict[int, tuple[str, str]]:
         """rid -> (state, last recorded stall reason) for every queued
         or swapped request — the latest ``defer`` reason (no_slot /
-        token_budget / no_blocks / tenant_budget) or ``swap_lost``
-        event — so a stalled ``Engine.run()`` can report WHY each
-        request cannot make progress."""
+        token_budget / no_blocks / tenant_budget / transfer_pending) or
+        ``swap_lost`` event — so a stalled ``Engine.run()`` can report
+        WHY each request cannot make progress.  On a prefill worker,
+        DECODE-state requests parked for export read
+        ``awaiting_handoff``."""
         last: dict[int, str] = {}
         for e in self.trace:
             if e["event"] == "defer":
                 last[e["rid"]] = e["reason"]
             elif e["event"] == "swap_lost":
                 last[e["rid"]] = "swap_lost"
-        return {r.rid: (r.state.value, last.get(r.rid, "never_considered"))
-                for r in self.queue}
+        out = {r.rid: (r.state.value, last.get(r.rid, "never_considered"))
+               for r in self.queue}
+        if not self.role.runs_decode:
+            out.update({r.rid: (r.state.value, "awaiting_handoff")
+                        for r in self.running if r.state == State.DECODE})
+        return out
 
     def tenant_report(self) -> dict[str, dict]:
         """Per-tenant live accounting: queued/running counts, in-flight

@@ -54,6 +54,9 @@ def test_import_hygiene_no_jax_no_repro():
         "       'serving.frontend', 'launch.trace_view')\n"
         "print('SLICE12', all('repro_torch.' + m in sys.modules\n"
         "                     for m in new))\n"
+        "new = ('dist.fault', 'dist.sharding', 'serving.sharded')\n"
+        "print('SLICE13', all('repro_torch.' + m in sys.modules\n"
+        "                     for m in new))\n"
         "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
         "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -66,6 +69,8 @@ def test_import_hygiene_no_jax_no_repro():
     assert "SERVE True" in res.stdout, res.stdout  # and the serve CLI
     # the policies, the trace, its replay and viewer, the front-end
     assert "SLICE12 True" in res.stdout, res.stdout
+    # the heartbeat monitor, the shards' devices, the sharded engine
+    assert "SLICE13 True" in res.stdout, res.stdout
     # every config of the registry (11) and base.py: the jamba hybrid,
     # the dense and the front-end configs too
     assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout

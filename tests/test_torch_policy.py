@@ -24,7 +24,6 @@ from repro.serving import policy as JP
 from repro.serving.request import Request as JRequest, State as JState
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.serving import policy as P
-from repro_torch.serving.engine import _SLICE_ONLY
 from repro_torch.serving.request import Request, State
 
 torch.set_num_threads(1)
@@ -107,7 +106,8 @@ def test_make_policy_and_engine_config_take_every_policy():
     assert isinstance(P.make_policy("slo", tenants=TENANTS), P.SLOPolicy)
     for cls in (P.FCFSPolicy, P.PriorityPolicy, P.SLOPolicy):
         assert isinstance(cls(), P.SchedulingPolicy)
-    assert set(_SLICE_ONLY) == {"role"}
+    for role in ("mixed", "prefill", "decode"):     # every role is ported
+        assert EngineConfig(role=role).role == role
     for name in POLICIES:
         assert EngineConfig(policy=name).policy == name
     assert EngineConfig(tenants=TENANTS).tenants == TENANTS
