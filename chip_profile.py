@@ -35,6 +35,15 @@ is in both).  It prints, as JSON lines:
 The profiled run is slower than the timed one (tracing costs host
 time); its shares are what to read, not its wall time.  ``--out``
 writes the profiler's table there too.
+
+``--train`` profiles a training step instead: full-width bnn-lm-100m
+at precision "bnn_train" on ``chip_smoke.py``'s [train] batches (8 x
+256), ``build_train_step`` as ``launch.train`` runs it (microbatches 1,
+remat on).  After 3 warm-up steps it prints ``train_steps`` (10 timed
+steps: host wall per step, each ending in a synchronize; and, timed
+apart, the gradient pass and the AdamW update) and ``device`` over 5
+profiled steps (busy share, top kernels by device time, the host ops
+with the most self time).
 """
 from __future__ import annotations
 
@@ -216,6 +225,91 @@ def _gemm_histogram(prof) -> list[dict]:
             for k, v in sorted(hist.items(), key=lambda kv: -kv[1][1])]
 
 
+def _timed(dev, fn, n: int) -> list[float]:
+    """ms of each of ``n`` calls of ``fn``, each ending in a
+    synchronize."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _train(dev) -> int:
+    """--train (module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import train_init
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import optimizer as opt
+    cfg, sizes, data = chip_smoke._train_setup(dev, False)
+    params = train_init(cfg, dev)
+    tree = M.trainable(params, cfg)
+    ocfg = opt.AdamWConfig(lr_peak=sizes["lr"],
+                           warmup_steps=max(sizes["steps"] // 10, 1),
+                           total_steps=sizes["steps"])
+    state = [opt.init(ocfg, tree)]
+    chunk = min(512, sizes["seq_len"])
+    step = steps_mod.build_train_step(cfg, ocfg, microbatches=1,
+                                      loss_chunk=chunk)
+    batches = [to_tensors(data.batch(i), dev) for i in range(4)]
+    it = iter(range(10 ** 6))
+
+    def one():
+        _, state[0], m = step(params, state[0], batches[next(it) % 4])
+        float(m["loss"])
+    _timed(dev, one, 3)                                          # warm-up
+    step_ms = _timed(dev, one, 10)
+    grads = []
+    grad_ms = _timed(dev, lambda: grads.append(steps_mod.value_and_grad(
+        params, cfg, batches[0], loss_chunk=chunk, remat=True)[2]), 5)
+    update_ms = _timed(dev, lambda: opt.update(ocfg, grads[-1], state[0],
+                                               tree), 5)
+    tokens = sizes["global_batch"] * sizes["seq_len"]
+    med = float(np.median(step_ms))
+    print(json.dumps({"train_steps": {
+        "batch": [sizes["global_batch"], sizes["seq_len"]],
+        "step_ms": step_ms, "median_step_ms": med,
+        "tokens_per_s": tokens / med * 1e3,
+        "grad_pass_ms": grad_ms, "adamw_update_ms": update_ms}}),
+        flush=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize(dev)
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    prof.stop()
+    kernels: dict[str, float] = {}
+    launches = 0
+    for ev in prof.events():
+        if _is_kernel(ev):
+            kernels[ev.name[:80]] = kernels.get(ev.name[:80], 0.0) + \
+                ev.time_range.elapsed_us() / 1e3
+            launches += 1
+    busy_ms = sum(kernels.values())
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()), key=lambda r: -r[1])[:15]
+    print(json.dumps({"device": {
+        "profiled_steps": 5, "profiled_wall_s": wall, "kernel_ms": busy_ms,
+        "kernel_launches": launches,
+        "busy_share": busy_ms / (1e3 * wall) if wall else float("nan"),
+        "busy_share_of_timed_steps": busy_ms / 5 / med,
+        "top_kernels_ms": dict(sorted(kernels.items(),
+                                      key=lambda kv: -kv[1])[:15]),
+        "host_self_ms": {k: [ms, n] for k, ms, n in host}}}), flush=True)
+    if not busy_ms:
+        print("chip_profile: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="bnn-lm-100m",
@@ -223,6 +317,8 @@ def main() -> int:
                              "deepseek-v2-lite-16b", "mamba2-1.3b",
                              "jamba-1.5-large-398b"))
     ap.add_argument("--out", default=None, help="directory for the table")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step of bnn-lm-100m instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -236,6 +332,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda")
+    if args.train:
+        return _train(dev)
     work = _workload(args.arch)
     _serve(dev, work)                                             # warm-up
     gc.collect()

@@ -142,6 +142,37 @@ Phases (each check raises, and the script then exits non-zero):
               width with the full width's handoff bytes and cost model
               (tests/test_torch_shards_phase*.py); fused_bnn,
               paged_attention and binarize_pack must launch.
+  train       training (after [shards]): bnn-lm-100m at published width
+              and precision="bnn_train" (the STE forward and backward:
+              float matmuls of the signs, no kernel, as in the JAX
+              package), the port's torch init from seed 0, SyntheticLM
+              batches of 8 x 256 from seed 0, lr 1e-3.  (a) the card
+              against the CPU at step 0, the same code and weights on 2
+              of the batch's sequences: loss within 1e-4 relative, the
+              global gradient norm within 1e-3, every leaf's gradient
+              at cosine >= 0.999 (a miss passes only if every STE sign
+              flip of a projection's input lies within 1e-5 x RMS of
+              zero, printed); (b) one build_train_step step with 2
+              microbatches against 1: loss and gradient norm within
+              1e-5 relative, parameters within rtol 5e-3 / atol 1e-4
+              (the JAX package's bound scaled to this lr); (c) remat on
+              against off: each leaf's gradient within 1e-6 of its
+              largest element; (d) launch.train stopped at 10 with a
+              checkpoint every 5 (keep 2), resumed to 16: the last loss
+              within 1e-4 relative of an uninterrupted 16-step run
+              (schedule_total 16 both); (e) launch.train for 60 steps
+              (warm-up 6): the mean of the last 5 losses at least 0.05
+              nats below the first 5's; prints the curve, the median
+              step ms and training tokens/s, peak device memory, and a
+              checkpoint's bytes and save/restore ms.  (f) the trained
+              weights served at precision "bnn" (phase 3's engine
+              config): 8 prompts of 64-256 tokens from the data stream
+              at a step no training run reads, 32 new tokens each,
+              greedy; fused_bnn, paged_attention and binarize_pack
+              must launch (the summary's "train" path), and phase 4's
+              re-checks pass; the share of generated tokens that are a
+              Markov successor of their predecessor is printed beside
+              the untrained init's (information, not a gate).
   spec        speculative decoding (spec_k 4, spec_ngram 3) on
               bnn-lm-100m at published width through launch.serve's
               run functions: 16 requests (8 periodic prompts, a seeded
@@ -241,7 +272,7 @@ Phases (each check raises, and the script then exits non-zero):
               skipped prefill tokens > 0 in both.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, serve, tenants, shards, conv, spec, mixtral,
+on its paths (serving, serve, tenants, shards, train, conv, spec, mixtral,
 deepseek, mamba2, jamba, each family's speculative run and the defaults
 pairs), error, times and bound; the last line is the run's verdict with the
 device.
@@ -1155,7 +1186,7 @@ SERVING_KERNELS = ("fused_bnn", "paged_attention", "binarize_pack")
 def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
                   prompt_lens=(64, 512), late_after: int = 10, seed: int = 0,
                   *, prompts=None, n_late: int | None = None,
-                  required=SERVING_KERNELS, watch=None):
+                  required=SERVING_KERNELS, watch=None, params=None):
     """Serve seeded traffic through the port's Engine; returns the engine,
     its params, the finished outputs, the launch counts and the stats.
     ``prompts`` replaces the drawn traffic; the last ``n_late`` (default
@@ -1163,12 +1194,13 @@ def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
     counts are reset just before the engine is built (its weights pack
     on first use); every kernel in ``required`` must have launched.
     ``watch(engine)``, when given, is called on the new engine before
-    the first request."""
+    the first request; ``params`` replace the seeded weights."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as M
     from repro_torch.serving import Engine
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = M.init(gen, cfg, device=dev)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = M.init(gen, cfg, device=dev)
     if prompts is None:
         prompts = traffic(cfg.vocab, n_requests, prompt_lens, seed)
     n_requests = len(prompts)
@@ -2289,6 +2321,382 @@ def phase_tenants(dev, smi: str, want=None, smoke: bool = False) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "tenants path")
+    return launches
+
+
+# ------------------------------------------------------------- [train]
+#
+# Training: full-width bnn-lm-100m at precision "bnn_train" (the STE
+# forward and backward, no kernel: float matmuls of the signs, as in
+# the JAX package), the port's torch init from seed 0, SyntheticLM
+# batches; then the trained weights served at precision "bnn" through
+# the kernels.
+
+TRAIN_ARCH = "bnn-lm-100m"
+TRAIN = dict(seq_len=256, global_batch=8, lr=1e-3, steps=60)
+# the CPU rehearsal (tests/test_torch_train_phase.py): the reduced
+# config, shorter sequences, and the JAX package's test_e2e lr for 30
+# steps
+TRAIN_SMOKE = dict(seq_len=64, global_batch=8, lr=2e-3, steps=30)
+TRAIN_CPU_ROWS = 2             # (a): the batch's sequences run on the CPU
+TRAIN_LOSS_REL = 1e-4          # (a) loss, card against the CPU
+TRAIN_GNORM_REL = 1e-3         # (a) global gradient norm
+TRAIN_COSINE = 0.999           # (a) each leaf's gradient, cosine
+TRAIN_MB_REL = 1e-5            # (b) loss and grad norm, 2 microbatches vs 1
+# (b) parameters: the JAX package's microbatch bound (tests/test_e2e.py,
+# rtol 5e-3 / atol 1e-3 at lr 1e-2) scaled to lr 1e-3
+TRAIN_MB_PARAM = dict(rtol=5e-3, atol=1e-4)
+TRAIN_REMAT_REL = 1e-6         # (c) each leaf, of its largest |element|
+TRAIN_RESUME = (10, 16, 5)     # (d) stop at, resume to, checkpoint every
+TRAIN_RESUME_RTOL = 1e-4       # (d) the JAX package's resume bound
+TRAIN_LOSS_DROP = 0.05         # (e) nats: JAX's test_train_loss_decreases
+TRAIN_SERVE_NEW = 32           # (f) new tokens a request, greedy
+TRAIN_SERVE_PROMPTS = (8, 64, 256)   # (f) count, shortest, longest
+TRAIN_SERVE_STEP = 10 ** 6     # (f) a data step no training run reads
+
+
+def _train_setup(dev, smoke: bool):
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    cfg = configs.get_config(TRAIN_ARCH)
+    if smoke:
+        cfg = reduced(cfg)
+    cfg = cfg.replace(precision="bnn_train")
+    sizes = TRAIN_SMOKE if smoke else TRAIN
+    data = SyntheticLM(DataConfig(cfg.vocab, sizes["seq_len"],
+                                  sizes["global_batch"], seed=0))
+    return cfg, sizes, data
+
+
+def params_to(params, cfg, dev) -> dict:
+    """A copy of the params on ``dev``, the tied head a view again."""
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as M
+    tree = M.trainable(params, cfg)
+    out = T.map_(lambda t: t.detach().to(dev, copy=True), tree)
+    if cfg.tie_embeddings:
+        out["head"] = {"w": out["embed"]["w"].t()}
+    return out
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Cosine of two tensors (1 when both are zero)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den else float(torch.equal(a, b))
+
+
+def record_projection_inputs(params, cfg, batch, loss_chunk):
+    """The input of every BNN projection (``ops.bnn_dense``) of one
+    ``loss_fn`` forward, in call order."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as M
+    seen = []
+    inner = ops.bnn_dense
+
+    def rec(x, w, **kw):
+        seen.append(x.detach())
+        return inner(x, w, **kw)
+    ops.bnn_dense = rec
+    try:
+        with torch.no_grad():
+            M.loss_fn(params, cfg, batch, loss_chunk=loss_chunk)
+    finally:
+        ops.bnn_dense = inner
+    return seen
+
+
+def train_sign_flips(params_card, params_cpu, cfg, batch_card, batch_cpu,
+                     loss_chunk) -> int:
+    """(a)'s explanation of a miss: the STE sign bits of every BNN
+    projection's input, card against CPU, projection by projection.  A
+    flip is accepted only within FLIP_RMS_FRACTION x its row's RMS of
+    zero on both sides; any other raises.  Returns the flips."""
+    a = record_projection_inputs(params_card, cfg, batch_card, loss_chunk)
+    b = record_projection_inputs(params_cpu, cfg, batch_cpu, loss_chunk)
+    if len(a) != len(b):
+        raise AssertionError(f"[train] (a): {len(a)} projections on the card, "
+                             f"{len(b)} on the CPU")
+    flips = 0
+    for i, (xa, xb) in enumerate(zip(a, b)):
+        xa = xa.cpu().float()
+        flip = (xa >= 0) != (xb.float() >= 0)
+        n = int(flip.sum())
+        if not n:
+            continue
+        rms = xb.float().square().mean(dim=-1, keepdim=True).sqrt()
+        near = (xa.abs() <= FLIP_RMS_FRACTION * rms) & \
+            (xb.float().abs() <= FLIP_RMS_FRACTION * rms)
+        far = int((flip & ~near).sum())
+        log(f"[train] (a) projection {i}: {n} STE sign flips, {far} farther "
+            f"than {FLIP_RMS_FRACTION} x RMS from 0")
+        if far:
+            raise AssertionError(f"[train] (a): projection {i} flips {far} "
+                                 "signs far from zero, card against CPU")
+        flips += n
+    return flips
+
+
+def train_vs_cpu(dev, cfg, params, batch, loss_chunk) -> None:
+    """(a): the card against the CPU at step 0, the same port code and
+    weights on TRAIN_CPU_ROWS sequences of the batch."""
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizer import global_norm
+    rows = {k: v[:TRAIN_CPU_ROWS] for k, v in batch.items()}
+    b_card, b_cpu = to_tensors(rows, dev), to_tensors(rows, "cpu")
+    cpu_params = params_to(params, cfg, torch.device("cpu"))
+    t0 = time.perf_counter()
+    l_card, _, g_card = steps.value_and_grad(params, cfg, b_card,
+                                             loss_chunk=loss_chunk,
+                                             remat=False)
+    _sync(dev)
+    t1 = time.perf_counter()
+    l_cpu, _, g_cpu = steps.value_and_grad(cpu_params, cfg, b_cpu,
+                                           loss_chunk=loss_chunk, remat=False)
+    t2 = time.perf_counter()
+    n_card, n_cpu = float(global_norm(g_card)), float(global_norm(g_cpu))
+    lc, lp = float(l_card), float(l_cpu)
+    cos = [_cosine(a.cpu(), b) for a, b in zip(T.leaves(g_card),
+                                               T.leaves(g_cpu))]
+    loss_rel, norm_rel = abs(lc - lp) / abs(lp), abs(n_card - n_cpu) / n_cpu
+    log(f"[train] (a) card vs CPU at step 0 on {TRAIN_CPU_ROWS} sequences: "
+        f"loss {lc:.7f} / {lp:.7f} (rel {loss_rel:.3g}), grad norm "
+        f"{n_card:.6g} / {n_cpu:.6g} (rel {norm_rel:.3g}), min leaf cosine "
+        f"{min(cos):.7f} over {len(cos)} leaves; card {t1 - t0:.2f} s, "
+        f"CPU {t2 - t1:.2f} s")
+    if loss_rel <= TRAIN_LOSS_REL and norm_rel <= TRAIN_GNORM_REL and \
+            min(cos) >= TRAIN_COSINE:
+        return
+    flips = train_sign_flips(params, cpu_params, cfg, b_card, b_cpu,
+                             loss_chunk)
+    if not flips:
+        raise AssertionError("[train] (a): card and CPU differ with no STE "
+                             "sign flip to explain it")
+    log(f"[train] (a) the miss is explained by {flips} STE sign flips, each "
+        f"within {FLIP_RMS_FRACTION} x RMS of zero")
+
+
+def train_microbatches(dev, cfg, params, batch, sizes, loss_chunk) -> None:
+    """(b): one build_train_step step with 2 microbatches against 1."""
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import optimizer as opt
+    ocfg = opt.AdamWConfig(lr_peak=sizes["lr"],
+                           warmup_steps=max(sizes["steps"] // 10, 1),
+                           total_steps=sizes["steps"])
+    tb = to_tensors(batch, dev)
+    out = {}
+    for mb in (1, 2):
+        p = params_to(params, cfg, dev)
+        state = opt.init(ocfg, M.trainable(p, cfg))
+        _, _, m = steps.build_train_step(cfg, ocfg, microbatches=mb,
+                                         loss_chunk=loss_chunk)(p, state, tb)
+        out[mb] = (M.trainable(p, cfg), float(m["loss"]),
+                   float(m["grad_norm"]))
+    loss_rel = abs(out[2][1] - out[1][1]) / out[1][1]
+    norm_rel = abs(out[2][2] - out[1][2]) / out[1][2]
+    worst = 0.0
+    for a, b in zip(T.leaves(out[2][0]), T.leaves(out[1][0]), strict=True):
+        excess = (a - b).abs() - (TRAIN_MB_PARAM["atol"] +
+                                  TRAIN_MB_PARAM["rtol"] * b.abs())
+        worst = max(worst, float(excess.max()))
+    log(f"[train] (b) microbatches 2 vs 1: loss {out[2][1]:.7f} / "
+        f"{out[1][1]:.7f} (rel {loss_rel:.3g}), grad norm rel {norm_rel:.3g}, "
+        f"params within rtol {TRAIN_MB_PARAM['rtol']} atol "
+        f"{TRAIN_MB_PARAM['atol']}: {worst <= 0}")
+    if loss_rel > TRAIN_MB_REL or norm_rel > TRAIN_MB_REL or worst > 0:
+        raise AssertionError("[train] (b): 2 microbatches differ from 1")
+
+
+def train_remat(dev, cfg, params, batch, loss_chunk) -> None:
+    """(c): gradients with remat on equal those with it off."""
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.launch import steps
+    tb = to_tensors(batch, dev)
+    grads = [steps.value_and_grad(params, cfg, tb, loss_chunk=loss_chunk,
+                                  remat=r)[2] for r in (False, True)]
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(T.leaves(grads[1]), T.leaves(grads[0])))
+    log(f"[train] (c) remat on vs off: each leaf within {worst:.3g} of its "
+        "largest element")
+    if worst > TRAIN_REMAT_REL:
+        raise AssertionError(f"[train] (c): remat changes a gradient by "
+                             f"{worst:.3g} of its largest element")
+
+
+def train_resume(dev, smoke: bool, sizes, tmp: str) -> None:
+    """(d): stop at 10 with a checkpoint every 5 (keep 2), resume to
+    16; the last loss equals an uninterrupted 16-step run's."""
+    from repro_torch.launch.train import train
+    stop, end, every = TRAIN_RESUME
+    kw = dict(smoke=smoke, global_batch=sizes["global_batch"],
+              seq_len=sizes["seq_len"], lr=sizes["lr"], schedule_total=end,
+              device=dev, precision="bnn_train", log_every=100)
+    l_a = train(TRAIN_ARCH, steps=end, **kw)
+    d = f"{tmp}/resume"
+    l_s = train(TRAIN_ARCH, steps=stop, ckpt_dir=d, ckpt_every=every, **kw)
+    l_b = train(TRAIN_ARCH, steps=end, ckpt_dir=d, ckpt_every=100, **kw)
+    rel = abs(l_b[-1] - l_a[-1]) / abs(l_a[-1])
+    log(f"[train] (d) resumed at {stop} to {end}: last loss {l_b[-1]:.7f}, "
+        f"uninterrupted {l_a[-1]:.7f} (rel {rel:.3g}); {len(l_b)} steps "
+        f"after the restore (its digest verified); the two runs' first "
+        f"{stop} losses bit-equal: {l_s == l_a[:stop]}, the last "
+        f"{end - stop}: {l_b == l_a[stop:]}")
+    if len(l_b) != end - stop or rel > TRAIN_RESUME_RTOL:
+        raise AssertionError("[train] (d): the resumed run's last loss "
+                             "differs from the uninterrupted run's")
+
+
+def train_learn(dev, cfg, params, sizes, smoke: bool):
+    """(e): ``sizes["steps"]`` steps of ``launch.train`` from ``params``
+    (trained in place); returns (losses, step ms, peak bytes)."""
+    from repro_torch.launch.train import train
+    step_s = []
+    mark = [0.0]
+
+    def on_step(step, metrics):
+        _sync(dev)
+        now = time.perf_counter()
+        if step:
+            step_s.append(now - mark[0])
+        mark[0] = now
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    mark[0] = time.perf_counter()
+    losses = train(TRAIN_ARCH, smoke=smoke, steps=sizes["steps"], global_batch=sizes["global_batch"],
+                   seq_len=sizes["seq_len"], lr=sizes["lr"],
+                   precision="bnn_train", device=dev, params=params,
+                   on_step=on_step)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"[train] (e) {len(losses)} steps: loss " + " ".join(
+        f"{l:.4f}" for l in losses))
+    log(f"[train] (e) mean of the first 5 {first:.5f}, of the last 5 "
+        f"{last:.5f}: drop {first - last:.5f} nats (gate "
+        f"{TRAIN_LOSS_DROP}); log V = {math.log(cfg.vocab):.5f}")
+    if not np.isfinite(losses).all() or not last < first - TRAIN_LOSS_DROP:
+        raise AssertionError(f"[train] (e): the loss fell {first - last:.4f} "
+                             f"nats, less than {TRAIN_LOSS_DROP}")
+    return losses, [s * 1e3 for s in step_s], peak
+
+
+def train_checkpoint_io(cfg, params, tmp: str) -> dict:
+    """Save and restore ms and bytes of a training checkpoint: the
+    trained params and AdamW moments of the same shapes."""
+    import os
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import optimizer as opt
+    tree = M.trainable(params, cfg)
+    state = opt.init(opt.AdamWConfig(), tree)
+    mgr = CheckpointManager(f"{tmp}/io", keep=1)
+    _sync(tree["embed"]["w"].device)
+    t0 = time.perf_counter()
+    path = mgr.save(1, (tree, state))
+    t1 = time.perf_counter()
+    (back, _), _ = mgr.restore((tree, state))
+    _sync(tree["embed"]["w"].device)
+    t2 = time.perf_counter()
+    nbytes = os.path.getsize(f"{path}/arrays.npz")
+    if not torch.equal(back["embed"]["w"], tree["embed"]["w"]):
+        raise AssertionError("[train] a restored checkpoint differs")
+    return {"save_ms": (t1 - t0) * 1e3, "restore_ms": (t2 - t1) * 1e3,
+            "bytes": nbytes}
+
+
+def markov_share(data, out: dict, prompt_lens: dict) -> float:
+    """The share of generated tokens that are one of their
+    predecessor's Markov successors in the data stream."""
+    hit = n = 0
+    for rid, seq in out.items():
+        p = prompt_lens[rid]
+        prev, nxt = seq[p - 1:-1], seq[p:]
+        hit += int((data.successors[prev] == nxt[:, None]).any(axis=1).sum())
+        n += len(nxt)
+    return hit / n
+
+
+def train_serve(dev, cfg, params, data, smi: str):
+    """(f): the trained weights served at precision "bnn" through the
+    kernels (phase 3's engine config), re-checked as phase 4 does;
+    returns the kernel launches of that run and the Markov shares."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.serving import EngineConfig
+    n, lo, hi = TRAIN_SERVE_PROMPTS
+    src = SyntheticLM(DataConfig(cfg.vocab, hi, n, seed=0))
+    rows = src.batch(TRAIN_SERVE_STEP)["tokens"]
+    lens = np.random.default_rng(TRAIN_SERVE_STEP).integers(lo, hi + 1, n)
+    prompts = [rows[i, :lens[i]].astype(np.int64) for i in range(n)]
+    bnn = cfg.replace(precision="bnn")
+    ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
+                        prefill_chunk=128,
+                        max_model_len=hi + TRAIN_SERVE_NEW, **NO_PREFIX)
+    shares = {}
+    launches = None
+    for tag, p in (("trained", params), ("init", None)):
+        eng, p_used, out, counts, _ = phase_serving(
+            dev, bnn, ecfg, max_new=TRAIN_SERVE_NEW, prompts=prompts,
+            late_after=0, n_late=0, params=p,
+            required=SERVING_KERNELS if dev.type == "cuda" else ())
+        shares[tag] = markov_share(
+            data, out, {r: eng.requests[r].prompt_len for r in out})
+        if tag == "trained":
+            launches = counts
+            phase_e2e(dev, bnn, p_used, eng, out)
+        del eng, p_used, out
+    log(f"[train] (f) served the trained weights at precision bnn: "
+        f"{n} prompts of {lo}-{hi} tokens, {TRAIN_SERVE_NEW} new each; "
+        f"Markov successors among the generated tokens: trained "
+        f"{shares['trained']:.4f}, init {shares['init']:.4f} "
+        f"(chance {data.cfg.branching / cfg.vocab:.5f}); {smi}")
+    return launches, shares
+
+
+def phase_train(dev, smi: str, smoke: bool = False) -> dict:
+    """The [train] phase (module docstring) on ``dev`` (``smoke``: the
+    reduced config and TRAIN_SMOKE, the CPU rehearsal).  Returns the
+    kernel launches of (f)'s serving run of the trained weights."""
+    import tempfile
+    t0 = time.perf_counter()
+    cfg, sizes, data = _train_setup(dev, smoke)
+    loss_chunk = min(512, sizes["seq_len"])
+    log(f"[train] {cfg.name} precision={cfg.precision} d_model={cfg.d_model} "
+        f"layers={cfg.n_layers} vocab={cfg.vocab} batch "
+        f"{sizes['global_batch']} x {sizes['seq_len']} lr {sizes['lr']} "
+        f"steps {sizes['steps']}; {smi}")
+    from repro_torch.launch.train import train_init
+    params = train_init(cfg, dev)
+    batch = data.batch(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_vs_cpu(dev, cfg, params, batch, loss_chunk)
+        train_microbatches(dev, cfg, params, batch, sizes, loss_chunk)
+        train_remat(dev, cfg, params, batch, loss_chunk)
+        train_resume(dev, smoke, sizes, tmp)
+        losses, step_ms, peak = train_learn(dev, cfg, params, sizes, smoke)
+        io = train_checkpoint_io(cfg, params, tmp)
+    med = float(np.median(step_ms))
+    tokens = sizes["global_batch"] * sizes["seq_len"]
+    log(f"[train] step median {med:.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}) at B {sizes['global_batch']} x T "
+        f"{sizes['seq_len']}, microbatches 1, remat on: "
+        f"{tokens / med * 1e3:.1f} training tokens/s; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; checkpoint {io['bytes']} bytes, save "
+        f"{io['save_ms']:.1f} ms, restore {io['restore_ms']:.1f} ms; {smi}")
+    launches, _shares = train_serve(dev, cfg, params, data, smi)
+    log(f"[train] launches {json.dumps(launches)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3813,6 +4221,8 @@ def main() -> int:
                                             want_sampled=kept.pop("C"))
     del out_a
     gc.collect()
+    train_launches = phase_train(dev, smi)
+    gc.collect()
     conv_rows, conv_launches = phase_conv(dev)
     phase_photonic(st)
     spec_launches = phase_spec(dev, smi)
@@ -3837,6 +4247,7 @@ def main() -> int:
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "serve": serve_launches,
              "tenants": tenants_launches, "shards": shards_launches,
+             "train": train_launches,
              "conv": conv_launches,
              "spec": spec_launches, **families}
     kernels = []

@@ -18,14 +18,17 @@ Precision modes:
              and the SAME border term (cached too) subtracted (on a CUDA
              tensor the hand-written kernels, on a CPU tensor their
              plain versions; ``impl`` as ``kernels/ops.resolve_impl``)
-  bnn_train  STE-binarized conv: not ported (raises)
+  bnn_train  STE-binarized conv (differentiable): im2col of the float
+             input, then ``core/xnor.bnn_matmul_train``; the padded
+             zeros count as +1 (no border correction, as in the JAX
+             package)
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import patches
+from repro_torch.core import patches, xnor
 from repro_torch.core.binarize import sign_pm1
 from repro_torch.kernels import ops
 
@@ -41,8 +44,12 @@ def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 def bnn_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                padding: str = "SAME", precision: str = "bnn",
-               impl: str = "auto", binary_out: bool = False) -> torch.Tensor:
+               impl: str = "auto", scale: bool = False,
+               binary_out: bool = False) -> torch.Tensor:
     """x: (B, H, W, C_in) float; w: (kh, kw, C_in, C_out) latent float.
+    ``scale`` multiplies the bnn_train product by alpha = mean(|w|)
+    over S per output channel (the other paths ignore it, as in the JAX
+    package).
 
     Returns the {-1,+1} conv as integer-valued float32 (B, H', W', C_out),
     or, with ``binary_out=True``, the comparator's uint8 activations
@@ -54,9 +61,15 @@ def bnn_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if precision == "bf16":
         return _conv_nhwc(x, w.to(x.dtype), stride, padding)
     if precision == "bnn_train":
-        raise NotImplementedError(
-            "precision='bnn_train' (STE training) is not ported "
-            "(ROADMAP.md queue 1, item 8)")
+        # im2col of the float input, then the STE GEMM; no SAME border
+        # correction, as in the JAX package: a padded zero binarizes to
+        # +1 (ste_sign(0) = +1), so border outputs differ from the bnn
+        # path's (ROADMAP.md queue 3); binary_out is ignored there too
+        cols = patches.im2col(x, kh, kw, stride, padding)
+        b, ho, wo = cols.shape[:3]
+        y = xnor.bnn_matmul_train(cols.reshape(b * ho * wo, s),
+                                  w.reshape(s, cout), scale=scale)
+        return y.reshape(b, ho, wo, cout)
     if precision != "bnn":
         raise ValueError(f"unknown precision {precision!r}")
     impl = ops.resolve_impl(impl, x)

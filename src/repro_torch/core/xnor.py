@@ -8,13 +8,16 @@ Identities:
 The packed path contracts over 32-bit words: popcount(~(iw ^ ww)).
 Zero padding to a word multiple makes pad positions agree (0==0 ->
 XNOR=1), so the padded bitcount overcounts by exactly (S_pad - S); we
-subtract it.  The tiled kernels live in ``repro_torch.kernels``.
+subtract it.  The tiled kernels live in ``repro_torch.kernels``;
+``bnn_matmul_train`` is the differentiable training GEMM (no kernel: a
+float matmul of the STE signs, as in the JAX package).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.binarize import sign_pm1, ste_sign
 
 
 def xnor_bitcount_01(i01: torch.Tensor, w01: torch.Tensor) -> torch.Tensor:
@@ -63,6 +66,27 @@ def xnor_matmul_packed(ip: torch.Tensor, wp: torch.Tensor,
         out.append(torch.sum(packing.popcount_u32(xnor), dim=-1,
                              dtype=torch.int32) - pad)
     return out[0] if len(out) == 1 else torch.cat(out, dim=-2)
+
+
+def bnn_matmul_train(x: torch.Tensor, w: torch.Tensor,
+                     scale: bool = True) -> torch.Tensor:
+    """Binarization-aware GEMM for training: y = (sign(x) @ sign(w)) *
+    alpha, differentiable through the straight-through estimator.
+
+    ``w`` has shape (K, N); alpha = mean(|w|, axis=0) is the
+    per-output-channel LQ-Nets scale of the latent weight and stays in
+    the autograd graph (w's gradient carries its sign(w)/K terms too).
+    The product runs in float32 and is cast to x's dtype."""
+    y = torch.matmul(ste_sign(x).float(), ste_sign(w).float())
+    if scale:
+        y = y * torch.mean(abs_jax(w.float()), dim=0, keepdim=True)
+    return y.to(x.dtype)
+
+
+def abs_jax(w: torch.Tensor) -> torch.Tensor:
+    """|w| with JAX's derivative: +1 at w = 0, where ``torch.abs``'s is
+    0 (the value is w * sign(w), the sign a constant of the graph)."""
+    return w * sign_pm1(w)
 
 
 def bnn_matmul_infer(x: torch.Tensor, w: torch.Tensor,

@@ -3,6 +3,9 @@
 ``bnn_dense`` is what the layers call for every projection:
   * precision="bf16": ordinary float matmul (the non-binarized baseline;
     float32 here, as in the JAX package's float32 models)
+  * precision="bnn_train": the STE-binarized training GEMM
+    (``core/xnor.bnn_matmul_train``: a float matmul of the signs times
+    alpha, differentiable; no kernel, as in the JAX package)
   * precision="bnn": the packed XNOR-popcount inference path — the
     fused binarize->pack->XNOR-popcount GEMM against the weight's
     cached packed form.
@@ -46,7 +49,7 @@ import weakref
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import packing, xnor
 from repro_torch.kernels import binarize_pack as _bp
 from repro_torch.kernels import fused_bnn as _fb
 from repro_torch.kernels import paged_attention as _pa
@@ -205,9 +208,9 @@ def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",
         y = fn(x2, wp, s, mode=mode, alpha=alpha)
         return y.reshape(*lead, w.shape[-1]).to(x.dtype)
     if precision == "bnn_train":
-        raise NotImplementedError(
-            "precision='bnn_train' (STE training) is not ported "
-            "(ROADMAP.md queue 1, item 8)")
+        lead = x.shape[:-1]
+        y = xnor.bnn_matmul_train(x.reshape(-1, x.shape[-1]), w, scale=scale)
+        return y.reshape(*lead, w.shape[-1])
     raise ValueError(f"unknown precision {precision!r}")
 
 
@@ -217,8 +220,9 @@ def expert_dense(x: torch.Tensor, w: torch.Tensor, e: int, *,
     """``x (M, K) @ w[e]`` for expert ``e`` of the stack ``w`` (E, K, N),
     at the precision of ``bnn_dense`` (bnn: the fused GEMM against the
     stack's cached packed words, ``dot_scaled`` with alpha = mean |w[e]|
-    over K, as the JAX package's ``moe._expert_matmul``)."""
-    if precision != "bnn":      # the float matmul, or bnn_dense's refusals
+    over K, as the JAX package's ``moe._expert_matmul``; bnn_train: the
+    STE GEMM with that alpha, differentiable)."""
+    if precision != "bnn":      # the float matmul, the STE GEMM
         return bnn_dense(x, w[e], precision=precision, impl=impl)
     impl = resolve_impl(impl, x)
     x2 = x.float().contiguous()

@@ -1,0 +1,90 @@
+"""The train step: microbatched gradient accumulation, then the AdamW
+update — the JAX package's ``repro.launch.steps.build_train_step``.
+
+Its dry-run parts (``input_specs``, the prefill and decode steps) wait
+for the mesh (ROADMAP.md queue 1, item 10).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as M
+from repro_torch.optim import optimizer as opt_mod
+
+
+@contextlib.contextmanager
+def requires_grad(leaves):
+    """Ask autograd for the gradients of ``leaves`` within the block;
+    their flags are as they were afterwards."""
+    before = [l.requires_grad for l in leaves]
+    for l in leaves:
+        l.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for l, b in zip(leaves, before):
+            l.requires_grad_(b)
+
+
+def value_and_grad(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int,
+                   remat: bool):
+    """(loss, metrics, grads) of ``M.loss_fn``: the loss and metrics
+    detached, the gradients as a tree shaped as ``M.trainable(params,
+    cfg)``, float32 zeros for a leaf the batch never reached."""
+    tree = M.trainable(params, cfg)
+    leaves = T.leaves(tree)
+    with requires_grad(leaves):
+        loss, metrics = M.loss_fn(params, cfg, batch, loss_chunk=loss_chunk,
+                                  remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(l) if g is None else g
+             for l, g in zip(leaves, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            T.unflatten(tree, grads))
+
+
+def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
+                     microbatches: int = 8, loss_chunk: int = 2048):
+    """Returns train_step(params, opt_state, batch) -> (params, state',
+    metrics {"loss", "grad_norm", "lr"}); the params are updated in
+    place.
+
+    With ``microbatches`` g > 1 the batch splits along its rows into g
+    equal parts, in order; their gradients are summed in float32 and
+    divided by g, and so are the losses, as the JAX package's
+    ``lax.scan`` does.  Each layer is rematerialized on the backward
+    pass, as in the JAX package."""
+
+    def grads_for(params, mb):
+        return value_and_grad(params, cfg, mb, loss_chunk=loss_chunk,
+                              remat=True)
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, _, grads = grads_for(params, batch)
+        else:
+            g = microbatches
+            rows = next(iter(batch.values())).shape[0]
+            if rows % g:
+                raise ValueError(f"batch of {rows} rows does not split "
+                                 f"into {g} microbatches")
+            n = rows // g
+            gacc = None
+            loss = torch.zeros((), device=next(iter(batch.values())).device)
+            for i in range(g):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, _, gr = grads_for(params, mb)
+                gacc = (T.map_(lambda gg: gg.float(), gr) if gacc is None
+                        else T.map_(lambda a, gg: a + gg.float(), gacc, gr))
+                loss = loss + l
+            grads = T.map_(lambda a: a / g, gacc)
+            loss = loss / g
+        _, new_state, om = opt_mod.update(opt_cfg, grads, opt_state,
+                                          M.trainable(params, cfg))
+        return params, new_state, {"loss": loss, **om}
+
+    return train_step

@@ -26,14 +26,17 @@ eager layer loop walks (``interop.params_from_numpy`` unstacks).
           (precomputed frame / patch embeddings)     (musicgen, pixtral)
 
 Every projection dispatches through the OXBNN precision modes
-(kernels/ops.bnn_dense, ops.expert_dense): bf16 baseline and bnn
-(packed XNOR-popcount inference).  The stub front-ends are the JAX
+(kernels/ops.bnn_dense, ops.expert_dense): bf16 baseline, bnn_train
+(STE-binarized, differentiable) and bnn (packed XNOR-popcount
+inference).  The stub front-ends are the JAX
 package's: the full-sequence forward takes ``prefix_embeds`` (the vlm
 patch embeddings) and ``embeds`` (the audio frame embeddings) beside
 the tokens; the serving paths and the legacy decode loop take tokens.
 
 Three ways through the stack: the full-sequence forward
-(``hidden_states`` / ``logits_fn``), the legacy decode loop over a
+(``hidden_states`` / ``logits_fn``, and ``loss_fn`` for training: the
+chunked cross entropy with the MoE aux loss, over ``trainable``'s
+leaves), the legacy decode loop over a
 dense per-batch cache (``init_cache`` / ``decode_step``, the serving
 engine's oracle), and the serving paths over paged pools
 (``prefill_chunk`` / ``paged_decode_step``).
@@ -41,6 +44,7 @@ engine's oracle), and the serving paths over paged pools
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.layers import attn_block, common as C, ffn, mamba2, mla, moe
@@ -160,24 +164,27 @@ def _iter_layers(cfg: ArchConfig, params):
 
 
 def _ffn(params, cfg: ArchConfig, f: str, x, impl, *, paged: bool,
-         taps=None):
+         taps=None, aux: list | None = None):
     """The layer's FFN with its residual, after any mixer (an SSD
     layer's too).  A MoE layer dispatches with the config's finite
     capacity over a full sequence, as the JAX package does, and
     drop-free on the serving path (``paged``): a finite capacity would
     let batch composition, padding and the chunk width decide which
     tokens keep their experts (in the JAX package it made jamba's
-    logits depend on the chunk width)."""
+    logits depend on the chunk width).  ``aux``, when a list, receives
+    a MoE layer's load-balance loss."""
     if f == "none":
         return x
     h = C.norm(x, params["norm2"], cfg.norm, cfg.norm_eps)
     if f == "moe":
-        y, _aux = moe.forward(
+        y, layer_aux = moe.forward(
             params["ffn"], h, top_k=cfg.top_k, kind=cfg.act,
             capacity_factor=0.0 if paged else cfg.capacity_factor,
             precision=cfg.precision,
             dispatch_groups=1 if paged else cfg.moe_dispatch_groups,
             impl=impl, taps=taps)
+        if aux is not None:
+            aux.append(layer_aux)
     else:
         y = ffn.forward(params["ffn"], h, cfg.act, cfg.precision, impl, taps)
     return x + y
@@ -192,10 +199,14 @@ def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
     """The input hidden sequence: ``prefix_embeds`` (vlm patch
     embeddings), ``embeds`` (audio frame embeddings), then the tokens'
     embeddings, concatenated along the sequence in that order, then
-    ``embed_scale`` over the whole, as in the JAX package."""
+    ``embed_scale`` over the whole, as in the JAX package.  The lookup
+    is ``F.embedding``: its backward sums a row's gradients in a fixed
+    order, where indexing's accumulating backward does not (a
+    multi-threaded CPU run then differs from run to run)."""
     parts = [e for e in (prefix_embeds, embeds) if e is not None]
     if tokens is not None:
-        parts.append(params["embed"]["w"][tokens])
+        parts.append(torch.nn.functional.embedding(tokens,
+                                                   params["embed"]["w"]))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * (cfg.d_model ** 0.5)
@@ -206,30 +217,55 @@ def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
 # full forward
 
 
+def _layer(p, cfg: ArchConfig, mix: str, f: str, x, positions, impl):
+    """One layer over the full sequence: (x', the layer's aux loss, 0
+    without a MoE FFN)."""
+    h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+    if mix == "mla":
+        y = mla.forward(p["attn"], cfg, h, positions,
+                        precision=cfg.precision,
+                        window=cfg.sliding_window, impl=impl)
+    elif mix == "ssm":
+        y = mamba2.forward(p["attn"], cfg, h, chunk=cfg.ssd_chunk,
+                           precision=cfg.precision, impl=impl)
+    else:
+        y = attn_block.forward(p["attn"], cfg, h, positions,
+                               precision=cfg.precision, impl=impl)
+    aux: list = []
+    x = _ffn(p, cfg, f, x + y, impl, paged=False, aux=aux)
+    return x, (aux[0] if aux else torch.zeros((), device=x.device))
+
+
+def _stack(params, cfg: ArchConfig, x: torch.Tensor, *, impl: str,
+           remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack and the final norm over the embedded sequence
+    x; returns (hidden, the MoE aux loss summed over the layers in
+    order, float32).  ``remat`` checkpoints each layer: its activations
+    are recomputed on the backward pass (the JAX package checkpoints
+    each scan step, one layer period)."""
+    b, t = x.shape[:2]
+    positions = torch.arange(t, device=x.device)[None].expand(b, t)
+    aux_total = torch.zeros((), device=x.device)
+    for mix, f, p in _iter_layers(cfg, params):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _layer, p, cfg, mix, f, x, positions, impl,
+                use_reentrant=False)
+        else:
+            x, aux = _layer(p, cfg, mix, f, x, positions, impl)
+        aux_total = aux_total + aux
+    return C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps), aux_total
+
+
 def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
                   *, embeds: torch.Tensor | None = None,
                   prefix_embeds: torch.Tensor | None = None,
                   impl: str = "auto") -> torch.Tensor:
     """Run the decoder stack over (B, T) tokens, or the stub front-ends'
     (B, T, d) embeddings, or both (``_embed_inputs``); returns hidden
-    (B, T_total, d)."""
+    (B, T_total, d).  ``loss_fn`` takes the MoE aux loss too."""
     x = _embed_inputs(params, cfg, tokens, embeds, prefix_embeds)
-    b, t = x.shape[:2]
-    positions = torch.arange(t, device=x.device)[None].expand(b, t)
-    for mix, f, p in _iter_layers(cfg, params):
-        h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-        if mix == "mla":
-            y = mla.forward(p["attn"], cfg, h, positions,
-                            precision=cfg.precision,
-                            window=cfg.sliding_window, impl=impl)
-        elif mix == "ssm":
-            y = mamba2.forward(p["attn"], cfg, h, chunk=cfg.ssd_chunk,
-                               precision=cfg.precision, impl=impl)
-        else:
-            y = attn_block.forward(p["attn"], cfg, h, positions,
-                                   precision=cfg.precision, impl=impl)
-        x = _ffn(p, cfg, f, x + y, impl, paged=False)
-    return C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return _stack(params, cfg, x, impl=impl, remat=False)[0]
 
 
 def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
@@ -239,6 +275,70 @@ def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     h = hidden_states(params, cfg, tokens, embeds=embeds,
                       prefix_embeds=prefix_embeds, impl=impl)
     return torch.matmul(h, params["head"]["w"])
+
+
+def head_matrix(params, cfg: ArchConfig) -> torch.Tensor:
+    """The LM head (d, V): tied, ``embed.w.T`` read inside the autograd
+    graph (``params["head"]["w"]`` is a view made before any gradient
+    was asked for); else ``head.w``."""
+    return params["embed"]["w"].t() if cfg.tie_embeddings else \
+        params["head"]["w"]
+
+
+def trainable(params, cfg: ArchConfig) -> dict:
+    """The leaves training updates, the JAX package's tree: the tied
+    head is left out (it is ``embed.w``), so the gradient norm, the
+    weight decay and the checkpoint count the embedding once."""
+    return {k: v for k, v in params.items()
+            if not (k == "head" and cfg.tie_embeddings)}
+
+
+def _chunk_nll(hc, lc, head):
+    """(sum of -log p(label), count) over one chunk's rows, in float32;
+    label -1 is padding."""
+    logits = torch.matmul(hc, head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
+            aux_weight: float = 0.01, remat: bool = False):
+    """Chunked next-token cross entropy plus ``aux_weight`` x the MoE
+    aux loss; returns (loss, {"xent", "aux"}).
+
+    ``batch`` holds ``labels`` (B, T_lab) and the inputs of
+    ``hidden_states``: ``tokens``, ``embeds``, ``prefix_embeds``.  The
+    loss reads the last T_lab positions (a vlm's prefix conditions
+    only); the sequence is padded to a multiple of ``loss_chunk`` with
+    label -1 (masked) and the logits are made one chunk at a time in
+    float32, so (B, T, V) is never built whole (with ``remat`` a chunk's
+    logits are recomputed on the backward pass, not kept)."""
+    x = _embed_inputs(params, cfg, batch.get("tokens"), batch.get("embeds"),
+                      batch.get("prefix_embeds"))
+    h, aux = _stack(params, cfg, x, impl="auto", remat=remat)
+    labels = batch["labels"]
+    t = labels.shape[1]
+    h = h[:, -t:]
+    head = head_matrix(params, cfg)
+    loss_chunk = min(loss_chunk, t)
+    pad = (-t) % loss_chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(0, t + pad, loss_chunk):
+        args = (h[:, i:i + loss_chunk], labels[:, i:i + loss_chunk].long(),
+                head)
+        nll, n = (torch.utils.checkpoint.checkpoint(
+            _chunk_nll, *args, use_reentrant=False) if remat
+            else _chunk_nll(*args))
+        tot = tot + nll
+        cnt = cnt + n
+    loss = tot / cnt.clamp_min(1.0)
+    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

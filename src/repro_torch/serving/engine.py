@@ -140,13 +140,13 @@ class EngineConfig:
         R.get_role(self.role)
 
 
-def _resolve_device(device) -> torch.device:
-    """``None`` means the card; without one the engine refuses to run
-    rather than carry on on the CPU."""
+def _resolve_device(device, what: str = "Engine") -> torch.device:
+    """``None`` means the card; without one ``what`` (the engine, the
+    trainer) refuses to run rather than carry on on the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "Engine: no CUDA device — pass device='cpu' to run the plain "
+            f"{what}: no CUDA device — pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU")
     return dev
 

@@ -385,10 +385,16 @@ def test_cuda_impl_on_cpu_tensor_raises():
 
 
 def test_bnn_train_and_unknown_precision_raise():
+    """bnn_train runs since training was ported (its values against JAX
+    in tests/test_torch_train_core.py): zeros binarize to +1, the SAME
+    padding's zeros too (no border correction, as in the JAX package),
+    so every output is the tap count; an unknown precision or padding
+    raises."""
     x = torch.zeros((1, 4, 4, 2))
     w = torch.zeros((3, 3, 2, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        conv.bnn_conv2d(x, w, precision="bnn_train")
+    y = conv.bnn_conv2d(x, w, precision="bnn_train")
+    assert y.shape == (1, 4, 4, 3)
+    assert torch.equal(y, torch.full_like(y, 3 * 3 * 2))
     with pytest.raises(ValueError):
         conv.bnn_conv2d(x, w, precision="int4")
     with pytest.raises(ValueError, match="padding"):

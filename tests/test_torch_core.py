@@ -57,6 +57,11 @@ def test_import_hygiene_no_jax_no_repro():
         "new = ('dist.fault', 'dist.sharding', 'serving.sharded')\n"
         "print('SLICE13', all('repro_torch.' + m in sys.modules\n"
         "                     for m in new))\n"
+        "new = ('tree', 'optim.optimizer', 'optim.compress',\n"
+        "       'data.pipeline', 'checkpoint.manager', 'launch.steps',\n"
+        "       'launch.train')\n"
+        "print('SLICE14', all('repro_torch.' + m in sys.modules\n"
+        "                     for m in new))\n"
         "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
         "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -71,6 +76,8 @@ def test_import_hygiene_no_jax_no_repro():
     assert "SLICE12 True" in res.stdout, res.stdout
     # the heartbeat monitor, the shards' devices, the sharded engine
     assert "SLICE13 True" in res.stdout, res.stdout
+    # training: the optimizer, compression, data, checkpoints, the CLI
+    assert "SLICE14 True" in res.stdout, res.stdout
     # every config of the registry (11) and base.py: the jamba hybrid,
     # the dense and the front-end configs too
     assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout
