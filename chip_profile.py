@@ -39,11 +39,15 @@ writes the profiler's table there too.
 ``--train`` profiles a training step instead: full-width bnn-lm-100m
 at precision "bnn_train" on ``chip_smoke.py``'s [train] batches (8 x
 256), ``build_train_step`` as ``launch.train`` runs it (microbatches 1,
-remat on).  After 3 warm-up steps it prints ``train_steps`` (10 timed
-steps: host wall per step, each ending in a synchronize; and, timed
-apart, the gradient pass and the AdamW update) and ``device`` over 5
-profiled steps (busy share, top kernels by device time, the host ops
-with the most self time).
+remat on).  After 3 warm-up steps it prints ``train_steps``: in each
+of 3 interleaved rounds, the host's wall per eager launch
+(``chip_smoke.host_launch_us``), the step times ``launch.train``
+records as the smoke's [train] phase reads them (10 steps, a batch built
+and copied in each), 10 steps on 4 prebuilt batches, the batch's build
+and copy alone, the gradient pass and the AdamW update, each call
+ending in a synchronize; then ``device`` over 5 profiled steps (busy
+share, top kernels by device time, the host ops with the most self
+time).
 """
 from __future__ import annotations
 
@@ -237,20 +241,22 @@ def _timed(dev, fn, n: int) -> list[float]:
     return out
 
 
+TRAIN_ROUNDS = 3         # --train: rounds of each timing, interleaved
+TRAIN_LOOP_STEPS = 11    # --train: launch.train steps a round (1 warms up)
+
+
 def _train(dev) -> int:
     """--train (module docstring)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import to_tensors
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.launch.train import train_init
+    from repro_torch.launch.train import adamw_config, train, train_init
     from repro_torch.models import transformer as M
     from repro_torch.optim import optimizer as opt
     cfg, sizes, data = chip_smoke._train_setup(dev, False)
     params = train_init(cfg, dev)
     tree = M.trainable(params, cfg)
-    ocfg = opt.AdamWConfig(lr_peak=sizes["lr"],
-                           warmup_steps=max(sizes["steps"] // 10, 1),
-                           total_steps=sizes["steps"])
+    ocfg = adamw_config(sizes["lr"], sizes["steps"])
     state = [opt.init(ocfg, tree)]
     chunk = min(512, sizes["seq_len"])
     step = steps_mod.build_train_step(cfg, ocfg, microbatches=1,
@@ -261,21 +267,45 @@ def _train(dev) -> int:
     def one():
         _, state[0], m = step(params, state[0], batches[next(it) % 4])
         float(m["loss"])
+
+    def loop():
+        """The smoke's (e) timing: ``launch.train``'s own step times
+        (a batch built and copied each step), the first step left
+        out."""
+        ms: list[float] = []
+        train(chip_smoke.TRAIN_ARCH, steps=TRAIN_LOOP_STEPS,
+              global_batch=sizes["global_batch"], seq_len=sizes["seq_len"],
+              lr=sizes["lr"], precision="bnn_train", device=dev,
+              params=params, log_every=10 ** 6, step_ms=ms)
+        return ms[1:]
+    grads = [None]
+
+    def grad_pass():
+        grads[0] = None                  # one gradient tree alive at a time
+        grads[0] = steps_mod.value_and_grad(params, cfg, batches[0],
+                                            loss_chunk=chunk, remat=True)[2]
     _timed(dev, one, 3)                                          # warm-up
-    step_ms = _timed(dev, one, 10)
-    grads = []
-    grad_ms = _timed(dev, lambda: grads.append(steps_mod.value_and_grad(
-        params, cfg, batches[0], loss_chunk=chunk, remat=True)[2]), 5)
-    update_ms = _timed(dev, lambda: opt.update(ocfg, grads[-1], state[0],
-                                               tree), 5)
+    rounds = []
+    for r in range(TRAIN_ROUNDS):
+        rounds.append({
+            "host_launch_us": chip_smoke.host_launch_us(dev),
+            "train_loop_step_ms": loop(),
+            "prebuilt_step_ms": _timed(dev, one, 10),
+            "batch_build_copy_ms": _timed(
+                dev, lambda: to_tensors(data.batch(next(it)), dev), 10),
+            "grad_pass_ms": _timed(dev, grad_pass, 5),
+            "adamw_update_ms": _timed(dev, lambda: opt.update(
+                ocfg, grads[0], state[0], tree), 5)})
+    grads[0] = None
+    step_ms = [t for r in rounds for t in r["prebuilt_step_ms"]]
     tokens = sizes["global_batch"] * sizes["seq_len"]
     med = float(np.median(step_ms))
     print(json.dumps({"train_steps": {
         "batch": [sizes["global_batch"], sizes["seq_len"]],
-        "step_ms": step_ms, "median_step_ms": med,
-        "tokens_per_s": tokens / med * 1e3,
-        "grad_pass_ms": grad_ms, "adamw_update_ms": update_ms}}),
-        flush=True)
+        "median_step_ms": med, "tokens_per_s": tokens / med * 1e3,
+        "median_train_loop_step_ms": float(np.median(
+            [t for r in rounds for t in r["train_loop_step_ms"]])),
+        "rounds": rounds}}), flush=True)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     torch.cuda.synchronize(dev)
     prof.start()

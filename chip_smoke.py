@@ -163,8 +163,9 @@ Phases (each check raises, and the script then exits non-zero):
               (schedule_total 16 both); (e) launch.train for 60 steps
               (warm-up 6): the mean of the last 5 losses at least 0.05
               nats below the first 5's; prints the curve, the median
-              step ms and training tokens/s, peak device memory, and a
-              checkpoint's bytes and save/restore ms.  (f) the trained
+              step ms as launch.train records it and training tokens/s
+              beside the host's us per tiny launch, peak device memory,
+              and a checkpoint's bytes and save/restore ms.  (f) the trained
               weights served at precision "bnn" (phase 3's engine
               config): 8 prompts of 64-256 tokens from the data stream
               at a step no training run reads, 32 new tokens each,
@@ -2369,20 +2370,30 @@ def _train_setup(dev, smoke: bool):
     return cfg, sizes, data
 
 
-def params_to(params, cfg, dev) -> dict:
-    """A copy of the params on ``dev``, the tied head a view again."""
-    from repro_torch import tree as T
-    from repro_torch.models import transformer as M
-    tree = M.trainable(params, cfg)
-    out = T.map_(lambda t: t.detach().to(dev, copy=True), tree)
-    if cfg.tie_embeddings:
-        out["head"] = {"w": out["embed"]["w"].t()}
-    return out
-
-
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+HOST_PROBE_LAUNCHES = 2000     # tiny launches a run of host_launch_us
+
+
+def host_launch_us(dev) -> float:
+    """The host's wall per eager launch on ``dev``, in us: the median
+    of 5 runs of HOST_PROBE_LAUNCHES in-place multiplies of 8 elements,
+    each run ending in a synchronize.  A host-bound step (thousands of
+    launches) scales with it, so two runs' step times are compared
+    beside it."""
+    x = torch.ones(8, device=dev)
+    runs = []
+    for _ in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(HOST_PROBE_LAUNCHES):
+            x.mul_(1.0)
+        _sync(dev)
+        runs.append((time.perf_counter() - t0) / HOST_PROBE_LAUNCHES * 1e6)
+    return float(np.median(runs))
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2450,9 +2461,10 @@ def train_vs_cpu(dev, cfg, params, batch, loss_chunk) -> None:
     from repro_torch.data.pipeline import to_tensors
     from repro_torch.launch import steps
     from repro_torch.optim.optimizer import global_norm
+    from repro_torch.serving.sharded import params_on
     rows = {k: v[:TRAIN_CPU_ROWS] for k, v in batch.items()}
     b_card, b_cpu = to_tensors(rows, dev), to_tensors(rows, "cpu")
-    cpu_params = params_to(params, cfg, torch.device("cpu"))
+    cpu_params = params_on(params, cfg, torch.device("cpu"), copy=True)
     t0 = time.perf_counter()
     l_card, _, g_card = steps.value_and_grad(params, cfg, b_card,
                                              loss_chunk=loss_chunk,
@@ -2489,15 +2501,15 @@ def train_microbatches(dev, cfg, params, batch, sizes, loss_chunk) -> None:
     from repro_torch import tree as T
     from repro_torch.data.pipeline import to_tensors
     from repro_torch.launch import steps
+    from repro_torch.launch.train import adamw_config
     from repro_torch.models import transformer as M
     from repro_torch.optim import optimizer as opt
-    ocfg = opt.AdamWConfig(lr_peak=sizes["lr"],
-                           warmup_steps=max(sizes["steps"] // 10, 1),
-                           total_steps=sizes["steps"])
+    from repro_torch.serving.sharded import params_on
+    ocfg = adamw_config(sizes["lr"], sizes["steps"])
     tb = to_tensors(batch, dev)
     out = {}
     for mb in (1, 2):
-        p = params_to(params, cfg, dev)
+        p = params_on(params, cfg, dev, copy=True)
         state = opt.init(ocfg, M.trainable(p, cfg))
         _, _, m = steps.build_train_step(cfg, ocfg, microbatches=mb,
                                          loss_chunk=loss_chunk)(p, state, tb)
@@ -2560,25 +2572,17 @@ def train_resume(dev, smoke: bool, sizes, tmp: str) -> None:
 
 def train_learn(dev, cfg, params, sizes, smoke: bool):
     """(e): ``sizes["steps"]`` steps of ``launch.train`` from ``params``
-    (trained in place); returns (losses, step ms, peak bytes)."""
+    (trained in place); returns (losses, each step's ms but the
+    first's, peak bytes)."""
     from repro_torch.launch.train import train
-    step_s = []
-    mark = [0.0]
-
-    def on_step(step, metrics):
-        _sync(dev)
-        now = time.perf_counter()
-        if step:
-            step_s.append(now - mark[0])
-        mark[0] = now
+    step_ms = []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    _sync(dev)
-    mark[0] = time.perf_counter()
-    losses = train(TRAIN_ARCH, smoke=smoke, steps=sizes["steps"], global_batch=sizes["global_batch"],
+    losses = train(TRAIN_ARCH, smoke=smoke, steps=sizes["steps"],
+                   global_batch=sizes["global_batch"],
                    seq_len=sizes["seq_len"], lr=sizes["lr"],
                    precision="bnn_train", device=dev, params=params,
-                   on_step=on_step)
+                   step_ms=step_ms)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     log(f"[train] (e) {len(losses)} steps: loss " + " ".join(
@@ -2589,7 +2593,7 @@ def train_learn(dev, cfg, params, sizes, smoke: bool):
     if not np.isfinite(losses).all() or not last < first - TRAIN_LOSS_DROP:
         raise AssertionError(f"[train] (e): the loss fell {first - last:.4f} "
                              f"nats, less than {TRAIN_LOSS_DROP}")
-    return losses, [s * 1e3 for s in step_s], peak
+    return losses, step_ms[1:], peak        # the first step warms up
 
 
 def train_checkpoint_io(cfg, params, tmp: str) -> dict:
@@ -2684,13 +2688,16 @@ def phase_train(dev, smi: str, smoke: bool = False) -> dict:
         train_microbatches(dev, cfg, params, batch, sizes, loss_chunk)
         train_remat(dev, cfg, params, batch, loss_chunk)
         train_resume(dev, smoke, sizes, tmp)
+        launch_us = host_launch_us(dev)
         losses, step_ms, peak = train_learn(dev, cfg, params, sizes, smoke)
         io = train_checkpoint_io(cfg, params, tmp)
     med = float(np.median(step_ms))
     tokens = sizes["global_batch"] * sizes["seq_len"]
     log(f"[train] step median {med:.2f} ms (min {min(step_ms):.2f}, max "
-        f"{max(step_ms):.2f}) at B {sizes['global_batch']} x T "
-        f"{sizes['seq_len']}, microbatches 1, remat on: "
+        f"{max(step_ms):.2f}; launch.train's step times, a batch built and "
+        f"copied in each, the first step left out) at B "
+        f"{sizes['global_batch']} x T {sizes['seq_len']}, microbatches 1, "
+        f"remat on; the host {launch_us:.2f} us a tiny launch: "
         f"{tokens / med * 1e3:.1f} training tokens/s; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB; checkpoint {io['bytes']} bytes, save "
         f"{io['save_ms']:.1f} ms, restore {io['restore_ms']:.1f} ms; {smi}")

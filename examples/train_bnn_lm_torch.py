@@ -7,11 +7,16 @@ kernels — the flow of examples/train_bnn_lm.py, on the card.
 The data stream has next-token entropy log(8) ~= 2.08 nats (vocab 32k ->
 uniform loss ~10.4), so the loss signal is unambiguous.  ``--smoke``
 trains the reduced config; ``--device cpu`` runs it all on the CPU.
+Checkpoints go to a temporary directory that is removed at the end,
+unless ``--ckpt-dir`` names one to keep (a later run with the same
+``--ckpt-dir`` resumes from its latest checkpoint).
 
 Run (on the card):
   PYTHONPATH=src python examples/train_bnn_lm_torch.py [--steps 300]
 """
 import argparse
+import contextlib
+import tempfile
 
 import torch
 
@@ -26,7 +31,9 @@ def main():
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=256)
-    ap.add_argument("--ckpt-dir", default="/tmp/bnn_lm_torch_ckpt")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="keep checkpoints here and resume from them "
+                         "(default: a temporary directory, removed)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None)
     args = ap.parse_args()
@@ -35,14 +42,20 @@ def main():
     if args.smoke:
         cfg = reduced(cfg)
     params = train_init(cfg, args.device)
-    losses = train(
-        "bnn-lm-100m", smoke=args.smoke, steps=args.steps,
-        global_batch=args.global_batch, seq_len=args.seq_len,
-        microbatches=1, lr=1e-3, ckpt_dir=args.ckpt_dir, ckpt_every=100,
-        device=args.device, params=params,
-    )
-    print(f"\nfirst-10 mean loss: {sum(losses[:10]) / 10:.4f}")
-    print(f"last-10 mean loss:  {sum(losses[-10:]) / 10:.4f}")
+    with (contextlib.nullcontext(args.ckpt_dir) if args.ckpt_dir else
+          tempfile.TemporaryDirectory(prefix="bnn_lm_torch_ckpt_")) as ckpt:
+        losses = train(
+            "bnn-lm-100m", smoke=args.smoke, steps=args.steps,
+            global_batch=args.global_batch, seq_len=args.seq_len,
+            microbatches=1, lr=1e-3, ckpt_dir=ckpt, ckpt_every=100,
+            device=args.device, params=params,
+        )
+    if losses:
+        first, last = losses[:10], losses[-10:]
+        print(f"\nfirst-{len(first)} mean loss: {sum(first) / len(first):.4f}")
+        print(f"last-{len(last)} mean loss:  {sum(last) / len(last):.4f}")
+    else:
+        print(f"\nno step trained: {ckpt} already holds step {args.steps}")
 
     print("\nGreedy decode of the trained weights in packed-XNOR (bnn) "
           "inference mode:")

@@ -154,7 +154,8 @@ class CheckpointManager:
 
     def restore(self, tree_like, step: int | None = None):
         """Restore into the structure of ``tree_like`` (new tensors on
-        its leaves' devices); verifies the digest and the structure."""
+        its leaves' devices); verifies the digest, the structure and every
+        leaf's shape and dtype."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -168,6 +169,12 @@ class CheckpointManager:
         if manifest["treedef"] != T.describe(tree_like):
             raise IOError(f"checkpoint {path} holds another tree")
         like = T.leaves(tree_like)
+        for i, l in enumerate(like):
+            shape, dtype = manifest["shapes"][i], manifest["dtypes"][i]
+            if shape != list(l.shape) or dtype != str(l.dtype):
+                raise IOError(f"checkpoint {path} leaf {i} is {dtype} "
+                              f"{shape}, the tree's is {l.dtype} "
+                              f"{list(l.shape)}")
         with np.load(npz) as data:
             leaves = [_from_numpy(data[f"a{i}"], manifest["dtypes"][i], l)
                       for i, l in enumerate(like)]

@@ -14,7 +14,7 @@ trained in place.  There is no mesh: the option of a later slice
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch bnn-lm-100m \\
-      --steps 50 --ckpt-dir /tmp/ckpt
+      --steps 50 --ckpt-dir checkpoints/bnn-lm-100m
 """
 from __future__ import annotations
 
@@ -43,17 +43,25 @@ def train_init(cfg, device=None, seed: int = 0) -> dict:
                   device=dev)
 
 
+def adamw_config(lr: float, total: int) -> opt_mod.AdamWConfig:
+    """AdamW as ``train`` runs it: peak ``lr``, a linear warm-up over
+    the first tenth of ``total`` steps (at least one), then cosine."""
+    return opt_mod.AdamWConfig(lr_peak=lr, warmup_steps=max(total // 10, 1),
+                               total_steps=total)
+
+
 def train(arch: str, *, smoke: bool = False, multi_pod: bool = False,
           steps: int = 50, global_batch: int = 8, seq_len: int = 128,
           microbatches: int = 1, ckpt_dir: str | None = None,
           ckpt_every: int = 20, lr: float = 3e-4, log_every: int = 10,
           precision: str | None = None, seed: int = 0,
           schedule_total: int | None = None, device=None, params=None,
-          on_step=None) -> list[float]:
+          step_ms: list | None = None) -> list[float]:
     """Train ``arch`` for ``steps`` steps (from the latest checkpoint in
     ``ckpt_dir`` when there is one); returns the losses of the steps
-    run.  ``on_step(step, metrics)``, when given, is called after each
-    step (before its checkpoint)."""
+    run.  A ``step_ms`` list receives each step's wall ms: from the
+    read of the last step's loss to the read of this one's (a read
+    waits for the device), the batch's build and copy included."""
     refuse_later(multi_pod=multi_pod)
     dev = _resolve_device(device, "train")
     cfg = configs.get_config(arch)
@@ -64,9 +72,7 @@ def train(arch: str, *, smoke: bool = False, multi_pod: bool = False,
     if params is None:
         params = train_init(cfg, dev, seed)
     total = schedule_total or steps
-    opt_cfg = opt_mod.AdamWConfig(lr_peak=lr,
-                                  warmup_steps=max(total // 10, 1),
-                                  total_steps=total)
+    opt_cfg = adamw_config(lr, total)
     tree = M.trainable(params, cfg)
     opt_state = opt_mod.init(opt_cfg, tree)
 
@@ -86,15 +92,17 @@ def train(arch: str, *, smoke: bool = False, multi_pod: bool = False,
         print(f"[train] resumed from step {start}")
 
     losses = []
-    t0 = time.time()
+    t0 = mark = time.perf_counter()
     for step in range(start, steps):
         batch = to_tensors(data.batch(step), dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
-        if on_step is not None:
-            on_step(step, metrics)
+        now = time.perf_counter()
+        if step_ms is not None:
+            step_ms.append((now - mark) * 1e3)
+        mark = now
         if step % log_every == 0 or step == steps - 1:
-            dt = time.time() - t0
+            dt = now - t0
             print(f"[train] step={step:5d} loss={losses[-1]:.4f} "
                   f"lr={float(metrics['lr']):.2e} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "

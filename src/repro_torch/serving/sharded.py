@@ -70,20 +70,23 @@ def _exact(dev) -> torch.device:
     return dev
 
 
-def _to(tree, dev):
+def _to(tree, dev, copy: bool = False):
     if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
+        return {k: _to(v, dev, copy) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+        return [_to(v, dev, copy) for v in tree]
+    return tree.to(dev, copy=copy) if isinstance(tree, torch.Tensor) \
+        else tree
 
 
-def params_on(params: dict, cfg, dev: torch.device) -> dict:
-    """``params`` on ``dev``: the same dict when they live there already,
-    else a copy there (a tied head stays a view of the embedding)."""
-    if _exact(params["embed"]["w"].device) == dev:
+def params_on(params: dict, cfg, dev: torch.device, *,
+              copy: bool = False) -> dict:
+    """``params`` on ``dev``: the same dict when they live there already
+    and not ``copy``, else a copy there (a tied head stays a view of
+    the embedding)."""
+    if not copy and _exact(params["embed"]["w"].device) == dev:
         return params
-    out = _to(params, dev)
+    out = _to(params, dev, copy)
     if cfg.tie_embeddings:
         out["head"] = {"w": out["embed"]["w"].t()}
     return out

@@ -35,17 +35,32 @@ def np_(t) -> np.ndarray:
         else np.asarray(t)
 
 
-def assert_leaves_close(got, want, rel: float, what: str = ""):
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """Each leaf's path (``/layers/0/attn/A_log``), in walk order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def assert_leaves_close(got, want, rel: float, what: str = "",
+                        rel_by_name: dict | None = None):
     """Every leaf of ``got`` within ``rel`` x the largest |element| of
-    the same leaf of ``want`` (trees of one structure)."""
+    the same leaf of ``want`` (trees of one structure); a leaf whose
+    name (the last key of its path) is in ``rel_by_name`` within that
+    bound instead."""
     gl, wl = T.leaves(got), T.leaves(want)
     assert len(gl) == len(wl), (len(gl), len(wl))
-    for i, (g, w) in enumerate(zip(gl, wl)):
+    for path, g, w in zip(leaf_paths(got), gl, wl):
         g, w = np_(g), np_(w)
-        assert g.shape == w.shape, (what, i, g.shape, w.shape)
+        assert g.shape == w.shape, (what, path, g.shape, w.shape)
+        bound = (rel_by_name or {}).get(path.rsplit("/", 1)[-1], rel)
         scale = max(float(np.abs(w).max()), 1e-30)
         err = float(np.abs(g - w).max())
-        assert err <= rel * scale, (what, i, w.shape, err, scale)
+        assert err <= bound * scale, (what, path, w.shape, err, scale)
 
 
 def batch_np(vocab: int, b: int, t: int, seed: int) -> dict:
@@ -86,11 +101,12 @@ def family_batch(cfg, b: int = 4, t: int = 24, seed: int = 7) -> dict:
 
 
 FAMILY_GRAD_REL = 1e-5     # each leaf within this x its largest |element|
-# jamba's SSD decay leaves: the JAX package's own jitted and op-by-op
-# gradients of the reduced jamba differ by up to 1.1e-5 of a leaf's
-# largest element (layer 0's A_log; 7.0e-6 with remat on), so 1e-5
-# cannot tell the port from rounding there
-FAMILY_GRAD_REL_ARCH = {"jamba-1.5-large-398b": 5e-5}
+# jamba's SSD decay leaves (A_log) alone: the JAX package's own jitted
+# and op-by-op gradients of the reduced jamba differ by up to 1.3e-5 of
+# the leaf's largest element there (layer 0's A_log), so 1e-5 cannot
+# tell the port from rounding; every other leaf, dt_bias and D
+# included, stays within FAMILY_GRAD_REL
+FAMILY_GRAD_REL_LEAF = {"jamba-1.5-large-398b": {"A_log": 5e-5}}
 FAMILY_CHUNK = 8           # < the label tail: several chunks, one padded
 
 
@@ -122,8 +138,8 @@ def check_family_grads(arch: str, precision: str | None):
     if jcfg.n_experts:
         assert float(m["aux"]) > 0          # the aux term is carried up
     assert ("head" in grads) == (not tcfg.tie_embeddings)
-    assert_leaves_close(grads, to_port(jg, tcfg),
-                        FAMILY_GRAD_REL_ARCH.get(arch, FAMILY_GRAD_REL), arch)
+    assert_leaves_close(grads, to_port(jg, tcfg), FAMILY_GRAD_REL, arch,
+                        FAMILY_GRAD_REL_LEAF.get(arch))
     return tcfg, tp, tb
 
 

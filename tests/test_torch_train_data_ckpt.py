@@ -91,6 +91,21 @@ def test_checkpoint_round_trip_rotation_bf16(tmp_path):
         mgr.restore({"w": torch.zeros(3)})
 
 
+@pytest.mark.parametrize("change", ["shape", "dtype"])
+def test_checkpoint_restore_refuses_other_leaves(tmp_path, change):
+    """A tree of the same structure whose leaf has another shape or
+    dtype (another config) is refused at restore, naming the leaf."""
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, _state(1))
+    bad = _state(0)
+    w = bad[0]["layers"][1]["w"]
+    bad[0]["layers"][1]["w"] = (torch.zeros(9, 8) if change == "shape"
+                                else w.double())
+    assert T.describe(bad) == T.describe(_state(0))
+    with pytest.raises(IOError, match="leaf"):
+        mgr.restore(bad)
+
+
 def test_checkpoint_crash_safety_and_integrity(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=3)
     mgr.save(1, _state(1))

@@ -1,9 +1,9 @@
 """Training of the reduced jamba hybrid (SSD and GQA layers, MoE every
 other layer: the aux term) at its own precision, against the JAX
 package from JAX's weights: ``loss_fn`` (cross entropy, aux, their sum)
-and every leaf's gradient within FAMILY_GRAD_REL_ARCH of the leaf's
-largest element (the reference's own rounding spread on the SSD decay
-leaves); then one port train step with 2 microbatches moves every
+and every leaf's gradient within FAMILY_GRAD_REL of the leaf's largest
+element (FAMILY_GRAD_REL_LEAF on the SSD decay leaves, A_log: the
+reference's own rounding spread there); then one port train step with 2 microbatches moves every
 parameter.  ``bnn_train`` is in test_torch_train_families_hybrid_bnn.py
 (one JAX compile a file)."""
 import torch
