@@ -40,7 +40,12 @@ Phases (each check raises, and the script then exits non-zero):
               them submitted after 10 steps (no prefix cache, recompute
               preemption, as phases 4 and 7 too: their decode replays
               assume no adopted blocks).  The serving kernels'
-              launch counts over this run must be > 0.
+              launch counts over this run must be > 0.  After phase 4,
+              its first 4 prompts again under each mixed pair of impls
+              (attn_impl "torch" with bnn_impl "auto", and the
+              reverse): paged_attention launches 0 with fused_bnn > 0,
+              then the reverse; tokens equal this run's, or part only
+              after a sign flip phase 4's rule accepts (printed).
   4. e2e      two finished requests re-run by two routes, each once
               through the kernels and once through the plain versions,
               each attention and each FFN / MoE sublayer on the kernel
@@ -174,6 +179,21 @@ Phases (each check raises, and the script then exits non-zero):
               re-checks pass; the share of generated tokens that are a
               Markov successor of their predecessor is printed beside
               the untrained init's (information, not a gate).
+  analytic    the analytic model and the dry-run (after [train]), at
+              full-width bnn-lm-100m: (a) FlopCounterMode over one
+              [train] step (bnn_train, 8 x 256, remat, one microbatch)
+              within 15 % of the model's flops_total - 10 params_total
+              (the optimizer's elementwise term); (b) over a bf16
+              prefill of 8 x 256 (the last row's head) within 15 % of
+              flops_fwd; (c) roofline_terms at the H100's data-sheet
+              peaks beside [train]'s median step and phase 3's decode
+              step at B = 8 (timed here): bound, its dominant term,
+              measured / bound, MFU (printed, no gate); (d) the
+              dry-run's per-device parameter bytes on a 1x1 mesh over
+              the card (a one-rank nccl group) within 1 % of the bytes
+              the card's allocations of the same bf16 tree request;
+              (e) the quickstart example's VDP three ways on the card
+              agree, with xnor_popcount launched.
   spec        speculative decoding (spec_k 4, spec_ngram 3) on
               bnn-lm-100m at published width through launch.serve's
               run functions: 16 requests (8 periodic prompts, a seeded
@@ -273,9 +293,10 @@ Phases (each check raises, and the script then exits non-zero):
               skipped prefill tokens > 0 in both.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, serve, tenants, shards, train, conv, spec, mixtral,
-deepseek, mamba2, jamba, each family's speculative run and the defaults
-pairs), error, times and bound; the last line is the run's verdict with the
+on its paths (serving, its two mixed-impl runs, serve, tenants, shards,
+train, analytic, conv, spec, mixtral, deepseek, mamba2, jamba, each
+family's speculative run and the defaults pairs), error, times and
+bound; the last line is the run's verdict with the
 device.
 Imports nothing of JAX or the JAX package.
 """
@@ -1246,6 +1267,65 @@ def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{cfg.name} serving path")
     return eng, params, out, launches, st
+
+
+MIXED_PAIRS = (("torch", "auto"), ("auto", "torch"))   # (attn_impl, bnn_impl)
+MIXED_REQUESTS = 4             # phase 3's first prompts, served again
+
+
+def serving_mixed_pairs(dev, cfg, ecfg, params, out,
+                        max_new: int = 64) -> dict[str, dict]:
+    """Phase 3's first MIXED_REQUESTS prompts served again under each
+    mixed pair of impls: the paged attention's plain version with the
+    BNN GEMM kernels, then the reverse.  The launch counts show the
+    split; the tokens equal phase 3's, or part at a sign flip that
+    phase 4's rule accepts (found by its teacher-forced re-check of the
+    sequence up to the first differing token, and printed).  Returns
+    {path: launches}."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine
+    prompts = traffic(cfg.vocab)[:MIXED_REQUESTS]
+    paths = {}
+    for attn_impl, bnn_impl in MIXED_PAIRS:
+        tag = f"attn_impl={attn_impl} bnn_impl={bnn_impl}"
+        ops.reset_launches()
+        eng = Engine(params, cfg, dataclasses.replace(
+            ecfg, attn_impl=attn_impl, bnn_impl=bnn_impl), device=dev)
+        rids = [eng.submit(pr, max_new) for pr in prompts]
+        got = eng.run()
+        _sync(dev)
+        launches = {k.name: k.launches for k in ops.KERNELS}
+        log(f"[serving] {tag}: {MIXED_REQUESTS} requests, launches "
+            f"{json.dumps(launches)}")
+        kernel, plain = (("fused_bnn", "paged_attention")
+                         if attn_impl == "torch"
+                         else ("paged_attention", "fused_bnn"))
+        if dev.type == "cuda" and not (launches[kernel] > 0
+                                       and launches[plain] == 0):
+            raise AssertionError(f"[serving] {tag}: {kernel} "
+                                 f"{launches[kernel]}, {plain} "
+                                 f"{launches[plain]} launches")
+        for i, rid in enumerate(rids):
+            a, b = got[rid], out[i]
+            if np.array_equal(a, b):
+                continue
+            pos = int(np.nonzero(a != b)[0][0])
+            _l, _p, flips, _w, _kept = _teacher_forced(
+                params, cfg, b[:pos + 1], ecfg.prefill_chunk,
+                ecfg.block_size, 0, dev, f"[serving] {tag} rid {i}",
+                keep_from=pos + 1)
+            if not flips:
+                raise AssertionError(f"[serving] {tag} request {i}: "
+                                     f"tokens part at {pos} with no "
+                                     "accepted sign flip before it")
+            log(f"[serving] {tag} request {i}: tokens part at position "
+                f"{pos} after {flips} accepted sign flips")
+        log(f"[serving] {tag}: tokens checked against phase 3's")
+        paths[f"serving_{'attn' if attn_impl == 'torch' else 'bnn'}"
+              f"_plain"] = launches
+        del eng
+    return paths
 
 
 # --------------------------------------------------------------- phase 4
@@ -2668,10 +2748,12 @@ def train_serve(dev, cfg, params, data, smi: str):
     return launches, shares
 
 
-def phase_train(dev, smi: str, smoke: bool = False) -> dict:
+def phase_train(dev, smi: str, smoke: bool = False,
+                out: dict | None = None) -> dict:
     """The [train] phase (module docstring) on ``dev`` (``smoke``: the
     reduced config and TRAIN_SMOKE, the CPU rehearsal).  Returns the
-    kernel launches of (f)'s serving run of the trained weights."""
+    kernel launches of (f)'s serving run of the trained weights;
+    ``out``, when a dict, receives the median step ms ("step_ms")."""
     import tempfile
     t0 = time.perf_counter()
     cfg, sizes, data = _train_setup(dev, smoke)
@@ -2692,6 +2774,8 @@ def phase_train(dev, smi: str, smoke: bool = False) -> dict:
         losses, step_ms, peak = train_learn(dev, cfg, params, sizes, smoke)
         io = train_checkpoint_io(cfg, params, tmp)
     med = float(np.median(step_ms))
+    if out is not None:
+        out["step_ms"] = med
     tokens = sizes["global_batch"] * sizes["seq_len"]
     log(f"[train] step median {med:.2f} ms (min {min(step_ms):.2f}, max "
         f"{max(step_ms):.2f}; launch.train's step times, a batch built and "
@@ -2705,6 +2789,258 @@ def phase_train(dev, smi: str, smoke: bool = False) -> dict:
     log(f"[train] launches {json.dumps(launches)}; phase "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------- [analytic]
+# the analytic model (launch/analytic.py) and the dry-run (launch/
+# dryrun.py) at full-width bnn-lm-100m, after [train]
+
+ANALYTIC_FLOPS_REL = 0.15      # (a), (b): FlopCounterMode vs the model
+ANALYTIC_BYTES_REL = 0.01      # (d): the dry-run's bytes vs the allocator's
+ANALYTIC_DECODE_B = 8          # (c): phase 3's decode batch
+ANALYTIC_DECODE_PAST = 32      # (c): tokens decoded past each prompt
+ANALYTIC_DECODE_STEPS = 20     # (c): timed decode steps
+
+
+def counted_flops(fn) -> int:
+    """The FLOPs ``torch.utils.flop_counter`` counts over ``fn()`` (its
+    matmuls, convolutions and attention calls; elementwise work is not
+    counted, nor is it in the analytic model)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return fc.get_total_flops()
+
+
+def _flops_gate(tag: str, measured: float, model: float, what: str):
+    rel = measured / model - 1.0
+    log(f"[analytic] {tag} FlopCounterMode {measured:.6e} FLOP, the "
+        f"analytic model's {what} {model:.6e}: {rel:+.4f} relative (gate "
+        f"{ANALYTIC_FLOPS_REL})")
+    if not abs(rel) <= ANALYTIC_FLOPS_REL:
+        raise AssertionError(f"[analytic] {tag}: counted FLOPs differ from "
+                             f"the model by {rel:+.4f}")
+
+
+def analytic_train_flops(dev, smoke: bool):
+    """(a): one [train] step (bnn_train, its batch, one microbatch, remat
+    on) counted against ``flops_total - 10 params_total`` (the model's
+    optimizer term is elementwise work the counter does not see).
+    Returns (cfg, cell, the model)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.launch import analytic, steps
+    from repro_torch.launch.train import adamw_config, train_init
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import optimizer as opt_mod
+    cfg, sizes, data = _train_setup(dev, smoke)
+    seq, b = sizes["seq_len"], sizes["global_batch"]
+    params = train_init(cfg, dev)
+    opt_cfg = adamw_config(sizes["lr"], sizes["steps"])
+    state = opt_mod.init(opt_cfg, M.trainable(params, cfg))
+    step = steps.build_train_step(cfg, opt_cfg, microbatches=1,
+                                  loss_chunk=min(512, seq))
+    batch = to_tensors(data.batch(0), dev)
+    measured = counted_flops(lambda: step(params, state, batch))
+    _sync(dev)
+    cell = ShapeCell("train_step", seq, b, "train")
+    cm = analytic.cell_model(cfg, cell, microbatches=1, remat=True)
+    head = 2.0 * b * seq * cfg.d_model * cfg.vocab
+    log(f"[analytic] (a) {cfg.name} {cfg.precision} train step B {b} x T "
+        f"{seq}: the model's flops_fwd {cm.flops_fwd:.6e} (the tied head "
+        f"{head:.6e}), flops_total {cm.flops_total:.6e}, params_total "
+        f"{cm.params_total:.0f}, model_flops {cm.model_flops:.6e}")
+    _flops_gate("(a) train step", measured,
+                cm.flops_total - 10.0 * cm.params_total,
+                "flops_total - 10 params_total")
+    del params, state, batch
+    return cfg, cell, cm
+
+
+def analytic_prefill_flops(dev, smoke: bool) -> None:
+    """(b): a bf16 prefill of the [train] batch's shape (hidden_states,
+    then the last row's head) counted against ``flops_fwd``."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import analytic
+    from repro_torch.launch.train import train_init
+    from repro_torch.models import transformer as M
+    cfg, sizes, data = _train_setup(dev, smoke)
+    cfg = cfg.replace(precision="bf16")
+    seq, b = sizes["seq_len"], sizes["global_batch"]
+    params = train_init(cfg, dev)
+    tokens = torch.from_numpy(data.batch(0)["tokens"]).long().to(dev)
+
+    def prefill():
+        with torch.no_grad():
+            h = M.hidden_states(params, cfg, tokens)
+            return torch.matmul(h[:, -1], params["head"]["w"])
+    measured = counted_flops(prefill)
+    _sync(dev)
+    cm = analytic.cell_model(cfg, ShapeCell("prefill_step", seq, b,
+                                            "prefill"))
+    _flops_gate(f"(b) bf16 prefill B {b} x T {seq}", measured,
+                cm.flops_fwd, "flops_fwd")
+
+
+def analytic_decode_step(dev, smoke: bool) -> tuple[float, float, object]:
+    """(c), the decode half: phase 3's decode step (its engine config,
+    the serving closure of ``roles.build_step_fns``, greedy) at B = 8,
+    each row at one of phase 3's first prompts' lengths plus
+    ANALYTIC_DECODE_PAST; the median of ANALYTIC_DECODE_STEPS timed
+    steps, each ending in a synchronize.  Returns (ms, the rows' mean
+    length, the config)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import transformer as M
+    from repro_torch.serving.roles import build_step_fns
+    cfg = configs.get_config(TRAIN_ARCH)
+    if smoke:
+        cfg = reduced(cfg)
+    cfg = cfg.replace(precision="bnn")
+    b, bs = ANALYTIC_DECODE_B, SERVE_ENGINE["block_size"]
+    lens = [len(p) + ANALYTIC_DECODE_PAST
+            for p in traffic(cfg.vocab)[:b]]
+    per_row = -(-(max(lens) + 1) // bs)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(gen, cfg, device=dev)
+    pools = M.init_paged_state(cfg, b * per_row + 1, bs, device=dev)
+    table = (1 + torch.arange(b * per_row, dtype=torch.int32,
+                              device=dev)).reshape(b, per_row)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev)
+    decode = build_step_fns(cfg).decode
+    runs = []
+    for i in range(ANALYTIC_DECODE_STEPS + 2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        decode(params, pools, tokens, table, lengths, active, None)
+        _sync(dev)
+        if i >= 2:                     # two warm-up steps
+            runs.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(runs)), float(np.mean(lens)), cfg
+
+
+def _roofline_line(tag: str, cm, measured_ms: float) -> dict:
+    from repro_torch.launch import analytic
+    terms = analytic.roofline_terms(cm, 0.0, 1)
+    bound_ms = terms["step_s_bound"] * 1e3
+    mfu = cm.model_flops / (measured_ms * 1e-3 * analytic.PEAK_FLOPS)
+    log(f"[analytic] (c) {tag}: measured {measured_ms:.3f} ms, the "
+        f"roofline bound {bound_ms:.4f} ms ({terms['dominant']}: compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms at the data-sheet "
+        f"{analytic.PEAK_FLOPS:.4g} FLOP/s, {analytic.HBM_BW:.4g} B/s), "
+        f"measured / bound {measured_ms / bound_ms:.2f}; model FLOPs "
+        f"{cm.model_flops:.6e}: MFU {mfu:.5f}")
+    return terms
+
+
+def analytic_dryrun_bytes(dev) -> None:
+    """(d): the dry-run's per-device parameter bytes of full-width
+    bnn-lm-100m on ``smoke_mesh`` over ``dev`` against the bytes the
+    card's allocations of the same tree at bf16 request (the caching
+    allocator's rounded block bytes printed beside them)."""
+    from repro_torch import tree as T
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import smoke_mesh
+    with smoke_mesh(dev) as mesh:
+        res = dryrun.run_cell(TRAIN_ARCH, "train_4k", False, mesh=mesh)
+    want = res["memory"]["params_bytes"]
+    params, _specs = dryrun.param_tree(dryrun.configs.get_config(TRAIN_ARCH))
+    leaves = T.leaves(params)
+    if dev.type != "cuda":
+        log(f"[analytic] (d) dry-run params {want} bytes on the 1x1 mesh "
+            f"({len(leaves)} leaves; no allocator on {dev.type})")
+        return
+    def stat(name):
+        return torch.cuda.memory_stats(dev)[f"{name}_bytes.all.current"]
+    _sync(dev)
+    before = {k: stat(k) for k in ("requested", "allocated")}
+    held = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x in leaves]
+    got = {k: stat(k) - v for k, v in before.items()}
+    del held
+    rel = got["requested"] / want - 1.0
+    log(f"[analytic] (d) dry-run params {want} bytes per device on the "
+        f"1x1 mesh over {dev}; the card's allocations of the same "
+        f"{len(leaves)} bf16 leaves: {got['requested']} bytes requested, "
+        f"{rel:+.5f} relative (gate {ANALYTIC_BYTES_REL}); "
+        f"{got['allocated']} in the allocator's blocks "
+        f"({got['allocated'] / want - 1.0:+.5f}: its rounding and the "
+        "segment tails it does not split off); the cell's arguments "
+        f"{res['memory']['argument_size_in_bytes']} bytes")
+    if not abs(rel) <= ANALYTIC_BYTES_REL:
+        raise AssertionError(f"[analytic] (d): {got['requested']} bytes "
+                             f"allocated vs the dry-run's {want}")
+
+
+def analytic_quickstart(dev) -> None:
+    """(e): the quickstart's VDP three ways on ``dev``; the packed
+    XNOR-popcount kernel must launch there."""
+    import runpy
+    from repro_torch.kernels import ops
+    qs = runpy.run_path(str(Path(__file__).resolve().parent / "examples" /
+                            "quickstart_torch.py"), run_name="example")
+    before = {k.name: k.launches for k in ops.KERNELS}
+    z_optical, z_kernel, z_direct, act = qs["vdp_three_ways"](dev)
+    n = {k.name: k.launches - before[k.name] for k in ops.KERNELS}
+    log(f"[analytic] (e) quickstart VDP on {dev.type}: optical(PCA) "
+        f"{z_optical}, kernel {z_kernel}, direct {z_direct}, comparator "
+        f"{act}; xnor_popcount launches {n['xnor_popcount']}")
+    if not z_optical == z_kernel == z_direct:
+        raise AssertionError("[analytic] (e): the three VDP results differ")
+    if dev.type == "cuda" and n["xnor_popcount"] <= 0:
+        raise AssertionError("[analytic] (e): xnor_popcount did not launch")
+
+
+def phase_analytic(dev, smi: str, train_step_ms: float | None = None,
+                   smoke: bool = False) -> dict:
+    """The [analytic] phase (module docstring); ``train_step_ms`` is
+    [train]'s median step (measured here when not given).  Returns the
+    kernel launches of the phase's runs."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    log(f"[analytic] the analytic model and the dry-run at "
+        f"{'reduced' if smoke else 'full-width'} {TRAIN_ARCH}; {smi}")
+    ops.reset_launches()
+    _cfg, _cell, cm_train = analytic_train_flops(dev, smoke)
+    gc.collect()
+    analytic_prefill_flops(dev, smoke)
+    gc.collect()
+    if train_step_ms is None:
+        train_step_ms = train_step_time(dev, smoke)
+    _roofline_line("the [train] step (its median)", cm_train, train_step_ms)
+    dec_ms, mean_len, dcfg = analytic_decode_step(dev, smoke)
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import analytic
+    cm_dec = analytic.cell_model(dcfg, ShapeCell(
+        "decode_step", round(mean_len), ANALYTIC_DECODE_B, "decode"))
+    _roofline_line(f"phase 3's decode step at B {ANALYTIC_DECODE_B}, mean "
+                   f"length {mean_len:.1f} (the model's bytes take bf16 "
+                   "weights; the served weights are float32 and packed)",
+                   cm_dec, dec_ms)
+    gc.collect()
+    analytic_dryrun_bytes(dev)
+    analytic_quickstart(dev)
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    log(f"[analytic] launches {json.dumps(launches)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("fused_bnn", "paged_attention", "xnor_popcount"):
+        if dev.type == "cuda" and launches[name] <= 0:
+            raise AssertionError(f"[analytic]: {name} did not launch")
+    return launches
+
+
+def train_step_time(dev, smoke: bool) -> float:
+    """The median of a few ``launch.train`` steps' ms (the first left
+    out), when [train] did not hand over its own."""
+    from repro_torch.launch.train import train
+    cfg, sizes, _data = _train_setup(dev, smoke)
+    step_ms: list = []
+    train(TRAIN_ARCH, smoke=smoke, steps=6, global_batch=sizes["global_batch"],
+          seq_len=sizes["seq_len"], lr=sizes["lr"], precision="bnn_train",
+          device=dev, step_ms=step_ms)
+    return float(np.median(step_ms[1:]))
 
 
 # ------------------------------------------- [shards]: worker roles and
@@ -4220,6 +4556,7 @@ def main() -> int:
                         prefill_chunk=128, max_model_len=1024, **NO_PREFIX)
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
+    mixed_launches = serving_mixed_pairs(dev, cfg, ecfg, params, out)
     del eng, params, out
     kept = {}
     serve_launches, out_a = phase_serve(dev, smi, keep=kept)
@@ -4228,7 +4565,10 @@ def main() -> int:
                                             want_sampled=kept.pop("C"))
     del out_a
     gc.collect()
-    train_launches = phase_train(dev, smi)
+    train_out: dict = {}
+    train_launches = phase_train(dev, smi, out=train_out)
+    gc.collect()
+    analytic_launches = phase_analytic(dev, smi, train_out["step_ms"])
     gc.collect()
     conv_rows, conv_launches = phase_conv(dev)
     phase_photonic(st)
@@ -4254,7 +4594,8 @@ def main() -> int:
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "serve": serve_launches,
              "tenants": tenants_launches, "shards": shards_launches,
-             "train": train_launches,
+             "train": train_launches, "analytic": analytic_launches,
+             **mixed_launches,
              "conv": conv_launches,
              "spec": spec_launches, **families}
     kernels = []

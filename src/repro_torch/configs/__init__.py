@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, reduced  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES, ArchConfig, ShapeCell, cells_for, reduced)
 
 _REGISTRY = {
     "llama3.2-3b": "llama3_2_3b",
@@ -26,6 +27,10 @@ _REGISTRY = {
     "pixtral-12b": "pixtral_12b",
     "bnn-lm-100m": "bnn_lm_100m",
 }
+
+# the assigned architectures (the dry-run's and the analytic model's
+# sweep); the paper-native BNN LM is the examples' and the smoke's
+ARCH_IDS = [k for k in _REGISTRY if k != "bnn-lm-100m"]
 
 
 def get_config(name: str) -> ArchConfig:

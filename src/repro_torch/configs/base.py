@@ -1,10 +1,12 @@
-"""Architecture configuration schema.
+"""Architecture configuration schema + input-shape cells.
 
 One ``ArchConfig`` per architecture lives in
 ``repro_torch/configs/<id>.py``; ``repro_torch.configs.get_config(name)``
 resolves them.  A field-for-field copy of the JAX package's schema, so
 a config compares equal across the two packages.  ``reduced()``
-derives the small smoke-test variant of the same family.
+derives the small smoke-test variant of the same family.  The shape
+cells (``SHAPES``, ``cells_for``) are the ones the analytic model and
+the dry-run sweep.
 """
 from __future__ import annotations
 
@@ -74,8 +76,44 @@ class ArchConfig:
     kv_chunk: int = 1024
     ssd_chunk: int = 256
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k cell: an SSM or hybrid mixer, or
+        a sliding window."""
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str       # train|prefill|decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cells_for(cfg: ArchConfig) -> list[ShapeCell]:
+    """The shape cells that run for this arch (long_500k only if
+    sub-quadratic)."""
+    cells = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.sub_quadratic:
+        cells.append(SHAPES["long_500k"])
+    return cells
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

@@ -1,3 +1,3 @@
 """Placement across devices: the heartbeat monitor and re-mesh plan
-(``fault``) and the per-shard device list of sharded serving
-(``sharding``)."""
+(``fault``), the logical-axis rules and placement plans, and the
+per-shard device list of sharded serving (``sharding``)."""

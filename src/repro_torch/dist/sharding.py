@@ -1,15 +1,137 @@
-"""Devices of the data-axis serving shards.
+"""Logical-axis sharding rules, tree-wide placement plans, and the
+devices of the data-axis serving shards.
 
-The counterpart of the JAX package's ``repro.dist.sharding.shard_meshes``
-(its logical-axis rules and meshes are ROADMAP.md queue 1, item 10, and
-not ported): each shard of a ``ShardedEngine`` gets one device.  A shard
-is an isolation domain first (its own ``Engine``: pools, block tables,
-prefix and snapshot indexes) and hardware second, so with fewer devices
-than shards the list is tiled and several shards share a device, as in
-the JAX package's single-device tests."""
+A rule set maps LOGICAL axis names (the tuples of the param and cache
+spec trees, ``models/transformer.param_specs`` / ``cache_specs``) to
+mesh axes.  One rule set serves every arch; per-tensor robustness
+(dedup, divisibility) lives in ``layers.common.logical_to_pspec``.
+A resolved spec becomes DTensor placements (``Shard(dim)`` /
+``Replicate()`` per mesh dim, ``layers.common.to_placements``) over a
+``DeviceMesh`` (``launch/mesh.py``).  The rules and resolution are the
+JAX package's ``repro.dist.sharding``; nothing here runs a forward on
+several ranks (the dry-run places ``meta`` tensors only).
+
+Mesh axes: ("data", "model") single-pod, ("pod", "data", "model")
+multi-pod (see launch/mesh.py).
+
+``shard_devices`` is the counterpart of the JAX package's
+``shard_meshes``: each shard of a ``ShardedEngine`` gets one device.  A
+shard is an isolation domain first (its own ``Engine``: pools, block
+tables, prefix and snapshot indexes) and hardware second, so with fewer
+devices than shards the list is tiled and several shards share a
+device, as in the JAX package's single-device tests."""
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+
+from repro_torch.layers.common import logical_to_pspec, to_placements
+
+
+def _dp(multi_pod: bool):
+    """The data-parallel submesh (batch axis)."""
+    return ("pod", "data") if multi_pod else "data"
+
+
+def _base_rules(multi_pod: bool) -> dict[str, Any]:
+    return {
+        # activations
+        "batch": _dp(multi_pod),
+        "heads_dim": "model",
+        "kv_heads_dim": "model",
+        "head_dim": "model",     # fallback when head count won't divide
+        # params
+        "heads": "model",
+        "kv_heads": "model",
+        "mlp": "model",
+        "experts": "model",
+        "vocab": "model",
+        "kv_lora": "model",
+        "q_lora": "model",
+        "ssm_heads": "model",
+        "ssm_inner": "model",
+        # the JAX package's scan-stacked layer axis (never sharded; the
+        # port keeps one dict per layer and has no such axis)
+        "layers": None,
+    }
+
+
+def rules_train(multi_pod: bool, fsdp: bool = False) -> dict[str, Any]:
+    """Training rules: TP over 'model'; FSDP additionally shards the
+    embed dim of params over the data axis (gathered per layer)."""
+    r = _base_rules(multi_pod)
+    r["embed"] = _dp(multi_pod) if fsdp else None
+    return r
+
+
+def rules_decode(multi_pod: bool) -> dict[str, Any]:
+    """Decode rules: replicated embed (the latency path re-gathers
+    nothing), batch over data, TP over model."""
+    r = _base_rules(multi_pod)
+    r["embed"] = None
+    return r
+
+
+def is_axes(x) -> bool:
+    """A spec tree's leaf: a tuple of logical axis names (or None)."""
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def map_specs(fn, specs, *trees):
+    """``fn(axes, *leaves)`` at every leaf of the spec tree ``specs``,
+    with the leaves of ``trees`` at the same keys (trees shaped as
+    ``specs``: the params' ``trainable`` tree, the caches)."""
+    if is_axes(specs):
+        return fn(specs, *trees)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v, *(t[k] for t in trees))
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [map_specs(fn, v, *(t[i] for t in trees))
+                for i, v in enumerate(specs)]
+    raise TypeError(f"not a spec tree: {type(specs)}")
+
+
+def param_pspecs(mesh, shapes, specs, rules: dict[str, Any]):
+    """A partition-spec tuple per leaf (``logical_to_pspec``), shaped as
+    ``specs``; ``shapes`` mirrors it with tensors (``meta`` ones in the
+    dry-run)."""
+    return map_specs(lambda axes, s: logical_to_pspec(
+        tuple(axes), rules, tuple(s.shape), mesh), specs, shapes)
+
+
+def param_shardings(mesh, shapes, specs, rules: dict[str, Any]):
+    """DTensor placements per leaf over the ``DeviceMesh`` ``mesh``,
+    shaped as ``specs``."""
+    return map_specs(lambda axes, s: to_placements(logical_to_pspec(
+        tuple(axes), rules, tuple(s.shape), mesh), mesh), specs, shapes)
+
+
+def batch_axes(ndim: int) -> tuple:
+    """A batch leaf's logical axes: "batch" on its leading dim (a 0-dim
+    leaf, the decode step's scalar length, is replicated)."""
+    return (("batch",) + (None,) * ndim)[:ndim]
+
+
+def batch_pspecs(mesh, bspec: dict, rules: dict[str, Any]) -> dict:
+    """A partition-spec tuple per batch leaf: sharded along its leading
+    (batch) dim."""
+    return {k: logical_to_pspec(batch_axes(v.ndim), rules, tuple(v.shape),
+                                mesh) for k, v in bspec.items()}
+
+
+def batch_shardings(mesh, bspec: dict, rules: dict[str, Any]) -> dict:
+    """DTensor placements per batch leaf (``batch_pspecs``)."""
+    return {k: to_placements(s, mesh)
+            for k, s in batch_pspecs(mesh, bspec, rules).items()}
+
+
+def replicated(mesh) -> list:
+    """Placements of a leaf held whole on every device."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * mesh.ndim
 
 
 def shard_devices(n_shards: int, *, devices=None) -> list[torch.device]:

@@ -36,7 +36,8 @@ then writes ``PATH.shard{i}.jsonl`` per shard.
 
 It runs on the card; ``--device cpu`` is the only way to run it on the
 CPU (the plain PyTorch versions of the kernels).  The option of a later
-slice (multi-pod meshes) raises and names its ROADMAP.md item.
+slice (``--multi-pod``: a forward over several ranks) raises and names
+its ROADMAP.md item.
 
 Setup and run are split (``setup``, ``make_prompts``, ``run``,
 ``run_stream``, ``run_legacy``): ``serve``/``serve_legacy`` take
@@ -69,7 +70,7 @@ from repro_torch.serving.sampling import categorical
 # options of the JAX CLI that later slices bring: argument -> (its
 # default, the ROADMAP.md item that brings it)
 LATER = {
-    "multi_pod": (False, "queue 1, item 10"),
+    "multi_pod": (False, "queue 1, item 11"),
 }
 
 
@@ -508,7 +509,8 @@ def main(argv=None):
                          "PyTorch version, or auto (by device)")
     ap.add_argument("--bnn-impl", default="auto",
                     choices=["auto", "cuda", "torch"],
-                    help="packed BNN GEMM, as --attn-impl (must equal it)")
+                    help="packed BNN GEMM, as --attn-impl (each resolved "
+                         "on its own)")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain "
                          "versions on the CPU")

@@ -1,8 +1,9 @@
 """The train step: microbatched gradient accumulation, then the AdamW
-update — the JAX package's ``repro.launch.steps.build_train_step``.
-
-Its dry-run parts (``input_specs``, the prefill and decode steps) wait
-for the mesh (ROADMAP.md queue 1, item 10).
+update — the JAX package's ``repro.launch.steps.build_train_step`` —
+and the abstract inputs of one shape cell (``input_specs``,
+``cache_specs_abstract``, ``to_dtype_structs``): ``meta`` tensors, the
+counterpart of the JAX package's ``ShapeDtypeStruct`` stand-ins, which
+the dry-run places on a mesh.
 """
 from __future__ import annotations
 
@@ -11,9 +12,58 @@ import contextlib
 import torch
 
 from repro_torch import tree as T
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import transformer as M
 from repro_torch.optim import optimizer as opt_mod
+
+
+# ---------------------------------------------------------------------------
+# abstract input specs (meta tensors; no allocation)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell, *,
+                compute_dtype=torch.bfloat16) -> dict:
+    """The batch of one shape cell as ``meta`` tensors: tokens (the
+    audio front-end's frame embeddings, the vlm front-end's patch
+    prefix beside the tokens) and, for training, the labels; a decode
+    cell takes one new token a row and the cache fill."""
+    b, t = cell.global_batch, cell.seq_len
+    i32 = torch.int32
+    if cell.kind in ("train", "prefill"):
+        batch: dict = {}
+        if cfg.frontend == "audio":
+            batch["embeds"] = _meta((b, t, cfg.d_model), compute_dtype)
+        elif cfg.frontend == "vlm":
+            p = cfg.frontend_prefix
+            batch["prefix_embeds"] = _meta((b, p, cfg.d_model), compute_dtype)
+            batch["tokens"] = _meta((b, t - p), i32)
+        else:
+            batch["tokens"] = _meta((b, t), i32)
+        if cell.kind == "train":
+            t_lab = t - cfg.frontend_prefix if cfg.frontend == "vlm" else t
+            batch["labels"] = _meta((b, t_lab), i32)
+        return batch
+    # decode: one new token against a full cache of length seq_len
+    return {"tokens": _meta((b, 1), i32), "length": _meta((), i32)}
+
+
+def cache_specs_abstract(cfg: ArchConfig, cell: ShapeCell,
+                         compute_dtype=torch.bfloat16) -> list[dict]:
+    """The legacy decode caches of a decode cell (``M.init_cache``) as
+    ``meta`` tensors."""
+    return M.init_cache(cfg, cell.global_batch, cell.seq_len, compute_dtype,
+                        device="meta")
+
+
+def to_dtype_structs(tree, dtype=torch.bfloat16):
+    """Re-type the float leaves of a tree to ``dtype`` as ``meta``
+    tensors (the dry-run's bf16 params); other leaves keep theirs."""
+    return T.map_(lambda s: _meta(s.shape, dtype if s.is_floating_point()
+                                  else s.dtype), tree)
 
 
 @contextlib.contextmanager

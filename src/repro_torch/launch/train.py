@@ -9,8 +9,9 @@ Resume-from-latest is automatic when ``--ckpt-dir`` holds a committed
 checkpoint.  The parameters start from the port's own torch init
 (``M.init`` from a generator seeded ``seed``), or from ``params``
 (tests hand over weights carried across from the JAX package); they are
-trained in place.  There is no mesh: the option of a later slice
-(``--multi-pod``) raises and names its ROADMAP.md item.
+trained in place.  The step runs on one device: the option of a later
+slice (``--multi-pod``, a forward over several ranks) raises and names
+its ROADMAP.md item.
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch bnn-lm-100m \\

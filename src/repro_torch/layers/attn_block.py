@@ -24,6 +24,20 @@ def init(gen: torch.Generator, cfg, dtype=torch.float32, device=None) -> dict:
     }
 
 
+def specs(cfg) -> dict:
+    """Logical axes of ``init``'s leaves."""
+    return {"q": C.dense_specs(("embed", "heads"), cfg.qkv_bias),
+            "k": C.dense_specs(("embed", "kv_heads"), cfg.qkv_bias),
+            "v": C.dense_specs(("embed", "kv_heads"), cfg.qkv_bias),
+            "o": C.dense_specs(("heads", "embed"))}
+
+
+def cache_specs() -> dict:
+    """Logical axes of ``init_cache``'s (B, L, Hkv, Dh) K and V."""
+    axes = ("batch", None, "kv_heads_dim", "head_dim")
+    return {"k": axes, "v": axes}
+
+
 def _qkv(params, cfg, x, positions, precision, impl, taps=None):
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -165,6 +179,7 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
                       precision: str = "bf16",
                       active: torch.Tensor | None = None,
                       ring: bool = False, impl: str = "auto",
+                      attn_impl: str | None = None,
                       taps: list | None = None) -> tuple[torch.Tensor, dict]:
     """One-token decode against the paged pool with PER-ROW lengths.
 
@@ -172,7 +187,8 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     current per-sequence cache fill; active (B,) bool masks padded batch
     slots; ring=True treats the table as a sliding-window ring.  The
     pools in ``cache`` are updated in place.  ``taps`` as in
-    ``prefill_chunk``.
+    ``prefill_chunk``.  The paged attention resolves ``attn_impl``
+    (``None``: the projections' ``impl``), the BNN projections ``impl``.
     """
     b = x.shape[0]
     positions = lengths[:, None].long()                          # (B, 1)
@@ -182,7 +198,8 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     scatter_blocks(cache["k"], block_table, positions, k, valid, ring=ring)
     scatter_blocks(cache["v"], block_table, positions, v, valid, ring=ring)
     o = _paged_attend(cfg, q, cache, block_table, lengths, lengths + 1,
-                      lengths, ring, causal=False, impl=impl)
+                      lengths, ring, causal=False,
+                      impl=attn_impl or impl)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return C.dense(o, params["o"], precision, impl, taps, "o"), cache
 
@@ -191,6 +208,7 @@ def prefill_chunk(params, cfg, x: torch.Tensor, cache,
                   block_table: torch.Tensor, lengths: torch.Tensor,
                   n_valid: torch.Tensor, *, precision: str = "bf16",
                   ring: bool = False, impl: str = "auto",
+                  attn_impl: str | None = None,
                   taps: list | None = None) -> tuple[torch.Tensor, dict]:
     """Chunked prefill: C tokens per row appended at per-row offsets.
 
@@ -210,6 +228,6 @@ def prefill_chunk(params, cfg, x: torch.Tensor, cache,
     scatter_blocks(cache["v"], block_table, positions, v, valid, ring=ring)
     o = _paged_attend(cfg, q, cache, block_table, lengths,
                       lengths + n_valid, lengths + n_valid - 1, ring,
-                      causal=True, impl=impl)
+                      causal=True, impl=attn_impl or impl)
     o = o.reshape(b, ch, cfg.n_heads * cfg.head_dim)
     return C.dense(o, params["o"], precision, impl, taps, "o"), cache

@@ -1,17 +1,92 @@
 """Shared model substrate: norms, rotary embeddings, dense projections,
-parameter initialization.
+parameter initialization, logical sharding axes.
 
 Parameter trees are plain nested dicts of tensors, keyed as in the JAX
 package.  Init functions draw from an explicit ``torch.Generator`` and
-return the params only (the JAX package's logical-sharding specs and
-activation constraints have no counterpart in the one-card port).
+return the params; beside each, a ``*_specs`` function returns the
+same tree with a tuple of LOGICAL axis names per leaf (the JAX
+package's init returns both).  ``logical_to_pspec`` resolves such a
+tuple to mesh axes under a rule set (``dist/sharding.py``), and
+``to_placements`` turns the result into DTensor placements.  The JAX
+package's activation constraints (``lsc`` and its sharding context)
+wait for a forward that runs on several ranks.
 """
 from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+
+# ---------------------------------------------------------------------------
+# logical sharding axes
+
+
+def mesh_axes(mesh) -> Mapping[str, int]:
+    """Axis name -> size of ``mesh``: a ``DeviceMesh`` (names and shape
+    zipped), or any object whose ``.shape`` is already such a mapping
+    (a JAX mesh, a test's stand-in)."""
+    if isinstance(mesh.shape, Mapping):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))
+
+
+def logical_to_pspec(axes: tuple[str | None, ...], rules: dict[str, Any],
+                     shape: tuple[int, ...] | None = None, mesh=None
+                     ) -> tuple:
+    """Resolve logical axis names to a partition spec: per tensor dim a
+    mesh-axis name, a tuple of them, or None (the JAX package's
+    ``PartitionSpec`` entries, as a plain tuple).
+
+    Robustness rules (one rule set serves every arch), as in the JAX
+    package:
+      * dedup: a mesh axis may appear only once per spec (first wins);
+      * divisibility: when ``shape`` and ``mesh`` are given, a mesh axis
+        is dropped if it does not divide the dim (e.g. 24 heads on a
+        16-way 'model' axis, 8 Mixtral experts on 16-way EP).
+    """
+    sizes = mesh_axes(mesh) if mesh is not None else None
+    used: set = set()
+    out = []
+    for i, a in enumerate(axes):
+        mx = rules.get(a) if a else None
+        if mx is None:
+            out.append(None)
+            continue
+        parts = mx if isinstance(mx, tuple) else (mx,)
+        parts = tuple(p for p in parts if p not in used)
+        if not parts:
+            out.append(None)
+            continue
+        if shape is not None and sizes is not None:
+            size = 1
+            for p in parts:
+                size *= sizes[p]
+            if shape[i] % size != 0:
+                out.append(None)
+                continue
+        used.update(parts)
+        out.append(parts if len(parts) > 1 else parts[0])
+    return tuple(out)
+
+
+def to_placements(spec: tuple, mesh) -> list:
+    """A partition spec (``logical_to_pspec``) as DTensor placements, one
+    per mesh dim: ``Shard(d)`` where tensor dim d names the mesh dim,
+    else ``Replicate()``.  A dim that names two mesh dims (("pod",
+    "data")) is sharded on both, the first named the outer one, as a
+    JAX ``PartitionSpec`` lays it out."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -29,11 +104,24 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+def dense_specs(axes: tuple[str | None, str | None],
+                bias: bool = False) -> dict:
+    """Logical axes of ``dense_init``'s leaves."""
+    s = {"w": tuple(axes)}
+    if bias:
+        s["b"] = (axes[1],)
+    return s
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.float32, device=None) -> dict:
     w = torch.randn((vocab, d), generator=gen, dtype=dtype,
                     device=device) * (1.0 / d) ** 0.5
     return {"w": w}
+
+
+def embed_specs() -> dict:
+    return {"w": ("vocab", "embed")}
 
 
 def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
@@ -42,6 +130,13 @@ def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
     if kind == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
     return p
+
+
+def norm_specs(kind: str = "rmsnorm") -> dict:
+    s = {"scale": ("embed",)}
+    if kind == "layernorm":
+        s["bias"] = ("embed",)
+    return s
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,16 @@ def init(gen: torch.Generator, d_model: int, d_ff: int, kind: str = "swiglu",
     return p
 
 
+def specs(kind: str = "swiglu", axes=("embed", "mlp")) -> dict:
+    """Logical axes of ``init``'s leaves."""
+    s = {}
+    if kind in ("swiglu", "geglu"):
+        s["gate"] = C.dense_specs(axes)
+    s["up"] = C.dense_specs(axes)
+    s["down"] = C.dense_specs((axes[1], axes[0]))
+    return s
+
+
 def forward(params, x: torch.Tensor, kind: str = "swiglu",
             precision: str = "bf16", impl: str = "auto",
             taps: list | None = None) -> torch.Tensor:

@@ -56,6 +56,21 @@ def init(gen: torch.Generator, cfg, dtype=torch.float32, device=None) -> dict:
     return p
 
 
+def specs(cfg) -> dict:
+    """Logical axes of ``init``'s leaves."""
+    return {"in_proj": C.dense_specs(("embed", "ssm_inner")),
+            "conv_w": (None, "ssm_inner"), "conv_b": ("ssm_inner",),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "norm": {"scale": ("ssm_inner",)},
+            "out_proj": C.dense_specs(("ssm_inner", "embed"))}
+
+
+def cache_specs() -> dict:
+    """Logical axes of ``init_cache``'s state and conv tail."""
+    return {"h": ("batch", "ssm_heads", None, None),
+            "conv": ("batch", None, "ssm_inner")}
+
+
 def _split_proj(cfg, zxbcdt: torch.Tensor):
     d_inner, h, n, conv_ch = _dims(cfg)
     z, xbc, dt = torch.split(zxbcdt, [d_inner, conv_ch, h], dim=-1)

@@ -38,6 +38,27 @@ def init(gen: torch.Generator, cfg, dtype=torch.float32, device=None) -> dict:
     return p
 
 
+def specs(cfg) -> dict:
+    """Logical axes of ``init``'s leaves."""
+    s = {}
+    if cfg.q_lora_rank:
+        s["q_down"] = C.dense_specs(("embed", "q_lora"))
+        s["q_up"] = C.dense_specs(("q_lora", "heads"))
+    else:
+        s["q"] = C.dense_specs(("embed", "heads"))
+    s["kv_down"] = C.dense_specs(("embed", None))
+    s["k_up"] = C.dense_specs(("kv_lora", "heads"))
+    s["v_up"] = C.dense_specs(("kv_lora", "heads"))
+    s["o"] = C.dense_specs(("heads", "embed"))
+    return s
+
+
+def cache_specs() -> dict:
+    """Logical axes of ``init_cache``'s latents."""
+    return {"c_kv": ("batch", None, "kv_lora"),
+            "k_rope": ("batch", None, None)}
+
+
 def _project(params, cfg, x, positions, precision, impl, taps=None):
     """q_nope, q_rope (roped), the c_kv latent and k_rope (roped, one
     head shared by all) for tokens x."""
@@ -163,6 +184,7 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
                       precision: str = "bf16",
                       active: torch.Tensor | None = None,
                       ring: bool = False, impl: str = "auto",
+                      attn_impl: str | None = None,
                       taps: list | None = None) -> tuple[torch.Tensor, dict]:
     """One-token decode against the paged latent pool, per-row lengths
     (arguments as ``attn_block.paged_decode_step``, ``taps`` as in
@@ -176,7 +198,8 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     _write_latents(cache, block_table, positions, c_kv, k_rope, valid, ring)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = _paged_attend(params, cfg, q, cache, block_table, lengths,
-                      lengths + 1, lengths, ring, causal=False, impl=impl)
+                      lengths + 1, lengths, ring, causal=False,
+                      impl=attn_impl or impl)
     o = o.reshape(b, 1, cfg.n_heads * cfg.v_head_dim)
     return C.dense(o, params["o"], precision, impl, taps, "o"), cache
 
@@ -185,6 +208,7 @@ def prefill_chunk(params, cfg, x: torch.Tensor, cache,
                   block_table: torch.Tensor, lengths: torch.Tensor,
                   n_valid: torch.Tensor, *, precision: str = "bf16",
                   ring: bool = False, impl: str = "auto",
+                  attn_impl: str | None = None,
                   taps: list | None = None) -> tuple[torch.Tensor, dict]:
     """Chunked prefill of C latent tokens per row at per-row offsets
     (arguments as ``attn_block.prefill_chunk``; ``taps`` receives
@@ -199,6 +223,6 @@ def prefill_chunk(params, cfg, x: torch.Tensor, cache,
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = _paged_attend(params, cfg, q, cache, block_table, lengths,
                       lengths + n_valid, lengths + n_valid - 1, ring,
-                      causal=True, impl=impl)
+                      causal=True, impl=attn_impl or impl)
     o = o.reshape(b, ch, cfg.n_heads * cfg.v_head_dim)
     return C.dense(o, params["o"], precision, impl, taps, "o"), cache

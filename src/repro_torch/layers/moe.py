@@ -53,6 +53,19 @@ def init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
     return p
 
 
+def specs(kind: str = "swiglu", n_shared: int = 0) -> dict:
+    """Logical axes of ``init``'s leaves: the (E, d_in, d_out) stacks
+    over ("experts", ...)."""
+    s = {"router": {"w": ("embed", None)}}
+    if kind in ("swiglu", "geglu"):
+        s["gate"] = ("experts", "embed", "mlp")
+    s["up"] = ("experts", "embed", "mlp")
+    s["down"] = ("experts", "mlp", "embed")
+    if n_shared > 0:
+        s["shared"] = ffn.specs(kind)
+    return s
+
+
 def _route(x2d, router_w, top_k):
     logits = torch.matmul(x2d.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)

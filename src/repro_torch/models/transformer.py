@@ -157,6 +157,34 @@ def abstract_init(cfg: ArchConfig, seed: int = 0) -> dict:
     return init(torch.Generator().manual_seed(seed), cfg, device="meta")
 
 
+def _layer_specs(cfg: ArchConfig, mix: str, f: str) -> dict:
+    """Logical axes of ``_init_layer``'s leaves."""
+    mod = {"mla": mla, "ssm": mamba2}.get(mix, attn_block)
+    s = {"norm1": C.norm_specs(cfg.norm), "attn": mod.specs(cfg)}
+    if f != "none":
+        s["norm2"] = C.norm_specs(cfg.norm)
+    if f == "dense":
+        s["ffn"] = ffn.specs(cfg.act)
+    elif f == "moe":
+        s["ffn"] = moe.specs(cfg.act, cfg.n_shared_experts)
+    return s
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The params' logical axes: a tuple of axis names per leaf, in a
+    tree shaped as ``trainable(params, cfg)`` (a tied head is
+    ``embed.w`` and has no entry of its own, as the JAX package's tree
+    has no ``head`` then).  The JAX package prepends "layers" to every
+    leaf of a scanned segment; the port keeps one dict per layer, so
+    that axis has no counterpart here."""
+    check_supported(cfg)
+    s = {"embed": C.embed_specs(), "final_norm": C.norm_specs(cfg.norm)}
+    if not cfg.tie_embeddings:
+        s["head"] = C.dense_specs(("embed", "vocab"))
+    s["layers"] = [_layer_specs(cfg, mix, f) for mix, f in layer_plan(cfg)]
+    return s
+
+
 def _iter_layers(cfg: ArchConfig, params):
     """Yield (mix, ffn_kind, layer_params) in plan order."""
     for (mix, f), p in zip(layer_plan(cfg), params["layers"], strict=True):
@@ -364,6 +392,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return caches
 
 
+def cache_specs(cfg: ArchConfig) -> list[dict]:
+    """Logical axes of ``init_cache``'s leaves, one dict per layer."""
+    check_supported(cfg)
+    return [mamba2.cache_specs() if mix == "ssm" else
+            _mixer(mix).cache_specs() for mix, _f in layer_plan(cfg)]
+
+
 def _decode_layer(p, cfg: ArchConfig, mix: str, f: str, x, cache,
                   length: int, impl: str):
     h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
@@ -410,8 +445,10 @@ def _mixer(mix: str):
 
 def mixer_decode(mix: str, p, cfg: ArchConfig, h, cache, block_table,
                  lengths, slots, active, *, ring: bool, impl: str,
-                 taps: list | None = None):
-    """One layer's mixer at decode; returns its output."""
+                 attn_impl: str | None = None, taps: list | None = None):
+    """One layer's mixer at decode; returns its output.  Paged
+    attention resolves ``attn_impl`` (``None``: ``impl``), every BNN
+    GEMM ``impl``."""
     if mix == "ssm":
         y, _ = mamba2.paged_decode_step(p, cfg, h, cache, slots,
                                         precision=cfg.precision,
@@ -419,14 +456,16 @@ def mixer_decode(mix: str, p, cfg: ArchConfig, h, cache, block_table,
     else:
         y, _ = _mixer(mix).paged_decode_step(
             p, cfg, h, cache, block_table, lengths, precision=cfg.precision,
-            active=active, ring=ring, impl=impl, taps=taps)
+            active=active, ring=ring, impl=impl, attn_impl=attn_impl,
+            taps=taps)
     return y
 
 
 def mixer_prefill(mix: str, p, cfg: ArchConfig, h, cache, block_table,
                   lengths, n_valid, slots, *, ring: bool, impl: str,
-                  taps: list | None = None):
-    """One layer's mixer over a prefill chunk; returns its output."""
+                  attn_impl: str | None = None, taps: list | None = None):
+    """One layer's mixer over a prefill chunk; returns its output
+    (``attn_impl`` as in ``mixer_decode``)."""
     if mix == "ssm":
         y, _ = mamba2.prefill_chunk(p, cfg, h, cache, slots, n_valid,
                                     precision=cfg.precision, impl=impl,
@@ -434,7 +473,8 @@ def mixer_prefill(mix: str, p, cfg: ArchConfig, h, cache, block_table,
     else:
         y, _ = _mixer(mix).prefill_chunk(
             p, cfg, h, cache, block_table, lengths, n_valid,
-            precision=cfg.precision, ring=ring, impl=impl, taps=taps)
+            precision=cfg.precision, ring=ring, impl=impl,
+            attn_impl=attn_impl, taps=taps)
     return y
 
 
@@ -464,20 +504,24 @@ def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                       block_table: torch.Tensor, lengths: torch.Tensor,
                       active: torch.Tensor | None = None,
                       slots: torch.Tensor | None = None, *,
-                      ring: bool = False, impl: str = "auto"):
+                      ring: bool = False, impl: str = "auto",
+                      attn_impl: str | None = None):
     """One decode token per row against the paged pools.
 
     tokens (B, 1) int; block_table (B, max_blocks) int32; lengths (B,)
     int32 per-row cache fill; active (B,) masks padded batch slots;
     slots (B,) int32 recurrent slot ids for SSM layers; ring=True runs
-    the block tables as sliding-window rings.
+    the block tables as sliding-window rings.  The BNN GEMMs resolve
+    ``impl``, the paged attention ``attn_impl`` (``None``: ``impl``),
+    as the JAX package's engine takes ``bnn_impl`` and ``attn_impl``.
     Returns (logits (B, 1, V), caches).
     """
     x = _embed(params, cfg, tokens)
     for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
         y = mixer_decode(mix, p["attn"], cfg, h, caches[li], block_table,
-                         lengths, slots, active, ring=ring, impl=impl)
+                         lengths, slots, active, ring=ring, impl=impl,
+                         attn_impl=attn_impl)
         x = _ffn(p, cfg, f, x + y, impl, paged=True)
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return torch.matmul(x, params["head"]["w"]), caches
@@ -487,12 +531,13 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                   block_table: torch.Tensor, lengths: torch.Tensor,
                   n_valid: torch.Tensor, slots: torch.Tensor | None = None,
                   *, ring: bool = False, impl: str = "auto",
-                  taps: list | None = None):
+                  attn_impl: str | None = None, taps: list | None = None):
     """Chunked prefill: append a chunk of C tokens per row.
 
     tokens (B, C) int (padded past n_valid); lengths (B,) tokens already
     cached; n_valid (B,) real tokens in this chunk; slots (B,) recurrent
-    slot ids for SSM layers; ring as in ``paged_decode_step``.  ``taps``,
+    slot ids for SSM layers; ring, impl and attn_impl as in
+    ``paged_decode_step``.  ``taps``,
     when a list, receives per layer ``(name, tensor)``: the input of
     each projection (q, k, v or q, kv_down; o; or in_proj, out_proj;
     then the FFN's or the MoE layer's, see ``moe.forward``) and
@@ -504,7 +549,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
         y = mixer_prefill(mix, p["attn"], cfg, h, caches[li], block_table,
                           lengths, n_valid, slots, ring=ring, impl=impl,
-                          taps=taps)
+                          attn_impl=attn_impl, taps=taps)
         x = _ffn(p, cfg, f, x + y, impl, paged=True, taps=taps)
         if taps is not None:
             taps.append(("hidden", x))
@@ -536,7 +581,8 @@ def restore_slot_state(cfg: ArchConfig, caches, slots: torch.Tensor,
 def spec_verify(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                 block_table: torch.Tensor, lengths: torch.Tensor,
                 n_valid: torch.Tensor, slots: torch.Tensor | None = None, *,
-                ring: bool = False, impl: str = "auto"):
+                ring: bool = False, impl: str = "auto",
+                attn_impl: str | None = None):
     """Multi-token speculative verify: one prefill-shaped forward over
     ``[last token, draft...]`` rows scores every draft position at once.
 
@@ -550,5 +596,5 @@ def spec_verify(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
     snaps = snapshot_slot_state(cfg, caches, slots)
     logits, caches = prefill_chunk(params, cfg, tokens, caches, block_table,
                                    lengths, n_valid, slots, ring=ring,
-                                   impl=impl)
+                                   impl=impl, attn_impl=attn_impl)
     return logits, caches, snaps

@@ -57,6 +57,21 @@ def init(cfg: AdamWConfig, params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_state(cfg: AdamWConfig, param_shapes) -> dict:
+    """The state of ``init`` as ``meta`` tensors (the dry-run)."""
+    def zeros(p):
+        return torch.empty(p.shape, dtype=cfg.moment_dtype, device="meta")
+    return {"m": T.map_(zeros, param_shapes),
+            "v": T.map_(zeros, param_shapes),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def state_specs(param_specs) -> dict:
+    """Logical-axis spec tree of the optimizer state: the moments take
+    their params' axes, the step is a scalar."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves of each leaf's sum of squares,
     float32."""

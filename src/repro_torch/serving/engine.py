@@ -116,8 +116,6 @@ class EngineConfig:
     spec_ngram: int = 3              # max n-gram for prompt-lookup drafts
     attn_impl: str = "auto"          # paged attention: auto | cuda | torch
     bnn_impl: str = "auto"           # packed BNN GEMM: auto | cuda | torch
-                                     # (one dispatch in the port: the two
-                                     # must be equal)
     role: str = "mixed"              # worker role: mixed | prefill | decode
                                      # (serving/roles.py; prefill shards
                                      # hand completed prompts to a decode
@@ -132,11 +130,6 @@ class EngineConfig:
             if impl not in kops.IMPLS:
                 raise ValueError(f"unknown impl {impl!r} (want one of "
                                  f"{kops.IMPLS})")
-        if self.attn_impl != self.bnn_impl:
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} with bnn_impl="
-                f"{self.bnn_impl!r}: the port dispatches every kernel "
-                "through one impl, so the two must be equal")
         R.get_role(self.role)
 
 
@@ -250,7 +243,8 @@ class Engine:
         self.on_commit = None
         # sliding-window configs run their block tables as rings
         fns = R.build_step_fns(cfg, ring=self.cache.ring_blocks > 0,
-                               impl=ecfg.bnn_impl, spec_k=self._spec_k,
+                               impl=ecfg.bnn_impl,
+                               attn_impl=ecfg.attn_impl, spec_k=self._spec_k,
                                role=self.role)
         self._prefill_fn = fns.prefill
         self._decode_fn = fns.decode

@@ -154,10 +154,14 @@ class StepFns:
 
 
 def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
-                   spec_k: int = 0, role: Role = MIXED) -> StepFns:
+                   attn_impl: str | None = None, spec_k: int = 0,
+                   role: Role = MIXED) -> StepFns:
     """Construct the step closures of one worker of ``role``;
-    ``cfg``, ``ring`` (the block tables are sliding-window rings) and
-    the kernels' ``impl`` (``kernels/ops.resolve_impl``) are baked in;
+    ``cfg``, ``ring`` (the block tables are sliding-window rings), the
+    BNN GEMMs' ``impl`` and the paged attention's ``attn_impl``
+    (``None``: ``impl``; both ``kernels/ops.resolve_impl``) are baked
+    in, as the JAX package's engine bakes in ``bnn_impl`` and
+    ``attn_impl``;
     params, pools and the per-step arrays (block table, lengths,
     recurrent slots, the sampling operands) stay arguments.
     Each returns (next tokens (B,), logits, pools); the token at
@@ -169,7 +173,7 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
                  seeds=None, temps=None, top_k=None, top_p=None):
         logits, pools = M.prefill_chunk(params, cfg, tokens, pools, table,
                                         lengths, n_valid, slots, ring=ring,
-                                        impl=impl)
+                                        impl=impl, attn_impl=attn_impl)
         # chunk-final logits row -> the would-be next token (used by
         # the engine only when this chunk completes the prompt)
         last = (n_valid.long() - 1).clamp_min(0)
@@ -186,7 +190,8 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
                 seeds=None, temps=None, top_k=None, top_p=None):
         logits, pools = M.paged_decode_step(params, cfg, tokens, pools,
                                             table, lengths, active, slots,
-                                            ring=ring, impl=impl)
+                                            ring=ring, impl=impl,
+                                            attn_impl=attn_impl)
         tok = sample_tokens(logits[:, -1], lengths + 1, seeds, temps,
                             top_k, top_p)
         return tok, logits, pools
@@ -200,7 +205,8 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
         b, c = tokens.shape
         logits, pools, snaps = M.spec_verify(params, cfg, tokens, pools,
                                              table, lengths, n_valid, slots,
-                                             ring=ring, impl=impl)
+                                             ring=ring, impl=impl,
+                                             attn_impl=attn_impl)
         # sample EVERY position with its own (seed, index) key: what
         # plain decoding would draw there
         idx = (lengths.long()[:, None] + 1
@@ -228,7 +234,7 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
         M.restore_slot_state(cfg, pools, slots, snaps)
         M.prefill_chunk(params, cfg, tokens, pools, table, lengths,
                         n_commit.to(torch.int32), slots, ring=ring,
-                        impl=impl)
+                        impl=impl, attn_impl=attn_impl)
         return pools
 
     return StepFns(prefill=_prefill, decode=_decode, spec=_spec,

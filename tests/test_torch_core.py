@@ -62,6 +62,11 @@ def test_import_hygiene_no_jax_no_repro():
         "       'launch.train')\n"
         "print('SLICE14', all('repro_torch.' + m in sys.modules\n"
         "                     for m in new))\n"
+        "new = ('launch.analytic', 'launch.mesh', 'launch.dryrun',\n"
+        "       'dist.sharding', 'configs.base')\n"
+        "import torch.distributed as dist\n"
+        "print('SLICE15', all('repro_torch.' + m in sys.modules\n"
+        "                     for m in new), dist.is_initialized())\n"
         "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
         "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -78,6 +83,9 @@ def test_import_hygiene_no_jax_no_repro():
     assert "SLICE13 True" in res.stdout, res.stdout
     # training: the optimizer, compression, data, checkpoints, the CLI
     assert "SLICE14 True" in res.stdout, res.stdout
+    # the analytic model, the meshes, the dry-run: no process group is
+    # made by importing them
+    assert "SLICE15 True False" in res.stdout, res.stdout
     # every config of the registry (11) and base.py: the jamba hybrid,
     # the dense and the front-end configs too
     assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout

@@ -70,7 +70,7 @@ def test_losses_follow_jax_train():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         train("bnn-lm-100m", smoke=True, multi_pod=True, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-pod"):
         main(["--smoke", "--device", "cpu", "--multi-pod"])
