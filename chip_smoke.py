@@ -46,6 +46,32 @@ Phases (each check raises, and the script then exits non-zero):
               reverse): paged_attention launches 0 with fused_bnn > 0,
               then the reverse; tokens equal this run's, or part only
               after a sign flip phase 4's rule accepts (printed).
+  ranks       the serving forward over several ranks (after phase 3,
+              on its weights and traffic; ranks spawned by
+              launch/mesh.spawn_ranks, each drawing phase 3's seeded
+              weights and keeping its slices by the decode rules; on
+              one card the ranks share it under gloo over the card's
+              tensors, with a card a rank NCCL):
+              (a) the tensor-parallel fused_bnn (column-parallel q, k,
+              v, gate, up; row-parallel o, down: integer partial dots
+              summed, then alpha) at every projection shape of
+              bnn-lm-100m and 1, 8, 128 rows, at tp 2 ((1, 2) mesh)
+              and 4 ((1, 4)), bit-equal to one rank's kernel; (b) two
+              prompts of 512 tokens through prefill_chunk in chunks of
+              128 over (1, 2) and (2, 2): every projection input and
+              layer output bit-equal to one rank, the logits
+              bit-equal or, if only the float LM head differs, within
+              RANKS_LOGIT_REL with the same greedy tokens (printed
+              which); (c) the engine over (2, 2) serves phase 3's 16
+              prompts, 64 new, on its schedule, greedy and sampled
+              (C's sampling), the ranks' tokens compared at every
+              step: tokens equal the one-rank engine's; fused_bnn,
+              paged_attention and binarize_pack launch on every rank;
+              (d) printed: the backend and cards, per-rank peak
+              memory, the collectives and DTensor wraps of a decode
+              step and the host's us a wrap, tokens/s beside the
+              one-rank run and the host's launch us; which collectives
+              gloo runs on a card's tensors.
   4. e2e      two finished requests re-run by two routes, each once
               through the kernels and once through the plain versions,
               each attention and each FFN / MoE sublayer on the kernel
@@ -293,7 +319,8 @@ Phases (each check raises, and the script then exits non-zero):
               skipped prefill tokens > 0 in both.
 
 The line before the last is a JSON object with every kernel's launches
-on its paths (serving, its two mixed-impl runs, serve, tenants, shards,
+on its paths (serving, its two mixed-impl runs, ranks (summed over the
+ranks), serve, tenants, shards,
 train, analytic, conv, spec, mixtral, deepseek, mamba2, jamba, each
 family's speculative run and the defaults pairs), error, times and
 bound; the last line is the run's verdict with the
@@ -1326,6 +1353,390 @@ def serving_mixed_pairs(dev, cfg, ecfg, params, out,
               f"_plain"] = launches
         del eng
     return paths
+
+
+# --------------------------------------------------------------- [ranks]
+#
+# The serving forward over several ranks (ROADMAP.md queue 1, item 11's
+# serving half): bnn-lm-100m at published width and "bnn" over (data,
+# model) meshes of ranks spawned by launch/mesh.spawn_ranks.  Every rank
+# draws phase 3's seeded weights itself (one generator seed) and keeps
+# its slices.  On a machine with fewer cards than ranks they share the
+# cards under gloo, over the cards' tensors (launch/mesh.rank_world);
+# with a card a rank, NCCL.
+
+RANKS_PROJ = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
+              ("ffn", "gate"), ("ffn", "up"), ("ffn", "down"))
+RANKS_GEMM_ROWS = (1, 8, 128)
+RANKS_PREFILL = dict(rows=2, tokens=512)   # (b): 2 prompts, 4 chunks
+RANKS_LATE_AFTER = 10                      # phase 3's schedule
+RANKS_LOGIT_REL = 1e-5   # (b): where only the float LM head differs
+GLOO_PROBES = ("all_reduce", "all_gather", "broadcast",
+               "all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_to_all_single")
+
+
+def ranks_schedule(eng, prompts, max_new: int, sampling=None,
+                   late_after: int = RANKS_LATE_AFTER) -> list[list[int]]:
+    """Phase 3's schedule: the first half submitted, ``late_after``
+    steps, then the rest; each request's tokens, in prompt order."""
+    early = len(prompts) - len(prompts) // 2
+    rids = [eng.submit(p, max_new, **({"sampling": sampling(b)}
+                                      if sampling else {}))
+            for b, p in enumerate(prompts[:early])]
+    for _ in range(late_after):
+        eng.step()
+    rids += [eng.submit(p, max_new, **({"sampling": sampling(b)}
+                                       if sampling else {}))
+             for b, p in enumerate(prompts[early:], start=early)]
+    out = eng.run()
+    return [out[r].tolist() for r in rids]
+
+
+def _ranks_mesh(world, shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(world.device.type, tuple(shape),
+                            mesh_dim_names=("data", "model"))
+
+
+def ranks_gemms(world, mesh, params, cfg) -> int:
+    """(a) Each projection of layer 0, placed by the decode rules, at
+    RANKS_GEMM_ROWS input rows: the tensor-parallel GEMM (the rank's
+    kernel on its shard) gathered whole equals one rank's kernel on the
+    whole weight, bit for bit.  Returns the cases checked."""
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.kernels import ops
+    placed = S.place_params(params, cfg, mesh)
+    gen = torch.Generator(device=world.device).manual_seed(11)
+    n = 0
+    for blk, name in RANKS_PROJ:
+        w = params["layers"][0][blk][name]["w"]
+        wt = placed["layers"][0][blk][name]["w"]
+        for m in RANKS_GEMM_ROWS:
+            x = torch.randn(m, w.shape[0], generator=gen, device=world.device)
+            want = ops.bnn_dense(x, w, precision="bnn")
+            got = spmd.full(ops.bnn_dense(x, wt, precision="bnn"))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"[ranks] mesh {tuple(mesh.shape)} {name} M={m} "
+                    f"K={w.shape[0]} N={w.shape[1]}: "
+                    f"{int((got != want).sum())} elements differ from one "
+                    "rank's kernel")
+            n += 1
+    return n
+
+
+def _prefill_taps(params, cfg, prompts, dev, mesh=None):
+    """``prefill_chunk`` over the prompts (one row each, equal lengths)
+    in chunks of 128 on fresh pools: (logits per chunk, taps per chunk),
+    gathered whole."""
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    rows, n = prompts.shape
+    bs, chunk = 16, 128
+    per = n // bs
+    pools = M.init_paged_state(cfg, 1 + rows * per, bs, device=dev,
+                               mesh=mesh)
+    table = (1 + torch.arange(rows * per, device=dev, dtype=torch.int32)
+             ).reshape(rows, per)
+    tok = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    ctx = (C.sharding_context(mesh, S.decode_rules_of(mesh))
+           if mesh is not None else contextlib.nullcontext())
+    logits, taps = [], []
+    with ctx, torch.no_grad():
+        for i in range(0, n, chunk):
+            t: list = []
+            lg, _ = M.prefill_chunk(
+                params, cfg, tok[:, i:i + chunk], pools, table,
+                torch.full((rows,), i, dtype=torch.int32, device=dev),
+                torch.full((rows,), chunk, dtype=torch.int32, device=dev),
+                taps=t)
+            logits.append(spmd.full(lg))
+            taps.append([(name, spmd.full(v)) for name, v in t])
+    return logits, taps
+
+
+def ranks_prefill(world, mesh, params, cfg) -> dict:
+    """(b) Two prompts of 512 tokens (seeded), one row each, through
+    ``prefill_chunk`` in chunks of 128, one rank on the whole weights
+    and over ``mesh`` (the rows split over data where it has two):
+    every projection input and layer output bit-equal; the logits
+    bit-equal, or, where only the float LM head (a cuBLAS GEMM over
+    the rank's vocab slice) differs, within RANKS_LOGIT_REL of the
+    largest logit with the same greedy tokens.  Returns the record."""
+    rows, n = RANKS_PREFILL["rows"], RANKS_PREFILL["tokens"]
+    prompts = np.random.default_rng(21).integers(0, cfg.vocab, (rows, n))
+    from repro_torch.dist import sharding as S
+    want_l, want_t = _prefill_taps(params, cfg, prompts, world.device)
+    placed = S.place_params(params, cfg, mesh)
+    got_l, got_t = _prefill_taps(placed, cfg, prompts, world.device, mesh)
+    where = f"[ranks] mesh {tuple(mesh.shape)} prefill"
+    for c, (tk, tw) in enumerate(zip(got_t, want_t)):
+        layer = 0
+        for (name, a), (_n, b) in zip(tk, tw):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{where} chunk {c} layer {layer} {name}: first "
+                    f"difference, max |diff| "
+                    f"{(a.float() - b.float()).abs().max().item():.3e}")
+            layer += name == "hidden"
+    diff = max((a - b).abs().max().item() for a, b in zip(got_l, want_l))
+    scale = max(b.abs().max().item() for b in want_l)
+    same_tok = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                   for a, b in zip(got_l, want_l))
+    if diff and not (diff <= RANKS_LOGIT_REL * scale and same_tok):
+        raise AssertionError(f"{where}: logits differ by {diff:.3e} "
+                             f"(largest {scale:.3e}), greedy tokens "
+                             f"{'equal' if same_tok else 'differ'}")
+    return {"bit_equal": diff == 0.0, "max_abs_diff": diff,
+            "max_abs_logit": scale}
+
+
+def probe_gloo(world) -> dict[str, str]:
+    """Which collectives the gloo group runs on a card's tensors, each
+    tried once on every rank (information: the forward needs
+    all_reduce and all_gather, dist/spmd)."""
+    import torch.distributed as dist
+    t = torch.ones(4, device=world.device)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world.size)], t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world.size, device=world.device), t),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=world.device),
+            torch.ones(4 * world.size, device=world.device)),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(4 * world.size, device=world.device),
+            torch.ones(4 * world.size, device=world.device)),
+    }
+    out = {}
+    for name in GLOO_PROBES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize(world.device)
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = type(e).__name__ + ": " + str(e).splitlines()[0][:80]
+    return out
+
+
+def ranks_engine(world, mesh, params, cfg, ecfg, prompts, max_new) -> dict:
+    """(c) The engine over ``mesh`` serves phase 3's traffic on its
+    schedule, greedy and then sampled (C's sampling), the ranks' tokens
+    compared at every step; (d) its peak memory, the collectives of each
+    decode step and tokens/s."""
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine
+    rec: dict = {"runs": [], "wrap_us": dtensor_wrap_us(mesh, world.device)}
+    wraps = [0]
+    wrap = spmd.wrap
+
+    def counting_wrap(*a, **kw):      # spmd's own calls resolve here too
+        wraps[0] += 1
+        return wrap(*a, **kw)
+    spmd.wrap = counting_wrap
+    for sampled in (False, True):
+        ops.reset_launches()
+        if world.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(world.device)
+        eng = Engine(params, cfg, ecfg, device=world.device, mesh=mesh,
+                     check_ranks=True)
+        steps: list = []
+        decode = eng._decode_fn
+
+        def counted(*a, decode=decode, steps=steps):
+            before, w0 = spmd.COLLECTIVES.copy(), wraps[0]
+            r = decode(*a)
+            steps.append({**(spmd.COLLECTIVES - before),
+                          "dtensor_wraps": wraps[0] - w0})
+            return r
+        eng._decode_fn = counted
+        t0 = time.perf_counter()
+        toks = ranks_schedule(eng, prompts, max_new,
+                              serve_sampling if sampled else None)
+        _sync(world.device)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        rec["runs"].append({
+            "tokens": toks, "wall_s": wall,
+            "total_tokens_per_s": st["total_tokens_per_s"],
+            "decode_tokens_per_s": st["decode_tokens_per_s"],
+            "steps": st["steps"], "decode_calls": st["decode_calls"],
+            "launches": {k.name: k.launches for k in ops.KERNELS},
+            "peak_bytes": (torch.cuda.max_memory_allocated(world.device)
+                           if world.device.type == "cuda" else 0),
+            "decode_collectives": steps})
+        del eng
+    spmd.wrap = wrap
+    return rec
+
+
+def dtensor_wrap_us(mesh, dev) -> float:
+    """The host's us to wrap an (8, 768) shard as a DTensor and take its
+    local tensor back (``spmd.wrap`` + ``to_local``, what the forward
+    does around each sublayer): the median of 5 runs of 2000."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.dist import spmd
+    t = torch.zeros(8, 768, device=dev)
+    pl = [Shard(0), Replicate()][:mesh.ndim]
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            spmd.wrap(t, mesh, pl).to_local()
+        runs.append((time.perf_counter() - t0) / 2000 * 1e6)
+    return float(np.median(runs))
+
+
+def ranks_worker(world, cfg, ecfg, prompts, max_new, gemm_shapes,
+                 prefill_shapes, engine_shape, probe):
+    """One rank of the [ranks] phase (module docstring, [ranks])."""
+    from repro_torch.models import transformer as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=world.device).manual_seed(0)
+    params = M.init(gen, cfg, device=world.device)     # phase 3's weights
+    out: dict = {"backend": world.backend, "device": str(world.device),
+                 "gemms": {}, "prefill": {}}
+    for shape in gemm_shapes:
+        out["gemms"][shape] = ranks_gemms(world, _ranks_mesh(world, shape),
+                                          params, cfg)
+    for shape in prefill_shapes:
+        out["prefill"][shape] = ranks_prefill(
+            world, _ranks_mesh(world, shape), params, cfg)
+    if engine_shape is not None:
+        out["engine"] = ranks_engine(world, _ranks_mesh(world, engine_shape),
+                                     params, cfg, ecfg, prompts, max_new)
+    if probe and world.backend == "gloo" and world.device.type == "cuda":
+        out["gloo_cuda"] = probe_gloo(world)
+    return out
+
+
+def _median_counts(steps: list[dict]) -> dict:
+    keys = sorted({k for s in steps for k in s})
+    return {k: float(np.median([s.get(k, 0) for s in steps])) for k in keys}
+
+
+def phase_ranks(dev, smi: str, cfg=None, ecfg=None, params=None,
+                want=None, one_rank_st=None, smoke: bool = False,
+                max_new: int = 64) -> dict:
+    """[ranks]: (a) the tensor-parallel fused_bnn at every projection
+    of bnn-lm-100m (q, k, v, o, gate, up, down) at tp = 2 ((1, 2) mesh)
+    and 4 ((1, 4)) bit-equal to one rank's kernel; (b) prefill logits
+    over (1, 2) and (2, 2) against one rank (``ranks_prefill``); (c) the
+    engine over (2, 2) serves phase 3's 16 prompts, 64 new, greedy and
+    sampled: tokens equal the one-rank engine's (``want``: phase 3's
+    greedy tokens; the sampled ones are served here), every rank the
+    same at every step; (d) printed: backend and cards, per-rank peak
+    memory, the collectives a decode step, tokens/s beside the one-rank
+    run and the host's launch us.  ``smoke``: reduced width on the CPU
+    (a rehearsal).  Returns the engine runs' launches, summed over the
+    ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import Engine, EngineConfig
+    t0 = time.perf_counter()
+    if cfg is None:
+        cfg = get_config("bnn-lm-100m").replace(precision="bnn")
+        if smoke:
+            cfg = reduced(cfg)
+    if ecfg is None:
+        ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
+                            prefill_chunk=128, max_model_len=1024,
+                            **NO_PREFIX)
+    if params is None:
+        params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    prompts = traffic(cfg.vocab)
+    ref = {}
+    for sampled in (False, True):
+        if not sampled and want is not None:
+            ref[sampled] = [list(w) for w in want]
+            continue
+        eng = Engine(params, cfg, ecfg, device=dev)
+        t1 = time.perf_counter()
+        ref[sampled] = ranks_schedule(
+            eng, prompts, max_new, serve_sampling if sampled else None)
+        _sync(dev)
+        st = eng.stats()
+        if one_rank_st is None and not sampled:
+            one_rank_st = st
+        log(f"[ranks] one rank {'sampled' if sampled else 'greedy'}: "
+            f"total_tokens_per_s={st['total_tokens_per_s']:.1f} "
+            f"wall_s={time.perf_counter() - t1:.3f}")
+        del eng
+    launch_us = host_launch_us(dev)
+    worlds = ((2, [(1, 2)], [(1, 2)], None, True),
+              (4, [(1, 4)], [(2, 2)], (2, 2), False))
+    engine_launches = {k.name: 0 for k in ops.KERNELS}
+    for size, gemm, pre, eng_shape, probe in worlds:
+        t1 = time.perf_counter()
+        recs = spawn_ranks(ranks_worker, size, cfg, ecfg, prompts, max_new,
+                           gemm, pre, eng_shape, probe,
+                           device=dev.type, timeout_s=900)
+        r0 = recs[0]
+        log(f"[ranks] world of {size}: backend {r0['backend']}, ranks on "
+            f"{sorted({r['device'] for r in recs})}, "
+            f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} "
+            f"card(s); {time.perf_counter() - t1:.1f} s")
+        for shape, n in r0["gemms"].items():
+            log(f"[ranks] (a) mesh {shape}: fused_bnn bit-equal to one "
+                f"rank at {n} projection x rows cases (tp {shape[1]})")
+        for shape, pr in r0["prefill"].items():
+            log(f"[ranks] (b) mesh {shape}: prefill logits "
+                f"{'bit-equal' if pr['bit_equal'] else 'not bit-equal'} "
+                f"to one rank (max |diff| {pr['max_abs_diff']:.3e}, "
+                f"largest logit {pr['max_abs_logit']:.3f}); every "
+                "projection input and layer output bit-equal")
+        if "gloo_cuda" in r0:
+            log(f"[ranks] gloo on CUDA tensors: {json.dumps(r0['gloo_cuda'])}")
+        if eng_shape is None:
+            continue
+        for i, tag in enumerate(("greedy", "sampled")):
+            for r, rec in enumerate(recs):
+                if rec["engine"]["runs"][i]["tokens"] != ref[i == 1]:
+                    got = rec["engine"]["runs"][i]["tokens"]
+                    bad = [b for b in range(len(got)) if got[b] != ref[i == 1][b]]
+                    raise AssertionError(
+                        f"[ranks] (c) mesh {eng_shape} {tag} rank {r}: "
+                        f"requests {bad} differ from the one-rank engine")
+            run0 = r0["engine"]["runs"][i]
+            for rec in recs:
+                for k, v in rec["engine"]["runs"][i]["launches"].items():
+                    engine_launches[k] += v
+            for name in SERVING_KERNELS:
+                if dev.type == "cuda" and any(
+                        rec["engine"]["runs"][i]["launches"][name] <= 0
+                        for rec in recs):
+                    raise AssertionError(f"[ranks] (c) {tag}: {name} never "
+                                         "launched on a rank")
+            peaks = [rec["engine"]["runs"][i]["peak_bytes"] / 2 ** 30
+                     for rec in recs]
+            per_step = _median_counts(run0["decode_collectives"])
+            log(f"[ranks] (c) mesh {eng_shape} {tag}: tokens equal the "
+                f"one-rank engine's on all {size} ranks "
+                f"({len(prompts)} requests x {max_new} new)")
+            log(f"[ranks] (d) {tag}: total_tokens_per_s="
+                f"{run0['total_tokens_per_s']:.1f} (one rank "
+                f"{one_rank_st['total_tokens_per_s']:.1f}) "
+                f"decode_tokens_per_s={run0['decode_tokens_per_s']:.1f} "
+                f"steps={run0['steps']} wall_s={run0['wall_s']:.3f} "
+                f"host_launch_us={launch_us:.2f}; peak GiB per rank "
+                f"{[round(p, 3) for p in peaks]}; a decode step (median "
+                f"of {len(run0['decode_collectives'])}): "
+                f"{json.dumps(per_step)}, a DTensor wrap "
+                f"{r0['engine']['wrap_us']:.1f} us; {smi}")
+    log(f"[ranks] launches {json.dumps(engine_launches)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return engine_launches
 
 
 # --------------------------------------------------------------- phase 4
@@ -4557,6 +4968,9 @@ def main() -> int:
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
     mixed_launches = serving_mixed_pairs(dev, cfg, ecfg, params, out)
+    ranks_launches = phase_ranks(dev, smi, cfg, ecfg, params,
+                                 want=[out[i] for i in range(len(out))],
+                                 one_rank_st=st)
     del eng, params, out
     kept = {}
     serve_launches, out_a = phase_serve(dev, smi, keep=kept)
@@ -4592,7 +5006,8 @@ def main() -> int:
             "paged_attention_mla": rows["paged_attention_mla"][0],
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
-    paths = {"serving": launches, "serve": serve_launches,
+    paths = {"serving": launches, "ranks": ranks_launches,
+             "serve": serve_launches,
              "tenants": tenants_launches, "shards": shards_launches,
              "train": train_launches, "analytic": analytic_launches,
              **mixed_launches,

@@ -8,8 +8,11 @@ mesh axes.  One rule set serves every arch; per-tensor robustness
 A resolved spec becomes DTensor placements (``Shard(dim)`` /
 ``Replicate()`` per mesh dim, ``layers.common.to_placements``) over a
 ``DeviceMesh`` (``launch/mesh.py``).  The rules and resolution are the
-JAX package's ``repro.dist.sharding``; nothing here runs a forward on
-several ranks (the dry-run places ``meta`` tensors only).
+JAX package's ``repro.dist.sharding``.  ``place_params`` puts a params
+tree on a mesh as DTensors, the counterpart of the JAX package's
+``jax.device_put(params, param_shardings(...))``, and the forward over
+several ranks runs on them (``dist/spmd.py``); ``gather_tree`` brings
+such a tree back whole.  The dry-run places ``meta`` tensors.
 
 Mesh axes: ("data", "model") single-pod, ("pod", "data", "model")
 multi-pod (see launch/mesh.py).
@@ -26,6 +29,8 @@ from typing import Any
 
 import torch
 
+from repro_torch import tree as T
+from repro_torch.dist import spmd
 from repro_torch.layers.common import logical_to_pspec, to_placements
 
 
@@ -73,6 +78,12 @@ def rules_decode(multi_pod: bool) -> dict[str, Any]:
     return r
 
 
+def decode_rules_of(mesh) -> dict[str, Any]:
+    """The decode rules of ``mesh``'s layout (multi-pod when it has a
+    "pod" dim): what a serve over it places and constrains by."""
+    return rules_decode("pod" in mesh.mesh_dim_names)
+
+
 def is_axes(x) -> bool:
     """A spec tree's leaf: a tuple of logical axis names (or None)."""
     return isinstance(x, tuple) and all(a is None or isinstance(a, str)
@@ -107,6 +118,44 @@ def param_shardings(mesh, shapes, specs, rules: dict[str, Any]):
     shaped as ``specs``."""
     return map_specs(lambda axes, s: to_placements(logical_to_pspec(
         tuple(axes), rules, tuple(s.shape), mesh), mesh), specs, shapes)
+
+
+def place_tree(tree, specs, mesh, rules: dict[str, Any]):
+    """``tree``'s leaves as DTensors over ``mesh``, each placed by its
+    logical axes in ``specs`` under ``rules`` (``logical_to_pspec``'s
+    divisibility rule); every rank holds the whole tree and keeps its
+    slices, so no collective runs (``spmd.place``)."""
+    return map_specs(lambda axes, t: spmd.place(t, mesh, to_placements(
+        logical_to_pspec(tuple(axes), rules, tuple(t.shape), mesh), mesh)),
+        specs, tree)
+
+
+def place_params(params, cfg, mesh) -> dict:
+    """The params (whole on every rank: one seed, or one converted
+    tree) as DTensors over ``mesh`` by ``transformer.param_specs`` under
+    its decode rules.  A tied head is the transpose of the placed
+    embedding, so it is vocab-sharded through it and never copied
+    (``head_matrix``)."""
+    from repro_torch.models import transformer as M
+    placed = place_tree(M.trainable(params, cfg), M.param_specs(cfg), mesh,
+                        decode_rules_of(mesh))
+    if cfg.tie_embeddings:
+        placed["head"] = {"w": spmd.transpose(placed["embed"]["w"])}
+    return {k: placed[k] for k in params}
+
+
+def placed(params, cfg, mesh) -> dict:
+    """``params`` placed on ``mesh`` (``place_params``) unless they are
+    DTensors already."""
+    if spmd.is_dtensor(params["embed"]["w"]):
+        return params
+    return place_params(params, cfg, mesh)
+
+
+def gather_tree(tree):
+    """A tree of DTensors (and plain leaves) as plain tensors, each held
+    whole (``spmd.full``); a tied head becomes a copy."""
+    return T.map_(spmd.full, tree)
 
 
 def batch_axes(ndim: int) -> tuple:

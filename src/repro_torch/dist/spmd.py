@@ -1,0 +1,232 @@
+"""SPMD over a ``DeviceMesh``: DTensors as the container of each rank's
+shard, and the collectives of the forward over several ranks.
+
+The port's tensor-parallel forward computes on local shards.  A
+DTensor carries a rank's shard with its mesh, its placements and the
+global shape; the layers take its ``local`` tensor, run their kernels
+on it, and ``wrap`` the result with the placements it has.  An
+activation moves between placements (the sharding context's ``lsc``,
+the rows a pool write needs, the logits' gather) through
+``redistribute``, and a row-parallel GEMM sums its partial products
+through ``all_reduce``; each is one collective over one mesh dim's
+process group (``all_gather`` or ``all_reduce``), counted in
+``COLLECTIVES``.  DTensor's own redistribute is not used: these two
+calls are all a step needs, each is visible here (counted, and
+ordered as the step issues it), and they run on NCCL and on ``gloo``
+alike, on a card's tensors too (ranks that share a card cannot use
+NCCL: ``launch/mesh.rank_world``).
+
+Placements are ``Shard(dim)`` with dim >= 0 or ``Replicate()``; no
+step makes a ``Partial`` one.  Every sharded dim divides evenly
+(``layers.common.logical_to_pspec`` drops a mesh axis that does not).
+On plain tensors every helper is the identity, so a one-rank path runs
+exactly as it did without them.  ``torch.distributed.tensor`` is
+imported only where a mesh is used (it takes a second to import).
+"""
+from __future__ import annotations
+
+import collections
+import sys
+
+import torch
+import torch.distributed as dist
+
+# kind -> calls, and kind + "_bytes" -> bytes a rank sent into them,
+# since the process started or the caller last cleared it
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def is_dtensor(x) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def local(x):
+    """This rank's shard of a DTensor; a plain tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _replicate():
+    from torch.distributed.tensor import Replicate
+    return Replicate()
+
+
+def global_shape(local_shape, mesh, placements) -> tuple:
+    shape = list(local_shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(i)
+    return tuple(shape)
+
+
+def wrap(t: torch.Tensor, mesh, placements, shape=None):
+    """``t``, this rank's shard, as a DTensor of ``shape`` (default: the
+    local shape scaled by the sharded dims)."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape) if shape is not None else \
+        global_shape(t.shape, mesh, placements)
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(t, mesh, list(placements), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
+
+
+def wrap_like(t: torch.Tensor, like):
+    """A local result as a DTensor with ``like``'s mesh and placements
+    (its sharded dims must mean what they meant in ``like``); plain
+    when ``like`` is plain."""
+    return wrap(t, like.device_mesh, like.placements) if is_dtensor(like) \
+        else t
+
+
+def on_local(fn, x, *args, **kw):
+    """``fn`` over the local shards of ``x`` and of any DTensor among
+    ``args``, re-wrapped with ``x``'s placements: a row-wise function
+    (a norm over a dim ``x`` holds whole, a head reshape, RoPE, the
+    attention of the rank's heads)."""
+    return wrap_like(fn(local(x), *(local(a) for a in args), **kw), x)
+
+
+def replicate(t: torch.Tensor, mesh):
+    """A tensor every rank holds whole, as a DTensor."""
+    return wrap(t, mesh, [_replicate()] * mesh.ndim)
+
+
+def transpose(x):
+    """A 2-D tensor's transpose; a DTensor's is a view of its shard with
+    the sharded dims swapped."""
+    if not is_dtensor(x):
+        return x.t()
+    from torch.distributed.tensor import Shard
+    pl = [Shard(1 - p.dim) if p.is_shard() else p for p in x.placements]
+    return wrap(x.to_local().t(), x.device_mesh, pl, (x.shape[1], x.shape[0]))
+
+
+# --------------------------------------------------------------- collectives
+
+
+def _count(kind: str, t: torch.Tensor):
+    COLLECTIVES[kind] += 1
+    COLLECTIVES[kind + "_bytes"] += t.numel() * t.element_size()
+
+
+def all_reduce(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over mesh dim ``dim``'s ranks (``t`` itself is
+    overwritten: pass a fresh partial result)."""
+    _count("all_reduce", t)
+    t = t.contiguous()
+    dist.all_reduce(t, group=mesh.get_group(dim))
+    return t
+
+
+def all_gather(t: torch.Tensor, mesh, dim: int, along: int) -> torch.Tensor:
+    """Mesh dim ``dim``'s ranks' ``t``, concatenated along tensor dim
+    ``along`` in rank order."""
+    _count("all_gather", t)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mesh.size(dim))]
+    dist.all_gather(parts, t, group=mesh.get_group(dim))
+    return torch.cat(parts, along)
+
+
+# --------------------------------------------------------------- placements
+
+
+def redistribute(x, placements):
+    """DTensor ``x`` moved to ``placements``: gathers (a Shard that
+    changes) in reverse mesh-dim order, then slices (to a Shard) in
+    mesh-dim order, so two mesh dims on one tensor dim nest as
+    ``layers.common.to_placements`` lays them out.  A slice needs no
+    collective."""
+    mesh = x.device_mesh
+    cur, want = list(x.placements), list(placements)
+    if cur == want:
+        return x
+    t = x.to_local()
+    for i in reversed(range(mesh.ndim)):
+        if cur[i] != want[i] and cur[i].is_shard():
+            t = all_gather(t, mesh, i, cur[i].dim)
+            cur[i] = _replicate()
+        elif not (cur[i].is_shard() or cur[i].is_replicate()):
+            raise ValueError(f"redistribute: placement {cur[i]} on mesh "
+                             f"dim {i}")
+    coord = mesh.get_coordinate()
+    for i in range(mesh.ndim):
+        if cur[i] != want[i]:
+            t = torch.chunk(t, mesh.size(i), want[i].dim)[coord[i]]
+            cur[i] = want[i]
+    return wrap(t.contiguous(), mesh, want, x.shape)
+
+
+def place(t: torch.Tensor, mesh, placements):
+    """A DTensor of ``t`` over ``mesh``, where every rank holds the whole
+    of ``t`` (weights drawn from one seed, a zeroed pool): each rank
+    keeps its slice (a copy, so the whole can be freed), and no
+    collective runs."""
+    x = replicate(t, mesh)
+    if all(p.is_replicate() for p in placements):
+        return x
+    return wrap(redistribute(x, placements).to_local().clone(), mesh,
+                placements, t.shape)
+
+
+def full(x) -> torch.Tensor:
+    """The whole tensor on every rank (gathered: a concatenation, so
+    exact); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return redistribute(x, [_replicate()] * x.device_mesh.ndim).to_local()
+
+
+def all_rows(x):
+    """``x`` with its leading (row) dim held whole on every rank, its
+    other placements kept; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return redistribute(x, [_replicate() if p.is_shard() and p.dim == 0
+                            else p for p in x.placements])
+
+
+def rows(t: torch.Tensor, like) -> torch.Tensor:
+    """The rows of a per-row tensor ``t`` (every rank holds all of them:
+    a block table, the lengths) that ``like``'s local shard holds."""
+    if not is_dtensor(like):
+        return t
+    mesh, coord = like.device_mesh, like.device_mesh.get_coordinate()
+    for i, p in enumerate(like.placements):
+        if p.is_shard() and p.dim == 0:
+            t = torch.chunk(t, mesh.size(i), 0)[coord[i]]
+    return t
+
+
+def shards(x, dim: int) -> int:
+    """How many pieces tensor dim ``dim`` of ``x`` is cut into (1 for a
+    plain tensor)."""
+    if not is_dtensor(x):
+        return 1
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard() and p.dim == dim:
+            n *= x.device_mesh.size(i)
+    return n
+
+
+def check_agree(t: torch.Tensor, mesh, what: str):
+    """Raise unless every rank of ``mesh`` holds the same ``t``: along
+    each mesh dim the ranks' copies are gathered and compared (a debug
+    check; its gathers are not counted in ``COLLECTIVES``)."""
+    before = COLLECTIVES.copy()
+    try:
+        for i in range(mesh.ndim):
+            parts = all_gather(t[None], mesh, i, 0)
+            if not all(torch.equal(p, parts[0]) for p in parts):
+                raise RuntimeError(
+                    f"{what}: the ranks of mesh dim "
+                    f"{mesh.mesh_dim_names[i]!r} disagree: "
+                    f"{parts.cpu().tolist()}")
+    finally:
+        COLLECTIVES.clear()
+        COLLECTIVES.update(before)

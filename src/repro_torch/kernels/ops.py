@@ -42,6 +42,24 @@ expert stack (E, K, N) is packed as a whole, into (E, N, Kw) words and
 (E, N) alphas, under the stack's identity: a per-expert view ``w[e]``
 is a new tensor at every call, so keying on it would repack every
 expert at every step.
+
+On a weight that is a DTensor (the forward over several ranks,
+``dist/sharding.place_params``) ``bnn_dense`` runs each rank's kernel
+on its shard, and never gathers a weight in front of a kernel:
+  * column-parallel (w sharded on N: q, k, v, gate, up, the LM head):
+    the rank's N columns of the output;
+  * row-parallel (w sharded on K: o, down): the rank's partial product
+    over its K slice (at "bnn" the integer ``dot``, its pad bits
+    corrected for the slice's own word count), summed over the ranks,
+    and only then scaled by alpha, so the result is bit-equal to one
+    rank's ``dot_scaled``.
+The shard's packed words and its alpha are cached under the DTensor
+weight (a stable object: a ``to_local()`` view is new at every call).
+Alpha is ``mean |w|`` over the whole K, taken, as on one rank, by
+``torch.mean`` over the whole weight, which is gathered for that once,
+at pack time: a sum of the ranks' partial sums rounds differently
+(about 37 % of the columns of a 768 x 768 weight at tp = 2 differ in
+the last bit), and the integer path is held bit-equal to one rank.
 """
 from __future__ import annotations
 
@@ -50,6 +68,7 @@ import weakref
 import torch
 
 from repro_torch.core import packing, xnor
+from repro_torch.dist import spmd
 from repro_torch.kernels import binarize_pack as _bp
 from repro_torch.kernels import fused_bnn as _fb
 from repro_torch.kernels import paged_attention as _pa
@@ -122,10 +141,11 @@ def pack_patches(x: torch.Tensor, kh: int, kw: int, stride: int,
 # packed-weight cache: one pack per weight identity and version
 
 _weight_pack_cache: dict[tuple, tuple[int, object]] = {}
+_packs = {"packs": 0}            # values made (misses), since import
 
 
 def packed_weight_cache_info() -> dict:
-    return {"entries": len(_weight_pack_cache)}
+    return {"entries": len(_weight_pack_cache), "packs": _packs["packs"]}
 
 
 def cached_per_weight(w: torch.Tensor, key: tuple, make):
@@ -136,6 +156,7 @@ def cached_per_weight(w: torch.Tensor, key: tuple, make):
     if hit is not None and hit[0] == w._version:
         return hit[1]
     value = make(w.detach())
+    _packs["packs"] += 1
     if hit is None:
         # id() values recycle after gc — evict the entry with its owner
         weakref.finalize(w, _weight_pack_cache.pop, full, None)
@@ -194,6 +215,8 @@ def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",
 
     x: (..., K) activations; w: (K, N) latent weights (float).
     """
+    if spmd.is_dtensor(w):
+        return _tp_dense(x, w, precision, impl, scale)
     if precision == "bf16":
         return torch.matmul(x, w.to(x.dtype))
     if precision == "bnn":
@@ -212,6 +235,70 @@ def bnn_dense(x: torch.Tensor, w: torch.Tensor, *, precision: str = "bf16",
         y = xnor.bnn_matmul_train(x.reshape(-1, x.shape[-1]), w, scale=scale)
         return y.reshape(*lead, w.shape[-1])
     raise ValueError(f"unknown precision {precision!r}")
+
+
+def _pack_shard(w, impl: str, scale: bool):
+    """The packed words of this rank's shard of the DTensor weight ``w``
+    and the alpha of its output columns (module docstring)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def pack(wd):
+        wp = _pack_rows(spmd.local(wd).float().t().contiguous(), impl)
+        if not scale:
+            return wp, None
+        alpha = torch.mean(torch.abs(spmd.full(wd).float()), dim=0)
+        cols = [Shard(0) if p == Shard(1) else Replicate()
+                for p in wd.placements]
+        return wp, spmd.place(alpha, wd.device_mesh, cols).to_local()
+    return cached_per_weight(w, ("shard", impl, scale), pack)
+
+
+def _tp_dense(x, w, precision: str, impl: str, scale: bool):
+    """``bnn_dense`` with a DTensor weight (module docstring).  Per mesh
+    dim: where w is cut on K, x must be cut on its last dim and the
+    partial products are summed; elsewhere x's last dim is held whole
+    and its other placements (the data-parallel rows) carry over."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = w.device_mesh
+    if not spmd.is_dtensor(x):
+        x = spmd.replicate(x, mesh)
+    last = x.ndim - 1
+    want, out, summed = [], [], []
+    for i, (pw, px) in enumerate(zip(w.placements, x.placements)):
+        keep = Replicate() if px == Shard(last) else px
+        if pw == Shard(0):
+            want.append(Shard(last))
+            out.append(Replicate())
+            summed.append(i)
+        else:
+            want.append(keep)
+            out.append(Shard(last) if pw == Shard(1) else keep)
+    x = spmd.redistribute(x, want)
+    xl, wl = x.to_local(), w.to_local()
+    if precision == "bf16":
+        y = torch.matmul(xl, wl.to(xl.dtype))
+        for i in summed:
+            y = spmd.all_reduce(y, mesh, i)
+    elif precision == "bnn":
+        impl = resolve_impl(impl, xl)
+        x2 = xl.reshape(-1, xl.shape[-1]).float().contiguous()
+        wp, alpha = _pack_shard(w, impl, scale)
+        fn = _fb.fused_bnn_matmul if impl == "cuda" else \
+            _fb.fused_bnn_matmul_torch
+        if summed:
+            y = fn(x2, wp, x2.shape[-1], mode="dot")
+            for i in summed:
+                y = spmd.all_reduce(y, mesh, i)
+            y = y.to(torch.float32) * alpha[None, :] if scale else y
+        else:
+            y = fn(x2, wp, x2.shape[-1],
+                   mode="dot_scaled" if scale else "dot", alpha=alpha)
+        y = y.reshape(*xl.shape[:-1], wl.shape[-1]).to(xl.dtype)
+    else:
+        raise NotImplementedError(
+            f"precision {precision!r} over a mesh: training over several "
+            "ranks is ROADMAP.md queue 1, item 11")
+    return spmd.wrap(y, mesh, out, (*x.shape[:-1], w.shape[-1]))
 
 
 def expert_dense(x: torch.Tensor, w: torch.Tensor, e: int, *,

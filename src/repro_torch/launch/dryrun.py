@@ -12,9 +12,11 @@ analytic model's FLOPs and HBM bytes (``launch/analytic.py``) and its
 roofline terms, and every leaf's partition spec, into a JSON artifact.
 
 The JAX package's dry-run compiles each cell and reads its collectives
-from the optimized HLO; torch makes no HLO and no forward of the port
-runs on several ranks yet, so ``"collectives"`` is null (with the
-reason) and the roofline takes no collective bytes.
+from the optimized HLO; torch makes no HLO, and the dry-run places
+tensors without running a step, so ``"collectives"`` is null (with the
+reason) and the roofline takes no collective bytes.  (The serving
+forward does run over several ranks, ``dist/spmd.py``; counting a
+step's collectives here is the rest of ROADMAP.md queue 1, item 11.)
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
@@ -44,9 +46,9 @@ from repro_torch.layers.common import logical_to_pspec, to_placements
 from repro_torch.models import transformer as M
 from repro_torch.optim import optimizer as opt_mod
 
-NO_COLLECTIVES = ("no HLO to read collectives from, and no forward of the "
-                  "port runs on several ranks yet (ROADMAP.md queue 1, "
-                  "item 11)")
+NO_COLLECTIVES = ("no HLO to read collectives from; the dry-run's "
+                  "collective counts come with ROADMAP.md queue 1, item "
+                  "11's dry-run part")
 
 
 class Placer:

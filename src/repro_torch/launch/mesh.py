@@ -12,13 +12,22 @@ Without the devices, the dry-run runs under ``fake_world``: torch's
 fake process group, whose collectives do nothing, in place of the JAX
 package's ``--xla_force_host_platform_device_count=512``.  ``local_world``
 is a group of one rank (``gloo`` on the CPU, ``nccl`` on the card), the
-counterpart of a one-device mesh.  A process group is global state, so
-each of these is a context manager that destroys the group it made.
+counterpart of a one-device mesh.  ``rank_world`` is one rank of a real
+group of several processes, and ``spawn_ranks`` starts such a group
+and collects what each rank returns: the forward over several ranks
+runs there, over a mesh of the group's ranks.  A process group is
+global state, so each of these is a context manager that destroys the
+group it made.
 """
 from __future__ import annotations
 
 import contextlib
+import datetime
 import math
+import os
+import tempfile
+import time
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -69,6 +78,89 @@ def local_world(device="cpu"):
         yield
     finally:
         dist.destroy_process_group()
+
+
+COLLECTIVE_TIMEOUT_S = 120.0   # a rank that waits longer raises
+
+
+@dataclass(frozen=True)
+class RankWorld:
+    """What ``rank_world`` made: this process's ``rank`` of ``size``, the
+    ``device`` its kernels run on and the group's ``backend``."""
+    rank: int
+    size: int
+    device: torch.device
+    backend: str
+
+
+@contextlib.contextmanager
+def rank_world(rank: int, size: int, init_file: str, device="cpu"):
+    """A process group of ``size`` processes, this one rank ``rank``,
+    met through a ``file://`` store at ``init_file`` (a path every rank
+    names under one temporary directory: no port to collide with).  On
+    the CPU ``gloo``.  On a card ``nccl``, one rank a card, where there
+    are at least ``size`` cards; else the ranks share the cards (rank r
+    on card r % count) under ``gloo``, since NCCL refuses two ranks on
+    one device: gloo runs the collectives on the cards' tensors (it
+    copies them through host memory itself), and the kernels still run
+    on the card.  A collective that waits longer than
+    ``COLLECTIVE_TIMEOUT_S`` raises."""
+    _fresh()
+    dev = torch.device(device)
+    backend = "gloo"
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        dev = torch.device("cuda", rank % n)
+        torch.cuda.set_device(dev)
+        if n >= size:
+            backend = "nccl"
+    dist.init_process_group(
+        backend, init_method=f"file://{init_file}", rank=rank,
+        world_size=size,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        yield RankWorld(rank, size, dev, backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(rank: int, size: int, tmp: str, device, fn, args):
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    with rank_world(rank, size, os.path.join(tmp, "store"), device) as world:
+        out = fn(world, *args)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def spawn_ranks(fn, size: int, *args, device="cpu",
+                timeout_s: float = 600.0) -> list:
+    """``fn(world, *args)`` in ``size`` fresh processes (the ``spawn``
+    start method), each inside ``rank_world`` (a ``RankWorld`` is
+    ``world``); returns what each returned, in rank order.  ``fn`` is a
+    module-level function (it is pickled by name) and its result
+    something ``torch.save`` writes.  A rank that raises ends the others
+    and its error is raised here; so is a run past ``timeout_s``.  A
+    CPU rank computes on one thread.  Build any kernel before, in the
+    caller: the ranks load the built library."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_rank_main,
+                                 args=(size, tmp, device, fn, args),
+                                 nprocs=size, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"spawn_ranks: {size} ranks still "
+                                       f"running after {timeout_s:.0f} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(size)]
 
 
 def make_production_mesh(*, multi_pod: bool = False,

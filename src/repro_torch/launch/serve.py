@@ -35,9 +35,15 @@ engine's; ``--roles P:D`` splits them into prefill and decode workers
 then writes ``PATH.shard{i}.jsonl`` per shard.
 
 It runs on the card; ``--device cpu`` is the only way to run it on the
-CPU (the plain PyTorch versions of the kernels).  The option of a later
-slice (``--multi-pod``: a forward over several ranks) raises and names
-its ROADMAP.md item.
+CPU (the plain PyTorch versions of the kernels).  Launched as one rank
+of a process group of 256 processes (512 with ``--multi-pod``), a
+non-smoke serve runs over the production mesh, as the JAX CLI does:
+(16, 16) ("data", "model"), or (2, 16, 16) with "pod", the params
+placed by the decode rules and every rank running the same engine
+(``serving_mesh``; the dense family).  In a single process it serves
+on one device, and ``--multi-pod`` raises there, as the JAX CLI's
+512-device mesh does.  ``setup``/``serve`` take a ``mesh=`` of any
+("data", "model") shape, which tests and chip_smoke.py pass.
 
 Setup and run are split (``setup``, ``make_prompts``, ``run``,
 ``run_stream``, ``run_legacy``): ``serve``/``serve_legacy`` take
@@ -52,13 +58,18 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.configs.base import reduced
+from repro_torch.dist import sharding as SH, spmd
+from repro_torch.launch import mesh as MESH
+from repro_torch.layers import common as C
 from repro_torch.models import transformer as M
 from repro_torch.serving import (Engine, EngineConfig, Frontend,
                                  SamplingParams, ShardedEngine,
@@ -67,23 +78,6 @@ from repro_torch.serving import (Engine, EngineConfig, Frontend,
 from repro_torch.serving.engine import _resolve_device
 from repro_torch.serving.sampling import categorical
 
-# options of the JAX CLI that later slices bring: argument -> (its
-# default, the ROADMAP.md item that brings it)
-LATER = {
-    "multi_pod": (False, "queue 1, item 11"),
-}
-
-
-def refuse_later(**opts):
-    """Raise for any option of a later slice that is not at its default."""
-    for name, value in opts.items():
-        default, item = LATER[name]
-        if value != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')}={value!r} is not ported yet "
-                f"(ROADMAP.md {item})")
-
-
 def _config(arch: str, smoke: bool, precision: str | None):
     cfg = configs.get_config(arch)
     if smoke:
@@ -91,22 +85,47 @@ def _config(arch: str, smoke: bool, precision: str | None):
     return cfg.replace(precision=precision) if precision else cfg
 
 
+def serving_mesh(*, smoke: bool = False, multi_pod: bool = False,
+                 device=None, mesh=None):
+    """The mesh a serve runs over: ``mesh`` when given; a non-smoke
+    serve under a process group, or one asked for ``multi_pod``, the
+    production mesh (``make_production_mesh``: it raises unless the
+    group has 256 ranks, 512 with ``multi_pod``), as the JAX CLI's
+    ``_setup`` builds; else None (one device)."""
+    if mesh is not None or smoke:
+        return mesh
+    if dist.is_initialized() or multi_pod:
+        return MESH.make_production_mesh(
+            multi_pod=multi_pod, device_type=_resolve_device(device).type)
+    return None
+
+
 def setup(arch: str, *, smoke: bool = False, precision: str | None = None,
-          seed: int = 0, device=None):
+          seed: int = 0, device=None, multi_pod: bool = False, mesh=None):
     """(cfg, params): the config (``reduced`` with ``smoke``) at
     ``precision``, and weights drawn from a generator seeded ``seed`` on
-    the device (``None``: the card, which must be there)."""
+    the device (``None``: the card, which must be there); over
+    ``serving_mesh``'s mesh, when there is one, the params are DTensors
+    placed by its decode rules (every rank draws the same weights and
+    keeps its slices)."""
     dev = _resolve_device(device)
     cfg = _config(arch, smoke, precision)
+    mesh = serving_mesh(smoke=smoke, multi_pod=multi_pod, device=dev,
+                        mesh=mesh)
+    if mesh is not None:
+        M.check_mesh_supported(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return cfg, M.init(gen, cfg, device=dev)
+    params = M.init(gen, cfg, device=dev)
+    if mesh is None:
+        return cfg, params
+    return cfg, SH.place_params(params, cfg, mesh)
 
 
-def _model(arch, smoke, precision, seed, device, params):
+def _model(arch, smoke, precision, seed, device, params, mesh):
     """``setup``'s (cfg, params), or the config of the given params."""
     if params is None:
         return setup(arch, smoke=smoke, precision=precision, seed=seed,
-                     device=device)
+                     device=device, mesh=mesh)
     return _config(arch, smoke, precision), params
 
 
@@ -133,12 +152,18 @@ def engine_config(batch: int, prompt_len: int, gen: int, *,
 
 
 def make_engine(params, cfg, ecfg: EngineConfig, *, device=None,
-                shards: int = 1, roles: str | None = None):
-    """An ``Engine`` on ``device``, or with ``shards > 1`` a
-    ``ShardedEngine`` of that many shards (worker ``roles``, a "P:D"
-    spec or comma names) over ``device`` (tiled), or over every card
-    when ``device`` is None; ``roles`` is ignored for one shard, as in
-    the JAX CLI."""
+                shards: int = 1, roles: str | None = None, mesh=None):
+    """An ``Engine`` on ``device`` (over ``mesh`` when given), or with
+    ``shards > 1`` a ``ShardedEngine`` of that many shards (worker
+    ``roles``, a "P:D" spec or comma names) over ``device`` (tiled), or
+    over every card when ``device`` is None; ``roles`` is ignored for
+    one shard, as in the JAX CLI."""
+    if mesh is not None:
+        if shards > 1:
+            raise NotImplementedError(
+                "--shards over a mesh: the shards are data-axis engines "
+                "of one device each (ROADMAP.md queue 1, item 11)")
+        return Engine(params, cfg, ecfg, device=device, mesh=mesh)
     if shards > 1:
         return ShardedEngine(params, cfg, ecfg, shards, roles=roles,
                              devices=None if device is None else [device])
@@ -148,16 +173,17 @@ def make_engine(params, cfg, ecfg: EngineConfig, *, device=None,
 def run(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
         sampling=lambda b: SamplingParams(), request_kw=lambda b: {},
         late_after: int = 0, n_late: int = 0, watch=None, device=None,
-        shards: int = 1, roles: str | None = None):
+        shards: int = 1, roles: str | None = None, mesh=None):
     """Serve ``prompts`` (a list of 1-D token arrays), ``gen`` new tokens
     each, request ``b`` under ``sampling(b)`` with the further submit
     keywords ``request_kw(b)`` (tenant, priority, ...); the last
     ``n_late`` are submitted after ``late_after`` steps.
     ``watch(engine)``, when given, is called on the new engine before
-    the first request.  ``shards``/``roles``: ``make_engine``.  Returns
-    (the engine, each request's prompt + generated tokens, in order)."""
+    the first request.  ``shards``/``roles``/``mesh``: ``make_engine``.
+    Returns (the engine, each request's prompt + generated tokens, in
+    order)."""
     eng = make_engine(params, cfg, ecfg, device=device, shards=shards,
-                      roles=roles)
+                      roles=roles, mesh=mesh)
     if watch is not None:
         watch(eng)
     early = len(prompts) - n_late
@@ -176,7 +202,8 @@ def run_stream(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
                sampling=lambda b: SamplingParams(), request_kw=lambda b: {},
                scores=(), score_kw=lambda i: {}, cancel_after: int = 0,
                late_after: int = 0, n_late: int = 0, watch=None,
-               device=None, shards: int = 1, roles: str | None = None):
+               device=None, shards: int = 1, roles: str | None = None,
+               mesh=None):
     """``run`` through the asyncio front-end (serving/frontend.py):
     every request's committed tokens are consumed as a stream, the last
     one is cancelled once ``cancel_after`` tokens have streamed (0:
@@ -184,11 +211,11 @@ def run_stream(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
     scoring request (submit keywords ``score_kw(i)``) alongside.  The
     last ``n_late`` requests join after the engine has taken
     ``late_after`` steps (of the busiest shard, with ``shards > 1``:
-    ``make_engine``).  Returns (the engine, the generation rids in
-    order, rid -> streamed tokens, the scoring results in ``scores``'
-    order: ``Frontend.score``'s dicts)."""
+    ``make_engine``, as are ``mesh`` and ``roles``).  Returns (the
+    engine, the generation rids in order, rid -> streamed tokens, the
+    scoring results in ``scores``' order: ``Frontend.score``'s dicts)."""
     eng = make_engine(params, cfg, ecfg, device=device, shards=shards,
-                      roles=roles)
+                      roles=roles, mesh=mesh)
     engines = getattr(eng, "engines", [eng])
     if watch is not None:
         watch(eng)
@@ -234,28 +261,36 @@ def run_stream(params, cfg, prompts, gen: int, ecfg: EngineConfig, *,
 
 @torch.no_grad()
 def run_legacy(params, cfg, prompts: np.ndarray, gen: int, *,
-               greedy: bool = True, device=None):
+               greedy: bool = True, device=None, mesh=None):
     """The legacy loop: a dense per-batch cache, the prompt fed one
     token a step, then ``gen`` tokens; greedy, or
-    ``categorical(PRNGKey(i))`` at step i as the JAX loop draws.
-    Returns ((batch, prompt_len + gen) int32 tokens, tokens/s)."""
+    ``categorical(PRNGKey(i))`` at step i as the JAX loop draws.  Over
+    ``mesh``, the caches placed by the decode rules and the steps under
+    their sharding context.  Returns ((batch, prompt_len + gen) int32
+    tokens, tokens/s)."""
     dev = _resolve_device(device)
     batch, prompt_len = prompts.shape
     max_len = prompt_len + gen
-    caches = M.init_cache(cfg, batch, max_len, device=dev)
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        params = SH.placed(params, cfg, mesh)
+        ctx = C.sharding_context(mesh, SH.decode_rules_of(mesh))
+    caches = M.init_cache(cfg, batch, max_len, device=dev, mesh=mesh)
     pr = torch.from_numpy(np.asarray(prompts, np.int64)).to(dev)
     t0 = time.perf_counter()
     tok = pr[:, :1]
     out = [tok]
-    for i in range(max_len - 1):
-        logits, caches = M.decode_step(params, cfg, tok, caches, i)
-        if i + 1 < prompt_len:
-            tok = pr[:, i + 1:i + 2]
-        elif greedy:
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        else:
-            tok = categorical(i, logits[:, -1])[:, None]
-        out.append(tok)
+    with ctx:
+        for i in range(max_len - 1):
+            logits, caches = M.decode_step(params, cfg, tok, caches, i)
+            logits = spmd.full(logits)
+            if i + 1 < prompt_len:
+                tok = pr[:, i + 1:i + 2]
+            elif greedy:
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            else:
+                tok = categorical(i, logits[:, -1])[:, None]
+            out.append(tok)
     seqs = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
     dt = time.perf_counter() - t0
     return seqs, batch * (max_len - 1) / dt
@@ -265,14 +300,16 @@ def serve_legacy(arch: str, *, smoke: bool = False, batch: int = 4,
                  prompt_len: int = 16, gen: int = 16,
                  precision: str | None = None, seed: int = 0,
                  greedy: bool = True, device=None, params=None,
-                 prompts=None, verbose: bool = True) -> np.ndarray:
+                 prompts=None, verbose: bool = True,
+                 mesh=None) -> np.ndarray:
     """Reference loop over the dense cache; ``params`` (on ``device``)
-    and ``prompts`` replace the seeded ones."""
-    cfg, params = _model(arch, smoke, precision, seed, device, params)
+    and ``prompts`` replace the seeded ones; ``mesh`` as ``serve``'s
+    (already resolved)."""
+    cfg, params = _model(arch, smoke, precision, seed, device, params, mesh)
     if prompts is None:
         prompts = make_prompts(cfg, batch, prompt_len, seed)
     seqs, tps = run_legacy(params, cfg, np.asarray(prompts), gen,
-                           greedy=greedy, device=device)
+                           greedy=greedy, device=device, mesh=mesh)
     if verbose:
         print(f"[serve:legacy] {arch} precision={cfg.precision} "
               f"batch={len(seqs)} tokens/s={tps:.1f}")
@@ -294,13 +331,13 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
           replay_photonic: bool = False, stream: bool = False,
           score: int = 0, cancel_after: int = 0, shards: int = 1,
           roles: str | None = None, device=None, params=None,
-          prompts=None, **later):
+          prompts=None, multi_pod: bool = False, mesh=None):
     """Serve ``batch`` requests of ``prompt_len`` tokens, ``gen`` new
     each; returns (batch, prompt_len + gen) token ids, prompts included
     (a ragged list when stop tokens end some early; a cancelled request
     is left out).  ``params`` (on ``device``) and ``prompts`` replace
-    the seeded ones; ``later`` takes the JAX CLI's options of later
-    slices, which raise unless at their defaults.
+    the seeded ones.  ``multi_pod`` and ``mesh``: ``serving_mesh``;
+    given params are placed on its mesh unless they are DTensors.
 
     ``tenants`` turns on the slo policy (unless ``policy`` says
     otherwise); with ``stream`` the requests are spread round-robin over
@@ -317,16 +354,17 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
     prefill/decode split), with the same tokens as one engine; its
     summary is the per-shard rows, the aggregate line and the handoffs,
     and ``trace`` then names the prefix of the per-shard files."""
-    refuse_later(**later)
+    mesh = serving_mesh(smoke=smoke, multi_pod=multi_pod, device=device,
+                        mesh=mesh)
     if engine == "legacy":
         return serve_legacy(arch, smoke=smoke, batch=batch,
                             prompt_len=prompt_len, gen=gen,
                             precision=precision, seed=seed, greedy=greedy,
                             device=device, params=params, prompts=prompts,
-                            verbose=verbose)
+                            verbose=verbose, mesh=mesh)
     if engine != "paged":
         raise ValueError(f"unknown engine {engine!r}")
-    cfg, params = _model(arch, smoke, precision, seed, device, params)
+    cfg, params = _model(arch, smoke, precision, seed, device, params, mesh)
     if prompts is None:
         prompts = make_prompts(cfg, batch, prompt_len, seed)
     prompts = np.asarray(prompts)
@@ -352,7 +390,7 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
         if trace or replay_photonic:
             eng.start_trace(trace, ring=1 << 16)
 
-    sharded = dict(shards=shards, roles=roles)
+    sharded = dict(shards=shards, roles=roles, mesh=mesh)
     if stream:
         eng, rids, got, scored = run_stream(
             params, cfg, list(prompts), gen, ecfg, sampling=sampling,
@@ -547,8 +585,9 @@ def main(argv=None):
                          "'P:D' counts (e.g. 1:2) or comma names "
                          "(prefill,decode,mixed); must cover --shards; "
                          "default all mixed")
-    # the JAX CLI's option of a later slice: it raises when set
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="under a process group of 512 ranks: the "
+                         "(2, 16, 16) mesh (raises elsewhere)")
     args = ap.parse_args(argv)
     return serve(
         args.arch, smoke=args.smoke, batch=args.batch,
@@ -566,7 +605,7 @@ def main(argv=None):
         replay_photonic=args.replay_photonic, stream=args.stream,
         score=args.score, cancel_after=args.cancel_after,
         shards=args.shards, roles=args.roles, device=args.device,
-        **{name: getattr(args, name) for name in LATER})
+        multi_pod=args.multi_pod)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """The train step: microbatched gradient accumulation, then the AdamW
 update — the JAX package's ``repro.launch.steps.build_train_step`` —
-and the abstract inputs of one shape cell (``input_specs``,
-``cache_specs_abstract``, ``to_dtype_structs``): ``meta`` tensors, the
-counterpart of the JAX package's ``ShapeDtypeStruct`` stand-ins, which
-the dry-run places on a mesh.
+the serving steps of the dry-run's prefill and decode cells
+(``build_prefill_step``, ``build_decode_step``), and the abstract
+inputs of one shape cell (``input_specs``, ``cache_specs_abstract``,
+``to_dtype_structs``): ``meta`` tensors, the counterpart of the JAX
+package's ``ShapeDtypeStruct`` stand-ins, which the dry-run places on
+a mesh.  The serving steps run on DTensor params over a mesh too,
+under the sharding context the caller sets.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.dist import spmd
 from repro_torch.models import transformer as M
 from repro_torch.optim import optimizer as opt_mod
 
@@ -138,3 +142,34 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
         return params, new_state, {"loss": loss, **om}
 
     return train_step
+
+
+def build_prefill_step(cfg: ArchConfig):
+    """prefill_step(params, batch) -> the last position's logits (B, V):
+    the forward over ``batch["tokens"]`` (no cache write-back, as in the
+    JAX package's dry-run step); over a mesh vocab-sharded, as
+    ``logits_fn``."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        h = M.hidden_states(params, cfg, batch["tokens"])
+        return M.apply_head(params, spmd.on_local(lambda t: t[:, -1], h))
+
+    return prefill_step
+
+
+def build_decode_step(cfg: ArchConfig):
+    """decode_step(params, caches, batch) -> (next token ids (B,) int32,
+    caches): one token in (``batch["tokens"]`` (B, 1), the cache fill
+    ``batch["length"]``) against the legacy dense caches (written in
+    place), greedy over the logits gathered whole, so every rank of a
+    mesh returns the same ids."""
+
+    @torch.no_grad()
+    def decode_step(params, caches, batch):
+        logits, caches = M.decode_step(params, cfg, batch["tokens"], caches,
+                                       int(batch["length"]))
+        logits = spmd.full(logits)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), caches
+
+    return decode_step

@@ -10,8 +10,8 @@ checkpoint.  The parameters start from the port's own torch init
 (``M.init`` from a generator seeded ``seed``), or from ``params``
 (tests hand over weights carried across from the JAX package); they are
 trained in place.  The step runs on one device: the option of a later
-slice (``--multi-pod``, a forward over several ranks) raises and names
-its ROADMAP.md item.
+slice (``--multi-pod``: training over several ranks, under FSDP)
+raises and names its ROADMAP.md item.
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch bnn-lm-100m \\
@@ -29,10 +29,25 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import reduced
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_tensors
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.serve import refuse_later
 from repro_torch.models import transformer as M
 from repro_torch.optim import optimizer as opt_mod
 from repro_torch.serving.engine import _resolve_device
+
+# options of the JAX CLI that later slices bring: argument -> (its
+# default, the ROADMAP.md item that brings it)
+LATER = {
+    "multi_pod": (False, "queue 1, item 11"),
+}
+
+
+def refuse_later(**opts):
+    """Raise for any option of a later slice that is not at its default."""
+    for name, value in opts.items():
+        default, item = LATER[name]
+        if value != default:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')}={value!r} is not ported yet "
+                f"(ROADMAP.md {item})")
 
 
 def train_init(cfg, device=None, seed: int = 0) -> dict:

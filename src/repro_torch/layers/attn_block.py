@@ -2,11 +2,23 @@
 core, over a full sequence (``forward``), the dense per-batch cache of
 the legacy decode loop (``init_cache`` / ``decode_step``) or the
 block-paged KV cache of the serving engine (``paged_decode_step`` /
-``prefill_chunk``)."""
+``prefill_chunk``).
+
+Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
+block is tensor-parallel by whole heads: q, k and v are
+column-parallel GEMMs, so a rank holds its heads and its kv heads, its
+attention runs on them against its kv-head slice of the pools (or of
+the dense cache), and o is a row-parallel GEMM.  The rows a rank holds
+(data parallel over the batch, ``lsc``) attend alone; their K and V
+are gathered over the data axis before the pool write, since the pools
+hold every block on every data rank (a block id is global).  Where a
+head count does not divide the axis the JAX package splits head_dim
+instead; here that raises (ROADMAP.md queue 1, item 11)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import spmd
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_attention import ring_key_positions  # noqa: F401
 from repro_torch.layers import attention as attn_mod
@@ -38,28 +50,60 @@ def cache_specs() -> dict:
     return {"k": axes, "v": axes}
 
 
+def paged_state_specs() -> dict:
+    """Logical axes of ``init_paged_state``'s (num_blocks, bs, Hkv, Dh)
+    pools: ``cache_specs``' with the block axis in the batch's place,
+    never sharded (a block id is global)."""
+    axes = (None, None, "kv_heads_dim", "head_dim")
+    return {"k": axes, "v": axes}
+
+
+def _check_heads(params, cfg):
+    """Over a mesh, q, k and v must be cut by whole heads, the same
+    number of ways, and o by the same heads."""
+    n = spmd.shards(params["q"]["w"], 1)
+    cuts = (spmd.shards(params["k"]["w"], 1), spmd.shards(params["v"]["w"], 1),
+            spmd.shards(params["o"]["w"], 0))
+    if cfg.n_heads % n or cfg.n_kv_heads % n or any(c != n for c in cuts):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads and {cfg.n_kv_heads} kv heads "
+            f"on a {n}-way model axis: splitting head_dim instead is "
+            "ROADMAP.md queue 1, item 11")
+
+
+def _heads(y, dh: int):
+    """(B, T, n*Dh) -> (B, T, n, Dh), a rank's n of its shard."""
+    return spmd.on_local(lambda t: t.reshape(*t.shape[:-1], -1, dh), y)
+
+
+def _merge_heads(o):
+    """(B, T, n, Dh) -> (B, T, n*Dh)."""
+    return spmd.on_local(lambda t: t.reshape(*t.shape[:-2], -1), o)
+
+
 def _qkv(params, cfg, x, positions, precision, impl, taps=None):
-    b, t, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = C.dense(x, params["q"], precision, impl, taps, "q").reshape(
-        b, t, h, dh)
-    k = C.dense(x, params["k"], precision, impl, taps, "k").reshape(
-        b, t, hkv, dh)
-    v = C.dense(x, params["v"], precision, impl, taps, "v").reshape(
-        b, t, hkv, dh)
-    q = C.apply_rope(q, positions, cfg.rope_theta)
-    k = C.apply_rope(k, positions, cfg.rope_theta)
+    _check_heads(params, cfg)
+    q, k, v = (_heads(C.dense(x, params[n], precision, impl, taps, n),
+                      cfg.head_dim) for n in ("q", "k", "v"))
+    pos = spmd.rows(positions, q)
+    q = spmd.on_local(C.apply_rope, q, pos, cfg.rope_theta)
+    k = spmd.on_local(C.apply_rope, k, pos, cfg.rope_theta)
+    # head-sharding; the JAX package falls back to a head_dim split
+    # where the head count does not divide the 'model' axis
+    # (_check_heads refuses that)
+    q = C.lsc(q, "batch", None, "heads_dim", "head_dim")
+    k = C.lsc(k, "batch", None, "kv_heads_dim", "head_dim")
+    v = C.lsc(v, "batch", None, "kv_heads_dim", "head_dim")
     return q, k, v
 
 
 def forward(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             precision: str = "bf16", impl: str = "auto") -> torch.Tensor:
-    b, t, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions, precision, impl)
-    o = attn_mod.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    o = o.reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return C.dense(o, params["o"], precision, impl)
+    o = spmd.on_local(attn_mod.attention, q, k, v, causal=True,
+                      window=cfg.sliding_window, q_chunk=cfg.q_chunk,
+                      kv_chunk=cfg.kv_chunk)
+    return C.dense(_merge_heads(o), params["o"], precision, impl)
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +113,9 @@ def forward(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
                device=None) -> dict:
     """(B, L, Hkv, Dh) K and V; a sliding-window config keeps a
-    window-sized ring (L = min(max_len, window))."""
+    window-sized ring (L = min(max_len, window)).  Over a mesh the
+    model places them by ``cache_specs``
+    (``transformer.init_cache``)."""
     length = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
@@ -87,17 +133,19 @@ def decode_step(params, cfg, x: torch.Tensor, cache, length: int, *,
     positions = torch.full((b, 1), length, dtype=torch.long,
                            device=x.device)
     q, k, v = _qkv(params, cfg, x, positions, precision, impl)
-    size = cache["k"].shape[1]
+    # a rank's cache rows and kv heads are those of its k and v (both
+    # placed by the batch and kv-head axes)
+    ck, cv = spmd.local(cache["k"]), spmd.local(cache["v"])
+    size = ck.shape[1]
     slot = length % size if cfg.sliding_window else length
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    ck[:, slot] = spmd.local(k)[:, 0].to(ck.dtype)
+    cv[:, slot] = spmd.local(v)[:, 0].to(cv.dtype)
     # a ring holds the last `window` tokens: attending over all valid
     # slots with no causal mask within them is the same attention
-    o = attn_mod.attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                           causal=False, kv_len=min(length + 1, size),
-                           q_chunk=1, kv_chunk=cfg.kv_chunk)
-    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return C.dense(o, params["o"], precision, impl), cache
+    o = spmd.on_local(lambda ql: attn_mod.attention(
+        ql, ck.to(ql.dtype), cv.to(ql.dtype), causal=False,
+        kv_len=min(length + 1, size), q_chunk=1, kv_chunk=cfg.kv_chunk), q)
+    return C.dense(_merge_heads(o), params["o"], precision, impl), cache
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +168,9 @@ def decode_step(params, cfg, x: torch.Tensor, cache, length: int, *,
 
 def init_paged_state(cfg, num_blocks: int, block_size: int,
                      dtype=torch.float32, device=None) -> dict:
-    """Per-layer paged KV pool (the GQA mixer-state layout)."""
+    """Per-layer paged KV pool (the GQA mixer-state layout).  Over a
+    mesh the model places it by ``paged_state_specs``
+    (``transformer.init_paged_state``)."""
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -161,17 +211,31 @@ def scatter_blocks(pool: torch.Tensor, block_table: torch.Tensor,
     return pool
 
 
+def _write_kv(cache, block_table, positions, k, v, valid, ring):
+    """Every row's K and V into the pools, in place (over a mesh each
+    rank writes its kv-head slice of all rows: the rows are gathered
+    over the data axis first)."""
+    for name, t in (("k", k), ("v", v)):
+        scatter_blocks(spmd.local(cache[name]), block_table, positions,
+                       spmd.local(spmd.all_rows(t)), valid, ring=ring)
+
+
 def _paged_attend(cfg, q, cache, block_table, lengths, kv_len, newest,
                   ring, causal, impl):
     """GQA paged attention: the kernel walks the block table itself
     (``newest`` (B,), the highest position written, places the ring's
-    slots)."""
-    return kops.paged_attention(
-        q.float().contiguous(), cache["k"], cache["v"], block_table,
-        kv_len=kv_len, q_offset=lengths, causal=causal,
-        window=cfg.sliding_window, ring=ring,
-        newest=newest.to(torch.int32).contiguous() if ring else None,
-        impl=impl).to(q.dtype)
+    slots).  Over a mesh, on the rank's rows and heads."""
+    def rows(t):
+        return spmd.rows(t, q)
+    ql = spmd.local(q)
+    o = kops.paged_attention(
+        ql.float().contiguous(), spmd.local(cache["k"]),
+        spmd.local(cache["v"]), rows(block_table), kv_len=rows(kv_len),
+        q_offset=rows(lengths), causal=causal, window=cfg.sliding_window,
+        ring=ring,
+        newest=rows(newest).to(torch.int32).contiguous() if ring else None,
+        impl=impl).to(ql.dtype)
+    return spmd.wrap_like(o, q)
 
 
 def paged_decode_step(params, cfg, x: torch.Tensor, cache,
@@ -195,13 +259,12 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     q, k, v = _qkv(params, cfg, x, positions, precision, impl, taps)
     valid = (torch.ones((b, 1), dtype=torch.bool, device=x.device)
              if active is None else active[:, None])
-    scatter_blocks(cache["k"], block_table, positions, k, valid, ring=ring)
-    scatter_blocks(cache["v"], block_table, positions, v, valid, ring=ring)
+    _write_kv(cache, block_table, positions, k, v, valid, ring)
     o = _paged_attend(cfg, q, cache, block_table, lengths, lengths + 1,
                       lengths, ring, causal=False,
                       impl=attn_impl or impl)
-    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return C.dense(o, params["o"], precision, impl, taps, "o"), cache
+    return C.dense(_merge_heads(o), params["o"], precision, impl, taps,
+                   "o"), cache
 
 
 def prefill_chunk(params, cfg, x: torch.Tensor, cache,
@@ -219,15 +282,13 @@ def prefill_chunk(params, cfg, x: torch.Tensor, cache,
     ``cache`` are updated in place.  ``taps``, when a list, receives
     ``(name, input)`` of each projection (q, k, v, o).
     """
-    b, ch, _ = x.shape
-    ar = torch.arange(ch, device=x.device)
+    ar = torch.arange(x.shape[1], device=x.device)
     positions = lengths[:, None].long() + ar[None, :]
     q, k, v = _qkv(params, cfg, x, positions, precision, impl, taps)
     valid = ar[None, :] < n_valid[:, None]
-    scatter_blocks(cache["k"], block_table, positions, k, valid, ring=ring)
-    scatter_blocks(cache["v"], block_table, positions, v, valid, ring=ring)
+    _write_kv(cache, block_table, positions, k, v, valid, ring)
     o = _paged_attend(cfg, q, cache, block_table, lengths,
                       lengths + n_valid, lengths + n_valid - 1, ring,
                       causal=True, impl=attn_impl or impl)
-    o = o.reshape(b, ch, cfg.n_heads * cfg.head_dim)
-    return C.dense(o, params["o"], precision, impl, taps, "o"), cache
+    return C.dense(_merge_heads(o), params["o"], precision, impl, taps,
+                   "o"), cache

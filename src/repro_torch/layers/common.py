@@ -7,19 +7,62 @@ return the params; beside each, a ``*_specs`` function returns the
 same tree with a tuple of LOGICAL axis names per leaf (the JAX
 package's init returns both).  ``logical_to_pspec`` resolves such a
 tuple to mesh axes under a rule set (``dist/sharding.py``), and
-``to_placements`` turns the result into DTensor placements.  The JAX
-package's activation constraints (``lsc`` and its sharding context)
-wait for a forward that runs on several ranks.
+``to_placements`` turns the result into DTensor placements.
+
+Activations are annotated through ``lsc`` (logical sharding
+constraint), the JAX package's: outside a sharding context it returns
+its input; inside one it redistributes the activation (a DTensor, or a
+plain tensor every rank holds whole) to the placements its logical
+axes resolve to on the context's mesh.  Under a mesh the ops here take
+DTensors and compute on each rank's shard (``dist/spmd.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections.abc import Mapping
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import spmd
 from repro_torch.kernels import ops as kops
+
+# ---------------------------------------------------------------------------
+# logical sharding context
+
+
+class _ShardingContext(threading.local):
+    def __init__(self):
+        self.rules: dict[str, Any] | None = None
+        self.mesh = None
+
+
+_CTX = _ShardingContext()
+
+
+def set_sharding_context(mesh, rules: dict[str, Any] | None):
+    _CTX.mesh = mesh
+    _CTX.rules = rules
+
+
+def clear_sharding_context():
+    _CTX.mesh = None
+    _CTX.rules = None
+
+
+@contextlib.contextmanager
+def sharding_context(mesh, rules: dict[str, Any] | None):
+    """Scoped set/restore of the logical sharding context: nesting
+    restores the enclosing context, not clears it."""
+    prev_mesh, prev_rules = _CTX.mesh, _CTX.rules
+    set_sharding_context(mesh, rules)
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev_mesh, prev_rules
+
 
 # ---------------------------------------------------------------------------
 # logical sharding axes
@@ -86,6 +129,20 @@ def to_placements(spec: tuple, mesh) -> list:
                 if e == name or (isinstance(e, tuple) and name in e)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return out
+
+
+def lsc(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """Logical sharding constraint on an activation: without a context
+    ``x`` itself; within one, ``x`` redistributed to its axes' placements
+    on the context's mesh (a plain ``x`` is taken as held whole on every
+    rank)."""
+    if _CTX.mesh is None or _CTX.rules is None:
+        return x
+    mesh = _CTX.mesh
+    if not spmd.is_dtensor(x):
+        x = spmd.replicate(x, mesh)
+    spec = logical_to_pspec(axes[:x.ndim], _CTX.rules, tuple(x.shape), mesh)
+    return spmd.redistribute(x, to_placements(spec, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +220,11 @@ def layernorm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
 
 def norm(x: torch.Tensor, params, kind: str = "rmsnorm",
          eps: float = 1e-6) -> torch.Tensor:
-    return rmsnorm(x, params, eps) if kind == "rmsnorm" else \
-        layernorm(x, params, eps)
+    """Over the last dim, which a DTensor ``x`` holds whole: each rank
+    normalizes its rows."""
+    fn = rmsnorm if kind == "rmsnorm" else layernorm
+    p = {k: spmd.local(v) for k, v in params.items()}
+    return spmd.on_local(fn, x, p, eps)
 
 
 def dense(x: torch.Tensor, params, precision: str = "bf16",
@@ -176,7 +236,7 @@ def dense(x: torch.Tensor, params, precision: str = "bf16",
         taps.append((name, x))
     y = kops.bnn_dense(x, params["w"], precision=precision, impl=impl)
     if "b" in params:
-        y = y + params["b"].to(y.dtype)
+        y = spmd.on_local(lambda yl, b: yl + b.to(yl.dtype), y, params["b"])
     return y
 
 

@@ -1,10 +1,13 @@
 """Feed-forward blocks: GLU variants (SwiGLU/GeGLU) and plain MLPs,
-with OXBNN precision dispatch on every projection."""
+with OXBNN precision dispatch on every projection.  Over a mesh the
+gate and up projections are column-parallel and down row-parallel:
+each rank's hidden is its slice of ``mlp``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import spmd
 from repro_torch.layers import common as C
 
 
@@ -38,13 +41,16 @@ def forward(params, x: torch.Tensor, kind: str = "swiglu",
         return C.dense(v, params[name], precision, impl, taps, name)
 
     if kind == "swiglu":
-        h = F.silu(proj(x, "gate")) * proj(x, "up")
+        h = spmd.on_local(lambda g, u: F.silu(g) * u, proj(x, "gate"),
+                          proj(x, "up"))
     elif kind == "geglu":
-        h = C.gelu(proj(x, "gate")) * proj(x, "up")
+        h = spmd.on_local(lambda g, u: C.gelu(g) * u, proj(x, "gate"),
+                          proj(x, "up"))
     elif kind == "gelu":
-        h = C.gelu(proj(x, "up"))
+        h = spmd.on_local(C.gelu, proj(x, "up"))
     elif kind == "relu":
-        h = F.relu(proj(x, "up"))
+        h = spmd.on_local(F.relu, proj(x, "up"))
     else:
         raise ValueError(kind)
+    h = C.lsc(h, "batch", None, "mlp")
     return proj(h, "down")

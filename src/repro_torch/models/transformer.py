@@ -33,6 +33,16 @@ package's: the full-sequence forward takes ``prefix_embeds`` (the vlm
 patch embeddings) and ``embeds`` (the audio frame embeddings) beside
 the tokens; the serving paths and the legacy decode loop take tokens.
 
+Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
+dense family runs tensor-parallel over ``model`` and data-parallel over
+``data`` under the decode rules: the embedding is a vocab-parallel
+lookup (each rank's rows of the table, summed: one rank contributes
+each row, so the sum is exact), each layer as ``attn_block`` and
+``ffn`` say, the logits come out vocab-sharded (callers gather them,
+``spmd.full``), and activations take the JAX package's ``lsc``
+constraints (the batch over ``data`` under a sharding context).  The
+other families refuse a mesh (ROADMAP.md queue 1, item 11).
+
 Three ways through the stack: the full-sequence forward
 (``hidden_states`` / ``logits_fn``, and ``loss_fn`` for training: the
 chunked cross entropy with the MoE aux loss, over ``trainable``'s
@@ -47,6 +57,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding as S, spmd
 from repro_torch.layers import attn_block, common as C, ffn, mamba2, mla, moe
 
 # ---------------------------------------------------------------------------
@@ -106,6 +117,17 @@ def check_supported(cfg: ArchConfig):
     if cfg.frontend not in ("none", "audio", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: front-end {cfg.frontend!r} is not ported")
+
+
+def check_mesh_supported(cfg: ArchConfig):
+    """Raise unless ``cfg`` runs over a mesh: the dense family (GQA
+    attention, a dense FFN, no front-end)."""
+    kinds = set(layer_plan(cfg))
+    if kinds != {("gqa", "dense")} or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the forward over several ranks runs the dense "
+            f"family; layers {sorted(kinds)} with front-end "
+            f"{cfg.frontend!r} over a mesh are ROADMAP.md queue 1, item 11")
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +244,27 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     return _embed_inputs(params, cfg, tokens)
 
 
+def _lookup(w, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the table ``w``; of a DTensor table cut along
+    the vocab, each rank looks up the tokens in its slice (zero rows for
+    the rest), and the ranks' rows are summed: one rank contributes each
+    row, so the sum is exact."""
+    if not spmd.is_dtensor(w):
+        return torch.nn.functional.embedding(tokens, w)
+    mesh, wl = w.device_mesh, w.to_local()
+    cut = [i for i, p in enumerate(w.placements)
+           if p.is_shard() and p.dim == 0]
+    if not cut:
+        return spmd.replicate(torch.nn.functional.embedding(tokens, wl),
+                              mesh)
+    i = cut[0]
+    ids = tokens - mesh.get_coordinate()[i] * wl.shape[0]
+    off = (ids < 0) | (ids >= wl.shape[0])
+    e = torch.nn.functional.embedding(ids.masked_fill(off, 0), wl)
+    e = spmd.all_reduce(e.masked_fill(off[..., None], 0.0), mesh, i)
+    return spmd.replicate(e, mesh)
+
+
 def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
                   prefix_embeds=None) -> torch.Tensor:
     """The input hidden sequence: ``prefix_embeds`` (vlm patch
@@ -231,14 +274,15 @@ def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
     is ``F.embedding``: its backward sums a row's gradients in a fixed
     order, where indexing's accumulating backward does not (a
     multi-threaded CPU run then differs from run to run)."""
+    if spmd.is_dtensor(params["embed"]["w"]):
+        check_mesh_supported(cfg)
     parts = [e for e in (prefix_embeds, embeds) if e is not None]
     if tokens is not None:
-        parts.append(torch.nn.functional.embedding(tokens,
-                                                   params["embed"]["w"]))
+        parts.append(_lookup(params["embed"]["w"], tokens))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * (cfg.d_model ** 0.5)
-    return x
+    return C.lsc(x, "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +304,8 @@ def _layer(p, cfg: ArchConfig, mix: str, f: str, x, positions, impl):
         y = attn_block.forward(p["attn"], cfg, h, positions,
                                precision=cfg.precision, impl=impl)
     aux: list = []
-    x = _ffn(p, cfg, f, x + y, impl, paged=False, aux=aux)
+    x = C.lsc(_ffn(p, cfg, f, x + y, impl, paged=False, aux=aux),
+              "batch", None, None)
     return x, (aux[0] if aux else torch.zeros((), device=x.device))
 
 
@@ -300,9 +345,17 @@ def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
               *, embeds: torch.Tensor | None = None,
               prefix_embeds: torch.Tensor | None = None,
               impl: str = "auto") -> torch.Tensor:
+    """(B, T, V) logits; over a mesh vocab-sharded (``spmd.full``
+    gathers them)."""
     h = hidden_states(params, cfg, tokens, embeds=embeds,
                       prefix_embeds=prefix_embeds, impl=impl)
-    return torch.matmul(h, params["head"]["w"])
+    return apply_head(params, h)
+
+
+def apply_head(params, h):
+    """The float LM head; over a mesh a column-parallel GEMM, so the
+    logits come out cut along the vocab."""
+    return C.dense(h, params["head"])
 
 
 def head_matrix(params, cfg: ArchConfig) -> torch.Tensor:
@@ -377,10 +430,13 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.float32, device=None) -> list[dict]:
+               dtype=torch.float32, device=None, *,
+               mesh=None) -> list[dict]:
     """Per-layer dense caches: (B, L, Hkv, Dh) K/V for GQA (a window's
     ring for a sliding-window config), (B, L, R) latents for MLA, the
-    recurrent state for SSM layers."""
+    recurrent state for SSM layers.  Over ``mesh``, DTensors placed by
+    ``cache_specs`` under its decode rules, the rules the forward's
+    sharding context must have."""
     check_supported(cfg)
     caches = []
     for mix, _f in layer_plan(cfg):
@@ -389,7 +445,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         else:
             caches.append(_mixer(mix).init_cache(cfg, batch, max_len, dtype,
                                                  device))
-    return caches
+    if mesh is None:
+        return caches
+    check_mesh_supported(cfg)
+    return S.place_tree(caches, cache_specs(cfg), mesh,
+                        S.decode_rules_of(mesh))
 
 
 def cache_specs(cfg: ArchConfig) -> list[dict]:
@@ -425,7 +485,7 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
         x, c = _decode_layer(p, cfg, mix, f, x, caches[li], length, impl)
         new.append(c)
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    return torch.matmul(x, params["head"]["w"]), new
+    return apply_head(params, x), new
 
 
 # ---------------------------------------------------------------------------
@@ -478,13 +538,27 @@ def mixer_prefill(mix: str, p, cfg: ArchConfig, h, cache, block_table,
     return y
 
 
+def paged_state_specs(cfg: ArchConfig) -> list[dict]:
+    """Logical axes of ``init_paged_state``'s pools over a mesh (the
+    dense family's: ``attn_block.paged_state_specs`` a layer)."""
+    check_mesh_supported(cfg)
+    return [attn_block.paged_state_specs() for _ in layer_plan(cfg)]
+
+
 def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
                      num_slots: int = 0, dtype=torch.float32,
-                     device=None) -> list[dict]:
+                     device=None, *, mesh=None) -> list[dict]:
     """Flat per-layer list of pools (layer order == plan order): K/V
     blocks for GQA layers, latent blocks for MLA layers, ``num_slots``
     recurrent slots (slot 0 scratch) for SSM layers; a hybrid stack
-    holds both kinds, each at its layer's place."""
+    holds both kinds, each at its layer's place.  Over ``mesh``,
+    DTensors placed by ``paged_state_specs`` (kv heads over ``model``)
+    under its decode rules."""
+    if mesh is not None:
+        return S.place_tree(
+            init_paged_state(cfg, num_blocks, block_size, num_slots, dtype,
+                             device),
+            paged_state_specs(cfg), mesh, S.decode_rules_of(mesh))
     check_supported(cfg)
     pools = []
     for mix, _f in layer_plan(cfg):
@@ -524,7 +598,7 @@ def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                          attn_impl=attn_impl)
         x = _ffn(p, cfg, f, x + y, impl, paged=True)
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    return torch.matmul(x, params["head"]["w"]), caches
+    return apply_head(params, x), caches
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
@@ -554,7 +628,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
         if taps is not None:
             taps.append(("hidden", x))
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    return torch.matmul(x, params["head"]["w"]), caches
+    return apply_head(params, x), caches
 
 
 def snapshot_slot_state(cfg: ArchConfig, caches, slots: torch.Tensor

@@ -55,6 +55,11 @@ prefix cache on, its slot member runs the snapshot index
 both members jointly: the attention blocks are adopted only down to the
 snapshot depth, so every layer resumes from one position.  Swap parks
 both members' state.
+
+Over a mesh (the engine's ``mesh=``: the dense family) the pools are
+DTensors, each rank holding its kv-head slice of every block; the
+copies act on the rank's slice, and the bookkeeping, the same on
+every rank, decides alike.
 """
 from __future__ import annotations
 
@@ -63,7 +68,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.dist import spmd
 from repro_torch.layers import attn_block, mla
+from repro_torch.models import transformer
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serving.mixer_state import (
     LAYOUT_SLOT, MixerState, RecurrentSlotState, chunk_key, layer_layouts,
@@ -73,8 +80,9 @@ from repro_torch.serving.tracing import Tracer
 
 def _cow_copy(pool: dict, src: int, dst: int):
     """Block ``dst`` of every tensor in one layer's pool becomes a copy
-    of block ``src``, in place."""
+    of block ``src``, in place (over a mesh, of the rank's slice)."""
     for v in pool.values():
+        v = spmd.local(v)
         v[dst].copy_(v[src])
 
 
@@ -82,7 +90,7 @@ def _host_restore(pool: dict, dst: torch.Tensor, host: dict):
     """Write copies (n, block_size, ...) into blocks ``dst`` (n,) of one
     layer's pool, in place: one ``index_copy_`` per tensor."""
     for k, v in pool.items():
-        v.index_copy_(0, dst, host[k])
+        spmd.local(v).index_copy_(0, dst, host[k])
 
 
 class BlockAllocator:
@@ -251,7 +259,7 @@ class BlockKVCache(MixerState):
                  max_model_len: int, dtype=torch.float32,
                  prefix_cache: bool = True,
                  layer_ids: list[int] | None = None, ring_blocks: int = 0,
-                 tracer: Tracer | None = None, device="cpu"):
+                 tracer: Tracer | None = None, device="cpu", mesh=None):
         self.cfg = cfg
         # wall-time accounting of the swaps goes through the tracer's
         # spans (the engine shares its tracer)
@@ -269,10 +277,17 @@ class BlockKVCache(MixerState):
             self.max_blocks_per_seq = min(self.max_blocks_per_seq,
                                           ring_blocks)
         self.allocator = BlockAllocator(num_blocks)
-        self.pools = [(mla if plan[li][0] == "mla" else attn_block)
-                      .init_paged_state(cfg, num_blocks, block_size, dtype,
-                                        device)
-                      for li in self.layer_ids]
+        if mesh is not None:
+            # the dense family only: every layer's pool, each rank's
+            # kv-head slice (the block ids are global)
+            self.pools = transformer.init_paged_state(
+                cfg, num_blocks, block_size, dtype=dtype, device=device,
+                mesh=mesh)
+        else:
+            self.pools = [(mla if plan[li][0] == "mla" else attn_block)
+                          .init_paged_state(cfg, num_blocks, block_size,
+                                            dtype, device)
+                          for li in self.layer_ids]
         self.prefix = PrefixIndex() if prefix_cache else None
         # prefix-cache counters (engine.stats surfaces these)
         self.prefix_queries = 0          # full prompt blocks walked
@@ -513,12 +528,14 @@ class BlockKVCache(MixerState):
                                device=self._device())
             # one gather on the device, one synchronous copy to the host
             # (pageable memory: the copy is complete when .cpu() returns)
-            flat = torch.cat([v.index_select(0, ids).reshape(-1)
+            flat = torch.cat([spmd.local(v).index_select(0, ids)
+                              .reshape(-1)
                               for pool in self.pools
                               for v in pool.values()]).cpu()
-            host = split_flat(flat, [{k: (len(ids),) + tuple(v.shape[1:])
-                                  for k, v in pool.items()}
-                                 for pool in self.pools])
+            host = split_flat(flat, [{k: (len(ids),) +
+                                      tuple(spmd.local(v).shape[1:])
+                                      for k, v in pool.items()}
+                                     for pool in self.pools])
             req.host_kv = host
             req.swap_readopt = readopt
             self.allocator.free(req.blocks)
@@ -622,7 +639,7 @@ class MixerStateCache:
                  max_model_len: int, dtype=torch.float32,
                  prefix_cache: bool = True, num_slots: int = 8,
                  prefill_chunk: int = 16, snapshot_slots: int = 16,
-                 tracer: Tracer | None = None, device="cpu"):
+                 tracer: Tracer | None = None, device="cpu", mesh=None):
         self.cfg = cfg
         self.tracer = tracer if tracer is not None else Tracer()
         self.block_size = block_size
@@ -639,7 +656,7 @@ class MixerStateCache:
             max_model_len=max_model_len, dtype=dtype,
             prefix_cache=prefix_cache, layer_ids=attn_ids,
             ring_blocks=self.ring_blocks, tracer=self.tracer,
-            device=device) if attn_ids else None
+            device=device, mesh=mesh) if attn_ids else None
         # the slot member's snapshot index is the prefix cache of its
         # layers, on or off with the block member's
         self.ssm = RecurrentSlotState(

@@ -52,6 +52,15 @@ kernels (kernels/); ``Engine(..., device="cpu")`` runs their plain
 PyTorch versions and exists for tests.  The attached PhotonicCostModel
 reports what the modeled OXBNN accelerator would sustain on the same
 token stream (``stats()["photonic"]``), next to the measured wall clock.
+
+``Engine(..., mesh=...)`` serves over a (data, model) ``DeviceMesh``
+(the dense family): every rank runs this engine, the same scheduler
+over the same requests (SPMD), on params placed by the decode rules
+(``dist/sharding.place_params``; plain params are placed here), pools
+placed by kv heads, and step closures that sample from the logits
+gathered whole, so the ranks draw the same tokens; ``check_ranks``
+compares each step's tokens across the ranks and raises where they
+differ (a debug check).  Without ``mesh`` nothing of this runs.
 """
 from __future__ import annotations
 
@@ -62,6 +71,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as S, spmd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as M
 from repro_torch.serving import roles as R
@@ -146,13 +156,18 @@ def _resolve_device(device, what: str = "Engine") -> torch.device:
 
 class Engine:
     def __init__(self, params, cfg, ecfg: EngineConfig = EngineConfig(),
-                 device=None):
+                 device=None, *, mesh=None, check_ranks: bool = False):
         self.device = _resolve_device(device)
         M.check_supported(cfg)
         w = params["embed"]["w"]
         if w.device.type != self.device.type:
             raise ValueError(f"params live on {w.device}, engine on "
                              f"{self.device}")
+        self.mesh = mesh
+        if mesh is not None:
+            M.check_mesh_supported(cfg)
+            params = S.placed(params, cfg, mesh)
+        self._check_ranks = check_ranks and mesh is not None
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
@@ -167,7 +182,7 @@ class Engine:
             num_slots=ecfg.num_slots or ecfg.max_batch + 1,
             prefill_chunk=ecfg.prefill_chunk,
             snapshot_slots=ecfg.snapshot_slots or 2 * ecfg.max_batch,
-            tracer=self.tracer, device=self.device)
+            tracer=self.tracer, device=self.device, mesh=mesh)
         # ring rollback: a stale speculative write may only clobber
         # positions already outside the attention window, which the
         # prefill-sized ring guarantees when the verify chunk is no wider
@@ -245,7 +260,7 @@ class Engine:
         fns = R.build_step_fns(cfg, ring=self.cache.ring_blocks > 0,
                                impl=ecfg.bnn_impl,
                                attn_impl=ecfg.attn_impl, spec_k=self._spec_k,
-                               role=self.role)
+                               role=self.role, mesh=mesh)
         self._prefill_fn = fns.prefill
         self._decode_fn = fns.decode
         self._spec_fn = fns.spec
@@ -493,6 +508,13 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _agree(self, what: str, *ts: torch.Tensor):
+        """``check_ranks``: every rank drew these tokens."""
+        if self._check_ranks:
+            for t in ts:
+                spmd.check_agree(t, self.mesh, f"step {self.step_count} "
+                                 f"{what}")
+
     def _run_prefill(self, step: int, req: Request, chunk: int):
         if not self.scheduler.grow_or_preempt(step, req, req.pos + chunk):
             return                     # req itself was preempted
@@ -512,6 +534,7 @@ class Engine:
             self._tensor(table), self._tensor(np.array([req.pos], np.int32)),
             self._tensor(np.array([chunk], np.int32)), self._tensor(slots),
             *srows.as_args(self.device))
+        self._agree("prefill", tok)
         # the chunk's real logits rows, read back once, when scoring or
         # capturing needs them (row j predicts prompt position pos+j+1)
         rows = (logits[0, :chunk].float().cpu().numpy()
@@ -625,6 +648,7 @@ class Engine:
             self._tensor(table), self._tensor(lengths),
             self._tensor(active), self._tensor(slots),
             *srows.as_args(self.device))
+        self._agree("decode", next_tok)
         next_tok = next_tok.cpu().numpy()
         self._max_concurrent = max(self._max_concurrent, len(ready))
         self._decode_calls += 1
@@ -701,6 +725,7 @@ class Engine:
             self.params, self.cache.pools, t_tokens, t_table, t_lengths,
             self._tensor(n_valid), t_slots, self._tensor(draft),
             *srows.as_args(self.device))
+        self._agree("verify", sampled, n_commit)
         sampled = sampled.cpu().numpy()
         n_commit_h = n_commit.cpu().numpy()
         n = len(ready)

@@ -38,14 +38,21 @@ per-row sampling operands (``sampling.sampling_rows``; four ``None``
 when every row is greedy).  Because the verify step writes the pools in
 place, its slot snapshots (``transformer.snapshot_slot_state``) are
 copies, taken before it.
+
+Over a mesh (the engine's ``mesh=``) the closures run the model under
+the sharding context of the mesh's decode rules and sample from the logits
+gathered whole, so every rank draws the same tokens.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
+from repro_torch.dist import sharding as S, spmd
+from repro_torch.layers import common as C
 from repro_torch.models import transformer as M
 from repro_torch.serving.sampling import sample_tokens
 
@@ -155,7 +162,7 @@ class StepFns:
 
 def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
                    attn_impl: str | None = None, spec_k: int = 0,
-                   role: Role = MIXED) -> StepFns:
+                   role: Role = MIXED, mesh=None) -> StepFns:
     """Construct the step closures of one worker of ``role``;
     ``cfg``, ``ring`` (the block tables are sliding-window rings), the
     BNN GEMMs' ``impl`` and the paged attention's ``attn_impl``
@@ -166,14 +173,21 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
     recurrent slots, the sampling operands) stay arguments.
     Each returns (next tokens (B,), logits, pools); the token at
     absolute position i is drawn from its (seed, i) stream, as in the
-    JAX package."""
+    JAX package.  With ``mesh`` the model runs under the sharding
+    context of its decode rules and the logits returned are gathered
+    whole."""
+    def sharded():
+        return (C.sharding_context(mesh, S.decode_rules_of(mesh))
+                if mesh is not None else contextlib.nullcontext())
 
     @torch.no_grad()
     def _prefill(params, pools, tokens, table, lengths, n_valid, slots,
                  seeds=None, temps=None, top_k=None, top_p=None):
-        logits, pools = M.prefill_chunk(params, cfg, tokens, pools, table,
-                                        lengths, n_valid, slots, ring=ring,
-                                        impl=impl, attn_impl=attn_impl)
+        with sharded():
+            logits, pools = M.prefill_chunk(
+                params, cfg, tokens, pools, table, lengths, n_valid, slots,
+                ring=ring, impl=impl, attn_impl=attn_impl)
+        logits = spmd.full(logits)
         # chunk-final logits row -> the would-be next token (used by
         # the engine only when this chunk completes the prompt)
         last = (n_valid.long() - 1).clamp_min(0)
@@ -188,10 +202,11 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
     @torch.no_grad()
     def _decode(params, pools, tokens, table, lengths, active, slots,
                 seeds=None, temps=None, top_k=None, top_p=None):
-        logits, pools = M.paged_decode_step(params, cfg, tokens, pools,
-                                            table, lengths, active, slots,
-                                            ring=ring, impl=impl,
-                                            attn_impl=attn_impl)
+        with sharded():
+            logits, pools = M.paged_decode_step(
+                params, cfg, tokens, pools, table, lengths, active, slots,
+                ring=ring, impl=impl, attn_impl=attn_impl)
+        logits = spmd.full(logits)
         tok = sample_tokens(logits[:, -1], lengths + 1, seeds, temps,
                             top_k, top_p)
         return tok, logits, pools
@@ -203,10 +218,11 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
     def _spec(params, pools, tokens, table, lengths, n_valid, slots, draft,
               seeds=None, temps=None, top_k=None, top_p=None):
         b, c = tokens.shape
-        logits, pools, snaps = M.spec_verify(params, cfg, tokens, pools,
-                                             table, lengths, n_valid, slots,
-                                             ring=ring, impl=impl,
-                                             attn_impl=attn_impl)
+        with sharded():
+            logits, pools, snaps = M.spec_verify(
+                params, cfg, tokens, pools, table, lengths, n_valid, slots,
+                ring=ring, impl=impl, attn_impl=attn_impl)
+        logits = spmd.full(logits)
         # sample EVERY position with its own (seed, index) key: what
         # plain decoding would draw there
         idx = (lengths.long()[:, None] + 1
@@ -232,9 +248,10 @@ def build_step_fns(cfg, *, ring: bool = False, impl: str = "auto",
         # exactly its committed prefix (the masked prefill writes the
         # same K/V into the block layers again)
         M.restore_slot_state(cfg, pools, slots, snaps)
-        M.prefill_chunk(params, cfg, tokens, pools, table, lengths,
-                        n_commit.to(torch.int32), slots, ring=ring,
-                        impl=impl, attn_impl=attn_impl)
+        with sharded():
+            M.prefill_chunk(params, cfg, tokens, pools, table, lengths,
+                            n_commit.to(torch.int32), slots, ring=ring,
+                            impl=impl, attn_impl=attn_impl)
         return pools
 
     return StepFns(prefill=_prefill, decode=_decode, spec=_spec,

@@ -67,6 +67,12 @@ def test_import_hygiene_no_jax_no_repro():
         "import torch.distributed as dist\n"
         "print('SLICE15', all('repro_torch.' + m in sys.modules\n"
         "                     for m in new), dist.is_initialized())\n"
+        "new = ('dist.spmd', 'dist.sharding', 'launch.mesh',\n"
+        "       'launch.steps', 'serving.engine')\n"
+        "print('SLICE16', all('repro_torch.' + m in sys.modules\n"
+        "                     for m in new),\n"
+        "      'torch.distributed.tensor' in sys.modules,\n"
+        "      dist.is_initialized())\n"
         "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
         "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -86,6 +92,9 @@ def test_import_hygiene_no_jax_no_repro():
     # the analytic model, the meshes, the dry-run: no process group is
     # made by importing them
     assert "SLICE15 True False" in res.stdout, res.stdout
+    # the forward over several ranks: its DTensor helpers import DTensor
+    # only where a mesh is used, and no module makes a process group
+    assert "SLICE16 True False False" in res.stdout, res.stdout
     # every config of the registry (11) and base.py: the jamba hybrid,
     # the dense and the front-end configs too
     assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout
