@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_ab.py --tree parent=DIR --tree change=. \\
         [--variant NAME=FILE:CONST=VALUE[,FILE:CONST=VALUE...]] \\
-        [--turns parent,change,change,parent] [--what mla,pack,conv] \\
+        [--turns parent,change,change,parent] [--what mla,pack,conv,ranks] \\
         [--out FILE]
 
 Each ``--tree`` is a checkout of this repository (the parent's, unpacked
@@ -28,7 +28,11 @@ JSON object of device times (ms a call, from CUDA-graph replays):
          patch pack of conv1's 224 x 224 x 3 input;
   conv   bnn_conv2d at every groups == 1 layer of the four BNNs (batch
          1, chip_smoke's seeds), summed per network, beside cuDNN's bf16
-         conv of the same sign tensors.
+         conv of the same sign tensors;
+  ranks  chip_smoke's [ranks] (c): full-width bnn-lm-100m's engine over
+         a (2, 2) mesh of 4 ranks sharing the card (gloo), phase 3's
+         16 prompts x 64 new, greedy then sampled: each run's host wall
+         s, and the host's us a launch (``host_launch_us``) after them.
 
 The summary keeps, per label and row, the least of its turns, with the
 card's name and power limit.
@@ -185,9 +189,29 @@ def _conv_rows(dev) -> dict:
     return nets
 
 
+def _ranks_rows(dev) -> dict:
+    """``ranks`` (module docstring), with the tree's chip_smoke."""
+    import chip_smoke as S
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serving import EngineConfig
+    cfg = get_config("bnn-lm-100m").replace(precision="bnn")
+    ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
+                        prefill_chunk=128, max_model_len=1024,
+                        **S.NO_PREFIX)
+    recs = spawn_ranks(S.ranks_worker, 4, cfg, ecfg, S.traffic(cfg.vocab),
+                       64, [], [], (2, 2), False, device="cuda",
+                       timeout_s=900)
+    runs = recs[0]["engine"]["runs"]
+    return {"greedy_wall_s": runs[0]["wall_s"],
+            "sampled_wall_s": runs[1]["wall_s"],
+            "host_launch_us": S.host_launch_us(dev)}
+
+
 def worker(src: Path, what: list[str]) -> None:
-    """Time ``what`` with the ``repro_torch`` of ``src``; print JSON."""
-    sys.path.insert(0, str(src / "src"))
+    """Time ``what`` with the ``repro_torch`` of ``src`` (and its
+    chip_smoke, for ``ranks``); print JSON."""
+    sys.path[:0] = [str(src / "src"), str(src)]
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -201,7 +225,7 @@ def worker(src: Path, what: list[str]) -> None:
         a = torch.tanh(a @ a)
     rows = {}
     for part, fn in (("mla", _mla_rows), ("pack", _pack_rows),
-                     ("conv", _conv_rows)):
+                     ("conv", _conv_rows), ("ranks", _ranks_rows)):
         if part in what:
             rows[part] = fn(dev)
     print(json.dumps(rows), flush=True)

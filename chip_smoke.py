@@ -71,7 +71,30 @@ Phases (each check raises, and the script then exits non-zero):
               memory, the collectives and DTensor wraps of a decode
               step and the host's us a wrap, tokens/s beside the
               one-rank run and the host's launch us; which collectives
-              gloo runs on a card's tensors.
+              gloo runs on a card's tensors.  Then (after [ranks]'s
+              bnn-lm-100m part, its weights freed) mixtral-8x7b and
+              deepseek-v2-lite at published width and 4 layers, each
+              rank drawing the seeded weights a layer at a time and
+              keeping its slices (launch/mesh.init_on_ranks; the
+              weight bytes a rank are reckoned first and printed):
+              (e) prefill_chunk in chunks of 128 over (1, 2) (and
+              (2, 2) for deepseek) against one rank: every tap of
+              every chunk (projection inputs, MoE routing and down
+              inputs, layer outputs) equal one rank's by an exact
+              checksum, the logits bit-equal (max |diff| 0); mixtral
+              one prompt of 4352 tokens (its 4224-token ring wraps),
+              deepseek 8 rows of 256 then 4 decode steps at B = 8 (the
+              MLA decode route), tapped too; a row-parallel fused_bnn
+              at K = 10944 over 4 ranks (85.5 words a rank) bit-equal
+              to one rank's kernel; (f) the engine serves 8 prompts,
+              32 new each, greedy and sampled, over (1, 4) (mixtral:
+              over (2, 2) its experts' two copies and four one-layer
+              draws would take about 67 GiB of the card) and (2, 2)
+              (deepseek): every rank's tokens equal one rank's; printed:
+              weight bytes and peak a rank, tokens/s beside one rank's,
+              a decode step's collectives, launches summed over ranks
+              (fused_bnn, paged_attention_ring / paged_attention_mla
+              and binarize_pack must launch).
   4. e2e      two finished requests re-run by two routes, each once
               through the kernels and once through the plain versions,
               each attention and each FFN / MoE sublayer on the kernel
@@ -1737,6 +1760,411 @@ def phase_ranks(dev, smi: str, cfg=None, ecfg=None, params=None,
     log(f"[ranks] launches {json.dumps(engine_launches)}; "
         f"{time.perf_counter() - t0:.1f} s")
     return engine_launches
+
+
+# ------------------------------------------------- [ranks] (e)-(f): families
+#
+# mixtral-8x7b and deepseek-v2-lite at published width and the smoke's
+# 4 layers (phase 7's cut) over (data, model) meshes of spawned ranks:
+# expert-parallel MoE, GQA over the sliding-window ring and MLA on a
+# rank's heads.  Each rank draws the family's seeded weights in
+# transformer.init's order and keeps its slices one layer at a time
+# (launch/mesh.init_on_ranks), so no rank holds more than one layer
+# whole; the one-rank references are made first in this process, which
+# then frees its weights.
+
+RANKS_FAMILIES = {
+    # (e) over (1, 2); (f) over (1, 4): over (2, 2) four ranks hold two
+    # copies of the experts (they are replicated over data), 4 x 11.3
+    # GiB, and each also draws one 5.4 GiB layer whole at a time: about
+    # 67 GiB before the pools and the four CUDA contexts on one card
+    "mixtral-8x7b": dict(prefill=[(1, 2)], engine=(1, 4), rows=1,
+                         tokens=4352, decode=0, seed=41),
+    # (e) over (1, 2) and (2, 2), then 4 decode steps at B = 8 (the MLA
+    # decode route: C·H <= 16); (f) over (2, 2)
+    "deepseek-v2-lite-16b": dict(prefill=[(1, 2), (2, 2)], engine=(2, 2),
+                                 rows=8, tokens=256, decode=4, seed=42),
+}
+RANKS_FAMILY_LAYERS = 4
+RANKS_FAMILY_NEW = 32
+# deepseek's dense first layer's down projection over 4 ranks: K slices
+# of 10944 / 4 = 2736 = 85.5 words (the row-parallel pad correction)
+RANKS_PART_WORDS = (10944, 2048)
+
+
+def family_cfg(arch: str, smoke: bool = False):
+    """The family at published width and RANKS_FAMILY_LAYERS layers
+    (``smoke``: reduced, a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    cfg = get_config(arch).replace(precision="bnn",
+                                   n_layers=RANKS_FAMILY_LAYERS)
+    return reduced(cfg) if smoke else cfg
+
+
+def family_ecfg(arch: str):
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(**(MIXTRAL_ENGINE if arch.startswith("mixtral")
+                           else DEEPSEEK_ENGINE))
+
+
+def fingerprint(t: torch.Tensor) -> tuple[int, int, int]:
+    """An exact-content checksum of ``t`` (its 32-bit words: their sum
+    and a position-weighted sum in int64, and the count), computed on
+    the card: equal tensors give equal prints, and a differing word
+    changes the weighted sum unless another cancels it exactly."""
+    v = t.detach().contiguous().reshape(-1).view(torch.int32).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return (int(v.sum()), int((v * w).sum()), v.numel())
+
+
+def _family_taps(params, cfg, prompts, dev, mesh=None, decode: int = 0):
+    """``prefill_chunk`` over ``prompts`` (rows of equal length) in
+    chunks of 128 on fresh pools (a window-sized ring for a windowed
+    config, so a longer prompt wraps it), then ``decode`` greedy
+    ``paged_decode_step``s: (logits of each chunk and step, whole, on
+    the host; per chunk and step the fingerprint of every tap,
+    whole)."""
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    from repro_torch.serving.mixer_state import ring_block_count
+    rows, n = prompts.shape
+    bs, chunk = 16, 128
+    ring = bool(cfg.sliding_window)
+    per = (ring_block_count(cfg.sliding_window, bs, chunk) if ring
+           else -(-(n + decode) // bs))
+    pools = M.init_paged_state(cfg, 1 + rows * per, bs, device=dev,
+                               mesh=mesh)
+    table = (1 + torch.arange(rows * per, device=dev, dtype=torch.int32)
+             ).reshape(rows, per)
+    tok = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    ctx = (C.sharding_context(mesh, S.decode_rules_of(mesh))
+           if mesh is not None else contextlib.nullcontext())
+
+    def at(v):
+        return torch.full((rows,), v, dtype=torch.int32, device=dev)
+    logits, prints = [], []
+    with ctx, torch.no_grad():
+        for i in range(0, n, chunk):
+            t: list = []
+            lg, _ = M.prefill_chunk(params, cfg, tok[:, i:i + chunk], pools,
+                                    table, at(i), at(chunk), ring=ring,
+                                    taps=t)
+            logits.append(spmd.full(lg).cpu())
+            prints.append([(name, fingerprint(spmd.full(v)))
+                           for name, v in t])
+        cur = logits[-1][:, -1].argmax(-1)
+        for j in range(decode):
+            t = []
+            lg, _ = M.paged_decode_step(params, cfg, cur[:, None].to(dev),
+                                        pools, table, at(n + j), ring=ring,
+                                        taps=t)
+            logits.append(spmd.full(lg).cpu())
+            prints.append([(name, fingerprint(spmd.full(v)))
+                           for name, v in t])
+            cur = logits[-1][:, -1].argmax(-1)
+    return logits, prints
+
+
+def family_reference(dev, arch: str, smoke: bool = False) -> dict:
+    """One rank's (e) and (f) on the whole weights: the prefill's logits
+    (saved to a file the ranks map) and tap prints, the engine's greedy
+    and sampled tokens and tokens/s; then the weights are freed."""
+    import tempfile
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import Engine
+    spec = RANKS_FAMILIES[arch]
+    cfg = family_cfg(arch, smoke)
+    t0 = time.perf_counter()
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                    device=dev)
+    prompts = np.random.default_rng(spec["seed"]).integers(
+        0, cfg.vocab, (spec["rows"], spec["tokens"]))
+    logits, prints = _family_taps(params, cfg, prompts, dev,
+                                  decode=spec["decode"])
+    tmp = tempfile.mkdtemp(prefix="ranks_ref_")
+    path = str(Path(tmp) / f"{arch}.pt")
+    torch.save(logits, path)
+    traffic_ = family_traffic(cfg.vocab, seed=spec["seed"])
+    ref = {"arch": arch, "cfg": cfg, "prompts": prompts, "decode":
+           spec["decode"], "logits_path": path, "tmp": tmp,
+           "prints": prints, "traffic": traffic_, "tokens": [],
+           "tokens_per_s": [], "max_new": RANKS_FAMILY_NEW}
+    ecfg = family_ecfg(arch)
+    for sampled in (False, True):
+        eng = Engine(params, cfg, ecfg, device=dev)
+        ref["tokens"].append(ranks_schedule(
+            eng, traffic_, ref["max_new"],
+            serve_sampling if sampled else None))
+        _sync(dev)
+        ref["tokens_per_s"].append(eng.stats()["total_tokens_per_s"])
+        del eng
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[ranks] {arch} one rank: {len(logits)} prefill chunks and "
+        f"decode steps, engine total_tokens_per_s greedy "
+        f"{ref['tokens_per_s'][0]:.1f} sampled {ref['tokens_per_s'][1]:.1f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ref
+
+
+def ranks_family_prefill(world, mesh, params, ref) -> dict:
+    """(e) ``_family_taps`` over ``mesh`` against one rank's: every tap
+    of every chunk (each projection input, the MoE's routing and down
+    inputs, each layer output) with one rank's print, and the logits of
+    every chunk and decode step bit-equal (max |diff| 0)."""
+    got_l, got_p = _family_taps(params, ref["cfg"], ref["prompts"],
+                                world.device, mesh, ref["decode"])
+    where = f"[ranks] {ref['arch']} mesh {tuple(mesh.shape)} prefill"
+    chunks = len(got_p) - ref["decode"]
+    for c, (got, want) in enumerate(zip(got_p, ref["prints"],
+                                        strict=True)):
+        layer = 0
+        at = (f"chunk {c}" if c < chunks else f"decode step {c - chunks}")
+        for (name, a), (_n, b) in zip(got, want, strict=True):
+            if a != b:
+                raise AssertionError(f"{where} {at} layer {layer} "
+                                     f"{name}: first difference")
+            layer += name == "hidden"
+    want_l = torch.load(ref["logits_path"], mmap=True)
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(got_l, want_l, strict=True))
+    if diff:
+        raise AssertionError(f"{where}: logits differ by {diff:.3e}")
+    return {"chunks": chunks, "steps": ref["decode"],
+            "taps": sum(len(p) for p in got_p), "max_abs_diff": diff}
+
+
+def ranks_part_words(world, mesh, k: int, n: int) -> int:
+    """A row-parallel fused_bnn whose K slice is not a whole number of
+    32-bit words (a (k, n) weight over ``mesh``'s model ranks) at 1, 8
+    and 128 rows, bit-equal to one rank's kernel on the whole weight."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=world.device).manual_seed(13)
+    w = torch.randn(k, n, generator=gen, device=world.device) / k ** 0.5
+    wt = spmd.place(w, mesh, [Replicate(), Shard(0)])
+    for m in RANKS_GEMM_ROWS:
+        x = torch.randn(m, k, generator=gen, device=world.device)
+        want = ops.bnn_dense(x, w, precision="bnn")
+        got = spmd.full(ops.bnn_dense(x, wt, precision="bnn"))
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"[ranks] mesh {tuple(mesh.shape)} K={k} ({k // mesh.size(1)}"
+                f" a rank) M={m}: {int((got != want).sum())} elements "
+                "differ from one rank's kernel")
+    return len(RANKS_GEMM_ROWS)
+
+
+def ranks_family_worker(world, jobs):
+    """One rank of [ranks] (e)-(f): for each job, the family's weights
+    drawn on the rank (``init_on_ranks``), then (e) and (f) over the
+    job's meshes; the launches by kernel from the weights' first use to
+    the job's end, the weight bytes the rank keeps and its peak."""
+    from repro_torch import tree as T
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_on_ranks
+    from repro_torch.models import transformer as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for job in jobs:
+        ref = job["ref"]
+        rec = {"backend": world.backend, "device": str(world.device)}
+        if job.get("part_words"):
+            shape, (k, n) = job["part_words"]
+            rec["part_words"] = ranks_part_words(
+                world, _ranks_mesh(world, shape), k, n)
+        if world.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(world.device)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=world.device).manual_seed(0)
+        shapes = job["prefill"] + ([job["engine"]] if job["engine"] else [])
+        meshes = {s: _ranks_mesh(world, s) for s in shapes}
+        ops.reset_launches()
+        launches = {k.name: 0 for k in ops.KERNELS}
+        for shape, mesh in meshes.items():
+            params = init_on_ranks(gen.manual_seed(0), ref["cfg"], mesh,
+                                   device=world.device)
+            leaves = [spmd.local(v) for v in
+                      T.leaves(M.trainable(params, ref["cfg"]))]
+            sub = rec.setdefault(shape, {
+                "weight_bytes": sum(v.numel() * v.element_size()
+                                    for v in leaves),
+                "init_s": time.perf_counter() - t0})
+            if shape in job["prefill"]:
+                sub["prefill"] = ranks_family_prefill(world, mesh, params,
+                                                      ref)
+            for k in ops.KERNELS:
+                launches[k.name] += k.launches
+            if shape == job["engine"]:
+                sub["engine"] = ranks_engine(
+                    world, mesh, params, ref["cfg"], family_ecfg(ref["arch"]),
+                    ref["traffic"], ref["max_new"])
+                for run in sub["engine"]["runs"]:
+                    for name, v in run["launches"].items():
+                        launches[name] += v
+            sub["cached_bytes"] = ops.cached_bytes(
+                ("whole_head", "mla_heads"), T.leaves(params))
+            ops.reset_launches()
+            del params, leaves
+            gc.collect()
+            if world.device.type == "cuda":
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+        rec["launches"] = launches
+        rec["peak_bytes"] = (torch.cuda.max_memory_allocated(world.device)
+                             if world.device.type == "cuda" else 0)
+        out.append(rec)
+    return out
+
+
+FAMILY_KERNELS = {"mixtral-8x7b": ("fused_bnn", "paged_attention_ring",
+                                   "binarize_pack"),
+                  "deepseek-v2-lite-16b": ("fused_bnn", "paged_attention_mla",
+                                           "binarize_pack")}
+
+
+def phase_ranks_families(dev, smi: str, smoke: bool = False
+                         ) -> dict[str, dict[str, int]]:
+    """[ranks] (e)-(f) (module docstring): the one-rank references, then
+    a world of 2 ranks ((e) over (1, 2) for both families) and one of 4
+    ((f) for mixtral over (1, 4); (e) and (f) for deepseek over (2, 2);
+    a row-parallel GEMM on part words over (1, 4)).  ``smoke``: reduced
+    width on the CPU (a rehearsal).  Returns the launches of each
+    family's runs over ranks, summed over the ranks."""
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import rank_weight_bytes, spawn_ranks
+    t0 = time.perf_counter()
+    refs = {a: family_reference(dev, a, smoke) for a in RANKS_FAMILIES}
+    worlds = {2: [], 4: []}
+    for arch, spec in RANKS_FAMILIES.items():
+        by_size = {}
+        for s in spec["prefill"] + [spec["engine"]]:
+            by_size.setdefault(s[0] * s[1], []).append(s)
+        for size, shapes in by_size.items():
+            worlds[size].append({
+                "ref": refs[arch],
+                "prefill": [s for s in spec["prefill"] if s in shapes],
+                "engine": spec["engine"] if spec["engine"] in shapes
+                else None})
+    worlds[4][0]["part_words"] = ((1, 4), RANKS_PART_WORDS)
+    paths = {f"ranks_{a.split('-')[0]}": {k.name: 0 for k in ops.KERNELS}
+             for a in RANKS_FAMILIES}
+    try:
+        for size, jobs in worlds.items():
+            for job in jobs:
+                cfg = job["ref"]["cfg"]
+                for s in dict.fromkeys(job["prefill"] + [job["engine"]]):
+                    if s is None:
+                        continue
+                    log_weight_bytes(cfg, s, rank_weight_bytes(cfg, s))
+            t1 = time.perf_counter()
+            recs = spawn_ranks(ranks_family_worker, size, jobs,
+                               device=dev.type, timeout_s=900)
+            log(f"[ranks] families, world of {size}: "
+                f"{time.perf_counter() - t1:.1f} s")
+            for j, job in enumerate(jobs):
+                report_family_job(job, [r[j] for r in recs], paths, smi,
+                                  dev)
+    finally:
+        for ref in refs.values():
+            shutil.rmtree(ref["tmp"], ignore_errors=True)
+    for arch, need in FAMILY_KERNELS.items():
+        got = paths[f"ranks_{arch.split('-')[0]}"]
+        missing = [k for k in need if got.get(k, 0) <= 0]
+        if dev.type == "cuda" and missing:
+            raise AssertionError(f"[ranks] {arch}: {missing} never launched "
+                                 "over ranks")
+    log(f"[ranks] families launches {json.dumps(paths)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def log_weight_bytes(cfg, shape, b: dict, tag: str = "[ranks]") -> None:
+    log(f"{tag} {cfg.name} {cfg.n_layers} layers over {shape}: reckoned "
+        f"{b['rank'] / 2 ** 30:.2f} GiB of weights a rank + "
+        f"{b['cached'] / 2 ** 30:.2f} cached at first use (the whole LM "
+        f"head; MLA's k_up/v_up columns of its heads) (whole "
+        f"{b['whole'] / 2 ** 30:.2f}, largest layer drawn whole "
+        f"{b['largest_layer'] / 2 ** 30:.2f})")
+
+
+def log_weights_kept(arch, shape, recs, tag: str = "[ranks]") -> None:
+    log(f"{tag} {arch} mesh {shape}: weights kept a rank "
+        f"{[round(r[shape]['weight_bytes'] / 2 ** 30, 3) for r in recs]}"
+        f" GiB + cached "
+        f"{[round(r[shape]['cached_bytes'] / 2 ** 30, 3) for r in recs]}"
+        f" GiB, drawn in {[round(r[shape]['init_s'], 1) for r in recs]} s")
+
+
+def report_family_job(job, recs, paths, smi, dev):
+    """Check and print one family job's records from every rank."""
+    ref = job["ref"]
+    arch = ref["arch"]
+    path = paths[f"ranks_{arch.split('-')[0]}"]
+    for rec in recs:
+        for k, v in rec["launches"].items():
+            path[k] = path.get(k, 0) + v
+    if "part_words" in recs[0]:
+        k, n = RANKS_PART_WORDS
+        log(f"[ranks] (e) mesh (1, 4): row-parallel fused_bnn at K={k} "
+            f"({k // 4} = {k / 4 / 32} words a rank), N={n}, M "
+            f"{list(RANKS_GEMM_ROWS)}: bit-equal to one rank's kernel")
+    for shape in job["prefill"]:
+        pr = recs[0][shape]["prefill"]
+        log(f"[ranks] (e) {arch} mesh {shape}: {ref['prompts'].shape[0]} "
+            f"x {ref['prompts'].shape[1]} tokens in {pr['chunks']} chunks"
+            f" + {pr['steps']} decode steps: logits bit-equal to one rank "
+            f"(max |diff| {pr['max_abs_diff']}), {pr['taps']} taps equal "
+            "one rank's prints, on every rank")
+    shapes = [s for s in dict.fromkeys(job["prefill"] + [job["engine"]])
+              if s is not None]
+    for shape in shapes:
+        log_weights_kept(arch, shape, recs)
+    log(f"[ranks] {arch}: peak GiB per rank "
+        f"{[round(r['peak_bytes'] / 2 ** 30, 3) for r in recs]}")
+    shape = job["engine"]
+    if shape is None:
+        return
+    for i, tag in enumerate(("greedy", "sampled")):
+        for r, rec in enumerate(recs):
+            got = rec[shape]["engine"]["runs"][i]["tokens"]
+            if got != ref["tokens"][i]:
+                bad = [b for b in range(len(got)) if got[b] != ref["tokens"][i][b]]
+                raise AssertionError(
+                    f"[ranks] (f) {arch} mesh {shape} {tag} rank {r}: "
+                    f"requests {bad} differ from the one-rank engine")
+        run0 = recs[0][shape]["engine"]["runs"][i]
+        peaks = [rec[shape]["engine"]["runs"][i]["peak_bytes"] / 2 ** 30
+                 for rec in recs]
+        log(f"[ranks] (f) {arch} mesh {shape} {tag}: tokens equal the "
+            f"one-rank engine's on all {len(recs)} ranks "
+            f"({len(ref['traffic'])} requests x {ref['max_new']} new); "
+            f"total_tokens_per_s={run0['total_tokens_per_s']:.1f} (one "
+            f"rank {ref['tokens_per_s'][i]:.1f}) decode_tokens_per_s="
+            f"{run0['decode_tokens_per_s']:.1f} steps={run0['steps']} "
+            f"wall_s={run0['wall_s']:.3f}; peak GiB per rank "
+            f"{[round(p, 3) for p in peaks]}; a decode step (median of "
+            f"{len(run0['decode_collectives'])}): "
+            f"{json.dumps(_median_counts(run0['decode_collectives']))}; "
+            f"launches summed over ranks "
+            f"{json.dumps(_sum_launches(recs, shape, i))}; {smi}")
+
+
+def _sum_launches(recs, shape, i) -> dict:
+    out: dict = {}
+    for rec in recs:
+        for k, v in rec[shape]["engine"]["runs"][i]["launches"].items():
+            if v:
+                out[k] = out.get(k, 0) + v
+    return out
 
 
 # --------------------------------------------------------------- phase 4
@@ -4972,6 +5400,9 @@ def main() -> int:
                                  want=[out[i] for i in range(len(out))],
                                  one_rank_st=st)
     del eng, params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_ranks = phase_ranks_families(dev, smi)
     kept = {}
     serve_launches, out_a = phase_serve(dev, smi, keep=kept)
     tenants_launches = phase_tenants(dev, smi, want=out_a)
@@ -5006,7 +5437,7 @@ def main() -> int:
             "paged_attention_mla": rows["paged_attention_mla"][0],
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
-    paths = {"serving": launches, "ranks": ranks_launches,
+    paths = {"serving": launches, "ranks": ranks_launches, **families_ranks,
              "serve": serve_launches,
              "tenants": tenants_launches, "shards": shards_launches,
              "train": train_launches, "analytic": analytic_launches,

@@ -84,6 +84,22 @@ def decode_rules_of(mesh) -> dict[str, Any]:
     return rules_decode("pod" in mesh.mesh_dim_names)
 
 
+def state_rules_of(mesh) -> dict[str, Any]:
+    """The rules the port places its caches and pools by: ``mesh``'s
+    decode rules without the ``head_dim`` and ``kv_lora`` splits.  A
+    rank's K and V are whole heads (RoPE rotates pairs across a head,
+    so a projection cut inside a head is gathered before it), and the
+    MLA kernel absorbs k_up and takes its softmax over the whole
+    latent, so the latent pools are whole on every model rank.  The
+    JAX package's ``cache_specs`` name both dims, and its caches are cut
+    along them where a head count does not divide the model axis (GQA)
+    or always (MLA's ``kv_lora``)."""
+    r = decode_rules_of(mesh)
+    r["head_dim"] = None
+    r["kv_lora"] = None
+    return r
+
+
 def is_axes(x) -> bool:
     """A spec tree's leaf: a tuple of logical axis names (or None)."""
     return isinstance(x, tuple) and all(a is None or isinstance(a, str)

@@ -90,6 +90,29 @@ def on_local(fn, x, *args, **kw):
     return wrap_like(fn(local(x), *(local(a) for a in args), **kw), x)
 
 
+def on_rows(fn, x, *args, **kw):
+    """``on_local`` for a row-wise function whose sums' order follows the
+    number of rows: a float reduction over the last dim (ATen splits a
+    row's sum over more threads when there are fewer rows) or a library
+    GEMM (cuBLAS picks its algorithm by M).  Where ``x``'s rows are cut
+    (data parallelism), the rank's rows are zero-padded to the whole
+    row count, so each row is summed as one rank sums it, and the
+    rank's rows are kept."""
+    if not is_dtensor(x) or shards(x, 0) == 1:
+        return on_local(fn, x, *args, **kw)
+    xl = x.to_local()
+    y = fn(pad_rows(xl, x.shape[0]), *(local(a) for a in args), **kw)
+    return wrap_like(y[:xl.shape[0]], x)
+
+
+def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows appended up to ``rows`` (one launch)."""
+    if rows <= t.shape[0]:
+        return t
+    return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 1)
+                                   + (0, rows - t.shape[0]))
+
+
 def replicate(t: torch.Tensor, mesh):
     """A tensor every rank holds whole, as a DTensor."""
     return wrap(t, mesh, [_replicate()] * mesh.ndim)
@@ -181,13 +204,43 @@ def full(x) -> torch.Tensor:
     return redistribute(x, [_replicate()] * x.device_mesh.ndim).to_local()
 
 
+def whole(x, dim: int):
+    """``x`` with tensor dim ``dim`` held whole on every rank (gathered
+    where it is cut), its other placements kept; a plain tensor as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    return redistribute(x, [_replicate() if p.is_shard() and p.dim == dim
+                            else p for p in x.placements])
+
+
 def all_rows(x):
     """``x`` with its leading (row) dim held whole on every rank, its
     other placements kept; a plain tensor as it is."""
+    return whole(x, 0)
+
+
+def mesh_dims(x, dim: int) -> list[int]:
+    """The mesh dims that cut tensor dim ``dim`` of ``x`` (none of a
+    plain tensor)."""
     if not is_dtensor(x):
-        return x
-    return redistribute(x, [_replicate() if p.is_shard() and p.dim == 0
-                            else p for p in x.placements])
+        return []
+    return [i for i, p in enumerate(x.placements)
+            if p.is_shard() and p.dim == dim]
+
+
+def rank_slice(x, dim: int) -> tuple[int, int]:
+    """(start, length) of this rank's slice of tensor dim ``dim`` of
+    ``x`` in the whole (mesh dims nested in order, as ``redistribute``
+    lays them out); (0, the length) for a plain tensor."""
+    if not is_dtensor(x):
+        return 0, x.shape[dim]
+    n, start = x.shape[dim], 0
+    coord = x.device_mesh.get_coordinate()
+    for i in mesh_dims(x, dim):
+        n //= x.device_mesh.size(i)
+        start += coord[i] * n
+    return start, n
 
 
 def rows(t: torch.Tensor, like) -> torch.Tensor:

@@ -11,7 +11,8 @@
     cached packed form.
 
 ``expert_dense`` is the same projection for one expert of a MoE
-layer's (E, K, N) weight stack, packed once per stack.
+layer's (E, K, N) weight stack, packed once per stack (over a mesh,
+the rank's experts or its slice of each).
 
 ``paged_attention`` is what the attention block calls over the paged
 KV pools (GQA, paged or sliding-window ring); ``paged_attention_mla``
@@ -148,6 +149,20 @@ def packed_weight_cache_info() -> dict:
     return {"entries": len(_weight_pack_cache), "packs": _packs["packs"]}
 
 
+def cached_bytes(kinds: tuple[str, ...], weights=None) -> int:
+    """The bytes of the cached values whose key starts with one of
+    ``kinds`` (``cached_per_weight``'s ``key[0]``), of the tensors
+    ``weights`` only where given."""
+    ids = None if weights is None else {id(w) for w in weights}
+    total = 0
+    for full, (_v, value) in list(_weight_pack_cache.items()):
+        if full[1] in kinds and (ids is None or full[0] in ids):
+            for t in (value if isinstance(value, tuple) else (value,)):
+                if t is not None:
+                    total += t.numel() * t.element_size()
+    return total
+
+
 def cached_per_weight(w: torch.Tensor, key: tuple, make):
     """``make(w.detach())``, cached per (identity of ``w``, ``key``) and
     recomputed when ``w._version`` moves (an in-place write)."""
@@ -180,22 +195,48 @@ def _pack_weight(w: torch.Tensor, impl: str, scale: bool
     return cached_per_weight(w, ("dense", impl, scale), pack)
 
 
+def _expert_alpha(w, i: int) -> torch.Tensor:
+    """Alpha (mean |w| over K) of the rank's expert ``i`` of the stack
+    ``w``, for the rank's output columns: from the local expert where
+    the rank holds it whole, else from the expert gathered whole over
+    the mesh dims that cut it (as ``_pack_shard`` takes a dense
+    weight's)."""
+    wi = spmd.local(w)[i]
+    if not spmd.is_dtensor(w):
+        return torch.mean(torch.abs(wi.float()), dim=0)
+    for d in (1, 2):
+        for m in reversed(spmd.mesh_dims(w, d)):
+            wi = spmd.all_gather(wi, w.device_mesh, m, d - 1)
+    alpha = torch.mean(torch.abs(wi.float()), dim=0)
+    start, n = spmd.rank_slice(w, 2)
+    return alpha[start:start + n]
+
+
 def _pack_stack(w: torch.Tensor, impl: str
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(E, N, Kw) packed transposes of an expert stack w (E, K, N) and
     its (E, N) alphas, cached per stack identity and version.  Packed
     one expert at a time, so the transposed float copy is one expert's
-    size."""
+    size.  Of a DTensor stack, the rank's shard (its experts, or its
+    slice of each) and the alphas of its output columns."""
     def pack(wd):
-        e, k, n = wd.shape
+        wl = spmd.local(wd)
+        e, k, n = wl.shape
         wp = torch.empty((e, n, packing.packed_len(k)), dtype=torch.int32,
-                         device=wd.device)
-        alpha = torch.empty((e, n), dtype=torch.float32, device=wd.device)
+                         device=wl.device)
+        alpha = torch.empty((e, n), dtype=torch.float32, device=wl.device)
         for i in range(e):
-            wp[i] = _pack_rows(wd[i].float().t().contiguous(), impl)
-            alpha[i] = torch.mean(torch.abs(wd[i].float()), dim=0)
+            wp[i] = _pack_rows(wl[i].float().t().contiguous(), impl)
+            alpha[i] = _expert_alpha(wd, i)
         return wp, alpha
     return cached_per_weight(w, ("stack", impl), pack)
+
+
+def expert_alphas(w, impl: str = "auto") -> torch.Tensor:
+    """The (E, N) alphas of the expert stack ``w`` (a DTensor cut on K:
+    of the whole K) that ``expert_dense``'s partial dots are scaled by
+    once summed."""
+    return _pack_stack(w, resolve_impl(impl, spmd.local(w)))[1]
 
 
 def pack_conv_weight(w: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
@@ -297,7 +338,7 @@ def _tp_dense(x, w, precision: str, impl: str, scale: bool):
     else:
         raise NotImplementedError(
             f"precision {precision!r} over a mesh: training over several "
-            "ranks is ROADMAP.md queue 1, item 11")
+            "ranks is ROADMAP.md queue 1, item 11b")
     return spmd.wrap(y, mesh, out, (*x.shape[:-1], w.shape[-1]))
 
 
@@ -308,14 +349,29 @@ def expert_dense(x: torch.Tensor, w: torch.Tensor, e: int, *,
     at the precision of ``bnn_dense`` (bnn: the fused GEMM against the
     stack's cached packed words, ``dot_scaled`` with alpha = mean |w[e]|
     over K, as the JAX package's ``moe._expert_matmul``; bnn_train: the
-    STE GEMM with that alpha, differentiable)."""
+    STE GEMM with that alpha, differentiable).
+
+    Of a DTensor stack (the MoE layer over a mesh), ``e`` indexes the
+    rank's shard: a stack cut by experts holds whole experts (the
+    result is one rank's); one cut on N gives the rank's output columns
+    (alpha from the whole expert); one cut on K (``x`` the rank's K
+    slice) gives the rank's partial product, at "bnn" the integer
+    ``dot`` with the slice's own pad correction, which the caller sums
+    over the ranks and scales by ``expert_alphas``."""
+    k_cut = spmd.is_dtensor(w) and bool(spmd.mesh_dims(w, 1))
     if precision != "bnn":      # the float matmul, the STE GEMM
-        return bnn_dense(x, w[e], precision=precision, impl=impl)
+        if spmd.is_dtensor(w) and precision != "bf16":
+            raise NotImplementedError(
+                f"precision {precision!r} over a mesh: training over "
+                "several ranks is ROADMAP.md queue 1, item 11b")
+        return bnn_dense(x, spmd.local(w)[e], precision=precision, impl=impl)
     impl = resolve_impl(impl, x)
     x2 = x.float().contiguous()
     wp, alpha = _pack_stack(w, impl)
     fn = _fb.fused_bnn_matmul if impl == "cuda" else \
         _fb.fused_bnn_matmul_torch
+    if k_cut:
+        return fn(x2, wp[e], x2.shape[-1], mode="dot")
     return fn(x2, wp[e], x2.shape[-1], mode="dot_scaled",
               alpha=alpha[e]).to(x.dtype)
 
@@ -337,11 +393,17 @@ def paged_attention_mla(q, c_kv_pool, k_rope_pool, block_table, *, k_up,
                         v_up, nope_dim: int, kv_len, q_offset,
                         causal: bool = False, window: int | None = None,
                         ring: bool = False, newest=None,
+                        route_heads: int | None = None,
                         impl: str = "auto") -> torch.Tensor:
     """Paged MLA latent attention (kernels/paged_attention.py) with impl
-    dispatch."""
-    fn = _pa.paged_attention_mla if resolve_impl(impl, q) == "cuda" else \
-        _pa.paged_attention_mla_torch
-    return fn(q, c_kv_pool, k_rope_pool, block_table, k_up=k_up, v_up=v_up,
-              nope_dim=nope_dim, kv_len=kv_len, q_offset=q_offset,
-              causal=causal, window=window, ring=ring, newest=newest)
+    dispatch; ``route_heads`` as the kernel's (the plain version has
+    one route)."""
+    kw = dict(k_up=k_up, v_up=v_up, nope_dim=nope_dim, kv_len=kv_len,
+              q_offset=q_offset, causal=causal, window=window, ring=ring,
+              newest=newest)
+    if resolve_impl(impl, q) == "cuda":
+        return _pa.paged_attention_mla(q, c_kv_pool, k_rope_pool,
+                                       block_table, route_heads=route_heads,
+                                       **kw)
+    return _pa.paged_attention_mla_torch(q, c_kv_pool, k_rope_pool,
+                                         block_table, **kw)

@@ -290,9 +290,13 @@ def paged_attention_mla(q: torch.Tensor, c_kv_pool: torch.Tensor,
                         nope_dim: int, kv_len: torch.Tensor,
                         q_offset: torch.Tensor, causal: bool = False,
                         window: int | None = None, ring: bool = False,
-                        newest: torch.Tensor | None = None) -> torch.Tensor:
+                        newest: torch.Tensor | None = None,
+                        route_heads: int | None = None) -> torch.Tensor:
     """Fused latent walk + online-softmax MLA attention with in-kernel
-    K/V decompression; returns (B, C, H, Dv) float32."""
+    K/V decompression; returns (B, C, H, Dv) float32.  ``route_heads``
+    (default H) is the head count whose C·H query rows choose the route
+    (``mla_tiled``): over a mesh the layer's, so a rank's heads take
+    the route one rank takes."""
     if q.device.type == "cpu":
         return paged_attention_mla_torch(
             q, c_kv_pool, k_rope_pool, block_table, k_up=k_up, v_up=v_up,
@@ -324,7 +328,7 @@ def paged_attention_mla(q: torch.Tensor, c_kv_pool: torch.Tensor,
     _lib.check(k_up, "k_up", torch.float32, (r, h * nope_dim), dev)
     _lib.check(v_up, "v_up", torch.float32, (r, h * dv), dev)
     newest_p = _check_rows(q, block_table, kv_len, q_offset, ring, newest)
-    tiled = mla_tiled(c, h, r, dr)
+    tiled = mla_tiled(c, max(h, route_heads or h), r, dr)
     if not tiled and r > MLA_DECODE_MAX_R:
         raise ValueError(f"paged_attention_mla: the decode walk holds a "
                          f"latent of at most {MLA_DECODE_MAX_R}, not {r}")

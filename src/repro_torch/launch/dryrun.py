@@ -16,7 +16,7 @@ from the optimized HLO; torch makes no HLO, and the dry-run places
 tensors without running a step, so ``"collectives"`` is null (with the
 reason) and the roofline takes no collective bytes.  (The serving
 forward does run over several ranks, ``dist/spmd.py``; counting a
-step's collectives here is the rest of ROADMAP.md queue 1, item 11.)
+step's collectives here is ROADMAP.md queue 1, item 11c.)
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k

@@ -18,6 +18,13 @@ and collects what each rank returns: the forward over several ranks
 runs there, over a mesh of the group's ranks.  A process group is
 global state, so each of these is a context manager that destroys the
 group it made.
+
+``init_on_ranks`` draws a model's seeded weights on every rank and
+keeps the rank's slices one layer at a time, so no rank holds more
+than one layer whole; ``rank_weight_bytes`` reckons those slices'
+bytes from the configuration alone, before anything is drawn, and
+beside them what a rank caches at first use: the whole LM head and the
+columns of its heads of MLA's k_up/v_up.
 """
 from __future__ import annotations
 
@@ -201,3 +208,51 @@ def smoke_mesh(device="cpu"):
     with local_world(dev):
         yield init_device_mesh(dev.type, (1, 1),
                                mesh_dim_names=("data", "model"))
+
+
+def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None) -> dict:
+    """``transformer.init(gen, cfg, device)``'s weights placed on
+    ``mesh`` (``sharding.place_params``' placements): every rank draws
+    them all, in ``init``'s order, from its own generator seeded alike,
+    and keeps its slices of each piece as soon as it is drawn, so it
+    holds one layer whole at a time (mixtral-8x7b's 4 layers at
+    published width are about 24 GB of float32 weights; four ranks on
+    one card cannot each draw them whole first)."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.models import transformer as M
+    rules = S.decode_rules_of(mesh)
+    return M.init(gen, cfg, device=device, place=lambda tree, specs:
+                  S.place_tree(tree, specs, mesh, rules))
+
+
+def rank_weight_bytes(cfg, shape, names=("data", "model")) -> dict:
+    """The bytes of the weights one rank of a ``shape`` mesh keeps under
+    the decode rules (``place_params``'s placements, as the dry-run
+    counts them: ``launch/dryrun.place`` under a fake group), beside
+    the whole model's and its largest layer's (what ``init_on_ranks``
+    holds whole at a time), from the configuration alone (``meta``
+    tensors).  ``cached``: what a rank gathers and caches at first use
+    beside its slices: the whole LM head (``transformer.apply_head``
+    runs one rank's GEMM on every rank) and, in an MLA layer, the
+    columns of the rank's heads of k_up and v_up (``mla._up``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree as T
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as M
+    full = M.abstract_init(cfg)
+    params = M.trainable(full, cfg)
+
+    def size(t):
+        return sum(v.numel() * v.element_size() for v in T.leaves(t))
+    with fake_world(math.prod(shape)):
+        mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=names)
+        rank, _ = dryrun.place(dryrun.Placer(mesh), M.param_specs(cfg),
+                               params, S.decode_rules_of(mesh))
+    up = sum(size(p["attn"][n]) for p in params["layers"]
+             if "k_up" in p.get("attn", {}) for n in ("k_up", "v_up"))
+    head = M.head_matrix(full, cfg)
+    return {"rank": rank, "whole": size(params),
+            "cached": head.numel() * head.element_size() + up // shape[-1],
+            "largest_layer": max(size(p) for p in params["layers"])}

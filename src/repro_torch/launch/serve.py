@@ -40,7 +40,8 @@ of a process group of 256 processes (512 with ``--multi-pod``), a
 non-smoke serve runs over the production mesh, as the JAX CLI does:
 (16, 16) ("data", "model"), or (2, 16, 16) with "pod", the params
 placed by the decode rules and every rank running the same engine
-(``serving_mesh``; the dense family).  In a single process it serves
+(``serving_mesh``; the attention families: dense, mixtral's MoE over a
+sliding-window ring, deepseek's MLA and MoE).  In a single process it serves
 on one device, and ``--multi-pod`` raises there, as the JAX CLI's
 512-device mesh does.  ``setup``/``serve`` take a ``mesh=`` of any
 ("data", "model") shape, which tests and chip_smoke.py pass.
@@ -107,7 +108,7 @@ def setup(arch: str, *, smoke: bool = False, precision: str | None = None,
     the device (``None``: the card, which must be there); over
     ``serving_mesh``'s mesh, when there is one, the params are DTensors
     placed by its decode rules (every rank draws the same weights and
-    keeps its slices)."""
+    keeps its slices, one layer at a time: ``launch/mesh.init_on_ranks``)."""
     dev = _resolve_device(device)
     cfg = _config(arch, smoke, precision)
     mesh = serving_mesh(smoke=smoke, multi_pod=multi_pod, device=dev,
@@ -115,10 +116,9 @@ def setup(arch: str, *, smoke: bool = False, precision: str | None = None,
     if mesh is not None:
         M.check_mesh_supported(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = M.init(gen, cfg, device=dev)
     if mesh is None:
-        return cfg, params
-    return cfg, SH.place_params(params, cfg, mesh)
+        return cfg, M.init(gen, cfg, device=dev)
+    return cfg, MESH.init_on_ranks(gen, cfg, mesh, device=dev)
 
 
 def _model(arch, smoke, precision, seed, device, params, mesh):

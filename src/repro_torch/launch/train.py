@@ -36,7 +36,7 @@ from repro_torch.serving.engine import _resolve_device
 # options of the JAX CLI that later slices bring: argument -> (its
 # default, the ROADMAP.md item that brings it)
 LATER = {
-    "multi_pod": (False, "queue 1, item 11"),
+    "multi_pod": (False, "queue 1, item 11b"),
 }
 
 

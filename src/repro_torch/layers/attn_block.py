@@ -5,15 +5,25 @@ block-paged KV cache of the serving engine (``paged_decode_step`` /
 ``prefill_chunk``).
 
 Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
-block is tensor-parallel by whole heads: q, k and v are
-column-parallel GEMMs, so a rank holds its heads and its kv heads, its
-attention runs on them against its kv-head slice of the pools (or of
-the dense cache), and o is a row-parallel GEMM.  The rows a rank holds
-(data parallel over the batch, ``lsc``) attend alone; their K and V
-are gathered over the data axis before the pool write, since the pools
-hold every block on every data rank (a block id is global).  Where a
-head count does not divide the axis the JAX package splits head_dim
-instead; here that raises (ROADMAP.md queue 1, item 11)."""
+block is tensor-parallel by heads: q, k and v are column-parallel
+GEMMs, so a rank holds its heads and its kv heads, its attention runs
+on them against its kv-head slice of the pools (or of the dense
+cache), and o is a row-parallel GEMM.  The rows a rank holds (data
+parallel over the batch, ``lsc``) attend alone; their K and V are
+gathered over the data axis before the pool write, since the pools
+hold every block on every data rank (a block id is global).
+
+Where a head count does not divide the model axis the JAX package's
+decode rules cut the weight's columns inside a head (``head_dim`` over
+``model``: reduced mixtral's one kv head, llama's 24 heads on a 16-way
+axis).  The port keeps that placement of the weights and gathers such
+a projection over ``model`` to whole heads before RoPE (it rotates
+pairs spread over the head, and a rank's slice is not a head).  Where
+the kv heads do not divide, every model rank then holds all of them,
+in the pools too (``sharding.state_rules_of``), and attends with every
+head: q is gathered whole as well, so each rank runs one rank's
+attention, and o's row-parallel GEMM takes the rank's slice of its
+output."""
 from __future__ import annotations
 
 import torch
@@ -58,21 +68,11 @@ def paged_state_specs() -> dict:
     return {"k": axes, "v": axes}
 
 
-def _check_heads(params, cfg):
-    """Over a mesh, q, k and v must be cut by whole heads, the same
-    number of ways, and o by the same heads."""
-    n = spmd.shards(params["q"]["w"], 1)
-    cuts = (spmd.shards(params["k"]["w"], 1), spmd.shards(params["v"]["w"], 1),
-            spmd.shards(params["o"]["w"], 0))
-    if cfg.n_heads % n or cfg.n_kv_heads % n or any(c != n for c in cuts):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads and {cfg.n_kv_heads} kv heads "
-            f"on a {n}-way model axis: splitting head_dim instead is "
-            "ROADMAP.md queue 1, item 11")
-
-
 def _heads(y, dh: int):
-    """(B, T, n*Dh) -> (B, T, n, Dh), a rank's n of its shard."""
+    """(B, T, n*Dh) -> (B, T, n, Dh), a rank's n of its shard; a
+    projection cut inside a head is gathered to whole heads first."""
+    if (y.shape[-1] // dh) % spmd.shards(y, y.ndim - 1):
+        y = spmd.whole(y, y.ndim - 1)
     return spmd.on_local(lambda t: t.reshape(*t.shape[:-1], -1, dh), y)
 
 
@@ -82,18 +82,18 @@ def _merge_heads(o):
 
 
 def _qkv(params, cfg, x, positions, precision, impl, taps=None):
-    _check_heads(params, cfg)
     q, k, v = (_heads(C.dense(x, params[n], precision, impl, taps, n),
                       cfg.head_dim) for n in ("q", "k", "v"))
     pos = spmd.rows(positions, q)
     q = spmd.on_local(C.apply_rope, q, pos, cfg.rope_theta)
     k = spmd.on_local(C.apply_rope, k, pos, cfg.rope_theta)
-    # head-sharding; the JAX package falls back to a head_dim split
-    # where the head count does not divide the 'model' axis
-    # (_check_heads refuses that)
-    q = C.lsc(q, "batch", None, "heads_dim", "head_dim")
-    k = C.lsc(k, "batch", None, "kv_heads_dim", "head_dim")
-    v = C.lsc(v, "batch", None, "kv_heads_dim", "head_dim")
+    # head-sharding where the kv heads divide the 'model' axis; else
+    # every head on every model rank (module docstring), where the JAX
+    # package splits head_dim
+    split = spmd.is_dtensor(k) and spmd.shards(k, 2) > 1
+    q = C.lsc(q, "batch", None, "heads_dim" if split else None, None)
+    k = C.lsc(k, "batch", None, "kv_heads_dim" if split else None, None)
+    v = C.lsc(v, "batch", None, "kv_heads_dim" if split else None, None)
     return q, k, v
 
 

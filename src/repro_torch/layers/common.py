@@ -221,10 +221,12 @@ def layernorm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
 def norm(x: torch.Tensor, params, kind: str = "rmsnorm",
          eps: float = 1e-6) -> torch.Tensor:
     """Over the last dim, which a DTensor ``x`` holds whole: each rank
-    normalizes its rows."""
+    normalizes its rows, padded to the whole batch's (``spmd.on_rows``:
+    on the H100 a 2048-wide row's mean over 4 rows differed in its last
+    bit from the same row's over 8, ``chip_smoke.rows_probe``)."""
     fn = rmsnorm if kind == "rmsnorm" else layernorm
     p = {k: spmd.local(v) for k, v in params.items()}
-    return spmd.on_local(fn, x, p, eps)
+    return spmd.on_rows(fn, x, p, eps)
 
 
 def dense(x: torch.Tensor, params, precision: str = "bf16",

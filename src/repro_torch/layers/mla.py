@@ -6,11 +6,29 @@ projections k_up/v_up.  The paged cache stores only (c_kv, k_rope) —
 the MLA memory win.  The up projections are float matmuls at every
 precision, as in the JAX package (``_expand_kv`` calls ``dense`` at
 "bf16"): only q, kv_down and o are binarized.
+
+Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
+block is tensor-parallel by heads: q is a column-parallel GEMM (the
+rank's heads), kv_down is replicated (every rank computes the whole
+latent and the shared k_rope of its rows), and o is a row-parallel
+GEMM.  The JAX package places k_up and v_up by latent rows
+(``("kv_lora", "heads")``: ``kv_lora`` wins the dedup over ``heads``),
+and so does the port; but the kernel absorbs k_up into the query and
+takes the softmax over the latent scores in one launch, so a cut of
+the latent would need a reduction inside the softmax.  So at first use
+each rank gathers k_up and v_up over ``model`` once, keeps the columns
+of its heads (cached under the weight, as ``kernels/ops`` caches a
+packed weight) and attends with its heads over the whole latent.  The
+latent pools are whole on every rank (``sharding.state_rules_of``; the
+JAX package's ``cache_specs`` cut them by ``kv_lora``): each rank
+writes every row's latents (gathered over the data axis, as the GQA
+pools are) and reads its rows'.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import spmd
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn_mod
 from repro_torch.layers import attn_block
@@ -59,52 +77,78 @@ def cache_specs() -> dict:
             "k_rope": ("batch", None, None)}
 
 
+def _cat(a, b):
+    """[a ++ b] along the last dim (the rank's shards, placed as a)."""
+    return spmd.on_local(lambda x, y: torch.cat([x, y], dim=-1), a, b)
+
+
 def _project(params, cfg, x, positions, precision, impl, taps=None):
-    """q_nope, q_rope (roped), the c_kv latent and k_rope (roped, one
-    head shared by all) for tokens x."""
-    b, t, _ = x.shape
-    h = cfg.n_heads
+    """q_nope, q_rope (roped; the rank's heads over a mesh), the c_kv
+    latent and k_rope (roped, one head shared by all) for tokens x."""
+    nope, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
     if cfg.q_lora_rank:
         q = C.dense(C.dense(x, params["q_down"], precision, impl, taps,
                             "q_down"),
                     params["q_up"], precision, impl, taps, "q_up")
     else:
         q = C.dense(x, params["q"], precision, impl, taps, "q")
-    q = q.reshape(b, t, h, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    q_nope = q[..., :cfg.qk_nope_head_dim]
-    q_rope = C.apply_rope(q[..., cfg.qk_nope_head_dim:], positions,
-                          cfg.rope_theta)
+    q = attn_block._heads(q, nope + cfg.qk_rope_head_dim)
+    q_nope = spmd.on_local(lambda t: t[..., :nope], q)
+    q_rope = spmd.on_local(lambda t, p: C.apply_rope(
+        t[..., nope:], p, cfg.rope_theta), q, spmd.rows(positions, q))
     kv = C.dense(x, params["kv_down"], precision, impl, taps, "kv_down")
-    c_kv = kv[..., :cfg.kv_lora_rank]
-    k_rope = kv[..., cfg.kv_lora_rank:]
-    k_rope = C.apply_rope(k_rope[:, :, None, :], positions,
-                          cfg.rope_theta)[:, :, 0]
+    c_kv = spmd.on_local(lambda t: t[..., :r], kv)
+    k_rope = spmd.on_local(lambda t, p: C.apply_rope(
+        t[..., r:][:, :, None, :], p, cfg.rope_theta)[:, :, 0],
+        kv, spmd.rows(positions, kv))
     return q_nope, q_rope, c_kv, k_rope
 
 
-def _expand_kv(params, cfg, c_kv, k_rope):
-    """Re-expand the latent to per-head K (nope ++ rope) and V."""
+def _up(params, name: str, q) -> torch.Tensor:
+    """The float up projection ``name`` (k_up or v_up) for the heads
+    ``q`` holds: the weight itself on one rank; over a mesh the whole
+    weight's columns of the rank's heads, gathered once and cached
+    under the weight (module docstring)."""
+    w = params[name]["w"]
+    if q is None or not spmd.is_dtensor(w):
+        return w
+    h0, hl = spmd.rank_slice(q, 2)
+    n = w.shape[1] // q.shape[2]
+    return kops.cached_per_weight(
+        w, ("mla_heads", h0, hl),
+        lambda wd: spmd.full(wd)[:, h0 * n:(h0 + hl) * n].contiguous())
+
+
+def _expand_kv(params, cfg, c_kv, k_rope, q=None):
+    """Re-expand the latent to per-head K (nope ++ rope) and V for the
+    heads ``q`` holds (every head without ``q``; ``c_kv``, ``k_rope``:
+    plain, the rank's rows)."""
     b, s, _ = c_kv.shape
-    h = cfg.n_heads
-    k_nope = C.dense(c_kv, params["k_up"], "bf16").reshape(
+    h = cfg.n_heads if q is None else spmd.local(q).shape[2]
+    k_nope = C.dense(c_kv, {"w": _up(params, "k_up", q)}, "bf16").reshape(
         b, s, h, cfg.qk_nope_head_dim)
-    v = C.dense(c_kv, params["v_up"], "bf16").reshape(b, s, h, cfg.v_head_dim)
+    v = C.dense(c_kv, {"w": _up(params, "v_up", q)}, "bf16").reshape(
+        b, s, h, cfg.v_head_dim)
     k_rope_b = k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope_head_dim)
     return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def _merge_heads(o: torch.Tensor, q):
+    """The attention output (B, T, h, Dv) of ``q``'s rows and heads as
+    (B, T, h*Dv), placed as ``q`` is (heads over ``model``)."""
+    return spmd.wrap_like(o.reshape(*o.shape[:2], -1), q)
 
 
 def forward(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             precision: str = "bf16", window=None,
             impl: str = "auto") -> torch.Tensor:
     """Full-sequence MLA block."""
-    b, t, _ = x.shape
     q_nope, q_rope, c_kv, k_rope = _project(params, cfg, x, positions,
                                             precision, impl)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k, v = _expand_kv(params, cfg, c_kv, k_rope)
-    o = attn_mod.attention(q, k, v, causal=True, window=window)
-    o = o.reshape(b, t, cfg.n_heads * cfg.v_head_dim)
-    return C.dense(o, params["o"], precision, impl)
+    q = _cat(q_nope, q_rope)
+    k, v = _expand_kv(params, cfg, spmd.local(c_kv), spmd.local(k_rope), q)
+    o = attn_mod.attention(spmd.local(q), k, v, causal=True, window=window)
+    return C.dense(_merge_heads(o, q), params["o"], precision, impl)
 
 
 # ---------------------------------------------------------------------------
@@ -124,20 +168,22 @@ def decode_step(params, cfg, x: torch.Tensor, cache, length: int, *,
                 ) -> tuple[torch.Tensor, dict]:
     """One-token decode at position ``length``: the latents are written
     in place, then the whole cache is decompressed (``_expand_kv``) and
-    attended causally up to ``length``.  x (B, 1, d)."""
+    attended causally up to ``length``.  x (B, 1, d).  Over a mesh the
+    cache holds the rank's rows, as ``c_kv`` does (both placed by the
+    batch axis)."""
     b = x.shape[0]
     positions = torch.full((b, 1), length, dtype=torch.long,
                            device=x.device)
     q_nope, q_rope, c_kv, k_rope = _project(params, cfg, x, positions,
                                             precision, impl)
-    cache["c_kv"][:, length] = c_kv[:, 0]
-    cache["k_rope"][:, length] = k_rope[:, 0]
-    k, v = _expand_kv(params, cfg, cache["c_kv"], cache["k_rope"])
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    o = attn_mod.attention(q, k, v, causal=True, q_offset=length,
-                           kv_len=length + 1)
-    o = o.reshape(b, 1, cfg.n_heads * cfg.v_head_dim)
-    return C.dense(o, params["o"], precision, impl), cache
+    ck, kr = spmd.local(cache["c_kv"]), spmd.local(cache["k_rope"])
+    ck[:, length] = spmd.local(c_kv)[:, 0]
+    kr[:, length] = spmd.local(k_rope)[:, 0]
+    q = _cat(q_nope, q_rope)
+    k, v = _expand_kv(params, cfg, ck, kr, q)
+    o = attn_mod.attention(spmd.local(q), k, v, causal=True,
+                           q_offset=length, kv_len=length + 1)
+    return C.dense(_merge_heads(o, q), params["o"], precision, impl), cache
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +196,9 @@ def decode_step(params, cfg, x: torch.Tensor, cache, length: int, *,
 
 def init_paged_state(cfg, num_blocks: int, block_size: int,
                      dtype=torch.float32, device=None) -> dict:
-    """Per-layer paged latent pool (the MLA mixer-state layout)."""
+    """Per-layer paged latent pool (the MLA mixer-state layout).  Over a
+    mesh the model places it by ``paged_state_specs``
+    (``transformer.init_paged_state``)."""
     kw = dict(dtype=dtype, device=device)
     return {"c_kv": torch.zeros((num_blocks, block_size, cfg.kv_lora_rank),
                                 **kw),
@@ -158,25 +206,41 @@ def init_paged_state(cfg, num_blocks: int, block_size: int,
                                    cfg.qk_rope_head_dim), **kw)}
 
 
+def paged_state_specs() -> dict:
+    """Logical axes of ``init_paged_state``'s (num_blocks, bs, ...)
+    latent pools: ``cache_specs``' with the block axis in the batch's
+    place, never sharded (a block id is global)."""
+    return {"c_kv": (None, None, "kv_lora"), "k_rope": (None, None, None)}
+
+
 def _paged_attend(params, cfg, q, cache, block_table, lengths, kv_len,
                   newest, ring, causal, impl):
     """MLA paged attention: the kernel gathers the latents by block
-    table and decompresses K/V itself."""
-    return kops.paged_attention_mla(
-        q.float().contiguous(), cache["c_kv"], cache["k_rope"], block_table,
-        k_up=params["k_up"]["w"].float().contiguous(),
-        v_up=params["v_up"]["w"].float().contiguous(),
-        nope_dim=cfg.qk_nope_head_dim, kv_len=kv_len, q_offset=lengths,
-        causal=causal, window=cfg.sliding_window, ring=ring,
-        newest=newest.to(torch.int32).contiguous() if ring else None,
-        impl=impl).to(q.dtype)
+    table and decompresses K/V itself.  Over a mesh, on the rank's rows
+    and heads against the whole latent pools."""
+    def rows(t):
+        return spmd.rows(t, q)
+    ql = spmd.local(q)
+    o = kops.paged_attention_mla(
+        ql.float().contiguous(), spmd.local(cache["c_kv"]),
+        spmd.local(cache["k_rope"]), rows(block_table),
+        k_up=_up(params, "k_up", q).float().contiguous(),
+        v_up=_up(params, "v_up", q).float().contiguous(),
+        nope_dim=cfg.qk_nope_head_dim, kv_len=rows(kv_len),
+        q_offset=rows(lengths), causal=causal, window=cfg.sliding_window,
+        ring=ring,
+        newest=rows(newest).to(torch.int32).contiguous() if ring else None,
+        route_heads=cfg.n_heads, impl=impl).to(ql.dtype)
+    return _merge_heads(o, q)
 
 
 def _write_latents(cache, block_table, positions, c_kv, k_rope, valid, ring):
-    attn_block.scatter_blocks(cache["c_kv"], block_table, positions, c_kv,
-                              valid, ring=ring)
-    attn_block.scatter_blocks(cache["k_rope"], block_table, positions,
-                              k_rope, valid, ring=ring)
+    """Every row's latents into the pools, in place (over a mesh every
+    rank writes all rows: they are gathered over the data axis)."""
+    for name, t in (("c_kv", c_kv), ("k_rope", k_rope)):
+        attn_block.scatter_blocks(spmd.local(cache[name]), block_table,
+                                  positions, spmd.local(spmd.all_rows(t)),
+                                  valid, ring=ring)
 
 
 def paged_decode_step(params, cfg, x: torch.Tensor, cache,
@@ -196,11 +260,9 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     valid = (torch.ones((b, 1), dtype=torch.bool, device=x.device)
              if active is None else active[:, None])
     _write_latents(cache, block_table, positions, c_kv, k_rope, valid, ring)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    o = _paged_attend(params, cfg, q, cache, block_table, lengths,
-                      lengths + 1, lengths, ring, causal=False,
+    o = _paged_attend(params, cfg, _cat(q_nope, q_rope), cache, block_table,
+                      lengths, lengths + 1, lengths, ring, causal=False,
                       impl=attn_impl or impl)
-    o = o.reshape(b, 1, cfg.n_heads * cfg.v_head_dim)
     return C.dense(o, params["o"], precision, impl, taps, "o"), cache
 
 
@@ -213,16 +275,13 @@ def prefill_chunk(params, cfg, x: torch.Tensor, cache,
     """Chunked prefill of C latent tokens per row at per-row offsets
     (arguments as ``attn_block.prefill_chunk``; ``taps`` receives
     ``(name, input)`` of q, kv_down and o)."""
-    b, ch, _ = x.shape
-    ar = torch.arange(ch, device=x.device)
+    ar = torch.arange(x.shape[1], device=x.device)
     positions = lengths[:, None].long() + ar[None, :]
     q_nope, q_rope, c_kv, k_rope = _project(params, cfg, x, positions,
                                             precision, impl, taps)
     valid = ar[None, :] < n_valid[:, None]
     _write_latents(cache, block_table, positions, c_kv, k_rope, valid, ring)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    o = _paged_attend(params, cfg, q, cache, block_table, lengths,
-                      lengths + n_valid, lengths + n_valid - 1, ring,
-                      causal=True, impl=attn_impl or impl)
-    o = o.reshape(b, ch, cfg.n_heads * cfg.v_head_dim)
+    o = _paged_attend(params, cfg, _cat(q_nope, q_rope), cache, block_table,
+                      lengths, lengths + n_valid, lengths + n_valid - 1,
+                      ring, causal=True, impl=attn_impl or impl)
     return C.dense(o, params["o"], precision, impl, taps, "o"), cache

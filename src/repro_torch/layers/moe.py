@@ -20,12 +20,31 @@ stacked (E, d_in, d_out) weights — at precision "bnn" the fused
 XNOR-popcount kernel on the stack's cached packed words.  The router
 runs in float32.  The k choices are combined in ascending choice order,
 as the JAX package's scatter-add does.
+
+Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
+layer is expert-parallel: the router is replicated, the stacks are cut
+by whole experts over ``model`` (``("experts", "embed", "mlp")``; the
+dedup drops ``mlp``), and the shared experts are column/row-parallel
+as a dense FFN.  Each data rank routes its own rows, each model rank
+runs the per-expert loop over its own experts only, and the (T·k, d)
+slot rows (one per (token, choice)) are summed over ``model``: a slot
+is non-zero on the one rank that owns its expert, so the sum is exact,
+and the k choices are combined after it in ``_combine``'s order, so a
+token's output is bit-equal to one rank's (summing each rank's combined
+output would reorder a token's top-k sum, whose choices span ranks).
+Where the experts do not divide the model axis (8 mixtral experts on a
+16-way axis) the decode rules cut each expert's ``mlp`` instead: every
+rank runs every routed expert on its slice of the hidden, the down
+projection's integer dots are summed over ``model`` before alpha (as
+``kernels/ops``' row-parallel GEMM does), and the choices combine
+after that sum.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import spmd
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import common as C
 from repro_torch.layers import ffn
@@ -66,8 +85,12 @@ def specs(kind: str = "swiglu", n_shared: int = 0) -> dict:
     return s
 
 
-def _route(x2d, router_w, top_k):
-    logits = torch.matmul(x2d.float(), router_w.float())
+def _route(x2d, router_w, top_k, rows: int = 0):
+    """``rows``: the whole batch's token count where x2d holds a data
+    rank's share: the router GEMM runs on x2d zero-padded to it, so its
+    algorithm, and each row's sums, are one rank's (``spmd.on_rows``)."""
+    xf = spmd.pad_rows(x2d.float(), rows)
+    logits = torch.matmul(xf, spmd.local(router_w).float())[:x2d.shape[0]]
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort puts the lower expert first on a tie, as
     # lax.top_k does
@@ -123,8 +146,11 @@ def _act(kind):
 
 
 def _expert_ffn(params, x, e, kind, precision, impl):
-    """Expert ``e``'s FFN on rows x (n, d); returns (output, the down
-    projection's input)."""
+    """Expert ``e``'s FFN on rows x (n, d) (``e`` indexes the stacks as
+    given: over a mesh the rank's local ones); returns (output, the
+    down projection's input).  Stacks cut on ``mlp`` give the rank's
+    slice of the hidden and the down projection's partial integer dots
+    (``kernels.ops.expert_dense``)."""
     def mm(v, name):
         return kops.expert_dense(v, params[name], e, precision=precision,
                                  impl=impl)
@@ -133,6 +159,67 @@ def _expert_ffn(params, x, e, kind, precision, impl):
     else:
         h = C.gelu(mm(x, "up"))
     return mm(h, "down"), h
+
+
+class _Experts:
+    """Which experts this rank runs and how its slot rows are finished:
+    on one rank every expert, as they are; over a mesh (the stacks
+    DTensors) the rank's own experts, their rows summed over ``model``
+    (module docstring), or, with the stacks cut on ``mlp``, every
+    expert's partial dots, summed and then scaled by alpha."""
+
+    def __init__(self, params, precision: str):
+        self.precision = precision
+        w = params["down"]
+        self.n = params["router"]["w"].shape[-1]
+        self.mesh = w.device_mesh if spmd.is_dtensor(w) else None
+        self.first, self.count, self.tp = 0, self.n, False
+        self.dims: list[int] = []
+        if self.mesh is None:
+            return
+        if spmd.mesh_dims(w, 0):
+            self.dims = spmd.mesh_dims(w, 0)
+            self.first, self.count = spmd.rank_slice(w, 0)
+        elif spmd.mesh_dims(w, 1):
+            self.dims, self.tp = spmd.mesh_dims(w, 1), True
+        self.params = params
+
+    def local(self, e: int) -> int | None:
+        """Expert ``e``'s index in the rank's stacks, None when another
+        rank runs it."""
+        i = e - self.first
+        return i if 0 <= i < self.count else None
+
+    def whole_rows(self, h: torch.Tensor, experts: torch.Tensor
+                   ) -> torch.Tensor:
+        """Slot rows of the down projections' inputs (n, the rank's
+        hidden; slot i of expert ``experts[i]``), every slot's whole
+        hidden on every rank, as one rank has it (a debug tap: the
+        owner's rows are gathered, not summed, so a -0.0 stays)."""
+        if self.mesh is None:
+            return h
+        if self.tp:
+            for i in reversed(self.dims):
+                h = spmd.all_gather(h, self.mesh, i, 1)
+            return h
+        parts = h[None]
+        for i in reversed(self.dims):
+            parts = spmd.all_gather(parts, self.mesh, i, 0)
+        rows = torch.arange(h.shape[0], device=h.device)
+        return parts[experts.long() // self.count, rows]
+
+    def finish(self, ye: torch.Tensor, experts: torch.Tensor, impl: str
+               ) -> torch.Tensor:
+        """The slot rows ``ye`` (n, d), slot i computed by expert
+        ``experts[i]``, summed over the ranks that share them."""
+        if self.mesh is None:
+            return ye
+        for i in self.dims:
+            ye = spmd.all_reduce(ye, self.mesh, i)
+        if self.tp and self.precision == "bnn":
+            alpha = kops.expert_alphas(self.params["down"], impl)
+            ye = ye.to(torch.float32) * alpha[experts.long()]
+        return ye
 
 
 def _combine(ye, topk_w):
@@ -146,60 +233,109 @@ def _combine(ye, topk_w):
 
 def _forward_tables(params, x, *, top_k, kind, capacity, groups, precision,
                     impl):
-    """The capacity-table dispatch within ``groups`` token groups."""
+    """The capacity-table dispatch within ``groups`` token groups (x: the
+    rank's rows, a whole number of groups)."""
     b, t, d = x.shape
-    e = params["router"]["w"].shape[-1]
+    ex = _Experts(params, precision)
+    e = ex.n
     tg = b * t // groups
-    ys, auxs = [], []
+    ys, auxs, outs = [], [], []
     for xg in x.reshape(groups, tg, d):
         topk_w, topk_e, aux = route(xg, params["router"]["w"], top_k)
         table, valid, slot = dispatch_tables(topk_e, e, capacity)
         xe = xg[table.long()].reshape(e, capacity, d)
         xe = xe * valid.reshape(e, capacity, 1).to(xe.dtype)
-        ye = torch.stack([_expert_ffn(params, xe[i], i, kind, precision,
-                                      impl)[0] for i in range(e)])
+        if ex.mesh is None:
+            ye = torch.stack([_expert_ffn(params, xe[i], i, kind, precision,
+                                          impl)[0] for i in range(e)])
+        else:
+            ye = torch.zeros((e, capacity, d), dtype=x.dtype,
+                             device=x.device)
+            for i in range(e):
+                li = i if ex.tp else ex.local(i)
+                if li is not None:
+                    ye[i] = _expert_ffn(params, xe[i], li, kind, precision,
+                                        impl)[0].to(ye.dtype)
         gathered = ye.reshape(e * capacity, d)[slot.clamp(0, e * capacity - 1)]
         gathered = gathered * (slot < e * capacity)[:, None].to(ye.dtype)
-        ys.append(_combine(gathered.reshape(tg, top_k, d), topk_w))
+        outs.append((gathered, topk_e, topk_w))
         auxs.append(aux)
+    if ex.mesh is not None:
+        rows = ex.finish(torch.cat([g for g, _e, _w in outs]),
+                         torch.cat([te.reshape(-1) for _g, te, _w in outs]),
+                         impl)
+        outs = [(r, te, w) for r, (_g, te, w) in
+                zip(rows.split(tg * top_k), outs)]
+    for gathered, _te, topk_w in outs:
+        ys.append(_combine(gathered.reshape(tg, top_k, d).to(x.dtype),
+                           topk_w))
     return torch.cat(ys), torch.stack(auxs).mean()
 
 
 def _forward_routed(params, x, *, top_k, kind, precision, impl, taps,
-                    groups: int = 1):
+                    groups: int = 1, route_rows: int = 0):
     """Drop-free dispatch over the routed rows only, grouped by expert
-    (``groups`` matters to the aux loss alone: no token is dropped)."""
+    (``groups`` matters to the aux loss alone: no token is dropped).  x:
+    the rank's rows; over a mesh the rank runs its experts' rows and
+    the slot rows are finished over ``model`` (``_Experts``), and the
+    router runs as on ``route_rows`` tokens (``_route``)."""
     b, t, d = x.shape
+    ex = _Experts(params, precision)
     x2d = x.reshape(b * t, d)
-    topk_w, topk_e, _, probs = _route(x2d, params["router"]["w"], top_k)
+    topk_w, topk_e, _, probs = _route(x2d, params["router"]["w"], top_k,
+                                      route_rows)
     aux = _aux_loss(probs, topk_e, groups)
     flat_e = topk_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)   # (token, choice) by expert
     counts = torch.bincount(flat_e, minlength=probs.shape[-1]).tolist()
     rows = x2d[order // top_k]
-    ye = torch.empty((flat_e.numel(), d), dtype=x.dtype, device=x.device)
+    make = torch.empty if ex.mesh is None else torch.zeros
+    ye = make((flat_e.numel(), d), dtype=x.dtype, device=x.device)
     down_in = [] if taps is not None else None
     start = 0
     for ei, n in enumerate(counts):
-        if n == 0:
+        li = ei if ex.tp else ex.local(ei)
+        if n == 0 or li is None:
+            start += n
             continue
         sel = order[start:start + n]
-        ye[sel], h = _expert_ffn(params, rows[start:start + n], ei, kind,
-                                 precision, impl)
+        y_e, h = _expert_ffn(params, rows[start:start + n], li, kind,
+                             precision, impl)
+        ye[sel] = y_e.to(ye.dtype)
         if down_in is not None:
             down_in.append((sel, h))
         start += n
+    ye = ex.finish(ye, flat_e, impl).to(x.dtype)
     if taps is not None:
         taps.append(("moe_in", x))
         taps.append(("router_probs", probs.reshape(b, t, -1)))
         taps.append(("topk", topk_e.reshape(b, t, top_k)))
-        dff = down_in[0][1].shape[-1]
-        hd = torch.empty((flat_e.numel(), dff), dtype=x.dtype,
-                         device=x.device)
+        hd = torch.zeros((flat_e.numel(),
+                          spmd.local(params["down"]).shape[1]),
+                         dtype=x.dtype, device=x.device)
         for sel, h in down_in:
             hd[sel] = h
-        taps.append(("moe_down_in", hd.reshape(b, t, top_k, dff)))
+        taps.append(("moe_down_in", ex.whole_rows(hd, flat_e).reshape(
+            b, t, top_k, params["down"].shape[1])))
     return _combine(ye.reshape(b * t, top_k, d), topk_w), aux
+
+
+def _groups(dispatch_groups: int) -> int:
+    """``dispatch_groups``, 0 (auto) resolved as the JAX package does:
+    the data-parallel degree of the sharding context's mesh (the mesh
+    sizes the rules give "batch"), 1 outside a context."""
+    if dispatch_groups:
+        return dispatch_groups
+    mesh, rules = C._CTX.mesh, C._CTX.rules
+    if mesh is None or rules is None:
+        return 1
+    mx = rules.get("batch")
+    parts = mx if isinstance(mx, tuple) else (mx,) if mx else ()
+    sizes = C.mesh_axes(mesh)
+    dp = 1
+    for p in parts:
+        dp *= sizes[p]
+    return dp
 
 
 def forward(params, x: torch.Tensor, *, top_k: int, kind: str = "swiglu",
@@ -209,32 +345,61 @@ def forward(params, x: torch.Tensor, *, top_k: int, kind: str = "swiglu",
     """x (B, T, d) -> (y, aux_loss).
 
     ``dispatch_groups > 1`` routes and dispatches independently within
-    that many token groups (0 = auto, one group on the one-card port:
-    the JAX package matches its data-parallel degree).
+    that many token groups (0 = auto: the data-parallel degree of the
+    sharding context's mesh, 1 outside one, as in the JAX package).
     ``capacity_factor <= 0`` is the drop-free dispatch the serving path
     runs.  ``taps``, when a list, receives ``(name, tensor)`` of the
     layer's input, the router probabilities, the chosen experts, the
     down projections' inputs (drop-free path), then the shared experts'
-    projection inputs.
+    projection inputs.  Over a mesh (module docstring) x is a DTensor
+    with its rows over ``data``; each data rank dispatches the groups
+    its rows hold (the rows are gathered first where a group spans
+    ranks), and the aux loss of the drop-free path is that of the
+    rank's rows (the serving path drops it).
     """
     b, t, d = x.shape
     n_tok = b * t
-    g = dispatch_groups if dispatch_groups and \
-        n_tok % dispatch_groups == 0 else 1
+    g = _groups(dispatch_groups)
+    g = g if n_tok % g == 0 else 1
+    xin = x
+    if spmd.is_dtensor(x) and g % spmd.shards(x, 0):
+        x = spmd.all_rows(x)
+    gl = g // spmd.shards(x, 0)
+    xl = spmd.local(x)
     if capacity_factor <= 0:
-        y2d, aux = _forward_routed(params, x, top_k=top_k, kind=kind,
-                                   precision=precision, impl=impl, taps=taps,
-                                   groups=g)
+        rank_taps = [] if taps is not None else None
+        y2d, aux = _forward_routed(params, xl, top_k=top_k, kind=kind,
+                                   precision=precision, impl=impl,
+                                   taps=rank_taps, groups=gl,
+                                   route_rows=n_tok)
+        if taps is not None:      # the rank's rows, placed as x's are
+            taps.extend((n, spmd.wrap_like(t, x)) for n, t in rank_taps)
     else:
         e = params["router"]["w"].shape[-1]
         cap = max(min_capacity, int(capacity_factor * (n_tok // g) * top_k / e))
-        y2d, aux = _forward_tables(params, x, top_k=top_k, kind=kind,
-                                   capacity=cap, groups=g,
+        y2d, aux = _forward_tables(params, xl, top_k=top_k, kind=kind,
+                                   capacity=cap, groups=gl,
                                    precision=precision, impl=impl)
-    y = y2d.reshape(b, t, d)
+        aux = _mean_over_rows(aux, x, g)
+    y = spmd.wrap_like(y2d.reshape(xl.shape), x)
+    if spmd.is_dtensor(y):
+        y = spmd.redistribute(y, xin.placements)
     if "shared" in params:
-        y = y + ffn.forward(params["shared"], x, kind, precision, impl, taps)
-    return y.to(x.dtype), aux
+        sh = ffn.forward(params["shared"], xin, kind, precision, impl, taps)
+        y = spmd.on_local(lambda a, s: a + s, y, sh)
+    return spmd.on_local(lambda a: a.to(x.dtype), y), aux
+
+
+def _mean_over_rows(aux: torch.Tensor, x, groups: int) -> torch.Tensor:
+    """The mean of every group's aux loss, from this rank's mean over the
+    groups its rows hold (a sum over the data ranks)."""
+    dims = spmd.mesh_dims(x, 0) if spmd.is_dtensor(x) else []
+    if not dims:
+        return aux
+    total = aux * (groups // spmd.shards(x, 0))
+    for i in dims:
+        total = spmd.all_reduce(total.clone(), x.device_mesh, i)
+    return total / groups
 
 
 def forward_dense_reference(params, x: torch.Tensor, *, top_k: int,

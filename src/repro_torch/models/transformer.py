@@ -34,14 +34,17 @@ patch embeddings) and ``embeds`` (the audio frame embeddings) beside
 the tokens; the serving paths and the legacy decode loop take tokens.
 
 Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
-dense family runs tensor-parallel over ``model`` and data-parallel over
-``data`` under the decode rules: the embedding is a vocab-parallel
-lookup (each rank's rows of the table, summed: one rank contributes
-each row, so the sum is exact), each layer as ``attn_block`` and
-``ffn`` say, the logits come out vocab-sharded (callers gather them,
-``spmd.full``), and activations take the JAX package's ``lsc``
-constraints (the batch over ``data`` under a sharding context).  The
-other families refuse a mesh (ROADMAP.md queue 1, item 11).
+attention families (GQA or MLA mixers; dense, MoE or no FFN) run
+tensor-parallel over ``model`` and data-parallel over ``data`` under
+the decode rules: the embedding is a vocab-parallel lookup (each
+rank's rows of the table, summed: one rank contributes each row, so
+the sum is exact), each layer as ``attn_block``, ``mla``, ``ffn`` and
+``moe`` say (heads, experts and the hidden over ``model``), the logits
+come out vocab-sharded (callers gather them, ``spmd.full``), and
+activations take the JAX package's ``lsc`` constraints (the batch over
+``data`` under a sharding context).  Caches and pools are placed by
+``sharding.state_rules_of``.  SSM layers and the stub front-ends refuse
+a mesh (ROADMAP.md queue 1, item 11a).
 
 Three ways through the stack: the full-sequence forward
 (``hidden_states`` / ``logits_fn``, and ``loss_fn`` for training: the
@@ -58,6 +61,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding as S, spmd
+from repro_torch.kernels import ops as kops
 from repro_torch.layers import attn_block, common as C, ffn, mamba2, mla, moe
 
 # ---------------------------------------------------------------------------
@@ -120,14 +124,15 @@ def check_supported(cfg: ArchConfig):
 
 
 def check_mesh_supported(cfg: ArchConfig):
-    """Raise unless ``cfg`` runs over a mesh: the dense family (GQA
-    attention, a dense FFN, no front-end)."""
+    """Raise unless ``cfg`` runs over a mesh: GQA or MLA mixers with a
+    dense FFN, a MoE FFN or none, and no front-end."""
     kinds = set(layer_plan(cfg))
-    if kinds != {("gqa", "dense")} or cfg.frontend != "none":
+    if any(mix not in ("gqa", "mla") or f not in ("dense", "moe", "none")
+           for mix, f in kinds) or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the forward over several ranks runs the dense "
-            f"family; layers {sorted(kinds)} with front-end "
-            f"{cfg.frontend!r} over a mesh are ROADMAP.md queue 1, item 11")
+            f"{cfg.name}: the forward over several ranks runs the attention "
+            f"families; layers {sorted(kinds)} with front-end "
+            f"{cfg.frontend!r} over a mesh are ROADMAP.md queue 1, item 11a")
 
 
 # ---------------------------------------------------------------------------
@@ -156,20 +161,36 @@ def _init_layer(gen, cfg: ArchConfig, mix: str, f: str, dense_width: bool,
     return p
 
 
-def init(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
+def init(gen: torch.Generator, cfg: ArchConfig, device=None, *,
+         place=None) -> dict:
     """Random parameters drawn from ``gen`` (its device must match
     ``device``).  Same distributions as the JAX package's init, not the
-    same numbers: for parity, convert JAX weights with ``interop``."""
+    same numbers: for parity, convert JAX weights with ``interop``.
+    ``place(tree, specs)``, when given, takes each piece (the embedding,
+    the final norm, the head, a layer) with its ``param_specs`` as soon
+    as it is drawn and returns what to keep of it
+    (``launch/mesh.init_on_ranks``: a rank's slices, so the whole of one
+    layer at a time is held); the draws, and so the numbers, are the
+    same."""
     check_supported(cfg)
-    params = {"embed": C.embed_init(gen, cfg.vocab, cfg.d_model,
-                                    device=device),
-              "final_norm": C.norm_init(cfg.d_model, cfg.norm, device=device)}
-    params["head"] = ({"w": params["embed"]["w"].t()} if cfg.tie_embeddings
-                      else C.dense_init(gen, cfg.d_model, cfg.vocab,
-                                        device=device))
-    params["layers"] = [_init_layer(gen, cfg, mix, f, i < cfg.first_dense,
-                                    device)
-                        for i, (mix, f) in enumerate(layer_plan(cfg))]
+    specs = param_specs(cfg) if place is not None else None
+
+    def put(tree, key, i=None):
+        if place is None:
+            return tree
+        return place(tree, specs[key] if i is None else specs[key][i])
+    params = {"embed": put(C.embed_init(gen, cfg.vocab, cfg.d_model,
+                                        device=device), "embed"),
+              "final_norm": put(C.norm_init(cfg.d_model, cfg.norm,
+                                            device=device), "final_norm")}
+    params["head"] = ({"w": spmd.transpose(params["embed"]["w"])}
+                      if cfg.tie_embeddings
+                      else put(C.dense_init(gen, cfg.d_model, cfg.vocab,
+                                            device=device), "head"))
+    params["layers"] = [
+        put(_init_layer(gen, cfg, mix, f, i < cfg.first_dense, device),
+            "layers", i)
+        for i, (mix, f) in enumerate(layer_plan(cfg))]
     return params
 
 
@@ -353,9 +374,36 @@ def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
 
 
 def apply_head(params, h):
-    """The float LM head; over a mesh a column-parallel GEMM, so the
-    logits come out cut along the vocab."""
-    return C.dense(h, params["head"])
+    """The float LM head.  Over a mesh the logits come out cut along the
+    vocab (and the batch over ``data``), as the JAX package places
+    them; but each rank runs one rank's GEMM, on all the rows and the
+    whole head (gathered once and cached, in the layout one rank reads
+    it in), and keeps its slice.  The head is a library GEMM whose
+    algorithm follows its shape: over a rank's vocab slice it rounded
+    differently from one rank (8.1e-6 on mixtral-8x7b's 4096 x 32000
+    head over (1, 2), every input to it equal; NVIDIA H100)."""
+    w = params["head"]["w"]
+    if not spmd.is_dtensor(w):
+        return C.dense(h, params["head"])
+    from torch.distributed.tensor import Shard
+    mesh, last = w.device_mesh, h.ndim - 1
+    whole = _whole_head(w)
+    hl = spmd.local(spmd.all_rows(h))
+    y = torch.matmul(hl, whole.to(hl.dtype))
+    want = [Shard(last) if pw == Shard(1) else ph
+            for pw, ph in zip(w.placements, h.placements)]
+    return spmd.redistribute(spmd.replicate(y, mesh), want)
+
+
+def _whole_head(w):
+    """The DTensor head ``w`` whole on every rank, cached under it: a
+    tied head (the embedding's transpose, a transposed view) as one
+    rank reads it, the gathered embedding's transpose."""
+    def gather(wd):
+        if wd.to_local().stride(0) == 1 and wd.shape[1] > 1:
+            return spmd.full(spmd.transpose(wd)).t()
+        return spmd.full(wd)
+    return kops.cached_per_weight(w, ("whole_head",), gather)
 
 
 def head_matrix(params, cfg: ArchConfig) -> torch.Tensor:
@@ -435,8 +483,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Per-layer dense caches: (B, L, Hkv, Dh) K/V for GQA (a window's
     ring for a sliding-window config), (B, L, R) latents for MLA, the
     recurrent state for SSM layers.  Over ``mesh``, DTensors placed by
-    ``cache_specs`` under its decode rules, the rules the forward's
-    sharding context must have."""
+    ``cache_specs`` under ``sharding.state_rules_of`` (its decode rules,
+    which the forward's sharding context must have, without the
+    ``head_dim`` and ``kv_lora`` splits)."""
     check_supported(cfg)
     caches = []
     for mix, _f in layer_plan(cfg):
@@ -449,7 +498,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         return caches
     check_mesh_supported(cfg)
     return S.place_tree(caches, cache_specs(cfg), mesh,
-                        S.decode_rules_of(mesh))
+                        S.state_rules_of(mesh))
 
 
 def cache_specs(cfg: ArchConfig) -> list[dict]:
@@ -539,10 +588,11 @@ def mixer_prefill(mix: str, p, cfg: ArchConfig, h, cache, block_table,
 
 
 def paged_state_specs(cfg: ArchConfig) -> list[dict]:
-    """Logical axes of ``init_paged_state``'s pools over a mesh (the
-    dense family's: ``attn_block.paged_state_specs`` a layer)."""
+    """Logical axes of ``init_paged_state``'s pools over a mesh: a GQA
+    layer's K/V blocks (plain or ring) or an MLA layer's latent
+    blocks, a layer each."""
     check_mesh_supported(cfg)
-    return [attn_block.paged_state_specs() for _ in layer_plan(cfg)]
+    return [_mixer(mix).paged_state_specs() for mix, _f in layer_plan(cfg)]
 
 
 def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
@@ -552,13 +602,16 @@ def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
     blocks for GQA layers, latent blocks for MLA layers, ``num_slots``
     recurrent slots (slot 0 scratch) for SSM layers; a hybrid stack
     holds both kinds, each at its layer's place.  Over ``mesh``,
-    DTensors placed by ``paged_state_specs`` (kv heads over ``model``)
-    under its decode rules."""
+    DTensors placed by ``paged_state_specs`` under
+    ``sharding.state_rules_of``: K/V by kv heads over ``model`` where
+    they divide it, else whole; latents whole; every block on every
+    data rank."""
     if mesh is not None:
+        specs = paged_state_specs(cfg)
         return S.place_tree(
             init_paged_state(cfg, num_blocks, block_size, num_slots, dtype,
                              device),
-            paged_state_specs(cfg), mesh, S.decode_rules_of(mesh))
+            specs, mesh, S.state_rules_of(mesh))
     check_supported(cfg)
     pools = []
     for mix, _f in layer_plan(cfg):
@@ -579,7 +632,8 @@ def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
                       active: torch.Tensor | None = None,
                       slots: torch.Tensor | None = None, *,
                       ring: bool = False, impl: str = "auto",
-                      attn_impl: str | None = None):
+                      attn_impl: str | None = None,
+                      taps: list | None = None):
     """One decode token per row against the paged pools.
 
     tokens (B, 1) int; block_table (B, max_blocks) int32; lengths (B,)
@@ -588,15 +642,17 @@ def paged_decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
     the block tables as sliding-window rings.  The BNN GEMMs resolve
     ``impl``, the paged attention ``attn_impl`` (``None``: ``impl``),
     as the JAX package's engine takes ``bnn_impl`` and ``attn_impl``.
-    Returns (logits (B, 1, V), caches).
+    ``taps`` as in ``prefill_chunk``.  Returns (logits (B, 1, V), caches).
     """
     x = _embed(params, cfg, tokens)
     for li, (mix, f, p) in enumerate(_iter_layers(cfg, params)):
         h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
         y = mixer_decode(mix, p["attn"], cfg, h, caches[li], block_table,
                          lengths, slots, active, ring=ring, impl=impl,
-                         attn_impl=attn_impl)
-        x = _ffn(p, cfg, f, x + y, impl, paged=True)
+                         attn_impl=attn_impl, taps=taps)
+        x = _ffn(p, cfg, f, x + y, impl, paged=True, taps=taps)
+        if taps is not None:
+            taps.append(("hidden", x))
     x = C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return apply_head(params, x), caches
 

@@ -56,10 +56,11 @@ both members jointly: the attention blocks are adopted only down to the
 snapshot depth, so every layer resumes from one position.  Swap parks
 both members' state.
 
-Over a mesh (the engine's ``mesh=``: the dense family) the pools are
-DTensors, each rank holding its kv-head slice of every block; the
-copies act on the rank's slice, and the bookkeeping, the same on
-every rank, decides alike.
+Over a mesh (the engine's ``mesh=``) the pools are DTensors, each rank
+holding its kv-head slice of every block (all of a block where the kv
+heads do not divide the model axis, and an MLA layer's latents whole);
+the copies (copy-on-write, swap-out, swap-in) act on the rank's slice,
+and the bookkeeping, the same on every rank, decides alike.
 """
 from __future__ import annotations
 
@@ -278,8 +279,8 @@ class BlockKVCache(MixerState):
                                           ring_blocks)
         self.allocator = BlockAllocator(num_blocks)
         if mesh is not None:
-            # the dense family only: every layer's pool, each rank's
-            # kv-head slice (the block ids are global)
+            # every layer's pool (no SSM layer runs over a mesh), each
+            # rank's slice of it (the block ids are global)
             self.pools = transformer.init_paged_state(
                 cfg, num_blocks, block_size, dtype=dtype, device=device,
                 mesh=mesh)

@@ -54,10 +54,13 @@ reports what the modeled OXBNN accelerator would sustain on the same
 token stream (``stats()["photonic"]``), next to the measured wall clock.
 
 ``Engine(..., mesh=...)`` serves over a (data, model) ``DeviceMesh``
-(the dense family): every rank runs this engine, the same scheduler
-over the same requests (SPMD), on params placed by the decode rules
-(``dist/sharding.place_params``; plain params are placed here), pools
-placed by kv heads, and step closures that sample from the logits
+(the attention families: GQA, its sliding-window ring and MLA mixers,
+dense and MoE FFNs; ``transformer.check_mesh_supported``): every rank
+runs this engine, the same scheduler over the same requests (SPMD), on
+params placed by the decode rules (``dist/sharding.place_params``;
+plain params are placed here), pools placed by
+``sharding.state_rules_of`` (K/V by kv heads, latents whole), and step
+closures that sample from the logits
 gathered whole, so the ranks draw the same tokens; ``check_ranks``
 compares each step's tokens across the ranks and raises where they
 differ (a debug check).  Without ``mesh`` nothing of this runs.

@@ -1,6 +1,7 @@
 """Shared pieces of the tests of the forward over several ranks
-(tests/test_torch_ranks*.py): the reduced bnn-lm-100m at precision
-"bnn", meshes of real ``gloo`` ranks on the CPU
+(tests/test_torch_ranks*.py): the reduced bnn-lm-100m (or another
+arch: mixtral, deepseek-v2-lite, llama3.2-3b) at precision "bnn",
+meshes of real ``gloo`` ranks on the CPU
 (``launch/mesh.spawn_ranks``: one ``spawn`` of a world per test file
 and world size, every mesh of that size built in it), and the rank
 workers.  A worker is a module-level function of this module (the
@@ -10,6 +11,8 @@ every rank, and the tests compare what every rank returned.
 Inputs are made from numpy seeds; the weights are the JAX package's
 ``init(PRNGKey(0))`` converted by ``interop.params_from_numpy``, handed
 to the ranks whole: each rank keeps its slices (``place_params``)."""
+import contextlib
+import json
 import os
 import subprocess
 import sys
@@ -30,8 +33,52 @@ EKW = dict(block_size=4, num_blocks=33, max_batch=4, prefill_chunk=4,
 ARCH = "bnn-lm-100m"
 
 
-def port_cfg(precision: str = "bnn"):
-    return treduced(tconfigs.get_config(ARCH)).replace(precision=precision)
+def port_cfg(precision: str = "bnn", arch: str = ARCH):
+    return treduced(tconfigs.get_config(arch)).replace(precision=precision)
+
+
+def jax_cfg(arch: str = ARCH):
+    from repro import configs
+    from repro.configs.base import reduced
+    return reduced(configs.get_config(arch)).replace(precision="bnn")
+
+
+def jax_models(arch: str):
+    """(JAX cfg, JAX params, the port's params) of the reduced ``arch``
+    at "bnn": JAX's ``init(PRNGKey(0))``, converted."""
+    import jax
+    from repro.models import transformer as JM
+    from repro_torch.interop import params_from_numpy
+    jcfg = jax_cfg(arch)
+    jp, _ = JM.init(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                       port_cfg(arch=arch))
+
+
+def port_spec(x) -> tuple:
+    """A DTensor's placements as a JAX ``PartitionSpec`` tuple, one entry
+    a tensor dim: the mesh dim name(s) that cut it, or None."""
+    names = x.device_mesh.mesh_dim_names
+    out = []
+    for d in range(x.ndim):
+        cut = tuple(names[i] for i, p in enumerate(x.placements)
+                    if p.is_shard() and p.dim == d)
+        out.append(None if not cut else cut[0] if len(cut) == 1 else cut)
+    return tuple(out)
+
+
+def flat_leaves(tree, path=()) -> dict:
+    """{"a/b/0/w": leaf} over a nested dict/list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {"/".join(map(str, path)): tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_leaves(v, path + (k,)))
+    return out
 
 
 def mesh(shape):
@@ -61,7 +108,8 @@ def sampling(pkg: str):
 
 # --------------------------------------------------------------- JAX mesh
 
-JAX_MESH_LOGITS = textwrap.dedent('''
+JAX_MESH_RUN = textwrap.dedent('''
+    import json
     import sys
     import jax
     import numpy as np
@@ -69,41 +117,173 @@ JAX_MESH_LOGITS = textwrap.dedent('''
     from repro import configs
     from repro.configs.base import reduced
     from repro.dist import sharding as S
+    from repro.launch import steps as ST
     from repro.layers import common as C
     from repro.models import transformer as M
-    cfg = reduced(configs.get_config("bnn-lm-100m")).replace(
-        precision="bnn")
-    params, specs = M.init(jax.random.PRNGKey(0), cfg)
-    mesh = Mesh(np.asarray(jax.devices()).reshape(2, 2), ("data", "model"))
+    arch, src, dst, shapes, runs = sys.argv[1:6]
+    cfg = reduced(configs.get_config(arch)).replace(precision="bnn")
+    params0, specs = M.init(jax.random.PRNGKey(0), cfg)
     rules = S.rules_decode(False)
-    params = jax.device_put(params, S.param_shardings(mesh, params, specs,
-                                                      rules))
-    tokens = np.load(sys.argv[1])
-    with C.sharding_context(mesh, rules):
-        logits = jax.jit(lambda p, t: M.logits_fn(p, cfg, {"tokens": t}))(
-            params, tokens)
-    np.save(sys.argv[2], np.asarray(logits))
-    print("SPEC", tuple(logits.sharding.spec))
+    tokens = np.load(src)
+
+    def spec(a):
+        s = tuple(a.sharding.spec)
+        s = s + (None,) * (a.ndim - len(s))
+        return [list(e) if isinstance(e, tuple) else e for e in s]
+
+    def walk(t, path, drop, out):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,), drop, out)
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,), drop, out)
+        else:
+            out["/".join(map(str, path))] = spec(t)[1:] if drop else spec(t)
+
+    def port_layout(params):
+        # the port's one dict a layer (interop.params_from_numpy's walk);
+        # a scanned leaf's "layers" entry dropped
+        out = {}
+        for k, v in params.items():
+            if k != "segments":
+                walk(v, (k,), False, out)
+        li = 0
+        for (kind, plan, n), seg in zip(M.segments(cfg), params["segments"]):
+            for gi in range(n):
+                for j in range(len(plan)):
+                    if kind == "unroll":
+                        walk(seg[j], ("layers", li), False, out)
+                    else:
+                        walk(seg[f"l{j}"], ("layers", li), True, out)
+                    li += 1
+        return out
+
+    arrays, meta = {}, {}
+    for key in shapes.split(","):
+        shape = tuple(int(n) for n in key.split("x"))
+        devs = np.asarray(jax.devices()[:shape[0] * shape[1]])
+        mesh = Mesh(devs.reshape(shape), ("data", "model"))
+        params = jax.device_put(params0, S.param_shardings(mesh, params0,
+                                                           specs, rules))
+        meta[key] = {"params": port_layout(params)}
+        if key not in runs.split(","):
+            continue
+        with C.sharding_context(mesh, rules):
+            logits = jax.jit(lambda p, t: M.logits_fn(
+                p, cfg, {"tokens": t}))(params, tokens)
+            pre = jax.jit(ST.build_prefill_step(cfg))(params,
+                                                      {"tokens": tokens})
+        arrays[key + "/logits"] = np.asarray(logits)
+        arrays[key + "/prefill"] = np.asarray(pre)
+        meta[key]["logits"] = spec(logits)
+    np.savez(dst, **arrays)
+    print("META", json.dumps(meta))
 ''')
+
+
+def _spec(entries) -> tuple:
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
+def _key(shape) -> str:
+    return f"{shape[0]}x{shape[1]}"
+
+
+class JaxMeshRun:
+    """JAX's ``logits_fn`` and ``build_prefill_step`` on the reduced
+    ``arch`` at "bnn" under a ``Mesh`` of each of ``runs`` (4 forced
+    host devices, the decode rules), and its params' placements under
+    each of ``shapes``, in a fresh process (the device count is fixed
+    when JAX starts), started here: ``result()`` waits for it."""
+
+    def __init__(self, arch: str, tokens: np.ndarray, tmp: Path, shapes,
+                 runs=None):
+        self.shapes = [tuple(s) for s in shapes]
+        self.runs = self.shapes if runs is None else [tuple(s) for s in runs]
+        src, self.dst = tmp / "tokens.npy", tmp / "out.npz"
+        np.save(src, tokens)
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", JAX_MESH_RUN, arch, str(src), str(self.dst),
+             ",".join(map(_key, self.shapes)), ",".join(map(_key, self.runs))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+
+    def result(self) -> dict:
+        """{shape: {"params" ({leaf path: PartitionSpec} in the port's
+        layout), and for a run "logits", "prefill", "spec" (the logits'
+        PartitionSpec)}}."""
+        out, err = self.proc.communicate(timeout=240)
+        assert self.proc.returncode == 0, err
+        meta = json.loads(out.split("META ")[1])
+        arrays = np.load(self.dst)
+        res = {}
+        for shape in self.shapes:
+            m = meta[_key(shape)]
+            res[shape] = {"params": {k: _spec(v)
+                                     for k, v in m["params"].items()}}
+            if shape in self.runs:
+                res[shape].update(
+                    logits=arrays[_key(shape) + "/logits"],
+                    prefill=arrays[_key(shape) + "/prefill"],
+                    spec=_spec(m["logits"]))
+        return res
 
 
 def jax_mesh_logits(tokens: np.ndarray, tmp: Path) -> tuple[np.ndarray,
                                                              tuple]:
-    """JAX's ``logits_fn`` under a 2x2 ``Mesh`` of 4 forced host devices
-    and the decode rules, in a fresh process (the device count is fixed
-    when JAX starts): (logits, their PartitionSpec as a tuple)."""
-    src, dst = tmp / "tokens.npy", tmp / "logits.npy"
-    np.save(src, tokens)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
-    res = subprocess.run([sys.executable, "-c", JAX_MESH_LOGITS, str(src),
-                          str(dst)], capture_output=True, text=True,
-                         env=env, timeout=240)
-    assert res.returncode == 0, res.stderr
-    spec = res.stdout.split("SPEC ")[1].strip()
-    return np.load(dst), eval(spec, {"__builtins__": {}})
+    """JAX's ``logits_fn`` on the reduced bnn-lm-100m under a 2x2
+    ``Mesh`` (``JaxMeshRun``): (logits, their PartitionSpec)."""
+    run = JaxMeshRun(ARCH, tokens, tmp, [(2, 2)]).result()[(2, 2)]
+    return run["logits"], run["spec"]
+
+
+def jax_one_device(arch: str, jcfg, jparams, tokens: np.ndarray,
+                   n_new: int) -> dict:
+    """JAX's one-device ``logits_fn``, prefill step, and decode-step
+    tokens (the prompt a token a step over the legacy caches, then
+    ``n_new`` greedy)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch import steps as jsteps
+    from repro.models import transformer as JM
+    b, t = tokens.shape
+    logits = np.asarray(JM.logits_fn(jparams, jcfg,
+                                     {"tokens": jnp.asarray(tokens)}))
+    pre = np.asarray(jax.jit(jsteps.build_prefill_step(jcfg))(
+        jparams, {"tokens": jnp.asarray(tokens)}))
+    dec = jax.jit(jsteps.build_decode_step(jcfg))
+    caches = JM.init_cache(jcfg, b, t + n_new)
+    cur, seq = tokens[:, :1], [tokens[:, :1]]
+    for i in range(t + n_new - 1):
+        nxt, caches = dec(jparams, caches,
+                          {"tokens": jnp.asarray(cur), "length": jnp.int32(i)})
+        cur = tokens[:, i + 1:i + 2] if i + 1 < t else \
+            np.asarray(nxt)[:, None]
+        seq.append(cur)
+    return {"logits": logits, "prefill": pre,
+            "decode": np.concatenate(seq, axis=1)}
+
+
+def jax_engine_tokens(jcfg, jparams, prompts, max_new: int, ekw: dict
+                      ) -> list:
+    """One JAX ``Engine`` (the XLA paths, ``EKW`` updated by ``ekw``),
+    greedy then sampled: the tokens of each run, per request."""
+    from repro.serving import Engine as JEngine, EngineConfig as JEngineConfig
+    eng = JEngine(jparams, jcfg, JEngineConfig(
+        **{**EKW, **ekw}, attn_impl="xla", bnn_impl="xla"))
+    out = []
+    for samp in (None, sampling("jax")):
+        rids = [eng.submit(p, max_new, **({"sampling": samp(i)} if samp
+                                          else {}))
+                for i, p in enumerate(prompts)]
+        got = eng.run()
+        out.append([got[r].tolist() for r in rids])
+    return out
 
 
 # --------------------------------------------------------------- workers
@@ -144,17 +324,21 @@ def gemm_worker(world, shapes, layer, xs):
     return out
 
 
-def forward_worker(world, shapes, params, tokens, n_new):
+def forward_worker(world, shapes, params, tokens, n_new, arch=ARCH,
+                   cli=True):
     """On each mesh of ``shapes``: ``logits_fn`` over ``tokens`` (its
     placements and the logits whole), ``build_prefill_step``'s logits,
     ``build_decode_step`` fed the prompt a token a step over the legacy
-    caches, then ``n_new`` greedy tokens, and the serve CLI's paged and
-    legacy runs over the mesh (``tokens`` the prompts, ``n_new`` new)."""
+    caches, then ``n_new`` greedy tokens, and (``cli``) the serve CLI's
+    paged and legacy runs over the mesh (``tokens`` the prompts,
+    ``n_new`` new)."""
+    from repro_torch import tree as T
     from repro_torch.dist import sharding as S, spmd
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve as SV, steps
     from repro_torch.layers import common as C
     from repro_torch.models import transformer as M
-    cfg = port_cfg()
+    cfg = port_cfg(arch=arch)
     rules = S.rules_decode(False)
     tok = torch.from_numpy(tokens.astype(np.int64))
     b, t = tok.shape
@@ -174,14 +358,17 @@ def forward_worker(world, shapes, params, tokens, n_new):
                     nxt[:, None].long()
                 seq.append(cur)
         out[tuple(shape)] = {
+            "cached_bytes": ops.cached_bytes(("whole_head", "mla_heads"),
+                                             T.leaves(tp)),
             "logits": spmd.full(lg),
             "placements": [str(p) for p in lg.placements],
             "prefill": spmd.full(pre),
             "decode": torch.cat(seq, dim=1),
             "serve": {engine: SV.serve(
-                ARCH, smoke=True, precision="bnn", gen=n_new, device="cpu",
+                arch, smoke=True, precision="bnn", gen=n_new, device="cpu",
                 engine=engine, params=params, prompts=tokens, mesh=m,
-                verbose=False) for engine in ("paged", "legacy")}}
+                verbose=False) for engine in ("paged", "legacy")}
+            if cli else {}}
     return out
 
 
@@ -199,13 +386,13 @@ def serve(params, cfg, ps, max_new, *, mesh=None, sampled=False,
     return [got[r].tolist() for r in rids], eng.stats()
 
 
-def engine_worker(world, shapes, params, ps, max_new, ekw):
+def engine_worker(world, shapes, params, ps, max_new, ekw, arch=ARCH):
     """On each mesh of ``shapes`` the engine (``serve``'s ``ekw``)
     serves ``ps`` greedy, then sampled, with the ranks' tokens compared
     at every step (``check_ranks``); the tokens, and what the schedule
     did."""
     from repro_torch.kernels import ops
-    cfg = port_cfg()
+    cfg = port_cfg(arch=arch)
     out = {}
     for shape in shapes:
         m = mesh(shape)
@@ -217,6 +404,115 @@ def engine_worker(world, shapes, params, ps, max_new, ekw):
             runs.append({"tokens": toks,
                          "preemptions": st["preemptions"],
                          "max_concurrent": st["max_concurrent_decode"],
-                         "prefix_hits": st["prefix_cache"]["hits"]})
+                         "prefix_hits": st["prefix_cache"]["hits"],
+                         "swap_outs": st["swap"]["swap_outs"],
+                         "ring_reuses": st["mixer"]["blocks"].get(
+                             "ring_reuses", 0)})
         out[tuple(shape)] = runs
+    return out
+
+
+# --------------------------------------------------------------- families
+
+
+def family_worker(world, arch, shapes, params, tokens, n_new, prompts,
+                  max_new, ekw):
+    """``forward_worker`` (no CLI) and ``engine_worker`` on the reduced
+    ``arch`` in one world: {"forward": ..., "engine": ...}."""
+    return {"forward": forward_worker(world, shapes, params, tokens, n_new,
+                                      arch=arch, cli=False),
+            "engine": engine_worker(world, shapes, params, prompts, max_new,
+                                    ekw, arch=arch)}
+
+
+def port_placements(arch: str, params, shape) -> dict:
+    """{leaf path: PartitionSpec tuple} of ``place_params`` on the
+    reduced ``arch`` over a ``shape`` mesh of a fake group (placing runs
+    no collective), in the port's layout (a tied head has no leaf)."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import transformer as M
+    cfg = port_cfg(arch=arch)
+    with MESH.fake_world(shape[0] * shape[1]):
+        placed = S.place_params(params, cfg, mesh(shape))
+        return {k: port_spec(v) for k, v in
+                flat_leaves(M.trainable(placed, cfg)).items()}
+
+
+def check_family(ranks, shape, *, jax_mesh, jax_one, one_rank, tol):
+    """Every rank's logits_fn, prefill step and decode tokens over
+    ``shape``: the logits placed as JAX's (batch over data, vocab over
+    model), within ``tol`` of JAX's same-mesh logits with its greedy
+    tokens, and bit-equal to the port's one rank dispatching in as
+    many groups as the mesh has data ranks; the prefill step within
+    ``tol`` of JAX's same-mesh step with its tokens; the decode tokens
+    JAX's one device's."""
+    want = jax_mesh[shape]
+    # a data axis of one device may be left out of JAX's spec
+    assert want["spec"] in (("data", None, "model"), (None, None, "model"))
+    assert want["spec"][0] == "data" or shape[0] == 1
+    for rank in ranks:
+        rec = rank["forward"][shape]
+        got = rec["logits"].numpy()
+        assert rec["placements"] == ["S(0)", "S(2)"]
+        assert torch.equal(rec["logits"], one_rank[shape[0]])
+        np.testing.assert_allclose(got, want["logits"], **tol)
+        np.testing.assert_array_equal(got.argmax(-1),
+                                      want["logits"].argmax(-1))
+        pre = rec["prefill"].numpy()
+        np.testing.assert_allclose(pre, want["prefill"], **tol)
+        np.testing.assert_array_equal(pre.argmax(-1),
+                                      want["prefill"].argmax(-1))
+        np.testing.assert_array_equal(rec["decode"].numpy(),
+                                      jax_one["decode"])
+
+
+def prefill_logits(params, cfg, tokens: torch.Tensor, mesh=None):
+    """``prefill_chunk`` of all of ``tokens`` (B, T) in one chunk over
+    fresh pools (blocks of 4; over ``mesh``, placed and under its
+    sharding context): the logits, whole."""
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    b, t = tokens.shape
+    per = -(-t // 4)
+    pools = M.init_paged_state(cfg, 1 + b * per, 4, mesh=mesh)
+    table = (1 + torch.arange(b * per, dtype=torch.int32)).reshape(b, per)
+    zeros = torch.zeros(b, dtype=torch.int32)
+    ctx = (C.sharding_context(mesh, S.decode_rules_of(mesh))
+           if mesh is not None else contextlib.nullcontext())
+    with ctx, torch.no_grad():
+        lg, _ = M.prefill_chunk(params, cfg, tokens, pools, table, zeros,
+                                zeros + t)
+    return spmd.full(lg)
+
+
+def cases_worker(world, shape, cases, gemms):
+    """Over a ``shape`` mesh: for each case (name -> (cfg, params,
+    tokens)) ``logits_fn`` (the capacity-table MoE dispatch) and a
+    one-chunk ``prefill_chunk`` (drop-free), the pools' placements by
+    layer, whole; for each gemm (name -> (x, w, logical axes)) ``w``
+    placed by its axes and ``bnn_dense`` at "bnn", whole."""
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.kernels import ops
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    m = mesh(shape)
+    rules = S.rules_decode(False)
+    out = {}
+    for name, (cfg, params, tokens) in cases.items():
+        tp = S.place_params(params, cfg, m)
+        with C.sharding_context(m, rules), torch.no_grad():
+            lg = M.logits_fn(tp, cfg, tokens)
+        pools = M.init_paged_state(cfg, 8, 4, mesh=m)
+        out[name] = {"logits": spmd.full(lg),
+                     "prefill": prefill_logits(tp, cfg, tokens, m),
+                     "pools": [{k: port_spec(v) for k, v in p.items()}
+                               for p in pools]}
+    for name, (x, w, axes) in gemms.items():
+        wt = S.place_tree(w, axes, m, rules)
+        with C.sharding_context(m, rules):
+            y = ops.bnn_dense(C.lsc(x, "batch", None), wt["w"],
+                              precision="bnn")
+        out[name] = {"out": spmd.full(y), "spec": port_spec(wt["w"])}
     return out

@@ -34,7 +34,8 @@ def _words(a) -> np.ndarray:
 
 
 def test_import_hygiene_no_jax_no_repro():
-    """Importing every port module, and what chip_smoke.py imports,
+    """Importing every port module, and what chip_smoke.py and
+    chip_ranks_full.py import,
     loads neither jax nor any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -43,6 +44,7 @@ def test_import_hygiene_no_jax_no_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import chip_ranks_full\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('jaxlib') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -73,6 +75,12 @@ def test_import_hygiene_no_jax_no_repro():
         "                     for m in new),\n"
         "      'torch.distributed.tensor' in sys.modules,\n"
         "      dist.is_initialized())\n"
+        "new = ('layers.moe', 'layers.mla', 'layers.attn_block',\n"
+        "       'layers.ffn', 'kernels.ops', 'models.transformer',\n"
+        "       'launch.mesh', 'serving.block_cache')\n"
+        "print('SLICE17', all('repro_torch.' + m in sys.modules\n"
+        "                     for m in new),\n"
+        "      'torch.distributed.tensor' in sys.modules)\n"
         "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
         "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -95,6 +103,10 @@ def test_import_hygiene_no_jax_no_repro():
     # the forward over several ranks: its DTensor helpers import DTensor
     # only where a mesh is used, and no module makes a process group
     assert "SLICE16 True False False" in res.stdout, res.stdout
+    # the MoE and MLA families over several ranks: the expert-parallel
+    # MoE, MLA on a rank's heads, the head_dim fallback, the per-layer
+    # placement of the weights on the ranks
+    assert "SLICE17 True False" in res.stdout, res.stdout
     # every config of the registry (11) and base.py: the jamba hybrid,
     # the dense and the front-end configs too
     assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout

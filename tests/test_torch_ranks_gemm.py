@@ -1,6 +1,6 @@
 """The tensor-parallel BNN GEMMs over real ``gloo`` ranks on the CPU,
-the refusals of the forward over several ranks, the sharding context,
-and the serve CLI's production mesh.
+the refusals of the forward over several ranks (and what no longer
+refuses), the sharding context, and the serve CLI's production mesh.
 
 Every projection of layer 0 of the reduced bnn-lm-100m (q, k, v and
 gate, up column-parallel; o and down row-parallel), its weight placed
@@ -105,32 +105,47 @@ def test_sharding_context_restores_the_enclosing_one():
 
 def test_non_dividing_head_count_raises_item_11():
     """6 heads on a 4-way model axis: q's 96 columns divide, its heads
-    do not (the JAX package would split head_dim)."""
+    do not.  The head_dim fallback (ROADMAP.md queue 1, item 11, done)
+    runs it: q stays cut inside its heads, as JAX places it, and the
+    forward gathers whole heads instead of raising (its values are held
+    to one rank's on real ranks in tests/test_torch_ranks_heads.py)."""
     cfg = H.port_cfg().replace(n_heads=6, n_kv_heads=6)
     params = M.init(torch.Generator().manual_seed(0), cfg)
     with MESH.fake_world(4):
         m = H.mesh((1, 4))
         tp = S.place_params(params, cfg, m)
         assert spmd.shards(tp["layers"][0]["attn"]["q"]["w"], 1) == 4
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, item 11"):
-            M.logits_fn(tp, cfg, torch.zeros(1, 4, dtype=torch.long))
+        with C.sharding_context(m, S.rules_decode(False)):
+            lg = M.logits_fn(tp, cfg, torch.zeros(1, 4, dtype=torch.long))
+        assert lg.shape == (1, 4, cfg.vocab)
     assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b",
                                   "mamba2-1.3b"])
 def test_other_families_under_a_mesh_raise_item_11(arch):
+    """The SSM family still raises, naming ROADMAP.md queue 1, item 11
+    (11a); mixtral and deepseek-v2-lite now serve over a mesh: the
+    engine builds, its pools placed whole on every model rank (mixtral's
+    one kv head, deepseek's latents)."""
     from repro_torch import configs
     from repro_torch.configs.base import reduced
     cfg = reduced(configs.get_config(arch)).replace(precision="bnn")
     params = M.init(torch.Generator().manual_seed(0), cfg)
     with MESH.fake_world(2):
         m = H.mesh((1, 2))
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-            Engine(params, cfg, EngineConfig(**H.EKW), device="cpu", mesh=m)
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-            M.init_paged_state(cfg, 8, 4, 4, mesh=m)
+        if arch == "mamba2-1.3b":
+            with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+                Engine(params, cfg, EngineConfig(**H.EKW), device="cpu",
+                       mesh=m)
+            with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+                M.init_paged_state(cfg, 8, 4, 4, mesh=m)
+        else:
+            eng = Engine(params, cfg, EngineConfig(**H.EKW), device="cpu",
+                         mesh=m)
+            for pool in eng.cache.pools:
+                assert all(H.port_spec(v) == (None,) * v.ndim
+                           for v in pool.values())
     assert not torch.distributed.is_initialized()
 
 
