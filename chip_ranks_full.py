@@ -60,6 +60,109 @@ def rows_probe(dev) -> dict[str, list[str]]:
     return out
 
 
+# (rows, chunk positions L, heads H, head width P, state N) of the SSD
+# contractions: mamba2-1.3b's prefill chunk of 512 (8 rows) and the
+# engine's of 128 (1 row), the jamba window's, and decode steps (L = 1)
+SSD_SHAPES = {"mamba2 L=512": (8, 512, 64, 64, 128),
+              "mamba2 L=128": (8, 128, 64, 64, 128),
+              "mamba2 L=128 B=1": (1, 128, 64, 64, 128),
+              "mamba2 decode": (8, 1, 64, 64, 128),
+              "mamba2 decode B=2": (2, 1, 64, 64, 128),
+              "jamba L=128": (8, 128, 128, 128, 16),
+              "jamba L=128 B=1": (1, 128, 128, 128, 16),
+              "jamba decode": (8, 1, 128, 128, 16)}
+SSD_SPLITS = ((1, 2), (2, 2), (1, 4))     # (data, model): rows, heads cut
+
+
+def _padded(fn):
+    """``fn`` run on inputs zero-padded back to one rank's rows and
+    heads (the rank's at their own offsets), its rows and heads kept."""
+    def run(m, xdt, c, b, h0, *, whole):
+        rows, heads = whole
+        r0, hh0 = rows - c.shape[0], heads - h0.shape[1]
+
+        def pad(t, hd):
+            shape = list(t.shape)
+            shape[0] = rows
+            if hd is not None:
+                shape[hd] = heads
+            z = t.new_zeros(shape)
+            sl = [slice(r0, None)] + [slice(None)] * (t.ndim - 1)
+            if hd is not None:
+                sl[hd] = slice(hh0, None)
+            z[tuple(sl)] = t
+            return z
+        out = fn(pad(m, 3), pad(xdt, 2), pad(c, None), pad(b, None),
+                 pad(h0, 1))
+        return out[r0:, :, hh0:]
+    return run
+
+
+def _ssd_forms():
+    """Each contraction of the SSD (``layers/mamba2.py``) in the forms
+    tried: ``flat``, the einsums as one rank first ran them (a head
+    count inside a GEMM's N), ``per_head`` (every head a matrix of a
+    batched matmul), and for the read-out of the state (``inter``; at
+    decode L = 1) ``sum`` (a product summed over N) and ``padded`` (the
+    per-head matmul on one rank's rows and heads, zero-padded), on
+    (B, L, ...) inputs: m (B,L,L,H), xdt (B,L,H,P), c and b (B,L,N),
+    h0 (B,H,N,P)."""
+    flat = {
+        "intra": lambda m, xdt, c, b, h0: torch.einsum(
+            "blsh,bshp->blhp", m, xdt),
+        "inter": lambda m, xdt, c, b, h0: torch.einsum(
+            "bln,bhnp->blhp", c, h0),
+        "states": lambda m, xdt, c, b, h0: torch.einsum(
+            "...ln,...lhp->...hnp", b, xdt),
+        "cb": lambda m, xdt, c, b, h0: torch.einsum("bln,bsn->bls", c, b)}
+    per_head = {
+        "intra": lambda m, xdt, c, b, h0: torch.matmul(
+            m.permute(0, 3, 1, 2), xdt.transpose(1, 2)).transpose(1, 2),
+        "inter": lambda m, xdt, c, b, h0: torch.matmul(
+            c[:, None], h0).transpose(1, 2),
+        "states": lambda m, xdt, c, b, h0: torch.matmul(
+            b.transpose(1, 2)[:, None], xdt.transpose(1, 2)),
+        "cb": flat["cb"]}
+    return {"flat": flat, "per_head": per_head,
+            "sum": {"inter": lambda m, xdt, c, b, h0: (
+                c[:, :, None, :, None] * h0[:, None]).sum(3)},
+            "padded": {"inter": _padded(per_head["inter"])}}
+
+
+def ssd_probe(dev) -> dict[str, dict[str, list[str]]]:
+    """Which SSD contraction gives a rank's rows and heads other bits
+    than one rank's run of all of them (the slice of rows and heads
+    the last rank of each of SSD_SPLITS holds): {form: {contraction:
+    the shapes and splits where they differ}}."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out: dict[str, dict[str, list[str]]] = {}
+    # the head axis of each output
+    head_dim = {"intra": 2, "inter": 2, "states": 1, "cb": None}
+    for tag, (b, l, h, p, n) in SSD_SHAPES.items():
+        def rnd(*s):
+            return torch.randn(*s, generator=gen, device=dev)
+        args = (rnd(b, l, l, h), rnd(b, l, h, p), rnd(b, l, n),
+                rnd(b, l, n), rnd(b, h, n, p))
+        for form, fns in _ssd_forms().items():
+            bad = out.setdefault(form, {k: [] for k in fns})
+            for name, fn in fns.items():
+                kw = {"whole": (b, h)} if form == "padded" else {}
+                whole = fn(*args, **kw)
+                for d, m in SSD_SPLITS:
+                    rb, hb = max(b // d, 1), h // m
+                    r0, h0 = b - rb, h - hb
+                    cut = (args[0][r0:, ..., h0:], args[1][r0:, :, h0:],
+                           args[2][r0:], args[3][r0:], args[4][r0:, h0:])
+                    got = fn(*cut, **kw)
+                    want = whole[r0:]
+                    if head_dim[name] is not None:
+                        want = want.narrow(head_dim[name], h0, hb)
+                    if not torch.equal(got, want):
+                        diff = (got - want).abs().max().item()
+                        bad[name].append(f"{tag} ({d}, {m}) {diff:.2e}")
+    return out
+
+
 # the published depths over four cards, a card a rank: no
 # one-rank reference fits one card (mixtral's 32 layers are 174 GiB of
 # float32 weights), so the ranks' tokens are held to each other
@@ -122,7 +225,8 @@ def ranks_full_depth(dev, smi: str) -> dict[str, dict[str, int]]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
-                    help="only the rows probe, on one card")
+                    help="only the rows probe and the SSD probe, on one "
+                         "card")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_ranks_full: no CUDA device", file=sys.stderr)
@@ -133,6 +237,8 @@ def main() -> int:
     smi = S.phase_device()
     log(f"[ranks] a row's bits change with the rows beside it (half of "
         f"the rows vs all): {json.dumps(rows_probe(dev))}; {smi}")
+    log(f"[ranks] SSD contractions whose rank slice (rows, heads) differs "
+        f"from one rank's: {json.dumps(ssd_probe(dev))}; {smi}")
     if a.rows:
         return 0
     if torch.cuda.device_count() < 4:

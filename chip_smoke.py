@@ -94,7 +94,27 @@ Phases (each check raises, and the script then exits non-zero):
               weight bytes and peak a rank, tokens/s beside one rank's,
               a decode step's collectives, launches summed over ranks
               (fused_bnn, paged_attention_ring / paged_attention_mla
-              and binarize_pack must launch).
+              and binarize_pack must launch).  Then (g)-(h), built
+              alike, for the SSM mixer and the jamba hybrid:
+              mamba2-1.3b at published width and 8 layers over (1, 2)
+              and (2, 2), the jamba window (published layers 2-4:
+              ssm, gqa + moe, ssm; 24 GiB of weights a rank, the two
+              ranks drawing in turns) over (1, 2).  (g) prefill_chunk
+              (mamba2: 8 rows of 512 tokens in one chunk; jamba: 8
+              x 128), then 4 decode steps at B = 8: every tap, the
+              logits and each rank's slices of the pools (the slots'
+              h by heads and conv tails, jamba's K/V) bit-equal to one
+              rank's; (h) the engine (mamba2 over (2, 2), jamba over
+              (1, 2)) serves 8 prompts, 32 new, greedy and sampled:
+              every rank's tokens one rank's; then under the JAX
+              engine's defaults (slot snapshots, swap) 6 prompts on 2
+              shared heads of 256 tokens, 16 new, with two forced
+              preemptions (one parked at a snapshot, one mid-decode):
+              one rank's tokens and counts on every rank, snapshot
+              hits, the mid-decode slot back from the host bit-equal
+              on every rank; printed as (e)-(f) (fused_bnn and
+              binarize_pack, for jamba paged_attention too, must
+              launch).
   4. e2e      two finished requests re-run by two routes, each once
               through the kernels and once through the plain versions,
               each attention and each FFN / MoE sublayer on the kernel
@@ -289,8 +309,8 @@ Phases (each check raises, and the script then exits non-zero):
               the first, whose ring wrapped, and the shortest;
               deepseek: all eight).  Prints tokens/s, ring reuses and
               peak memory.  Then mamba2-1.3b (the Mamba-2 SSD mixer
-              over recurrent slots, no FFN) at its published widths
-              and depth, 48 layers: 16 requests of 16-1500 tokens, 32
+              over recurrent slots, no FFN) at its published widths,
+              16 of its 48 layers: 16 requests of 16-1500 tokens, 32
               new tokens, 4 submitted after 4 steps, 5 slots under a
               batch of 8, so admissions wait for a slot and released
               slots are handed out again (zeroed); the longest request
@@ -329,7 +349,7 @@ Phases (each check raises, and the script then exits non-zero):
               steps, mixtral's ring wrapping, mamba2's slots repaired.
               Then the JAX defaults (prefix cache with slot snapshots,
               swap) against a control without them (no prefix cache,
-              recompute), equal tokens: mamba2 at 48 layers on 12
+              recompute), equal tokens: mamba2 at 16 layers on 12
               requests over 3 shared heads of 256 tokens (two 128-token
               chunks) with suffixes of 16-512, 2 whole repeats, 32 new,
               4 after 4 steps, 5 slots, and two forced preemptions of
@@ -1791,21 +1811,83 @@ RANKS_FAMILY_NEW = 32
 # of 10944 / 4 = 2736 = 85.5 words (the row-parallel pad correction)
 RANKS_PART_WORDS = (10944, 2048)
 
+# [ranks] (g)-(h), the SSM mixer and the jamba hybrid, built as (e)-(f):
+# (g) prefill_chunk over the meshes, every tap, the logits and each
+# rank's slices of the pools (the slots' h and conv tail, jamba's K/V)
+# bit-equal to one rank's; (h) the engine (every rank's tokens one
+# rank's), then the JAX engine's defaults (slot snapshots, swap) on
+# shared heads with two forced preemptions: snapshot hits, a slot back
+# from the host bit-equal, one rank's tokens
+RANKS_SSM = {
+    # (g) over (1, 2) and (2, 2): 8 rows of 512 tokens in one chunk, then
+    # 4 decode steps at B = 8; (h) over (2, 2)
+    "mamba2-1.3b": dict(prefill=[(1, 2), (2, 2)], engine=(2, 2), rows=8,
+                        tokens=512, chunk=512, decode=4, seed=43,
+                        layers=8),
+    # the jamba window (published layers 2-4: ssm, gqa + moe, ssm) over
+    # (1, 2): 24 GiB of weights a rank, its 12 GiB expert stacks drawn by
+    # one rank at a time (``init_on_ranks``: ranks sharing a card)
+    "jamba-1.5-large-398b": dict(prefill=[(1, 2)], engine=(1, 2), rows=8,
+                                 tokens=128, chunk=128, decode=4, seed=44,
+                                 window=True),
+}
+# (h)'s shared-head traffic (``prefix_traffic``, shortened): 6 prompts on
+# 2 heads of 256 tokens, request 5 repeating request 1, 16 new each
+RANKS_PREFIX = dict(n=6, heads=2, repeats=((5, 1),), suffix=(16, 256))
+RANKS_PREFIX_NEW = 16
+
 
 def family_cfg(arch: str, smoke: bool = False):
-    """The family at published width and RANKS_FAMILY_LAYERS layers
-    (``smoke``: reduced, a CPU rehearsal)."""
+    """The family at published width and RANKS_FAMILY_LAYERS layers (an
+    SSM family: its RANKS_SSM cut; the jamba window: published layers
+    2-4) (``smoke``: reduced, a CPU rehearsal)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
-    cfg = get_config(arch).replace(precision="bnn",
-                                   n_layers=RANKS_FAMILY_LAYERS)
+    spec = {**RANKS_FAMILIES, **RANKS_SSM}[arch]
+    base = get_config(arch).replace(precision="bnn")
+    if spec.get("window"):
+        return jamba_window(reduced(base) if smoke else base)
+    cfg = base.replace(n_layers=spec.get("layers", RANKS_FAMILY_LAYERS))
     return reduced(cfg) if smoke else cfg
 
 
 def family_ecfg(arch: str):
     from repro_torch.serving import EngineConfig
-    return EngineConfig(**(MIXTRAL_ENGINE if arch.startswith("mixtral")
-                           else DEEPSEEK_ENGINE))
+    return EngineConfig(**{"mixtral": MIXTRAL_ENGINE,
+                           "deepseek": DEEPSEEK_ENGINE,
+                           "mamba2": MAMBA2_ENGINE,
+                           "jamba": JAMBA_ENGINE}[arch.split("-")[0]])
+
+
+def ranks_prefix_run(eng, prompts) -> dict:
+    """(h) ``prompts`` (RANKS_PREFIX traffic, RANKS_PREFIX_NEW new each,
+    the last 2 after 4 steps) on an engine under the JAX defaults, with
+    the policy's victim preempted once parked at a snapshot and once
+    mid-decode (``forced_preempts``), every slot back from the host
+    checked bit-equal (``watch_slot_swaps``): the tokens and what the
+    snapshot and swap machinery did."""
+    rec, done = {}, {}
+    watch_slot_swaps(eng, rec)
+    toks = serve_forced(eng, prompts, RANKS_PREFIX_NEW, 4, 2,
+                        lambda e: forced_preempts(e, done))
+    st = eng.stats()
+    return {"tokens": [t.tolist() for t in toks], "forced": done,
+            "host_trips_checked": rec["checked"],
+            "snapshot_hits": st["prefix_cache"]["snapshot_hits"],
+            "skipped_prefill_tokens":
+                st["prefix_cache"]["skipped_prefill_tokens"],
+            "swapped_slots": st["swap"]["swapped_slots"],
+            "readopted_snapshots": st["swap"]["readopted_snapshots"],
+            "total_tokens_per_s": st["total_tokens_per_s"]}
+
+
+def defaults_ecfg(arch: str):
+    """The family's engine under the JAX engine's defaults (prefix cache:
+    slot snapshots; swap preemption)."""
+    from dataclasses import replace
+    from repro_torch.serving import EngineConfig
+    return replace(family_ecfg(arch), prefix_cache=True,
+                   preempt_policy=EngineConfig().preempt_policy)
 
 
 def fingerprint(t: torch.Tensor) -> tuple[int, int, int]:
@@ -1818,26 +1900,28 @@ def fingerprint(t: torch.Tensor) -> tuple[int, int, int]:
     return (int(v.sum()), int((v * w).sum()), v.numel())
 
 
-def _family_taps(params, cfg, prompts, dev, mesh=None, decode: int = 0):
+def _family_taps(params, cfg, prompts, dev, mesh=None, decode: int = 0,
+                 chunk: int = 128):
     """``prefill_chunk`` over ``prompts`` (rows of equal length) in
-    chunks of 128 on fresh pools (a window-sized ring for a windowed
-    config, so a longer prompt wraps it), then ``decode`` greedy
-    ``paged_decode_step``s: (logits of each chunk and step, whole, on
-    the host; per chunk and step the fingerprint of every tap,
-    whole)."""
+    chunks of ``chunk`` on fresh pools (a window-sized ring for a
+    windowed config, so a longer prompt wraps it; a recurrent slot a
+    row), then ``decode`` greedy ``paged_decode_step``s: (logits of each
+    chunk and step, whole, on the host; per chunk and step the
+    fingerprint of every tap, whole; the pools)."""
     from repro_torch.dist import sharding as S, spmd
     from repro_torch.layers import common as C
     from repro_torch.models import transformer as M
     from repro_torch.serving.mixer_state import ring_block_count
     rows, n = prompts.shape
-    bs, chunk = 16, 128
+    bs = 16
     ring = bool(cfg.sliding_window)
     per = (ring_block_count(cfg.sliding_window, bs, chunk) if ring
            else -(-(n + decode) // bs))
-    pools = M.init_paged_state(cfg, 1 + rows * per, bs, device=dev,
-                               mesh=mesh)
+    pools = M.init_paged_state(cfg, 1 + rows * per, bs, 1 + rows,
+                               device=dev, mesh=mesh)
     table = (1 + torch.arange(rows * per, device=dev, dtype=torch.int32)
              ).reshape(rows, per)
+    slots = 1 + torch.arange(rows, device=dev, dtype=torch.int32)
     tok = torch.from_numpy(prompts.astype(np.int64)).to(dev)
     ctx = (C.sharding_context(mesh, S.decode_rules_of(mesh))
            if mesh is not None else contextlib.nullcontext())
@@ -1849,8 +1933,8 @@ def _family_taps(params, cfg, prompts, dev, mesh=None, decode: int = 0):
         for i in range(0, n, chunk):
             t: list = []
             lg, _ = M.prefill_chunk(params, cfg, tok[:, i:i + chunk], pools,
-                                    table, at(i), at(chunk), ring=ring,
-                                    taps=t)
+                                    table, at(i), at(chunk), slots,
+                                    ring=ring, taps=t)
             logits.append(spmd.full(lg).cpu())
             prints.append([(name, fingerprint(spmd.full(v)))
                            for name, v in t])
@@ -1858,39 +1942,49 @@ def _family_taps(params, cfg, prompts, dev, mesh=None, decode: int = 0):
         for j in range(decode):
             t = []
             lg, _ = M.paged_decode_step(params, cfg, cur[:, None].to(dev),
-                                        pools, table, at(n + j), ring=ring,
-                                        taps=t)
+                                        pools, table, at(n + j), None, slots,
+                                        ring=ring, taps=t)
             logits.append(spmd.full(lg).cpu())
             prints.append([(name, fingerprint(spmd.full(v)))
                            for name, v in t])
             cur = logits[-1][:, -1].argmax(-1)
-    return logits, prints
+    return logits, prints, pools
 
 
 def family_reference(dev, arch: str, smoke: bool = False) -> dict:
-    """One rank's (e) and (f) on the whole weights: the prefill's logits
-    (saved to a file the ranks map) and tap prints, the engine's greedy
-    and sampled tokens and tokens/s; then the weights are freed."""
+    """One rank's (e) and (f) on the whole weights ((g) and (h) for a
+    RANKS_SSM family): the prefill's logits (saved to a file the ranks
+    map) and tap prints (an SSM family's pools too, saved), the engine's
+    greedy and sampled tokens and tokens/s (an SSM family's prefix run
+    too); then the weights are freed."""
     import tempfile
     from repro_torch.models import transformer as M
     from repro_torch.serving import Engine
-    spec = RANKS_FAMILIES[arch]
+    spec = {**RANKS_FAMILIES, **RANKS_SSM}[arch]
     cfg = family_cfg(arch, smoke)
     t0 = time.perf_counter()
     params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
                     device=dev)
     prompts = np.random.default_rng(spec["seed"]).integers(
         0, cfg.vocab, (spec["rows"], spec["tokens"]))
-    logits, prints = _family_taps(params, cfg, prompts, dev,
-                                  decode=spec["decode"])
+    chunk = spec.get("chunk", 128)
+    logits, prints, pools = _family_taps(params, cfg, prompts, dev,
+                                         decode=spec["decode"], chunk=chunk)
     tmp = tempfile.mkdtemp(prefix="ranks_ref_")
     path = str(Path(tmp) / f"{arch}.pt")
     torch.save(logits, path)
+    ssm = arch in RANKS_SSM
     traffic_ = family_traffic(cfg.vocab, seed=spec["seed"])
     ref = {"arch": arch, "cfg": cfg, "prompts": prompts, "decode":
-           spec["decode"], "logits_path": path, "tmp": tmp,
+           spec["decode"], "chunk": chunk, "logits_path": path, "tmp": tmp,
            "prints": prints, "traffic": traffic_, "tokens": [],
-           "tokens_per_s": [], "max_new": RANKS_FAMILY_NEW}
+           "tokens_per_s": [], "max_new": RANKS_FAMILY_NEW,
+           "letters": ("g", "h") if ssm else ("e", "f")}
+    if ssm:
+        ref["pools_path"] = str(Path(tmp) / f"{arch}.pools.pt")
+        torch.save([{k: v.cpu() for k, v in p.items()} for p in pools],
+                   ref["pools_path"])
+    del pools
     ecfg = family_ecfg(arch)
     for sampled in (False, True):
         eng = Engine(params, cfg, ecfg, device=dev)
@@ -1900,6 +1994,13 @@ def family_reference(dev, arch: str, smoke: bool = False) -> dict:
         _sync(dev)
         ref["tokens_per_s"].append(eng.stats()["total_tokens_per_s"])
         del eng
+    if ssm:
+        ref["prefix_traffic"] = prefix_traffic(cfg.vocab, seed=spec["seed"],
+                                               **RANKS_PREFIX)
+        ref["prefix"] = ranks_prefix_run(
+            Engine(params, cfg, defaults_ecfg(arch), device=dev),
+            ref["prefix_traffic"])
+        _sync(dev)
     del params
     gc.collect()
     if dev.type == "cuda":
@@ -1915,9 +2016,12 @@ def ranks_family_prefill(world, mesh, params, ref) -> dict:
     """(e) ``_family_taps`` over ``mesh`` against one rank's: every tap
     of every chunk (each projection input, the MoE's routing and down
     inputs, each layer output) with one rank's print, and the logits of
-    every chunk and decode step bit-equal (max |diff| 0)."""
-    got_l, got_p = _family_taps(params, ref["cfg"], ref["prompts"],
-                                world.device, mesh, ref["decode"])
+    every chunk and decode step bit-equal (max |diff| 0); (g) also each
+    rank's slices of the pools."""
+    from repro_torch.dist import spmd
+    got_l, got_p, pools = _family_taps(
+        params, ref["cfg"], ref["prompts"], world.device, mesh,
+        ref["decode"], ref["chunk"])
     where = f"[ranks] {ref['arch']} mesh {tuple(mesh.shape)} prefill"
     chunks = len(got_p) - ref["decode"]
     for c, (got, want) in enumerate(zip(got_p, ref["prints"],
@@ -1934,8 +2038,23 @@ def ranks_family_prefill(world, mesh, params, ref) -> dict:
                for a, b in zip(got_l, want_l, strict=True))
     if diff:
         raise AssertionError(f"{where}: logits differ by {diff:.3e}")
+    n_pool = 0
+    if "pools_path" in ref:
+        want_p = torch.load(ref["pools_path"], mmap=True)
+        for li, (got, want) in enumerate(zip(pools, want_p, strict=True)):
+            for k, v in got.items():
+                w = want[k]
+                for d in range(v.ndim):
+                    start, n = spmd.rank_slice(v, d)
+                    w = w.narrow(d, start, n)
+                if not torch.equal(v.to_local(), w.to(v.device)):
+                    raise AssertionError(f"{where}: layer {li} pool {k}: "
+                                         "the rank's slice differs")
+                n_pool += 1
     return {"chunks": chunks, "steps": ref["decode"],
-            "taps": sum(len(p) for p in got_p), "max_abs_diff": diff}
+            "taps": sum(len(p) for p in got_p), "max_abs_diff": diff,
+            "pool_slices": n_pool}
+
 
 
 def ranks_part_words(world, mesh, k: int, n: int) -> int:
@@ -1961,15 +2080,18 @@ def ranks_part_words(world, mesh, k: int, n: int) -> int:
 
 
 def ranks_family_worker(world, jobs):
-    """One rank of [ranks] (e)-(f): for each job, the family's weights
-    drawn on the rank (``init_on_ranks``), then (e) and (f) over the
-    job's meshes; the launches by kernel from the weights' first use to
-    the job's end, the weight bytes the rank keeps and its peak."""
+    """One rank of [ranks] (e)-(f) and (g)-(h): for each job, the
+    family's weights drawn on the rank (``init_on_ranks``: in turns on
+    a shared card), then (e) and (f) over the job's meshes
+    ((h): then the prefix run, ``ranks_prefix_run``); the launches by
+    kernel from the weights' first use to the job's end, the weight
+    bytes the rank keeps and its peak."""
     from repro_torch import tree as T
     from repro_torch.dist import spmd
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import init_on_ranks
+    from repro_torch.launch.mesh import CACHED_KINDS, init_on_ranks
     from repro_torch.models import transformer as M
+    from repro_torch.serving import Engine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = []
@@ -1996,7 +2118,11 @@ def ranks_family_worker(world, jobs):
             sub = rec.setdefault(shape, {
                 "weight_bytes": sum(v.numel() * v.element_size()
                                     for v in leaves),
-                "init_s": time.perf_counter() - t0})
+                "init_s": time.perf_counter() - t0,
+                # the peak since the job began: the draw's, on a card
+                "init_peak_bytes": (
+                    torch.cuda.max_memory_allocated(world.device)
+                    if world.device.type == "cuda" else 0)})
             if shape in job["prefill"]:
                 sub["prefill"] = ranks_family_prefill(world, mesh, params,
                                                       ref)
@@ -2009,8 +2135,16 @@ def ranks_family_worker(world, jobs):
                 for run in sub["engine"]["runs"]:
                     for name, v in run["launches"].items():
                         launches[name] += v
-            sub["cached_bytes"] = ops.cached_bytes(
-                ("whole_head", "mla_heads"), T.leaves(params))
+                if "prefix" in ref:
+                    ops.reset_launches()
+                    sub["prefix"] = ranks_prefix_run(
+                        Engine(params, ref["cfg"], defaults_ecfg(ref["arch"]),
+                               device=world.device, mesh=mesh,
+                               check_ranks=True), ref["prefix_traffic"])
+                    for k in ops.KERNELS:
+                        launches[k.name] += k.launches
+            sub["cached_bytes"] = ops.cached_bytes(CACHED_KINDS,
+                                                   T.leaves(params))
             ops.reset_launches()
             del params, leaves
             gc.collect()
@@ -2027,24 +2161,37 @@ def ranks_family_worker(world, jobs):
 FAMILY_KERNELS = {"mixtral-8x7b": ("fused_bnn", "paged_attention_ring",
                                    "binarize_pack"),
                   "deepseek-v2-lite-16b": ("fused_bnn", "paged_attention_mla",
+                                           "binarize_pack"),
+                  "mamba2-1.3b": ("fused_bnn", "binarize_pack"),
+                  "jamba-1.5-large-398b": ("fused_bnn", "paged_attention",
                                            "binarize_pack")}
 
 
-def phase_ranks_families(dev, smi: str, smoke: bool = False
+def phase_ranks_families(dev, smi: str, smoke: bool = False,
+                         families=None, part_words=RANKS_PART_WORDS
                          ) -> dict[str, dict[str, int]]:
-    """[ranks] (e)-(f) (module docstring): the one-rank references, then
-    a world of 2 ranks ((e) over (1, 2) for both families) and one of 4
-    ((f) for mixtral over (1, 4); (e) and (f) for deepseek over (2, 2);
-    a row-parallel GEMM on part words over (1, 4)).  ``smoke``: reduced
-    width on the CPU (a rehearsal).  Returns the launches of each
-    family's runs over ranks, summed over the ranks."""
+    """[ranks] (e)-(f) of ``families`` (RANKS_FAMILIES; RANKS_SSM gives
+    (g)-(h); module docstring): the one-rank references (their weights
+    freed), then a world of 2 ranks and one of 4, each running the
+    families' jobs on its meshes ((e)-(f): (e) over (1, 2) for both
+    families; (f) for mixtral over (1, 4); (e) and (f) for deepseek over
+    (2, 2); ``part_words``: a row-parallel GEMM on part words over
+    (1, 4)).  ``smoke``: reduced width on the CPU (a rehearsal).
+    Returns the launches of each family's runs over ranks, summed over
+    the ranks."""
     import shutil
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import rank_weight_bytes, spawn_ranks
+    families = RANKS_FAMILIES if families is None else families
     t0 = time.perf_counter()
-    refs = {a: family_reference(dev, a, smoke) for a in RANKS_FAMILIES}
+    refs = {}
+    for a in families:
+        refs[a] = family_reference(dev, a, smoke)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     worlds = {2: [], 4: []}
-    for arch, spec in RANKS_FAMILIES.items():
+    for arch, spec in families.items():
         by_size = {}
         for s in spec["prefill"] + [spec["engine"]]:
             by_size.setdefault(s[0] * s[1], []).append(s)
@@ -2054,11 +2201,14 @@ def phase_ranks_families(dev, smi: str, smoke: bool = False
                 "prefill": [s for s in spec["prefill"] if s in shapes],
                 "engine": spec["engine"] if spec["engine"] in shapes
                 else None})
-    worlds[4][0]["part_words"] = ((1, 4), RANKS_PART_WORDS)
+    if part_words:
+        worlds[4][0]["part_words"] = ((1, 4), part_words)
     paths = {f"ranks_{a.split('-')[0]}": {k.name: 0 for k in ops.KERNELS}
-             for a in RANKS_FAMILIES}
+             for a in families}
     try:
         for size, jobs in worlds.items():
+            if not jobs:
+                continue
             for job in jobs:
                 cfg = job["ref"]["cfg"]
                 for s in dict.fromkeys(job["prefill"] + [job["engine"]]):
@@ -2068,7 +2218,7 @@ def phase_ranks_families(dev, smi: str, smoke: bool = False
             t1 = time.perf_counter()
             recs = spawn_ranks(ranks_family_worker, size, jobs,
                                device=dev.type, timeout_s=900)
-            log(f"[ranks] families, world of {size}: "
+            log(f"[ranks] {', '.join(families)}, world of {size}: "
                 f"{time.perf_counter() - t1:.1f} s")
             for j, job in enumerate(jobs):
                 report_family_job(job, [r[j] for r in recs], paths, smi,
@@ -2076,13 +2226,14 @@ def phase_ranks_families(dev, smi: str, smoke: bool = False
     finally:
         for ref in refs.values():
             shutil.rmtree(ref["tmp"], ignore_errors=True)
-    for arch, need in FAMILY_KERNELS.items():
+    for arch in families:
+        need = FAMILY_KERNELS[arch]
         got = paths[f"ranks_{arch.split('-')[0]}"]
         missing = [k for k in need if got.get(k, 0) <= 0]
         if dev.type == "cuda" and missing:
             raise AssertionError(f"[ranks] {arch}: {missing} never launched "
                                  "over ranks")
-    log(f"[ranks] families launches {json.dumps(paths)}; "
+    log(f"[ranks] {', '.join(families)} launches {json.dumps(paths)}; "
         f"{time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -2091,23 +2242,26 @@ def log_weight_bytes(cfg, shape, b: dict, tag: str = "[ranks]") -> None:
     log(f"{tag} {cfg.name} {cfg.n_layers} layers over {shape}: reckoned "
         f"{b['rank'] / 2 ** 30:.2f} GiB of weights a rank + "
         f"{b['cached'] / 2 ** 30:.2f} cached at first use (the whole LM "
-        f"head; MLA's k_up/v_up columns of its heads) (whole "
+        f"head; MLA's k_up/v_up columns of its heads; the SSM layers' "
+        f"whole conv and norm scale) (whole "
         f"{b['whole'] / 2 ** 30:.2f}, largest layer drawn whole "
         f"{b['largest_layer'] / 2 ** 30:.2f})")
 
 
 def log_weights_kept(arch, shape, recs, tag: str = "[ranks]") -> None:
+    def gib(key):
+        return [round(r[shape][key] / 2 ** 30, 3) for r in recs]
     log(f"{tag} {arch} mesh {shape}: weights kept a rank "
-        f"{[round(r[shape]['weight_bytes'] / 2 ** 30, 3) for r in recs]}"
-        f" GiB + cached "
-        f"{[round(r[shape]['cached_bytes'] / 2 ** 30, 3) for r in recs]}"
-        f" GiB, drawn in {[round(r[shape]['init_s'], 1) for r in recs]} s")
+        f"{gib('weight_bytes')} GiB + cached {gib('cached_bytes')} GiB, "
+        f"drawn in {[round(r[shape]['init_s'], 1) for r in recs]} s (peak "
+        f"GiB while drawing {gib('init_peak_bytes')})")
 
 
 def report_family_job(job, recs, paths, smi, dev):
     """Check and print one family job's records from every rank."""
     ref = job["ref"]
     arch = ref["arch"]
+    pre, eng = ref["letters"]
     path = paths[f"ranks_{arch.split('-')[0]}"]
     for rec in recs:
         for k, v in rec["launches"].items():
@@ -2119,11 +2273,13 @@ def report_family_job(job, recs, paths, smi, dev):
             f"{list(RANKS_GEMM_ROWS)}: bit-equal to one rank's kernel")
     for shape in job["prefill"]:
         pr = recs[0][shape]["prefill"]
-        log(f"[ranks] (e) {arch} mesh {shape}: {ref['prompts'].shape[0]} "
-            f"x {ref['prompts'].shape[1]} tokens in {pr['chunks']} chunks"
-            f" + {pr['steps']} decode steps: logits bit-equal to one rank "
-            f"(max |diff| {pr['max_abs_diff']}), {pr['taps']} taps equal "
-            "one rank's prints, on every rank")
+        log(f"[ranks] ({pre}) {arch} mesh {shape}: "
+            f"{ref['prompts'].shape[0]} x {ref['prompts'].shape[1]} tokens "
+            f"in {pr['chunks']} chunks of {ref['chunk']} + {pr['steps']} "
+            f"decode steps: logits bit-equal to one rank (max |diff| "
+            f"{pr['max_abs_diff']}), {pr['taps']} taps equal one rank's "
+            f"prints, {pr['pool_slices']} pool slices equal one rank's, on "
+            "every rank")
     shapes = [s for s in dict.fromkeys(job["prefill"] + [job["engine"]])
               if s is not None]
     for shape in shapes:
@@ -2139,12 +2295,12 @@ def report_family_job(job, recs, paths, smi, dev):
             if got != ref["tokens"][i]:
                 bad = [b for b in range(len(got)) if got[b] != ref["tokens"][i][b]]
                 raise AssertionError(
-                    f"[ranks] (f) {arch} mesh {shape} {tag} rank {r}: "
+                    f"[ranks] ({eng}) {arch} mesh {shape} {tag} rank {r}: "
                     f"requests {bad} differ from the one-rank engine")
         run0 = recs[0][shape]["engine"]["runs"][i]
         peaks = [rec[shape]["engine"]["runs"][i]["peak_bytes"] / 2 ** 30
                  for rec in recs]
-        log(f"[ranks] (f) {arch} mesh {shape} {tag}: tokens equal the "
+        log(f"[ranks] ({eng}) {arch} mesh {shape} {tag}: tokens equal the "
             f"one-rank engine's on all {len(recs)} ranks "
             f"({len(ref['traffic'])} requests x {ref['max_new']} new); "
             f"total_tokens_per_s={run0['total_tokens_per_s']:.1f} (one "
@@ -2156,6 +2312,43 @@ def report_family_job(job, recs, paths, smi, dev):
             f"{json.dumps(_median_counts(run0['decode_collectives']))}; "
             f"launches summed over ranks "
             f"{json.dumps(_sum_launches(recs, shape, i))}; {smi}")
+    if "prefix" in ref:
+        report_prefix_run(arch, shape, ref["prefix"],
+                          [rec[shape]["prefix"] for rec in recs], smi)
+
+
+def report_prefix_run(arch, shape, want: dict, runs: list[dict], smi):
+    """(h)'s prefix run over ``shape``: every rank's tokens and counts
+    one rank's; snapshot hits, the mid-decode preemption's slot back from
+    the host bit-equal (``watch_slot_swaps`` raises otherwise)."""
+    where = f"[ranks] (h) {arch} mesh {shape} defaults"
+    for r, run in enumerate(runs):
+        if run["tokens"] != want["tokens"]:
+            raise AssertionError(f"{where} rank {r}: tokens differ from the "
+                                 "one-rank engine's")
+        for k in ("forced", "host_trips_checked", "snapshot_hits",
+                  "skipped_prefill_tokens", "swapped_slots",
+                  "readopted_snapshots"):
+            if run[k] != want[k]:
+                raise AssertionError(f"{where} rank {r}: {k} {run[k]}, one "
+                                     f"rank {want[k]}")
+    run = runs[0]
+    if run["snapshot_hits"] <= 0 or "mid_decode" not in run["forced"] \
+            or run["host_trips_checked"] < 1:
+        raise AssertionError(f"{where}: snapshot_hits="
+                             f"{run['snapshot_hits']}, forced {run['forced']}"
+                             f", host trips checked "
+                             f"{run['host_trips_checked']}")
+    log(f"{where}: {len(want['tokens'])} requests on shared heads x "
+        f"{RANKS_PREFIX_NEW} new: tokens equal one rank's on all "
+        f"{len(runs)} ranks; snapshot_hits={run['snapshot_hits']} "
+        f"skipped_prefill_tokens={run['skipped_prefill_tokens']} forced "
+        f"preemptions (kind: rid) {run['forced']} swapped_slots="
+        f"{run['swapped_slots']} readopted_snapshots="
+        f"{run['readopted_snapshots']}; slots back from the host "
+        f"bit-equal on every rank: {run['host_trips_checked']}; "
+        f"total_tokens_per_s={run['total_tokens_per_s']:.1f} (one rank "
+        f"{want['total_tokens_per_s']:.1f}); {smi}")
 
 
 def _sum_launches(recs, shape, i) -> dict:
@@ -4420,14 +4613,16 @@ def prefix_traffic(vocab: int, seed: int, n: int = 12, heads: int = 3,
 
 def watch_slot_swaps(eng, rec: dict):
     """Wrap the engine's slot member so that every swap-out keeps a copy
-    of the request's slot (every layer's state) and every swap-in that
-    came back from the host checks the slot bit-equal to it."""
+    of the request's slot (every layer's state; over a mesh the rank's
+    slices) and every swap-in that came back from the host checks the
+    slot bit-equal to it."""
+    from repro_torch.dist import spmd
     ssm = eng.cache.ssm
     swap_out, swap_in = ssm.swap_out, ssm.swap_in
     rec.update(saved={}, checked=0)
 
     def out(req, peer=None):
-        rec["saved"][req.rid] = [{k: v[req.slot].clone()
+        rec["saved"][req.rid] = [{k: spmd.local(v)[req.slot].clone()
                                   for k, v in p.items()} for p in ssm.pools]
         swap_out(req, peer=peer)
 
@@ -4438,7 +4633,7 @@ def watch_slot_swaps(eng, rec: dict):
         if ok and host:
             for li, (p, w) in enumerate(zip(ssm.pools, want)):
                 for k, v in w.items():
-                    if not torch.equal(p[k][req.slot], v):
+                    if not torch.equal(spmd.local(p[k])[req.slot], v):
                         raise AssertionError(
                             f"rid {req.rid}: layer {li} {k} of its slot not "
                             "bit-equal after the host round trip")
@@ -5077,6 +5272,10 @@ DEEPSEEK_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
 # slot, and released slots are handed out again
 MAMBA2_ENGINE = dict(max_batch=8, num_slots=6, prefill_chunk=128,
                      max_model_len=2048, **NO_PREFIX)
+# phase 7's cut of mamba2's depth (48 layers until the [ranks] (g)-(h)
+# part took its ~220 s, which the smoke's time limit does not leave
+# beside 48 layers)
+MAMBA2_PHASE_LAYERS = 16
 # jamba: 5 slots under a batch of 8 and a block pool of 256 blocks (4096
 # tokens) under 12 prompts of 16-1500 tokens: admissions wait for a slot
 # with blocks free, and find a slot but too few blocks
@@ -5337,20 +5536,22 @@ def phase_families(dev, smi: str) -> dict[str, dict[str, int]]:
         ("fused_bnn", "paged_attention_mla", "binarize_pack"),
         # the eight requests of its phase traffic (not the periodic two)
         lambda eng, out, _rec: [r for r in sorted(out) if r not in (4, 5)])
-    # mamba2 at its published depth: 16 prompts of 16-1500 tokens (most
-    # longer than one prefill chunk); the e2e re-check takes the longest
-    # and the first request that got a released slot.  Then the JAX
-    # defaults (prefix cache, snapshots, swap) on shared-head traffic
-    # beside its control
-    m_cfg = get_config("mamba2-1.3b").replace(precision="bnn")
+    # mamba2 at published width, MAMBA2_PHASE_LAYERS of its 48 layers:
+    # 16 prompts of 16-1500 tokens (most longer than one prefill chunk);
+    # the e2e re-check takes the longest and the first request that got
+    # a released slot.  Then the JAX defaults (prefix cache, snapshots,
+    # swap) on shared-head traffic beside its control
+    m_cfg = get_config("mamba2-1.3b").replace(precision="bnn",
+                                              n_layers=MAMBA2_PHASE_LAYERS)
+    m_depth = cut.format(MAMBA2_PHASE_LAYERS, 48)
     mamba2 = family(
-        "mamba2", m_cfg, cut.format(48, 48), MAMBA2_ENGINE,
+        "mamba2", m_cfg, m_depth, MAMBA2_ENGINE,
         with_periodic(family_traffic(50280, seed=2, n=16, lens=(16, 1500)),
                       50280, seed=33),
         ("fused_bnn", "binarize_pack"), mamba2_rids,
         lambda params: phase_defaults(
             dev, smi, m_cfg, params, MAMBA2_ENGINE,
-            prefix_traffic(50280, seed=5), cut.format(48, 48), False))
+            prefix_traffic(50280, seed=5), m_depth, False))
     # jamba: published layers 2-4 (ssm, dense), (gqa, moe), (ssm, dense)
     # at published width (≈ 52 GB of float32 weights, so everything
     # before is freed first); the e2e re-check takes the longest request
@@ -5386,41 +5587,67 @@ def main() -> int:
     from repro_torch.serving import EngineConfig
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    last = [t0]
+
+    def clock(what: str):
+        """The seconds a phase took and the run so far."""
+        now = time.perf_counter()
+        log(f"[time] {what} {now - last[0]:.1f} s (run {now - t0:.1f} s)")
+        last[0] = now
     smi = phase_device()
     cfg = get_config("bnn-lm-100m").replace(precision="bnn")
     rows = phase_kernels(dev, cfg)
     rows.update(phase_attention_variants(dev))
     phase_jamba_kernels(dev, rows)
+    clock("device, kernels")
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
                         prefill_chunk=128, max_model_len=1024, **NO_PREFIX)
     eng, params, out, launches, st = phase_serving(dev, cfg, ecfg)
     phase_e2e(dev, cfg, params, eng, out)
     mixed_launches = serving_mixed_pairs(dev, cfg, ecfg, params, out)
+    clock("serving, e2e, mixed pairs")
     ranks_launches = phase_ranks(dev, smi, cfg, ecfg, params,
                                  want=[out[i] for i in range(len(out))],
                                  one_rank_st=st)
     del eng, params, out
     gc.collect()
     torch.cuda.empty_cache()
+    clock("[ranks] (a)-(d)")
     families_ranks = phase_ranks_families(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock("[ranks] (e)-(f)")
+    ssm_ranks = phase_ranks_families(dev, smi, families=RANKS_SSM,
+                                     part_words=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock("[ranks] (g)-(h)")
     kept = {}
     serve_launches, out_a = phase_serve(dev, smi, keep=kept)
+    clock("[serve]")
     tenants_launches = phase_tenants(dev, smi, want=out_a)
+    clock("[tenants]")
     shards_launches, _counts = phase_shards(dev, smi, want=out_a,
                                             want_sampled=kept.pop("C"))
     del out_a
     gc.collect()
+    clock("[shards]")
     train_out: dict = {}
     train_launches = phase_train(dev, smi, out=train_out)
     gc.collect()
+    clock("[train]")
     analytic_launches = phase_analytic(dev, smi, train_out["step_ms"])
     gc.collect()
+    clock("[analytic]")
     conv_rows, conv_launches = phase_conv(dev)
     phase_photonic(st)
+    clock("conv, photonic")
     spec_launches = phase_spec(dev, smi)
     gc.collect()
+    clock("[spec]")
     families = phase_families(dev, smi)
     gc.collect()
+    clock("phase 7")
     rows["xnor_popcount"] = conv_rows["xnor_popcount"]
     rows["binarize_pack"] += conv_rows["binarize_pack_conv"]
     rows["pack_patches"] = conv_rows["pack_patches"]
@@ -5438,7 +5665,7 @@ def main() -> int:
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "ranks": ranks_launches, **families_ranks,
-             "serve": serve_launches,
+             **ssm_ranks, "serve": serve_launches,
              "tenants": tenants_launches, "shards": shards_launches,
              "train": train_launches, "analytic": analytic_launches,
              **mixed_launches,

@@ -86,17 +86,26 @@ def decode_rules_of(mesh) -> dict[str, Any]:
 
 def state_rules_of(mesh) -> dict[str, Any]:
     """The rules the port places its caches and pools by: ``mesh``'s
-    decode rules without the ``head_dim`` and ``kv_lora`` splits.  A
-    rank's K and V are whole heads (RoPE rotates pairs across a head,
-    so a projection cut inside a head is gathered before it), and the
-    MLA kernel absorbs k_up and takes its softmax over the whole
-    latent, so the latent pools are whole on every model rank.  The
-    JAX package's ``cache_specs`` name both dims, and its caches are cut
-    along them where a head count does not divide the model axis (GQA)
-    or always (MLA's ``kv_lora``)."""
+    decode rules without the ``head_dim``, ``kv_lora`` and ``ssm_inner``
+    splits.  A rank's K and V are whole heads (RoPE rotates pairs across
+    a head, so a projection cut inside a head is gathered before it),
+    and the MLA kernel absorbs k_up and takes its softmax over the whole
+    latent, so the latent pools are whole on every model rank.  An SSM
+    layer's conv tail is whole on every model rank too: ``in_proj``'s
+    output is gathered whole before the conv (``layers/mamba2.py``), so
+    every rank holds the whole x B C it shifts in; its state ``h`` is cut
+    by ``ssm_heads``, as the JAX package's is.  The JAX package's
+    ``cache_specs`` name all three dims, and its caches are cut along
+    them where a head count does not divide the model axis (GQA) or
+    always (MLA's ``kv_lora``, the conv tail's ``ssm_inner``).  The
+    engine's pools also hold every block and slot on every data rank
+    (a block or slot id is global), where JAX's ``h`` and conv specs
+    cut the batch over ``data``: ``paged_state_specs`` name no batch
+    axis."""
     r = decode_rules_of(mesh)
     r["head_dim"] = None
     r["kv_lora"] = None
+    r["ssm_inner"] = None
     return r
 
 

@@ -23,8 +23,9 @@ group it made.
 keeps the rank's slices one layer at a time, so no rank holds more
 than one layer whole; ``rank_weight_bytes`` reckons those slices'
 bytes from the configuration alone, before anything is drawn, and
-beside them what a rank caches at first use: the whole LM head and the
-columns of its heads of MLA's k_up/v_up.
+beside them what a rank caches at first use (``CACHED_KINDS``): the
+whole LM head, the columns of its heads of MLA's k_up/v_up, an SSM
+layer's whole conv weight, conv bias and norm scale.
 """
 from __future__ import annotations
 
@@ -215,14 +216,42 @@ def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None) -> dict:
     ``mesh`` (``sharding.place_params``' placements): every rank draws
     them all, in ``init``'s order, from its own generator seeded alike,
     and keeps its slices of each piece as soon as it is drawn, so it
-    holds one layer whole at a time (mixtral-8x7b's 4 layers at
-    published width are about 24 GB of float32 weights; four ranks on
-    one card cannot each draw them whole first)."""
-    from repro_torch.dist import sharding as S
+    holds one layer whole at a time, of a MoE layer one expert stack
+    (mixtral-8x7b's 4 layers at published width are about 24 GB of
+    float32 weights; four ranks on one card cannot each draw them whole
+    first).  On a card the memory a piece's draw took is given back at
+    once, and ranks that share a card draw one after the other (a
+    barrier between them), so only one rank's draw is in flight (the
+    jamba window's expert stacks, 12 GiB each, beside two ranks' 24 GiB
+    of slices on one card)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as S, spmd
     from repro_torch.models import transformer as M
     rules = S.decode_rules_of(mesh)
-    return M.init(gen, cfg, device=device, place=lambda tree, specs:
-                  S.place_tree(tree, specs, mesh, rules))
+    on_card = device is not None and torch.device(device).type == "cuda"
+
+    def place(tree, specs):
+        out = S.map_specs(lambda axes, t: t if spmd.is_dtensor(t) else
+                          S.place_tree(t, axes, mesh, rules), specs, tree)
+        if on_card:
+            torch.cuda.empty_cache()
+        return out
+    if not on_card or dist.get_world_size() <= torch.cuda.device_count():
+        return M.init(gen, cfg, device=device, place=place)
+    params = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            params = M.init(gen, cfg, device=device, place=place)
+        dist.barrier()
+    return params
+
+
+# the kinds of ``kernels/ops.cached_per_weight`` values that
+# ``rank_weight_bytes``' "cached" reckons: the whole LM head, MLA's
+# k_up/v_up columns of the rank's heads, an SSM layer's whole conv
+# weight, conv bias and norm scale
+CACHED_KINDS = ("whole_head", "mla_heads", "ssm_whole")
 
 
 def rank_weight_bytes(cfg, shape, names=("data", "model")) -> dict:
@@ -233,8 +262,9 @@ def rank_weight_bytes(cfg, shape, names=("data", "model")) -> dict:
     holds whole at a time), from the configuration alone (``meta``
     tensors).  ``cached``: what a rank gathers and caches at first use
     beside its slices: the whole LM head (``transformer.apply_head``
-    runs one rank's GEMM on every rank) and, in an MLA layer, the
-    columns of the rank's heads of k_up and v_up (``mla._up``)."""
+    runs one rank's GEMM on every rank), in an MLA layer the columns of
+    the rank's heads of k_up and v_up (``mla._up``), and in an SSM layer
+    the whole conv weight, conv bias and norm scale (``mamba2._whole``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import tree as T
@@ -252,7 +282,10 @@ def rank_weight_bytes(cfg, shape, names=("data", "model")) -> dict:
                                params, S.decode_rules_of(mesh))
     up = sum(size(p["attn"][n]) for p in params["layers"]
              if "k_up" in p.get("attn", {}) for n in ("k_up", "v_up"))
+    ssm = sum(size([p["attn"][n] for n in ("conv_w", "conv_b", "norm")])
+              for p in params["layers"] if "conv_w" in p.get("attn", {}))
     head = M.head_matrix(full, cfg)
     return {"rank": rank, "whole": size(params),
-            "cached": head.numel() * head.element_size() + up // shape[-1],
+            "cached": head.numel() * head.element_size() + up // shape[-1]
+            + ssm,
             "largest_layer": max(size(p) for p in params["layers"])}

@@ -40,8 +40,9 @@ of a process group of 256 processes (512 with ``--multi-pod``), a
 non-smoke serve runs over the production mesh, as the JAX CLI does:
 (16, 16) ("data", "model"), or (2, 16, 16) with "pod", the params
 placed by the decode rules and every rank running the same engine
-(``serving_mesh``; the attention families: dense, mixtral's MoE over a
-sliding-window ring, deepseek's MLA and MoE).  In a single process it serves
+(``serving_mesh``; every family: dense, mixtral's MoE over a
+sliding-window ring, deepseek's MLA and MoE, mamba2's SSD over recurrent
+slots and the jamba hybrid).  In a single process it serves
 on one device, and ``--multi-pod`` raises there, as the JAX CLI's
 512-device mesh does.  ``setup``/``serve`` take a ``mesh=`` of any
 ("data", "model") shape, which tests and chip_smoke.py pass.
@@ -113,8 +114,6 @@ def setup(arch: str, *, smoke: bool = False, precision: str | None = None,
     cfg = _config(arch, smoke, precision)
     mesh = serving_mesh(smoke=smoke, multi_pod=multi_pod, device=dev,
                         mesh=mesh)
-    if mesh is not None:
-        M.check_mesh_supported(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if mesh is None:
         return cfg, M.init(gen, cfg, device=dev)

@@ -146,13 +146,16 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
 
 def build_prefill_step(cfg: ArchConfig):
     """prefill_step(params, batch) -> the last position's logits (B, V):
-    the forward over ``batch["tokens"]`` (no cache write-back, as in the
-    JAX package's dry-run step); over a mesh vocab-sharded, as
+    the forward over ``batch``'s ``tokens`` and the stub front-ends'
+    ``embeds`` / ``prefix_embeds`` (no cache write-back, as in the JAX
+    package's dry-run step); over a mesh vocab-sharded, as
     ``logits_fn``."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        h = M.hidden_states(params, cfg, batch["tokens"])
+        h = M.hidden_states(params, cfg, batch.get("tokens"),
+                            embeds=batch.get("embeds"),
+                            prefix_embeds=batch.get("prefix_embeds"))
         return M.apply_head(params, spmd.on_local(lambda t: t[:, -1], h))
 
     return prefill_step

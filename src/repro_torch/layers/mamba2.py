@@ -19,13 +19,42 @@ S_c, where the JAX package runs an associative scan.
 
 The SSD, the depthwise conv and the recurrence are plain torch ops, as
 they are plain jnp in the JAX package; ``in_proj`` and ``out_proj`` go
-through ``common.dense`` (the fused BNN GEMM at precision "bnn").
+through ``common.dense`` (the fused BNN GEMM at precision "bnn").  Each
+head's sums are a matmul a head (``_intra``, ``_states``, ``_readout``;
+a decode step's read-out of the state a product summed over N), so a
+head rounds alike whatever heads run beside it.
+
+Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
+block runs on the rank's heads, under the JAX package's placements,
+which cut across the block's structure: ``in_proj``'s columns
+(z | x B C | dt) and the conv channels (x | B | C) over ``model``, the
+norm's scale over d_inner, ``out_proj``'s rows; A_log, D and dt_bias
+replicated.  ``in_proj`` runs column-parallel (the fused GEMM on the
+rank's columns, exact per column: alpha is a column's) and its output
+is gathered over ``model`` (a concatenation, exact), so each rank slices
+z, x and dt of its heads and B and C whole (G = 1: every head reads
+them).  The conv weight and bias and the norm's scale are gathered
+whole once and cached under the weight (``_whole``); the depthwise conv
+runs on the rank's x channels and B and C, the SSD on its heads.  The
+gated RMSNorm is over the whole d_inner, so y is gathered over
+``model`` to whole rows and normalized as one rank does
+(``spmd.on_rows``: ATen's row mean rounds by the rows beside it), and
+``out_proj`` is row-parallel on the rank's slice (the integer dot
+summed over ``model``, then alpha).  The slot pools hold the rank's
+heads of ``h`` and the whole conv tail of every slot on every data rank
+(``sharding.state_rules_of``): the new state of the rank's rows is
+gathered over ``data`` before the slot write (``_write_rows``), as the
+GQA pools' K and V are.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import spmd
+from repro_torch.kernels import ops as kops
 from repro_torch.layers import common as C
 
 MASKED = -1e30      # exponent of a masked (s > t) pair, set BEFORE exp
@@ -71,6 +100,14 @@ def cache_specs() -> dict:
             "conv": ("batch", None, "ssm_inner")}
 
 
+def paged_state_specs() -> dict:
+    """Logical axes of ``init_paged_state``'s slot pools: ``cache_specs``'
+    with the slot axis in the batch's place, never sharded (a slot id is
+    global)."""
+    return {"h": (None, "ssm_heads", None, None),
+            "conv": (None, None, "ssm_inner")}
+
+
 def _split_proj(cfg, zxbcdt: torch.Tensor):
     d_inner, h, n, conv_ch = _dims(cfg)
     z, xbc, dt = torch.split(zxbcdt, [d_inner, conv_ch, h], dim=-1)
@@ -94,34 +131,171 @@ def _a(params) -> torch.Tensor:
     return -torch.exp(params["A_log"].float())                    # (H,)
 
 
-def _gated_out(params, cfg, y, z, x_dtype, precision, impl, taps):
-    """rmsnorm(y) * silu(z), then ``out_proj``."""
-    y = C.rmsnorm(y.to(x_dtype), params["norm"]) * F.silu(z)
+# --------------------------------------------------------------- the heads
+
+
+def _whole(w: torch.Tensor) -> torch.Tensor:
+    """A parameter whole on every rank: a DTensor gathered once and
+    cached under it (the conv weight and bias, the norm's scale; module
+    docstring); a plain tensor as it is."""
+    if not spmd.is_dtensor(w):
+        return w
+    return kops.cached_per_weight(w, ("ssm_whole",), spmd.full)
+
+
+def _head_range(cfg, params, state=None) -> tuple[int, int, list[int]]:
+    """(first head, heads, the mesh dims that cut them) this rank runs:
+    those of its slice of ``state`` (a pool's or a cache's ``h``) where
+    given, else the cut of ``in_proj``'s columns where the heads divide
+    it; every head on one rank."""
+    h = _dims(cfg)[1]
+    if state is not None:
+        start, n = spmd.rank_slice(state, 1)
+        return start, n, spmd.mesh_dims(state, 1)
+    w = params["in_proj"]["w"]
+    dims = spmd.mesh_dims(w, 1)
+    if not dims or h % math.prod(w.device_mesh.size(i) for i in dims):
+        return 0, h, []
+    coord, start, n = w.device_mesh.get_coordinate(), 0, h
+    for i in dims:
+        n //= w.device_mesh.size(i)
+        start += coord[i] * n
+    return start, n, dims
+
+
+def _rank_channels(t: torch.Tensor, cfg, heads) -> torch.Tensor:
+    """The conv channels (last dim of ``t``) of the rank's heads: their
+    x channels, then B and C whole."""
+    d_inner, h, _n, _ch = _dims(cfg)
+    h0, hl, _ = heads
+    if hl == h:
+        return t
+    p = cfg.ssm_headdim
+    return torch.cat([t[..., h0 * p:(h0 + hl) * p], t[..., d_inner:]], -1)
+
+
+def _in_proj(params, cfg, x, precision, impl, taps):
+    """``in_proj`` of x's rows with whole columns (gathered over the mesh
+    dims that cut the weight's: a concatenation, exact): (z, xbc, dt),
+    plain tensors of the rank's rows."""
+    y = C.dense(x, params["in_proj"], precision, impl, taps, "in_proj")
+    y = spmd.local(spmd.whole(y, y.ndim - 1))
+    d_inner, h, _n, conv_ch = _dims(cfg)
+    return torch.split(y, [d_inner, conv_ch, h], dim=-1)
+
+
+def _conv_params(params, cfg, heads):
+    """(conv weight (k, ch), bias (ch,)) of the rank's channels."""
+    return (_rank_channels(_whole(params["conv_w"]), cfg, heads),
+            _rank_channels(_whole(params["conv_b"]), cfg, heads))
+
+
+def _ssd_inputs(xbc1: torch.Tensor, cfg, heads):
+    """The conv output (.., rank channels) as (x (.., hl, P), B, C)."""
+    hl, n, p = heads[1], cfg.ssm_state, cfg.ssm_headdim
+    xs, b_, c_ = torch.split(xbc1, [hl * p, n, n], dim=-1)
+    return xs.reshape(*xs.shape[:-1], hl, p), b_, c_
+
+
+def _head_params(params, heads):
+    """(dt_bias, A = -exp(A_log), D) of the rank's heads, float32 (the
+    three are replicated)."""
+    sl = slice(heads[0], heads[0] + heads[1])
+
+    def get(name):
+        return spmd.local(params[name]).float()[sl]
+    return get("dt_bias"), -torch.exp(get("A_log")), get("D")
+
+
+def _whole_heads(y: torch.Tensor, x, heads):
+    """``y`` (rows, T, hl·P), the rank's heads of ``x``'s rows, as a
+    DTensor placed as ``x`` with whole rows of d_inner (gathered over
+    the mesh dims that cut the heads); ``y`` itself off a mesh."""
+    if not spmd.is_dtensor(x):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Shard(2) if i in heads[2] else
+          (p if p.is_shard() and p.dim == 0 else Replicate())
+          for i, p in enumerate(x.placements)]
+    return spmd.whole(spmd.wrap(y, x.device_mesh, pl), 2)
+
+
+def _gated_out(params, y, z, x, heads, precision, impl, taps):
+    """rmsnorm(y) * silu(z) over the whole d_inner, then ``out_proj``.
+    Over a mesh y (the rank's heads) is gathered to whole rows first and
+    normalized as one rank does (``spmd.on_rows``), and ``out_proj`` is
+    row-parallel on the rank's slice."""
+    y = _whole_heads(y, x, heads)
+    scale = {"scale": _whole(params["norm"]["scale"])}
+    y = spmd.on_rows(lambda t: C.rmsnorm(t.to(x.dtype), scale), y)
+    y = spmd.on_local(lambda t, zz: t * F.silu(zz), y, z)
     return C.dense(y, params["out_proj"], precision, impl, taps, "out_proj")
+
+
+def _write_rows(cache, dst: torch.Tensor, new: dict, x):
+    """The new state of ``x``'s rows into slots ``dst`` (every row's),
+    in place.  Over a mesh every slot lives on every data rank, so the
+    rows are gathered over the data dims that cut ``x``'s first; each
+    rank writes its heads of ``h`` and the whole conv tail."""
+    if spmd.is_dtensor(x) and spmd.shards(x, 0) > 1:
+        from torch.distributed.tensor import Replicate
+        pl = [p if p.is_shard() and p.dim == 0 else Replicate()
+              for p in x.placements]
+        new = {k: spmd.local(spmd.all_rows(spmd.wrap(v, x.device_mesh, pl)))
+               for k, v in new.items()}
+    _write_slots({k: spmd.local(v) for k, v in cache.items()}, dst, new)
+
+
+# --------------------------------------------------- the SSD's contractions
+#
+# A head's sums run in a matmul (or a sum) whose shape does not hold the
+# head count, so a rank holding some of the heads rounds each head as
+# one rank does (a GEMM whose N is H·P picked another algorithm at H/2
+# heads; PERF.md, ``chip_ranks_full.py --rows``).
+
+
+def _intra(m: torch.Tensor, xdt: torch.Tensor) -> torch.Tensor:
+    """sum_s m[.., l, s, h] xdt[.., s, h, p] -> (.., L, H, P): a matmul
+    a head."""
+    return torch.matmul(m.movedim(-1, -3), xdt.transpose(-2, -3)) \
+        .transpose(-2, -3)
 
 
 def _states(w_s: torch.Tensor, b_: torch.Tensor,
             xs: torch.Tensor) -> torch.Tensor:
     """sum_l w_s[.., l, h] B[.., l, n] x[.., l, h, p] -> (.., H, N, P):
-    the weights times x first, then one matmul over l."""
+    the weights times x first, then a matmul over l a head."""
     wx = w_s[..., None] * xs                                   # (.., L, H, P)
-    return torch.einsum("...ln,...lhp->...hnp", b_, wx)
+    return torch.matmul(b_.transpose(-1, -2)[..., None, :, :],
+                        wx.transpose(-2, -3))
+
+
+def _readout(c_: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
+    """sum_n C[.., l, n] h[.., h, n, p] -> (.., L, H, P): a matmul a head;
+    one position (decode) a product summed over n, since cuBLAS's
+    batched matrix-vector product rounded a head by the head count."""
+    if c_.shape[-2] == 1:
+        return (c_[..., :, None, :, None] * hs[..., None, :, :, :]).sum(-2)
+    return torch.matmul(c_[..., None, :, :], hs).transpose(-2, -3)
+
+
+# --------------------------------------------------------------- forward
 
 
 def forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
             precision: str = "bf16", impl: str = "auto") -> torch.Tensor:
-    """Full-sequence SSD (prefill over a whole sequence)."""
-    bsz, t, _ = x.shape
-    zxbcdt = C.dense(x, params["in_proj"], precision, impl)
-    z, xbc, dt, d_inner, h, g, n = _split_proj(cfg, zxbcdt)
-    p = cfg.ssm_headdim
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    xs, b_, c_ = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, t, h, p)
-    b_ = b_.reshape(bsz, t, n)                                 # g = 1
-    c_ = c_.reshape(bsz, t, n)
-    dt = _softplus_dt(params, dt)                              # (B,T,H)
-    log_decay = dt * _a(params)[None, None, :]
+    """Full-sequence SSD (prefill over a whole sequence), on the rank's
+    heads over a mesh."""
+    heads = _head_range(cfg, params)
+    z, xbc, dt = _in_proj(params, cfg, x, precision, impl, None)
+    bsz, t, _ = xbc.shape
+    h, p = heads[1], cfg.ssm_headdim
+    w, b = _conv_params(params, cfg, heads)
+    xs, b_, c_ = _ssd_inputs(
+        _causal_conv(_rank_channels(xbc, cfg, heads), w, b), cfg, heads)
+    dt_bias, a, d = _head_params(params, heads)
+    dt = F.softplus(dt[..., heads[0]:heads[0] + h].float() + dt_bias)
+    log_decay = dt * a[None, None, :]                          # (B,T,H)
 
     lpad = (-t) % chunk
     if lpad:
@@ -136,7 +310,8 @@ def forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
     def ch(v, *trail):
         return v.reshape(bsz, nc, chunk, *trail)
 
-    xs_c, b_c, c_c = ch(xs, h, p), ch(b_, n), ch(c_, n)
+    xs_c, b_c, c_c = ch(xs, h, p), ch(b_, cfg.ssm_state), \
+        ch(c_, cfg.ssm_state)
     dt_c, ld_c = ch(dt, h), ch(log_decay, h)
     cum = torch.cumsum(ld_c, dim=2)                            # (B,nc,L,H)
     total = cum[:, :, -1]                                      # (B,nc,H)
@@ -146,13 +321,12 @@ def forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
     cb = torch.einsum("bcln,bcsn->bcls", c_c, b_c)             # (B,nc,L,L)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,nc,L,L,H)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=x.device).tril()
+                        device=xbc.device).tril()
     # masked BEFORE exp: for s > t the exponent is positive and can
     # overflow, and inf * 0 is NaN
     seg = torch.where(causal[None, None, :, :, None], seg, MASKED)
     m = cb[..., None] * torch.exp(seg)
-    xdt = xs_c * dt_c[..., None]                               # (B,nc,L,H,P)
-    y_intra = torch.einsum("bclsh,bcshp->bclhp", m, xdt)
+    y_intra = _intra(m, xs_c * dt_c[..., None])                # (B,nc,L,H,P)
 
     # chunk boundary states S_c = sum_s exp(total - cum_s) dt_s B_s x_s
     w_s = torch.exp(total[:, :, None, :] - cum) * dt_c          # (B,nc,L,H)
@@ -167,18 +341,18 @@ def forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
         carry = carry * decay_c[:, c, :, None, None] + states[:, c]
     h_prev = torch.stack(h_prev, dim=1)                        # (B,nc,H,N,P)
 
-    y_inter = torch.einsum("bcln,bchnp->bclhp", c_c, h_prev) * \
-        torch.exp(cum)[..., None]
+    y_inter = _readout(c_c, h_prev) * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(bsz, tp, h, p)[:, :t]
-    y = y + xs[:, :t] * params["D"].float()[None, None, :, None]
-    return _gated_out(params, cfg, y.reshape(bsz, t, d_inner), z, x.dtype,
+    y = y + xs[:, :t] * d[None, None, :, None]
+    return _gated_out(params, y.reshape(bsz, t, h * p), z, x, heads,
                       precision, impl, None)
 
 
 def forward_reference(params, cfg, x: torch.Tensor, *,
                       precision: str = "bf16") -> torch.Tensor:
-    """O(T) sequential reference (tests): the plain recurrence.  The JAX
-    package's runs float projections; ``precision`` picks the port's."""
+    """O(T) sequential reference (tests; one rank): the plain recurrence.
+    The JAX package's runs float projections; ``precision`` picks the
+    port's."""
     bsz, t, _ = x.shape
     zxbcdt = C.dense(x, params["in_proj"], precision)
     z, xbc, dt, d_inner, h, g, n = _split_proj(cfg, zxbcdt)
@@ -199,8 +373,8 @@ def forward_reference(params, cfg, x: torch.Tensor, *,
         ys.append(torch.einsum("bn,bhnp->bhp", c_[:, i], hs))
     y = torch.stack(ys, dim=1)
     y = y + xs * params["D"].float()[None, None, :, None]
-    return _gated_out(params, cfg, y.reshape(bsz, t, d_inner), z, x.dtype,
-                      precision, "auto", None)
+    return _gated_out(params, y.reshape(bsz, t, d_inner), z, x,
+                      (0, h, []), precision, "auto", None)
 
 
 # ---------------------------------------------------------------------------
@@ -215,37 +389,49 @@ def init_cache(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
                                 dtype=dtype, device=device)}
 
 
+def _decode(params, cfg, x, hs: torch.Tensor, conv: torch.Tensor, heads,
+            precision, impl, taps):
+    """One token of x's rows from their state (plain tensors: ``hs`` the
+    rank's heads, ``conv`` the whole tail): (out, new h, new conv)."""
+    z, xbc, dt = _in_proj(params, cfg, x, precision, impl, taps)
+    bsz = xbc.shape[0]
+    w, b = _conv_params(params, cfg, heads)
+
+    # conv with the cached history: the products summed tap by tap, as
+    # prefill_chunk sums them
+    hist = torch.cat([conv.to(xbc.dtype), xbc], dim=1)        # (B, k, ch)
+    hr = _rank_channels(hist, cfg, heads)
+    out = sum(hr[:, i:i + 1] * w[i][None, None] for i in range(w.shape[0]))
+    xs, b_, c_ = _ssd_inputs(F.silu(out + b[None, None]), cfg, heads)
+    xs, b_, c_ = xs[:, 0].float(), b_.float(), c_.float()  # (B,H,P), (B,1,N)
+    dt_bias, a, d = _head_params(params, heads)
+    h0, hl, _ = heads
+    dt = F.softplus(dt[:, 0, h0:h0 + hl].float() + dt_bias)    # (B,H)
+    decay = torch.exp(dt * a[None])
+
+    upd = (dt[:, :, None] * xs)[:, :, None, :] * b_[:, 0, None, :, None]
+    hstate = hs.float() * decay[:, :, None, None] + upd
+    y = _readout(c_, hstate)[:, 0]                             # (B,H,P)
+    y = y + xs * d[None, :, None]
+    out = _gated_out(params, y.reshape(bsz, 1, hl * cfg.ssm_headdim), z, x,
+                     heads, precision, impl, taps)
+    return out, hstate, hist[:, 1:]
+
+
 def decode_step(params, cfg, x: torch.Tensor, cache, *,
                 precision: str = "bf16", impl: str = "auto",
                 taps: list | None = None) -> tuple[torch.Tensor, dict]:
     """O(1) single-token step.  x (B, 1, d_model).  Returns (out, the new
-    state); ``cache`` is not written."""
-    bsz = x.shape[0]
-    zxbcdt = C.dense(x, params["in_proj"], precision, impl, taps, "in_proj")
-    z, xbc, dt, d_inner, h, g, n = _split_proj(cfg, zxbcdt)
-    p = cfg.ssm_headdim
-
-    # conv with the cached history
-    hist = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)  # (B, k, C)
-    out = torch.sum(hist * params["conv_w"][None], dim=1, keepdim=True)
-    xbc1 = F.silu(out + params["conv_b"][None, None])
-    new_conv = hist[:, 1:]
-
-    xs, b_, c_ = torch.split(xbc1, [d_inner, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, h, p).float()
-    b_ = b_.reshape(bsz, n).float()
-    c_ = c_.reshape(bsz, n).float()
-    dt = _softplus_dt(params, dt[:, 0])                        # (B,H)
-    decay = torch.exp(dt * _a(params)[None])
-
-    upd = (dt[:, :, None] * xs)[:, :, None, :] * b_[:, None, :, None]
-    hstate = cache["h"].float() * decay[:, :, None, None] + upd
-    y = torch.einsum("bn,bhnp->bhp", c_, hstate)
-    y = y + xs * params["D"].float()[None, :, None]
-    out = _gated_out(params, cfg, y.reshape(bsz, 1, d_inner), z, x.dtype,
-                     precision, impl, taps)
-    return out, {"h": hstate.to(cache["h"].dtype),
-                 "conv": new_conv.to(cache["conv"].dtype)}
+    state); ``cache`` is not written.  Over a mesh the cache's rows are
+    x's and its heads the rank's (``h``; the conv tail whole), and so
+    are the new state's."""
+    heads = _head_range(cfg, params, cache["h"])
+    y, hstate, new_conv = _decode(params, cfg, x, spmd.local(cache["h"]),
+                                  spmd.local(cache["conv"]), heads,
+                                  precision, impl, taps)
+    return y, {"h": spmd.wrap_like(hstate.to(cache["h"].dtype), cache["h"]),
+               "conv": spmd.wrap_like(new_conv.to(cache["conv"].dtype),
+                                      cache["conv"])}
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +460,9 @@ def copy_slot(dst_pool: dict, dst: int, src_pool: dict, src: int) -> dict:
     """Copy one slot's whole recurrent state (h, conv tail) between two
     slot pools of any row counts, in place: the prefix-snapshot store
     (a live slot into the snapshot pool) and restore (a snapshot row
-    into the live pool)."""
+    into the live pool).  Over a mesh, of the rank's slices."""
     for k, v in dst_pool.items():
-        v[dst].copy_(src_pool[k][src])
+        spmd.local(v)[dst].copy_(spmd.local(src_pool[k])[src])
     return dst_pool
 
 
@@ -284,9 +470,10 @@ def snapshot_slots(cache, slots: torch.Tensor) -> dict:
     """Each row's recurrent slot, copied before a multi-token verify so a
     partly rejected speculative step can be rolled back.  Advanced
     indexing returns a copy: the verify then updates the pools in
-    place, and a view would change with them."""
+    place, and a view would change with them.  Over a mesh, the rank's
+    slices of every row's slot (plain tensors)."""
     idx = slots.long()
-    return {k: v[idx] for k, v in cache.items()}
+    return {k: spmd.local(v)[idx] for k, v in cache.items()}
 
 
 def restore_slots(cache, slots: torch.Tensor, snap: dict) -> dict:
@@ -295,7 +482,7 @@ def restore_slots(cache, slots: torch.Tensor, snap: dict) -> dict:
     carry the same snapshot of it, so a repeated index writes equal
     values and the unspecified order of ``index_put_`` on CUDA cannot
     matter."""
-    _write_slots(cache, slots, snap)
+    _write_slots({k: spmd.local(v) for k, v in cache.items()}, slots, snap)
     return cache
 
 
@@ -307,12 +494,13 @@ def paged_decode_step(params, cfg, x: torch.Tensor, cache,
     """O(1) decode against the slot pool, in place.  x (B, 1, d); slots
     (B,) slot ids; rows with ``active`` False write to scratch slot 0.
     ``taps`` as in ``prefill_chunk``."""
-    idx = slots.long()
-    state = {"h": cache["h"][idx], "conv": cache["conv"][idx]}
-    y, new = decode_step(params, cfg, x, state, precision=precision,
-                         impl=impl, taps=taps)
+    idx = spmd.rows(slots, x).long()
+    y, hstate, new_conv = _decode(
+        params, cfg, x, spmd.local(cache["h"])[idx],
+        spmd.local(cache["conv"])[idx], _head_range(cfg, params, cache["h"]),
+        precision, impl, taps)
     dst = slots if active is None else torch.where(active, slots, 0)
-    _write_slots(cache, dst, new)
+    _write_rows(cache, dst, {"h": hstate, "conv": new_conv}, x)
     return y, cache
 
 
@@ -330,53 +518,53 @@ def prefill_chunk(params, cfg, x: torch.Tensor, cache, slots: torch.Tensor,
     row with n_valid = 0 writes to scratch slot 0.  ``taps``, when a
     list, receives ``(name, input)`` of ``in_proj`` and ``out_proj``.
     """
-    bsz, c_len, _ = x.shape
-    zxbcdt = C.dense(x, params["in_proj"], precision, impl, taps, "in_proj")
-    z, xbc, dt, d_inner, h, g, n = _split_proj(cfg, zxbcdt)
-    p = cfg.ssm_headdim
-    w = params["conv_w"]
+    heads = _head_range(cfg, params, cache["h"])
+    z, xbc, dt = _in_proj(params, cfg, x, precision, impl, taps)
+    bsz, c_len, _ = xbc.shape
+    w, b = _conv_params(params, cfg, heads)
     k = w.shape[0]
-    idx = slots.long()
+    idx = spmd.rows(slots, x).long()
+    nv = spmd.rows(n_valid, x)
 
     # depthwise causal conv over the slot's carried (k-1)-token tail
-    hist = cache["conv"][idx].to(xbc.dtype)                    # (B, k-1, ch)
+    hist = spmd.local(cache["conv"])[idx].to(xbc.dtype)       # (B, k-1, ch)
     full = torch.cat([hist, xbc], dim=1)                       # (B, k-1+C, ch)
-    out = sum(full[:, i:i + c_len] * w[i][None, None] for i in range(k))
-    xbc1 = F.silu(out + params["conv_b"][None, None])
+    fr = _rank_channels(full, cfg, heads)
+    out = sum(fr[:, i:i + c_len] * w[i][None, None] for i in range(k))
+    xbc1 = F.silu(out + b[None, None])
     # the new tail: the last k-1 inputs up to the row's valid length (for
     # n_valid < k-1 part of the old tail)
-    tail = n_valid.long()[:, None] + torch.arange(k - 1, device=x.device)
+    tail = nv.long()[:, None] + torch.arange(k - 1, device=xbc.device)
     new_conv = torch.gather(
         full, 1, tail[:, :, None].expand(bsz, k - 1, full.shape[-1]))
 
-    xs, b_, c_ = torch.split(xbc1, [d_inner, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, c_len, h, p).float()
-    b_ = b_.reshape(bsz, c_len, n).float()                     # g = 1
-    c_ = c_.reshape(bsz, c_len, n).float()
-
-    valid = torch.arange(c_len, device=x.device)[None, :] < n_valid[:, None]
-    dt = _softplus_dt(params, dt) * valid[..., None]           # (B,C,H)
-    cum = torch.cumsum(dt * _a(params)[None, None, :], dim=1)  # (B,C,H)
+    xs, b_, c_ = _ssd_inputs(xbc1, cfg, heads)
+    xs, b_, c_ = xs.float(), b_.float(), c_.float()
+    dt_bias, a, d = _head_params(params, heads)
+    valid = torch.arange(c_len, device=xbc.device)[None, :] < nv[:, None]
+    dt = F.softplus(dt[..., heads[0]:heads[0] + heads[1]].float()
+                    + dt_bias) * valid[..., None]              # (B,C,H)
+    cum = torch.cumsum(dt * a[None, None, :], dim=1)           # (B,C,H)
     total = cum[:, -1]                                         # (B,H)
 
     # intra-chunk quadratic (attention-dual) form
     cb = torch.einsum("bln,bsn->bls", c_, b_)
     seg = cum[:, :, None, :] - cum[:, None, :, :]              # (B,C,C,H)
     causal = torch.ones((c_len, c_len), dtype=torch.bool,
-                        device=x.device).tril()
+                        device=xbc.device).tril()
     seg = torch.where(causal[None, :, :, None], seg, MASKED)
     m = cb[..., None] * torch.exp(seg)
-    y = torch.einsum("blsh,bshp->blhp", m, xs * dt[..., None])
+    y = _intra(m, xs * dt[..., None])
 
     # the carried state's contribution and the new boundary state
-    h0 = cache["h"][idx].float()                               # (B,H,N,P)
-    y = y + torch.einsum("bln,bhnp->blhp", c_, h0) * torch.exp(cum)[..., None]
+    h0 = spmd.local(cache["h"])[idx].float()                   # (B,H,N,P)
+    y = y + _readout(c_, h0) * torch.exp(cum)[..., None]
     w_s = torch.exp(total[:, None, :] - cum) * dt              # (B,C,H)
     hstate = h0 * torch.exp(total)[:, :, None, None] + _states(w_s, b_, xs)
 
-    y = y + xs * params["D"].float()[None, None, :, None]
-    out = _gated_out(params, cfg, y.reshape(bsz, c_len, d_inner), z,
-                     x.dtype, precision, impl, taps)
-    _write_slots(cache, torch.where(n_valid > 0, slots, 0),
-                 {"h": hstate, "conv": new_conv})
+    y = y + xs * d[None, None, :, None]
+    out = _gated_out(params, y.reshape(bsz, c_len, -1), z, x, heads,
+                     precision, impl, taps)
+    _write_rows(cache, torch.where(n_valid > 0, slots, 0),
+                {"h": hstate, "conv": new_conv}, x)
     return out, cache

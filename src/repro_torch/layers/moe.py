@@ -53,19 +53,22 @@ from repro_torch.layers import ffn
 def init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
          kind: str = "swiglu", n_shared: int = 0,
          shared_d_ff: int | None = None, dtype=torch.float32,
-         device=None) -> dict:
+         device=None, keep=None) -> dict:
+    """``keep(name, stack)``, when given, takes each expert stack as soon
+    as it is drawn and returns what to hold of it (a rank's slice,
+    ``launch/mesh.init_on_ranks``: jamba's stacks are 12 GiB each)."""
     kw = dict(generator=gen, dtype=dtype, device=device)
     p = {"router": {"w": torch.randn((d_model, n_experts), **kw)
                     .mul_((1.0 / d_model) ** 0.5)}}
 
-    def expert_stack(din, dout):
-        return torch.randn((n_experts, din, dout), **kw).mul_(
-            (1.0 / din) ** 0.5)
+    def expert_stack(name, din, dout):
+        w = torch.randn((n_experts, din, dout), **kw).mul_((1.0 / din) ** 0.5)
+        return w if keep is None else keep(name, w)
 
     if kind in ("swiglu", "geglu"):
-        p["gate"] = expert_stack(d_model, d_ff)
-    p["up"] = expert_stack(d_model, d_ff)
-    p["down"] = expert_stack(d_ff, d_model)
+        p["gate"] = expert_stack("gate", d_model, d_ff)
+    p["up"] = expert_stack("up", d_model, d_ff)
+    p["down"] = expert_stack("down", d_ff, d_model)
     if n_shared > 0:
         p["shared"] = ffn.init(gen, d_model, (shared_d_ff or d_ff) * n_shared,
                                kind, dtype=dtype, device=device)

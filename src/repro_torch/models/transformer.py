@@ -33,18 +33,18 @@ package's: the full-sequence forward takes ``prefix_embeds`` (the vlm
 patch embeddings) and ``embeds`` (the audio frame embeddings) beside
 the tokens; the serving paths and the legacy decode loop take tokens.
 
-Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
-attention families (GQA or MLA mixers; dense, MoE or no FFN) run
-tensor-parallel over ``model`` and data-parallel over ``data`` under
-the decode rules: the embedding is a vocab-parallel lookup (each
-rank's rows of the table, summed: one rank contributes each row, so
-the sum is exact), each layer as ``attn_block``, ``mla``, ``ffn`` and
-``moe`` say (heads, experts and the hidden over ``model``), the logits
-come out vocab-sharded (callers gather them, ``spmd.full``), and
-activations take the JAX package's ``lsc`` constraints (the batch over
-``data`` under a sharding context).  Caches and pools are placed by
-``sharding.state_rules_of``.  SSM layers and the stub front-ends refuse
-a mesh (ROADMAP.md queue 1, item 11a).
+Over a mesh (the params DTensors: ``dist/sharding.place_params``) every
+family runs tensor-parallel over ``model`` and data-parallel over
+``data`` under the decode rules: the embedding is a vocab-parallel
+lookup (each rank's rows of the table, summed: one rank contributes
+each row, so the sum is exact), the stub front-ends' embeddings are
+taken whole and placed by batch beside it, each layer as
+``attn_block``, ``mla``, ``mamba2``, ``ffn`` and ``moe`` say (heads,
+SSD heads, experts and the hidden over ``model``), the logits come out
+vocab-sharded (callers gather them, ``spmd.full``), and activations
+take the JAX package's ``lsc`` constraints (the batch over ``data``
+under a sharding context).  Caches and pools are placed by
+``sharding.state_rules_of``.
 
 Three ways through the stack: the full-sequence forward
 (``hidden_states`` / ``logits_fn``, and ``loss_fn`` for training: the
@@ -123,26 +123,15 @@ def check_supported(cfg: ArchConfig):
             f"{cfg.name}: front-end {cfg.frontend!r} is not ported")
 
 
-def check_mesh_supported(cfg: ArchConfig):
-    """Raise unless ``cfg`` runs over a mesh: GQA or MLA mixers with a
-    dense FFN, a MoE FFN or none, and no front-end."""
-    kinds = set(layer_plan(cfg))
-    if any(mix not in ("gqa", "mla") or f not in ("dense", "moe", "none")
-           for mix, f in kinds) or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the forward over several ranks runs the attention "
-            f"families; layers {sorted(kinds)} with front-end "
-            f"{cfg.frontend!r} over a mesh are ROADMAP.md queue 1, item 11a")
-
-
 # ---------------------------------------------------------------------------
 # init
 
 
 def _init_layer(gen, cfg: ArchConfig, mix: str, f: str, dense_width: bool,
-                device) -> dict:
+                device, keep=None) -> dict:
     """One layer; ``dense_width`` marks the leading dense layers, whose
-    FFN is ``dense_d_ff`` wide where the config sets one."""
+    FFN is ``dense_d_ff`` wide where the config sets one; ``keep`` as
+    ``moe.init``'s."""
     mod = {"mla": mla, "ssm": mamba2}.get(mix, attn_block)
     p = {"norm1": C.norm_init(cfg.d_model, cfg.norm, device=device),
          "attn": mod.init(gen, cfg, device=device)}
@@ -157,7 +146,7 @@ def _init_layer(gen, cfg: ArchConfig, mix: str, f: str, dense_width: bool,
                             cfg.n_experts, cfg.act,
                             n_shared=cfg.n_shared_experts,
                             shared_d_ff=cfg.moe_d_ff or cfg.d_ff,
-                            device=device)
+                            device=device, keep=keep)
     return p
 
 
@@ -170,8 +159,10 @@ def init(gen: torch.Generator, cfg: ArchConfig, device=None, *,
     the final norm, the head, a layer) with its ``param_specs`` as soon
     as it is drawn and returns what to keep of it
     (``launch/mesh.init_on_ranks``: a rank's slices, so the whole of one
-    layer at a time is held); the draws, and so the numbers, are the
-    same."""
+    layer at a time is held, and of a MoE layer one expert stack: each
+    stack is handed to ``place`` alone as it is drawn, and ``place``
+    keeps a leaf it gets as a DTensor as it is); the draws, and so the
+    numbers, are the same."""
     check_supported(cfg)
     specs = param_specs(cfg) if place is not None else None
 
@@ -187,9 +178,13 @@ def init(gen: torch.Generator, cfg: ArchConfig, device=None, *,
                       if cfg.tie_embeddings
                       else put(C.dense_init(gen, cfg.d_model, cfg.vocab,
                                             device=device), "head"))
+    def keep(i):
+        if place is None:
+            return None
+        return lambda name, w: place(w, specs["layers"][i]["ffn"][name])
     params["layers"] = [
-        put(_init_layer(gen, cfg, mix, f, i < cfg.first_dense, device),
-            "layers", i)
+        put(_init_layer(gen, cfg, mix, f, i < cfg.first_dense, device,
+                        keep(i)), "layers", i)
         for i, (mix, f) in enumerate(layer_plan(cfg))]
     return params
 
@@ -294,15 +289,18 @@ def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
     ``embed_scale`` over the whole, as in the JAX package.  The lookup
     is ``F.embedding``: its backward sums a row's gradients in a fixed
     order, where indexing's accumulating backward does not (a
-    multi-threaded CPU run then differs from run to run)."""
-    if spmd.is_dtensor(params["embed"]["w"]):
-        check_mesh_supported(cfg)
-    parts = [e for e in (prefix_embeds, embeds) if e is not None]
+    multi-threaded CPU run then differs from run to run).  Over a mesh
+    the parts are taken whole (a front-end's embeddings, plain or
+    DTensors, gathered) and the sequence is placed by batch."""
+    w = params["embed"]["w"]
+    parts = [spmd.full(e) for e in (prefix_embeds, embeds) if e is not None]
     if tokens is not None:
-        parts.append(_lookup(params["embed"]["w"], tokens))
+        parts.append(spmd.full(_lookup(w, tokens)))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * (cfg.d_model ** 0.5)
+    if spmd.is_dtensor(w):
+        x = spmd.replicate(x, w.device_mesh)
     return C.lsc(x, "batch", None, None)
 
 
@@ -496,7 +494,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                                                  device))
     if mesh is None:
         return caches
-    check_mesh_supported(cfg)
     return S.place_tree(caches, cache_specs(cfg), mesh,
                         S.state_rules_of(mesh))
 
@@ -589,10 +586,26 @@ def mixer_prefill(mix: str, p, cfg: ArchConfig, h, cache, block_table,
 
 def paged_state_specs(cfg: ArchConfig) -> list[dict]:
     """Logical axes of ``init_paged_state``'s pools over a mesh: a GQA
-    layer's K/V blocks (plain or ring) or an MLA layer's latent
-    blocks, a layer each."""
-    check_mesh_supported(cfg)
-    return [_mixer(mix).paged_state_specs() for mix, _f in layer_plan(cfg)]
+    layer's K/V blocks (plain or ring), an MLA layer's latent blocks or
+    an SSM layer's slots, a layer each."""
+    check_supported(cfg)
+    return [mamba2.paged_state_specs() if mix == "ssm" else
+            _mixer(mix).paged_state_specs() for mix, _f in layer_plan(cfg)]
+
+
+def place_pools(cfg: ArchConfig, pools: list[dict], layer_ids, mesh
+                ) -> list[dict]:
+    """The pools of layers ``layer_ids`` (plain, whole) placed on
+    ``mesh`` by ``paged_state_specs`` under ``sharding.state_rules_of``
+    (a serving cache's member holds some of the layers: the slot
+    member's SSM layers, its snapshot rows); as they are without a
+    mesh."""
+    if mesh is None:
+        return pools
+    specs = paged_state_specs(cfg)
+    rules = S.state_rules_of(mesh)
+    return [S.place_tree(p, specs[li], mesh, rules)
+            for li, p in zip(layer_ids, pools, strict=True)]
 
 
 def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
@@ -604,14 +617,14 @@ def init_paged_state(cfg: ArchConfig, num_blocks: int, block_size: int,
     holds both kinds, each at its layer's place.  Over ``mesh``,
     DTensors placed by ``paged_state_specs`` under
     ``sharding.state_rules_of``: K/V by kv heads over ``model`` where
-    they divide it, else whole; latents whole; every block on every
-    data rank."""
+    they divide it, else whole; latents whole; an SSM slot's ``h`` by
+    heads, its conv tail whole; every block and slot on every data
+    rank."""
     if mesh is not None:
-        specs = paged_state_specs(cfg)
-        return S.place_tree(
-            init_paged_state(cfg, num_blocks, block_size, num_slots, dtype,
-                             device),
-            specs, mesh, S.state_rules_of(mesh))
+        return place_pools(
+            cfg, init_paged_state(cfg, num_blocks, block_size, num_slots,
+                                  dtype, device),
+            range(cfg.n_layers), mesh)
     check_supported(cfg)
     pools = []
     for mix, _f in layer_plan(cfg):
@@ -690,7 +703,8 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
 def snapshot_slot_state(cfg: ArchConfig, caches, slots: torch.Tensor
                         ) -> list:
     """Per-layer copies of the rows' recurrent slots before a verify step
-    (None for block-family layers).  Block layouts roll back by
+    (None for block-family layers; over a mesh each rank's slices of
+    every row's slot, plain tensors).  Block layouts roll back by
     rewinding ``lengths`` (writes past the committed length are masked);
     an SSM slot has folded every verified token into its state, so its
     only rollback is restore-and-re-advance from this copy."""

@@ -58,9 +58,11 @@ both members' state.
 
 Over a mesh (the engine's ``mesh=``) the pools are DTensors, each rank
 holding its kv-head slice of every block (all of a block where the kv
-heads do not divide the model axis, and an MLA layer's latents whole);
-the copies (copy-on-write, swap-out, swap-in) act on the rank's slice,
-and the bookkeeping, the same on every rank, decides alike.
+heads do not divide the model axis, and an MLA layer's latents whole)
+and its heads of every recurrent slot (the conv tail whole), snapshot
+rows too; the copies (copy-on-write, snapshot store and restore,
+swap-out, swap-in) act on the rank's slice, and the bookkeeping, the
+same on every rank, decides alike.
 """
 from __future__ import annotations
 
@@ -278,17 +280,13 @@ class BlockKVCache(MixerState):
             self.max_blocks_per_seq = min(self.max_blocks_per_seq,
                                           ring_blocks)
         self.allocator = BlockAllocator(num_blocks)
-        if mesh is not None:
-            # every layer's pool (no SSM layer runs over a mesh), each
-            # rank's slice of it (the block ids are global)
-            self.pools = transformer.init_paged_state(
-                cfg, num_blocks, block_size, dtype=dtype, device=device,
-                mesh=mesh)
-        else:
-            self.pools = [(mla if plan[li][0] == "mla" else attn_block)
-                          .init_paged_state(cfg, num_blocks, block_size,
-                                            dtype, device)
-                          for li in self.layer_ids]
+        # over a mesh each rank's slice of every block (the block ids
+        # are global)
+        self.pools = transformer.place_pools(
+            cfg, [(mla if plan[li][0] == "mla" else attn_block)
+                  .init_paged_state(cfg, num_blocks, block_size, dtype,
+                                    device)
+                  for li in self.layer_ids], self.layer_ids, mesh)
         self.prefix = PrefixIndex() if prefix_cache else None
         # prefix-cache counters (engine.stats surfaces these)
         self.prefix_queries = 0          # full prompt blocks walked
@@ -663,7 +661,7 @@ class MixerStateCache:
         self.ssm = RecurrentSlotState(
             cfg, slot_ids, num_slots, dtype, device, block_size=block_size,
             snapshot_slots=snapshot_slots if prefix_cache else 0,
-            prefill_chunk=prefill_chunk, tracer=self.tracer) \
+            prefill_chunk=prefill_chunk, tracer=self.tracer, mesh=mesh) \
             if slot_ids else None
         self._members = [m for m in (self.attn, self.ssm) if m is not None]
         self.swap_outs = 0          # by request (a hybrid swaps both

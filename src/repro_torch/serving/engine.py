@@ -53,13 +53,14 @@ PyTorch versions and exists for tests.  The attached PhotonicCostModel
 reports what the modeled OXBNN accelerator would sustain on the same
 token stream (``stats()["photonic"]``), next to the measured wall clock.
 
-``Engine(..., mesh=...)`` serves over a (data, model) ``DeviceMesh``
-(the attention families: GQA, its sliding-window ring and MLA mixers,
-dense and MoE FFNs; ``transformer.check_mesh_supported``): every rank
+``Engine(..., mesh=...)`` serves every family over a (data, model)
+``DeviceMesh`` (GQA, its sliding-window ring, MLA and SSD mixers, dense
+and MoE FFNs, the slot snapshots and swap of mamba2 and jamba): every rank
 runs this engine, the same scheduler over the same requests (SPMD), on
 params placed by the decode rules (``dist/sharding.place_params``;
 plain params are placed here), pools placed by
-``sharding.state_rules_of`` (K/V by kv heads, latents whole), and step
+``sharding.state_rules_of`` (K/V by kv heads, latents whole, an SSM
+slot's state by heads), and step
 closures that sample from the logits
 gathered whole, so the ranks draw the same tokens; ``check_ranks``
 compares each step's tokens across the ranks and raises where they
@@ -168,7 +169,6 @@ class Engine:
                              f"{self.device}")
         self.mesh = mesh
         if mesh is not None:
-            M.check_mesh_supported(cfg)
             params = S.placed(params, cfg, mesh)
         self._check_ranks = check_ranks and mesh is not None
         self.params = params

@@ -28,7 +28,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.dist import spmd
 from repro_torch.layers import mamba2
+from repro_torch.models import transformer
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serving.tracing import Tracer
 
@@ -123,18 +125,23 @@ class SlotSnapshotIndex:
     recurrent-state captures, LRU-ordered for eviction.
 
     Each row holds one layer stack's (SSD hidden state, conv tail)
-    exactly as it stood after some block-aligned prompt prefix.  Entries
+    exactly as it stood after some block-aligned prompt prefix (over a
+    mesh the rank's slices, placed as the live pools).  Entries
     are STANDALONE (a snapshot captures the whole state at its depth),
     so unlike ``PrefixIndex`` there is no parent chaining, nothing can
     be orphaned, and eviction is plain LRU row recycling."""
 
     def __init__(self, cfg, n_layers: int, capacity: int,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cpu", *, mesh=None,
+                 layer_ids: list[int] | None = None):
         if capacity < 1:
             raise ValueError("need at least one snapshot slot")
         self.capacity = capacity
         self.pools = [mamba2.init_paged_state(cfg, capacity, dtype, device)
                       for _ in range(n_layers)]
+        if mesh is not None:    # the live pools' layers, placed as they are
+            self.pools = transformer.place_pools(cfg, self.pools, layer_ids,
+                                                 mesh)
         self._map: OrderedDict[str, int] = OrderedDict()  # key -> row
         self._free = list(range(capacity))
         self.stores = 0
@@ -192,6 +199,12 @@ class RecurrentSlotState(MixerState):
     it is handed out, since its previous owner's state is still in it,
     and copied whole on swap.
 
+    Over a mesh (``mesh=``) the pools are DTensors placed by
+    ``transformer.paged_state_specs``: each rank holds its heads of every
+    slot's ``h`` and the whole conv tail, and zeroing, snapshot copies
+    and swap act on the rank's slices (a swapped slot's host copy is the
+    rank's slices).
+
     With ``snapshot_slots > 0`` the layout also runs a
     ``SlotSnapshotIndex``: block-aligned prefill states are published
     under the prompt's hash chain, an incoming prompt restores the
@@ -205,7 +218,7 @@ class RecurrentSlotState(MixerState):
     def __init__(self, cfg, layer_ids: list[int], num_slots: int,
                  dtype=torch.float32, device="cpu", *, block_size: int = 0,
                  snapshot_slots: int = 0, prefill_chunk: int = 0,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None, mesh=None):
         # BlockAllocator's free list with the reserved id 0 and its
         # invariant checks is what a slot pool needs (slots are blocks
         # that are never shared)
@@ -219,11 +232,13 @@ class RecurrentSlotState(MixerState):
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
         self.allocator = BlockAllocator(num_slots)
-        self.pools = [mamba2.init_paged_state(cfg, num_slots, dtype, device)
-                      for _ in self.layer_ids]
+        self.pools = transformer.place_pools(
+            cfg, [mamba2.init_paged_state(cfg, num_slots, dtype, device)
+                  for _ in self.layer_ids], self.layer_ids, mesh)
         self.snapshots = (
             SlotSnapshotIndex(cfg, len(self.layer_ids), snapshot_slots,
-                              dtype, device)
+                              dtype, device, mesh=mesh,
+                              layer_ids=self.layer_ids)
             if snapshot_slots > 0 and block_size > 0 else None)
         self.peak_used = 0
         self.swapped_slots = 0           # slots that took the host trip
@@ -355,7 +370,7 @@ class RecurrentSlotState(MixerState):
         if not had:
             for pool in self.pools:
                 for v in pool.values():
-                    v[req.slot] = 0.0
+                    spmd.local(v)[req.slot] = 0.0
         return True
 
     def _take_slot(self, req) -> bool:
@@ -380,7 +395,7 @@ class RecurrentSlotState(MixerState):
             req.slot = None
 
     def _device(self):
-        return self.pools[0]["h"].device
+        return spmd.local(self.pools[0]["h"]).device
 
     def swap_out(self, req, peer: "RecurrentSlotState | None" = None):
         """Park req's slot off the device.  A request parked exactly at a
@@ -405,11 +420,13 @@ class RecurrentSlotState(MixerState):
                 sp.extra["bytes"] = 0        # the index keeps the content
             else:
                 s = req.slot
-                flat = torch.cat([v[s].reshape(-1) for pool in self.pools
+                local = [{k: spmd.local(v) for k, v in pool.items()}
+                         for pool in self.pools]
+                flat = torch.cat([v[s].reshape(-1) for pool in local
                                   for v in pool.values()]).cpu()
                 req.host_state = split_flat(
                     flat, [{k: tuple(v.shape[1:]) for k, v in pool.items()}
-                           for pool in self.pools])
+                           for pool in local])
                 self.swapped_slots += 1
                 n_bytes = flat.numel() * flat.element_size()
                 self.swap_out_bytes += n_bytes
@@ -451,7 +468,7 @@ class RecurrentSlotState(MixerState):
             for pool, host in zip(self.pools, split_flat(flat.to(dev),
                                                          shapes)):
                 for k, v in pool.items():
-                    v[req.slot].copy_(host[k])
+                    spmd.local(v)[req.slot].copy_(host[k])
             sync(dev)                    # the span covers the copies
             req.host_state = None
         return True

@@ -92,9 +92,30 @@ def spawn(fn, size: int, *args):
     return spawn_ranks(fn, size, *args, timeout_s=240.0)
 
 
+def spawn_worlds(fn, worlds, args_of):
+    """``spawn(fn, size, *args_of(shapes))`` for each (size, shapes) of
+    ``worlds`` in turn, in a thread: a future of {size: each rank's
+    result}, so the caller builds its references while the ranks run."""
+    import concurrent.futures
+    ex = concurrent.futures.ThreadPoolExecutor(1)
+    fut = ex.submit(lambda: {size: spawn(fn, size, *args_of(shapes))
+                             for size, shapes in worlds})
+    ex.shutdown(wait=False)
+    return fut
+
+
 def prompts(vocab: int, lens, seed: int) -> list[np.ndarray]:
     rng = np.random.default_rng(seed)
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def shared_prompts(vocab: int) -> list[np.ndarray]:
+    """Prompts on one shared head of 8 tokens (two blocks of 4 on the
+    chunk grid, so slot snapshots land there) and tails of 1-5."""
+    rng = np.random.default_rng(7)
+    head = rng.integers(0, vocab, 8)
+    return [np.concatenate([head, rng.integers(0, vocab, n)]).astype(np.int32)
+            for n in (3, 2, 5, 1)]
 
 
 def sampling(pkg: str):
@@ -124,7 +145,9 @@ JAX_MESH_RUN = textwrap.dedent('''
     cfg = reduced(configs.get_config(arch)).replace(precision="bnn")
     params0, specs = M.init(jax.random.PRNGKey(0), cfg)
     rules = S.rules_decode(False)
-    tokens = np.load(src)
+    # the tokens, or a batch of the stub front-ends' inputs
+    batch = dict(np.load(src)) if src.endswith(".npz") else \
+        {"tokens": np.load(src)}
 
     def spec(a):
         s = tuple(a.sharding.spec)
@@ -170,10 +193,9 @@ JAX_MESH_RUN = textwrap.dedent('''
         if key not in runs.split(","):
             continue
         with C.sharding_context(mesh, rules):
-            logits = jax.jit(lambda p, t: M.logits_fn(
-                p, cfg, {"tokens": t}))(params, tokens)
-            pre = jax.jit(ST.build_prefill_step(cfg))(params,
-                                                      {"tokens": tokens})
+            logits = jax.jit(lambda p, b: M.logits_fn(p, cfg, b))(params,
+                                                                  batch)
+            pre = jax.jit(ST.build_prefill_step(cfg))(params, batch)
         arrays[key + "/logits"] = np.asarray(logits)
         arrays[key + "/prefill"] = np.asarray(pre)
         meta[key]["logits"] = spec(logits)
@@ -195,14 +217,20 @@ class JaxMeshRun:
     ``arch`` at "bnn" under a ``Mesh`` of each of ``runs`` (4 forced
     host devices, the decode rules), and its params' placements under
     each of ``shapes``, in a fresh process (the device count is fixed
-    when JAX starts), started here: ``result()`` waits for it."""
+    when JAX starts), started here: ``result()`` waits for it.
+    ``tokens``: the tokens, or a batch dict (the stub front-ends'
+    ``embeds`` / ``prefix_embeds`` beside any tokens)."""
 
-    def __init__(self, arch: str, tokens: np.ndarray, tmp: Path, shapes,
-                 runs=None):
+    def __init__(self, arch: str, tokens, tmp: Path, shapes, runs=None):
         self.shapes = [tuple(s) for s in shapes]
         self.runs = self.shapes if runs is None else [tuple(s) for s in runs]
-        src, self.dst = tmp / "tokens.npy", tmp / "out.npz"
-        np.save(src, tokens)
+        self.dst = tmp / "out.npz"
+        if isinstance(tokens, dict):
+            src = tmp / "batch.npz"
+            np.savez(src, **tokens)
+        else:
+            src = tmp / "tokens.npy"
+            np.save(src, tokens)
         env = dict(os.environ, JAX_PLATFORMS="cpu",
                    XLA_FLAGS="--xla_force_host_platform_device_count=4",
                    PYTHONPATH=os.pathsep.join(
@@ -335,7 +363,7 @@ def forward_worker(world, shapes, params, tokens, n_new, arch=ARCH,
     from repro_torch import tree as T
     from repro_torch.dist import sharding as S, spmd
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve as SV, steps
+    from repro_torch.launch import mesh as MESH, serve as SV, steps
     from repro_torch.layers import common as C
     from repro_torch.models import transformer as M
     cfg = port_cfg(arch=arch)
@@ -358,7 +386,7 @@ def forward_worker(world, shapes, params, tokens, n_new, arch=ARCH,
                     nxt[:, None].long()
                 seq.append(cur)
         out[tuple(shape)] = {
-            "cached_bytes": ops.cached_bytes(("whole_head", "mla_heads"),
+            "cached_bytes": ops.cached_bytes(MESH.CACHED_KINDS,
                                              T.leaves(tp)),
             "logits": spmd.full(lg),
             "placements": [str(p) for p in lg.placements],
@@ -406,8 +434,8 @@ def engine_worker(world, shapes, params, ps, max_new, ekw, arch=ARCH):
                          "max_concurrent": st["max_concurrent_decode"],
                          "prefix_hits": st["prefix_cache"]["hits"],
                          "swap_outs": st["swap"]["swap_outs"],
-                         "ring_reuses": st["mixer"]["blocks"].get(
-                             "ring_reuses", 0)})
+                         "ring_reuses": st["mixer"].get(
+                             "blocks", {}).get("ring_reuses", 0)})
         out[tuple(shape)] = runs
     return out
 
@@ -469,21 +497,21 @@ def check_family(ranks, shape, *, jax_mesh, jax_one, one_rank, tol):
 
 def prefill_logits(params, cfg, tokens: torch.Tensor, mesh=None):
     """``prefill_chunk`` of all of ``tokens`` (B, T) in one chunk over
-    fresh pools (blocks of 4; over ``mesh``, placed and under its
-    sharding context): the logits, whole."""
+    fresh pools (blocks of 4, a recurrent slot a row; over ``mesh``,
+    placed and under its sharding context): the logits, whole."""
     from repro_torch.dist import sharding as S, spmd
     from repro_torch.layers import common as C
     from repro_torch.models import transformer as M
     b, t = tokens.shape
     per = -(-t // 4)
-    pools = M.init_paged_state(cfg, 1 + b * per, 4, mesh=mesh)
+    pools = M.init_paged_state(cfg, 1 + b * per, 4, 1 + b, mesh=mesh)
     table = (1 + torch.arange(b * per, dtype=torch.int32)).reshape(b, per)
     zeros = torch.zeros(b, dtype=torch.int32)
     ctx = (C.sharding_context(mesh, S.decode_rules_of(mesh))
            if mesh is not None else contextlib.nullcontext())
     with ctx, torch.no_grad():
         lg, _ = M.prefill_chunk(params, cfg, tokens, pools, table, zeros,
-                                zeros + t)
+                                zeros + t, zeros + 1 + torch.arange(b))
     return spmd.full(lg)
 
 
@@ -516,3 +544,218 @@ def cases_worker(world, shape, cases, gemms):
                               precision="bnn")
         out[name] = {"out": spmd.full(y), "spec": port_spec(wt["w"])}
     return out
+
+
+# --------------------------------------------------------------- slots
+
+
+def pools_agree(pools, mesh) -> bool:
+    """Every data rank holds the same slices of every pool (gathered
+    over ``data`` and compared)."""
+    from repro_torch.dist import spmd
+    i = mesh.mesh_dim_names.index("data")
+    if mesh.size(i) == 1:
+        return True
+    for pool in pools:
+        for v in pool.values():
+            parts = spmd.all_gather(spmd.local(v)[None], mesh, i, 0)
+            if not all(torch.equal(q, parts[0]) for q in parts):
+                return False
+    return True
+
+
+def watch_slot_swaps(eng) -> list:
+    """Record each swapped slot's state (the rank's slices) at swap-out
+    and append, at its swap-in, whether it came back bit-equal."""
+    from repro_torch.dist import spmd
+    ssm, saved, same = eng.cache.ssm, {}, []
+    swap_out, swap_in = ssm.swap_out, ssm.swap_in
+
+    def out(req, peer=None):
+        saved[req.rid] = [{k: spmd.local(v)[req.slot].clone()
+                           for k, v in p.items()} for p in ssm.pools]
+        return swap_out(req, peer)
+
+    def back(req):
+        ok = swap_in(req)
+        if ok and req.rid in saved:
+            same.append(all(torch.equal(spmd.local(p[k])[req.slot], v)
+                            for p, want in zip(ssm.pools,
+                                               saved.pop(req.rid))
+                            for k, v in want.items()))
+        return ok
+    ssm.swap_out, ssm.swap_in = out, back
+    return same
+
+
+def drive_slots(eng, prompts, max_new, preempt_after, sampling=None,
+                each_step=None):
+    """The first prompt served alone (its snapshots published), then the
+    rest at once, the policy's victim preempted after ``preempt_after``
+    steps of them; ``each_step(eng)`` after every step.  The tokens of
+    each request, in prompt order."""
+    def samp(i):
+        return {"sampling": sampling(i)} if sampling else {}
+
+    def step():
+        eng.step()
+        if each_step is not None:
+            each_step(eng)
+    rids = [eng.submit(prompts[0], max_new, **samp(0))]
+    while not eng.scheduler.idle:
+        step()
+    rids += [eng.submit(p, max_new, **samp(i))
+             for i, p in enumerate(prompts[1:], start=1)]
+    for _ in range(preempt_after):
+        step()
+    eng.scheduler._preempt_one(eng.step_count, None)
+    while not eng.scheduler.idle:
+        step()
+    return [eng.requests[r].full_sequence().tolist() for r in rids]
+
+
+def slot_counts(st: dict) -> dict:
+    """What the snapshot and swap machinery did in a run."""
+    return {"snapshot_hits": st["prefix_cache"]["snapshot_hits"],
+            "snapshot_stores": st["prefix_cache"]["snapshot_stores"],
+            "preemptions": st["preemptions"],
+            "swapped_slots": st["swap"]["swapped_slots"],
+            "readopted_snapshots": st["swap"]["readopted_snapshots"]}
+
+
+def slots_worker(world, arch, shapes, params, prompts, max_new,
+                 preempt_after, ekw):
+    """On each mesh of ``shapes`` the engine under the JAX engine's
+    defaults (prefix cache: slot snapshots; swap) runs ``drive_slots``,
+    greedy then sampled, the ranks' tokens compared at every step:
+    the tokens, ``slot_counts``, whether every swapped slot came back
+    bit-equal on this rank, and whether the data ranks' pools were equal
+    after every step."""
+    cfg = port_cfg(arch=arch)
+    out = {}
+    for shape in shapes:
+        m = mesh(shape)
+        runs = []
+        for sampled in (False, True):
+            eng = Engine(params, cfg, EngineConfig(**{**EKW, **ekw}),
+                         device="cpu", mesh=m, check_ranks=True)
+            same = watch_slot_swaps(eng)
+            agree = []
+            toks = drive_slots(
+                eng, prompts, max_new, preempt_after,
+                sampling("torch") if sampled else None,
+                lambda e: agree.append(pools_agree(e.cache.pools, m)))
+            runs.append({"tokens": toks, **slot_counts(eng.stats()),
+                         "restored_equal": same, "pools_agree": agree})
+        out[tuple(shape)] = runs
+    return out
+
+
+def spec_worker(world, shape, cases):
+    """Over a ``shape`` mesh, for each case (name -> (arch, params,
+    prompts, new tokens, engine kwargs)): the speculative engine
+    (spec_k 3) serves the prompts, the ranks' tokens compared at every
+    step: its tokens and speculative counts."""
+    m = mesh(shape)
+    out = {}
+    for name, (arch, params, ps, gen, ekw) in cases.items():
+        eng = Engine(params, port_cfg(arch=arch),
+                     EngineConfig(**ekw, spec_k=3), device="cpu", mesh=m,
+                     check_ranks=True)
+        rids = [eng.submit(p, gen) for p in ps]
+        got = eng.run()
+        out[name] = {"tokens": [got[r].tolist() for r in rids],
+                     "speculative": eng.stats()["speculative"]}
+    return out
+
+
+def jobs_worker(world, jobs):
+    """Each job (a worker of this module, its arguments after ``world``)
+    in turn on this rank, in one world: their results, in order."""
+    return [fn(world, *args) for fn, args in jobs]
+
+
+def drive_slots_jax(jcfg, jparams, prompts, max_new, preempt_after, ekw):
+    """``drive_slots`` on one JAX ``Engine`` (the XLA paths, ``EKW``
+    updated by ``ekw``), greedy then sampled: the tokens of each run."""
+    from repro.serving import Engine as JEngine, EngineConfig as JEngineConfig
+    return [drive_slots(JEngine(jparams, jcfg, JEngineConfig(
+        **{**EKW, **ekw}, attn_impl="xla", bnn_impl="xla")), prompts,
+        max_new, preempt_after, sampling("jax") if sampled else None)
+        for sampled in (False, True)]
+
+
+def drive_slots_port(cfg, params, prompts, max_new, preempt_after, ekw):
+    """``drive_slots`` on the port's one-rank engine, greedy then
+    sampled: (tokens, ``slot_counts``) of each run."""
+    out = []
+    for sampled in (False, True):
+        eng = Engine(params, cfg, EngineConfig(**{**EKW, **ekw}),
+                     device="cpu")
+        toks = drive_slots(eng, prompts, max_new, preempt_after,
+                           sampling("torch") if sampled else None)
+        out.append((toks, slot_counts(eng.stats())))
+    return out
+
+
+def check_slots(ranks, shape, one, jax_tokens=None):
+    """Every rank's ``slots_worker`` runs over ``shape``: the one-rank
+    engine's tokens (and JAX's, where given), greedy and sampled;
+    snapshots hit, a slot went to the host and came back bit-equal, the
+    schedule's counts are one rank's, and the data ranks' pools agreed
+    after every step."""
+    for i in (0, 1):
+        toks, counts = one[i]
+        assert jax_tokens is None or toks == jax_tokens[i]
+        assert counts["snapshot_hits"] > 0 and counts["swapped_slots"] >= 1
+        for rank in ranks:
+            run = rank[shape][i]
+            assert run["tokens"] == toks
+            assert {k: run[k] for k in counts} == counts
+            assert run["restored_equal"] and all(run["restored_equal"])
+            assert run["pools_agree"] and all(run["pools_agree"])
+
+
+def frontend_worker(world, shapes, cases):
+    """On each mesh of ``shapes``, for each case (name -> (arch, params,
+    batch of numpy arrays: the stub front-ends' embeddings, any
+    tokens)): ``logits_fn`` and the prefill step with the embeddings
+    placed by batch, whole, and the logits' placements."""
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.launch import steps
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    out = {}
+    for shape in shapes:
+        m = mesh(shape)
+        rules = S.rules_decode(False)
+        for name, (arch, params, batch) in cases.items():
+            cfg = port_cfg(arch=arch)
+            tp = S.place_params(params, cfg, m)
+            with C.sharding_context(m, rules), torch.no_grad():
+                b = {k: (torch.from_numpy(v.astype(np.int64)) if k == "tokens"
+                         else C.lsc(torch.from_numpy(v), "batch", None, None))
+                     for k, v in batch.items()}
+                lg = M.logits_fn(tp, cfg, b.get("tokens"),
+                                 embeds=b.get("embeds"),
+                                 prefix_embeds=b.get("prefix_embeds"))
+                pre = steps.build_prefill_step(cfg)(tp, b)
+            out[(tuple(shape), name)] = {
+                "logits": spmd.full(lg), "prefill": spmd.full(pre),
+                "placements": [str(p) for p in lg.placements]}
+    return out
+
+
+def init_worker(world, arch, shape):
+    """``launch/mesh.init_on_ranks`` of the reduced ``arch`` (seed 0) over
+    a ``shape`` mesh: every leaf's placement and the leaves gathered
+    whole."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch.mesh import init_on_ranks
+    from repro_torch.models import transformer as M
+    cfg = port_cfg(arch=arch)
+    params = M.trainable(init_on_ranks(torch.Generator().manual_seed(0), cfg,
+                                       mesh(shape)), cfg)
+    return {"specs": {k: port_spec(v)
+                      for k, v in flat_leaves(params).items()},
+            "params": S.gather_tree(params)}

@@ -124,28 +124,22 @@ def test_non_dividing_head_count_raises_item_11():
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b",
                                   "mamba2-1.3b"])
 def test_other_families_under_a_mesh_raise_item_11(arch):
-    """The SSM family still raises, naming ROADMAP.md queue 1, item 11
-    (11a); mixtral and deepseek-v2-lite now serve over a mesh: the
-    engine builds, its pools placed whole on every model rank (mixtral's
-    one kv head, deepseek's latents)."""
+    """None of them raises now (ROADMAP.md queue 1, item 11a, done):
+    the engine builds over a mesh, its pools placed whole on every model
+    rank (mixtral's one kv head, deepseek's latents) or, for mamba2's
+    slots, ``h`` by heads and the conv tail whole."""
     from repro_torch import configs
     from repro_torch.configs.base import reduced
     cfg = reduced(configs.get_config(arch)).replace(precision="bnn")
     params = M.init(torch.Generator().manual_seed(0), cfg)
     with MESH.fake_world(2):
         m = H.mesh((1, 2))
-        if arch == "mamba2-1.3b":
-            with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-                Engine(params, cfg, EngineConfig(**H.EKW), device="cpu",
-                       mesh=m)
-            with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-                M.init_paged_state(cfg, 8, 4, 4, mesh=m)
-        else:
-            eng = Engine(params, cfg, EngineConfig(**H.EKW), device="cpu",
-                         mesh=m)
-            for pool in eng.cache.pools:
-                assert all(H.port_spec(v) == (None,) * v.ndim
-                           for v in pool.values())
+        eng = Engine(params, cfg, EngineConfig(**H.EKW), device="cpu",
+                     mesh=m)
+        for pool in eng.cache.pools:
+            assert all(H.port_spec(v) == ((None, "model", None, None)
+                                          if k == "h" else (None,) * v.ndim)
+                       for k, v in pool.items())
     assert not torch.distributed.is_initialized()
 
 

@@ -17,9 +17,9 @@ of 32-bit words.
   down projection's partial dots summed before alpha, at half-word K
   slices): bit-equal to one rank, full sequence and prefill.
 * K = 80 over 2 ranks (40 = 1.25 words a rank): bit-equal to one rank.
-* SSM layers and the jamba hybrid over a mesh raise, naming ROADMAP.md
-  queue 1, item 11a; the serve CLI's production mesh places mixtral
-  and deepseek-v2-lite as the decode rules say."""
+* SSM layers and the jamba hybrid build over a mesh (ROADMAP.md queue
+  1, item 11a, done); the serve CLI's production mesh places mixtral,
+  deepseek-v2-lite, mamba2 and jamba as the decode rules say."""
 import numpy as np
 import pytest
 import torch
@@ -155,22 +155,36 @@ def test_row_parallel_gemm_on_part_words_equals_one_rank(ranks, gemm80):
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
 def test_ssm_and_hybrid_over_a_mesh_raise_item_11a(arch):
+    """Item 11a is done: SSM layers and the jamba hybrid no longer raise
+    over a mesh.  The engine builds, its slot pools (the snapshot rows
+    too) hold ``h`` by heads and the conv tail whole, and the paged
+    pools place alike (tests/test_torch_ranks_ssm.py and
+    tests/test_torch_ranks_hybrid.py run them)."""
     cfg = H.port_cfg(arch=arch)
     params = M.init(torch.Generator().manual_seed(0), cfg)
+    slot = {"h": (None, "model", None, None), "conv": (None,) * 3}
     with MESH.fake_world(2):
         m = H.mesh((1, 2))
-        with pytest.raises(NotImplementedError, match="queue 1, item 11a"):
-            Engine(params, cfg, EngineConfig(**H.EKW), device="cpu", mesh=m)
-        with pytest.raises(NotImplementedError, match="queue 1, item 11a"):
-            M.init_paged_state(cfg, 8, 4, 4, mesh=m)
+        eng = Engine(params, cfg, EngineConfig(**H.EKW), device="cpu",
+                     mesh=m)
+        ssm = eng.cache.ssm
+        for pools in (ssm.pools, ssm.snapshots.pools):
+            assert all({k: H.port_spec(v) for k, v in p.items()} == slot
+                       for p in pools)
+        pools = M.init_paged_state(cfg, 8, 4, 4, mesh=m)
+        assert [{k: H.port_spec(v) for k, v in p.items()} == slot
+                for p in pools] == [mix == "ssm"
+                                    for mix, _f in M.layer_plan(cfg)]
     assert not torch.distributed.is_initialized()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b"])
 def test_serve_setup_places_the_families_on_the_production_mesh(arch):
     """Under a 256-rank group a non-smoke serve builds the (16, 16) mesh
     and places the reduced config's params by the decode rules (4
-    experts do not divide 16: each expert's hidden is cut instead)."""
+    experts do not divide 16: each expert's hidden is cut instead; the
+    SSM layers' in_proj by columns)."""
     cfg = H.port_cfg(arch=arch)
     with MESH.fake_world(256):
         m = SV.serving_mesh(device="cpu")
@@ -183,6 +197,10 @@ def test_serve_setup_places_the_families_on_the_production_mesh(arch):
         got = S.map_specs(lambda a, t: list(t.placements), specs,
                           M.trainable(params, cfg))
         assert got == want
-        moe = params["layers"][-1]["ffn"]
-        assert H.port_spec(moe["up"]) == (None, None, "model")
+        if cfg.n_experts:
+            moe = params["layers"][-1]["ffn"]
+            assert H.port_spec(moe["up"]) == (None, None, "model")
+        if cfg.ssm_state:
+            assert H.port_spec(params["layers"][0]["attn"]["in_proj"]["w"]) \
+                == (None, "model")
     assert not torch.distributed.is_initialized()
