@@ -6,6 +6,7 @@ Run from the repository root on a machine with CUDA cards:
 
     python3 chip_ranks_full.py          # four cards, a card a rank (NCCL)
     python3 chip_ranks_full.py --rows   # one card: the rows probe alone
+    python3 chip_ranks_full.py --train  # one card: the training probe
 
 The four-card run serves each family at its published depth and width
 over RANKS_FULL_DEPTH's mesh with chip_smoke's [ranks] (f) worker (the
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -163,6 +165,67 @@ def ssd_probe(dev) -> dict[str, dict[str, list[str]]]:
     return out
 
 
+# bnn-lm-100m's training shapes over (2, 2): the projections' (K, N)
+# (q, k, v, o; gate, up; down), a microbatch of 4 rows of 256 tokens,
+# 12 heads of 64
+TRAIN_WEIGHTS = ((768, 768), (768, 2048), (2048, 768))
+TRAIN_ATTN = dict(rows=4, tokens=256, heads=12, head_dim=64)
+
+
+def train_probe(dev) -> dict[str, list[str]]:
+    """Which of the STE GEMM's float ops give a rank's slice other bits
+    than one rank's (``ops._tp_dense`` at "bnn_train" over (2, 2); a
+    flipped sign of a projection's input then changes the step): alpha
+    = mean |w| over K of a column-parallel weight's columns
+    (``col_mean``) and as the sum over the ranks of K halves' sums
+    (``row_sum``), each again with the sums in float64 (``*_f64``);
+    the attention (``layers/attention.attention``) of a rank's rows and
+    heads (``attn``) and of them zero-padded back to one rank's rows and
+    heads (``attn_padded``)."""
+    from repro_torch.layers import attention as A
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out: dict[str, list[str]] = {k: [] for k in (
+        "col_mean", "col_mean_f64", "row_sum", "row_sum_f64", "attn",
+        "attn_padded")}
+    for k, n in TRAIN_WEIGHTS:
+        w = torch.randn(k, n, generator=gen, device=dev).abs() / k ** 0.5
+        one = torch.mean(w, 0)
+        one64 = (torch.sum(w, 0, dtype=torch.float64) / k).float()
+        half = n // 2
+        if not torch.equal(torch.mean(w[:, half:], 0), one[half:]):
+            out["col_mean"].append(f"{k}x{n}")
+        if not torch.equal((torch.sum(w[:, half:], 0, dtype=torch.float64)
+                            / k).float(), one64[half:]):
+            out["col_mean_f64"].append(f"{k}x{n}")
+        parts = torch.sum(w[:k // 2], 0) + torch.sum(w[k // 2:], 0)
+        if not torch.equal(parts / k, one):
+            out["row_sum"].append(f"{k}x{n}")
+        parts64 = (torch.sum(w[:k // 2], 0, dtype=torch.float64) +
+                   torch.sum(w[k // 2:], 0, dtype=torch.float64))
+        if not torch.equal((parts64 / k).float(), one64):
+            out["row_sum_f64"].append(f"{k}x{n}")
+    a = TRAIN_ATTN
+    b, t, h, dh = a["rows"], a["tokens"], a["heads"], a["head_dim"]
+    q, k_, v = (torch.randn(b, t, h, dh, generator=gen, device=dev)
+                for _ in range(3))
+    whole = A.attention(q, k_, v, causal=True)
+    rb, hb = b // 2, h // 2
+    got = A.attention(q[rb:, :, hb:], k_[rb:, :, hb:], v[rb:, :, hb:],
+                      causal=True)
+    if not torch.equal(got, whole[rb:, :, hb:]):
+        out["attn"].append(f"(2, 2) {(got - whole[rb:, :, hb:]).abs().max():.2e}")
+
+    def pad(x):
+        z = torch.zeros_like(x)
+        z[rb:, :, hb:] = x[rb:, :, hb:]
+        return z
+    got = A.attention(pad(q), pad(k_), pad(v), causal=True)[rb:, :, hb:]
+    if not torch.equal(got, whole[rb:, :, hb:]):
+        out["attn_padded"].append(
+            f"(2, 2) {(got - whole[rb:, :, hb:]).abs().max():.2e}")
+    return out
+
+
 # the published depths over four cards, a card a rank: no
 # one-rank reference fits one card (mixtral's 32 layers are 174 GiB of
 # float32 weights), so the ranks' tokens are held to each other
@@ -227,6 +290,8 @@ def main() -> int:
     ap.add_argument("--rows", action="store_true",
                     help="only the rows probe and the SSD probe, on one "
                          "card")
+    ap.add_argument("--train", action="store_true",
+                    help="only the training probe, on one card")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_ranks_full: no CUDA device", file=sys.stderr)
@@ -234,6 +299,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if a.train:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        log(f"[ranks] the STE GEMM's float ops whose rank slice differs "
+            f"from one rank's: {json.dumps(train_probe(dev))}; {smi}")
+        return 0
     smi = S.phase_device()
     log(f"[ranks] a row's bits change with the rows beside it (half of "
         f"the rows vs all): {json.dumps(rows_probe(dev))}; {smi}")

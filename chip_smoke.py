@@ -46,12 +46,15 @@ Phases (each check raises, and the script then exits non-zero):
               reverse): paged_attention launches 0 with fused_bnn > 0,
               then the reverse; tokens equal this run's, or part only
               after a sign flip phase 4's rule accepts (printed).
-  ranks       the serving forward over several ranks (after phase 3,
-              on its weights and traffic; ranks spawned by
-              launch/mesh.spawn_ranks, each drawing phase 3's seeded
-              weights and keeping its slices by the decode rules; on
-              one card the ranks share it under gloo over the card's
-              tensors, with a card a rank NCCL):
+  ranks       the serving forward over several ranks (after phase 3:
+              bnn-lm-100m at published width, SERVE_LAYERS (4) of its
+              12 layers, phase 3's traffic; every part's one-rank
+              references first, then every part in one world of 2
+              ranks and one of 4 spawned by launch/mesh.spawn_ranks
+              (``run_ranks``), each rank drawing the seeded weights and
+              keeping its slices by the decode rules; on one card the
+              ranks share it under gloo over the card's tensors, with a
+              card a rank NCCL):
               (a) the tensor-parallel fused_bnn (column-parallel q, k,
               v, gate, up; row-parallel o, down: integer partial dots
               summed, then alpha) at every projection shape of
@@ -65,7 +68,8 @@ Phases (each check raises, and the script then exits non-zero):
               which); (c) the engine over (2, 2) serves phase 3's 16
               prompts, 64 new, on its schedule, greedy and sampled
               (C's sampling), the ranks' tokens compared at every
-              step: tokens equal the one-rank engine's; fused_bnn,
+              step: tokens equal the one-rank engine's (served first,
+              same weights and schedule); fused_bnn,
               paged_attention and binarize_pack launch on every rank;
               (d) printed: the backend and cards, per-rank peak
               memory, the collectives and DTensor wraps of a decode
@@ -73,7 +77,7 @@ Phases (each check raises, and the script then exits non-zero):
               one-rank run and the host's launch us; which collectives
               gloo runs on a card's tensors.  Then (after [ranks]'s
               bnn-lm-100m part, its weights freed) mixtral-8x7b and
-              deepseek-v2-lite at published width and 4 layers, each
+              deepseek-v2-lite at published width and 2 layers, each
               rank drawing the seeded weights a layer at a time and
               keeping its slices (launch/mesh.init_on_ranks; the
               weight bytes a rank are reckoned first and printed):
@@ -96,7 +100,7 @@ Phases (each check raises, and the script then exits non-zero):
               (fused_bnn, paged_attention_ring / paged_attention_mla
               and binarize_pack must launch).  Then (g)-(h), built
               alike, for the SSM mixer and the jamba hybrid:
-              mamba2-1.3b at published width and 8 layers over (1, 2)
+              mamba2-1.3b at published width and 2 layers over (1, 2)
               and (2, 2), the jamba window (published layers 2-4:
               ssm, gqa + moe, ssm; 24 GiB of weights a rank, the two
               ranks drawing in turns) over (1, 2).  (g) prefill_chunk
@@ -114,7 +118,31 @@ Phases (each check raises, and the script then exits non-zero):
               hits, the mid-decode slot back from the host bit-equal
               on every rank; printed as (e)-(f) (fused_bnn and
               binarize_pack, for jamba paged_attention too, must
-              launch).
+              launch).  Then (i)-(j), training: bnn-lm-100m at
+              published width, RANKS_TRAIN_LAYERS (6) of its 12
+              layers, precision "bnn_train", over
+              (2, 2) (FSDP: the params placed by the train rules, the
+              ranks drawing the seeded weights), batch 8 x 256,
+              microbatches 2, remat, 3 steps of launch.train, held to
+              one rank's run in this process (freed before the ranks
+              start): (i) step 0's loss and gradient norm within
+              RANKS_TRAIN_LOSS_REL, every leaf's gradient within
+              RANKS_TRAIN_GRAD_REL of its largest element, none all
+              zeros where one rank's is not; launch.train's first step
+              likewise; the last step taken again by one rank from the
+              mesh's own checkpoint before it (launch.train writes it
+              whole over the mesh) within RANKS_TRAIN_PARAM, its loss
+              and norm within RANKS_TRAIN_LOSS_REL (the free runs part
+              from step 2 on, as one rank's own at microbatches 1 and
+              2 do: printed beside); printed: every BNN projection
+              input at step 0 against one rank's (bit-equal, STE sign
+              flips), a step's collectives against
+              train_step_collectives' prediction, a rank's bytes as
+              reckoned and its peak, step ms and tokens/s beside one
+              rank's; (j) the trained shards re-placed by the decode
+              rules, served over (2, 2) by the engine (8 prompts, 16
+              new, greedy) through the kernels: every rank's tokens
+              equal one rank's engine on the gathered weights.
   4. e2e      two finished requests re-run by two routes, each once
               through the kernels and once through the plain versions,
               each attention and each FFN / MoE sublayer on the kernel
@@ -134,7 +162,9 @@ Phases (each check raises, and the script then exits non-zero):
               is printed), its greedy tokens equal the engine's up to
               that point.
   serve       the server as users start it: bnn-lm-100m at published
-              width (precision="bnn", seeded weights) through
+              width, SERVE_LAYERS (4) of its 12 layers (precision
+              "bnn", seeded weights; [tenants], [shards] and [spec]
+              alike) through
               repro_torch.launch.serve's run functions.  24 requests:
               one of 4 system prompts of 384 tokens, then a unique
               suffix of 32-256 tokens in whole blocks (3 repeat an
@@ -300,7 +330,8 @@ Phases (each check raises, and the script then exits non-zero):
   7. families mixtral-8x7b (GQA, sliding-window ring, MoE) and
               deepseek-v2-lite-16b (MLA latents, MoE with shared
               experts, a leading dense layer) at their published widths,
-              4 layers each, seeded random weights, one after the other:
+              2 layers each (PHASE7_LAYERS; 4 until PR 29), seeded
+              random weights, one after the other:
               8 requests each (mixtral: two prompts of 4400 and 4700
               tokens, longer than its ring, the rest 64-512 tokens), 32
               new tokens, 4 submitted after 4 steps; the ring must wrap
@@ -310,7 +341,7 @@ Phases (each check raises, and the script then exits non-zero):
               deepseek: all eight).  Prints tokens/s, ring reuses and
               peak memory.  Then mamba2-1.3b (the Mamba-2 SSD mixer
               over recurrent slots, no FFN) at its published widths,
-              16 of its 48 layers: 16 requests of 16-1500 tokens, 32
+              2 of its 48 layers: 16 requests of 16-1500 tokens, 32
               new tokens, 4 submitted after 4 steps, 5 slots under a
               batch of 8, so admissions wait for a slot and released
               slots are handed out again (zeroed); the longest request
@@ -349,7 +380,7 @@ Phases (each check raises, and the script then exits non-zero):
               steps, mixtral's ring wrapping, mamba2's slots repaired.
               Then the JAX defaults (prefix cache with slot snapshots,
               swap) against a control without them (no prefix cache,
-              recompute), equal tokens: mamba2 at 16 layers on 12
+              recompute), equal tokens: mamba2 (2 layers) on 12
               requests over 3 shared heads of 256 tokens (two 128-token
               chunks) with suffixes of 16-512, 2 whole repeats, 32 new,
               4 after 4 steps, 5 slots, and two forced preemptions of
@@ -1643,7 +1674,7 @@ def ranks_worker(world, cfg, ecfg, prompts, max_new, gemm_shapes,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=world.device).manual_seed(0)
-    params = M.init(gen, cfg, device=world.device)     # phase 3's weights
+    params = M.init(gen, cfg, device=world.device)   # the one-rank runs'
     out: dict = {"backend": world.backend, "device": str(world.device),
                  "gemms": {}, "prefill": {}}
     for shape in gemm_shapes:
@@ -1665,127 +1696,186 @@ def _median_counts(steps: list[dict]) -> dict:
     return {k: float(np.median([s.get(k, 0) for s in steps])) for k in keys}
 
 
-def phase_ranks(dev, smi: str, cfg=None, ecfg=None, params=None,
-                want=None, one_rank_st=None, smoke: bool = False,
-                max_new: int = 64) -> dict:
-    """[ranks]: (a) the tensor-parallel fused_bnn at every projection
-    of bnn-lm-100m (q, k, v, o, gate, up, down) at tp = 2 ((1, 2) mesh)
-    and 4 ((1, 4)) bit-equal to one rank's kernel; (b) prefill logits
-    over (1, 2) and (2, 2) against one rank (``ranks_prefill``); (c) the
-    engine over (2, 2) serves phase 3's 16 prompts, 64 new, greedy and
-    sampled: tokens equal the one-rank engine's (``want``: phase 3's
-    greedy tokens; the sampled ones are served here), every rank the
-    same at every step; (d) printed: backend and cards, per-rank peak
-    memory, the collectives a decode step, tokens/s beside the one-rank
-    run and the host's launch us.  ``smoke``: reduced width on the CPU
-    (a rehearsal).  Returns the engine runs' launches, summed over the
-    ranks."""
+def ranks_parts_worker(world, parts):
+    """One rank of a [ranks] world: each part ``(fn, args)`` in turn,
+    ``fn(world, *args)``, the rank's memory given back after each;
+    returns the backend, the rank's device and each part's result with
+    its seconds on the rank."""
+    out = {"backend": world.backend, "device": str(world.device),
+           "parts": []}
+    for fn, args in parts:
+        t0 = time.perf_counter()
+        res = fn(world, *args)
+        out["parts"].append((res, time.perf_counter() - t0))
+        gc.collect()
+        if world.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_ranks(dev, preps: list[dict]) -> list:
+    """[ranks]: the parts of ``preps`` (each from a ``*_prep``, which made
+    its one-rank references and freed their weights: ``parts``, a part
+    ``(fn, args)`` for each world size it runs on, and ``report``) in
+    one world of spawned ranks for each size, every prep's part in turn
+    on every rank (a world's start and its ranks' first use of the card
+    cost 10-25 s each); then each prep's ``report`` of its part's
+    results by size, rank order.  Returns the reports' returns."""
+    from repro_torch.launch.mesh import spawn_ranks
+    got = [{} for _ in preps]
+    try:
+        for size in sorted({n for p in preps for n in p["parts"]}):
+            which = [i for i, p in enumerate(preps) if size in p["parts"]]
+            t0 = time.perf_counter()
+            recs = spawn_ranks(ranks_parts_worker, size,
+                               [preps[i]["parts"][size] for i in which],
+                               device=dev.type, timeout_s=900)
+            took = ", ".join(
+                f"{preps[i]['parts'][size][0].__name__} {sec:.1f} s"
+                for i, (_res, sec) in zip(which, recs[0]["parts"]))
+            log(f"[ranks] world of {size}: backend {recs[0]['backend']}, "
+                f"ranks on {sorted({r['device'] for r in recs})}, "
+                f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} "
+                f"card(s); {time.perf_counter() - t0:.1f} s (on rank 0: "
+                f"{took})")
+            for j, i in enumerate(which):
+                got[i][size] = [r["parts"][j][0] for r in recs]
+        return [p["report"](g) for p, g in zip(preps, got)]
+    finally:
+        for p in preps:
+            if "cleanup" in p:
+                p["cleanup"]()
+
+
+def ranks_prep(dev, smi: str, cfg=None, ecfg=None, smoke: bool = False,
+               max_new: int = 64) -> dict:
+    """[ranks] (a)-(d) for ``run_ranks``: (a) the tensor-parallel
+    fused_bnn at every projection of bnn-lm-100m (q, k, v, o, gate, up,
+    down) at tp = 2 ((1, 2) mesh) and 4 ((1, 4)) bit-equal to one rank's
+    kernel; (b) prefill logits over (1, 2) and (2, 2) against one rank
+    (``ranks_prefill``); (c) the engine over (2, 2) serves phase 3's 16
+    prompts, 64 new, greedy and sampled: tokens equal the one-rank
+    engine's (served here first, on the same seeded weights), every rank
+    the same at every step; (d) printed: backend and cards, per-rank
+    peak memory, the collectives a decode step, tokens/s beside the
+    one-rank run and the host's launch us.  ``cfg``: bnn-lm-100m at
+    SERVE_LAYERS layers (``smoke``: reduced width on the CPU, a
+    rehearsal).  The report returns the engine runs' launches, summed
+    over the ranks."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import transformer as M
     from repro_torch.serving import Engine, EngineConfig
     t0 = time.perf_counter()
     if cfg is None:
         cfg = get_config("bnn-lm-100m").replace(precision="bnn")
-        if smoke:
-            cfg = reduced(cfg)
+        cfg = reduced(cfg) if smoke else cfg.replace(n_layers=SERVE_LAYERS)
     if ecfg is None:
         ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
                             prefill_chunk=128, max_model_len=1024,
                             **NO_PREFIX)
-    if params is None:
-        params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
-                        device=dev)
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                    device=dev)
     prompts = traffic(cfg.vocab)
-    ref = {}
+    ref, one_rank_st = {}, None
     for sampled in (False, True):
-        if not sampled and want is not None:
-            ref[sampled] = [list(w) for w in want]
-            continue
         eng = Engine(params, cfg, ecfg, device=dev)
         t1 = time.perf_counter()
         ref[sampled] = ranks_schedule(
             eng, prompts, max_new, serve_sampling if sampled else None)
         _sync(dev)
         st = eng.stats()
-        if one_rank_st is None and not sampled:
+        if not sampled:
             one_rank_st = st
-        log(f"[ranks] one rank {'sampled' if sampled else 'greedy'}: "
+        log(f"[ranks] {cfg.name} {cfg.n_layers} layers, one rank "
+            f"{'sampled' if sampled else 'greedy'}: "
             f"total_tokens_per_s={st['total_tokens_per_s']:.1f} "
             f"wall_s={time.perf_counter() - t1:.3f}")
         del eng
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     launch_us = host_launch_us(dev)
-    worlds = ((2, [(1, 2)], [(1, 2)], None, True),
-              (4, [(1, 4)], [(2, 2)], (2, 2), False))
-    engine_launches = {k.name: 0 for k in ops.KERNELS}
-    for size, gemm, pre, eng_shape, probe in worlds:
-        t1 = time.perf_counter()
-        recs = spawn_ranks(ranks_worker, size, cfg, ecfg, prompts, max_new,
-                           gemm, pre, eng_shape, probe,
-                           device=dev.type, timeout_s=900)
-        r0 = recs[0]
-        log(f"[ranks] world of {size}: backend {r0['backend']}, ranks on "
-            f"{sorted({r['device'] for r in recs})}, "
-            f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} "
-            f"card(s); {time.perf_counter() - t1:.1f} s")
-        for shape, n in r0["gemms"].items():
-            log(f"[ranks] (a) mesh {shape}: fused_bnn bit-equal to one "
-                f"rank at {n} projection x rows cases (tp {shape[1]})")
-        for shape, pr in r0["prefill"].items():
-            log(f"[ranks] (b) mesh {shape}: prefill logits "
-                f"{'bit-equal' if pr['bit_equal'] else 'not bit-equal'} "
-                f"to one rank (max |diff| {pr['max_abs_diff']:.3e}, "
-                f"largest logit {pr['max_abs_logit']:.3f}); every "
-                "projection input and layer output bit-equal")
-        if "gloo_cuda" in r0:
-            log(f"[ranks] gloo on CUDA tensors: {json.dumps(r0['gloo_cuda'])}")
-        if eng_shape is None:
-            continue
-        for i, tag in enumerate(("greedy", "sampled")):
-            for r, rec in enumerate(recs):
-                if rec["engine"]["runs"][i]["tokens"] != ref[i == 1]:
-                    got = rec["engine"]["runs"][i]["tokens"]
-                    bad = [b for b in range(len(got)) if got[b] != ref[i == 1][b]]
-                    raise AssertionError(
-                        f"[ranks] (c) mesh {eng_shape} {tag} rank {r}: "
-                        f"requests {bad} differ from the one-rank engine")
-            run0 = r0["engine"]["runs"][i]
-            for rec in recs:
-                for k, v in rec["engine"]["runs"][i]["launches"].items():
-                    engine_launches[k] += v
-            for name in SERVING_KERNELS:
-                if dev.type == "cuda" and any(
-                        rec["engine"]["runs"][i]["launches"][name] <= 0
-                        for rec in recs):
-                    raise AssertionError(f"[ranks] (c) {tag}: {name} never "
-                                         "launched on a rank")
-            peaks = [rec["engine"]["runs"][i]["peak_bytes"] / 2 ** 30
-                     for rec in recs]
-            per_step = _median_counts(run0["decode_collectives"])
-            log(f"[ranks] (c) mesh {eng_shape} {tag}: tokens equal the "
-                f"one-rank engine's on all {size} ranks "
-                f"({len(prompts)} requests x {max_new} new)")
-            log(f"[ranks] (d) {tag}: total_tokens_per_s="
-                f"{run0['total_tokens_per_s']:.1f} (one rank "
-                f"{one_rank_st['total_tokens_per_s']:.1f}) "
-                f"decode_tokens_per_s={run0['decode_tokens_per_s']:.1f} "
-                f"steps={run0['steps']} wall_s={run0['wall_s']:.3f} "
-                f"host_launch_us={launch_us:.2f}; peak GiB per rank "
-                f"{[round(p, 3) for p in peaks]}; a decode step (median "
-                f"of {len(run0['decode_collectives'])}): "
-                f"{json.dumps(per_step)}, a DTensor wrap "
-                f"{r0['engine']['wrap_us']:.1f} us; {smi}")
-    log(f"[ranks] launches {json.dumps(engine_launches)}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    return engine_launches
+    worlds = {2: ([(1, 2)], [(1, 2)], None, True),
+              4: ([(1, 4)], [(2, 2)], (2, 2), False)}
+
+    def report(recs_by_size: dict) -> dict:
+        engine_launches = {k.name: 0 for k in ops.KERNELS}
+        for size, (_gemm, _pre, eng_shape, _probe) in worlds.items():
+            recs = recs_by_size[size]
+            r0 = recs[0]
+            for shape, n in r0["gemms"].items():
+                log(f"[ranks] (a) mesh {shape}: fused_bnn bit-equal to one "
+                    f"rank at {n} projection x rows cases (tp {shape[1]})")
+            for shape, pr in r0["prefill"].items():
+                log(f"[ranks] (b) mesh {shape}: prefill logits "
+                    f"{'bit-equal' if pr['bit_equal'] else 'not bit-equal'} "
+                    f"to one rank (max |diff| {pr['max_abs_diff']:.3e}, "
+                    f"largest logit {pr['max_abs_logit']:.3f}); every "
+                    "projection input and layer output bit-equal")
+            if "gloo_cuda" in r0:
+                log(f"[ranks] gloo on CUDA tensors: "
+                    f"{json.dumps(r0['gloo_cuda'])}")
+            if eng_shape is None:
+                continue
+            for i, tag in enumerate(("greedy", "sampled")):
+                for r, rec in enumerate(recs):
+                    if rec["engine"]["runs"][i]["tokens"] != ref[i == 1]:
+                        got = rec["engine"]["runs"][i]["tokens"]
+                        bad = [b for b in range(len(got))
+                               if got[b] != ref[i == 1][b]]
+                        raise AssertionError(
+                            f"[ranks] (c) mesh {eng_shape} {tag} rank {r}: "
+                            f"requests {bad} differ from the one-rank engine")
+                run0 = r0["engine"]["runs"][i]
+                for rec in recs:
+                    for k, v in rec["engine"]["runs"][i]["launches"].items():
+                        engine_launches[k] += v
+                for name in SERVING_KERNELS:
+                    if dev.type == "cuda" and any(
+                            rec["engine"]["runs"][i]["launches"][name] <= 0
+                            for rec in recs):
+                        raise AssertionError(f"[ranks] (c) {tag}: {name} "
+                                             "never launched on a rank")
+                peaks = [rec["engine"]["runs"][i]["peak_bytes"] / 2 ** 30
+                         for rec in recs]
+                per_step = _median_counts(run0["decode_collectives"])
+                log(f"[ranks] (c) mesh {eng_shape} {tag}: tokens equal the "
+                    f"one-rank engine's on all {size} ranks "
+                    f"({len(prompts)} requests x {max_new} new, "
+                    f"{cfg.n_layers} layers)")
+                log(f"[ranks] (d) {tag}: total_tokens_per_s="
+                    f"{run0['total_tokens_per_s']:.1f} (one rank "
+                    f"{one_rank_st['total_tokens_per_s']:.1f}) "
+                    f"decode_tokens_per_s={run0['decode_tokens_per_s']:.1f} "
+                    f"steps={run0['steps']} wall_s={run0['wall_s']:.3f} "
+                    f"host_launch_us={launch_us:.2f}; peak GiB per rank "
+                    f"{[round(p, 3) for p in peaks]}; a decode step (median "
+                    f"of {len(run0['decode_collectives'])}): "
+                    f"{json.dumps(per_step)}, a DTensor wrap "
+                    f"{r0['engine']['wrap_us']:.1f} us; {smi}")
+        log(f"[ranks] (a)-(d) launches {json.dumps(engine_launches)}; "
+            f"{time.perf_counter() - t0:.1f} s since its one-rank runs")
+        return engine_launches
+    return {"parts": {size: (ranks_worker, (cfg, ecfg, prompts, max_new,
+                                            *w))
+                      for size, w in worlds.items()},
+            "report": report}
+
+
+def phase_ranks(dev, smi: str, cfg=None, ecfg=None, smoke: bool = False,
+                max_new: int = 64) -> dict:
+    """[ranks] (a)-(d) alone (``ranks_prep``)."""
+    return run_ranks(dev, [ranks_prep(dev, smi, cfg, ecfg, smoke,
+                                      max_new)])[0]
 
 
 # ------------------------------------------------- [ranks] (e)-(f): families
 #
-# mixtral-8x7b and deepseek-v2-lite at published width and the smoke's
-# 4 layers (phase 7's cut) over (data, model) meshes of spawned ranks:
+# mixtral-8x7b and deepseek-v2-lite at published width and
+# RANKS_FAMILY_LAYERS layers over (data, model) meshes of spawned ranks:
 # expert-parallel MoE, GQA over the sliding-window ring and MLA on a
 # rank's heads.  Each rank draws the family's seeded weights in
 # transformer.init's order and keeps its slices one layer at a time
@@ -1805,7 +1895,10 @@ RANKS_FAMILIES = {
     "deepseek-v2-lite-16b": dict(prefill=[(1, 2), (2, 2)], engine=(2, 2),
                                  rows=8, tokens=256, decode=4, seed=42),
 }
-RANKS_FAMILY_LAYERS = 4
+# the families' depth over ranks: 4 layers until [ranks] (i)-(j) took its
+# ~100 s, 2 since (a dense and a MoE layer for deepseek, two MoE layers
+# for mixtral); the smoke's time limit leaves no more
+RANKS_FAMILY_LAYERS = 2
 RANKS_FAMILY_NEW = 32
 # deepseek's dense first layer's down projection over 4 ranks: K slices
 # of 10944 / 4 = 2736 = 85.5 words (the row-parallel pad correction)
@@ -1823,7 +1916,7 @@ RANKS_SSM = {
     # 4 decode steps at B = 8; (h) over (2, 2)
     "mamba2-1.3b": dict(prefill=[(1, 2), (2, 2)], engine=(2, 2), rows=8,
                         tokens=512, chunk=512, decode=4, seed=43,
-                        layers=8),
+                        layers=2),      # 8, then 4, until the smoke's time
     # the jamba window (published layers 2-4: ssm, gqa + moe, ssm) over
     # (1, 2): 24 GiB of weights a rank, its 12 GiB expert stacks drawn by
     # one rank at a time (``init_on_ranks``: ranks sharing a card)
@@ -2167,21 +2260,20 @@ FAMILY_KERNELS = {"mixtral-8x7b": ("fused_bnn", "paged_attention_ring",
                                            "binarize_pack")}
 
 
-def phase_ranks_families(dev, smi: str, smoke: bool = False,
-                         families=None, part_words=RANKS_PART_WORDS
-                         ) -> dict[str, dict[str, int]]:
+def families_prep(dev, smi: str, smoke: bool = False, families=None,
+                  part_words=RANKS_PART_WORDS) -> dict:
     """[ranks] (e)-(f) of ``families`` (RANKS_FAMILIES; RANKS_SSM gives
-    (g)-(h); module docstring): the one-rank references (their weights
-    freed), then a world of 2 ranks and one of 4, each running the
-    families' jobs on its meshes ((e)-(f): (e) over (1, 2) for both
+    (g)-(h); module docstring) for ``run_ranks``: the one-rank
+    references (their weights freed), then the families' jobs in a
+    world of 2 ranks and one of 4 ((e)-(f): (e) over (1, 2) for both
     families; (f) for mixtral over (1, 4); (e) and (f) for deepseek over
     (2, 2); ``part_words``: a row-parallel GEMM on part words over
-    (1, 4)).  ``smoke``: reduced width on the CPU (a rehearsal).
-    Returns the launches of each family's runs over ranks, summed over
-    the ranks."""
+    (1, 4)).  ``smoke``: reduced width on the CPU (a rehearsal).  The
+    report returns the launches of each family's runs over ranks,
+    summed over the ranks."""
     import shutil
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import rank_weight_bytes, spawn_ranks
+    from repro_torch.launch.mesh import rank_weight_bytes
     families = RANKS_FAMILIES if families is None else families
     t0 = time.perf_counter()
     refs = {}
@@ -2203,39 +2295,551 @@ def phase_ranks_families(dev, smi: str, smoke: bool = False,
                 else None})
     if part_words:
         worlds[4][0]["part_words"] = ((1, 4), part_words)
-    paths = {f"ranks_{a.split('-')[0]}": {k.name: 0 for k in ops.KERNELS}
-             for a in families}
-    try:
-        for size, jobs in worlds.items():
-            if not jobs:
-                continue
-            for job in jobs:
-                cfg = job["ref"]["cfg"]
-                for s in dict.fromkeys(job["prefill"] + [job["engine"]]):
-                    if s is None:
-                        continue
+    worlds = {size: jobs for size, jobs in worlds.items() if jobs}
+    for jobs in worlds.values():
+        for job in jobs:
+            cfg = job["ref"]["cfg"]
+            for s in dict.fromkeys(job["prefill"] + [job["engine"]]):
+                if s is not None:
                     log_weight_bytes(cfg, s, rank_weight_bytes(cfg, s))
-            t1 = time.perf_counter()
-            recs = spawn_ranks(ranks_family_worker, size, jobs,
-                               device=dev.type, timeout_s=900)
-            log(f"[ranks] {', '.join(families)}, world of {size}: "
-                f"{time.perf_counter() - t1:.1f} s")
+
+    def report(recs_by_size: dict) -> dict:
+        paths = {f"ranks_{a.split('-')[0]}": {k.name: 0 for k in ops.KERNELS}
+                 for a in families}
+        for size, jobs in worlds.items():
+            recs = recs_by_size[size]
             for j, job in enumerate(jobs):
                 report_family_job(job, [r[j] for r in recs], paths, smi,
                                   dev)
-    finally:
+        for arch in families:
+            need = FAMILY_KERNELS[arch]
+            got = paths[f"ranks_{arch.split('-')[0]}"]
+            missing = [k for k in need if got.get(k, 0) <= 0]
+            if dev.type == "cuda" and missing:
+                raise AssertionError(f"[ranks] {arch}: {missing} never "
+                                     "launched over ranks")
+        log(f"[ranks] {', '.join(families)} launches {json.dumps(paths)}; "
+            f"{time.perf_counter() - t0:.1f} s since the one-rank runs")
+        return paths
+
+    def cleanup():
         for ref in refs.values():
             shutil.rmtree(ref["tmp"], ignore_errors=True)
-    for arch in families:
-        need = FAMILY_KERNELS[arch]
-        got = paths[f"ranks_{arch.split('-')[0]}"]
-        missing = [k for k in need if got.get(k, 0) <= 0]
-        if dev.type == "cuda" and missing:
-            raise AssertionError(f"[ranks] {arch}: {missing} never launched "
-                                 "over ranks")
-    log(f"[ranks] {', '.join(families)} launches {json.dumps(paths)}; "
+    return {"parts": {size: (ranks_family_worker, (jobs,))
+                      for size, jobs in worlds.items()},
+            "report": report, "cleanup": cleanup}
+
+
+def phase_ranks_families(dev, smi: str, smoke: bool = False,
+                         families=None, part_words=RANKS_PART_WORDS
+                         ) -> dict[str, dict[str, int]]:
+    """[ranks] (e)-(h) alone (``families_prep``)."""
+    return run_ranks(dev, [families_prep(dev, smi, smoke, families,
+                                         part_words)])[0]
+
+
+# ------------------------------------------------- [ranks] (i)-(j): training
+#
+# bnn-lm-100m at published width (RANKS_TRAIN_LAYERS of its 12 layers)
+# trained at "bnn_train" over a
+# (2, 2) mesh of spawned ranks (FSDP: the params placed by the train
+# rules, each layer gathered over "data" at its use and again on the
+# remat recompute; the collectives differentiable, dist/spmd.py), held
+# to one rank's run of the same weights on the card; then the trained
+# shards re-placed by the decode rules and served over the mesh through
+# the kernels, held bit-equal to one rank's engine on the gathered
+# weights.
+
+RANKS_TRAIN = dict(seq_len=256, global_batch=8, microbatches=2, steps=3,
+                   lr=1e-3)
+RANKS_TRAIN_SMOKE = dict(RANKS_TRAIN, seq_len=32)   # the CPU rehearsal
+# (i)'s depth: 6 of bnn-lm-100m's 12 layers at its published width (the
+# whole smoke took 1186.6-1368.3 s on slow hosts with 12: PERF.md, PR 29)
+RANKS_TRAIN_LAYERS = 6
+RANKS_TRAIN_SHAPE = (2, 2)
+# the CPU tests' bounds (tests/_torch_ranks_train.py)
+RANKS_TRAIN_LOSS_REL = 1e-5      # step 0's loss and gradient norm
+RANKS_TRAIN_GRAD_REL = 1e-5      # each leaf, of its largest |element|
+RANKS_TRAIN_PARAM = dict(rtol=5e-3, atol=1e-4)   # after the steps, lr 1e-3
+RANKS_TRAIN_SERVE = dict(n=8, new=16, prompt_lens=(64, 256))
+
+
+def train_step_collectives(cfg, sizes, shape) -> dict:
+    """One (i) step's collectives on a rank of the ``shape`` (data,
+    model) mesh by kind, calls and the bytes sent into them, predicted
+    from the dense tied ``cfg``'s param shapes under the FSDP train rules
+    and the step's structure (``launch/steps``, remat on, ``dist/spmd``'s
+    backward convention), a microbatch at a time: a leaf cut over
+    ``data`` is gathered at each use (a layer's again on the recompute)
+    and its gradient reduce-scattered back; a row-parallel weight is
+    gathered over ``model`` too for its alpha's value
+    (``ops._train_alpha``), without a gradient; the loss gathers the tied
+    head whole, over ``model`` then ``data``; a row-parallel STE GEMM (o,
+    down) all-reduces its product and its alpha forward, on the
+    recompute and backward; the vocab-parallel lookup all-reduces the
+    microbatch's embeddings forward and backward; the loss its sum and
+    count forward and the sum's gradient; a leaf held whole over a mesh
+    dim all-reduces its gradient there.  Then the update's norm: a
+    stack of sums a group of leaves cut alike, a collective a cut dim."""
+    import collections
+    import types
+    from repro_torch.dist import sharding as S
+    from repro_torch.layers.common import logical_to_pspec
+    from repro_torch.models import transformer as M
+    if set(M.layer_plan(cfg)) != {("gqa", "dense")} or \
+            not cfg.tie_embeddings:
+        raise ValueError("train_step_collectives: dense tied configs only")
+    size = {"data": shape[0], "model": shape[1]}
+    rules = S.rules_train(False, fsdp=True)
+    g = sizes["microbatches"]
+    mb_tokens = sizes["global_batch"] // g * sizes["seq_len"]
+    rows = mb_tokens // size["data"]           # a rank's tokens
+    d, f4 = cfg.d_model, 4
+    out: collections.Counter = collections.Counter()
+    groups: collections.Counter = collections.Counter()
+
+    def add(kind, n, nbytes):
+        out[kind] += n
+        out[kind + "_bytes"] += n * nbytes
+
+    def leaf(axes, t, in_layer):
+        spec = logical_to_pspec(tuple(axes), rules, tuple(t.shape),
+                                types.SimpleNamespace(shape=size))
+        local, cut = list(t.shape), set()
+        for i, e in enumerate(spec):
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                local[i] //= size[a]
+                cut.add(a)
+        nbytes = math.prod(local) * f4
+        groups[tuple(a for a in size if a in cut)] += 1
+        if "data" in cut:
+            add("all_gather", g * (2 if in_layer else 1), nbytes)
+            add("reduce_scatter", g, nbytes * size["data"])
+        if in_layer and len(spec) == 2 and spec[0] == "model":
+            # a row-parallel weight's alpha: one rank's mean over the
+            # whole K, gathered over "model" (forward and recompute)
+            add("all_gather", 2 * g, nbytes * size["data"])
+        for a in size:
+            if a not in cut and size[a] > 1:
+                add("all_reduce", g, nbytes)
+        return t
+    params = M.trainable(M.abstract_init(cfg), cfg)
+    for key, specs in M.param_specs(cfg).items():
+        S.map_specs(lambda a, t: leaf(a, t, key == "layers"), specs,
+                    params[key])
+    b_e = params["embed"]["w"].numel() * f4 // (size["data"] * size["model"])
+    add("all_gather", g, b_e)
+    add("all_gather", g, b_e * size["model"])
+    add("reduce_scatter", g, b_e * size["model"] * size["data"])
+    add("reduce_scatter", g, b_e * size["model"])
+    n_row = 3 * g * 2 * cfg.n_layers
+    add("all_reduce", n_row, rows * d * f4)
+    add("all_reduce", n_row, d * f4)
+    add("all_reduce", 2 * g, mb_tokens * d * f4)
+    add("all_reduce", 3 * g, f4)
+    for cut, n in groups.items():
+        add("all_reduce", len(cut), n * f4)
+    return dict(out)
+
+
+def ranks_train_reference(dev, cfg, sizes, path: str, smoke: bool) -> dict:
+    """(i)'s one rank on ``dev``: step 0's ``value_and_grad`` on batch 0
+    (loss, gradient norm, every gradient, every BNN projection's input),
+    then ``launch.train`` for the steps from the same weights, with the
+    phase's microbatches and with one (the spread of a run that only
+    rounds otherwise): each step's metrics and ms.  The tensors go to
+    ``path`` (on the host) for the ranks; the rest is returned."""
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_tensors
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train, train_init
+    from repro_torch.optim.optimizer import global_norm
+    params = train_init(cfg, dev, 0)
+    data = SyntheticLM(DataConfig(cfg.vocab, sizes["seq_len"],
+                                  sizes["global_batch"], seed=0))
+    with projection_inputs() as inputs:
+        loss, _, grads = steps.value_and_grad(
+            params, cfg, to_tensors(data.batch(0), dev),
+            loss_chunk=min(512, sizes["seq_len"]), remat=False)
+    ref = {"loss": float(loss), "grad_norm": float(global_norm(grads))}
+    torch.save({"grads": T.map_(lambda g: g.cpu(), grads),
+                "inputs": [x.cpu() for x in inputs]}, path)
+    del grads
+    kw = dict(smoke=smoke, steps=sizes["steps"],
+              global_batch=sizes["global_batch"], seq_len=sizes["seq_len"],
+              lr=sizes["lr"], precision="bnn_train", device=dev,
+              log_every=10 ** 6)
+    metrics, step_ms, mb1 = [], [], []
+    train(TRAIN_ARCH, microbatches=1, params=train_init(cfg, dev, 0),
+          metrics=mb1, **kw)
+    train(TRAIN_ARCH, microbatches=sizes["microbatches"], params=params,
+          metrics=metrics, step_ms=step_ms, **kw)
+    return {**ref, "metrics": metrics, "step_ms": step_ms, "mb1": mb1}
+
+
+def ranks_train_last_step(dev, cfg, sizes, ckpt_dir: str) -> dict:
+    """(i)'s last step taken again by one rank on ``dev`` from the
+    state the mesh's ``launch.train`` checkpointed before it (whole:
+    params, m, v, the step): its metrics and the elements of the params
+    after it beyond ``RANKS_TRAIN_PARAM`` of the mesh's checkpoint
+    after it."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_tensors
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import adamw_config, train_init
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import optimizer as opt
+    last = sizes["steps"] - 1
+    ocfg = adamw_config(sizes["lr"], sizes["steps"])
+    like = train_init(cfg, dev, 0)
+    tree = M.trainable(like, cfg)
+    mgr = CheckpointManager(ckpt_dir, keep=2)
+    (before, state), at = mgr.restore((tree, opt.init(ocfg, tree)), last)
+    (after, _), _ = mgr.restore((tree, state), last + 1)
+    del like, tree
+    params = dict(before)
+    if cfg.tie_embeddings:
+        params["head"] = {"w": params["embed"]["w"].t()}
+    data = SyntheticLM(DataConfig(cfg.vocab, sizes["seq_len"],
+                                  sizes["global_batch"], seed=0))
+    _, state, m = steps.build_train_step(
+        cfg, ocfg, microbatches=sizes["microbatches"],
+        loss_chunk=min(512, sizes["seq_len"]))(
+        params, state, to_tensors(data.batch(last), dev))
+    tol = RANKS_TRAIN_PARAM
+    misses = sum(int(((p - w).abs() > tol["atol"] + tol["rtol"] * w.abs())
+                     .sum()) for p, w in zip(T.leaves(M.trainable(params, cfg)),
+                                             T.leaves(after), strict=True))
+    return {"step": at, "misses": misses,
+            **{k: float(v) for k, v in m.items()}}
+
+
+def _leaf_errors(tree, want, dev) -> tuple[dict[str, float], list[str]]:
+    """Each DTensor leaf of ``tree`` gathered whole against the same
+    leaf of ``want`` (host tensors): {path: the largest |diff| over the
+    leaf's largest |element|}, and the leaves all zeros where
+    ``want``'s is not."""
+    from repro_torch import tree as T
+    from repro_torch.dist import spmd
+    errs, zero = {}, []
+    for path, g, w in zip(T.paths(tree), T.leaves(tree), T.leaves(want),
+                          strict=True):
+        gw, w = spmd.full(g).float(), w.to(dev).float()
+        errs[path] = float((gw - w).abs().max() /
+                           w.abs().max().clamp_min(1e-30))
+        if not gw.any() and w.any():
+            zero.append(path)
+    return errs, zero
+
+
+def _input_flips(seen, want, dev) -> list[dict]:
+    """Every BNN projection's input over the mesh (``seen``, gathered
+    whole) against one rank's (``want``, in call order): bit-equal or
+    not, the largest |diff|, the STE sign flips and the farthest flip
+    from zero in units of its row's RMS."""
+    out = []
+    for xa, xb in zip(seen, want, strict=True):
+        xa, xb = xa.float(), xb.to(dev).float()
+        flip = (xa >= 0) != (xb >= 0)
+        rms = xb.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+        far = float(((torch.maximum(xa.abs(), xb.abs()) / rms) * flip).max())
+        out.append({"equal": bool(torch.equal(xa, xb)),
+                    "max_diff": float((xa - xb).abs().max()),
+                    "flips": int(flip.sum()), "far": far})
+    return out
+
+
+class _StepCollectives(list):
+    """``launch.train``'s ``metrics`` list that also takes
+    ``spmd.COLLECTIVES`` as each step's metrics arrive (before any
+    checkpoint of that step)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen: list[dict] = []
+
+    def append(self, m):
+        from repro_torch.dist import spmd
+        self.seen.append(dict(spmd.COLLECTIVES))
+        super().append(m)
+
+    def of_step(self, i: int) -> dict:
+        """Step ``i``'s collectives (the counts since step ``i - 1``)."""
+        before = self.seen[i - 1] if i else {}
+        return {k: v - before.get(k, 0) for k, v in self.seen[i].items()}
+
+
+def ranks_train_worker(world, cfg, sizes, shape, ref_path, ckpt_dir,
+                       prompts, ecfg, smoke):
+    """One rank of (i)-(j) (module docstring, [ranks]): the seeded
+    weights drawn and kept by the train rules (``init_on_ranks``); step
+    0's gradients and projection inputs against one rank's
+    (``ref_path``); ``launch.train``'s steps over the mesh, a checkpoint
+    into ``ckpt_dir`` before the last and after it; the trained shards
+    re-placed by the decode rules and served by the engine over the
+    mesh (every rank's tokens compared at every step), then, on rank 0,
+    by one rank's engine on the gathered weights."""
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_tensors
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_on_ranks
+    from repro_torch.launch.train import train
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    from repro_torch.optim.optimizer import global_norm
+    from repro_torch.serving import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, on_card = world.device, world.device.type == "cuda"
+    mesh = _ranks_mesh(world, shape)
+    rules = S.train_rules_of(mesh)
+    ref = torch.load(ref_path, mmap=True, weights_only=False)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_on_ranks(torch.Generator(device=dev).manual_seed(0), cfg,
+                           mesh, device=dev, rules=rules)
+    rec = {"init_s": time.perf_counter() - t0, "weight_bytes": sum(
+        spmd.local(v).numel() * spmd.local(v).element_size()
+        for v in T.leaves(M.trainable(params, cfg)))}
+    data = SyntheticLM(DataConfig(cfg.vocab, sizes["seq_len"],
+                                  sizes["global_batch"], seed=0))
+    chunk = min(512, sizes["seq_len"])
+    with C.sharding_context(mesh, rules), \
+            projection_inputs(spmd.full) as inputs:
+        loss, _, grads = steps.value_and_grad(
+            params, cfg, to_tensors(data.batch(0), dev), loss_chunk=chunk,
+            remat=False)
+    with C.sharding_context(mesh, rules):
+        rec["grad_norm"] = float(global_norm(grads))
+    rec["loss"] = float(loss)
+    rec["grad_errs"], rec["zero_grads"] = _leaf_errors(grads, ref["grads"],
+                                                       dev)
+    rec["inputs"] = _input_flips(inputs, ref["inputs"], dev)
+    del grads, inputs
+    metrics, step_ms = _StepCollectives(), []
+    spmd.COLLECTIVES.clear()
+    train(TRAIN_ARCH, smoke=smoke, steps=sizes["steps"],
+          global_batch=sizes["global_batch"], seq_len=sizes["seq_len"],
+          microbatches=sizes["microbatches"], lr=sizes["lr"],
+          precision="bnn_train", device=dev, params=params, mesh=mesh,
+          metrics=metrics, step_ms=step_ms, log_every=10 ** 6,
+          ckpt_dir=ckpt_dir, ckpt_every=sizes["steps"] - 1)
+    rec["step_collectives"] = metrics.of_step(1)   # no checkpoint in it
+    rec.update(metrics=list(metrics), step_ms=step_ms,
+               train_peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                                 if on_card else 0))
+    # (j): the trained shards under the decode rules, served over the mesh
+    bnn = cfg.replace(precision="bnn")
+    served = S.replace_params(params, bnn, mesh, S.decode_rules_of(mesh))
+    del params
+    gc.collect()
+    ops.reset_launches()
+    eng = Engine(served, bnn, ecfg, device=dev, mesh=mesh, check_ranks=True)
+    rids = [eng.submit(p, RANKS_TRAIN_SERVE["new"]) for p in prompts]
+    t1 = time.perf_counter()
+    got = eng.run()
+    _sync(dev)
+    rec["serve_s"] = time.perf_counter() - t1
+    rec["tokens"] = [got[r].tolist() for r in rids]
+    rec["launches"] = {k.name: k.launches for k in ops.KERNELS}
+    del eng
+    whole = S.gather_tree(served)
+    del served
+    if world.rank == 0:
+        eng = Engine(whole, bnn, ecfg, device=dev)
+        rids = [eng.submit(p, RANKS_TRAIN_SERVE["new"]) for p in prompts]
+        got = eng.run()
+        rec["one_rank_tokens"] = [got[r].tolist() for r in rids]
+        del eng
+    del whole
+    return rec
+
+
+def train_ranks_prep(dev, smi: str, smoke: bool = False) -> dict:
+    """[ranks] (i)-(j) (module docstring) for ``run_ranks``: one rank's
+    reference run on ``dev`` (freed before the ranks start), then a
+    world of 4 ranks trains over (2, 2) and serves the trained weights.
+    ``smoke``: reduced width on the CPU (a rehearsal).  The report
+    returns (j)'s launches, summed over the ranks."""
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch.mesh import rank_weight_bytes
+    from repro_torch.serving import EngineConfig
+    t0 = time.perf_counter()
+    cfg = configs.get_config(TRAIN_ARCH).replace(precision="bnn_train")
+    cfg = reduced(cfg) if smoke else cfg.replace(n_layers=RANKS_TRAIN_LAYERS)
+    sizes = RANKS_TRAIN_SMOKE if smoke else RANKS_TRAIN
+    shape = RANKS_TRAIN_SHAPE
+    size = shape[0] * shape[1]
+    b = rank_weight_bytes(cfg, shape, train=True)
+    log(f"[ranks] (i) {cfg.name} precision={cfg.precision} d_model="
+        f"{cfg.d_model} layers={cfg.n_layers} vocab={cfg.vocab} over "
+        f"{shape}: batch {sizes['global_batch']} x {sizes['seq_len']}, "
+        f"microbatches {sizes['microbatches']}, remat on, {sizes['steps']} "
+        f"steps at lr {sizes['lr']}; reckoned a rank keeps "
+        f"{b['rank'] / 2 ** 30:.3f} GiB of params, "
+        f"{b['train'] / 2 ** 30:.3f} GiB with m, v and the gradients "
+        f"(whole model {b['whole'] / 2 ** 30:.3f} GiB, x 4 "
+        f"{4 * b['whole'] / 2 ** 30:.3f}); {smi}")
+    sv = RANKS_TRAIN_SERVE
+    prompts = traffic(cfg.vocab, sv["n"], sv["prompt_lens"], seed=6)
+    ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
+                        prefill_chunk=128,
+                        max_model_len=sv["prompt_lens"][1] + sv["new"],
+                        **NO_PREFIX)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_train_")
+    try:
+        path = f"{tmp}/ref.pt"
+        one = ranks_train_reference(dev, cfg, sizes, path, smoke)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[ranks] (i) one rank's reference run: "
         f"{time.perf_counter() - t0:.1f} s")
-    return paths
+    return {"parts": {size: (ranks_train_worker,
+                             (cfg, sizes, shape, path, f"{tmp}/ckpt",
+                              prompts, ecfg, smoke))},
+            "report": functools.partial(
+                ranks_train_report, dev, smi, cfg, sizes, shape, one, b,
+                f"{tmp}/ckpt"),
+            "cleanup": lambda: shutil.rmtree(tmp, ignore_errors=True)}
+
+
+def phase_ranks_train(dev, smi: str, smoke: bool = False) -> dict:
+    """[ranks] (i)-(j) alone (``train_ranks_prep``)."""
+    return run_ranks(dev, [train_ranks_prep(dev, smi, smoke)])[0]
+
+
+def ranks_train_report(dev, smi, cfg, sizes, shape, one, b, ckpt_dir,
+                       recs_by_size) -> dict:
+    """(i)-(j)'s gates and lines from the ranks' records (rank order)
+    and one rank's reference run ``one``: the last step again on one
+    rank from the mesh's checkpoint in ``ckpt_dir``, then every gate."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    size = shape[0] * shape[1]
+    tokens = sizes["global_batch"] * sizes["seq_len"]
+    sv = RANKS_TRAIN_SERVE
+    recs = recs_by_size[size]
+    last = ranks_train_last_step(dev, cfg, sizes, ckpt_dir)
+    log(f"[ranks] (i)-(j) draws {[round(r['init_s'], 1) for r in recs]} s; "
+        f"the last step again on one rank {time.perf_counter() - t0:.1f} s")
+    r0 = recs[0]
+    worst = sorted(r0["grad_errs"].items(), key=lambda kv: -kv[1])
+    ins = r0["inputs"]
+    log(f"[ranks] (i) step 0's BNN projection inputs over the mesh against "
+        f"one rank's: {sum(x['equal'] for x in ins)} of {len(ins)} "
+        f"bit-equal (first differing: "
+        f"{next((i for i, x in enumerate(ins) if not x['equal']), None)}), "
+        f"largest |diff| {max(x['max_diff'] for x in ins):.3g}, STE sign "
+        f"flips {sum(x['flips'] for x in ins)} (farthest "
+        f"{max(x['far'] for x in ins):.3g} x its row's RMS); gradients: "
+        f"worst leaves {[(k, float(f'{v:.3g}')) for k, v in worst[:6]]}, "
+        f"{sum(v > RANKS_TRAIN_GRAD_REL for v in r0['grad_errs'].values())} "
+        f"of {len(worst)} beyond {RANKS_TRAIN_GRAD_REL}")
+    log(f"[ranks] (i) per projection (equal, max |diff|, flips): " +
+        " ".join(f"{i}:{int(x['equal'])},{x['max_diff']:.2g},{x['flips']}"
+                 for i, x in enumerate(ins)))
+    fails = []
+    for r, rec in enumerate(recs):
+        loss_rel = abs(rec["loss"] - one["loss"]) / abs(one["loss"])
+        norm_rel = abs(rec["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        err = max(rec["grad_errs"].values())
+        if loss_rel > RANKS_TRAIN_LOSS_REL or norm_rel > RANKS_TRAIN_LOSS_REL \
+                or err > RANKS_TRAIN_GRAD_REL or rec["zero_grads"]:
+            fails.append(
+                f"[ranks] (i) rank {r} step 0 against one rank: loss rel "
+                f"{loss_rel:.3g}, grad norm rel {norm_rel:.3g}, worst leaf "
+                f"{err:.3g}, all-zero gradients {rec['zero_grads']}")
+        m0 = rec["metrics"][0]
+        if abs(m0["loss"] - one["metrics"][0]["loss"]) > \
+                RANKS_TRAIN_LOSS_REL * abs(one["metrics"][0]["loss"]) or \
+                abs(m0["grad_norm"] - one["metrics"][0]["grad_norm"]) > \
+                RANKS_TRAIN_LOSS_REL * one["metrics"][0]["grad_norm"]:
+            fails.append(f"[ranks] (i) rank {r}: launch.train's first step "
+                         f"{m0} against one rank's {one['metrics'][0]}")
+        if rec["tokens"] != r0["one_rank_tokens"]:
+            got = rec["tokens"]
+            bad = [i for i in range(len(got))
+                   if got[i] != r0["one_rank_tokens"][i]]
+            fails.append(f"[ranks] (j) rank {r}: requests {bad} "
+                         "differ from one rank's engine")
+    log(f"[ranks] (i) step 0 against one rank (all {size} ranks): loss "
+        f"{r0['loss']:.7f} / {one['loss']:.7f}, grad norm "
+        f"{r0['grad_norm']:.7f} / {one['grad_norm']:.7f}, worst leaf "
+        f"{worst[0][0]} within {worst[0][1]:.3g} of its largest "
+        f"element (gate {RANKS_TRAIN_GRAD_REL}); all-zero gradients "
+        f"{r0['zero_grads']}")
+    def losses(ms):
+        return " ".join(f"{m['loss']:.6f}" for m in ms)
+
+    def norms(ms):
+        return " ".join(f"{m['grad_norm']:.6f}" for m in ms)
+    log(f"[ranks] (i) {sizes['steps']} free steps of launch.train: losses "
+        f"{losses(r0['metrics'])} over the mesh, {losses(one['metrics'])} "
+        f"one rank, {losses(one['mb1'])} one rank at microbatches 1; grad "
+        f"norms {norms(r0['metrics'])} / {norms(one['metrics'])} / "
+        f"{norms(one['mb1'])}")
+    lm = r0["metrics"][-1]
+    rel = {k: abs(last[k] - lm[k]) / abs(lm[k])
+           for k in ("loss", "grad_norm", "lr")}
+    log(f"[ranks] (i) the last step (step {last['step']}) again on one rank "
+        f"from the mesh's checkpoint before it: loss {last['loss']:.7f} / "
+        f"{lm['loss']:.7f}, grad norm {last['grad_norm']:.7f} / "
+        f"{lm['grad_norm']:.7f}, lr rel {rel['lr']:.3g}; {last['misses']} "
+        f"parameter elements beyond rtol {RANKS_TRAIN_PARAM['rtol']} atol "
+        f"{RANKS_TRAIN_PARAM['atol']} of the mesh's checkpoint after it")
+    if rel["loss"] > RANKS_TRAIN_LOSS_REL or \
+            rel["grad_norm"] > RANKS_TRAIN_LOSS_REL or rel["lr"] > 1e-6 or \
+            last["misses"]:
+        fails.append(f"[ranks] (i) the last step on one rank from the mesh's "
+                     f"checkpoint: {rel}, {last['misses']} parameter misses")
+    peaks = [round(r["train_peak_bytes"] / 2 ** 30, 3) for r in recs]
+    kept = [round(r["weight_bytes"] / 2 ** 30, 3) for r in recs]
+    log(f"[ranks] (i) a rank keeps {kept} GiB of params (reckoned "
+        f"{b['rank'] / 2 ** 30:.3f}; with m, v, grads {b['train'] / 2 ** 30:.3f}"
+        f"), peak while training {peaks} GiB")
+    coll = {k: round(v, 1) for k, v in sorted(r0["step_collectives"].items())}
+    want = train_step_collectives(cfg, sizes, shape)
+    log(f"[ranks] (i) one step's collectives on rank 0 (launch.train's "
+        f"step 1, the update's included): {json.dumps(coll)}; "
+        f"predicted {json.dumps(dict(sorted(want.items())))}: equal "
+        f"{coll == {k: float(v) for k, v in want.items()}}")
+    # step 1: no warm-up and no checkpoint (the mesh's run saves after
+    # it, and that save's time falls in step 2's)
+    ms = r0["step_ms"][min(1, len(r0["step_ms"]) - 1)]
+    ms1 = float(np.median(one["step_ms"][1:] or one["step_ms"]))
+    log(f"[ranks] (i) step 1 {ms:.1f} ms over (2, 2) "
+        f"({[round(x, 1) for x in r0['step_ms']]}), one rank's median "
+        f"{ms1:.1f} ms "
+        f"({[round(x, 1) for x in one['step_ms']]}): training tokens/s "
+        f"{tokens / ms * 1e3:.1f} over the mesh, {tokens / ms1 * 1e3:.1f} "
+        f"on one rank ({'4 ranks on one card under gloo' if dev.type == 'cuda' and torch.cuda.device_count() < size else 'a device a rank'}); {smi}")
+    launches = {k.name: sum(r["launches"][k.name] for r in recs)
+                for k in ops.KERNELS}
+    if dev.type == "cuda":
+        for name in SERVING_KERNELS:
+            if any(r["launches"][name] <= 0 for r in recs):
+                raise AssertionError(f"[ranks] (j): {name} never launched "
+                                     "on a rank")
+    log(f"[ranks] (j) the trained weights re-placed by the decode rules and "
+        f"served over {shape}: {sv['n']} prompts x {sv['new']} new, greedy: "
+        f"every rank's tokens equal one rank's engine on the gathered "
+        f"weights: {not any('(j)' in f for f in fails)} "
+        f"({r0['serve_s']:.2f} s); launches summed over the ranks "
+        f"{json.dumps(launches)}; {time.perf_counter() - t0:.1f} s")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return launches
 
 
 def log_weight_bytes(cfg, shape, b: dict, tag: str = "[ranks]") -> None:
@@ -2823,6 +3427,25 @@ SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
 SERVE_NEW, SERVE_LATE, SERVE_LATE_AFTER = 64, 16, 8
 SERVE_STOP_ROWS, SERVE_STOP_AT = (3, 17), 10
 SERVE_LEGACY = dict(batch=4, prompt_len=128, gen=64)
+# the depth of bnn-lm-100m in [ranks] (a)-(d), [serve], [tenants],
+# [shards] and [spec]: 4 of its 12 layers at its published width (12
+# until the whole smoke outran its 1200 s on slow hosts: the host's
+# launches and gloo's waits grow with the layers); phase 3, [train] and
+# [analytic] keep all 12
+SERVE_LAYERS = 4
+
+
+def serve_setup(dev, smoke: bool = False):
+    """[serve]'s model as ``launch.serve.setup`` draws it (bnn-lm-100m,
+    precision "bnn", seed 0), cut to its first SERVE_LAYERS layers
+    (``smoke``: the reduced config, whole)."""
+    from repro_torch.launch import serve as SV
+    cfg, params = SV.setup("bnn-lm-100m", smoke=smoke, precision="bnn",
+                           seed=0, device=dev)
+    if smoke:
+        return cfg, params
+    params["layers"] = params["layers"][:SERVE_LAYERS]
+    return cfg.replace(n_layers=SERVE_LAYERS), params
 
 
 def serve_traffic(vocab: int, seed: int = 4) -> list[np.ndarray]:
@@ -2910,8 +3533,7 @@ def phase_serve(dev, smi: str, smoke: bool = False, keep=None):
     from repro_torch.launch import serve as SV
     from repro_torch.serving import EngineConfig, sample_tokens
     arch = "bnn-lm-100m"
-    cfg, params = SV.setup(arch, smoke=smoke, precision="bnn", seed=0,
-                           device=dev)
+    cfg, params = serve_setup(dev, smoke)
     cuda = dev.type == "cuda"
     prompts = serve_traffic(cfg.vocab)
     ops.reset_launches()
@@ -3119,8 +3741,7 @@ def tenants_setup(dev, smoke: bool = False, want=None) -> dict:
     (``want``, or served here under A's config)."""
     from repro_torch.launch import serve as SV
     from repro_torch.serving import EngineConfig
-    cfg, params = SV.setup("bnn-lm-100m", smoke=smoke, precision="bnn",
-                           seed=0, device=dev)
+    cfg, params = serve_setup(dev, smoke)
     prompts = serve_traffic(cfg.vocab)
     late = dict(late_after=SERVE_LATE_AFTER, n_late=SERVE_LATE)
     if want is None:
@@ -3515,23 +4136,31 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(a @ b) / den if den else float(torch.equal(a, b))
 
 
-def record_projection_inputs(params, cfg, batch, loss_chunk):
-    """The input of every BNN projection (``ops.bnn_dense``) of one
-    ``loss_fn`` forward, in call order."""
+@contextlib.contextmanager
+def projection_inputs(whole=None):
+    """A list that receives the input of every BNN projection
+    (``ops.bnn_dense``) called in the block, in call order, detached
+    (``whole``: a function of it first, the gather of a DTensor's)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as M
-    seen = []
+    seen: list = []
     inner = ops.bnn_dense
 
     def rec(x, w, **kw):
-        seen.append(x.detach())
+        seen.append((whole(x) if whole else x).detach())
         return inner(x, w, **kw)
     ops.bnn_dense = rec
     try:
-        with torch.no_grad():
-            M.loss_fn(params, cfg, batch, loss_chunk=loss_chunk)
+        yield seen
     finally:
         ops.bnn_dense = inner
+
+
+def record_projection_inputs(params, cfg, batch, loss_chunk):
+    """The input of every BNN projection of one ``loss_fn`` forward, in
+    call order."""
+    from repro_torch.models import transformer as M
+    with projection_inputs() as seen, torch.no_grad():
+        M.loss_fn(params, cfg, batch, loss_chunk=loss_chunk)
     return seen
 
 
@@ -4167,7 +4796,8 @@ def shards_setup(dev, smoke: bool = False, want=None,
     ctx = tenants_setup(dev, smoke, want)
     ctx["want_sampled"] = want_sampled
     if smoke:
-        ctx["full_cfg"] = get_config("bnn-lm-100m").replace(precision="bnn")
+        ctx["full_cfg"] = get_config("bnn-lm-100m").replace(
+            precision="bnn", n_layers=SERVE_LAYERS)
     return ctx
 
 
@@ -4886,8 +5516,7 @@ def phase_spec(dev, smi: str, smoke: bool = False):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as SV
     from repro_torch.serving import EngineConfig
-    cfg, params = SV.setup("bnn-lm-100m", smoke=smoke, precision="bnn",
-                           seed=0, device=dev)
+    cfg, params = serve_setup(dev, smoke)
     prompts = spec_traffic(cfg.vocab)
     cuda = dev.type == "cuda"
     log(f"[spec] {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers} "
@@ -5273,9 +5902,10 @@ DEEPSEEK_ENGINE = dict(block_size=16, num_blocks=1025, max_batch=8,
 MAMBA2_ENGINE = dict(max_batch=8, num_slots=6, prefill_chunk=128,
                      max_model_len=2048, **NO_PREFIX)
 # phase 7's cut of mamba2's depth (48 layers until the [ranks] (g)-(h)
-# part took its ~220 s, which the smoke's time limit does not leave
-# beside 48 layers)
-MAMBA2_PHASE_LAYERS = 16
+# part took its ~220 s, 16 until [ranks] (i)-(j) took its ~100 s, 4
+# until the whole smoke outran its 1200 s on slow hosts)
+MAMBA2_PHASE_LAYERS = 2
+PHASE7_LAYERS = 2      # mixtral's and deepseek-v2-lite's
 # jamba: 5 slots under a batch of 8 and a block pool of 256 blocks (4096
 # tokens) under 12 prompts of 16-1500 tokens: admissions wait for a slot
 # with blocks free, and find a slot but too few blocks
@@ -5520,10 +6150,12 @@ def phase_families(dev, smi: str) -> dict[str, dict[str, int]]:
             spec_paths[f"{name}_{k}"] = v
         return launches
 
+    # mixtral and deepseek at PHASE7_LAYERS (4 until [ranks] (i)-(j): the
+    # smoke's time limit)
     mixtral = family(
-        "mixtral", get_config("mixtral-8x7b").replace(precision="bnn",
-                                                      n_layers=4),
-        cut.format(4, 32), MIXTRAL_ENGINE,
+        "mixtral", get_config("mixtral-8x7b").replace(
+            precision="bnn", n_layers=PHASE7_LAYERS),
+        cut.format(PHASE7_LAYERS, 32), MIXTRAL_ENGINE,
         with_periodic(family_traffic(32000, (4400, 4700)), 32000, seed=31),
         ("fused_bnn", "paged_attention_ring", "binarize_pack"),
         lambda eng, out, _rec: [0, min(out, key=lambda r: len(out[r]))])
@@ -5531,8 +6163,8 @@ def phase_families(dev, smi: str) -> dict[str, dict[str, int]]:
                                seed=32)
     deepseek = family(
         "deepseek", get_config("deepseek-v2-lite-16b").replace(
-            precision="bnn", n_layers=4),
-        cut.format(4, 27), DEEPSEEK_ENGINE, ds_prompts,
+            precision="bnn", n_layers=PHASE7_LAYERS),
+        cut.format(PHASE7_LAYERS, 27), DEEPSEEK_ENGINE, ds_prompts,
         ("fused_bnn", "paged_attention_mla", "binarize_pack"),
         # the eight requests of its phase traffic (not the periodic two)
         lambda eng, out, _rec: [r for r in sorted(out) if r not in (4, 5)])
@@ -5606,22 +6238,19 @@ def main() -> int:
     phase_e2e(dev, cfg, params, eng, out)
     mixed_launches = serving_mixed_pairs(dev, cfg, ecfg, params, out)
     clock("serving, e2e, mixed pairs")
-    ranks_launches = phase_ranks(dev, smi, cfg, ecfg, params,
-                                 want=[out[i] for i in range(len(out))],
-                                 one_rank_st=st)
     del eng, params, out
     gc.collect()
     torch.cuda.empty_cache()
-    clock("[ranks] (a)-(d)")
-    families_ranks = phase_ranks_families(dev, smi)
+    # (a)-(j) in one world of 2 and one of 4, after every part's one-rank
+    # references (a world's spawn and its ranks' first use of the card
+    # cost 10-25 s each)
+    ranks_launches, families_ranks, train_ranks = run_ranks(dev, [
+        ranks_prep(dev, smi, cfg.replace(n_layers=SERVE_LAYERS), ecfg),
+        families_prep(dev, smi, families={**RANKS_FAMILIES, **RANKS_SSM}),
+        train_ranks_prep(dev, smi)])
     gc.collect()
     torch.cuda.empty_cache()
-    clock("[ranks] (e)-(f)")
-    ssm_ranks = phase_ranks_families(dev, smi, families=RANKS_SSM,
-                                     part_words=None)
-    gc.collect()
-    torch.cuda.empty_cache()
-    clock("[ranks] (g)-(h)")
+    clock("[ranks] (a)-(j)")
     kept = {}
     serve_launches, out_a = phase_serve(dev, smi, keep=kept)
     clock("[serve]")
@@ -5665,7 +6294,7 @@ def main() -> int:
             "pack_patches": max(rows["pack_patches"],
                                 key=lambda r: r["M"] * r["S"])}
     paths = {"serving": launches, "ranks": ranks_launches, **families_ranks,
-             **ssm_ranks, "serve": serve_launches,
+             "ranks_train": train_ranks, "serve": serve_launches,
              "tenants": tenants_launches, "shards": shards_launches,
              "train": train_launches, "analytic": analytic_launches,
              **mixed_launches,

@@ -18,6 +18,15 @@ dtype (``torch.bfloat16``) restores them bit for bit.  ``save`` copies
 every leaf to host memory on the caller's thread before it returns or
 hands the write to the async thread, so the caller may update its
 tensors in place at once.
+
+A tree of DTensors (training over a mesh: the params and moments
+placed by the train rules) is saved whole: every rank of the mesh
+gathers each leaf (``spmd.full``), the rank at the mesh's origin writes
+(at once, even with ``async_write``), and the others wait for it at a
+barrier, so the files are a one-rank checkpoint's.  ``restore`` into a
+tree of DTensors places each leaf as the tree's is (each rank keeps
+its slices), so a checkpoint written on one rank or over any mesh
+resumes on one rank or over any mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.dist import spmd
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -80,6 +90,13 @@ class CheckpointManager:
     # -- write --------------------------------------------------------------
 
     def save(self, step: int, tree) -> str:
+        mesh = spmd.mesh_of(T.leaves(tree))
+        if mesh is not None:
+            flat = _flatten(T.map_(spmd.full, tree))
+            if all(c == 0 for c in mesh.get_coordinate()):
+                self._write(step, *flat)
+            _barrier(mesh)
+            return self._path(step)
         if self.async_write:
             self.wait()
             flat = _flatten(tree)            # snapshot on the caller's thread
@@ -178,4 +195,15 @@ class CheckpointManager:
         with np.load(npz) as data:
             leaves = [_from_numpy(data[f"a{i}"], manifest["dtypes"][i], l)
                       for i, l in enumerate(like)]
+        leaves = [spmd.place(t, l.device_mesh, l.placements)
+                  if spmd.is_dtensor(l) else t for t, l in zip(leaves, like)]
         return T.unflatten(tree_like, leaves), step
+
+
+def _barrier(mesh):
+    """Every rank of ``mesh`` past this point: a barrier over each mesh
+    dim's group in turn (the mesh may hold fewer ranks than the
+    process group)."""
+    import torch.distributed as dist
+    for i in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(i))

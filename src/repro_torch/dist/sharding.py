@@ -78,6 +78,13 @@ def rules_decode(multi_pod: bool) -> dict[str, Any]:
     return r
 
 
+def train_rules_of(mesh) -> dict[str, Any]:
+    """The FSDP train rules of ``mesh``'s layout (multi-pod when it has
+    a "pod" dim): what training over it places the params by, as the
+    JAX launcher's ``rules_train(multi_pod, fsdp=True)``."""
+    return rules_train("pod" in mesh.mesh_dim_names, fsdp=True)
+
+
 def decode_rules_of(mesh) -> dict[str, Any]:
     """The decode rules of ``mesh``'s layout (multi-pod when it has a
     "pod" dim): what a serve over it places and constrains by."""
@@ -155,26 +162,46 @@ def place_tree(tree, specs, mesh, rules: dict[str, Any]):
         specs, tree)
 
 
-def place_params(params, cfg, mesh) -> dict:
+def place_params(params, cfg, mesh, rules: dict[str, Any] | None = None
+                 ) -> dict:
     """The params (whole on every rank: one seed, or one converted
     tree) as DTensors over ``mesh`` by ``transformer.param_specs`` under
-    its decode rules.  A tied head is the transpose of the placed
-    embedding, so it is vocab-sharded through it and never copied
-    (``head_matrix``)."""
+    ``rules`` (default: its decode rules; training passes
+    ``train_rules_of``, which cut ``embed`` over the data dims too).  A
+    tied head is the transpose of the placed embedding, so it is
+    sharded through it and never copied (``head_matrix``)."""
     from repro_torch.models import transformer as M
     placed = place_tree(M.trainable(params, cfg), M.param_specs(cfg), mesh,
-                        decode_rules_of(mesh))
+                        rules or decode_rules_of(mesh))
     if cfg.tie_embeddings:
         placed["head"] = {"w": spmd.transpose(placed["embed"]["w"])}
     return {k: placed[k] for k in params}
 
 
-def placed(params, cfg, mesh) -> dict:
-    """``params`` placed on ``mesh`` (``place_params``) unless they are
-    DTensors already."""
+def placed(params, cfg, mesh, rules: dict[str, Any] | None = None) -> dict:
+    """``params`` placed on ``mesh`` (``place_params``, by ``rules``)
+    unless they are DTensors already."""
     if spmd.is_dtensor(params["embed"]["w"]):
         return params
-    return place_params(params, cfg, mesh)
+    return place_params(params, cfg, mesh, rules)
+
+
+def replace_params(params, cfg, mesh, rules: dict[str, Any]) -> dict:
+    """DTensor ``params`` moved to the placements ``rules`` give them
+    (trained FSDP shards to the decode rules: gathers over the data
+    dims, exact) as new tensors; a tied head the new embedding's
+    transpose."""
+    from repro_torch.models import transformer as M
+    def move(axes, t):
+        pl = to_placements(logical_to_pspec(tuple(axes), rules,
+                                            tuple(t.shape), mesh), mesh)
+        return spmd.wrap(spmd.redistribute(t, pl).to_local().clone(), mesh,
+                         pl, t.shape)
+    with torch.no_grad():
+        out = map_specs(move, M.param_specs(cfg), M.trainable(params, cfg))
+    if cfg.tie_embeddings:
+        out["head"] = {"w": spmd.transpose(out["embed"]["w"])}
+    return {k: out[k] for k in params}
 
 
 def gather_tree(tree):

@@ -9,12 +9,12 @@ activation moves between placements (the sharding context's ``lsc``,
 the rows a pool write needs, the logits' gather) through
 ``redistribute``, and a row-parallel GEMM sums its partial products
 through ``all_reduce``; each is one collective over one mesh dim's
-process group (``all_gather`` or ``all_reduce``), counted in
-``COLLECTIVES``.  DTensor's own redistribute is not used: these two
-calls are all a step needs, each is visible here (counted, and
-ordered as the step issues it), and they run on NCCL and on ``gloo``
-alike, on a card's tensors too (ranks that share a card cannot use
-NCCL: ``launch/mesh.rank_world``).
+process group (``all_gather`` or ``all_reduce``, and in a backward
+pass ``reduce_scatter``), counted in ``COLLECTIVES``.  DTensor's own
+redistribute is not used: these calls are all a step needs, each is
+visible here (counted, and ordered as the step issues it), and they
+run on NCCL and on ``gloo`` alike, on a card's tensors too (ranks that
+share a card cannot use NCCL: ``launch/mesh.rank_world``).
 
 Placements are ``Shard(dim)`` with dim >= 0 or ``Replicate()``; no
 step makes a ``Partial`` one.  Every sharded dim divides evenly
@@ -22,6 +22,32 @@ step makes a ``Partial`` one.  Every sharded dim divides evenly
 On plain tensors every helper is the identity, so a one-rank path runs
 exactly as it did without them.  ``torch.distributed.tensor`` is
 imported only where a mesh is used (it takes a second to import).
+
+Training over a mesh differentiates through the collectives.  Where its
+input needs a gradient, each collective is a ``torch.autograd.Function``
+whose backward is its exact adjoint: ``all_reduce``'s is an all-reduce
+of the gradient, ``all_gather``'s a ``reduce_scatter`` (the gradient
+summed over the group, the rank's slice kept); a slice (``redistribute``
+to a ``Shard``, ``on_rows``' pad) is an ordinary autograd op.  The one
+convention every backward follows: the objective is the sum over the
+mesh's ranks of each rank's own loss, and each rank's loss is the
+global loss (the same number on every rank, its sums reduced over
+``data``) divided by the mesh's size (``launch/steps.value_and_grad``).
+So the gradient a rank holds of any tensor is its share of the whole,
+and the shares sum to the gradient over the ranks that hold that
+tensor: work done identically on several ranks (the head on every
+model rank, a norm over rows padded to the batch's) gets 1/W of the
+gradient on each and counts once.  A parameter held whole along a mesh
+dim (``Replicate``) is used by every rank of that dim, so its
+gradient is the all-reduce of the ranks' shares over that dim
+(``steps.value_and_grad``); a sharded one's reaches the rank whole
+through the reduce-scatters.  Without a gradient (serving, under
+``torch.no_grad``) a collective runs as before: in place, no copy.
+``gather_data`` is the FSDP gather: a parameter placed by the train
+rules (cut over ``data`` along ``embed``) gathered over the data dims
+to the placements the decode rules give it, once at each use (again on
+a remat recompute); its backward reduce-scatters the gradient back to
+the rank's FSDP shard.
 """
 from __future__ import annotations
 
@@ -39,6 +65,11 @@ COLLECTIVES: collections.Counter = collections.Counter()
 def is_dtensor(x) -> bool:
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def mesh_of(xs):
+    """The mesh of the first DTensor among ``xs`` (None: all plain)."""
+    return next((x.device_mesh for x in xs if is_dtensor(x)), None)
 
 
 def local(x):
@@ -136,23 +167,78 @@ def _count(kind: str, t: torch.Tensor):
     COLLECTIVES[kind + "_bytes"] += t.numel() * t.element_size()
 
 
-def all_reduce(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    """The sum of ``t`` over mesh dim ``dim``'s ranks (``t`` itself is
-    overwritten: pass a fresh partial result)."""
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _all_reduce(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     _count("all_reduce", t)
     t = t.contiguous()
     dist.all_reduce(t, group=mesh.get_group(dim))
     return t
 
 
-def all_gather(t: torch.Tensor, mesh, dim: int, along: int) -> torch.Tensor:
-    """Mesh dim ``dim``'s ranks' ``t``, concatenated along tensor dim
-    ``along`` in rank order."""
+def _all_gather(t: torch.Tensor, mesh, dim: int, along: int) -> torch.Tensor:
     _count("all_gather", t)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size(dim))]
     dist.all_gather(parts, t, group=mesh.get_group(dim))
     return torch.cat(parts, along)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, dim: int, along: int
+                   ) -> torch.Tensor:
+    """The sum of ``t`` over mesh dim ``dim``'s ranks, of which this
+    rank keeps its slice along tensor dim ``along`` (the slices in rank
+    order, as ``all_gather`` concatenates them): the adjoint of
+    ``all_gather``."""
+    _count("reduce_scatter", t)
+    n = mesh.size(dim)
+    x = t.movedim(along, 0).contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, x, group=mesh.get_group(dim))
+    return out.movedim(0, along)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _all_reduce(t.clone(), mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.mesh, ctx.dim), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim, along):
+        ctx.mesh, ctx.dim, ctx.along = mesh, dim, along
+        return _all_gather(t, mesh, dim, along)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.mesh, ctx.dim, ctx.along), None, None,
+                None)
+
+
+def all_reduce(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over mesh dim ``dim``'s ranks (without a
+    gradient ``t`` itself is overwritten: pass a fresh partial result;
+    with one, a new tensor whose backward all-reduces the gradient)."""
+    if _needs_grad(t):
+        return _AllReduce.apply(t, mesh, dim)
+    return _all_reduce(t, mesh, dim)
+
+
+def all_gather(t: torch.Tensor, mesh, dim: int, along: int) -> torch.Tensor:
+    """Mesh dim ``dim``'s ranks' ``t``, concatenated along tensor dim
+    ``along`` in rank order (its backward: ``reduce_scatter``)."""
+    if _needs_grad(t):
+        return _AllGather.apply(t, mesh, dim, along)
+    return _all_gather(t, mesh, dim, along)
 
 
 # --------------------------------------------------------------- placements
@@ -187,11 +273,10 @@ def redistribute(x, placements):
 def place(t: torch.Tensor, mesh, placements):
     """A DTensor of ``t`` over ``mesh``, where every rank holds the whole
     of ``t`` (weights drawn from one seed, a zeroed pool): each rank
-    keeps its slice (a copy, so the whole can be freed), and no
-    collective runs."""
+    keeps its slice (a copy, so the whole can be freed, and a rank's
+    writes reach no other: tensors handed to spawned ranks share their
+    memory), and no collective runs."""
     x = replicate(t, mesh)
-    if all(p.is_replicate() for p in placements):
-        return x
     return wrap(redistribute(x, placements).to_local().clone(), mesh,
                 placements, t.shape)
 
@@ -212,6 +297,37 @@ def whole(x, dim: int):
         return x
     return redistribute(x, [_replicate() if p.is_shard() and p.dim == dim
                             else p for p in x.placements])
+
+
+DATA_DIMS = ("pod", "data")   # the mesh dims of the batch axis
+
+
+def data_dims(mesh) -> list[int]:
+    """The mesh dims the train rules cut a parameter's ``embed`` over."""
+    return [i for i, n in enumerate(mesh.mesh_dim_names) if n in DATA_DIMS]
+
+
+def gather_data(x):
+    """A parameter placed by the train rules with its shards over the
+    data dims gathered (FSDP: module docstring), its other placements
+    kept: the placements the decode rules give it.  A plain tensor, or
+    a DTensor held whole over those dims, as it is."""
+    if not is_dtensor(x):
+        return x
+    dims = data_dims(x.device_mesh)
+    if not any(x.placements[i].is_shard() for i in dims):
+        return x
+    return redistribute(x, [_replicate() if i in dims else p
+                            for i, p in enumerate(x.placements)])
+
+
+def gather_data_tree(tree):
+    """``gather_data`` at every leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: gather_data_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_data_tree(v) for v in tree]
+    return gather_data(tree)
 
 
 def all_rows(x):

@@ -61,6 +61,15 @@ Alpha is ``mean |w|`` over the whole K, taken, as on one rank, by
 at pack time: a sum of the ranks' partial sums rounds differently
 (about 37 % of the columns of a 768 x 768 weight at tp = 2 differ in
 the last bit), and the integer path is held bit-equal to one rank.
+
+Training over a mesh ("bnn_train", "bf16") runs the same placements on
+a weight gathered over ``data`` at its use (FSDP,
+``transformer._layer``), never cached: the STE GEMM of the rank's
+shard; where K is cut the products of the signs (integers in float32,
+exact in any order) are summed over the ranks, then scaled by an alpha
+whose sum of |w| over the whole K is summed over the ranks too (within
+float rounding of one rank's, and differentiable: the collectives carry
+the gradient, ``dist/spmd``).
 """
 from __future__ import annotations
 
@@ -69,6 +78,7 @@ import weakref
 import torch
 
 from repro_torch.core import packing, xnor
+from repro_torch.core.binarize import ste_sign
 from repro_torch.dist import spmd
 from repro_torch.kernels import binarize_pack as _bp
 from repro_torch.kernels import fused_bnn as _fb
@@ -165,7 +175,14 @@ def cached_bytes(kinds: tuple[str, ...], weights=None) -> int:
 
 def cached_per_weight(w: torch.Tensor, key: tuple, make):
     """``make(w.detach())``, cached per (identity of ``w``, ``key``) and
-    recomputed when ``w._version`` moves (an in-place write)."""
+    recomputed when ``w._version`` moves (an in-place write; the
+    optimizer bumps a DTensor's, whose shard it writes).  Where autograd
+    wants ``w``'s gradient (a train step's graph) ``make(w)`` itself,
+    made anew at each use and never cached: a cached value is cut off
+    from the graph (the whole LM head, the Mamba-2 pieces gathered
+    whole, MLA's up projections over a mesh)."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return make(w)
     full = (id(w), *key)
     hit = _weight_pack_cache.get(full)
     if hit is not None and hit[0] == w._version:
@@ -237,6 +254,15 @@ def expert_alphas(w, impl: str = "auto") -> torch.Tensor:
     of the whole K) that ``expert_dense``'s partial dots are scaled by
     once summed."""
     return _pack_stack(w, resolve_impl(impl, spmd.local(w)))[1]
+
+
+def train_expert_alphas(w) -> torch.Tensor:
+    """The (E, N) alphas of a DTensor expert stack cut on K, at
+    "bnn_train": mean |w| over the whole K of each of the rank's
+    experts' columns, differentiable (``_train_alpha``)."""
+    dims = spmd.mesh_dims(w, 1)
+    return _train_alpha(spmd.local(w), w.device_mesh, dims, w.shape[1],
+                        dim=1)[:, 0]
 
 
 def pack_conv_weight(w: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
@@ -335,11 +361,55 @@ def _tp_dense(x, w, precision: str, impl: str, scale: bool):
             y = fn(x2, wp, x2.shape[-1],
                    mode="dot_scaled" if scale else "dot", alpha=alpha)
         y = y.reshape(*xl.shape[:-1], wl.shape[-1]).to(xl.dtype)
+    elif precision == "bnn_train":
+        y = _ste_partial(xl.reshape(-1, xl.shape[-1]), wl, mesh, summed,
+                         w.shape[0], scale)
+        y = y.reshape(*xl.shape[:-1], wl.shape[-1]).to(xl.dtype)
     else:
-        raise NotImplementedError(
-            f"precision {precision!r} over a mesh: training over several "
-            "ranks is ROADMAP.md queue 1, item 11b")
+        raise ValueError(f"unknown precision {precision!r}")
     return spmd.wrap(y, mesh, out, (*x.shape[:-1], w.shape[-1]))
+
+
+def _ste_partial(x2, wl, mesh, summed, k: int, scale: bool):
+    """``xnor.bnn_matmul_train`` on a rank's shard ``wl`` (K slice, N
+    columns) of a weight whose K is cut over the mesh dims ``summed``:
+    the products of the signs are summed over them (integers in float32,
+    exact in any order), then scaled by alpha = mean |w| over the whole
+    K (``_train_alpha``).  Where K is whole (a column-parallel or
+    replicated weight) exactly one rank's: a column's mean over K has
+    the same bits beside any other columns (``chip_ranks_full.py
+    --train``)."""
+    if not summed:
+        return xnor.bnn_matmul_train(x2, wl, scale=scale).float()
+    y = torch.matmul(ste_sign(x2).float(), ste_sign(wl).float())
+    for i in summed:
+        y = spmd.all_reduce(y, mesh, i)
+    if scale:
+        y = y * _train_alpha(wl, mesh, summed, k)
+    return y
+
+
+def _train_alpha(wl, mesh, summed, k: int, dim: int = 0):
+    """alpha = mean |w| over a K cut over ``summed`` (``wl``'s shard,
+    K along ``dim``), keeping the dim, with JAX's |w| derivative
+    (``xnor.abs_jax``).  Its value is one rank's: ``torch.mean`` over
+    the whole K, the shard gathered over ``summed`` without a gradient
+    (the sum of the ranks' partial sums rounds differently, and a
+    later projection's input would then flip a sign near zero: the STE
+    step is not a rounding away from one rank's any more).  Its
+    gradient is that of the ranks' partial sums, summed (the same
+    function: ``exact + (a - a.detach())`` adds exactly 0.0)."""
+    with torch.no_grad():
+        whole = wl.detach()
+        for i in reversed(summed):
+            whole = spmd.all_gather(whole, mesh, i, dim)
+        exact = torch.mean(xnor.abs_jax(whole.float()), dim=dim,
+                           keepdim=True)
+    a = torch.sum(xnor.abs_jax(wl.float()), dim=dim, keepdim=True)
+    for i in summed:
+        a = spmd.all_reduce(a, mesh, i)
+    a = a / k
+    return exact + (a - a.detach())
 
 
 def expert_dense(x: torch.Tensor, w: torch.Tensor, e: int, *,
@@ -359,11 +429,12 @@ def expert_dense(x: torch.Tensor, w: torch.Tensor, e: int, *,
     ``dot`` with the slice's own pad correction, which the caller sums
     over the ranks and scales by ``expert_alphas``."""
     k_cut = spmd.is_dtensor(w) and bool(spmd.mesh_dims(w, 1))
+    if precision == "bnn_train" and k_cut:
+        # the partial STE product; ``moe._Experts.finish`` sums it over
+        # the ranks and scales it by ``train_expert_alphas``
+        return torch.matmul(ste_sign(x).float(),
+                            ste_sign(spmd.local(w)[e]).float()).to(x.dtype)
     if precision != "bnn":      # the float matmul, the STE GEMM
-        if spmd.is_dtensor(w) and precision != "bf16":
-            raise NotImplementedError(
-                f"precision {precision!r} over a mesh: training over "
-                "several ranks is ROADMAP.md queue 1, item 11b")
         return bnn_dense(x, spmd.local(w)[e], precision=precision, impl=impl)
     impl = resolve_impl(impl, x)
     x2 = x.float().contiguous()

@@ -186,6 +186,22 @@ def make_production_mesh(*, multi_pod: bool = False,
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
+def launch_mesh(*, smoke: bool = False, multi_pod: bool = False,
+                device="cpu", mesh=None):
+    """The mesh a launcher (serve, train) runs over: ``mesh`` when given;
+    a non-smoke run under a process group, or one asked for
+    ``multi_pod``, the production mesh (``make_production_mesh``: it
+    raises unless the group has 256 ranks, 512 with ``multi_pod``), as
+    the JAX launchers build it; else None (one device, the JAX
+    package's smoke mesh)."""
+    if mesh is not None or smoke:
+        return mesh
+    if dist.is_initialized() or multi_pod:
+        return make_production_mesh(multi_pod=multi_pod,
+                                    device_type=torch.device(device).type)
+    return None
+
+
 def make_mesh_for(devices, *, multi_pod: bool = False,
                   device_type: str = "cpu"):
     """Mesh over an explicit list of ranks of the current group (the
@@ -211,9 +227,12 @@ def smoke_mesh(device="cpu"):
                                mesh_dim_names=("data", "model"))
 
 
-def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None) -> dict:
+def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None,
+                  rules=None) -> dict:
     """``transformer.init(gen, cfg, device)``'s weights placed on
-    ``mesh`` (``sharding.place_params``' placements): every rank draws
+    ``mesh`` by ``rules`` (default its decode rules, as
+    ``sharding.place_params`` places them; training passes
+    ``sharding.train_rules_of``): every rank draws
     them all, in ``init``'s order, from its own generator seeded alike,
     and keeps its slices of each piece as soon as it is drawn, so it
     holds one layer whole at a time, of a MoE layer one expert stack
@@ -223,12 +242,15 @@ def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None) -> dict:
     once, and ranks that share a card draw one after the other (a
     barrier between them), so only one rank's draw is in flight (the
     jamba window's expert stacks, 12 GiB each, beside two ranks' 24 GiB
-    of slices on one card)."""
+    of slices on one card).  They draw at once where their slices and a
+    piece drawn whole each fit in half the card side by side
+    (``_draws_crowd``): a rank's first use of the card (≈ 12 s on an
+    H100) then overlaps the others'."""
     import torch.distributed as dist
 
     from repro_torch.dist import sharding as S, spmd
     from repro_torch.models import transformer as M
-    rules = S.decode_rules_of(mesh)
+    rules = rules or S.decode_rules_of(mesh)
     on_card = device is not None and torch.device(device).type == "cuda"
 
     def place(tree, specs):
@@ -237,7 +259,9 @@ def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None) -> dict:
         if on_card:
             torch.cuda.empty_cache()
         return out
-    if not on_card or dist.get_world_size() <= torch.cuda.device_count():
+    sharing = -(-dist.get_world_size() // max(torch.cuda.device_count(), 1))
+    if not on_card or sharing == 1 or \
+            not _draws_crowd(cfg, mesh, device, sharing):
         return M.init(gen, cfg, device=device, place=place)
     params = None
     for r in range(dist.get_world_size()):
@@ -247,6 +271,28 @@ def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None) -> dict:
     return params
 
 
+def _draws_crowd(cfg, mesh, device, sharing: int) -> bool:
+    """Whether ``sharing`` ranks on one card would crowd it drawing at
+    once: each keeps at most the weights over the mesh's last (model)
+    dim and draws one piece whole at a time (a layer, of a MoE layer an
+    expert stack: ``transformer.init``'s ``place``); more than half the
+    card in all draws in turns (the jamba window's 24 GiB of slices and
+    12 GiB stacks over (1, 2))."""
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as M
+
+    def size(t):
+        return sum(v.numel() * v.element_size() for v in T.leaves(t))
+    params = M.trainable(M.abstract_init(cfg), cfg)
+    pieces = []
+    for layer in params["layers"]:
+        stacks = [v for v in T.leaves(layer) if v.ndim == 3]
+        pieces += [size(stacks[:1]), size(layer) - size(stacks)]
+    kept = size(params) / mesh.size(mesh.ndim - 1)
+    total = torch.cuda.get_device_properties(device).total_memory
+    return sharing * (kept + max(pieces)) > total / 2
+
+
 # the kinds of ``kernels/ops.cached_per_weight`` values that
 # ``rank_weight_bytes``' "cached" reckons: the whole LM head, MLA's
 # k_up/v_up columns of the rank's heads, an SSM layer's whole conv
@@ -254,9 +300,16 @@ def init_on_ranks(gen: torch.Generator, cfg, mesh, device=None) -> dict:
 CACHED_KINDS = ("whole_head", "mla_heads", "ssm_whole")
 
 
-def rank_weight_bytes(cfg, shape, names=("data", "model")) -> dict:
+def rank_weight_bytes(cfg, shape, names=("data", "model"),
+                      train: bool = False) -> dict:
     """The bytes of the weights one rank of a ``shape`` mesh keeps under
-    the decode rules (``place_params``'s placements, as the dry-run
+    the decode rules (under the FSDP train rules with ``train``:
+    ``sharding.train_rules_of``; then "train" is what a rank keeps
+    while it trains, its shards of the params, the AdamW moments m and
+    v (float32, as ``optim.optimizer.init`` makes them) and the
+    gradients, four times "rank"; the layer gathered whole over the
+    data dims at a time and the activations come on top)
+    (``place_params``'s placements, as the dry-run
     counts them: ``launch/dryrun.place`` under a fake group), beside
     the whole model's and its largest layer's (what ``init_on_ranks``
     holds whole at a time), from the configuration alone (``meta``
@@ -278,14 +331,18 @@ def rank_weight_bytes(cfg, shape, names=("data", "model")) -> dict:
         return sum(v.numel() * v.element_size() for v in T.leaves(t))
     with fake_world(math.prod(shape)):
         mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=names)
+        rules = S.train_rules_of(mesh) if train else S.decode_rules_of(mesh)
         rank, _ = dryrun.place(dryrun.Placer(mesh), M.param_specs(cfg),
-                               params, S.decode_rules_of(mesh))
+                               params, rules)
     up = sum(size(p["attn"][n]) for p in params["layers"]
              if "k_up" in p.get("attn", {}) for n in ("k_up", "v_up"))
     ssm = sum(size([p["attn"][n] for n in ("conv_w", "conv_b", "norm")])
               for p in params["layers"] if "conv_w" in p.get("attn", {}))
     head = M.head_matrix(full, cfg)
-    return {"rank": rank, "whole": size(params),
-            "cached": head.numel() * head.element_size() + up // shape[-1]
-            + ssm,
-            "largest_layer": max(size(p) for p in params["layers"])}
+    out = {"rank": rank, "whole": size(params),
+           "cached": head.numel() * head.element_size() + up // shape[-1]
+           + ssm,
+           "largest_layer": max(size(p) for p in params["layers"])}
+    if train:
+        out["train"] = 4 * rank
+    return out

@@ -65,7 +65,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.configs.base import reduced
@@ -94,12 +93,8 @@ def serving_mesh(*, smoke: bool = False, multi_pod: bool = False,
     production mesh (``make_production_mesh``: it raises unless the
     group has 256 ranks, 512 with ``multi_pod``), as the JAX CLI's
     ``_setup`` builds; else None (one device)."""
-    if mesh is not None or smoke:
-        return mesh
-    if dist.is_initialized() or multi_pod:
-        return MESH.make_production_mesh(
-            multi_pod=multi_pod, device_type=_resolve_device(device).type)
-    return None
+    return MESH.launch_mesh(smoke=smoke, multi_pod=multi_pod,
+                            device=_resolve_device(device), mesh=mesh)
 
 
 def setup(arch: str, *, smoke: bool = False, precision: str | None = None,
@@ -121,11 +116,13 @@ def setup(arch: str, *, smoke: bool = False, precision: str | None = None,
 
 
 def _model(arch, smoke, precision, seed, device, params, mesh):
-    """``setup``'s (cfg, params), or the config of the given params."""
+    """``setup``'s (cfg, params), or the config of the given params at
+    their depth (a cut of the config's, as ``launch.train`` takes it)."""
     if params is None:
         return setup(arch, smoke=smoke, precision=precision, seed=seed,
                      device=device, mesh=mesh)
-    return _config(arch, smoke, precision), params
+    cfg = _config(arch, smoke, precision)
+    return cfg.replace(n_layers=len(params["layers"])), params
 
 
 def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:

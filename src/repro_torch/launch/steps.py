@@ -88,17 +88,47 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int,
                    remat: bool):
     """(loss, metrics, grads) of ``M.loss_fn``: the loss and metrics
     detached, the gradients as a tree shaped as ``M.trainable(params,
-    cfg)``, float32 zeros for a leaf the batch never reached."""
+    cfg)``.  On one rank a leaf the batch never reached gets float32
+    zeros, as the JAX package's gradient of an unused leaf is.
+
+    Over a mesh (the params DTensors under a sharding context, the
+    batch whole on every rank) each rank differentiates its share of
+    the global loss, the loss over the mesh's size (``dist/spmd``'s
+    convention), and a leaf held whole along a mesh dim has its
+    gradient all-reduced over that dim, so every leaf's gradient is
+    the whole gradient, placed as the leaf.  A leaf without a gradient
+    raises, naming it: over a mesh a missing gradient is a graph cut by
+    a collective or a cache, not an unused leaf."""
     tree = M.trainable(params, cfg)
     leaves = T.leaves(tree)
+    mesh = spmd.mesh_of(leaves)
     with requires_grad(leaves):
         loss, metrics = M.loss_fn(params, cfg, batch, loss_chunk=loss_chunk,
                                   remat=remat)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(l) if g is None else g
-             for l, g in zip(leaves, grads)]
+        share = loss / mesh.size() if mesh is not None else loss
+        grads = torch.autograd.grad(share, leaves, allow_unused=True)
+    if mesh is None:
+        grads = [torch.zeros_like(l) if g is None else g
+                 for l, g in zip(leaves, grads)]
+    else:
+        grads = [_whole_grad(l, g, path) for l, g, path in
+                 zip(leaves, grads, T.paths(tree))]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             T.unflatten(tree, grads))
+
+
+def _whole_grad(leaf, g, path: str):
+    """A leaf's gradient over a mesh: the ranks' shares summed over the
+    mesh dims that hold the leaf whole (module ``dist/spmd``)."""
+    if g is None:
+        raise RuntimeError(f"value_and_grad: the leaf {path} got no "
+                           "gradient over the mesh")
+    mesh = leaf.device_mesh
+    gl = spmd.local(g).detach().clone()
+    for i, p in enumerate(leaf.placements):
+        if p.is_replicate() and mesh.size(i) > 1:
+            gl = spmd.all_reduce(gl, mesh, i)
+    return spmd.wrap(gl, mesh, leaf.placements, leaf.shape)
 
 
 def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
@@ -111,7 +141,11 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
     equal parts, in order; their gradients are summed in float32 and
     divided by g, and so are the losses, as the JAX package's
     ``lax.scan`` does.  Each layer is rematerialized on the backward
-    pass, as in the JAX package."""
+    pass, as in the JAX package.  Over a mesh (``value_and_grad``) the
+    batch is the global one, whole on every rank: it is split into
+    microbatches first, and each microbatch's rows are then cut over
+    ``data`` by the model's ``lsc``, so a rank's rows of microbatch i
+    are the JAX package's."""
 
     def grads_for(params, mb):
         return value_and_grad(params, cfg, mb, loss_chunk=loss_chunk,

@@ -219,8 +219,10 @@ class _Experts:
             return ye
         for i in self.dims:
             ye = spmd.all_reduce(ye, self.mesh, i)
-        if self.tp and self.precision == "bnn":
-            alpha = kops.expert_alphas(self.params["down"], impl)
+        if self.tp and self.precision in ("bnn", "bnn_train"):
+            alpha = (kops.expert_alphas(self.params["down"], impl)
+                     if self.precision == "bnn" else
+                     kops.train_expert_alphas(self.params["down"]))
             ye = ye.to(torch.float32) * alpha[experts.long()]
         return ye
 

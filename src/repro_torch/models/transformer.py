@@ -292,7 +292,7 @@ def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
     multi-threaded CPU run then differs from run to run).  Over a mesh
     the parts are taken whole (a front-end's embeddings, plain or
     DTensors, gathered) and the sequence is placed by batch."""
-    w = params["embed"]["w"]
+    w = spmd.gather_data(params["embed"]["w"])
     parts = [spmd.full(e) for e in (prefix_embeds, embeds) if e is not None]
     if tokens is not None:
         parts.append(spmd.full(_lookup(w, tokens)))
@@ -310,7 +310,10 @@ def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
 
 def _layer(p, cfg: ArchConfig, mix: str, f: str, x, positions, impl):
     """One layer over the full sequence: (x', the layer's aux loss, 0
-    without a MoE FFN)."""
+    without a MoE FFN).  Params placed by the train rules are gathered
+    over the data dims first (FSDP, ``spmd.gather_data``): inside the
+    layer's remat checkpoint, so a recompute gathers them again."""
+    p = spmd.gather_data_tree(p)
     h = C.norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
     if mix == "mla":
         y = mla.forward(p["attn"], cfg, h, positions,
@@ -346,7 +349,8 @@ def _stack(params, cfg: ArchConfig, x: torch.Tensor, *, impl: str,
         else:
             x, aux = _layer(p, cfg, mix, f, x, positions, impl)
         aux_total = aux_total + aux
-    return C.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps), aux_total
+    return C.norm(x, spmd.gather_data_tree(params["final_norm"]), cfg.norm,
+                  cfg.norm_eps), aux_total
 
 
 def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
@@ -441,14 +445,31 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
     only); the sequence is padded to a multiple of ``loss_chunk`` with
     label -1 (masked) and the logits are made one chunk at a time in
     float32, so (B, T, V) is never built whole (with ``remat`` a chunk's
-    logits are recomputed on the backward pass, not kept)."""
+    logits are recomputed on the backward pass, not kept).
+
+    Over a mesh (``batch`` whole on every rank, the params DTensors
+    under a sharding context) the rows are cut over ``data`` (the
+    ``lsc`` of ``_embed_inputs``): each rank takes the cross entropy of
+    its rows against the whole head (gathered over every mesh dim, as
+    ``apply_head`` holds it whole), and the sum of -log p and the label
+    count are summed over the data dims, so every rank's loss is the
+    global mean, as the JAX package's; the MoE aux loss is every
+    group's mean (``moe._mean_over_rows``)."""
     x = _embed_inputs(params, cfg, batch.get("tokens"), batch.get("embeds"),
                       batch.get("prefix_embeds"))
     h, aux = _stack(params, cfg, x, impl="auto", remat=remat)
     labels = batch["labels"]
+    data: list[int] = []
+    if spmd.is_dtensor(h):
+        mesh, data = h.device_mesh, spmd.mesh_dims(h, 0)
+        labels = spmd.rows(labels, h)
+        h = spmd.local(h)
+        head = (spmd.full(params["embed"]["w"]).t() if cfg.tie_embeddings
+                else spmd.full(params["head"]["w"]))
+    else:
+        head = head_matrix(params, cfg)
     t = labels.shape[1]
     h = h[:, -t:]
-    head = head_matrix(params, cfg)
     loss_chunk = min(loss_chunk, t)
     pad = (-t) % loss_chunk
     if pad:
@@ -464,6 +485,9 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
             else _chunk_nll(*args))
         tot = tot + nll
         cnt = cnt + n
+    for i in data:
+        tot = spmd.all_reduce(tot, mesh, i)
+        cnt = spmd.all_reduce(cnt, mesh, i)
     loss = tot / cnt.clamp_min(1.0)
     return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 

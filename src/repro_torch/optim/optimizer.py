@@ -9,6 +9,16 @@ the moments): a tied head, a view of the embedding, stays tied.
 
 A tree is the trainable params' (``models.transformer.trainable``):
 nested dicts and lists of tensors, walked by ``repro_torch.tree``.
+
+Over a mesh the leaves are DTensors (the params placed by the FSDP
+train rules, their gradients placed alike): the moments are DTensors
+placed as their params, ``update`` is elementwise on each rank's
+shards, and ``global_norm`` sums each leaf's squares over the mesh dims
+that cut it (a leaf held whole along a dim counts once), so the norm,
+the clip scale, the step and the learning rate are the same on every
+rank.  Writing a shard in place does not move its DTensor's
+``_version``, which the per-weight caches read
+(``kernels/ops.cached_per_weight``): ``update`` moves it.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch import tree as T
+from repro_torch.dist import spmd
 
 
 @dataclass(frozen=True)
@@ -48,10 +59,12 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: AdamWConfig, params) -> dict:
-    """Zero moments shaped as ``params``, step 0 (int32), on the params'
-    device."""
+    """Zero moments shaped as ``params`` (placed as a DTensor param),
+    step 0 (int32), on the params' device."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        z = torch.zeros(spmd.local(p).shape, dtype=cfg.moment_dtype,
+                        device=p.device)
+        return spmd.wrap_like(z, p)
     dev = T.leaves(params)[0].device
     return {"m": T.map_(zeros, params), "v": T.map_(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -74,9 +87,26 @@ def state_specs(param_specs) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves of each leaf's sum of squares,
-    float32."""
-    sums = [torch.sum(torch.square(x.float())) for x in T.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    float32.  Of DTensor leaves, each rank's sums of its shards, summed
+    over the mesh dims that cut the leaf: the leaves cut alike are
+    summed in one collective a mesh dim."""
+    groups: dict[tuple, list] = {}
+    mesh = None
+    for x in T.leaves(tree):
+        dims = ()
+        if spmd.is_dtensor(x):
+            mesh = x.device_mesh
+            dims = tuple(i for i, p in enumerate(x.placements)
+                         if p.is_shard())
+        groups.setdefault(dims, []).append(
+            torch.sum(torch.square(spmd.local(x).float())))
+    sums = []
+    for dims, part in groups.items():
+        t = torch.stack(part)
+        for i in dims:
+            t = spmd.all_reduce(t, mesh, i)
+        sums.append(t)
+    return torch.sqrt(torch.sum(torch.cat(sums)))
 
 
 @torch.no_grad()
@@ -94,9 +124,10 @@ def update(cfg: AdamWConfig, grads, state: dict, params):
     bc1 = 1 - torch.pow(torch.tensor(b1, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
 
-    for p, g, m, v in zip(T.leaves(params), T.leaves(grads),
-                          T.leaves(state["m"]), T.leaves(state["v"]),
-                          strict=True):
+    for pd, g, m, v in zip(T.leaves(params), T.leaves(grads),
+                           T.leaves(state["m"]), T.leaves(state["v"]),
+                           strict=True):
+        p, g, m, v = (spmd.local(t) for t in (pd, g, m, v))
         g = g.float() * scale
         mf = b1 * m.float() + (1 - b1) * g
         vf = b2 * v.float() + (1 - b2) * torch.square(g)
@@ -107,5 +138,7 @@ def update(cfg: AdamWConfig, grads, state: dict, params):
         p.copy_(p.float() - lr * delta)
         m.copy_(mf)
         v.copy_(vf)
+        if pd is not p:
+            torch.autograd.graph.increment_version(pd)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": state["m"], "v": state["v"], "step": step}, metrics

@@ -27,6 +27,17 @@ def leaves(tree) -> list[torch.Tensor]:
     return out
 
 
+def paths(tree, prefix: str = "") -> list[str]:
+    """Each leaf's path (``layers/0/attn/A_log``), in walk order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree)
+                for q in paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree)
+                for q in paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
 def unflatten(tree_like, values):
     """A tree of ``tree_like``'s structure holding ``values`` in walk
     order (all of them, no more)."""

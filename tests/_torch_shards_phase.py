@@ -1,7 +1,8 @@
 """The counts chip_smoke.py's ``[shards]`` phase must show on the card
 (PERF.md, PR 23's prediction): my CPU run of the phase at reduced width
 with the full width's handoff bytes and cost model
-(``chip_smoke.as_full_width``), per shard in shard order.  Admission,
+(``chip_smoke.as_full_width``: bnn-lm-100m at the phase's depth,
+``chip_smoke.SERVE_LAYERS``), per shard in shard order.  Admission,
 placement, preemption, swaps, handoffs and the transfer's parking depend
 only on the traffic's lengths and content and those sizes, so the card
 reproduces them exactly (its first run of the phase did)."""
@@ -19,14 +20,16 @@ KILL = dict(finished=[24, 0], decoded=[1586, 59], prefilled=[6753, 2720],
             rescued={"decode": 6, "queued": 6},
             swap_lost_events={"shard_lost": 12, "chain_evicted": 3})
 # greedy traced, sampled and through the front-end alike
+# (at 4 layers: at 12 the decode shards preempted 2 and 3 times over 468
+# and 463 steps, and the handoffs carried 993317600 bytes)
 PD = dict(finished=[0, 12, 12], decoded=[24, 756, 756],
-          prefilled=[9248, 0, 0], preemptions=[0, 2, 3],
-          swap_losts=[0, 0, 0], swap_outs=[24, 2, 3], steps=[81, 468, 463],
+          prefilled=[9248, 0, 0], preemptions=[0, 1, 1],
+          swap_losts=[0, 0, 0], swap_outs=[24, 1, 1], steps=[81, 443, 438],
           defers=[{"no_blocks": 62, "no_slot": 5},
-                  {"transfer_pending": 2948, "no_blocks": 101},
-                  {"transfer_pending": 2982, "no_blocks": 96}],
+                  {"transfer_pending": 2620, "no_blocks": 90},
+                  {"transfer_pending": 2669, "no_blocks": 88}],
           migrations=0, requeued_lost=0, handoffs=24,
-          handoff_bytes=993317600)
+          handoff_bytes=331141856)
 MAMBA2 = dict(finished=[0, 8], decoded=[8, 248], prefilled=[4993, 0],
               preemptions=[0, 0], swap_losts=[0, 0], swap_outs=[8, 0],
               steps=[43, 117],

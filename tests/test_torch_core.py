@@ -81,6 +81,13 @@ def test_import_hygiene_no_jax_no_repro():
         "print('SLICE17', all('repro_torch.' + m in sys.modules\n"
         "                     for m in new),\n"
         "      'torch.distributed.tensor' in sys.modules)\n"
+        "new = ('dist.spmd', 'dist.sharding', 'launch.steps',\n"
+        "       'launch.train', 'launch.mesh', 'optim.optimizer',\n"
+        "       'checkpoint.manager', 'tree')\n"
+        "print('SLICE19', all('repro_torch.' + m in sys.modules\n"
+        "                     for m in new),\n"
+        "      'torch.distributed.tensor' in sys.modules,\n"
+        "      dist.is_initialized())\n"
         "print('CFGS', sum(m.startswith('repro_torch.configs.')\n"
         "                  for m in sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -107,6 +114,10 @@ def test_import_hygiene_no_jax_no_repro():
     # MoE, MLA on a rank's heads, the head_dim fallback, the per-layer
     # placement of the weights on the ranks
     assert "SLICE17 True False" in res.stdout, res.stdout
+    # training over several ranks: the differentiable collectives, the
+    # train placements, the step, AdamW and checkpoints on shards, the
+    # launcher's mesh: DTensor only where a mesh is used, no group made
+    assert "SLICE19 True False False" in res.stdout, res.stdout
     # every config of the registry (11) and base.py: the jamba hybrid,
     # the dense and the front-end configs too
     assert int(res.stdout.split("CFGS ")[1].split()[0]) == 12, res.stdout
