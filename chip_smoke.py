@@ -292,7 +292,19 @@ Phases (each check raises, and the script then exits non-zero):
               the card (a one-rank nccl group) within 1 % of the bytes
               the card's allocations of the same bf16 tree request;
               (e) the quickstart example's VDP three ways on the card
-              agree, with xnor_popcount launched.
+              agree, with xnor_popcount launched; (f) the dry-run's
+              step record (launch/collectives.py, a step on a rank's
+              meta shards under a fake group): for [ranks] (i)'s cell
+              (6 layers, 8 x 256, 2 microbatches, float32 over (2, 2))
+              every kind's calls and sent bytes equal (i)'s measured
+              step (train_step_collectives' prediction when (i) did
+              not run); for [train]'s step (8 x 256, one microbatch,
+              float32, on a 1x1 mesh over the card) its argument +
+              temp bytes printed beside the allocator's peak of the
+              bytes requested in the same step on the same mesh,
+              their ratio (the peak less what the card held besides
+              the step's arguments) within ANALYTIC_STEP_RATIO and the
+              temp bytes within ANALYTIC_TEMP_REL.
   spec        speculative decoding (spec_k 4, spec_ngram 3) on
               bnn-lm-100m at published width through launch.serve's
               run functions: 16 requests (8 periodic prompts, a seeded
@@ -2356,6 +2368,9 @@ RANKS_TRAIN_SMOKE = dict(RANKS_TRAIN, seq_len=32)   # the CPU rehearsal
 # (i)'s depth: 6 of bnn-lm-100m's 12 layers at its published width (the
 # whole smoke took 1186.6-1368.3 s on slow hosts with 12: PERF.md, PR 29)
 RANKS_TRAIN_LAYERS = 6
+# what a phase measured that a later one holds something against: (i)'s
+# step's collectives ([analytic] (f))
+MEASURED: dict = {}
 RANKS_TRAIN_SHAPE = (2, 2)
 # the CPU tests' bounds (tests/_torch_ranks_train.py)
 RANKS_TRAIN_LOSS_REL = 1e-5      # step 0's loss and gradient norm
@@ -2809,6 +2824,8 @@ def ranks_train_report(dev, smi, cfg, sizes, shape, one, b, ckpt_dir,
         f"{b['rank'] / 2 ** 30:.3f}; with m, v, grads {b['train'] / 2 ** 30:.3f}"
         f"), peak while training {peaks} GiB")
     coll = {k: round(v, 1) for k, v in sorted(r0["step_collectives"].items())}
+    MEASURED["ranks_train_step_collectives"] = (
+        cfg, sizes, shape, dict(r0["step_collectives"]))
     want = train_step_collectives(cfg, sizes, shape)
     log(f"[ranks] (i) one step's collectives on rank 0 (launch.train's "
         f"step 1, the update's included): {json.dumps(coll)}; "
@@ -4458,6 +4475,14 @@ def phase_train(dev, smi: str, smoke: bool = False,
 
 ANALYTIC_FLOPS_REL = 0.15      # (a), (b): FlopCounterMode vs the model
 ANALYTIC_BYTES_REL = 0.01      # (d): the dry-run's bytes vs the allocator's
+# (f): the dry-run's argument + temp bytes of [train]'s step over the
+# allocator's peak of the bytes requested in it less what the card held
+# besides the step's arguments (the library's workspaces, 64 MiB alone;
+# earlier phases' caches in the whole smoke): 0.999997 on an NVIDIA H100
+# 80GB HBM3 at 700 W, the step's batch int64 on the card (16 KiB), its
+# temp bytes within 8 KiB of 1.5 GB
+ANALYTIC_STEP_RATIO = (0.999, 1.001)
+ANALYTIC_TEMP_REL = 1e-3       # (f): the temp bytes, dry-run vs the card
 ANALYTIC_DECODE_B = 8          # (c): phase 3's decode batch
 ANALYTIC_DECODE_PAST = 32      # (c): tokens decoded past each prompt
 ANALYTIC_DECODE_STEPS = 20     # (c): timed decode steps
@@ -4603,12 +4628,14 @@ def analytic_dryrun_bytes(dev) -> None:
     card's allocations of the same tree at bf16 request (the caching
     allocator's rounded block bytes printed beside them)."""
     from repro_torch import tree as T
+    from repro_torch.dist import sharding as S
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import smoke_mesh
+    params, specs = dryrun.param_tree(dryrun.configs.get_config(TRAIN_ARCH))
     with smoke_mesh(dev) as mesh:
-        res = dryrun.run_cell(TRAIN_ARCH, "train_4k", False, mesh=mesh)
-    want = res["memory"]["params_bytes"]
-    params, _specs = dryrun.param_tree(dryrun.configs.get_config(TRAIN_ARCH))
+        # run_cell's placement of train_4k's params (its step is (f)'s)
+        want, _ = dryrun.place(mesh, specs, params,
+                               S.rules_train(False, fsdp=True))
     leaves = T.leaves(params)
     if dev.type != "cuda":
         log(f"[analytic] (d) dry-run params {want} bytes on the 1x1 mesh "
@@ -4628,11 +4655,118 @@ def analytic_dryrun_bytes(dev) -> None:
         f"{rel:+.5f} relative (gate {ANALYTIC_BYTES_REL}); "
         f"{got['allocated']} in the allocator's blocks "
         f"({got['allocated'] / want - 1.0:+.5f}: its rounding and the "
-        "segment tails it does not split off); the cell's arguments "
-        f"{res['memory']['argument_size_in_bytes']} bytes")
+        "segment tails it does not split off)")
     if not abs(rel) <= ANALYTIC_BYTES_REL:
         raise AssertionError(f"[analytic] (d): {got['requested']} bytes "
                              f"allocated vs the dry-run's {want}")
+
+
+def analytic_dryrun_step(dev) -> None:
+    """(f): the dry-run's record of a training step against the card:
+    for [ranks] (i)'s cell the collectives (its step's, ``MEASURED``,
+    or the prediction), and for [train]'s step on a 1x1 mesh over
+    ``dev`` the argument + temp bytes against the allocator's peak of
+    the bytes requested while the same step runs there."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import fake_world, smoke_mesh
+    from repro_torch.launch.train import train_init
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import optimizer as opt
+    t0 = time.perf_counter()
+    rs = RANKS_TRAIN
+    with fake_world(RANKS_TRAIN_SHAPE[0] * RANKS_TRAIN_SHAPE[1]):
+        rec = dryrun.run_cell(
+            TRAIN_ARCH, ShapeCell("ranks_train", rs["seq_len"],
+                                  rs["global_batch"], "train"), False,
+            mesh=init_device_mesh("cpu", RANKS_TRAIN_SHAPE,
+                                  mesh_dim_names=("data", "model")),
+            microbatches=rs["microbatches"],
+            overrides={"n_layers": RANKS_TRAIN_LAYERS}, dtype=torch.float32)
+    cfg = dryrun.configs.get_config(TRAIN_ARCH).replace(
+        precision="bnn_train", n_layers=RANKS_TRAIN_LAYERS)
+    measured = MEASURED.get("ranks_train_step_collectives")
+    if measured is not None and measured[:3] != (cfg, rs, RANKS_TRAIN_SHAPE):
+        measured = None                 # (i) ran another cell (its smoke)
+    want = measured[3] if measured is not None else \
+        train_step_collectives(cfg, rs, RANKS_TRAIN_SHAPE)
+    want = {k: v for k, v in want.items() if v}
+    equal = rec["sent"] == want
+    jax = rec["collectives"]
+    log(f"[analytic] (f) the dry-run's step record of [ranks] (i)'s cell "
+        f"over {RANKS_TRAIN_SHAPE} (meta shards, a fake group of 4): "
+        f"{json.dumps(rec['sent'])}; "
+        f"{'(i) measured' if measured is not None else 'predicted'} "
+        f"{json.dumps(dict(sorted(want.items())))}: equal {equal}; JAX's "
+        f"record: bytes executed {jax['total_bytes_executed']}, static "
+        f"{jax['total_bytes_static']}, collective_s "
+        f"{rec['roofline']['collective_s']:.3e}")
+    if not equal:
+        raise AssertionError("[analytic] (f): the dry-run's collectives "
+                             "differ from (i)'s step")
+    cfg, sizes, data = _train_setup(dev, False)
+    cell = ShapeCell("train", sizes["seq_len"], sizes["global_batch"],
+                     "train")
+    with smoke_mesh(dev) as mesh:
+        rec = dryrun.run_cell(TRAIN_ARCH, cell, False, mesh=mesh,
+                              microbatches=1,
+                              overrides={"precision": cfg.precision},
+                              dtype=torch.float32)
+        mem = rec["memory"]
+        want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        if dev.type != "cuda":
+            log(f"[analytic] (f) dry-run [train] step: arguments "
+                f"{mem['argument_size_in_bytes']} + temp "
+                f"{mem['temp_size_in_bytes']} bytes (no allocator on "
+                f"{dev.type}); {time.perf_counter() - t0:.1f} s")
+            return
+        rules = S.train_rules_of(mesh)
+        params = S.place_params(train_init(cfg, dev), cfg, mesh, rules)
+        opt_cfg = dryrun.moment_config(cfg)
+        state = opt.init(opt_cfg, M.trainable(params, cfg))
+        batch = to_tensors(data.batch(0), dev)
+        step = steps.build_train_step(cfg, opt_cfg, microbatches=1)
+
+        def stat(name):
+            return torch.cuda.memory_stats(dev)[f"requested_bytes.all.{name}"]
+        with C.sharding_context(mesh, rules):
+            step(params, state, batch)      # builds, workspaces, caches
+            _sync(dev)
+            gc.collect()                    # what the first step left
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = stat("current")
+            step(params, state, batch)
+            _sync(dev)
+        peak = stat("peak")
+        allocated = torch.cuda.max_memory_allocated(dev)
+        args = sum(spmd.local(x).nbytes for x in T.leaves(
+            (M.trainable(params, cfg), state, batch)))
+        del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    other = base - args                 # workspaces, earlier phases
+    ratio = want / (peak - other)
+    temp_rel = mem["temp_size_in_bytes"] / (peak - base) - 1.0
+    lo, hi = ANALYTIC_STEP_RATIO
+    log(f"[analytic] (f) [train]'s step (8 x 256, microbatches 1, float32) "
+        f"on a 1x1 mesh over {dev}: the dry-run's arguments "
+        f"{mem['argument_size_in_bytes']} + temp {mem['temp_size_in_bytes']}"
+        f" = {want} bytes; the card's requested bytes before the step "
+        f"{base} (its arguments {args}, {other} besides them: the "
+        f"library's workspaces, earlier phases' caches), at its peak "
+        f"{peak} (max_memory_allocated {allocated}: the allocator's "
+        f"rounding; temp {peak - base}, the dry-run's {temp_rel:+.6f} "
+        f"relative, gate {ANALYTIC_TEMP_REL}): ratio {ratio:.6f} to the "
+        f"peak less the bytes besides (gate {lo}-{hi}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not lo <= ratio <= hi or not abs(temp_rel) <= ANALYTIC_TEMP_REL:
+        raise AssertionError(f"[analytic] (f): dry-run {want} bytes vs the "
+                             f"card's peak {peak}")
 
 
 def analytic_quickstart(dev) -> None:
@@ -4683,6 +4817,7 @@ def phase_analytic(dev, smi: str, train_step_ms: float | None = None,
     gc.collect()
     analytic_dryrun_bytes(dev)
     analytic_quickstart(dev)
+    analytic_dryrun_step(dev)
     launches = {k.name: k.launches for k in ops.KERNELS}
     log(f"[analytic] launches {json.dumps(launches)}; phase "
         f"{time.perf_counter() - t0:.1f} s")

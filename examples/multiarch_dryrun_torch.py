@@ -1,13 +1,14 @@
 """Place-and-inspect example, through the PyTorch port: pick any
 assigned architecture x shape and print its production-mesh record
-(per-device argument bytes, the analytic model's FLOPs and bytes, the
-roofline terms, every leaf's partition spec): the path the 80-cell
-dry-run (``python -m repro_torch.launch.dryrun --all --both-meshes``)
+(per-device argument, output, alias and temp bytes, the step's
+collective record, the analytic model's FLOPs and bytes, the roofline
+terms, every leaf's partition spec): the path the 80-cell dry-run
+(``python -m repro_torch.launch.dryrun --all --both-meshes``)
 automates.
 
 It runs under a fake process group of 256 (or 512) ranks and places
-``meta`` tensors, so it allocates nothing; the mesh's device type is
-the card's (``--device cpu``: the CPU's).
+and steps ``meta`` tensors, so it allocates nothing; the mesh's device
+type is the card's (``--device cpu``: the CPU's).
 
 Run:  PYTHONPATH=src python examples/multiarch_dryrun_torch.py \\
           --arch qwen1.5-0.5b --shape decode_32k [--multi-pod] [--device cpu]

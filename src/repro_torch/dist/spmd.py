@@ -48,11 +48,21 @@ rules (cut over ``data`` along ``embed``) gathered over the data dims
 to the placements the decode rules give it, once at each use (again on
 a remat recompute); its backward reduce-scatters the gradient back to
 the rank's FSDP shard.
+
+``recording`` keeps, beside the counts, each collective as an event:
+its kind, its group's size, the bytes the rank sent in, and the tags
+open where it was issued (``tagged``: the train step tags each
+microbatch, ``kernels/ops.cached_per_weight`` what it makes for its
+cache; a backward collective carries the tags of its forward).
+The dry-run reads a step's schedule from them
+(``launch/collectives.py``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import sys
+import threading
 
 import torch
 import torch.distributed as dist
@@ -60,6 +70,46 @@ import torch.distributed as dist
 # kind -> calls, and kind + "_bytes" -> bytes a rank sent into them,
 # since the process started or the caller last cleared it
 COLLECTIVES: collections.Counter = collections.Counter()
+
+
+class _Recording(threading.local):
+    def __init__(self):
+        self.lists: list[list] = []   # the open recordings' events
+        self.tags: dict = {}
+        self.paused = False
+
+
+_REC = _Recording()
+
+
+@contextlib.contextmanager
+def recording():
+    """A list that receives, while the block runs, one event a
+    collective: (kind, group size, bytes sent, the tags as a sorted
+    tuple of (name, value))."""
+    events: list = []
+    _REC.lists.append(events)
+    try:
+        yield events
+    finally:
+        _REC.lists.remove(events)
+
+
+def current_tags() -> dict:
+    """The tags open here (``tagged``)."""
+    return _REC.tags
+
+
+@contextlib.contextmanager
+def tagged(**tags):
+    """The collectives issued within the block carry ``tags`` (beside
+    the enclosing block's)."""
+    before = _REC.tags
+    _REC.tags = {**before, **tags}
+    try:
+        yield
+    finally:
+        _REC.tags = before
 
 
 def is_dtensor(x) -> bool:
@@ -162,9 +212,21 @@ def transpose(x):
 # --------------------------------------------------------------- collectives
 
 
-def _count(kind: str, t: torch.Tensor):
+def _count(kind: str, t: torch.Tensor, group: int):
+    nbytes = t.numel() * t.element_size()
     COLLECTIVES[kind] += 1
-    COLLECTIVES[kind + "_bytes"] += t.numel() * t.element_size()
+    COLLECTIVES[kind + "_bytes"] += nbytes
+    if _REC.lists and not _REC.paused:
+        event = (kind, group, nbytes, tuple(sorted(_REC.tags.items())))
+        for events in _REC.lists:
+            events.append(event)
+
+
+def _moves(t: torch.Tensor) -> bool:
+    """Whether a collective has values to move: a ``meta`` tensor (the
+    dry-run's, under a fake group) has none, so only its shape is made
+    (and the call counted)."""
+    return t.device.type != "meta"
 
 
 def _needs_grad(t: torch.Tensor) -> bool:
@@ -172,16 +234,26 @@ def _needs_grad(t: torch.Tensor) -> bool:
 
 
 def _all_reduce(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    _count("all_reduce", t)
+    _count("all_reduce", t, mesh.size(dim))
     t = t.contiguous()
-    dist.all_reduce(t, group=mesh.get_group(dim))
+    if _moves(t):
+        dist.all_reduce(t, group=mesh.get_group(dim))
     return t
 
 
 def _all_gather(t: torch.Tensor, mesh, dim: int, along: int) -> torch.Tensor:
-    _count("all_gather", t)
+    _count("all_gather", t, mesh.size(dim))
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(mesh.size(dim))]
+    n = mesh.size(dim)
+    if not _moves(t):
+        # no values to move: the parts and their concatenation as shapes
+        parts = t.new_empty((n, *t.shape))
+        shape = list(t.shape)
+        shape[along] *= n
+        out = t.new_empty(shape)
+        del parts
+        return out
+    parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=mesh.get_group(dim))
     return torch.cat(parts, along)
 
@@ -192,36 +264,40 @@ def reduce_scatter(t: torch.Tensor, mesh, dim: int, along: int
     rank keeps its slice along tensor dim ``along`` (the slices in rank
     order, as ``all_gather`` concatenates them): the adjoint of
     ``all_gather``."""
-    _count("reduce_scatter", t)
     n = mesh.size(dim)
+    _count("reduce_scatter", t, n)
     x = t.movedim(along, 0).contiguous()
     out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.reduce_scatter_tensor(out, x, group=mesh.get_group(dim))
+    if _moves(x):
+        dist.reduce_scatter_tensor(out, x, group=mesh.get_group(dim))
     return out.movedim(0, along)
 
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, dim):
-        ctx.mesh, ctx.dim = mesh, dim
+        ctx.mesh, ctx.dim, ctx.tags = mesh, dim, _REC.tags
         return _all_reduce(t.clone(), mesh, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g.clone(), ctx.mesh, ctx.dim), None, None
+        with tagged(**ctx.tags):
+            return _all_reduce(g.clone(), ctx.mesh, ctx.dim), None, None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, dim, along):
         ctx.mesh, ctx.dim, ctx.along = mesh, dim, along
+        ctx.tags = _REC.tags
         return _all_gather(t, mesh, dim, along)
 
     @staticmethod
     def backward(ctx, g):
-        return (reduce_scatter(g, ctx.mesh, ctx.dim, ctx.along), None, None,
-                None)
+        with tagged(**ctx.tags):
+            return (reduce_scatter(g, ctx.mesh, ctx.dim, ctx.along), None,
+                    None, None)
 
 
 def all_reduce(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
@@ -386,8 +462,10 @@ def shards(x, dim: int) -> int:
 def check_agree(t: torch.Tensor, mesh, what: str):
     """Raise unless every rank of ``mesh`` holds the same ``t``: along
     each mesh dim the ranks' copies are gathered and compared (a debug
-    check; its gathers are not counted in ``COLLECTIVES``)."""
-    before = COLLECTIVES.copy()
+    check; its gathers are neither counted in ``COLLECTIVES`` nor
+    recorded)."""
+    before, paused = COLLECTIVES.copy(), _REC.paused
+    _REC.paused = True
     try:
         for i in range(mesh.ndim):
             parts = all_gather(t[None], mesh, i, 0)
@@ -397,5 +475,6 @@ def check_agree(t: torch.Tensor, mesh, what: str):
                     f"{mesh.mesh_dim_names[i]!r} disagree: "
                     f"{parts.cpu().tolist()}")
     finally:
+        _REC.paused = paused
         COLLECTIVES.clear()
         COLLECTIVES.update(before)

@@ -27,7 +27,8 @@ matrix.
 
 Dispatch (``resolve_impl``) follows the tensor's device:
   impl="auto"   a CUDA tensor launches the Hopper kernel (or raises);
-                a CPU tensor takes the plain PyTorch version
+                a CPU tensor takes the plain PyTorch version, and so
+                does a ``meta`` one (the dry-run's shapes, no values)
   impl="cuda"   the Hopper kernel; raises on a CPU tensor
   impl="torch"  the plain version anywhere — an explicit request, made
                 only by the tests and chip_smoke.py to check a kernel
@@ -102,7 +103,7 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
         return "cuda"
     if impl == "cuda":
         raise ValueError(f"impl='cuda' asked for a tensor on {t.device}")
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel or plain version for device {t.device}")
     return "torch"
 
@@ -187,7 +188,8 @@ def cached_per_weight(w: torch.Tensor, key: tuple, make):
     hit = _weight_pack_cache.get(full)
     if hit is not None and hit[0] == w._version:
         return hit[1]
-    value = make(w.detach())
+    with spmd.tagged(first_use=True):     # the dry-run keeps it apart
+        value = make(w.detach())
     _packs["packs"] += 1
     if hit is None:
         # id() values recycle after gc — evict the entry with its owner

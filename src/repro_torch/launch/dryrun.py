@@ -1,22 +1,32 @@
-"""Multi-pod dry-run: place every (arch x shape x mesh) cell.
+"""Multi-pod dry-run: place and step every (arch x shape x mesh) cell.
 
 Shows that the partitioning plan is coherent without the devices:
 under a fake process group of 256 or 512 ranks (``launch/mesh.py``),
 every leaf a step takes is placed on the 16x16 single-pod mesh and the
-2x16x16 multi-pod mesh as a ``meta`` DTensor, by the train rules (FSDP)
-or the decode rules (``dist/sharding.py``): the params at bf16, the
-AdamW moments of a train cell (bf16 at ``d_model >= 4096``), the caches
-of a decode cell, the batch.  Per cell and per device it records the
-argument bytes (the counterpart of XLA's ``memory_analysis``), the
-analytic model's FLOPs and HBM bytes (``launch/analytic.py``) and its
-roofline terms, and every leaf's partition spec, into a JSON artifact.
-
-The JAX package's dry-run compiles each cell and reads its collectives
-from the optimized HLO; torch makes no HLO, and the dry-run places
-tensors without running a step, so ``"collectives"`` is null (with the
-reason) and the roofline takes no collective bytes.  (The serving
-forward does run over several ranks, ``dist/spmd.py``; counting a
-step's collectives here is ROADMAP.md queue 1, item 11c.)
+2x16x16 multi-pod mesh by the train rules (FSDP) or the decode rules
+(``dist/sharding.py``): the params at bf16, the AdamW moments of a
+train cell (bf16 at ``d_model >= 4096``), the caches of a decode cell,
+the batch.  Then the cell's own step runs on rank 0's ``meta`` shards
+of them (``step_run``: ``build_train_step`` with 8 microbatches and
+remat and the AdamW update, ``build_prefill_step``,
+``build_decode_step``): nothing is computed or allocated, and rank 0
+issues every collective a rank issues.  Per cell and per device it
+records, into a JSON artifact:
+  * ``collectives``: the step's schedule with the keys and byte meaning
+    of the JAX package's ``analyze_collectives`` (its HLO read from the
+    compiled step; here ``launch/collectives.py`` from the step's own
+    collectives, scaled to the whole depth), and ``sent``, the calls
+    and bytes a rank sends in (``dist/spmd.COLLECTIVES``' meaning);
+  * ``first_call``: what a serving step's first call gathers into the
+    per-weight caches beyond the steady step (the whole LM head, an SSM
+    layer's whole pieces, MLA's up projections), and the bytes cached;
+  * ``memory``: the keys of JAX's ``memory_summary`` (argument, output,
+    alias, temp; generated code has no counterpart, and the record says
+    why) beside the argument bytes by part;
+  * the analytic model's FLOPs and HBM bytes (``launch/analytic.py``)
+    and its roofline terms, the collective term from the step's
+    executed bytes;
+  * every leaf's partition spec.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
@@ -30,51 +40,35 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
 
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, tree as T
 from repro_torch.configs.base import SHAPES
-from repro_torch.dist import sharding as S
-from repro_torch.launch import analytic, steps as steps_mod
+from repro_torch.dist import sharding as S, spmd
+from repro_torch.kernels import ops as kops
+from repro_torch.launch import analytic, collectives as coll, \
+    mesh as MESH, steps as steps_mod
 from repro_torch.launch.mesh import (fake_world, make_production_mesh,
                                      n_devices)
+from repro_torch.layers import common as C
 from repro_torch.layers.common import logical_to_pspec, to_placements
 from repro_torch.models import transformer as M
 from repro_torch.optim import optimizer as opt_mod
 
-NO_COLLECTIVES = ("no HLO to read collectives from; the dry-run's "
-                  "collective counts come with ROADMAP.md queue 1, item "
-                  "11's dry-run part")
-
-
-class Placer:
-    """``meta`` DTensors on one mesh: one is made for each distinct
-    (shape, dtype, placements), and leaves alike share it."""
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-        self._made: dict = {}
-
-    def place(self, t: torch.Tensor, spec: tuple):
-        """The DTensor of ``t`` (a meta tensor) under partition spec
-        ``spec`` (``logical_to_pspec``)."""
-        from torch.distributed.tensor import distribute_tensor
-        placements = to_placements(spec, self.mesh)
-        key = (tuple(t.shape), t.dtype, tuple(map(repr, placements)))
-        if key not in self._made:
-            self._made[key] = distribute_tensor(
-                torch.empty(t.shape, dtype=t.dtype, device="meta"),
-                self.mesh, placements, src_data_rank=None)
-        return self._made[key]
-
-    def local_bytes(self, t: torch.Tensor, spec: tuple) -> int:
-        """Bytes of this device's shard of ``t``."""
-        local = self.place(t, spec).to_local()
-        return local.numel() * local.element_size()
+def local_shape(shape, placements, mesh) -> list[int]:
+    """A rank's shard's shape of a tensor of ``shape`` placed by
+    ``placements`` on ``mesh`` (every cut divides:
+    ``logical_to_pspec``)."""
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    return local
 
 
 def _walk(specs, tree, path=""):
@@ -96,39 +90,159 @@ def jsonable(spec: tuple) -> list:
     return [list(e) if isinstance(e, tuple) else e for e in spec]
 
 
-def place(placer: Placer, specs, tree, rules) -> tuple[int, dict]:
+def place(mesh, specs, tree, rules) -> tuple[int, dict]:
     """(this device's bytes, {path: partition spec}) of ``tree`` placed
-    by ``rules``."""
+    on ``mesh`` by ``rules``."""
     total, pspecs = 0, {}
     for path, axes, leaf in _walk(specs, tree):
-        spec = logical_to_pspec(tuple(axes), rules, tuple(leaf.shape),
-                                placer.mesh)
-        total += placer.local_bytes(leaf, spec)
+        spec = logical_to_pspec(tuple(axes), rules, tuple(leaf.shape), mesh)
+        total += math.prod(local_shape(leaf.shape, to_placements(spec, mesh),
+                                       mesh)) * leaf.element_size()
         pspecs[path] = jsonable(spec)
     return total, pspecs
 
 
-def param_tree(cfg):
-    """(bf16 ``meta`` params, their specs): the trainable tree, a tied
-    head counted once."""
+def param_tree(cfg, dtype=torch.bfloat16, trees: dict | None = None):
+    """(``meta`` params at ``dtype``, their specs): the trainable tree, a
+    tied head counted once; kept in ``trees`` by (config, dtype) where
+    it is a dict."""
+    if trees is not None and (cfg, dtype) in trees:
+        return trees[(cfg, dtype)]
     params = M.trainable(M.abstract_init(cfg), cfg)
-    return steps_mod.to_dtype_structs(params, torch.bfloat16), \
-        M.param_specs(cfg)
+    out = steps_mod.to_dtype_structs(params, dtype), M.param_specs(cfg)
+    if trees is not None:
+        trees[(cfg, dtype)] = out
+    return out
 
 
-def run_cell(arch: str, shape: str, multi_pod: bool, *, mesh=None,
-             microbatches: int = 8, overrides: dict | None = None,
+def shard_tree(mesh, specs, tree, rules):
+    """``tree``'s leaves as ``meta`` DTensors placed by ``rules``, each
+    leaf its own: the per-weight caches key on a tensor's identity, so
+    leaves alike must not share one (and a step's cache entries go with
+    its tensors, ``kernels/ops.cached_per_weight``)."""
+    def one(axes, t):
+        pl = to_placements(logical_to_pspec(tuple(axes), rules,
+                                            tuple(t.shape), mesh), mesh)
+        return spmd.wrap(torch.empty(local_shape(t.shape, pl, mesh),
+                                     dtype=t.dtype, device="meta"),
+                         mesh, pl, t.shape)
+    return S.map_specs(one, specs, tree)
+
+
+def _call(step, args, **tags) -> dict:
+    """One call of ``step(*args)``: its collectives (``spmd.recording``)
+    and its memory (``collectives.LiveBytes``): the peak of the bytes it
+    allocates ("temp"), its outputs' and, of those, the ones that are
+    arguments updated in place ("alias")."""
+    held = coll.storages(args)
+    with spmd.recording() as events, spmd.tagged(**tags), \
+            coll.LiveBytes() as live:
+        out = step(*args)
+    got = coll.storages(out)
+    return {"events": events, "temp": live.peak, "peaks": live.peaks,
+            "output": sum(got.values()),
+            "alias": sum(n for k, n in got.items() if k in held)}
+
+
+def step_run(cfg, cell, mesh, rules, microbatches: int, dtype,
              trees: dict | None = None) -> dict:
+    """One call of the cell's step on one rank's ``meta`` shards of
+    ``cfg``'s params (at ``cfg``'s depth), as ``_call`` returns it, and
+    what the per-weight caches hold after it ("cached_bytes"): a train
+    cell's ``build_train_step`` (remat on) over two microbatches of the
+    cell's (its rows split ``microbatches`` ways; one where it is not
+    split), then the AdamW update on the placed moments; a prefill
+    cell's ``build_prefill_step``; a decode cell's ``build_decode_step``
+    with the cache filled to ``seq_len - 1``, over the caches placed as
+    the port places them (``sharding.state_rules_of``).  The serving
+    steps' collectives carry ``microbatch=0``: their forward is the one
+    pass over the layers.  ``trees`` as ``param_tree``'s."""
+    params, specs = param_tree(cfg, dtype, trees)
+    p = shard_tree(mesh, specs, params, rules)
+    if cfg.tie_embeddings:
+        p["head"] = {"w": spmd.transpose(p["embed"]["w"])}
+    batch = steps_mod.input_specs(cfg, cell, compute_dtype=dtype)
+    with C.sharding_context(mesh, rules):
+        if cell.kind == "train":
+            g = min(microbatches, 2)
+            rows = cell.global_batch // microbatches * g
+            opt_cfg = moment_config(cfg)
+            state = opt_mod.abstract_state(opt_cfg, params)
+            state = {"m": shard_tree(mesh, specs, state["m"], rules),
+                     "v": shard_tree(mesh, specs, state["v"], rules),
+                     "step": state["step"]}
+            run = _call(steps_mod.build_train_step(cfg, opt_cfg,
+                                                   microbatches=g),
+                        (p, state, {k: v[:rows] for k, v in batch.items()}))
+        elif cell.kind == "prefill":
+            run = _call(steps_mod.build_prefill_step(cfg), (p, batch),
+                        microbatch=0)
+        else:
+            caches = shard_tree(
+                mesh, M.cache_specs(cfg),
+                steps_mod.cache_specs_abstract(cfg, cell, dtype),
+                S.state_rules_of(mesh))
+            run = _call(steps_mod.build_decode_step(cfg), (
+                p, caches, {"tokens": batch["tokens"],
+                            "length": cell.seq_len - 1}), microbatch=0)
+    run["cached_bytes"] = kops.cached_bytes(MESH.CACHED_KINDS, T.leaves(p))
+    return run
+
+
+def moment_config(cfg) -> opt_mod.AdamWConfig:
+    """The JAX dry-run's AdamW: bf16 moments from ``d_model`` 4096 on,
+    else float32."""
+    return opt_mod.AdamWConfig(
+        moment_dtype=torch.bfloat16 if cfg.d_model >= 4096
+        else torch.float32)
+
+
+def step_record(cfg, cell, mesh, rules, microbatches: int, dtype,
+                trees: dict | None = None) -> dict:
+    """The step's collective record and memory at ``cfg``'s whole depth,
+    scaled from runs at a and a + 1 periods of its scan segment
+    (``collectives.scale``: a = 1, or 2 where one period is one layer
+    and the depth has more), and apart from them ("first_call")
+    what the per-weight caches gather at their first use, and hold."""
+    segs = M.segments(cfg)
+    period, periods = len(segs[-1][1]), segs[-1][2]
+    # a depth of one layer peaks apart from the deeper ones
+    a = 2 if periods > 2 and cfg.first_dense + period < 2 else 1
+    runs = [step_run(cfg.replace(n_layers=cfg.first_dense + k * period),
+                     cell, mesh, rules, microbatches, dtype, trees)
+            for k in ((a, a + 1) if periods > 1 else (1,))]
+    firsts = []
+    for r in runs:
+        firsts.append({"events": [e for e in r["events"]
+                                  if ("first_use", True) in e[3]]})
+        r["events"] = [e for e in r["events"]
+                       if ("first_use", True) not in e[3]]
+    trips = microbatches if cell.kind == "train" else 1
+    entries, mem = coll.scale(runs[0], runs[-1], a, periods, trips)
+    once, _ = coll.scale(firsts[0], firsts[-1], a, periods, 1)
+    return {"collectives": coll.analyze(entries),
+            "sent": coll.sent_totals(entries), "memory": mem,
+            "first_call": {"sent": coll.sent_totals(once),
+                           "cached_bytes": coll.affine(
+                               runs[0]["cached_bytes"],
+                               runs[-1]["cached_bytes"], a, periods)}}
+
+
+def run_cell(arch: str, shape, multi_pod: bool, *, mesh=None,
+             microbatches: int = 8, overrides: dict | None = None,
+             trees: dict | None = None, dtype=torch.bfloat16) -> dict:
     """Place one cell on ``mesh`` (default: the production mesh, which
-    needs a process group of its size) and return its record.
-    ``trees``, when a dict, keeps ``param_tree``'s result by config
-    across the cells of a sweep."""
+    needs a process group of its size), run its step on this rank's
+    ``meta`` shards, and return its record.  ``shape`` is a name of
+    ``SHAPES`` or a ``ShapeCell``; ``dtype`` the params' (and the
+    activations'); ``trees``, when a dict, keeps ``param_tree``'s
+    result by config across the cells of a sweep."""
     cfg = configs.get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
-    cell = SHAPES[shape]
+    cell = SHAPES[shape] if isinstance(shape, str) else shape
     if cell.name == "long_500k" and not cfg.sub_quadratic:
-        return {"arch": arch, "shape": shape, "multi_pod": multi_pod,
+        return {"arch": arch, "shape": cell.name, "multi_pod": multi_pod,
                 "status": "skipped",
                 "reason": "full-attention arch; long_500k needs "
                           "sub-quadratic attention"}
@@ -136,46 +250,49 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *, mesh=None,
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
     n_dev = mesh.size()
-    placer = Placer(mesh)
     kind = cell.kind
     rules = (S.rules_decode(multi_pod) if kind == "decode"
              else S.rules_train(multi_pod, fsdp=(kind == "train")))
 
-    if trees is None:
-        params, specs = param_tree(cfg)
-    else:
-        if cfg not in trees:
-            trees[cfg] = param_tree(cfg)
-        params, specs = trees[cfg]
+    params, specs = param_tree(cfg, dtype, trees)
     mem = {}
-    mem["params_bytes"], pspecs_p = place(placer, specs, params, rules)
-    bspec = steps_mod.input_specs(cfg, cell)
+    mem["params_bytes"], pspecs_p = place(mesh, specs, params, rules)
+    bspec = steps_mod.input_specs(cfg, cell, compute_dtype=dtype)
     mem["batch_bytes"], pspecs_b = place(
-        placer, {k: S.batch_axes(v.ndim) for k, v in bspec.items()}, bspec,
+        mesh, {k: S.batch_axes(v.ndim) for k, v in bspec.items()}, bspec,
         rules)
     record = {"params": pspecs_p, "batch": pspecs_b}
     if kind == "train":
-        opt_cfg = opt_mod.AdamWConfig(
-            moment_dtype=torch.bfloat16 if cfg.d_model >= 4096
-            else torch.float32)
+        opt_cfg = moment_config(cfg)
         state = opt_mod.abstract_state(opt_cfg, params)
         mem["opt_state_bytes"], _ = place(
-            placer, opt_mod.state_specs(specs), state, rules)
+            mesh, opt_mod.state_specs(specs), state, rules)
         mem["moment_dtype"] = str(opt_cfg.moment_dtype)
     elif kind == "decode":
-        caches = steps_mod.cache_specs_abstract(cfg, cell)
+        caches = steps_mod.cache_specs_abstract(cfg, cell, dtype)
         mem["cache_bytes"], record["cache"] = place(
-            placer, M.cache_specs(cfg), caches, rules)
+            mesh, M.cache_specs(cfg), caches, rules)
+        # the caches as the port's decode step holds them
+        mem["step_cache_bytes"], _ = place(mesh, M.cache_specs(cfg), caches,
+                                           S.state_rules_of(mesh))
     mem["argument_size_in_bytes"] = sum(
-        v for k, v in mem.items() if k.endswith("_bytes"))
+        v for k, v in mem.items() if k.endswith("_bytes")
+        and k != "cache_bytes")
     t_place = time.perf_counter() - t0
+
+    step = step_record(cfg, cell, mesh, rules, microbatches, dtype, trees)
+    mem["output_size_in_bytes"] = step["memory"]["output"]
+    mem["alias_size_in_bytes"] = step["memory"]["alias"]
+    mem["temp_size_in_bytes"] = step["memory"]["temp"]
+    mem["generated_code_size_omitted"] = coll.NO_GENERATED_CODE
+    t_step = time.perf_counter() - t0 - t_place
 
     cm = analytic.cell_model(cfg, cell, microbatches=microbatches)
     return {
-        "arch": arch, "shape": shape, "multi_pod": multi_pod,
+        "arch": arch, "shape": cell.name, "multi_pod": multi_pod,
         "status": "ok", "kind": kind, "devices": n_dev,
         "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-        "place_s": round(t_place, 3),
+        "place_s": round(t_place, 3), "step_s": round(t_step, 3),
         "memory": mem,
         "analytic": {
             "flops_fwd": cm.flops_fwd, "flops_total": cm.flops_total,
@@ -185,9 +302,11 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *, mesh=None,
             "flops_per_device": cm.flops_total / n_dev,
             "hbm_bytes_per_device": cm.hbm_bytes / n_dev,
             **cm.notes},
-        "roofline": analytic.roofline_terms(cm, 0.0, n_dev),
-        "collectives": None,
-        "collectives_reason": NO_COLLECTIVES,
+        "roofline": analytic.roofline_terms(
+            cm, step["collectives"]["total_bytes_executed"], n_dev),
+        "collectives": step["collectives"],
+        "sent": step["sent"],
+        "first_call": step["first_call"],
         "pspecs": record,
     }
 
@@ -238,10 +357,13 @@ def main(argv=None):
                 counts[status] += 1
                 extra = ""
                 if status == "ok":
+                    mem = res["memory"]
                     extra = (f" flops/dev={res['analytic']['flops_per_device']:.3e}"
-                             f" hbm/dev={res['analytic']['hbm_bytes_per_device']:.3e}B"
-                             f" args/dev={res['memory']['argument_size_in_bytes']}B"
-                             f" place={res['place_s']}s")
+                             f" coll={res['collectives']['total_bytes_executed']:.3e}B"
+                             f" args/dev={mem['argument_size_in_bytes']}B"
+                             f" temp/dev={mem['temp_size_in_bytes']}B"
+                             f" {res['roofline']['dominant']}"
+                             f" step={res['step_s']}s")
                 print(f"[{status}] {tag}{extra}", flush=True)
     print(f"[dryrun] ok={counts['ok']} skipped={counts['skipped']} "
           f"error={counts['error']} cached={counts['cached']}")

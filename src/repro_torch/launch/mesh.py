@@ -332,8 +332,7 @@ def rank_weight_bytes(cfg, shape, names=("data", "model"),
     with fake_world(math.prod(shape)):
         mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=names)
         rules = S.train_rules_of(mesh) if train else S.decode_rules_of(mesh)
-        rank, _ = dryrun.place(dryrun.Placer(mesh), M.param_specs(cfg),
-                               params, rules)
+        rank, _ = dryrun.place(mesh, M.param_specs(cfg), params, rules)
     up = sum(size(p["attn"][n]) for p in params["layers"]
              if "k_up" in p.get("attn", {}) for n in ("k_up", "v_up"))
     ssm = sum(size([p["attn"][n] for n in ("conv_w", "conv_b", "norm")])

@@ -98,7 +98,9 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int,
     gradient all-reduced over that dim, so every leaf's gradient is
     the whole gradient, placed as the leaf.  A leaf without a gradient
     raises, naming it: over a mesh a missing gradient is a graph cut by
-    a collective or a cache, not an unused leaf."""
+    a collective or a cache, not an unused leaf; the one leaf a batch
+    may leave unused, the embedding table of a batch without tokens
+    (the audio front-end's frame embeddings), gets zeros."""
     tree = M.trainable(params, cfg)
     leaves = T.leaves(tree)
     mesh = spmd.mesh_of(leaves)
@@ -111,15 +113,19 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int,
         grads = [torch.zeros_like(l) if g is None else g
                  for l, g in zip(leaves, grads)]
     else:
-        grads = [_whole_grad(l, g, path) for l, g, path in
+        unused = {"embed/w"} if batch.get("tokens") is None else set()
+        grads = [_whole_grad(l, g, path, path in unused) for l, g, path in
                  zip(leaves, grads, T.paths(tree))]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             T.unflatten(tree, grads))
 
 
-def _whole_grad(leaf, g, path: str):
+def _whole_grad(leaf, g, path: str, unused: bool = False):
     """A leaf's gradient over a mesh: the ranks' shares summed over the
-    mesh dims that hold the leaf whole (module ``dist/spmd``)."""
+    mesh dims that hold the leaf whole (module ``dist/spmd``); zeros
+    for a leaf the batch leaves ``unused``."""
+    if g is None and unused:
+        return spmd.wrap_like(torch.zeros_like(spmd.local(leaf)), leaf)
     if g is None:
         raise RuntimeError(f"value_and_grad: the leaf {path} got no "
                            "gradient over the mesh")
@@ -129,6 +135,14 @@ def _whole_grad(leaf, g, path: str):
         if p.is_replicate() and mesh.size(i) > 1:
             gl = spmd.all_reduce(gl, mesh, i)
     return spmd.wrap(gl, mesh, leaf.placements, leaf.shape)
+
+
+def _shardwise(fn, *trees):
+    """An elementwise ``fn`` over the leaves of ``trees``, on each rank's
+    shards where they are DTensors placed alike (a gradient and its
+    sum), the result placed as the first tree's leaf."""
+    return T.map_(lambda *ts: spmd.wrap_like(fn(*map(spmd.local, ts)),
+                                             ts[0]), *trees)
 
 
 def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
@@ -145,7 +159,8 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
     batch is the global one, whole on every rank: it is split into
     microbatches first, and each microbatch's rows are then cut over
     ``data`` by the model's ``lsc``, so a rank's rows of microbatch i
-    are the JAX package's."""
+    are the JAX package's.  The collectives of microbatch i carry the
+    tag ``microbatch=i`` (``spmd.tagged``); the update's carry none."""
 
     def grads_for(params, mb):
         return value_and_grad(params, cfg, mb, loss_chunk=loss_chunk,
@@ -153,7 +168,8 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
-            loss, _, grads = grads_for(params, batch)
+            with spmd.tagged(microbatch=0):
+                loss, _, grads = grads_for(params, batch)
         else:
             g = microbatches
             rows = next(iter(batch.values())).shape[0]
@@ -165,11 +181,13 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_mod.AdamWConfig, *,
             loss = torch.zeros((), device=next(iter(batch.values())).device)
             for i in range(g):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l, _, gr = grads_for(params, mb)
-                gacc = (T.map_(lambda gg: gg.float(), gr) if gacc is None
-                        else T.map_(lambda a, gg: a + gg.float(), gacc, gr))
+                with spmd.tagged(microbatch=i):
+                    l, _, gr = grads_for(params, mb)
+                gacc = (_shardwise(lambda gg: gg.float(), gr)
+                        if gacc is None else
+                        _shardwise(lambda a, gg: a + gg.float(), gacc, gr))
                 loss = loss + l
-            grads = T.map_(lambda a: a / g, gacc)
+            grads = _shardwise(lambda a: a / g, gacc)
             loss = loss / g
         _, new_state, om = opt_mod.update(opt_cfg, grads, opt_state,
                                           M.trainable(params, cfg))

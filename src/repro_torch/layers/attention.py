@@ -10,6 +10,12 @@ rows, and explicit per-slot key positions (``k_positions``) for the
 ring-buffer caches of sliding-window models.
 
 Shapes: q (B, T, H, Dh), k/v (B, S, Hkv, Dh); H = G * Hkv.
+
+On ``meta`` tensors (the dry-run: shapes, no values) the chunk loops
+give way to one tile: ``_OneTile`` runs the first (q chunk, kv chunk)
+pair for what it allocates and returns the output's shape, as a kernel
+that holds one tile at a time would; a step's meta run then walks a
+32k-token attention in one tile's ops.
 """
 from __future__ import annotations
 
@@ -87,6 +93,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       these positions; a negative entry marks a never-written slot and
       is always masked.
     """
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len, k_positions=k_positions, q_chunk=q_chunk,
+              kv_chunk=kv_chunk)
+    if q.device.type == "meta":
+        return _OneTile.apply(q, k, v, kw)
+    return _chunked(q, k, v, **kw)
+
+
+def _chunked(q, k, v, *, causal, window, q_offset, kv_len, k_positions,
+             q_chunk, kv_chunk) -> torch.Tensor:
+    """``attention``'s chunk loops."""
     b, t, h, dh = q.shape
     s = k.shape[1]
     hkv = k.shape[2]
@@ -127,6 +144,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = l.clamp_min(1e-20)
         outs.append(o / l.permute(0, 3, 1, 2).reshape(b, q_chunk, h, 1))
     return torch.cat(outs, dim=1)[:, :t].to(q.dtype)
+
+
+def _one_tile(q, k, v, kw) -> torch.Tensor:
+    """``attention`` over the first q chunk against the first kv chunk;
+    the whole output's shape (``empty``) where that is not all of it."""
+    b, t, h, _ = q.shape
+    s = k.shape[1]
+    tq, sk = min(kw["q_chunk"], t), min(kw["kv_chunk"], s)
+    kp = kw["k_positions"]
+    o = _chunked(q[:, :tq], k[:, :sk], v[:, :sk],
+                 **{**kw, "k_positions": None if kp is None else kp[:, :sk]})
+    if (tq, sk) == (t, s):
+        return o
+    del o
+    return torch.empty((b, t, h, v.shape[3]), dtype=q.dtype, device=q.device)
+
+
+class _OneTile(torch.autograd.Function):
+    """``attention`` on ``meta`` (module docstring): forward one tile and
+    the output's shape; backward one tile again, as a flash backward
+    recomputes its tiles, and the gradients' shapes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        return _one_tile(q, k, v, kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        del g
+        _one_tile(q, k, v, ctx.kw)
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None)
 
 
 def attention_reference(q, k, v, *, causal=True, window=None, q_offset=0,

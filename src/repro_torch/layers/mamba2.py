@@ -291,8 +291,9 @@ def forward(params, cfg, x: torch.Tensor, *, chunk: int = 256,
     bsz, t, _ = xbc.shape
     h, p = heads[1], cfg.ssm_headdim
     w, b = _conv_params(params, cfg, heads)
-    xs, b_, c_ = _ssd_inputs(
-        _causal_conv(_rank_channels(xbc, cfg, heads), w, b), cfg, heads)
+    # the scan in float32, as the JAX package promotes it
+    xs, b_, c_ = (v.float() for v in _ssd_inputs(
+        _causal_conv(_rank_channels(xbc, cfg, heads), w, b), cfg, heads))
     dt_bias, a, d = _head_params(params, heads)
     dt = F.softplus(dt[..., heads[0]:heads[0] + h].float() + dt_bias)
     log_decay = dt * a[None, None, :]                          # (B,T,H)

@@ -139,8 +139,10 @@ def dispatch_tables(topk_e: torch.Tensor, n_experts: int, capacity: int):
                         device=dev)
     valid = torch.zeros(n_experts * capacity + 1, dtype=torch.bool,
                         device=dev)
-    table[slot[keep]] = token_idx[keep].to(torch.int32)
-    valid[slot[keep]] = True
+    # every choice is written, a dropped one into the spare slot, so the
+    # write has a static shape
+    table.scatter_(0, slot, token_idx.to(torch.int32))
+    valid.scatter_(0, slot, keep)
     return table[:-1], valid[:-1], slot
 
 
@@ -277,6 +279,15 @@ def _forward_tables(params, x, *, top_k, kind, capacity, groups, precision,
     return torch.cat(ys), torch.stack(auxs).mean()
 
 
+def _expert_counts(flat_e: torch.Tensor, n: int) -> list[int]:
+    """The rows routed to each of the ``n`` experts; on ``meta`` (the
+    dry-run: no values to route by) as even as they can be."""
+    if flat_e.device.type == "meta":
+        q, r = divmod(flat_e.numel(), n)
+        return [q + (e < r) for e in range(n)]
+    return torch.bincount(flat_e, minlength=n).tolist()
+
+
 def _forward_routed(params, x, *, top_k, kind, precision, impl, taps,
                     groups: int = 1, route_rows: int = 0):
     """Drop-free dispatch over the routed rows only, grouped by expert
@@ -292,7 +303,7 @@ def _forward_routed(params, x, *, top_k, kind, precision, impl, taps,
     aux = _aux_loss(probs, topk_e, groups)
     flat_e = topk_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)   # (token, choice) by expert
-    counts = torch.bincount(flat_e, minlength=probs.shape[-1]).tolist()
+    counts = _expert_counts(flat_e, probs.shape[-1])
     rows = x2d[order // top_k]
     make = torch.empty if ex.mesh is None else torch.zeros
     ye = make((flat_e.numel(), d), dtype=x.dtype, device=x.device)

@@ -360,8 +360,11 @@ def hidden_states(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     """Run the decoder stack over (B, T) tokens, or the stub front-ends'
     (B, T, d) embeddings, or both (``_embed_inputs``); returns hidden
     (B, T_total, d).  ``loss_fn`` takes the MoE aux loss too."""
-    x = _embed_inputs(params, cfg, tokens, embeds, prefix_embeds)
-    return _stack(params, cfg, x, impl=impl, remat=False)[0]
+    # the embedded input is not named here: the stack frees it after the
+    # first layer
+    return _stack(params, cfg, _embed_inputs(params, cfg, tokens, embeds,
+                                             prefix_embeds),
+                  impl=impl, remat=False)[0]
 
 
 def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,

@@ -359,7 +359,8 @@ def forward_worker(world, shapes, params, tokens, n_new, arch=ARCH,
     ``build_decode_step`` fed the prompt a token a step over the legacy
     caches, then ``n_new`` greedy tokens, and (``cli``) the serve CLI's
     paged and legacy runs over the mesh (``tokens`` the prompts,
-    ``n_new`` new)."""
+    ``n_new`` new); the collectives (``spmd.recording``) of the prefill
+    step and of the second decode step."""
     from repro_torch import tree as T
     from repro_torch.dist import sharding as S, spmd
     from repro_torch.kernels import ops
@@ -376,12 +377,18 @@ def forward_worker(world, shapes, params, tokens, n_new, arch=ARCH,
         tp = S.place_params(params, cfg, m)
         dec = steps.build_decode_step(cfg)
         caches = M.init_cache(cfg, b, t + n_new, mesh=m)
+        events = {}
         with C.sharding_context(m, rules):
             lg = M.logits_fn(tp, cfg, tok)
-            pre = steps.build_prefill_step(cfg)(tp, {"tokens": tok})
+            with spmd.recording() as events["prefill"]:
+                pre = steps.build_prefill_step(cfg)(tp, {"tokens": tok})
             cur, seq = tok[:, :1], [tok[:, :1]]
             for i in range(t + n_new - 1):
-                nxt, caches = dec(tp, caches, {"tokens": cur, "length": i})
+                with spmd.recording() as ev:
+                    nxt, caches = dec(tp, caches, {"tokens": cur,
+                                                   "length": i})
+                if i == 1:
+                    events["decode"] = ev
                 cur = tok[:, i + 1:i + 2] if i + 1 < t else \
                     nxt[:, None].long()
                 seq.append(cur)
@@ -392,6 +399,7 @@ def forward_worker(world, shapes, params, tokens, n_new, arch=ARCH,
             "placements": [str(p) for p in lg.placements],
             "prefill": spmd.full(pre),
             "decode": torch.cat(seq, dim=1),
+            "events": events,
             "serve": {engine: SV.serve(
                 arch, smoke=True, precision="bnn", gen=n_new, device="cpu",
                 engine=engine, params=params, prompts=tokens, mesh=m,

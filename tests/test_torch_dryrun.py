@@ -5,7 +5,10 @@ with no card.
 
 It records 66 cells ok and 14 skipped: JAX's ``cells_for`` runs 33 of
 the 40 arch x shape cells, on two meshes (the JAX suite's
-``test_dryrun_artifacts_exist_and_pass``).  One cell per family holds
+``test_dryrun_artifacts_exist_and_pass``).  Every ok cell carries the
+step's collective record with the keys of JAX's ``analyze_collectives``,
+its roofline's collective term from it, and the step's temp bytes.  One
+cell per family holds
 the partition specs that JAX's ``logical_to_pspec`` gives JAX's specs,
 and bytes per device that follow from them."""
 import json
@@ -24,8 +27,10 @@ from repro.configs.base import SHAPES as JSHAPES, cells_for as jcells
 from repro.dist import sharding as JS
 from repro.layers.common import logical_to_pspec as j_logical_to_pspec
 from repro.models import transformer as JM
+from repro.launch.hlo_analysis import COLLECTIVES as KINDS
 from repro_torch import configs as tconfigs
 from repro_torch.launch import dryrun
+from repro_torch.launch.analytic import LINK_BW
 from repro_torch.launch.mesh import smoke_mesh
 
 from _torch_partition import FakeMesh, flat_jax, unstack_layers
@@ -70,9 +75,18 @@ def test_sweep_counts_match_jax_cells_for(sweep):
             assert not tconfigs.get_config(a["arch"]).sub_quadratic
             continue
         assert a["devices"] == (512 if a["multi_pod"] else 256)
-        assert a["collectives"] is None and a["collectives_reason"]
-        assert a["roofline"]["collective_s"] == 0.0
-        assert a["memory"]["argument_size_in_bytes"] > 0
+        coll = a["collectives"]
+        assert set(coll) == set(KINDS) | {"total_bytes_static",
+                                          "total_bytes_executed"}
+        assert all(set(coll[k]) == {"count", "bytes_static",
+                                    "bytes_executed"} for k in KINDS)
+        assert coll["total_bytes_executed"] >= coll["total_bytes_static"] > 0
+        assert a["roofline"]["collective_s"] == \
+            coll["total_bytes_executed"] / LINK_BW
+        mem = a["memory"]
+        assert mem["argument_size_in_bytes"] > 0
+        assert mem["temp_size_in_bytes"] > 0
+        assert mem["output_size_in_bytes"] >= mem["alias_size_in_bytes"]
 
 
 def _pspec(e):

@@ -12,7 +12,13 @@ data, vocab over model).  The port's own one rank gives the same bits.
 The serving steps: ``build_prefill_step``'s last-position logits and
 ``build_decode_step``'s tokens (the prompt a token a step, then greedy)
 equal JAX's one-device steps'; the serve CLI's paged and legacy runs
-over the mesh (``mesh=``) equal its one-device runs."""
+over the mesh (``mesh=``) equal its one-device runs.  The collectives
+a rank issues in the prefill step and in a warm decode step are the
+dry-run's record of those steps for the same config, sizes and mesh
+(``launch/dryrun.run_cell`` on ``meta`` shards under a fake group)."""
+import collections
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +28,10 @@ import torch
 import _torch_ranks as H
 from repro.launch import steps as jsteps
 from repro.models import transformer as JM
+from repro_torch.configs.base import ShapeCell
 from repro_torch.interop import params_from_numpy
-from repro_torch.launch import serve as SV
+from repro_torch.launch import collectives as coll, dryrun, serve as SV
+from repro_torch.launch.mesh import fake_world
 from repro_torch.models import transformer as M
 
 torch.set_num_threads(1)
@@ -127,3 +135,33 @@ def test_serve_cli_over_a_mesh_equals_one_device(ranks, jax_one, params,
     for rec in ranks[shape]:
         for engine in ("paged", "legacy"):
             np.testing.assert_array_equal(rec["serve"][engine], want)
+
+
+@pytest.mark.parametrize("shape", list(MESHES), ids=IDS)
+def test_serving_steps_collectives_are_the_dry_runs(ranks, shape):
+    """The prefill step's and the second decode step's collectives on
+    every rank: calls and bytes sent by kind, and JAX's result bytes,
+    as the dry-run records them (its steady step: a rank's per-weight
+    caches were filled by ``logits_fn`` before)."""
+    cfg = H.port_cfg()
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    cells = {"prefill": ShapeCell("prefill", T, B, "prefill"),
+             "decode": ShapeCell("decode", T + NEW, B, "decode")}
+    with fake_world(MESHES[shape]):
+        m = H.mesh(shape)
+        recs = {k: dryrun.run_cell(H.ARCH, c, False, mesh=m, overrides=over,
+                                   dtype=torch.float32)
+                for k, c in cells.items()}
+    for kind, rec in recs.items():
+        assert rec["status"] == "ok" and rec["memory"]["temp_size_in_bytes"]
+        for r in ranks[shape]:
+            sent, result = collections.Counter(), collections.Counter()
+            for k, group, nbytes, tags in r["events"][kind]:
+                assert ("first_use", True) not in tags
+                sent[k] += 1
+                sent[k + "_bytes"] += nbytes
+                result[coll.JAX_KIND[k]] += coll.result_bytes(k, group,
+                                                              nbytes)
+            assert sent and rec["sent"] == dict(sent), kind
+            assert {k: rec["collectives"][k]["bytes_executed"]
+                    for k in coll.KINDS if result[k]} == dict(result)
