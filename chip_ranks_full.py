@@ -13,10 +13,13 @@ over RANKS_FULL_DEPTH's mesh with chip_smoke's [ranks] (f) worker (the
 weights drawn on the ranks a layer at a time), 8 prompts, 32 new each,
 greedy and sampled, and checks that every rank's tokens are equal.  The
 rows probe prints which row-wise float ops give a row other bits when
-fewer rows run beside it: why ``spmd.on_rows`` pads a data rank's rows
-to the batch's, and why the LM head runs one rank's GEMM on every rank.
-Neither is part of ``chip_smoke.py``: the first needs four cards, the
-second gates nothing.
+fewer rows (or vocab columns) run beside it: ATen's row mean and the
+library GEMMs do, which is why the norms, the router and the LM head run
+the fixed-order kernels ``row_norm`` and ``row_gemm``
+(``kernels/rowwise.py``), whose lists must be empty (the probe fails
+otherwise).  The first is not part of ``chip_smoke.py`` (it needs four
+cards); the second holds the two kernels beside the library ops it
+replaces.
 """
 from __future__ import annotations
 
@@ -36,13 +39,19 @@ from chip_smoke import (RANKS_FAMILIES, RANKS_FAMILY_NEW, _median_counts,
 
 def rows_probe(dev) -> dict[str, list[str]]:
     """Which row-wise float ops give a row other bits when fewer rows
-    run with it (why ``spmd.on_rows`` pads a data rank's rows to the
-    batch's): a row's mean of squares over the last dim (RMSNorm's) and
-    a float32 GEMM by a d x 64 matrix (the router's), at deepseek's and
-    mixtral's widths, half the rows against all of them."""
+    run with it: a row's mean of squares over the last dim (the library
+    RMSNorm's) and a float32 GEMM by a d x 64 matrix (the router's), at
+    deepseek's and mixtral's widths, half the rows against all of them,
+    and the head GEMM over half the vocab against the whole; beside
+    each, the fixed-order kernel that replaces it (``row_norm``, both
+    kinds; ``row_gemm``), whose lists must be empty."""
+    from repro_torch.kernels import rowwise as rw
     gen = torch.Generator(device=dev).manual_seed(3)
-    out: dict[str, list[str]] = {"mean": [], "gemm": [], "head": []}
+    out: dict[str, list[str]] = {"mean": [], "gemm": [], "head": [],
+                                 "row_norm": [], "row_gemm": [],
+                                 "row_gemm_head": []}
     for d in (2048, 4096):
+        scale = torch.randn(d, generator=gen, device=dev)
         for many in (2, 8, 16, 128, 1024):
             few = many // 2
             x = torch.randn(many, d, generator=gen, device=dev)
@@ -52,13 +61,29 @@ def rows_probe(dev) -> dict[str, list[str]]:
                 out["mean"].append(f"d={d} {few}/{many}")
             if not torch.equal((x @ w)[:few], x[:few] @ w):
                 out["gemm"].append(f"d={d} {few}/{many}")
+            for layer in (False, True):
+                if not torch.equal(
+                        rw.row_norm_cuda(x, scale, scale, 1e-5, layer)[:few],
+                        rw.row_norm_cuda(x[:few], scale, scale, 1e-5, layer)):
+                    out["row_norm"].append(f"d={d} {few}/{many} "
+                                           f"{'layer' if layer else 'rms'}")
+            if not torch.equal(rw.row_gemm_cuda(x, w)[:few],
+                               rw.row_gemm_cuda(x[:few], w)):
+                out["row_gemm"].append(f"d={d} {few}/{many}")
     d, vocab = 4096, 32000
     w = torch.randn(d, vocab, generator=gen, device=dev) / d ** 0.5
     for m in (1, 8, 128):
         x = torch.randn(m, d, generator=gen, device=dev)
-        if not torch.equal((x @ w)[:, :vocab // 2],
-                           x @ w[:, :vocab // 2].contiguous()):
+        half = w[:, vocab // 2:].contiguous()
+        if not torch.equal((x @ w)[:, vocab // 2:], x @ half):
             out["head"].append(f"M={m} {vocab // 2}/{vocab}")
+        if not torch.equal(rw.row_gemm_cuda(x, w)[:, vocab // 2:],
+                           rw.row_gemm_cuda(x, half)):
+            out["row_gemm_head"].append(f"M={m} {vocab // 2}/{vocab}")
+    bad = {k: v for k, v in out.items() if k.startswith("row_") and v}
+    if bad:
+        raise AssertionError(f"the fixed-order kernels round a row by its "
+                             f"neighbours: {json.dumps(bad)}")
     return out
 
 

@@ -34,7 +34,15 @@ Phases (each check raises, and the script then exits non-zero):
               matmul, with the decompressing form beside it), and its
               bound on this card; a kernel faster than its bound fails
               the run.  MLA rows add the device time of each launch by
-              kernel name (torch.profiler).
+              kernel name (torch.profiler).  The fixed-order row ops
+              (row_gemm, row_norm): bit-equal to their plain versions
+              at the LM heads of bnn-lm-100m (tied) and mixtral-8x7b,
+              M = 1, 8, 128, each over half the vocab as a rank holds
+              it too (its logits bit-equal to the whole's same
+              columns), the routers of deepseek-v2-lite and mixtral,
+              RMSNorm and LayerNorm at D = 768-8192; timed beside
+              torch.matmul in float32 and ATen's rms_norm; untimed at
+              the tiles' edges and at unaligned rows.
   3. serving  bnn-lm-100m at full width (precision="bnn", seeded random
               weights) served by the port's Engine: 16 requests, 8 of
               them submitted after 10 steps (no prefix cache, recompute
@@ -63,9 +71,9 @@ Phases (each check raises, and the script then exits non-zero):
               prompts of 512 tokens through prefill_chunk in chunks of
               128 over (1, 2) and (2, 2): every projection input and
               layer output bit-equal to one rank, the logits
-              bit-equal or, if only the float LM head differs, within
-              RANKS_LOGIT_REL with the same greedy tokens (printed
-              which); (c) the engine over (2, 2) serves phase 3's 16
+              bit-equal (max |diff| 0: the LM head runs as each rank's
+              vocab slice on its rows through row_gemm, whose sums do
+              not depend on M or N); (c) the engine over (2, 2) serves phase 3's 16
               prompts, 64 new, on its schedule, greedy and sampled
               (C's sampling), the ranks' tokens compared at every
               step: tokens equal the one-rank engine's (served first,
@@ -968,6 +976,150 @@ def phase_jamba_kernels(dev, rows: dict[str, list[dict]]) -> None:
         rows[name] += rs
 
 
+# the fixed-order row-wise kernels' main-path shapes: the LM heads (K, N)
+# of bnn-lm-100m (tied: the embedding read transposed) and mixtral-8x7b,
+# the routers of deepseek-v2-lite and mixtral-8x7b, and the norms'
+# widths (bnn-lm-100m, deepseek-v2-lite, mixtral, jamba)
+ROW_HEADS = {"bnn-lm-100m": (768, 32000, True),
+             "mixtral-8x7b": (4096, 32000, False)}
+ROW_ROUTERS = {"deepseek-v2-lite": (2048, 64), "mixtral-8x7b": (4096, 8)}
+ROW_NORM_D = (768, 2048, 4096, 8192)
+ROW_M = (1, 8, 128)
+
+
+def _row_weight(dev, k: int, n: int, gen, tied: bool) -> torch.Tensor:
+    """A (K, N) weight, or the tied head's layout: an (N, K) embedding
+    read transposed (strides (1, K))."""
+    if tied:
+        return (torch.randn(n, k, device=dev, generator=gen)
+                / k ** 0.5).t()
+    return torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
+
+
+def check_row_gemm(dev, m: int, k: int, n: int, gen: torch.Generator,
+                   timed: bool, tied: bool = False, what: str = "") -> list:
+    """The kernel bit-equal to its plain version on the whole (K, N)
+    weight and on its second half of the columns as a rank holds it (a
+    contiguous shard; of the tied head the embedding's second half of
+    rows, transposed), the half's outputs bit-equal to the whole's same
+    columns; with ``timed`` a row for each, timed beside the plain
+    version, ``torch.matmul`` in float32 (TF32 off) and the bound."""
+    from repro_torch.kernels import rowwise as rw
+    x = torch.randn(m, k, device=dev, generator=gen)
+    w = _row_weight(dev, k, n, gen, tied)
+    half = (w.t()[n // 2:].contiguous().t() if tied
+            else w[:, n // 2:].contiguous())
+    out = []
+    got = {}
+    for part, wt in (("whole", w), ("half", half)):
+        got[part] = rw.row_gemm_cuda(x, wt)
+        want = rw.row_gemm_torch(x, wt)
+        torch.cuda.synchronize()
+        if not torch.equal(got[part], want):
+            bad = (got[part] != want).sum().item()
+            err = (got[part] - want).abs().max().item()
+            raise AssertionError(
+                f"row_gemm {what} M={m} K={k} N={wt.shape[1]} {part}: {bad} "
+                f"elements differ from the plain version (max {err:.3e})")
+        if not timed:
+            continue
+        nn = wt.shape[1]
+        row = {"shape": f"M={m} K={k} N={nn}", "weight": what,
+               "layout": "tied (embedding transposed)" if tied else "dense",
+               "max_abs_err": 0.0}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (m * k + k * nn + m * nn) * 4, 2 * m * nn * k, FP32_FLOPS_PER_S)
+        row["ms"] = time_ms(lambda: rw.row_gemm_cuda(x, wt))
+        row["eager_ms"] = eager_ms(lambda: rw.row_gemm_cuda(x, wt))
+        row["plain_ms"] = time_ms(lambda: rw.row_gemm_torch(x, wt),
+                                  iters=1 if k * m > 65536 else 3)
+        row["library_ms"] = time_ms(lambda: torch.matmul(x, wt))
+        row["library"] = "torch.matmul float32 (TF32 off)"
+        check_bound(row, "row_gemm")
+        out.append(row)
+    if not torch.equal(got["half"], got["whole"][:, n // 2:]):
+        raise AssertionError(f"row_gemm {what} M={m} K={k} N={n}: the half "
+                             "vocab's logits differ from the whole's")
+    return out
+
+
+def check_row_norm(dev, m: int, d: int, gen: torch.Generator, timed: bool,
+                   misaligned: bool = False) -> dict:
+    """RMSNorm and LayerNorm (with bias) bit-equal to the plain version
+    (``misaligned``: x 4 bytes off 16, the scalar loads); RMSNorm timed
+    beside the plain version, ATen's ``rms_norm`` and the bound."""
+    from repro_torch.kernels import rowwise as rw
+    flat = torch.randn(m * d + 1, device=dev, generator=gen) * 3 + 0.5
+    x = flat[1:].view(m, d) if misaligned else flat[:-1].view(m, d)
+    scale = 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(d, device=dev, generator=gen)
+    for layer in (False, True):
+        b = bias if layer else None
+        eps = 1e-5 if layer else 1e-6
+        got = rw.row_norm_cuda(x, scale, b, eps, layer)
+        want = rw.row_norm_torch(x, scale, b, eps, layer)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            err = (got - want).abs().max().item()
+            raise AssertionError(
+                f"row_norm M={m} D={d} {'layernorm' if layer else 'rmsnorm'}"
+                f": {bad} elements differ from the plain version "
+                f"(max {err:.3e})")
+    row = {"shape": f"M={m} D={d}", "norm": "rmsnorm", "max_abs_err": 0.0}
+    if timed:
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (2 * m * d + d) * 4, 4 * m * d, FP32_FLOPS_PER_S)
+        row["ms"] = time_ms(lambda: rw.row_norm_cuda(x, scale, None, 1e-6,
+                                                     False))
+        row["eager_ms"] = eager_ms(lambda: rw.row_norm_cuda(
+            x, scale, None, 1e-6, False))
+        row["plain_ms"] = time_ms(lambda: rw.row_norm_torch(
+            x, scale, None, 1e-6, False), iters=3)
+        row["library_ms"] = time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), scale, 1e-6))
+        row["library"] = "torch.nn.functional.rms_norm"
+        check_bound(row, "row_norm")
+    return row
+
+
+def phase_row_kernels(dev) -> dict[str, list[dict]]:
+    """The fixed-order head GEMM and row norm at the main paths' shapes,
+    each bit-equal to its plain version, timed: the heads of
+    bnn-lm-100m (tied) and mixtral-8x7b, whole and over half the vocab,
+    and the routers of deepseek-v2-lite and mixtral at M = 1, 8, 128; the norms at D =
+    768-8192, M = 1, 8, 128; untimed, tiles' edges (M around 8 and 64,
+    N and K off the tiles, both layouts) and unaligned rows."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows: dict[str, list[dict]] = {"row_gemm": [], "row_norm": []}
+    for name, (k, n, tied) in ROW_HEADS.items():
+        for m in ROW_M:
+            rows["row_gemm"] += check_row_gemm(dev, m, k, n, gen, True, tied,
+                                               f"{name} head")
+    for name, (k, n) in ROW_ROUTERS.items():
+        for m in ROW_M:
+            rows["row_gemm"] += check_row_gemm(dev, m, k, n, gen, True,
+                                               what=f"{name} router")[:1]
+    # the tiles' edges: M around 1, 8 and 64 rows; N around the router
+    # tiles (32, 64) and the heads' (128 at decode, 64); K off every BK
+    for m, k, n in ((2, 100, 77), (3, 33, 130), (5, 1, 9), (9, 64, 200),
+                    (17, 31, 65), (129, 257, 63), (65, 2048, 64),
+                    (3, 2048, 8), (17, 4097, 16), (129, 300, 33),
+                    (1, 257, 129), (8, 31, 300)):
+        for tied in (False, True):
+            check_row_gemm(dev, m, k, n, gen, False, tied, "edge")
+    for d in ROW_NORM_D:
+        for m in ROW_M:
+            rows["row_norm"].append(check_row_norm(dev, m, d, gen, True))
+    for m, d in ((3, 100), (5, 64), (129, 2050), (1, 7)):
+        for misaligned in (False, True):
+            check_row_norm(dev, m, d, gen, False, misaligned)
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"[kernels] {name} {json.dumps(r)}")
+    return rows
+
+
 def _ragged_rows(b, c, max_len, rng, dev):
     """kv_len up to ``max_len`` (the first row at it, the last 0: fully
     masked) and the q_offset of a decode (c = 1) or a prefill chunk."""
@@ -1315,7 +1467,8 @@ def traffic(vocab: int, n_requests: int = 16, prompt_lens=(64, 512),
     return [rng.integers(0, vocab, size=n) for n in lens]
 
 
-SERVING_KERNELS = ("fused_bnn", "paged_attention", "binarize_pack")
+SERVING_KERNELS = ("fused_bnn", "paged_attention", "binarize_pack",
+                   "row_gemm", "row_norm")
 
 
 def phase_serving(dev, cfg, ecfg, n_requests: int = 16, max_new: int = 64,
@@ -1456,7 +1609,6 @@ RANKS_PROJ = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
 RANKS_GEMM_ROWS = (1, 8, 128)
 RANKS_PREFILL = dict(rows=2, tokens=512)   # (b): 2 prompts, 4 chunks
 RANKS_LATE_AFTER = 10                      # phase 3's schedule
-RANKS_LOGIT_REL = 1e-5   # (b): where only the float LM head differs
 GLOO_PROBES = ("all_reduce", "all_gather", "broadcast",
                "all_gather_into_tensor", "reduce_scatter_tensor",
                "all_to_all_single")
@@ -1548,9 +1700,8 @@ def ranks_prefill(world, mesh, params, cfg) -> dict:
     ``prefill_chunk`` in chunks of 128, one rank on the whole weights
     and over ``mesh`` (the rows split over data where it has two):
     every projection input and layer output bit-equal; the logits
-    bit-equal, or, where only the float LM head (a cuBLAS GEMM over
-    the rank's vocab slice) differs, within RANKS_LOGIT_REL of the
-    largest logit with the same greedy tokens.  Returns the record."""
+    bit-equal (the head is each rank's vocab slice on its own rows,
+    through ``row_gemm``).  Returns the record."""
     rows, n = RANKS_PREFILL["rows"], RANKS_PREFILL["tokens"]
     prompts = np.random.default_rng(21).integers(0, cfg.vocab, (rows, n))
     from repro_torch.dist import sharding as S
@@ -1569,13 +1720,10 @@ def ranks_prefill(world, mesh, params, cfg) -> dict:
             layer += name == "hidden"
     diff = max((a - b).abs().max().item() for a, b in zip(got_l, want_l))
     scale = max(b.abs().max().item() for b in want_l)
-    same_tok = all(torch.equal(a.argmax(-1), b.argmax(-1))
-                   for a, b in zip(got_l, want_l))
-    if diff and not (diff <= RANKS_LOGIT_REL * scale and same_tok):
-        raise AssertionError(f"{where}: logits differ by {diff:.3e} "
-                             f"(largest {scale:.3e}), greedy tokens "
-                             f"{'equal' if same_tok else 'differ'}")
-    return {"bit_equal": diff == 0.0, "max_abs_diff": diff,
+    if not all(torch.equal(a, b) for a, b in zip(got_l, want_l)):
+        raise AssertionError(f"{where}: logits differ from one rank's by "
+                             f"{diff:.3e} (largest {scale:.3e})")
+    return {"bit_equal": True, "max_abs_diff": diff,
             "max_abs_logit": scale}
 
 
@@ -1822,8 +1970,7 @@ def ranks_prep(dev, smi: str, cfg=None, ecfg=None, smoke: bool = False,
                 log(f"[ranks] (a) mesh {shape}: fused_bnn bit-equal to one "
                     f"rank at {n} projection x rows cases (tp {shape[1]})")
             for shape, pr in r0["prefill"].items():
-                log(f"[ranks] (b) mesh {shape}: prefill logits "
-                    f"{'bit-equal' if pr['bit_equal'] else 'not bit-equal'} "
+                log(f"[ranks] (b) mesh {shape}: prefill logits bit-equal "
                     f"to one rank (max |diff| {pr['max_abs_diff']:.3e}, "
                     f"largest logit {pr['max_abs_logit']:.3f}); every "
                     "projection input and layer output bit-equal")
@@ -2263,13 +2410,15 @@ def ranks_family_worker(world, jobs):
     return out
 
 
+ROW_KERNELS = ("row_gemm", "row_norm")     # the head, router and norms
 FAMILY_KERNELS = {"mixtral-8x7b": ("fused_bnn", "paged_attention_ring",
-                                   "binarize_pack"),
+                                   "binarize_pack", *ROW_KERNELS),
                   "deepseek-v2-lite-16b": ("fused_bnn", "paged_attention_mla",
-                                           "binarize_pack"),
-                  "mamba2-1.3b": ("fused_bnn", "binarize_pack"),
+                                           "binarize_pack", *ROW_KERNELS),
+                  "mamba2-1.3b": ("fused_bnn", "binarize_pack",
+                                  *ROW_KERNELS),
                   "jamba-1.5-large-398b": ("fused_bnn", "paged_attention",
-                                           "binarize_pack")}
+                                           "binarize_pack", *ROW_KERNELS)}
 
 
 def families_prep(dev, smi: str, smoke: bool = False, families=None,
@@ -2392,7 +2541,7 @@ def train_step_collectives(cfg, sizes, shape) -> dict:
     head whole, over ``model`` then ``data``; a row-parallel STE GEMM (o,
     down) all-reduces its product and its alpha forward, on the
     recompute and backward; the vocab-parallel lookup all-reduces the
-    microbatch's embeddings forward and backward; the loss its sum and
+    rank's rows of the microbatch's embeddings forward and backward; the loss its sum and
     count forward and the sum's gradient; a leaf held whole over a mesh
     dim all-reduces its gradient there.  Then the update's norm: a
     stack of sums a group of leaves cut alike, a collective a cut dim."""
@@ -2450,7 +2599,7 @@ def train_step_collectives(cfg, sizes, shape) -> dict:
     n_row = 3 * g * 2 * cfg.n_layers
     add("all_reduce", n_row, rows * d * f4)
     add("all_reduce", n_row, d * f4)
-    add("all_reduce", 2 * g, mb_tokens * d * f4)
+    add("all_reduce", 2 * g, rows * d * f4)
     add("all_reduce", 3 * g, f4)
     for cut, n in groups.items():
         add("all_reduce", len(cut), n * f4)
@@ -2862,9 +3011,9 @@ def ranks_train_report(dev, smi, cfg, sizes, shape, one, b, ckpt_dir,
 def log_weight_bytes(cfg, shape, b: dict, tag: str = "[ranks]") -> None:
     log(f"{tag} {cfg.name} {cfg.n_layers} layers over {shape}: reckoned "
         f"{b['rank'] / 2 ** 30:.2f} GiB of weights a rank + "
-        f"{b['cached'] / 2 ** 30:.2f} cached at first use (the whole LM "
-        f"head; MLA's k_up/v_up columns of its heads; the SSM layers' "
-        f"whole conv and norm scale) (whole "
+        f"{b['cached'] / 2 ** 30:.2f} cached at first use (MLA's "
+        f"k_up/v_up columns of its heads; the SSM layers' whole conv and "
+        f"norm scale) (whole "
         f"{b['whole'] / 2 ** 30:.2f}, largest layer drawn whole "
         f"{b['largest_layer'] / 2 ** 30:.2f})")
 
@@ -6292,7 +6441,7 @@ def phase_families(dev, smi: str) -> dict[str, dict[str, int]]:
             precision="bnn", n_layers=PHASE7_LAYERS),
         cut.format(PHASE7_LAYERS, 32), MIXTRAL_ENGINE,
         with_periodic(family_traffic(32000, (4400, 4700)), 32000, seed=31),
-        ("fused_bnn", "paged_attention_ring", "binarize_pack"),
+        FAMILY_KERNELS["mixtral-8x7b"],
         lambda eng, out, _rec: [0, min(out, key=lambda r: len(out[r]))])
     ds_prompts = with_periodic(family_traffic(102400, seed=1), 102400,
                                seed=32)
@@ -6300,7 +6449,7 @@ def phase_families(dev, smi: str) -> dict[str, dict[str, int]]:
         "deepseek", get_config("deepseek-v2-lite-16b").replace(
             precision="bnn", n_layers=PHASE7_LAYERS),
         cut.format(PHASE7_LAYERS, 27), DEEPSEEK_ENGINE, ds_prompts,
-        ("fused_bnn", "paged_attention_mla", "binarize_pack"),
+        FAMILY_KERNELS["deepseek-v2-lite-16b"],
         # the eight requests of its phase traffic (not the periodic two)
         lambda eng, out, _rec: [r for r in sorted(out) if r not in (4, 5)])
     # mamba2 at published width, MAMBA2_PHASE_LAYERS of its 48 layers:
@@ -6315,7 +6464,7 @@ def phase_families(dev, smi: str) -> dict[str, dict[str, int]]:
         "mamba2", m_cfg, m_depth, MAMBA2_ENGINE,
         with_periodic(family_traffic(50280, seed=2, n=16, lens=(16, 1500)),
                       50280, seed=33),
-        ("fused_bnn", "binarize_pack"), mamba2_rids,
+        FAMILY_KERNELS["mamba2-1.3b"], mamba2_rids,
         lambda params: phase_defaults(
             dev, smi, m_cfg, params, MAMBA2_ENGINE,
             prefix_traffic(50280, seed=5), m_depth, False))
@@ -6366,6 +6515,7 @@ def main() -> int:
     rows = phase_kernels(dev, cfg)
     rows.update(phase_attention_variants(dev))
     phase_jamba_kernels(dev, rows)
+    rows.update(phase_row_kernels(dev))
     clock("device, kernels")
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8,
                         prefill_chunk=128, max_model_len=1024, **NO_PREFIX)
@@ -6418,8 +6568,9 @@ def main() -> int:
     # one representative main-path shape per kernel for the summary line
     # (decode projection / decode attention / one weight / the conv
     # layer with the most XNOR work / decode over the ring / MLA
-    # decode / the conv input with the most patch bits); every shape is
-    # in the [kernels] and [conv] lines above
+    # decode / the conv input with the most patch bits / bnn-lm-100m's
+    # head at a decode bucket of 8 / a norm of 8 decode rows); every
+    # shape is in the [kernels] and [conv] lines above
     pick = {"fused_bnn": rows["fused_bnn"][4],
             "paged_attention": rows["paged_attention"][0],
             "binarize_pack": rows["binarize_pack"][0],
@@ -6427,7 +6578,9 @@ def main() -> int:
             "paged_attention_ring": rows["paged_attention_ring"][0],
             "paged_attention_mla": rows["paged_attention_mla"][0],
             "pack_patches": max(rows["pack_patches"],
-                                key=lambda r: r["M"] * r["S"])}
+                                key=lambda r: r["M"] * r["S"]),
+            "row_gemm": rows["row_gemm"][2],
+            "row_norm": rows["row_norm"][1]}
     paths = {"serving": launches, "ranks": ranks_launches, **families_ranks,
              "ranks_train": train_ranks, "serve": serve_launches,
              "tenants": tenants_launches, "shards": shards_launches,

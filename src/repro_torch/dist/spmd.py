@@ -28,17 +28,17 @@ input needs a gradient, each collective is a ``torch.autograd.Function``
 whose backward is its exact adjoint: ``all_reduce``'s is an all-reduce
 of the gradient, ``all_gather``'s a ``reduce_scatter`` (the gradient
 summed over the group, the rank's slice kept); a slice (``redistribute``
-to a ``Shard``, ``on_rows``' pad) is an ordinary autograd op.  The one
+to a ``Shard``) is an ordinary autograd op.  The one
 convention every backward follows: the objective is the sum over the
 mesh's ranks of each rank's own loss, and each rank's loss is the
 global loss (the same number on every rank, its sums reduced over
 ``data``) divided by the mesh's size (``launch/steps.value_and_grad``).
 So the gradient a rank holds of any tensor is its share of the whole,
 and the shares sum to the gradient over the ranks that hold that
-tensor: work done identically on several ranks (the head on every
-model rank, a norm over rows padded to the batch's) gets 1/W of the
-gradient on each and counts once.  A parameter held whole along a mesh
-dim (``Replicate``) is used by every rank of that dim, so its
+tensor: work done identically on several ranks (a norm of the same
+rows on every model rank) gets 1/W of the gradient on each and counts
+once.  A parameter held whole along a mesh dim (``Replicate``) is
+used by every rank of that dim, so its
 gradient is the all-reduce of the ranks' shares over that dim
 (``steps.value_and_grad``); a sharded one's reaches the rank whole
 through the reduce-scatters.  Without a gradient (serving, under
@@ -169,29 +169,6 @@ def on_local(fn, x, *args, **kw):
     (a norm over a dim ``x`` holds whole, a head reshape, RoPE, the
     attention of the rank's heads)."""
     return wrap_like(fn(local(x), *(local(a) for a in args), **kw), x)
-
-
-def on_rows(fn, x, *args, **kw):
-    """``on_local`` for a row-wise function whose sums' order follows the
-    number of rows: a float reduction over the last dim (ATen splits a
-    row's sum over more threads when there are fewer rows) or a library
-    GEMM (cuBLAS picks its algorithm by M).  Where ``x``'s rows are cut
-    (data parallelism), the rank's rows are zero-padded to the whole
-    row count, so each row is summed as one rank sums it, and the
-    rank's rows are kept."""
-    if not is_dtensor(x) or shards(x, 0) == 1:
-        return on_local(fn, x, *args, **kw)
-    xl = x.to_local()
-    y = fn(pad_rows(xl, x.shape[0]), *(local(a) for a in args), **kw)
-    return wrap_like(y[:xl.shape[0]], x)
-
-
-def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
-    """``t`` with zero rows appended up to ``rows`` (one launch)."""
-    if rows <= t.shape[0]:
-        return t
-    return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 1)
-                                   + (0, rows - t.shape[0]))
 
 
 def replicate(t: torch.Tensor, mesh):

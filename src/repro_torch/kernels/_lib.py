@@ -41,6 +41,8 @@ _SIGNATURES = {
     "fb_fused_bnn": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "pa_paged_attention": [_P] * 10 + [_I] * 11 + [_F, _P],
     "pm_paged_attention_mla": [_P] * 14 + [_I] * 14 + [_F, _P],
+    "rg_row_gemm": [_P] * 3 + [_I] * 5 + [_P],
+    "rn_row_norm": [_P] * 4 + [_I, _I, _F, _I, _P],
     "xp_xnor_popcount": [_P] * 6 + [_I] * 9 + [_P],
 }
 

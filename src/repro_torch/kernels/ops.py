@@ -17,6 +17,11 @@ the rank's experts or its slice of each).
 ``paged_attention`` is what the attention block calls over the paged
 KV pools (GQA, paged or sliding-window ring); ``paged_attention_mla``
 what the MLA block calls over its paged latent pools.
+``row_gemm`` and ``row_norm`` are float32 ops with one fixed order of
+rounding a row (kernels/rowwise.py): the LM head and the MoE router,
+RMSNorm and LayerNorm, whose rows come out the same whatever rows or
+columns run beside them (a data rank's rows, a model rank's vocab
+slice).
 ``pack_patches``, ``pack_conv_weight`` and ``xnor_matmul`` are the
 steps of the unfused packed GEMM that ``core/conv.bnn_conv2d`` runs:
 the patches binarized and packed straight from the NHWC input, the
@@ -84,12 +89,14 @@ from repro_torch.dist import spmd
 from repro_torch.kernels import binarize_pack as _bp
 from repro_torch.kernels import fused_bnn as _fb
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rowwise as _rw
 from repro_torch.kernels import xnor_popcount as _xp
 
 IMPLS = ("auto", "cuda", "torch")
 
 KERNELS = (_fb.KERNEL, _pa.KERNEL, _bp.KERNEL, _xp.KERNEL, _pa.KERNEL_RING,
-           _pa.KERNEL_MLA, _bp.KERNEL_PATCHES)
+           _pa.KERNEL_MLA, _bp.KERNEL_PATCHES, _rw.KERNEL_GEMM,
+           _rw.KERNEL_NORM)
 
 
 def resolve_impl(impl: str, t: torch.Tensor) -> str:
@@ -111,6 +118,28 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the fixed-order row-wise float ops (kernels/rowwise.py)
+
+
+def row_gemm(x: torch.Tensor, w: torch.Tensor, *,
+             impl: str = "auto") -> torch.Tensor:
+    """x (..., K) @ w (K, N) -> (..., N) float32, each output summed over
+    k ascending (kernels/rowwise.py), with impl dispatch."""
+    return _rw.row_gemm(x, w, resolve_impl(impl, x) == "cuda")
+
+
+def row_norm(x: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor | None = None, *, eps: float = 1e-6,
+             kind: str = "rmsnorm", impl: str = "auto") -> torch.Tensor:
+    """RMSNorm or LayerNorm (``kind``) of x over its last dim, float32,
+    one fixed order a row (kernels/rowwise.py), with impl dispatch."""
+    if kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm {kind!r}")
+    return _rw.row_norm(x, scale, bias, eps, kind == "layernorm",
+                        resolve_impl(impl, x) == "cuda")
 
 
 # --------------------------------------------------------------------------
@@ -180,8 +209,8 @@ def cached_per_weight(w: torch.Tensor, key: tuple, make):
     optimizer bumps a DTensor's, whose shard it writes).  Where autograd
     wants ``w``'s gradient (a train step's graph) ``make(w)`` itself,
     made anew at each use and never cached: a cached value is cut off
-    from the graph (the whole LM head, the Mamba-2 pieces gathered
-    whole, MLA's up projections over a mesh)."""
+    from the graph (the Mamba-2 pieces gathered whole, MLA's up
+    projections over a mesh)."""
     if torch.is_grad_enabled() and w.requires_grad:
         return make(w)
     full = (id(w), *key)

@@ -18,8 +18,8 @@ records, into a JSON artifact:
     collectives, scaled to the whole depth), and ``sent``, the calls
     and bytes a rank sends in (``dist/spmd.COLLECTIVES``' meaning);
   * ``first_call``: what a serving step's first call gathers into the
-    per-weight caches beyond the steady step (the whole LM head, an SSM
-    layer's whole pieces, MLA's up projections), and the bytes cached;
+    per-weight caches beyond the steady step (an SSM layer's whole
+    pieces, MLA's up projections), and the bytes cached;
   * ``memory``: the keys of JAX's ``memory_summary`` (argument, output,
     alias, temp; generated code has no counterpart, and the record says
     why) beside the argument bytes by part;

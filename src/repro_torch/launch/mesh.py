@@ -24,8 +24,8 @@ keeps the rank's slices one layer at a time, so no rank holds more
 than one layer whole; ``rank_weight_bytes`` reckons those slices'
 bytes from the configuration alone, before anything is drawn, and
 beside them what a rank caches at first use (``CACHED_KINDS``): the
-whole LM head, the columns of its heads of MLA's k_up/v_up, an SSM
-layer's whole conv weight, conv bias and norm scale.
+columns of its heads of MLA's k_up/v_up, an SSM layer's whole conv
+weight, conv bias and norm scale.
 """
 from __future__ import annotations
 
@@ -294,10 +294,10 @@ def _draws_crowd(cfg, mesh, device, sharing: int) -> bool:
 
 
 # the kinds of ``kernels/ops.cached_per_weight`` values that
-# ``rank_weight_bytes``' "cached" reckons: the whole LM head, MLA's
-# k_up/v_up columns of the rank's heads, an SSM layer's whole conv
-# weight, conv bias and norm scale
-CACHED_KINDS = ("whole_head", "mla_heads", "ssm_whole")
+# ``rank_weight_bytes``' "cached" reckons: MLA's k_up/v_up columns of
+# the rank's heads, an SSM layer's whole conv weight, conv bias and norm
+# scale
+CACHED_KINDS = ("mla_heads", "ssm_whole")
 
 
 def rank_weight_bytes(cfg, shape, names=("data", "model"),
@@ -314,18 +314,17 @@ def rank_weight_bytes(cfg, shape, names=("data", "model"),
     the whole model's and its largest layer's (what ``init_on_ranks``
     holds whole at a time), from the configuration alone (``meta``
     tensors).  ``cached``: what a rank gathers and caches at first use
-    beside its slices: the whole LM head (``transformer.apply_head``
-    runs one rank's GEMM on every rank), in an MLA layer the columns of
-    the rank's heads of k_up and v_up (``mla._up``), and in an SSM layer
-    the whole conv weight, conv bias and norm scale (``mamba2._whole``)."""
+    beside its slices: in an MLA layer the columns of the rank's heads
+    of k_up and v_up (``mla._up``), and in an SSM layer the whole conv
+    weight, conv bias and norm scale (``mamba2._whole``); the LM head
+    is used as the rank's vocab slice (``transformer.apply_head``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import tree as T
     from repro_torch.dist import sharding as S
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer as M
-    full = M.abstract_init(cfg)
-    params = M.trainable(full, cfg)
+    params = M.trainable(M.abstract_init(cfg), cfg)
 
     def size(t):
         return sum(v.numel() * v.element_size() for v in T.leaves(t))
@@ -337,10 +336,8 @@ def rank_weight_bytes(cfg, shape, names=("data", "model"),
              if "k_up" in p.get("attn", {}) for n in ("k_up", "v_up"))
     ssm = sum(size([p["attn"][n] for n in ("conv_w", "conv_b", "norm")])
               for p in params["layers"] if "conv_w" in p.get("attn", {}))
-    head = M.head_matrix(full, cfg)
     out = {"rank": rank, "whole": size(params),
-           "cached": head.numel() * head.element_size() + up // shape[-1]
-           + ssm,
+           "cached": up // shape[-1] + ssm,
            "largest_layer": max(size(p) for p in params["layers"])}
     if train:
         out["train"] = 4 * rank

@@ -201,32 +201,27 @@ def norm_specs(kind: str = "rmsnorm") -> dict:
 
 
 def rmsnorm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    """RMSNorm over the last dim, float32, one fixed order a row
+    (``kernels/ops.row_norm``)."""
+    return kops.row_norm(x, params["scale"], eps=eps,
+                         kind="rmsnorm").to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float()
-    if "bias" in params:
-        y = y + params["bias"].float()
-    return y.to(x.dtype)
+    """LayerNorm over the last dim (bias optional), float32, one fixed
+    order a row (``kernels/ops.row_norm``)."""
+    return kops.row_norm(x, params["scale"], params.get("bias"), eps=eps,
+                         kind="layernorm").to(x.dtype)
 
 
 def norm(x: torch.Tensor, params, kind: str = "rmsnorm",
          eps: float = 1e-6) -> torch.Tensor:
     """Over the last dim, which a DTensor ``x`` holds whole: each rank
-    normalizes its rows, padded to the whole batch's (``spmd.on_rows``:
-    on the H100 a 2048-wide row's mean over 4 rows differed in its last
-    bit from the same row's over 8, ``chip_smoke.rows_probe``)."""
+    normalizes its own rows (a row's bits are one rank's whatever rows
+    run beside it)."""
     fn = rmsnorm if kind == "rmsnorm" else layernorm
     p = {k: spmd.local(v) for k, v in params.items()}
-    return spmd.on_rows(fn, x, p, eps)
+    return spmd.on_local(fn, x, p, eps)
 
 
 def dense(x: torch.Tensor, params, precision: str = "bf16",

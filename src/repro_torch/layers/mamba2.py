@@ -37,8 +37,8 @@ them).  The conv weight and bias and the norm's scale are gathered
 whole once and cached under the weight (``_whole``); the depthwise conv
 runs on the rank's x channels and B and C, the SSD on its heads.  The
 gated RMSNorm is over the whole d_inner, so y is gathered over
-``model`` to whole rows and normalized as one rank does
-(``spmd.on_rows``: ATen's row mean rounds by the rows beside it), and
+``model`` to whole rows and each rank normalizes its own rows
+(``kernels/ops.row_norm``: a row's bits are one rank's), and
 ``out_proj`` is row-parallel on the rank's slice (the integer dot
 summed over ``model``, then alpha).  The slot pools hold the rank's
 heads of ``h`` and the whole conv tail of every slot on every data rank
@@ -222,12 +222,12 @@ def _whole_heads(y: torch.Tensor, x, heads):
 
 def _gated_out(params, y, z, x, heads, precision, impl, taps):
     """rmsnorm(y) * silu(z) over the whole d_inner, then ``out_proj``.
-    Over a mesh y (the rank's heads) is gathered to whole rows first and
-    normalized as one rank does (``spmd.on_rows``), and ``out_proj`` is
-    row-parallel on the rank's slice."""
+    Over a mesh y (the rank's heads) is gathered to whole d_inner first
+    and normalized on the rank's rows, and ``out_proj`` is row-parallel
+    on the rank's slice."""
     y = _whole_heads(y, x, heads)
     scale = {"scale": _whole(params["norm"]["scale"])}
-    y = spmd.on_rows(lambda t: C.rmsnorm(t.to(x.dtype), scale), y)
+    y = spmd.on_local(lambda t: C.rmsnorm(t.to(x.dtype), scale), y)
     y = spmd.on_local(lambda t, zz: t * F.silu(zz), y, z)
     return C.dense(y, params["out_proj"], precision, impl, taps, "out_proj")
 

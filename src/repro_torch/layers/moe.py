@@ -18,8 +18,9 @@ Two dispatches compute the same layer:
 Each expert's GEMMs go through ``kernels.ops.expert_dense`` against the
 stacked (E, d_in, d_out) weights — at precision "bnn" the fused
 XNOR-popcount kernel on the stack's cached packed words.  The router
-runs in float32.  The k choices are combined in ascending choice order,
-as the JAX package's scatter-add does.
+runs in float32 (``kernels/ops.row_gemm``: one fixed order a row).
+The k choices are combined in ascending choice order, as the JAX
+package's scatter-add does.
 
 Over a mesh (the params DTensors: ``dist/sharding.place_params``) the
 layer is expert-parallel: the router is replicated, the stacks are cut
@@ -88,12 +89,10 @@ def specs(kind: str = "swiglu", n_shared: int = 0) -> dict:
     return s
 
 
-def _route(x2d, router_w, top_k, rows: int = 0):
-    """``rows``: the whole batch's token count where x2d holds a data
-    rank's share: the router GEMM runs on x2d zero-padded to it, so its
-    algorithm, and each row's sums, are one rank's (``spmd.on_rows``)."""
-    xf = spmd.pad_rows(x2d.float(), rows)
-    logits = torch.matmul(xf, spmd.local(router_w).float())[:x2d.shape[0]]
+def _route(x2d, router_w, top_k):
+    """The router in float32 on the rank's rows (``kernels/ops.row_gemm``:
+    a row's logits are one rank's whatever rows run beside it)."""
+    logits = kops.row_gemm(x2d, spmd.local(router_w))
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort puts the lower expert first on a tie, as
     # lax.top_k does
@@ -289,17 +288,15 @@ def _expert_counts(flat_e: torch.Tensor, n: int) -> list[int]:
 
 
 def _forward_routed(params, x, *, top_k, kind, precision, impl, taps,
-                    groups: int = 1, route_rows: int = 0):
+                    groups: int = 1):
     """Drop-free dispatch over the routed rows only, grouped by expert
     (``groups`` matters to the aux loss alone: no token is dropped).  x:
     the rank's rows; over a mesh the rank runs its experts' rows and
-    the slot rows are finished over ``model`` (``_Experts``), and the
-    router runs as on ``route_rows`` tokens (``_route``)."""
+    the slot rows are finished over ``model`` (``_Experts``)."""
     b, t, d = x.shape
     ex = _Experts(params, precision)
     x2d = x.reshape(b * t, d)
-    topk_w, topk_e, _, probs = _route(x2d, params["router"]["w"], top_k,
-                                      route_rows)
+    topk_w, topk_e, _, probs = _route(x2d, params["router"]["w"], top_k)
     aux = _aux_loss(probs, topk_e, groups)
     flat_e = topk_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)   # (token, choice) by expert
@@ -386,8 +383,7 @@ def forward(params, x: torch.Tensor, *, top_k: int, kind: str = "swiglu",
         rank_taps = [] if taps is not None else None
         y2d, aux = _forward_routed(params, xl, top_k=top_k, kind=kind,
                                    precision=precision, impl=impl,
-                                   taps=rank_taps, groups=gl,
-                                   route_rows=n_tok)
+                                   taps=rank_taps, groups=gl)
         if taps is not None:      # the rank's rows, placed as x's are
             taps.extend((n, spmd.wrap_like(t, x)) for n, t in rank_taps)
     else:

@@ -261,24 +261,28 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _lookup(w, tokens: torch.Tensor) -> torch.Tensor:
-    """The tokens' rows of the table ``w``; of a DTensor table cut along
-    the vocab, each rank looks up the tokens in its slice (zero rows for
-    the rest), and the ranks' rows are summed: one rank contributes each
-    row, so the sum is exact."""
+    """The tokens' rows of the table ``w``.  Of a DTensor table, a rank
+    looks up its own rows of ``tokens`` (a DTensor placed by batch, or
+    whole); where ``w`` is cut along the vocab, each rank looks them up
+    in its slice (zero rows for the rest) and the ranks' rows are
+    summed: one rank contributes each row, so the sum is exact.  The
+    result is placed as ``tokens``' rows are."""
     if not spmd.is_dtensor(w):
         return torch.nn.functional.embedding(tokens, w)
-    mesh, wl = w.device_mesh, w.to_local()
+    mesh, wl, tl = w.device_mesh, w.to_local(), spmd.local(tokens)
     cut = [i for i, p in enumerate(w.placements)
            if p.is_shard() and p.dim == 0]
-    if not cut:
-        return spmd.replicate(torch.nn.functional.embedding(tokens, wl),
-                              mesh)
-    i = cut[0]
-    ids = tokens - mesh.get_coordinate()[i] * wl.shape[0]
-    off = (ids < 0) | (ids >= wl.shape[0])
-    e = torch.nn.functional.embedding(ids.masked_fill(off, 0), wl)
-    e = spmd.all_reduce(e.masked_fill(off[..., None], 0.0), mesh, i)
-    return spmd.replicate(e, mesh)
+    if cut:
+        i = cut[0]
+        ids = tl - mesh.get_coordinate()[i] * wl.shape[0]
+        off = (ids < 0) | (ids >= wl.shape[0])
+        e = torch.nn.functional.embedding(ids.masked_fill(off, 0), wl)
+        e = spmd.all_reduce(e.masked_fill(off[..., None], 0.0), mesh, i)
+    else:
+        e = torch.nn.functional.embedding(tl, wl)
+    if not spmd.is_dtensor(tokens):
+        return spmd.replicate(e, mesh)
+    return spmd.wrap(e, mesh, tokens.placements, (*tokens.shape, e.shape[-1]))
 
 
 def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
@@ -290,17 +294,25 @@ def _embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
     is ``F.embedding``: its backward sums a row's gradients in a fixed
     order, where indexing's accumulating backward does not (a
     multi-threaded CPU run then differs from run to run).  Over a mesh
-    the parts are taken whole (a front-end's embeddings, plain or
-    DTensors, gathered) and the sequence is placed by batch."""
+    the sequence is placed by batch first (a front-end's embeddings
+    taken whole, plain or DTensors, then cut; the tokens cut), so each
+    rank embeds its own rows only."""
     w = spmd.gather_data(params["embed"]["w"])
-    parts = [spmd.full(e) for e in (prefix_embeds, embeds) if e is not None]
+    mesh = w.device_mesh if spmd.is_dtensor(w) else None
+
+    def by_batch(t):
+        if mesh is None:
+            return t
+        t = spmd.replicate(spmd.full(t), mesh)
+        return C.lsc(t, "batch", *([None] * (t.ndim - 1)))
+    parts = [by_batch(e) for e in (prefix_embeds, embeds) if e is not None]
     if tokens is not None:
-        parts.append(spmd.full(_lookup(w, tokens)))
-    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    if cfg.embed_scale:
-        x = x * (cfg.d_model ** 0.5)
-    if spmd.is_dtensor(w):
-        x = spmd.replicate(x, w.device_mesh)
+        parts.append(_lookup(w, by_batch(tokens)))
+
+    def join(*ts):
+        x = ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
+        return x * (cfg.d_model ** 0.5) if cfg.embed_scale else x
+    x = spmd.on_local(join, *parts)
     return C.lsc(x, "batch", None, None)
 
 
@@ -379,36 +391,29 @@ def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
 
 
 def apply_head(params, h):
-    """The float LM head.  Over a mesh the logits come out cut along the
-    vocab (and the batch over ``data``), as the JAX package places
-    them; but each rank runs one rank's GEMM, on all the rows and the
-    whole head (gathered once and cached, in the layout one rank reads
-    it in), and keeps its slice.  The head is a library GEMM whose
-    algorithm follows its shape: over a rank's vocab slice it rounded
-    differently from one rank (8.1e-6 on mixtral-8x7b's 4096 x 32000
-    head over (1, 2), every input to it equal; NVIDIA H100)."""
+    """The float LM head (``kernels/ops.row_gemm``: each logit summed
+    over d ascending, so its bits are one rank's whatever rows and
+    vocab columns run beside it).  Over a mesh each rank multiplies its
+    own rows by its own vocab slice of the head, and the logits come
+    out cut along the vocab (and the batch over ``data``), as the JAX
+    package places them; a tied head's slice is the rank's shard of the
+    embedding, read transposed."""
     w = params["head"]["w"]
     if not spmd.is_dtensor(w):
-        return C.dense(h, params["head"])
+        return kops.row_gemm(h, w).to(h.dtype)
     from torch.distributed.tensor import Shard
-    mesh, last = w.device_mesh, h.ndim - 1
-    whole = _whole_head(w)
-    hl = spmd.local(spmd.all_rows(h))
-    y = torch.matmul(hl, whole.to(hl.dtype))
-    want = [Shard(last) if pw == Shard(1) else ph
-            for pw, ph in zip(w.placements, h.placements)]
-    return spmd.redistribute(spmd.replicate(y, mesh), want)
-
-
-def _whole_head(w):
-    """The DTensor head ``w`` whole on every rank, cached under it: a
-    tied head (the embedding's transpose, a transposed view) as one
-    rank reads it, the gathered embedding's transpose."""
-    def gather(wd):
-        if wd.to_local().stride(0) == 1 and wd.shape[1] > 1:
-            return spmd.full(spmd.transpose(wd)).t()
-        return spmd.full(wd)
-    return kops.cached_per_weight(w, ("whole_head",), gather)
+    w = spmd.whole(w, 0)
+    last = h.ndim - 1
+    h = spmd.replicate(h, w.device_mesh) if not spmd.is_dtensor(h) else h
+    out = []
+    for pw, ph in zip(w.placements, h.placements):
+        if pw == Shard(1) and ph.is_shard():
+            raise ValueError(f"apply_head: h {h.placements} and the head "
+                             f"{w.placements} cut one mesh dim")
+        out.append(Shard(last) if pw == Shard(1) else ph)
+    hl = h.to_local()
+    y = kops.row_gemm(hl, w.to_local()).to(hl.dtype)
+    return spmd.wrap(y, w.device_mesh, out, (*h.shape[:-1], w.shape[1]))
 
 
 def head_matrix(params, cfg: ArchConfig) -> torch.Tensor:
@@ -453,8 +458,9 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
     Over a mesh (``batch`` whole on every rank, the params DTensors
     under a sharding context) the rows are cut over ``data`` (the
     ``lsc`` of ``_embed_inputs``): each rank takes the cross entropy of
-    its rows against the whole head (gathered over every mesh dim, as
-    ``apply_head`` holds it whole), and the sum of -log p and the label
+    its rows against the whole head (gathered over every mesh dim:
+    ``apply_head`` runs a rank's vocab slice, a vocab-parallel cross
+    entropy is ROADMAP item 11e), and the sum of -log p and the label
     count are summed over the data dims, so every rank's loss is the
     global mean, as the JAX package's; the MoE aux loss is every
     group's mean (``moe._mean_over_rows``)."""

@@ -395,6 +395,12 @@ def forward_worker(world, shapes, params, tokens, n_new, arch=ARCH,
         out[tuple(shape)] = {
             "cached_bytes": ops.cached_bytes(MESH.CACHED_KINDS,
                                              T.leaves(tp)),
+            "cache_kinds": sorted({k[1] for k in ops._weight_pack_cache}),
+            "largest_cached": max((ops.cached_bytes((k[1],), [w])
+                                   for w in T.leaves(tp)
+                                   for k in list(ops._weight_pack_cache)
+                                   if k[0] == id(w)), default=0),
+            "logits_local": tuple(lg.to_local().shape),
             "logits": spmd.full(lg),
             "placements": [str(p) for p in lg.placements],
             "prefill": spmd.full(pre),

@@ -257,4 +257,5 @@ def test_chip_profile_serves_the_smokes_jamba_window():
     assert [len(p) for p in prompts] == \
         [len(p) for p in S.jamba_traffic(cfg.vocab)]
     assert (max_new, n_late, late_after) == (32, 4, 4)
-    assert set(kernels) == {"fused_bnn", "paged_attention", "binarize_pack"}
+    assert set(kernels) == {"fused_bnn", "paged_attention", "binarize_pack",
+                            "row_gemm", "row_norm"}

@@ -115,6 +115,27 @@ def test_logits_match_jax_mesh_and_one_device(ranks, jax_mesh, jax_one,
 
 
 @pytest.mark.parametrize("shape", list(MESHES), ids=IDS)
+def test_head_is_each_ranks_vocab_slice_on_its_rows(ranks, bnn_cfg, shape):
+    """The LM head runs as each rank's vocab slice of the tied head on
+    its own rows: a rank's logits are (B / data, T, V / model), placed
+    batch over ``data`` and vocab over ``model``; no rank caches a whole
+    head (no cache kind of it, no cached value as large as it), and
+    what a rank caches beside its slices is ``rank_weight_bytes``'
+    "cached", nothing for this dense config."""
+    from repro_torch.launch.mesh import rank_weight_bytes
+    d, m = shape
+    head_bytes = bnn_cfg.d_model * bnn_cfg.vocab * 4
+    want = rank_weight_bytes(H.port_cfg(), shape)["cached"]
+    assert want == 0
+    for rec in ranks[shape]:
+        assert rec["placements"] == ["S(0)", "S(2)"]
+        assert rec["logits_local"] == (B // d, T, bnn_cfg.vocab // m)
+        assert "whole_head" not in rec["cache_kinds"]
+        assert rec["largest_cached"] < head_bytes
+        assert rec["cached_bytes"] == want
+
+
+@pytest.mark.parametrize("shape", list(MESHES), ids=IDS)
 def test_serving_steps_give_jax_tokens(ranks, jax_one, shape):
     for rec in ranks[shape]:
         np.testing.assert_allclose(rec["prefill"].numpy(), jax_one["prefill"],

@@ -192,8 +192,8 @@ def test_cached_per_weight_stays_in_the_graph_under_autograd():
 def test_adamw_on_shards_moves_each_dtensor_version():
     """AdamW writes each rank's shards in place, which does not move the
     DTensor's own ``_version``; ``update`` moves it, so a value cached
-    under the weight (``ops.cached_per_weight``: a packed weight, the
-    whole head) is made again after a step.  The norm of DTensor
+    under the weight (``ops.cached_per_weight``: a packed weight, MLA's
+    up projections) is made again after a step.  The norm of DTensor
     gradients counts each leaf once (a fake group: every all-reduce
     leaves the local sum)."""
     from torch.distributed.device_mesh import init_device_mesh
