@@ -977,14 +977,24 @@ def phase_jamba_kernels(dev, rows: dict[str, list[dict]]) -> None:
 
 
 # the fixed-order row-wise kernels' main-path shapes: the LM heads (K, N)
-# of bnn-lm-100m (tied: the embedding read transposed) and mixtral-8x7b,
-# the routers of deepseek-v2-lite and mixtral-8x7b, and the norms'
-# widths (bnn-lm-100m, deepseek-v2-lite, mixtral, jamba)
+# of bnn-lm-100m (tied: the embedding read transposed), mixtral-8x7b and
+# jamba-1.5-large (2.1 GB of float32), the routers of deepseek-v2-lite,
+# mixtral-8x7b and jamba-1.5-large, and the norms' widths (bnn-lm-100m,
+# deepseek-v2-lite, mixtral, jamba)
 ROW_HEADS = {"bnn-lm-100m": (768, 32000, True),
-             "mixtral-8x7b": (4096, 32000, False)}
-ROW_ROUTERS = {"deepseek-v2-lite": (2048, 64), "mixtral-8x7b": (4096, 8)}
+             "mixtral-8x7b": (4096, 32000, False),
+             "jamba-1.5-large": (8192, 65536, False)}
+ROW_ROUTERS = {"deepseek-v2-lite": (2048, 64), "mixtral-8x7b": (4096, 8),
+               "jamba-1.5-large": (8192, 16)}
 ROW_NORM_D = (768, 2048, 4096, 8192)
 ROW_M = (1, 8, 128)
+
+
+def _vs(row: dict) -> dict:
+    """A timed row's ratios: ms over the library call's, bound over ms."""
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    row["of_bound"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 def _row_weight(dev, k: int, n: int, gen, tied: bool) -> torch.Tensor:
@@ -1036,7 +1046,7 @@ def check_row_gemm(dev, m: int, k: int, n: int, gen: torch.Generator,
         row["library_ms"] = time_ms(lambda: torch.matmul(x, wt))
         row["library"] = "torch.matmul float32 (TF32 off)"
         check_bound(row, "row_gemm")
-        out.append(row)
+        out.append(_vs(row))
     if not torch.equal(got["half"], got["whole"][:, n // 2:]):
         raise AssertionError(f"row_gemm {what} M={m} K={k} N={n}: the half "
                              "vocab's logits differ from the whole's")
@@ -1080,16 +1090,23 @@ def check_row_norm(dev, m: int, d: int, gen: torch.Generator, timed: bool,
             x, (d,), scale, 1e-6))
         row["library"] = "torch.nn.functional.rms_norm"
         check_bound(row, "row_norm")
+        _vs(row)
     return row
 
 
 def phase_row_kernels(dev) -> dict[str, list[dict]]:
     """The fixed-order head GEMM and row norm at the main paths' shapes,
     each bit-equal to its plain version, timed: the heads of
-    bnn-lm-100m (tied) and mixtral-8x7b, whole and over half the vocab,
-    and the routers of deepseek-v2-lite and mixtral at M = 1, 8, 128; the norms at D =
-    768-8192, M = 1, 8, 128; untimed, tiles' edges (M around 8 and 64,
-    N and K off the tiles, both layouts) and unaligned rows."""
+    bnn-lm-100m (tied), mixtral-8x7b and jamba-1.5-large, whole and over
+    half the vocab, and the routers of deepseek-v2-lite, mixtral and
+    jamba at M = 1, 8, 128; the norms at D = 768-8192, M = 1, 8, 128;
+    untimed, the edges: M around the regimes (router, decode to 32 rows,
+    prefill tiles of 128), N around the router and head tiles, K off
+    every tile and around the order's chunks (KC - 1, KC, KC + 1,
+    3 KC + 5, a router K past its cluster's shared memory), both
+    layouts; D around the norm's warps (1024, 1025, 2050, 4100, 8191)
+    and past a lane's registers (16384, 20000), aligned and not."""
+    from repro_torch.kernels.rowwise import KC
     gen = torch.Generator(device=dev).manual_seed(4)
     rows: dict[str, list[dict]] = {"row_gemm": [], "row_norm": []}
     for name, (k, n, tied) in ROW_HEADS.items():
@@ -1100,18 +1117,23 @@ def phase_row_kernels(dev) -> dict[str, list[dict]]:
         for m in ROW_M:
             rows["row_gemm"] += check_row_gemm(dev, m, k, n, gen, True,
                                                what=f"{name} router")[:1]
-    # the tiles' edges: M around 1, 8 and 64 rows; N around the router
-    # tiles (32, 64) and the heads' (128 at decode, 64); K off every BK
-    for m, k, n in ((2, 100, 77), (3, 33, 130), (5, 1, 9), (9, 64, 200),
-                    (17, 31, 65), (129, 257, 63), (65, 2048, 64),
-                    (3, 2048, 8), (17, 4097, 16), (129, 300, 33),
-                    (1, 257, 129), (8, 31, 300)):
+    edges = [(2, 100, 77), (3, 33, 130), (5, 1, 9), (9, 64, 200),
+             (17, 31, 65), (129, 257, 63), (65, 2048, 64), (3, 2048, 8),
+             (17, 4097, 16), (129, 300, 33), (1, 257, 129), (8, 31, 300),
+             (1, KC - 1, 64), (8, KC, 8), (33, KC + 1, 16),
+             (129, 3 * KC + 5, 63), (5, 3 * KC + 5, 33), (2, 24 * KC + 3, 64),
+             (1, 3 * KC + 5, 65), (8, KC + 1, 129), (16, KC - 1, 300),
+             (32, 3 * KC + 5, 128), (33, KC, 130), (40, 3 * KC + 5, 128),
+             (129, 3 * KC + 5, 200), (257, KC, 129)]
+    for m, k, n in edges:
         for tied in (False, True):
             check_row_gemm(dev, m, k, n, gen, False, tied, "edge")
     for d in ROW_NORM_D:
         for m in ROW_M:
             rows["row_norm"].append(check_row_norm(dev, m, d, gen, True))
-    for m, d in ((3, 100), (5, 64), (129, 2050), (1, 7)):
+    for m, d in ((3, 100), (5, 64), (129, 2050), (1, 7), (3, 1024),
+                 (2, 1025), (5, 2050), (129, 4100), (1, 8191), (3, 16384),
+                 (2, 20000)):
         for misaligned in (False, True):
             check_row_norm(dev, m, d, gen, False, misaligned)
     for name, rs in rows.items():

@@ -126,8 +126,9 @@ def reset_launches():
 
 def row_gemm(x: torch.Tensor, w: torch.Tensor, *,
              impl: str = "auto") -> torch.Tensor:
-    """x (..., K) @ w (K, N) -> (..., N) float32, each output summed over
-    k ascending (kernels/rowwise.py), with impl dispatch."""
+    """x (..., K) @ w (K, N) -> (..., N) float32, each output summed in
+    K-chunks of 256, the chunks in order (kernels/rowwise.py), with impl
+    dispatch."""
     return _rw.row_gemm(x, w, resolve_impl(impl, x) == "cuda")
 
 

@@ -10,21 +10,36 @@ at 8 (NVIDIA H100, ``chip_ranks_full.py --rows``).  Over a (data,
 model) mesh a rank runs its own rows against its own vocab slice, so
 these ops fix the order instead (``csrc/row_gemm.cu``,
 ``csrc/row_norm.cu``): a row's bits depend on the row (and a column of
-w) alone, and the ranks' results are one rank's.
+w) alone, and the ranks' results are one rank's.  Each order is set by
+K or D alone, so the kernels may split a row's work wherever the order
+allows it (the routers over K, a wide row over a block's warps).
 
 Beside each kernel its plain version repeats the kernel's order with
 torch ops, one correctly rounded float32 op at a time, so on the card
 the two are equal bit for bit, and on the CPU a row's bits are the
 same at any M too:
 
-* ``row_gemm_torch``: ``acc = acc + x[:, k, None] * w[k]`` for k
-  ascending, from zeros (K small ops: 64 at the reduced configs'
-  d_model, 4096 at mixtral's);
-* ``row_norm_torch``: each of 32 lanes sums its 4-element chunks
-  ``c = lane, lane + 32, ...`` in order, then an xor butterfly over the
-  lanes; ``1 / sqrt`` (both correctly rounded: ``rsqrt`` on the card
-  is not), and the divisions by D over a tensor of D's, not a scalar
-  (ATen multiplies a CUDA tensor by a scalar's reciprocal instead).
+* ``row_gemm_torch``: K in chunks of ``KC`` = 256; each chunk's
+  partial ``p = p + x[:, k, None] * w[k]`` over its k ascending from
+  zeros, every chunk at once in an (M, C, N) accumulator (KC small ops,
+  or K where K <= KC: 64 at the reduced configs' d_model); then
+  ``y = 0 + p_0 + p_1 + ...`` in ascending chunk order.  For K <= KC
+  that is the one chain over k the kernel had before it split K;
+* ``row_norm_torch``: a row has 32 W lanes, W = ``warps(D)`` =
+  min(8, ceil(D / 1024)); lane l sums its 4-element chunks ``c = l,
+  l + 32 W, ...`` in order, each warp's 32 lanes an xor butterfly, the
+  W warp totals in ascending order (for D <= 1024 the one warp of the
+  kernel before wider rows got a block); ``1 / sqrt`` (both correctly
+  rounded: ``rsqrt`` on the card is not), and the divisions by D over a
+  tensor of D's, not a scalar (ATen multiplies a CUDA tensor by a
+  scalar's reciprocal instead).
+
+Neither uses a fused multiply-add: torch repeats a float32 FMA only
+through a float64 product, TwoSum and round to odd, many times the
+cost of the separate ops on the CPU at the reduced configs' shapes,
+and this plain version runs in every CPU forward.  Nor the tensor
+cores: their float32 sums truncate, and no plain version could repeat
+their order.
 
 On a ``meta`` tensor (the dry-run: shapes, no values) each makes its
 output alone, as the kernel's wrapper allocates it.  The gradients are
@@ -48,24 +63,46 @@ KERNEL_NORM = _lib.KernelInfo(
     "row_norm", "src/repro_torch/csrc/row_norm.cu",
     "src/repro/layers/common.py:140-157")
 
-LANES = 32            # a row's partial sums (a warp's lanes)
+KC = 256              # row_gemm: the K-chunk of the order
+LANES = 32            # row_norm: a warp's lanes
 CHUNK = 4             # consecutive elements a lane takes in turn
+LANE_SPAN = 1024      # elements a warp of a row covers ...
+MAX_WARPS = 8         # ... up to this many warps a row
+
+
+def warps(d: int) -> int:
+    """The warps a row of width d is summed over: min(8, ceil(d / 1024))
+    (``csrc/row_norm.cu`` ``warps``)."""
+    return min(MAX_WARPS, -(-d // LANE_SPAN))
 
 # ----------------------------------------------------------------- row_gemm
 
 
 def row_gemm_torch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain version: x (M, K) @ w (K, N) in float32, each y[m, n] summed
-    over k ascending from +0.0, each product and each add rounded."""
+    """Plain version: x (M, K) @ w (K, N) in float32 in the kernel's order:
+    each KC-chunk's partial over its k ascending from +0.0, then the
+    partials added in ascending chunk order from +0.0; each product and
+    each add rounded."""
     m, k = x.shape
     n = w.shape[1]
     if x.device.type == "meta":
         return x.new_empty((m, n), dtype=torch.float32)
     x, w = x.float(), w.float()
-    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    for i in range(k):
-        acc.add_(torch.mul(x[:, i, None], w[i]))
-    return acc
+    chunks = -(-k // KC)
+    steps = KC if chunks > 1 else k
+    pad = chunks * steps - k
+    if pad:     # zeros add +-0.0 to a partial that is never -0.0
+        x = torch.nn.functional.pad(x, (0, pad))
+        w = torch.cat([w, w.new_zeros((pad, n))])
+    xc = x.reshape(m, chunks, steps)
+    wc = w.reshape(chunks, steps, n)
+    part = torch.zeros((m, chunks, n), dtype=torch.float32, device=x.device)
+    for i in range(steps):
+        part.add_(torch.mul(xc[:, :, i, None], wc[:, i]))
+    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for c in range(chunks):
+        out.add_(part[:, c])
+    return out
 
 
 def row_gemm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -127,23 +164,31 @@ def row_gemm(x: torch.Tensor, w: torch.Tensor, cuda: bool) -> torch.Tensor:
 
 def _lane_sums(v: torch.Tensor) -> torch.Tensor:
     """(M, D) -> (M, 1): the kernel's order of a row's sum (module
-    docstring): lane sums over chunks in turn, then the butterfly."""
+    docstring): the 32 W lanes' sums over their chunks in turn, each
+    warp's butterfly, then the warp totals in ascending order."""
     m, d = v.shape
-    width = LANES * CHUNK
+    nw = warps(d)
+    width = nw * LANES * CHUNK
     pad = (-d) % width
     if pad:
         v = torch.nn.functional.pad(v, (0, pad))
-    v = v.reshape(m, -1, LANES, CHUNK)
-    acc = torch.zeros((m, LANES), dtype=torch.float32, device=v.device)
+    v = v.reshape(m, -1, nw * LANES, CHUNK)
+    acc = torch.zeros((m, nw * LANES), dtype=torch.float32, device=v.device)
     for j in range(v.shape[1]):
         for e in range(CHUNK):
             acc = acc + v[:, j, :, e]
+    acc = acc.reshape(m, nw, LANES)
     lanes = torch.arange(LANES, device=v.device)
     o = LANES // 2
     while o:
-        acc = acc + acc[:, lanes ^ o]
+        acc = acc + acc[:, :, lanes ^ o]
         o //= 2
-    return acc[:, :1]
+    if nw == 1:
+        return acc[:, 0, :1]
+    total = torch.zeros((m, 1), dtype=torch.float32, device=v.device)
+    for w in range(nw):
+        total = total + acc[:, w, :1]
+    return total
 
 
 def _over(s: torch.Tensor, d: int) -> torch.Tensor:

@@ -391,9 +391,9 @@ def logits_fn(params, cfg: ArchConfig, tokens: torch.Tensor | None = None,
 
 
 def apply_head(params, h):
-    """The float LM head (``kernels/ops.row_gemm``: each logit summed
-    over d ascending, so its bits are one rank's whatever rows and
-    vocab columns run beside it).  Over a mesh each rank multiplies its
+    """The float LM head (``kernels/ops.row_gemm``: each logit summed in
+    one order set by d alone, so its bits are one rank's whatever rows
+    and vocab columns run beside it).  Over a mesh each rank multiplies its
     own rows by its own vocab slice of the head, and the logits come
     out cut along the vocab (and the batch over ``data``), as the JAX
     package places them; a tied head's slice is the rank's shard of the

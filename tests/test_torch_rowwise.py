@@ -4,7 +4,7 @@ rows run beside it (M = 1, 3, 8, 128, the row at several positions) and
 ``row_gemm`` each column the same bits in any slice of the columns (the
 tied head's transposed layout too: a model rank's vocab slice); both
 equal the JAX package's einsum, rmsnorm and layernorm within TOL (float32
-sums of at most 768 terms of O(1) results, in another order); their
+sums of at most 4096 terms of O(1) results, in another order); their
 ``autograd.Function`` gradients equal autograd through the plain
 version within GRAD_TOL (the backward is library matmuls and the
 library formula); on ``meta`` each makes its output alone; dispatch
@@ -36,10 +36,9 @@ def _data(m, k, n, seed=0, tied=False):
     return x, w, xt, wt
 
 
-@pytest.mark.parametrize("tied", [False, True], ids=["dense", "tied"])
-def test_row_gemm_row_bits_do_not_depend_on_m(tied):
-    _, _, x, w = _data(128, 64, 96, tied=tied)
-    assert w.stride() == ((1, 64) if tied else (96, 1))
+def _rows_alone(k, n, tied):
+    _, _, x, w = _data(128, k, n, tied=tied)
+    assert w.stride() == ((1, k) if tied else (n, 1))
     whole = rw.row_gemm_torch(x, w)
     for m in ROWS:
         for start in {0, (128 - m) // 2, 128 - m}:
@@ -47,16 +46,37 @@ def test_row_gemm_row_bits_do_not_depend_on_m(tied):
             assert torch.equal(got, whole[start:start + m]), (m, start)
 
 
-@pytest.mark.parametrize("tied", [False, True], ids=["dense", "tied"])
-def test_row_gemm_column_slices_equal_the_whole(tied):
-    _, _, x, w = _data(8, 64, 128, seed=1, tied=tied)
+def _columns_alone(k, tied):
+    _, _, x, w = _data(8, k, 128, seed=1, tied=tied)
     whole = rw.row_gemm_torch(x, w)
     for a, b in ((0, 64), (64, 128), (32, 96), (5, 6), (0, 128)):
         assert torch.equal(rw.row_gemm_torch(x, w[:, a:b]), whole[:, a:b])
 
 
+@pytest.mark.parametrize("tied", [False, True], ids=["dense", "tied"])
+def test_row_gemm_row_bits_do_not_depend_on_m(tied):
+    _rows_alone(64, 96, tied)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["dense", "tied"])
+def test_row_gemm_column_slices_equal_the_whole(tied):
+    _columns_alone(64, tied)
+
+
+# K over several chunks of the order (2 KC + 37: two whole, one partial)
+@pytest.mark.parametrize("tied", [False, True], ids=["dense", "tied"])
+def test_row_gemm_chunked_row_bits_do_not_depend_on_m(tied):
+    _rows_alone(2 * rw.KC + 37, 24, tied)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["dense", "tied"])
+def test_row_gemm_chunked_column_slices_equal_the_whole(tied):
+    _columns_alone(2 * rw.KC + 37, tied)
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 64, 128), (24, 64, 128),
-                                   (8, 768, 320), (5, 100, 7)])
+                                   (8, 768, 320), (5, 100, 7),
+                                   (6, 2 * rw.KC + 37, 40)])
 def test_row_gemm_equals_the_jax_einsum(m, k, n):
     xn, wn, x, w = _data(m, k, n, seed=2)
     want = np.asarray(jnp.einsum("td,de->te", jnp.asarray(xn),
@@ -93,7 +113,7 @@ def _norm_data(m, d, seed=0):
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
-@pytest.mark.parametrize("d", [64, 100, 768])
+@pytest.mark.parametrize("d", [64, 100, 768, 4096])
 def test_row_norm_row_bits_do_not_depend_on_m(kind, d):
     x, scale, bias = map(torch.from_numpy, _norm_data(128, d))
     b = bias if kind == "layernorm" else None
@@ -107,7 +127,7 @@ def test_row_norm_row_bits_do_not_depend_on_m(kind, d):
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
-@pytest.mark.parametrize("d", [64, 100, 768])
+@pytest.mark.parametrize("d", [64, 100, 768, 4096])
 def test_row_norm_equals_jax(kind, d):
     xn, sn, bn = _norm_data(5, d, seed=5)
     p = {"scale": sn} if kind == "rmsnorm" else {"scale": sn, "bias": bn}
