@@ -146,8 +146,9 @@ Phases (each check raises, and the script then exits non-zero):
               input at step 0 against one rank's (bit-equal, STE sign
               flips), a step's collectives against
               train_step_collectives' prediction, a rank's bytes as
-              reckoned and its peak, step ms and tokens/s beside one
-              rank's; (j) the trained shards re-placed by the decode
+              reckoned and its peak (beside the whole-vocab loss's,
+              RANKS_TRAIN_PEAK_WHOLE_VOCAB_GIB), step ms and tokens/s
+              beside one rank's; (j) the trained shards re-placed by the decode
               rules, served over (2, 2) by the engine (8 prompts, 16
               new, greedy) through the kernels: every rank's tokens
               equal one rank's engine on the gathered weights.
@@ -2548,6 +2549,11 @@ RANKS_TRAIN_LOSS_REL = 1e-5      # step 0's loss and gradient norm
 RANKS_TRAIN_GRAD_REL = 1e-5      # each leaf, of its largest |element|
 RANKS_TRAIN_PARAM = dict(rtol=5e-3, atol=1e-4)   # after the steps, lr 1e-3
 RANKS_TRAIN_SERVE = dict(n=8, new=16, prompt_lens=(64, 256))
+# (i)'s peak a rank while training (GiB, ranks in order) when the loss
+# gathered the head whole and took each chunk over the whole vocab, as
+# this script measured it on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# printed beside the vocab-parallel loss's
+RANKS_TRAIN_PEAK_WHOLE_VOCAB_GIB = (1.945, 1.949, 1.949, 1.948)
 
 
 def train_step_collectives(cfg, sizes, shape) -> dict:
@@ -2559,22 +2565,30 @@ def train_step_collectives(cfg, sizes, shape) -> dict:
     ``data`` is gathered at each use (a layer's again on the recompute)
     and its gradient reduce-scattered back; a row-parallel weight is
     gathered over ``model`` too for its alpha's value
-    (``ops._train_alpha``), without a gradient; the loss gathers the tied
-    head whole, over ``model`` then ``data``; a row-parallel STE GEMM (o,
-    down) all-reduces its product and its alpha forward, on the
+    (``ops._train_alpha``), without a gradient; a row-parallel STE GEMM
+    (o, down) all-reduces its product and its alpha forward, on the
     recompute and backward; the vocab-parallel lookup all-reduces the
-    rank's rows of the microbatch's embeddings forward and backward; the loss its sum and
-    count forward and the sum's gradient; a leaf held whole over a mesh
-    dim all-reduces its gradient there.  Then the update's norm: a
-    stack of sums a group of leaves cut alike, a collective a cut dim."""
+    rank's rows of the microbatch's embeddings forward and backward.
+    The loss (``transformer.loss_fn``, chunks of ``launch.train``'s
+    ``min(512, seq_len)``; ``model`` cuts the vocab): the rank's slice
+    of the tied head gathered over ``data`` alone and its gradient
+    reduce-scattered back; a chunk all-reduces its rows' max and its
+    stacked pair of sums (the exp-sum and the gold logit) over
+    ``model`` forward and again on the recompute, and the pair's
+    gradient backward.  Then the loss's sum and count over
+    ``data`` forward and the sum's gradient; a leaf held whole over a
+    mesh dim all-reduces its gradient there.  Then the update's norm:
+    a stack of sums a group of leaves cut alike, a collective a cut
+    dim."""
     import collections
     import types
     from repro_torch.dist import sharding as S
     from repro_torch.layers.common import logical_to_pspec
     from repro_torch.models import transformer as M
     if set(M.layer_plan(cfg)) != {("gqa", "dense")} or \
-            not cfg.tie_embeddings:
-        raise ValueError("train_step_collectives: dense tied configs only")
+            not cfg.tie_embeddings or shape[1] == 1 or cfg.vocab % shape[1]:
+        raise ValueError("train_step_collectives: dense tied configs over "
+                         "a mesh whose model dim cuts the vocab only")
     size = {"data": shape[0], "model": shape[1]}
     rules = S.rules_train(False, fsdp=True)
     g = sizes["microbatches"]
@@ -2615,9 +2629,12 @@ def train_step_collectives(cfg, sizes, shape) -> dict:
                     params[key])
     b_e = params["embed"]["w"].numel() * f4 // (size["data"] * size["model"])
     add("all_gather", g, b_e)
-    add("all_gather", g, b_e * size["model"])
-    add("reduce_scatter", g, b_e * size["model"] * size["data"])
-    add("reduce_scatter", g, b_e * size["model"])
+    add("reduce_scatter", g, b_e * size["data"])
+    chunk = min(512, sizes["seq_len"])
+    n = g * -(-sizes["seq_len"] // chunk)
+    per = rows // sizes["seq_len"] * chunk * f4
+    add("all_reduce", 2 * n, per)
+    add("all_reduce", 3 * n, 2 * per)
     n_row = 3 * g * 2 * cfg.n_layers
     add("all_reduce", n_row, rows * d * f4)
     add("all_reduce", n_row, d * f4)
@@ -2993,7 +3010,8 @@ def ranks_train_report(dev, smi, cfg, sizes, shape, one, b, ckpt_dir,
     kept = [round(r["weight_bytes"] / 2 ** 30, 3) for r in recs]
     log(f"[ranks] (i) a rank keeps {kept} GiB of params (reckoned "
         f"{b['rank'] / 2 ** 30:.3f}; with m, v, grads {b['train'] / 2 ** 30:.3f}"
-        f"), peak while training {peaks} GiB")
+        f"), peak while training {peaks} GiB (the whole-vocab loss's: "
+        f"{list(RANKS_TRAIN_PEAK_WHOLE_VOCAB_GIB)} GiB)")
     coll = {k: round(v, 1) for k, v in sorted(r0["step_collectives"].items())}
     MEASURED["ranks_train_step_collectives"] = (
         cfg, sizes, shape, dict(r0["step_collectives"]))

@@ -286,6 +286,20 @@ def all_reduce(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     return _all_reduce(t, mesh, dim)
 
 
+def all_reduce_max(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The elementwise max of ``t`` over mesh dim ``dim``'s ranks, in
+    place and without a gradient (a shift that leaves its result
+    unchanged: the vocab-parallel logsumexp's); counted and recorded as
+    an ``all_reduce``."""
+    if _needs_grad(t):
+        raise ValueError("all_reduce_max: the input needs a gradient")
+    _count("all_reduce", t, mesh.size(dim))
+    t = t.contiguous()
+    if _moves(t):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(dim))
+    return t
+
+
 def all_gather(t: torch.Tensor, mesh, dim: int, along: int) -> torch.Tensor:
     """Mesh dim ``dim``'s ranks' ``t``, concatenated along tensor dim
     ``along`` in rank order (its backward: ``reduce_scatter``)."""

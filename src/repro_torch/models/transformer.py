@@ -56,6 +56,8 @@ engine's oracle), and the serving paths over paged pools
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.utils.checkpoint
 
@@ -442,6 +444,53 @@ def _chunk_nll(hc, lc, head):
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
 
+def _chunk_nll_cut(hc, lc, head, v0: int, mesh, dims: list[int]):
+    """``_chunk_nll`` over a rank's vocab slice: ``head`` (d, V/m) holds
+    the whole head's columns v0 .. v0 + V/m, and the mesh dims ``dims``
+    cut the vocab.  The logsumexp is reduced over them: the rows' max
+    (no gradient: a shift the result does not depend on) all-reduced
+    by max, then the sum of exp(logit - max) beside the gold logit
+    (zero where the label lies in another rank's slice), the pair
+    summed in one all-reduce.  Every rank of ``dims`` returns the same
+    sums; under ``dist/spmd``'s backward convention a rank's gradient
+    of ``hc`` is its slice's share."""
+    logits = torch.matmul(hc, head).float()
+    shift = logits.detach().amax(dim=-1)
+    for i in dims:
+        shift = spmd.all_reduce_max(shift, mesh, i)
+    n = logits.shape[-1]
+    ids = lc - v0
+    off = (ids < 0) | (ids >= n)
+    gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    stats = torch.stack([torch.exp(logits - shift[..., None]).sum(dim=-1),
+                         gold.masked_fill(off, 0.0)])
+    for i in dims:
+        stats = spmd.all_reduce(stats, mesh, i)
+    mask = (lc >= 0).float()
+    nll = shift + torch.log(stats[0]) - stats[1]
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def _vocab_cut(params, cfg: ArchConfig):
+    """Over a mesh that cuts the vocab (a mesh dim of more than one rank
+    along the head's vocab dim): the rank's head (d, V/m), gathered over
+    the data dims only (a tied head is the rank's slice of ``embed.w``,
+    read transposed), its first column v0 in the whole, and the mesh
+    dims that cut the vocab.  None where the vocab is held whole."""
+    w, vdim = ((params["embed"]["w"], 0) if cfg.tie_embeddings
+               else (params["head"]["w"], 1))
+    if not spmd.is_dtensor(w):
+        return None
+    mesh = w.device_mesh
+    dims = [i for i in spmd.mesh_dims(w, vdim) if mesh.size(i) > 1]
+    if not dims:
+        return None
+    w = spmd.gather_data(w)
+    v0, _ = spmd.rank_slice(w, vdim)
+    wl = w.to_local()
+    return (wl.t() if vdim == 0 else wl), v0, dims
+
+
 def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
             aux_weight: float = 0.01, remat: bool = False):
     """Chunked next-token cross entropy plus ``aux_weight`` x the MoE
@@ -457,10 +506,15 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
 
     Over a mesh (``batch`` whole on every rank, the params DTensors
     under a sharding context) the rows are cut over ``data`` (the
-    ``lsc`` of ``_embed_inputs``): each rank takes the cross entropy of
-    its rows against the whole head (gathered over every mesh dim:
-    ``apply_head`` runs a rank's vocab slice, a vocab-parallel cross
-    entropy is ROADMAP item 11e), and the sum of -log p and the label
+    ``lsc`` of ``_embed_inputs``) and, where the mesh cuts the vocab
+    over ``model``, each rank multiplies its rows by its own vocab
+    slice of the head (gathered over the data dims only), so a chunk's
+    logits are (rows, chunk, V/m) and no rank holds the head whole: a
+    vocab-parallel cross entropy (``_chunk_nll_cut``), as the JAX
+    package's placement of the head (vocab over ``model``) computes
+    it.  Where the vocab is whole (``model`` of one rank, or a vocab
+    ``model`` does not divide) each rank takes its rows' cross entropy
+    against the head gathered whole.  The sum of -log p and the label
     count are summed over the data dims, so every rank's loss is the
     global mean, as the JAX package's; the MoE aux loss is every
     group's mean (``moe._mean_over_rows``)."""
@@ -469,12 +523,19 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
     h, aux = _stack(params, cfg, x, impl="auto", remat=remat)
     labels = batch["labels"]
     data: list[int] = []
+    nll_of = _chunk_nll
     if spmd.is_dtensor(h):
         mesh, data = h.device_mesh, spmd.mesh_dims(h, 0)
         labels = spmd.rows(labels, h)
         h = spmd.local(h)
-        head = (spmd.full(params["embed"]["w"]).t() if cfg.tie_embeddings
-                else spmd.full(params["head"]["w"]))
+        cut = _vocab_cut(params, cfg)
+        if cut is None:
+            head = (spmd.full(params["embed"]["w"]).t()
+                    if cfg.tie_embeddings else spmd.full(params["head"]["w"]))
+        else:
+            head, v0, dims = cut
+            nll_of = functools.partial(_chunk_nll_cut, v0=v0, mesh=mesh,
+                                       dims=dims)
     else:
         head = head_matrix(params, cfg)
     t = labels.shape[1]
@@ -490,8 +551,8 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, loss_chunk: int = 2048,
         args = (h[:, i:i + loss_chunk], labels[:, i:i + loss_chunk].long(),
                 head)
         nll, n = (torch.utils.checkpoint.checkpoint(
-            _chunk_nll, *args, use_reentrant=False) if remat
-            else _chunk_nll(*args))
+            nll_of, *args, use_reentrant=False) if remat
+            else nll_of(*args))
         tot = tot + nll
         cnt = cnt + n
     for i in data:

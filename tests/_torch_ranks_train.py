@@ -391,3 +391,86 @@ def grads_worker(world, cfg, params, shape):
     return {"loss": float(loss), "aux": float(met["aux"]), "grad_norm": norm,
             "grads": S.gather_tree(grads),
             "down": port_spec(tp["layers"][0]["ffn"]["down"])}
+
+
+def _float32_shapes():
+    """A dispatch mode that keeps the shape of every float32 tensor an
+    op makes while it is on (``shapes``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes: list[tuple] = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and \
+                        t.dtype == torch.float32:
+                    self.shapes.append(tuple(t.shape))
+            return out
+    return Shapes()
+
+
+def loss_worker(world, cases, params_of, batch_of):
+    """One rank: for each case ({"key", "shape" (a mesh of this world),
+    "chunk", "remat"}; ``params_of[key]`` its config and weights, whole;
+    ``batch_of[key]`` its batch), the params placed by the FSDP train
+    rules, then ``value_and_grad`` over the mesh: the loss, every
+    gradient gathered whole; which chunk functions of ``loss_fn`` ran,
+    the float32 shapes they made, and the all-gathers over ``model``
+    whose input is the head's own shard (the head gathered over the
+    vocab's cut).  Then, as a check of that watch, ``spmd.full`` of the
+    head under it."""
+    from repro_torch.dist import sharding as S, spmd
+    from repro_torch.launch import steps
+    from repro_torch.layers import common as C
+    from repro_torch.models import transformer as M
+    out = {}
+    for case in cases:
+        key = case["key"]
+        cfg, params = params_of[key]
+        m = mesh(case["shape"])
+        rules = S.train_rules_of(m)
+        tp = S.place_params(params, cfg, m, rules)
+        head = tp["embed"]["w"] if cfg.tie_embeddings else tp["head"]["w"]
+        own = head.to_local().untyped_storage().data_ptr()
+        rec = {"chunks": [], "shapes": [], "head_gathers": 0}
+        gather, chunk_fns = spmd._all_gather, {}
+
+        def watch_gather(t, mesh_, dim, along):
+            if mesh_.mesh_dim_names[dim] == "model" and \
+                    t.untyped_storage().data_ptr() == own:
+                rec["head_gathers"] += 1
+            return gather(t, mesh_, dim, along)
+
+        def watch(name):
+            fn = getattr(M, name)
+            chunk_fns[name] = fn
+
+            def run(*args, **kw):
+                rec["chunks"].append(name)
+                with _float32_shapes() as mode:
+                    res = fn(*args, **kw)
+                rec["shapes"].extend(mode.shapes)
+                return res
+            return run
+        spmd._all_gather = watch_gather
+        M._chunk_nll = watch("_chunk_nll")
+        M._chunk_nll_cut = watch("_chunk_nll_cut")
+        try:
+            with C.sharding_context(m, rules):
+                loss, met, grads = steps.value_and_grad(
+                    tp, cfg, batch_of[key], loss_chunk=case["chunk"],
+                    remat=case["remat"])
+                rec["loss_head_gathers"] = rec["head_gathers"]
+                spmd.full(head)
+        finally:
+            spmd._all_gather = gather
+            for name, fn in chunk_fns.items():
+                setattr(M, name, fn)
+        rec.update(loss=float(loss), xent=float(met["xent"]),
+                   grads=S.gather_tree(grads))
+        out[key] = rec
+    return out

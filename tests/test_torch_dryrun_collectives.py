@@ -5,8 +5,9 @@
 prediction of what a rank of (i) issues (which
 tests/test_torch_ranks_train_phase.py holds against real ranks); the
 trip-count scaling of the collectives and the temp bytes against the
-whole step at reduced depth; and the attention's one-tile stand-in on
-``meta`` against the chunked call."""
+whole step at reduced depth; a train step's temp bytes falling where
+``model`` cuts the vocab (the loss on a rank's vocab slice); and the
+attention's one-tile stand-in on ``meta`` against the chunked call."""
 import collections
 import sys
 from pathlib import Path
@@ -121,6 +122,33 @@ def test_scaled_train_step_is_the_whole_step(arch):
     assert {k: rec["collectives"][k]["bytes_executed"]
             for k in coll.KINDS if k in result} == result
     assert rec["memory"] == mem and mem["temp"] > 0
+
+
+def test_train_step_temp_falls_with_the_vocab_cut():
+    """The reduced bnn-lm-100m's train step over (2, 2) (two microbatches
+    of 2 rows a rank by 64) at a vocab of 8192, which ``model`` cuts, and
+    of 8191, which it does not: where the vocab is cut a chunk's logits
+    and their gradient are (rows, chunk, V/2) and the head is never
+    gathered whole, so the step's temp bytes are under half the
+    whole-vocab step's (a chunk's logits set the peak: 4.2 MB whole at
+    float32).  The cut step's record has no reduce-scatter over the
+    whole head (the whole head's gradient, V x d floats)."""
+    base = reduced(configs.get_config("bnn-lm-100m"))
+    cell = ShapeCell("t", 64, 8, "train")
+    rules = S.rules_train(False, fsdp=True)
+    runs = {}
+    with fake_world(4):
+        mesh = _mesh((2, 2))
+        for v in (8192, 8191):
+            runs[v] = dryrun.step_run(base.replace(vocab=v), cell, mesh,
+                                      rules, 2, torch.float32)
+    assert 0 < runs[8192]["temp"] < runs[8191]["temp"] / 2
+    whole_head = 8191 * base.d_model * 4
+    rs = [nbytes for kind, _g, nbytes, _t in runs[8191]["events"]
+          if kind == "reduce_scatter"]
+    assert whole_head in rs
+    assert all(n < 8192 * base.d_model * 4 for kind, _g, n, _t in
+               runs[8192]["events"] if kind == "reduce_scatter")
 
 
 @pytest.mark.parametrize("t,window", [(16, None), (16, 8), (1, None)])
